@@ -1,13 +1,15 @@
 """Load the JAX package's parameters (as numpy trees) into the port's modules.
 
 The reverse of bitdance_tpu/io/torch_import.py's ``convert_qwen3_state``,
-``convert_diffhead_state``, ``convert_projector_state`` and
-``convert_ae_state``:
-  - the stacked Qwen3 dict (layer tensors [L, in, out]) becomes per-layer
-    torch Linear weights [out, in];
-  - flax trees (DiffHead, MLPConnector, VQModel) map module paths back to
-    the reference's dotted names; Dense kernels [in, out] become [out, in]
-    and conv kernels HWIO become OIHW.
+``convert_diffhead_state``, ``convert_projector_state``, ``convert_ae_state``
+and ``convert_imagenet_ar_state``:
+  - the stacked Qwen3 and ImageNet AR dicts (layer tensors [L, in, out])
+    become per-layer torch Linear weights [out, in];
+  - flax trees (DiffHead, MLPConnector, VQModel encoder and decoder) map
+    module paths back to the reference's dotted names; Dense kernels
+    [in, out] become [out, in] and conv kernels HWIO become OIHW;
+  - a whole ImageNet training state (params and EMA, each {"ar", "head"})
+    loads into the port's TrainState.
 Leaves may be numpy arrays or anything ``np.asarray`` accepts.
 """
 
@@ -64,6 +66,62 @@ def qwen3_state_from_jax(params: Mapping) -> dict[str, np.ndarray]:
         for i in range(n):
             sd[f"model.layers.{i}.{key}"] = stack[i].T if transposed else stack[i]
     return sd
+
+
+# stacked ImageNet AR layer key -> (reference layer key, stored transposed)
+_IMAGENET_LAYER_KEYS = {
+    "wqkv": ("attention.wqkv.weight", True),
+    "wo": ("attention.wo.weight", True),
+    "attention_norm": ("attention_norm.weight", False),
+    "ffn_norm": ("ffn_norm.weight", False),
+    "ffn_w1": ("feed_forward.w1.weight", True),
+    "ffn_w2": ("feed_forward.w2.weight", True),
+}
+
+
+def imagenet_ar_state_from_jax(params: Mapping) -> dict[str, np.ndarray]:
+    """Stacked JAX ImageNet AR params -> reference state dict (numpy)."""
+    layers = params["layers"]
+    n = _np(layers["wqkv"]).shape[0]
+    p = params["proj_in"]
+    sd = {"cls_embedding.weight": _np(params["cls_embedding"]),
+          "proj_in.w1.weight": _np(p["w1"]["kernel"]).T,
+          "proj_in.w1.bias": _np(p["w1"]["bias"]),
+          "proj_in.w2.weight": _np(p["w2"]["kernel"]).T,
+          "proj_in.w2.bias": _np(p["w2"]["bias"]),
+          "emb_norm.weight": _np(params["emb_norm"]),
+          "norm.weight": _np(params["norm"]),
+          "pos_for_diff.weight": _np(params["pos_for_diff"])}
+    if "query_token" in params:
+        sd["query_token"] = _np(params["query_token"])
+    for name, (key, transposed) in _IMAGENET_LAYER_KEYS.items():
+        stack = _np(layers[name])
+        for i in range(n):
+            sd[f"layers.{i}.{key}"] = stack[i].T if transposed else stack[i]
+    return {k: np.ascontiguousarray(v) for k, v in sd.items()}
+
+
+def imagenet_train_state_from_jax(params: Mapping) -> dict[str, np.ndarray]:
+    """{"ar": stacked AR params, "head": flax head params} (a JAX TrainState's
+    ``params`` or ``ema_params``) -> state dict of the port's
+    ImageNetTrainModel ("ar.*", "head.*")."""
+    sd = {f"ar.{k}": v for k, v in imagenet_ar_state_from_jax(params["ar"]).items()}
+    sd.update({f"head.{k}": v
+               for k, v in flax_state_from_jax(params["head"]).items()})
+    return sd
+
+
+def load_imagenet_train_state(state, jax_state) -> None:
+    """Copy a JAX ``TrainState``'s params and EMA (numpy-convertible leaves)
+    into the port's ``train.optim.TrainState`` in place; the step count
+    follows. Optimizer moments start afresh."""
+    load_into(state.model, imagenet_train_state_from_jax(jax_state.params))
+    ema = imagenet_train_state_from_jax(jax_state.ema_params)
+    with torch.no_grad():
+        for k, t in state.ema.items():
+            t.copy_(torch.from_numpy(np.array(ema[k], copy=True)).to(t.dtype))
+    state.step = int(np.asarray(jax_state.step))
+    state.tx.count = state.step
 
 
 def _segment(name: str) -> str:

@@ -1,9 +1,11 @@
-"""Random-init T2I bundles made directly on a device (no weights ship with
-the repository). Counterpart of the bundle building in
-benchmarks/bench_t2i.py, with one deliberate difference: EVERY head weight is
+"""Random-init models made directly on a device (no weights ship with the
+repository): the T2I bundle (counterpart of the bundle building in
+benchmarks/bench_t2i.py) and the ImageNet training state with its tokenizer
+encoder. One deliberate difference from the reference: EVERY head weight is
 drawn non-zero, including the adaLN and final-layer projections that the
-reference initialises to zero — with zero adaLN all gates are 0 and the
-head's blocks would add nothing, so a run would exercise nothing.
+reference initialises to zero. With zero adaLN all gates are 0 and the
+head's blocks add nothing; with a zero final layer the loss has no gradient
+into the backbone, so a training step's backward would run on zeros.
 """
 
 from __future__ import annotations
@@ -12,9 +14,16 @@ import torch
 
 from bitdance_tpu_torch.models.connector import MLPConnector
 from bitdance_tpu_torch.models.diff_head import DiffHead
+from bitdance_tpu_torch.models.imagenet_ar import ImageNetARConfig
 from bitdance_tpu_torch.models.qwen3 import Qwen3Config, init_qwen3
-from bitdance_tpu_torch.models.tokenizer import init_vq_decoder
+from bitdance_tpu_torch.models.tokenizer import VQModel, init_vq
 from bitdance_tpu_torch.pipelines.t2i import T2IModelBundle
+from bitdance_tpu_torch.train.imagenet_train import (
+    ImageNetTrainConfig,
+    ImageNetTrainModel,
+    make_train_state,
+)
+from bitdance_tpu_torch.train.optim import TrainState
 
 # train/configs/bitdance_14b_64x.yaml: Qwen3-14B + 5120-wide 6-block head,
 # 64 tokens per AR step, 16x VQ decoder with 32-bit latents
@@ -27,6 +36,25 @@ BITDANCE_14B_64X = dict(
     ddconfig=dict(z_channels=32, in_channels=3, out_ch=3, ch=256,
                   ch_mult=[1, 1, 2, 2, 4], num_res_blocks=4),
 )
+
+
+# scripts/train_imagenet.py: the frozen GFQ tokenizer of the ImageNet models
+IMAGENET_TOKENIZER = dict(z_channels=16, in_channels=3, out_ch=3, ch=256,
+                          ch_mult=[1, 1, 2, 2, 4], num_res_blocks=4)
+
+
+def draw_head_(head: torch.nn.Module, generator: torch.Generator | None,
+               gain: float = 0.5, std: float = 0.02) -> torch.nn.Module:
+    """Draw every parameter of a head in place (see :func:`init_head`)."""
+    with torch.no_grad():
+        for name, p in head.named_parameters():
+            if p.ndim == 2:
+                p.normal_(0.0, gain * p.shape[1] ** -0.5, generator=generator)
+            else:
+                p.normal_(0.0, std, generator=generator)
+                if ".norm" in name and name.endswith("weight"):
+                    p.add_(1.0)
+    return head
 
 
 def init_head(head_kwargs: dict, device, dtype: torch.dtype,
@@ -44,15 +72,7 @@ def init_head(head_kwargs: dict, device, dtype: torch.dtype,
     much as the kernel differs from either (PERF.md, Open questions)."""
     with torch.device("meta"):
         head = DiffHead(**head_kwargs, dtype=dtype)
-    head = head.to_empty(device=device)
-    with torch.no_grad():
-        for name, p in head.named_parameters():
-            if p.ndim == 2:
-                p.normal_(0.0, gain * p.shape[1] ** -0.5, generator=generator)
-            else:
-                p.normal_(0.0, std, generator=generator)
-                if ".norm" in name and name.endswith("weight"):
-                    p.add_(1.0)
+    head = draw_head_(head.to_empty(device=device), generator, gain, std)
     return head.eval().requires_grad_(False)
 
 
@@ -85,9 +105,38 @@ def build_random_bundle(device, *, llm_cfg: Qwen3Config | None = None,
     head = init_head(geo["head"], device, dtype, gen)
     stacked = head._stack_for_sampler()
     proj = init_projector(z, hidden, device, dtype, gen)
-    ae = init_vq_decoder(geo["ddconfig"], device, dtype, gen)
+    ae = init_vq(geo["ddconfig"], device, dtype, gen)
     llm = init_qwen3(cfg, device, dtype, gen)
     return T2IModelBundle(
         llm=llm, ae=ae, head=head, projector=proj,
         parallel_num=geo["parallel_num"], hidden_size=hidden,
         vae_patch_size=geo["vae_patch_size"], head_stacked=stacked)
+
+
+def build_random_train_state(cfg: ImageNetARConfig, tcfg: ImageNetTrainConfig,
+                             device, seed: int = 0,
+                             std: float = 0.02) -> TrainState:
+    """fp32 ImageNet training state on ``device`` from ``seed``, every weight
+    non-zero: backbone matrices and tables N(0, std) (the JAX init), biases
+    N(0, std), norm gains 1 + N(0, std); the head as :func:`init_head`
+    draws it (fan-in scaled, adaLN and final layer included)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.device("meta"):
+        model = ImageNetTrainModel(cfg)
+    model = model.to_empty(device=device)
+    with torch.no_grad():
+        for name, p in model.ar.named_parameters():
+            p.normal_(0.0, std, generator=gen)
+            if p.ndim == 1 and "norm" in name:
+                p.add_(1.0)
+    draw_head_(model.head, gen, std=std)
+    return make_train_state(model, tcfg)
+
+
+def build_random_tokenizer_encoder(device, dtype: torch.dtype = torch.float32,
+                                   seed: int = 1,
+                                   ddconfig: dict | None = None) -> VQModel:
+    """The ImageNet tokenizer's encoder (flax-default init) on ``device``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return init_vq(ddconfig or IMAGENET_TOKENIZER, device, dtype, gen,
+                   encoder=True, decoder=False)

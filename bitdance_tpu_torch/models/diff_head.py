@@ -1,13 +1,22 @@
-"""Binary diffusion head, TransEncoder family (port of
-bitdance_tpu/models/diff_head.py for the text-to-image head).
+"""Binary diffusion heads (port of bitdance_tpu/models/diff_head.py).
+
+Two net families, as in the JAX package:
+  - TransEncoder (the text-to-image head): window attention over the
+    parallel_num tokens, 6 shared adaLN mods per block, bounded output.
+    Serving runs it only through the stacked whole-sampler path
+    (:func:`_run_fused_sample` -> ops/fused_head.py).
+  - MlpEncoder (the ImageNet 1x head): per-token SwiGLU residual blocks,
+    3 shared adaLN mods per block, unbounded output. :meth:`DiffNet.forward`
+    runs it for the flow-matching training loss (:meth:`DiffHead.forward`).
 
 The modules hold the parameters under the reference's state-dict names
-(``net.input_proj``, ``net.time_embed.mlp.0``, ``net.res_blocks.{i}.attn.wqkv``,
-``net.ada_ln_blocks.{i}``, ``net.final_layer.ada_ln_modulation`` ...), which
-``bitdance_tpu/io/torch_import.py::convert_diffhead_state`` reads. Serving
-runs the net only through the stacked whole-sampler path
-(:func:`_run_fused_sample` -> ops/fused_head.py), as the JAX package does on
-its accelerator.
+(``net.input_proj``, ``net.time_embed.mlp.0``, ``net.res_blocks.{i}.attn.wqkv``
+or ``net.res_blocks.{i}.norm``, ``net.ada_ln_blocks.{i}``,
+``net.final_layer.ada_ln_modulation`` ...), which
+``bitdance_tpu/io/torch_import.py::convert_diffhead_state`` reads. The net
+computes in the dtype of the weights it is called with, so casting f32
+masters to bf16 for a mixed-precision step makes the head compute in bf16,
+as the JAX head does with dtype=bfloat16.
 """
 
 from __future__ import annotations
@@ -15,9 +24,11 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from bitdance_tpu_torch.models.sampling import time_shift
+from bitdance_tpu_torch.ops.norms import layer_norm
 from bitdance_tpu_torch.ops.fused_head import (
     em_precompute,
     fused_em_sample,
@@ -61,6 +72,25 @@ class TransBlock(nn.Module):
         self.w2 = nn.Linear(hidden, channels, **kw)
 
 
+class MlpResBlock(nn.Module):
+    """Per-token residual SwiGLU block under 3 adaLN mods (scale, shift,
+    gate): x + w2(silu(h1) * h2) * gate, h = LN(x) * (1 + scale) + shift."""
+
+    def __init__(self, channels: int, device=None, dtype=None):
+        super().__init__()
+        hidden = int(channels * 1.5)
+        kw = dict(device=device, dtype=dtype)
+        self.norm = nn.LayerNorm(channels, eps=1e-6, **kw)
+        self.w1 = nn.Linear(channels, 2 * hidden, **kw)
+        self.w2 = nn.Linear(hidden, channels, **kw)
+
+    def forward(self, x: torch.Tensor, mods) -> torch.Tensor:
+        scale, shift, gate = mods
+        h = layer_norm(x, self.norm.weight, self.norm.bias) * (1 + scale) + shift
+        h1, h2 = self.w1(h).chunk(2, dim=-1)
+        return x + self.w2(F.silu(h1) * h2) * gate
+
+
 class FinalLayer(nn.Module):
     def __init__(self, channels: int, out_channels: int, device=None,
                  dtype=None):
@@ -69,34 +99,74 @@ class FinalLayer(nn.Module):
         self.ada_ln_modulation = nn.Linear(channels, 2 * channels, **kw)
         self.linear = nn.Linear(channels, out_channels, **kw)
 
+    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        scale, shift = self.ada_ln_modulation(y).chunk(2, dim=-1)
+        return self.linear(layer_norm(x) * (1.0 + scale) + shift)
+
 
 class TimestepEmbedder(nn.Module):
     def __init__(self, hidden: int, freq_size: int = 256, device=None,
                  dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
+        self.freq_size = freq_size
         self.mlp = nn.Sequential(nn.Linear(freq_size, hidden, **kw), nn.SiLU(),
                                  nn.Linear(hidden, hidden, **kw))
 
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        emb = timestep_embedding(t, self.freq_size)
+        return self.mlp(emb.to(self.mlp[0].weight.dtype))
+
 
 class DiffNet(nn.Module):
-    """TransEncoder parameter tree: input_proj, time_embed, cond_embed,
-    res_blocks, ada_ln_blocks (shared adaLN, 6 mods per block), final_layer."""
+    """Shared skeleton: input_proj, time_embed, cond_embed, res_blocks,
+    ada_ln_blocks (shared adaLN, switched every num_res_blocks /
+    num_ada_ln_blocks blocks), final_layer.
+
+    attention=True  -> TransEncoder (6 mods per block, bounded output;
+                       parameters only here)
+    attention=False -> MlpEncoder (3 mods per block, unbounded output;
+                       :meth:`forward`)
+    """
 
     def __init__(self, in_channels: int, model_channels: int, z_channels: int,
-                 num_res_blocks: int, num_ada_ln_blocks: int = 2, device=None,
-                 dtype=None):
+                 num_res_blocks: int, num_ada_ln_blocks: int = 2,
+                 attention: bool = True, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         c = model_channels
+        self.attention = attention
+        self.n_mods = 6 if attention else 3
         self.input_proj = nn.Linear(in_channels, c, **kw)
         self.time_embed = TimestepEmbedder(c, **kw)
         self.cond_embed = nn.Linear(z_channels, c, **kw)
+        block = TransBlock if attention else MlpResBlock
         self.res_blocks = nn.ModuleList(
-            [TransBlock(c, **kw) for _ in range(num_res_blocks)])
+            [block(c, **kw) for _ in range(num_res_blocks)])
         self.ada_ln_blocks = nn.ModuleList(
-            [nn.Linear(c, 6 * c, **kw) for _ in range(num_ada_ln_blocks)])
+            [nn.Linear(c, self.n_mods * c, **kw) for _ in range(num_ada_ln_blocks)])
         self.final_layer = FinalLayer(c, in_channels, **kw)
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor,
+                c: torch.Tensor) -> torch.Tensor:
+        """MlpEncoder: x noisy latents [N, C_in]; t: [N]; c: conditioning
+        [N, z]. Computes in the weights' dtype; returns x's dtype."""
+        if self.attention:
+            raise NotImplementedError(
+                "the TransEncoder head's per-call forward is not ported yet; "
+                "the port samples it through ops/fused_head.py")
+        dt = self.input_proj.weight.dtype
+        h = self.input_proj(x.to(dt))
+        y = F.silu(self.time_embed(t) + self.cond_embed(c.to(dt)))
+        n_blocks, n_ada = len(self.res_blocks), len(self.ada_ln_blocks)
+        switch_freq = max(1, n_blocks // n_ada)
+        assert n_blocks % switch_freq == 0
+        mods = self.ada_ln_blocks[0](y).chunk(self.n_mods, dim=-1)
+        for i, blk in enumerate(self.res_blocks):
+            if i > 0 and i % switch_freq == 0:
+                mods = self.ada_ln_blocks[i // switch_freq](y).chunk(self.n_mods, dim=-1)
+            h = blk(h, mods)
+        return self.final_layer(h, y).to(x.dtype)
 
 
 def draw_sampler_noise(generator: torch.Generator, half: int, ch: int,
@@ -109,26 +179,60 @@ def draw_sampler_noise(generator: torch.Generator, half: int, ch: int,
 
 
 class DiffHead(nn.Module):
-    """Flow-matching x-prediction head, sampled with CFG by Euler-Maruyama."""
+    """Flow-matching x-prediction head: training loss (:meth:`forward`) and,
+    for the TransEncoder, sampling with CFG by Euler-Maruyama."""
 
     def __init__(self, ch_target: int, ch_cond: int, ch_latent: int,
                  depth_latent: int, depth_adanln: int, parallel_num: int = 4,
-                 use_swiglu: bool = True, P_mean: float = 0.0,
-                 P_std: float = 1.0, time_shift: float = 1.0,
+                 use_swiglu: bool = True, attention: bool = True,
+                 P_mean: float = 0.0, P_std: float = 1.0,
+                 time_shift: float = 1.0, time_schedule: str = "logit_normal",
                  attn_head_dim: int = 128, device=None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if not use_swiglu:
-            raise NotImplementedError("the port's head is the SwiGLU "
-                                      "TransEncoder of the T2I models")
+        if attention and not use_swiglu:
+            raise NotImplementedError("the TransEncoder's plain-MLP blocks "
+                                      "(use_swiglu=False) are not ported; "
+                                      "attention=False gives the MlpEncoder")
         self.ch_target, self.ch_cond, self.ch_latent = ch_target, ch_cond, ch_latent
         self.depth_latent, self.depth_adanln = depth_latent, depth_adanln
         self.parallel_num = parallel_num
         self.P_mean, self.P_std = P_mean, P_std
         self.time_shift = time_shift
+        self.time_schedule = time_schedule
         self.attn_head_dim = attn_head_dim
         self.net = DiffNet(ch_target, ch_latent, ch_cond, depth_latent,
-                           depth_adanln, device=device, dtype=dtype)
+                           depth_adanln, attention=attention, device=device,
+                           dtype=dtype)
+
+    def forward(self, x: torch.Tensor, cond: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """Scalar flow-matching training loss (the MlpEncoder head's). x: ±1
+        targets [N, C]; cond: backbone states [N, ch_cond]. t is
+        logit-normal (P_mean, P_std) or uniform, then time-shifted;
+        z = (1-t) e + t x; the net predicts x, the loss is the MSE of the
+        implied velocities with 1 - t clamped at 0.05. Draws t then e from
+        ``generator``. The parallel heads' per-token loss comes with their
+        training forward."""
+        xf = x.float()
+        n = x.shape[0]
+        if self.time_schedule == "logit_normal":
+            t = torch.sigmoid(torch.randn((n,), generator=generator, device=x.device)
+                              * self.P_std + self.P_mean)
+        elif self.time_schedule == "uniform":
+            t = torch.rand((n,), generator=generator, device=x.device)
+        else:
+            raise NotImplementedError(self.time_schedule)
+        if self.time_shift != 1.0:
+            t = time_shift(t, self.time_shift)
+        e = torch.randn(xf.shape, generator=generator, device=x.device)
+        ti = t.reshape((-1,) + (1,) * (xf.ndim - 1))
+        z = (1.0 - ti) * e + ti * xf
+        denom = (1.0 - ti).clamp_min(0.05)
+        v = (xf - z) / denom
+        x_pred = self.net(z.to(self.net.input_proj.weight.dtype), t, cond)
+        v_pred = (x_pred.float() - z) / denom
+        return (v - v_pred).square().mean()
 
     def _stack_for_sampler(self) -> dict:
         """The sampler's stacked weights. Afterwards the module's block and

@@ -1,7 +1,6 @@
-"""Binary visual tokenizer, decoder path (port of
-bitdance_tpu/models/tokenizer.py: GroupNorm32, Conv2D, ResBlock,
-depth_to_space, Upsampler, AdaptiveGroupNorm, Decoder, VQModel.decode,
-tokens_to_latents).
+"""Binary visual tokenizer (port of bitdance_tpu/models/tokenizer.py:
+GroupNorm32, Conv2D, ResBlock, Encoder, depth_to_space, Upsampler,
+AdaptiveGroupNorm, Decoder, VQModel.encode_raw / decode, tokens_to_latents).
 
 The public functions keep the JAX package's NHWC layout; inside, tensors are
 NCHW in channels_last memory, and the convolutions go to cuDNN on the card
@@ -41,11 +40,12 @@ class GroupNorm32(nn.Module):
 
 
 class Conv2D(nn.Conv2d):
-    """Same-padded conv in the module dtype (bf16 on the card)."""
+    """Conv padded by k // 2 on each side (same-size at stride 1), in the
+    module dtype (bf16 on the card)."""
 
     def __init__(self, cin: int, cout: int, k: int, bias: bool = True,
-                 device=None, dtype=None):
-        super().__init__(cin, cout, k, padding=k // 2, bias=bias,
+                 stride: int = 1, device=None, dtype=None):
+        super().__init__(cin, cout, k, stride=stride, padding=k // 2, bias=bias,
                          device=device, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -72,6 +72,50 @@ class ResBlock(nn.Module):
         if self.nin_shortcut is not None:
             residual = self.nin_shortcut(residual)
         return x + residual
+
+
+class Encoder(nn.Module):
+    """Conv downsampling encoder: conv_in, per level num_res_blocks ResBlocks
+    and (all but the last level) a stride-2 conv, mid ResBlocks, then
+    GroupNorm32, swish and a 1x1 conv_out to z_channels."""
+
+    def __init__(self, ch: int, ch_mult: Sequence[int], num_res_blocks: int,
+                 z_channels: int, in_channels: int = 3, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        n = len(ch_mult)
+        self.conv_in = Conv2D(in_channels, ch, 3, bias=False, **kw)
+        in_ch_mult = (1,) + tuple(ch_mult)
+        down = []
+        for i_level in range(n):
+            block_in = ch * in_ch_mult[i_level]
+            block_out = ch * ch_mult[i_level]
+            level = nn.Module()
+            blocks = []
+            for _ in range(num_res_blocks):
+                blocks.append(ResBlock(block_in, block_out, **kw))
+                block_in = block_out
+            level.block = nn.ModuleList(blocks)
+            if i_level < n - 1:
+                level.downsample = Conv2D(block_out, block_out, 3, stride=2, **kw)
+            down.append(level)
+        self.down = nn.ModuleList(down)
+        block_in = ch * ch_mult[-1]
+        self.mid_block = nn.ModuleList(
+            [ResBlock(block_in, block_in, **kw) for _ in range(num_res_blocks)])
+        self.norm_out = GroupNorm32(block_in, **kw)
+        self.conv_out = Conv2D(block_in, z_channels, 1, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv_in(x)
+        for level in self.down:
+            for blk in level.block:
+                x = blk(x)
+            if hasattr(level, "downsample"):
+                x = level.downsample(x)
+        for blk in self.mid_block:
+            x = blk(x)
+        return self.conv_out(swish(self.norm_out(x)))
 
 
 def depth_to_space(x: torch.Tensor, block_size: int) -> torch.Tensor:
@@ -167,16 +211,32 @@ class Decoder(nn.Module):
 
 
 class VQModel(nn.Module):
-    """Sign-quantized conv autoencoder; this port holds the decoder."""
+    """Sign-quantized conv autoencoder. ``encoder`` / ``decoder`` choose
+    which halves exist (serving needs only the decoder, training only the
+    encoder)."""
 
     def __init__(self, ddconfig: dict, device=None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, encoder: bool = False,
+                 decoder: bool = True):
         super().__init__()
         dd = dict(ddconfig)
         self.ddconfig = dd
-        self.decoder = Decoder(dd["ch"], dd["ch_mult"], dd["num_res_blocks"],
-                               dd["z_channels"], dd.get("out_ch", 3),
-                               device=device, dtype=dtype)
+        if encoder:
+            self.encoder = Encoder(dd["ch"], dd["ch_mult"], dd["num_res_blocks"],
+                                   dd["z_channels"], dd.get("in_channels", 3),
+                                   device=device, dtype=dtype)
+        if decoder:
+            self.decoder = Decoder(dd["ch"], dd["ch_mult"], dd["num_res_blocks"],
+                                   dd["z_channels"], dd.get("out_ch", 3),
+                                   device=device, dtype=dtype)
+
+    def encode_raw(self, x: torch.Tensor) -> torch.Tensor:
+        """Image NHWC in [-1, 1] -> pre-quantization encoder output NHWC
+        [B, h, w, z] (what GFQ quantizes in training). The fused
+        GroupNorm/swish/conv/sign tail of ``encode`` is not ported yet."""
+        dt = self.encoder.conv_in.weight.dtype
+        x = x.to(dt).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        return self.encoder(x).permute(0, 2, 3, 1)
 
     def decode(self, quant: torch.Tensor) -> torch.Tensor:
         """±1 latents NHWC [B, h, w, z] -> image NHWC [B, H, W, 3]."""
@@ -196,13 +256,14 @@ def tokens_to_latents(tokens: torch.Tensor, h: int, w: int,
     return x.reshape(b, h, w, c)
 
 
-def init_vq_decoder(ddconfig: dict, device, dtype: torch.dtype = torch.bfloat16,
-                    generator: torch.Generator | None = None) -> VQModel:
+def init_vq(ddconfig: dict, device, dtype: torch.dtype = torch.bfloat16,
+            generator: torch.Generator | None = None, encoder: bool = False,
+            decoder: bool = True) -> VQModel:
     """Random init on ``device`` (meta first): conv and linear weights
     lecun-normal (std 1/sqrt(fan_in)), biases 0, norm gains 1 — the JAX
     package's flax defaults."""
     with torch.device("meta"):
-        m = VQModel(ddconfig, dtype=dtype)
+        m = VQModel(ddconfig, dtype=dtype, encoder=encoder, decoder=decoder)
     m = m.to_empty(device=device)
     with torch.no_grad():
         for name, p in m.named_parameters():

@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
 The sources under ``bitdance_tpu_torch/csrc/`` are compiled by ``nvcc`` for
-``sm_90a`` into ONE shared library with a plain C interface, at first use,
-into ``build/`` at the root of the checkout, named by a hash of the sources
+``sm_90a`` (one process per source, all at once) and linked into ONE shared
+library with a plain C interface, at first use, into ``build/`` at the root
+of the checkout, named by a hash of the sources
 and flags (a changed source builds a new library; an unchanged one is
 reused). The library is bound with ``ctypes``: every pointer and the stream
 travel as ``c_void_p``, and each C entry returns ``cudaGetLastError()``,
@@ -27,13 +28,16 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "bd_decode_attention": [_P] * 6 + [_I] * 6 + [_F, _P],
     "bd_fused_em_sample": ([_P, _P, _P, _I, _P, _P, _F] + [_P] * 17
                            + [_I] * 10 + [_F, _P]),
+    "bd_flash_fwd": [_P] * 9 + [_I] * 6 + [_F, _P],
+    "bd_flash_bwd_dq": [_P] * 11 + [_I] * 6 + [_F, _P],
+    "bd_flash_bwd_dkv": [_P] * 12 + [_I] * 6 + [_F, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -62,6 +66,40 @@ def library_path() -> Path:
     return BUILD_DIR / f"libbitdance_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _build(so: Path) -> None:
+    """One nvcc per source, all started together, then one link."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    jobs = []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        jobs.append((obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], False
+    for obj, proc in jobs:
+        log.append(proc.communicate()[0])
+        failed |= proc.returncode != 0
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", str(tmp), *[str(o) for o, _ in jobs]],
+            capture_output=True, text=True)
+        log.append(link.stdout + link.stderr)
+        failed = link.returncode != 0
+    for obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    build_info["seconds"] = time.perf_counter() - t0
+    build_info["log"] = "".join(log)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + build_info["log"][-6000:])
+    os.replace(tmp, so)
+    so.with_suffix(".log").write_text(build_info["log"])
+
+
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; returns the handle."""
     global _lib
@@ -69,19 +107,7 @@ def load() -> ctypes.CDLL:
         return _lib
     so = library_path()
     if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in _sources() if s.suffix == ".cu"]]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_info["seconds"] = time.perf_counter() - t0
-        build_info["log"] = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               + build_info["log"][-6000:])
-        os.replace(tmp, so)
-        so.with_suffix(".log").write_text(build_info["log"])
+        _build(so)
     else:
         build_info.setdefault("seconds", 0.0)
     build_info["path"] = str(so)
@@ -107,8 +133,9 @@ def stream_ptr() -> int:
 def needs_grad(*tensors) -> bool:
     """True when autograd would want a backward through these inputs.
 
-    The port's kernels have no backward; their CUDA branch refuses such
-    inputs (pure predicate, so the CPU tests can hold it)."""
+    The inference kernels (decode attention, the sampler) have no backward;
+    their CUDA branch refuses such inputs (pure predicate, so the CPU tests
+    can hold it). The flash-attention kernels have theirs."""
     return torch.is_grad_enabled() and any(
         isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
 

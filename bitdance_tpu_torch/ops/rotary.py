@@ -1,7 +1,8 @@
 """Rotary and sin-cos position embeddings (port of bitdance_tpu/ops/rotary.py).
 
-Only what the text-to-image path uses: half-rotate RoPE for the Qwen3
-backbone and the 1D/2D sin-cos tables of the image positions.
+Half-rotate RoPE for the Qwen3 backbone, paired 2D RoPE over patch centres
+for the ImageNet AR backbone, and the 1D/2D sin-cos tables of the image
+positions.
 """
 
 from __future__ import annotations
@@ -43,3 +44,42 @@ def pos_embed_2d(table_1d: torch.Tensor, h: int, w: int,
     hh, ww = h // ps, w // ps
     pe = pe.reshape(hh, ps, ww, ps, -1).permute(0, 2, 1, 3, 4)
     return pe.reshape(h * w, -1)
+
+
+def patch_center_coords_2d(resolution: int, patch_size: int,
+                           device=None) -> torch.Tensor:
+    """Patch centre coordinates [P*P, 2] as (x, y), in units of max_pos/P."""
+    max_pos = resolution // patch_size
+    p = max_pos  # one scale
+    edge = float(max_pos) / p
+    centers = (torch.arange(p, dtype=torch.float32, device=device) + 0.5) * edge
+    gy, gx = torch.meshgrid(centers, centers, indexing="ij")
+    return torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=1)
+
+
+def rope_table_2d(pos_2d: torch.Tensor, head_dim: int, base: float = 10000.0,
+                  cls_token_num: int = 0) -> torch.Tensor:
+    """Paired-rotation (cos, sin) table [cls + L, head_dim // 2, 2], fp32.
+
+    The first half of the pair slots rotates by x, the second by y. Patches
+    use t = pos + 1; the cls_token_num prefix rows use t = 0 (identity)."""
+    half_dim = head_dim // 2
+    dev = pos_2d.device
+    freqs = 1.0 / (base ** (torch.arange(0, half_dim, 2, dtype=torch.float32,
+                                         device=dev)[: half_dim // 2] / half_dim))
+    t = pos_2d.float() + 1.0
+    if cls_token_num > 0:
+        t = torch.cat([torch.zeros((cls_token_num, 2), device=dev), t], dim=0)
+    ang = torch.outer(t.reshape(-1), freqs).reshape(t.shape[0], -1)
+    return torch.stack([torch.cos(ang), torch.sin(ang)], dim=-1)
+
+
+def apply_rope_paired(x: torch.Tensor, freqs_cis: torch.Tensor) -> torch.Tensor:
+    """Paired-rotation RoPE. x: [B, L, n_head, head_dim]; freqs_cis:
+    [L, head_dim // 2, 2]. Math in float32, result in x's dtype."""
+    xf = x.float().reshape(*x.shape[:-1], -1, 2)
+    fc = freqs_cis.reshape(1, freqs_cis.shape[0], 1, freqs_cis.shape[1], 2)
+    cos, sin = fc[..., 0], fc[..., 1]
+    xr, xi = xf[..., 0], xf[..., 1]
+    out = torch.stack([xr * cos - xi * sin, xi * cos + xr * sin], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)

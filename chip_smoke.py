@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's text-to-image path once on one NVIDIA GPU.
+"""Drive the PyTorch port's main paths once on one NVIDIA GPU: text-to-image
+serving (BitDance-14B-64x) and ImageNet class-conditional training
+(BitDance-H-1x, 256 px).
 
     python3 chip_smoke.py
 
@@ -12,6 +14,14 @@ Phases, run in this order, one line each, any failure exits non-zero:
                     .generate: two prompts at 512 px, one at 1024 px
   profile           torch.profiler over one more 512 px
                     request: device busy share and time by kernel
+  flash_attention   the forward, dq and dk/dv kernels vs the plain version and
+                    its autograd grads: the training path's shapes, B-16x
+                    block windows, two packed documents, GQA at head dim 128
+  train             random full-width BitDance-H-1x train state (the T2I
+                    bundle freed first), 16 seeded synthetic 256 px images ->
+                    encode_batch -> train_step: s/step, images/s, MFU, peak
+                    memory, launch counts, and one step on the plain
+                    attention path from the same state
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}. There is no CPU fallback: the
 script refuses to run without a CUDA device.
@@ -19,6 +29,7 @@ script refuses to run without a CUDA device.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -43,6 +54,36 @@ SAMPLER_MAX_REL_ERR = 5e-2
 # accumulated over 51 chained net calls of 0; nearly all latents end far
 # from 0, so at least 90% of the +-1 tokens must agree.
 SAMPLER_SIGN_AGREEMENT_FLOOR = 0.90
+# flash attention: max abs error of each kernel output against the plain
+# version (fp32 math on the same bf16 inputs; its autograd grads for dq, dk,
+# dv), relative to the largest |value| of that output, per case. The kernels
+# round P and dS to bf16 as product operands and write bf16 (2^-8 = 3.9e-3
+# relative). Bounds are a few times the readings on the H100 (PERF.md).
+# Readings (NVIDIA H100 80GB HBM3, 700 W), over the four cases: o 2.7-3.0e-3,
+# lse 1.3-1.9e-7, dq 2.6-4.1e-3, dk 3.0-4.7e-3, dv 2.7-3.4e-3.
+_FLASH_BOUNDS = {"o": 1.2e-2, "lse": 1e-6, "dq": 1.5e-2, "dk": 1.5e-2, "dv": 1.2e-2}
+FLASH_MAX_REL_ERR = {name: dict(_FLASH_BOUNDS)
+                     for name in ("path", "b16x", "packed", "gqa_d128")}
+# keys at the edges of each window and document carry v = FLASH_EDGE_V, so a
+# mask off by one moves the output by far more than the bound
+FLASH_EDGE_V = 8.0
+# train step, kernel vs plain attention from the same state and draws: both
+# bf16; they differ by the flash kernels' bf16 rounding of P and dS. Readings
+# (H100, 700 W): loss 9.8e-6, grad norm 7.6e-5 relative.
+TRAIN_LOSS_REL = 1e-4
+TRAIN_GRAD_NORM_REL = 5e-4
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), for MFU
+H100_BF16_PEAK = 989e12
+# kernel-name substrings -> the groups a profile's time is summed into
+PROFILE_GROUPS = (
+    ("products", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
+    ("flash attention", ("flash_",)),
+    ("decode attention", ("decode_attention",)),
+    ("sampler stages", ("window_attention", "ln_modulate", "final_em", "proj_in_kernel")),
+    ("optimizer foreach", ("multi_tensor_apply",)),
+    ("elementwise, casts, reductions", ("elementwise", "copy", "reduce", "Cat", "index",
+                                       "embedding", "norm")),
+)
 
 
 def log(phase: str, msg: str) -> None:
@@ -315,22 +356,31 @@ def phase_e2e(bundle, card: str) -> dict:
 
 
 def phase_profile(bundle) -> None:
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     from bitdance_tpu_torch.pipelines.t2i import T2IPipeline
 
     pipe = T2IPipeline(bundle, StubTokenizer(bundle.parallel_num))
     pipe.generate("profile warmup", 512, 512, seed=7)
+    profile_run("profile", "512 px request",
+                lambda: pipe.generate("profile request", 512, 512, seed=8),
+                lambda: f"last_timing {json.dumps(pipe.last_timing)}")
+
+
+def profile_run(phase: str, what: str, run, extra=lambda: "") -> None:
+    """torch.profiler over one call of ``run``: device busy and idle share
+    from the union of kernel intervals, and the top kernels by time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pipe.generate("profile request", 512, 512, seed=8)
+        run()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    from torch.autograd import DeviceType
 
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
     by_name: dict = {}
     for e in kern:
         ms_n = by_name.setdefault(e.name, [0.0, 0])
@@ -350,13 +400,287 @@ def phase_profile(bundle) -> None:
     if cur_e is not None:
         busy_us += cur_e - cur_s
     first, last = spans[0][0], max(b for _, b in spans)
-    log("profile", f"512 px request: wall {wall:.3f} s; device busy "
+    log(phase, f"{what}: wall {wall:.3f} s; device busy "
         f"{busy_us / 1e6:.3f} s of the {(last - first) / 1e6:.3f} s from first "
         f"to last kernel (idle share {1 - busy_us / (last - first):.4f}); "
-        f"kernel time sum {sum(r[1] for r in rows) / 1e3:.3f} s; "
-        f"last_timing {json.dumps(pipe.last_timing)}")
+        f"kernel time sum {sum(r[1] for r in rows) / 1e3:.3f} s in {len(kern)} "
+        f"kernels; {extra()}")
+    groups: dict = {}
+    for name, ms, n in rows:
+        group = next((g for g, keys in PROFILE_GROUPS if any(k in name for k in keys)),
+                     "other")
+        groups[group] = groups.get(group, 0.0) + ms
+    log(phase, "kernel time by group: " + ", ".join(
+        f"{g} {ms:.2f} ms" for g, ms in sorted(groups.items(), key=lambda x: -x[1])))
     for name, ms, n in rows[:20]:
-        log("profile", f"{ms:10.2f} ms  {n:7d}x  {name[:110]}")
+        log(phase, f"{ms:10.2f} ms  {n:7d}x  {name[:110]}")
+
+
+def _flash_case(name: str, dev):
+    """(q, k, v, do, ids, wrong) of one comparison case, bf16, from a seed.
+    ``wrong`` are id sets that put a mask off by one: the query's own block
+    hidden (kb < qb) or a neighbour document seen."""
+    import torch
+
+    from bitdance_tpu_torch.models.imagenet_ar import config_b, config_h, train_ids
+
+    g = torch.Generator(device=dev).manual_seed(sum(map(ord, name)))
+    if name in ("path", "b16x"):
+        cfg = config_h() if name == "path" else config_b(parallel_num=16)
+        b, hq, hkv, d = 16, cfg.n_head, cfg.n_head, cfg.head_dim
+        block, doc = train_ids(cfg, dev)
+    elif name == "packed":
+        b, hq, hkv, d = 4, 16, 16, 64
+        lens = (300, 340)
+        block = torch.cat([torch.arange(n, device=dev) for n in lens])
+        doc = torch.cat([torch.full((n,), i, device=dev) for i, n in enumerate(lens)])
+    else:                                   # Qwen3-style GQA training shape
+        b, hq, hkv, d = 2, 40, 8, 128
+        block = torch.arange(1000, device=dev)
+        doc = torch.zeros_like(block)
+    block, doc = block.int(), doc.int()
+    L = block.shape[0]
+    q = torch.randn((b, L, hq, d), generator=g, device=dev).bfloat16()
+    k = torch.randn((b, L, hkv, d), generator=g, device=dev).bfloat16()
+    v = torch.randn((b, L, hkv, d), generator=g, device=dev)
+    do = torch.randn((b, L, hq, d), generator=g, device=dev).bfloat16()
+    # the first and last key of every document, and of every window where
+    # blocks are windows, get a large v (not where every key is its own block:
+    # a constant v would make o independent of the mask)
+    first = torch.ones(L, dtype=torch.bool, device=dev)
+    first[1:] = doc[1:] != doc[:-1]
+    if (block[1:] == block[:-1]).any():
+        first[1:] |= block[1:] != block[:-1]
+    v[:, first | torch.roll(first, -1)] = FLASH_EDGE_V
+    ids = tuple(t.expand(b, L) for t in (block, doc, block, doc))
+    wrong = [tuple(t.expand(b, L) for t in (block - 1, doc, block, doc))]
+    if int(doc.max()) > 0:                  # doc 1 also sees doc 0
+        wrong.append(tuple(t.expand(b, L) for t in (block, doc, block, doc.clamp(min=1))))
+    return q, k, v.bfloat16(), do, ids, wrong
+
+
+def phase_flash_attention() -> dict:
+    import torch
+
+    from bitdance_tpu_torch.ops.attention import (
+        flash_attention_reference,
+        flash_bwd_dkv,
+        flash_bwd_dkv_reference,
+        flash_bwd_dq,
+        flash_bwd_dq_reference,
+        flash_fwd,
+    )
+
+    dev = torch.device("cuda")
+    records = {}
+    for name, bounds in FLASH_MAX_REL_ERR.items():
+        q, k, v, do, ids, wrong = _flash_case(name, dev)
+        d = q.shape[-1]
+        scale = d ** -0.5
+        o, lse = flash_fwd(q, k, v, *ids, scale)
+        qr, kr, vr = (t.float().requires_grad_() for t in (q, k, v))
+        o_ref, lse_ref = flash_attention_reference(qr, kr, vr, *ids, return_lse=True)
+        o_ref.backward(do.float())
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, *ids, scale)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, *ids, scale)
+        torch.cuda.synchronize()
+        errs, rel = {}, {}
+        for key, got, want in (("o", o, o_ref), ("lse", lse, lse_ref),
+                               ("dq", dq, qr.grad), ("dk", dk, kr.grad),
+                               ("dv", dv, vr.grad)):
+            if not torch.isfinite(got).all():
+                raise SystemExit(f"flash_attention {name}: {key} not finite")
+            errs[key] = (got.float() - want.float()).abs().max().item()
+            rel[key] = errs[key] / want.float().abs().max().item()
+        with torch.no_grad():   # how far a mask off by one moves o, relative
+            shift = min((flash_attention_reference(qr, kr, vr, *w) - o_ref)
+                        .abs().max().item() for w in wrong)
+            shift /= o_ref.abs().max().item()
+        bad = [key for key, e in rel.items() if e > bounds[key]]
+        if bad or shift < 4 * bounds["o"]:
+            raise SystemExit(f"flash_attention {name}: rel errors {rel} (bounds "
+                             f"{bounds}); a mask off by one moves o by {shift}")
+        rec = {"errs": errs}
+        with torch.no_grad():
+            rec["fwd"] = (cuda_time_ms(lambda: flash_fwd(q, k, v, *ids, scale), 20),
+                          cuda_time_ms(lambda: flash_attention_reference(
+                              q, k, v, *ids, scale, return_lse=True), 5))
+            rec["dq"] = (cuda_time_ms(lambda: flash_bwd_dq(
+                q, k, v, do, lse, delta, *ids, scale), 20),
+                cuda_time_ms(lambda: flash_bwd_dq_reference(
+                    q, k, v, do, lse, delta, *ids, scale), 5))
+            rec["dkv"] = (cuda_time_ms(lambda: flash_bwd_dkv(
+                q, k, v, do, lse, delta, *ids, scale), 20),
+                cuda_time_ms(lambda: flash_bwd_dkv_reference(
+                    q, k, v, do, lse, delta, *ids, scale), 5))
+        log("flash_attention", f"{name} q {tuple(q.shape)} k {tuple(k.shape)}: "
+            "max abs err (relative to max |value|, bound): "
+            + ", ".join(f"{key} {errs[key]:.3e} ({rel[key]:.2e}, {bounds[key]})"
+                        for key in errs)
+            + f"; a mask off by one moves o by >= {shift:.3e} of max |o|; "
+            "ms kernel/plain: "
+            + ", ".join(f"{key} {rec[key][0]:.4f}/{rec[key][1]:.4f}"
+                        for key in ("fwd", "dq", "dkv")))
+        records[name] = rec
+        del q, k, v, do, qr, kr, vr, o_ref, lse_ref
+    path = records["path"]
+    worst = lambda keys: max(r["errs"][key] for r in records.values()  # noqa: E731
+                             for key in keys)
+    return {"flash_fwd": {"max_abs_err": worst(("o", "lse")), "ms": path["fwd"][0],
+                          "plain_ms": path["fwd"][1]},
+            "flash_bwd_dq": {"max_abs_err": worst(("dq",)), "ms": path["dq"][0],
+                             "plain_ms": path["dq"][1]},
+            "flash_bwd_dkv": {"max_abs_err": worst(("dk", "dv")),
+                              "ms": path["dkv"][0], "plain_ms": path["dkv"][1]}}
+
+
+def _forward_matmul_flops(state, cfg, batch: int) -> float:
+    """Forward matmul FLOPs of one step: 2 x weights x rows for every linear
+    layer (backbone over batch x total_tokens rows, proj_in over the input
+    tokens, the head over batch x num_tokens x diff_batch_mul rows), plus
+    4 B H L^2 D per layer for QK^T and PV over the full (unmasked) square."""
+    rows_ar = batch * cfg.total_tokens
+    rows_in = batch * (cfg.num_tokens - cfg.parallel_num)
+    rows_head = batch * cfg.num_tokens * cfg.diff_batch_mul
+    flops = 0.0
+    for n, p in state.model.named_parameters():
+        if p.ndim != 2 or "cls_embedding" in n or "pos_for_diff" in n:
+            continue
+        rows = (rows_ar if n.startswith("ar.layers.") else
+                rows_in if n.startswith("ar.proj_in.") else rows_head)
+        flops += 2.0 * p.numel() * rows
+    flops += (4.0 * batch * cfg.n_head * cfg.total_tokens ** 2 * cfg.head_dim
+              * cfg.n_layer)
+    return flops
+
+
+def phase_train(card: str) -> dict:
+    import torch
+
+    from bitdance_tpu_torch.io.random_init import (
+        build_random_tokenizer_encoder,
+        build_random_train_state,
+    )
+    from bitdance_tpu_torch.models.imagenet_ar import config_h
+    from bitdance_tpu_torch.ops.attention import flash_bwd_dkv, flash_bwd_dq, flash_fwd
+    from bitdance_tpu_torch.train.imagenet_train import (
+        ImageNetTrainConfig,
+        encode_batch,
+        train_step,
+    )
+
+    dev = torch.device("cuda")
+    cfg = config_h()                        # BitDance-H-1x, 256 px
+    tcfg = ImageNetTrainConfig()            # lr 6e-4, warmup 2000, wd 0.05,
+    batch = 16                              # betas (0.9, 0.95), clip 1, EMA 0.9999
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = build_random_train_state(cfg, tcfg, dev, seed=0)
+    ae = build_random_tokenizer_encoder(dev, torch.float32, seed=1)
+    torch.cuda.synchronize()
+    n_ar = sum(p.numel() for n, p in state.model.named_parameters() if n.startswith("ar."))
+    n_head = sum(p.numel() for n, p in state.model.named_parameters()
+                 if n.startswith("head."))
+    log("train", f"BitDance-H-1x random fp32 train state + f32 tokenizer encoder "
+        f"on the card in {time.perf_counter() - t0:.1f} s: backbone {n_ar / 1e6:.1f} M, "
+        f"head {n_head / 1e6:.1f} M parameters; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    flops = _forward_matmul_flops(state, cfg, batch)
+
+    def batch_of(seed):
+        g = torch.Generator(device=dev).manual_seed(1000 + seed)
+        img = torch.randint(0, 256, (batch, 256, 256, 3), generator=g, device=dev,
+                            dtype=torch.uint8)
+        cls = torch.randint(0, cfg.num_classes, (batch,), generator=g, device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tokens = encode_batch(ae, cfg, img.float() / 127.5 - 1.0)
+        torch.cuda.synchronize()
+        return tokens, cls, time.perf_counter() - t
+
+    watch = {n: p for n, p in state.model.named_parameters()
+             if n in ("ar.layers.0.attention.wqkv.weight",
+                      "head.net.final_layer.linear.weight", "ar.cls_embedding.weight")}
+    init = {n: p.detach().clone() for n, p in watch.items()}
+    norms_of = {"attn": ".attention.", "ar": "ar.", "head": "head."}
+    n_kernel_steps = 7                      # the last one is also run plain
+    flash_fwd.launches = flash_bwd_dq.launches = flash_bwd_dkv.launches = 0
+    steps, snapshot = [], None
+    for i in range(n_kernel_steps):
+        tokens, cls, enc_s = batch_of(i)
+        if i == 0:
+            ok = (tokens.shape == (batch, cfg.num_tokens, cfg.token_dim)
+                  and set(tokens.unique().tolist()) <= {-1.0, 1.0})
+            if not ok:
+                raise SystemExit(f"train: encode_batch gave {tuple(tokens.shape)}")
+        if i == n_kernel_steps - 1:        # the plain step starts from here
+            snapshot = [p.detach().clone() for p in state.tx.params]
+        counts = (flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches)
+        gen = torch.Generator(device=dev).manual_seed(i)
+        t = time.perf_counter()
+        m = train_step(state, tokens, cls, gen, ema_decay=tcfg.ema_decay,
+                       norms_of=norms_of)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        m = {k: v.item() for k, v in m.items()}
+        got = tuple(c1 - c0 for c0, c1 in zip(
+            counts, (flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches)))
+        moved = {n: (p.detach() != init[n]).any().item() for n, p in watch.items()}
+        ema_moved = any((state.ema[n] != init[n]).any().item() for n in watch)
+        steps.append({"s": dt, **m})
+        log("train", f"step {i + 1}: {dt:.3f} s (encode {enc_s:.3f} s), lr "
+            f"{state.tx.lr_schedule(i):.3e}; loss {m['loss']:.5f}, grad_norm "
+            f"{m['grad_norm']:.5f} (attention weights {m['grad_norm_attn']:.4e}, "
+            f"backbone {m['grad_norm_ar']:.4e}, head {m['grad_norm_head']:.4e}); "
+            f"flash launches fwd/dq/dkv {got}; params moved {moved}; EMA moved {ema_moved}")
+        want_moved = i >= 1                # lr is 0 at count 0 (optax semantics)
+        if (not all(x == want_moved for x in moved.values())
+                or (want_moved and not ema_moved) or got != (cfg.n_layer,) * 3
+                or not all(map(lambda x: x == x and abs(x) < float("inf"), m.values()))
+                or m["grad_norm_attn"] <= 0):
+            raise SystemExit(f"train step {i + 1} failed its checks")
+    launches = {"flash_fwd": flash_fwd.launches, "flash_bwd_dq": flash_bwd_dq.launches,
+                "flash_bwd_dkv": flash_bwd_dkv.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steady = sorted(s["s"] for s in steps[2:-1])   # not the snapshot's step
+    s_step = steady[len(steady) // 2]
+    mfu = 3 * flops / s_step / H100_BF16_PEAK
+    log("train", f"steady s/step {s_step:.4f} (median of steps 3-{n_kernel_steps - 1}: "
+        f"{', '.join(f'{s:.4f}' for s in steady)}); {batch / s_step:.2f} images/s; "
+        f"3 x forward matmul FLOPs {3 * flops / 1e12:.2f} TFLOP -> "
+        f"{3 * flops / s_step / 1e12:.1f} TFLOP/s, MFU {mfu:.4f} of the "
+        f"{H100_BF16_PEAK / 1e12:.0f} TFLOP/s dense bf16 peak; peak memory "
+        f"{peak:.2f} GiB; card {card}")
+
+    profile_run("train", "one train step (kernel attention)",
+                lambda: train_step(state, tokens, cls,
+                                   torch.Generator(device=dev).manual_seed(99),
+                                   ema_decay=tcfg.ema_decay))
+    # one step on the plain attention path from the state and draws of the
+    # last kernel step
+    with torch.no_grad():
+        for p, s in zip(state.tx.params, snapshot):
+            p.copy_(s)
+    del snapshot
+    gen = torch.Generator(device=dev).manual_seed(n_kernel_steps - 1)
+    t = time.perf_counter()
+    mp = train_step(state, tokens, cls, gen, ema_decay=tcfg.ema_decay,
+                    implementation="plain")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    mp = {k: v.item() for k, v in mp.items()}
+    mk = steps[-1]
+    rl = abs(mp["loss"] - mk["loss"]) / abs(mk["loss"])
+    rg = abs(mp["grad_norm"] - mk["grad_norm"]) / mk["grad_norm"]
+    log("train", f"plain-attention step from the same state: {dt:.3f} s; loss "
+        f"{mp['loss']:.5f} vs kernel {mk['loss']:.5f} (rel {rl:.2e}, bound "
+        f"{TRAIN_LOSS_REL}); grad_norm {mp['grad_norm']:.5f} vs {mk['grad_norm']:.5f} "
+        f"(rel {rg:.2e}, bound {TRAIN_GRAD_NORM_REL})")
+    if rl > TRAIN_LOSS_REL or rg > TRAIN_GRAD_NORM_REL:
+        raise SystemExit("train: kernel and plain steps disagree")
+    return {"launches": launches, "s_per_step": s_step, "mfu": mfu,
+            "peak_gib": peak}
 
 
 def main() -> int:
@@ -385,18 +709,31 @@ def main() -> int:
     launches = phase_e2e(bundle, card)
     log("e2e", f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     phase_profile(bundle)
+    del bundle                              # the training phases need the room
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("train", f"T2I bundle freed: {torch.cuda.memory_allocated() / 2**30:.2f} "
+        "GiB allocated")
+
+    results.update(phase_flash_attention())
+    train = phase_train(card)
+    launches.update(train["launches"])
 
     records = []
     meta = {
-        "decode_attention": ("bitdance_tpu_torch/csrc/decode_attention.cu",
-                             "bitdance_tpu/ops/decode_attention.py:27"),
-        "fused_em_sample": ("bitdance_tpu_torch/csrc/fused_head.cu",
-                            "bitdance_tpu/ops/fused_head.py:689"),
+        "decode_attention": ("decode_attention", "bitdance_tpu_torch/csrc/decode_attention.cu",
+                             "bitdance_tpu/ops/decode_attention.py:121"),
+        "fused_em_sample": ("sampler", "bitdance_tpu_torch/csrc/fused_head.cu",
+                            "bitdance_tpu/ops/fused_head.py:1076"),
+        "flash_fwd": ("flash_fwd", "bitdance_tpu_torch/csrc/flash_attention.cu",
+                      "bitdance_tpu/ops/attention.py:285"),
+        "flash_bwd_dq": ("flash_bwd_dq", "bitdance_tpu_torch/csrc/flash_attention.cu",
+                         "bitdance_tpu/ops/attention.py:456"),
+        "flash_bwd_dkv": ("flash_bwd_dkv", "bitdance_tpu_torch/csrc/flash_attention.cu",
+                          "bitdance_tpu/ops/attention.py:474"),
     }
-    for name, key in (("decode_attention", "decode_attention"),
-                      ("fused_em_sample", "sampler")):
+    for name, (key, src, repl) in meta.items():
         r = results[key]
-        src, repl = meta[name]
         if launches[name] < 1:
             raise SystemExit(f"{name} was not launched by the main path")
         records.append({"name": name, "route": "cuda", "source": src,
