@@ -5,194 +5,38 @@
 // _fused_em_kernel_streamed_dma (the regime the 5120-wide 14B head takes),
 // _fused_em_kernel (per-block streamed weights) and _fused_em_kernel_resident
 // (whole head in VMEM). The three exist because a TPU core's VMEM decides how
-// the weights are staged; one design serves all of them here. Per sampler
-// step: input projection of [x; x], then per block LN + adaLN modulate,
-// qkv product, window attention over each group of parallel_num tokens, the
-// output product with its gated residual, LN + modulate, the SwiGLU product,
-// the down product with its gated residual; then the final adaLN layer,
-// 2*sigmoid-1, velocity, CFG ([cond; uncond] rows) and the score-augmented EM
-// update with the given noise, or the deterministic last step.
+// the weights are staged; one design serves all of them here, for both head
+// families. Per sampler step: input projection of [x; x], then per block
+//   attention=1 (TransEncoder, 6 mods per block): LN + adaLN modulate, qkv
+//     product, window attention over each group of parallel_num tokens, the
+//     output product with its gated residual, then the MLP half;
+//   attention=0 (MlpEncoder, 3 mods per block: scale, shift, gate): the MLP
+//     half only;
+// where the MLP half is LN + modulate, the SwiGLU product and the down
+// product with its gated residual; then the final adaLN layer, 2*sigmoid-1
+// when bounded=1 (the T2I head; the ImageNet heads are unbounded), velocity,
+// CFG ([cond; uncond] rows) and the score-augmented EM update with the given
+// noise, or the deterministic last step.
 //
 // What bounds it on the H100: each net call reads every block weight once
-// (1.34 G parameters, 2.7 GB in bf16, at the 14B head) for 128 rows per
-// image, i.e. ~128 FLOP per weight byte, well under the ~295 FLOP/byte at
-// which the tensor cores become the limit. The sampler is bound by weight
-// bytes streamed from HBM, 51 times per AR step.
+// (1.34 G parameters, 2.7 GB in bf16, at the 14B head; 88.5 M, 177 MB, at
+// the BitDance-H-1x MlpEncoder) for 128 (resp. 64) rows, i.e. ~64-128 FLOP
+// per weight byte, well under the ~295 FLOP/byte at which the tensor cores
+// become the limit. The sampler is bound by weight bytes streamed from HBM
+// once per net call, 51 or 101 times per AR step.
 //
-// Design: one bf16 tensor-core GEMM kernel (mma.sync m16n8k16, fp32
-// accumulate, 3-stage cp.async pipeline, 64x64 output tiles so that even
-// the 5120-wide products launch 160 blocks) with the epilogues fused: bias
-// (qkv, stored bf16), bias + gated residual into the fp32 residual stream
-// (out and down products), and SwiGLU (the w1 product loads matching h1/h2
-// weight rows into one tile so each thread holds both halves of its output
-// column). Weights stay in the torch Linear layout [out, in], which is the
-// k-major B operand mma.sync wants. The m tiles are the fastest grid index,
-// so the blocks that share a weight tile run together and the second read
-// comes from L2. LN + modulate, window attention and the final layer + EM
-// update are small fp32 kernels. Precision follows the TPU kernel #2: fp32
-// residual h, bf16 stage activations, fp32 LN statistics, softmax and
-// accumulation.
-#include "common.cuh"
+// Design: the bf16 tensor-core GEMM of head_blocks.cuh with the epilogues
+// fused: bias (qkv, stored bf16), bias + gated residual into the fp32
+// residual stream (out and down products), and SwiGLU (the w1 product loads
+// matching h1/h2 weight rows into one tile so each thread holds both halves
+// of its output column). LN + modulate, window attention and the final layer
+// + EM update are small fp32 kernels. Precision follows the TPU kernel #2
+// for both families: fp32 residual h, bf16 stage activations, fp32 LN
+// statistics, softmax and accumulation. At 64 rows and C 1280 the 64x64
+// output tiles give only 20-60 blocks per product, under half the 132 SMs.
+#include "head_blocks.cuh"
 
 namespace {
-
-constexpr int kBM = 64, kBN = 64, kBK = 32, kStages = 3;
-constexpr int kBKP = kBK + 8;  // padded smem row (bf16): conflict-free reads
-
-enum GemmMode { kBiasBf16 = 0, kGatedResidual = 1, kSwiGLU = 2 };
-
-template <int MODE>
-__device__ __forceinline__ int weight_row(int n0, int r, int hidden) {
-  if (MODE == kSwiGLU) {
-    // tile rows come in pairs of 8: [h1 cols c..c+7 | h2 cols c..c+7] ...
-    const int blk8 = r >> 3;
-    const int col = (n0 >> 1) + (blk8 >> 1) * 8 + (r & 7);
-    return (blk8 & 1) ? hidden + col : col;
-  }
-  return n0 + r;
-}
-
-// out = epilogue(A[M,K] @ W[N,K]^T); A row-major (lda), W torch Linear layout.
-template <int MODE>
-__global__ void __launch_bounds__(128)
-gemm_bf16_kernel(const bf16* __restrict__ A, int lda,
-                 const bf16* __restrict__ W, int K, int M,
-                 const bf16* __restrict__ bias, bf16* __restrict__ out,
-                 int ldo, float* __restrict__ resid, int ldr,
-                 const bf16* __restrict__ gate, int ldg, int hidden) {
-  __shared__ __align__(16) bf16 As[kStages][kBM][kBKP];
-  __shared__ __align__(16) bf16 Bs[kStages][kBN][kBKP];
-
-  const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int wm = warp & 1, wn = warp >> 1;
-
-  auto load_stage = [&](int slot, int kt) {
-    const int k0 = kt * kBK;
-#pragma unroll
-    for (int c = tid; c < kBM * (kBK / 8); c += 128) {
-      const int r = c >> 2, cc = (c & 3) * 8;
-      const int row = m0 + r;
-      const bf16* src = A + (size_t)min(row, M - 1) * lda + k0 + cc;
-      cp_async16(&As[slot][r][cc], src, row < M ? 16 : 0);
-    }
-#pragma unroll
-    for (int c = tid; c < kBN * (kBK / 8); c += 128) {
-      const int r = c >> 2, cc = (c & 3) * 8;
-      const bf16* src =
-          W + (size_t)weight_row<MODE>(n0, r, hidden) * K + k0 + cc;
-      cp_async16(&Bs[slot][r][cc], src, 16);
-    }
-  };
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      acc[a][b][0] = acc[a][b][1] = acc[a][b][2] = acc[a][b][3] = 0.f;
-
-  const int KT = K / kBK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < KT) load_stage(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int pf = kt + kStages - 1;
-    if (pf < KT) load_stage(pf % kStages, pf);
-    cp_async_commit();
-    const int slot = kt % kStages;
-#pragma unroll
-    for (int ks = 0; ks < kBK / 16; ++ks) {
-      const int c = ks * 16 + tq * 2;
-      uint32_t af[2][4], bfr[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int r = wm * 32 + mt * 16 + g;
-        af[mt][0] = lds32(&As[slot][r][c]);
-        af[mt][1] = lds32(&As[slot][r + 8][c]);
-        af[mt][2] = lds32(&As[slot][r][c + 8]);
-        af[mt][3] = lds32(&As[slot][r + 8][c + 8]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int r = wn * 32 + nt * 8 + g;
-        bfr[nt][0] = lds32(&Bs[slot][r][c]);
-        bfr[nt][1] = lds32(&Bs[slot][r][c + 8]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_16816(acc[mt][nt], af[mt], bfr[nt]);
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = m0 + wm * 32 + mt * 16 + g + (i >> 1) * 8;
-      if (row >= M) continue;
-      if (MODE == kSwiGLU) {
-#pragma unroll
-        for (int nt = 0; nt < 4; nt += 2) {
-          const int col = (n0 >> 1) + (wn * 2 + nt / 2) * 8 + tq * 2 + (i & 1);
-          const float y1 = round_bf16(acc[mt][nt][i] + bf2f(bias[col]));
-          const float y2 = round_bf16(acc[mt][nt + 1][i] + bf2f(bias[hidden + col]));
-          const float silu = y1 / (1.f + __expf(-y1));
-          out[(size_t)row * ldo + col] = __float2bfloat16(silu * y2);
-        }
-      } else {
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int col = n0 + wn * 32 + nt * 8 + tq * 2 + (i & 1);
-          const float y = acc[mt][nt][i] + bf2f(bias[col]);
-          if (MODE == kBiasBf16) {
-            out[(size_t)row * ldo + col] = __float2bfloat16(y);
-          } else {
-            resid[(size_t)row * ldr + col] +=
-                y * bf2f(gate[(size_t)row * ldg + col]);
-          }
-        }
-      }
-    }
-  }
-}
-
-// out[r] = bf16((LN(h[r]) * nw + nb) * (1 + scale[r]) + shift[r]); one-pass
-// fp32 statistics as the TPU kernel's _ln. mods points at the scale column of
-// row 0; shift is the next C columns; rows are ld_mods apart.
-__global__ void __launch_bounds__(256)
-ln_modulate_kernel(const float* __restrict__ h, int C,
-                   const bf16* __restrict__ nw, const bf16* __restrict__ nb,
-                   const bf16* __restrict__ mods, int ld_mods,
-                   bf16* __restrict__ out, float eps) {
-  const int r = blockIdx.x;
-  const float* hr = h + (size_t)r * C;
-  float s = 0.f, ss = 0.f;
-  for (int i = threadIdx.x; i < C; i += blockDim.x) {
-    const float x = hr[i];
-    s += x;
-    ss += x * x;
-  }
-  block_sum2(s, ss);
-  const float mean = s / C;
-  const float var = fmaxf(ss / C - mean * mean, 0.f);
-  const float rstd = rsqrtf(var + eps);
-  const bf16* scale = mods + (size_t)r * ld_mods;
-  const bf16* shift = scale + C;
-  for (int i = threadIdx.x; i < C; i += blockDim.x) {
-    const float ln = (hr[i] - mean) * rstd * bf2f(nw[i]) + bf2f(nb[i]);
-    out[(size_t)r * C + i] =
-        __float2bfloat16(ln * (1.f + bf2f(scale[i])) + bf2f(shift[i]));
-  }
-}
 
 // h[r, n] = in_b[n] + sum_k bf16(x[r % half, k]) * in_w[n, k]   (rows [x; x])
 __global__ void proj_in_kernel(const float* __restrict__ x, int half, int ch,
@@ -209,77 +53,18 @@ __global__ void proj_in_kernel(const float* __restrict__ x, int half, int ch,
   h[idx] = acc + b[n];
 }
 
-// Window attention over qkv [R, 3C] (column order (3, n_head, hd)); one block
-// per (group, head); fp32 scores, softmax and accumulation; out [R, C] bf16.
-__global__ void __launch_bounds__(256)
-window_attention_kernel(const bf16* __restrict__ qkv, int C, int w, int hd,
-                        int n_head, float scale, bf16* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ldw = hd + 2;  // odd word stride: rows fall in distinct banks
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + w * ldw;
-  bf16* vs = ks + w * ldw;
-  float* ps = reinterpret_cast<float*>(vs + w * ldw);
-
-  const int gi = blockIdx.x / n_head, hh = blockIdx.x % n_head;
-  const int row0 = gi * w;
-  const size_t ld = 3 * (size_t)C;
-  for (int idx = threadIdx.x; idx < w * hd; idx += blockDim.x) {
-    const int i = idx / hd, d = idx % hd;
-    const bf16* src = qkv + (size_t)(row0 + i) * ld + hh * hd + d;
-    qs[i * ldw + d] = __float2bfloat16(bf2f(src[0]) * scale);
-    ks[i * ldw + d] = src[C];
-    vs[i * ldw + d] = src[2 * C];
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < w * w; idx += blockDim.x) {
-    const int i = idx / w, j = idx % w;
-    const __nv_bfloat162* qa = reinterpret_cast<const __nv_bfloat162*>(qs + i * ldw);
-    const __nv_bfloat162* ka = reinterpret_cast<const __nv_bfloat162*>(ks + j * ldw);
-    float acc = 0.f;
-    for (int d = 0; d < hd / 2; ++d) {
-      const float2 a = __bfloat1622float2(qa[d]);
-      const float2 b = __bfloat1622float2(ka[d]);
-      acc += a.x * b.x + a.y * b.y;
-    }
-    ps[idx] = acc;
-  }
-  __syncthreads();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i = warp; i < w; i += blockDim.x >> 5) {
-    float m = -INFINITY;
-    for (int j = lane; j < w; j += 32) m = fmaxf(m, ps[i * w + j]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < w; j += 32) {
-      const float e = expf(ps[i * w + j] - m);
-      ps[i * w + j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    const float inv = 1.f / sum;
-    for (int j = lane; j < w; j += 32) ps[i * w + j] *= inv;
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < w * hd; idx += blockDim.x) {
-    const int i = idx / hd, d = idx % hd;
-    float acc = 0.f;
-    for (int j = 0; j < w; ++j) acc += ps[i * w + j] * bf2f(vs[j * ldw + d]);
-    out[(size_t)(row0 + i) * C + hh * hd + d] = __float2bfloat16(acc);
-  }
-}
-
 constexpr int kMaxCh = 32;
 
-// Final adaLN layer + 2*sigmoid-1 + velocity + CFG + EM (or last Euler)
-// update of x row i; one block per cond row, handling rows i and i + half.
+// Final adaLN layer + (bounded: 2*sigmoid-1) + velocity + CFG + EM (or last
+// Euler) update of x row i; one block per cond row, handling rows i and
+// i + half.
 __global__ void __launch_bounds__(256)
 final_em_kernel(const float* __restrict__ h, int C,
                 const bf16* __restrict__ fmods, int ld_mods,
                 const bf16* __restrict__ fw, const float* __restrict__ fb,
                 float* __restrict__ x, const float* __restrict__ noise,
                 int half, int ch, float t, float dt, float cfg,
-                float last_step, float eps) {
+                float last_step, int bounded, float eps) {
   __shared__ float red[8][2 * kMaxCh];
   __shared__ float outs[2][kMaxCh];
   const int i = blockIdx.x;
@@ -334,7 +119,7 @@ final_em_kernel(const float* __restrict__ h, int C,
     const int j = threadIdx.x / kMaxCh, c = threadIdx.x % kMaxCh;
     if (c < ch) {
       v += fb[c];
-      outs[j][c] = 2.f / (1.f + expf(-v)) - 1.f;
+      outs[j][c] = bounded ? 2.f / (1.f + expf(-v)) - 1.f : v;
     }
   }
   __syncthreads();
@@ -359,31 +144,16 @@ final_em_kernel(const float* __restrict__ h, int C,
   }
 }
 
-template <int MODE>
-cudaError_t launch_gemm(const bf16* A, int lda, const bf16* W, int K, int M,
-                        int N, const bf16* bias, bf16* out, int ldo,
-                        float* resid, int ldr, const bf16* gate, int ldg,
-                        int hidden, cudaStream_t st) {
-  dim3 grid((M + kBM - 1) / kBM, N / kBN);
-  gemm_bf16_kernel<MODE><<<grid, 128, 0, st>>>(A, lda, W, K, M, bias, out, ldo,
-                                               resid, ldr, gate, ldg, hidden);
-  return cudaGetLastError();
-}
-
 }  // namespace
-
-#define BD_CHECK(expr)                              \
-  do {                                              \
-    cudaError_t e_ = (expr);                        \
-    if (e_ != cudaSuccess) return static_cast<int>(e_); \
-  } while (0)
 
 // Runs the whole sampler on `stream`. x [half, ch] fp32 holds x0 on entry and
 // the result on return; noise [num_steps, half, ch] fp32; allmods
-// [grid_steps, 2*half, W] bf16; t_host / dt_host are host arrays of
-// grid_steps entries. Weights are stacked per block in the torch Linear
-// layout ([L, out, in]); h (fp32 [R, C]), act (bf16 [R, max(C, H)]) and buf
-// (bf16 [R, max(3C, H)]) are scratch. Returns the first CUDA error, or 0.
+// [grid_steps, 2*half, W] bf16 with W = (num_ada * n_mods + 2) * C, n_mods 6
+// (attention) or 3; t_host / dt_host are host arrays of grid_steps entries.
+// Weights are stacked per block in the torch Linear layout ([L, out, in]);
+// n1, wqkv, bqkv, wo and bo are read only when attention=1. h (fp32 [R, C]),
+// act (bf16 [R, max(C, H)]) and buf (bf16 [R, max(3C, H)]) are scratch.
+// Returns the first CUDA error, or 0.
 extern "C" int bd_fused_em_sample(
     void* x, const void* noise, const void* allmods, int W,
     const float* t_host, const float* dt_host, float cfg, const void* in_w,
@@ -392,13 +162,15 @@ extern "C" int bd_fused_em_sample(
     const void* bo, const void* w1, const void* b1, const void* w2,
     const void* b2, void* h_scratch, void* act_scratch, void* buf_scratch,
     int half, int ch, int C, int H, int num_blocks, int num_steps,
-    int switch_freq, int n_head, int groups, int final_chunk, float last_step,
-    void* stream) {
+    int switch_freq, int n_head, int groups, int attention, int bounded,
+    int final_chunk, float last_step, void* stream) {
   const int R = 2 * half;
-  const int n_mods = 6;
+  const int n_mods = attention ? 6 : 3;
   if (ch > kMaxCh || C % kBN != 0 || C % kBK != 0 || H % kBK != 0 ||
-      (2 * H) % kBN != 0 || C % n_head != 0 || R % groups != 0 ||
-      R / groups > 64 || (C / n_head) % 2)
+      (2 * H) % kBN != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (attention && (C % n_head != 0 || R % groups != 0 || R / groups > 64 ||
+                    (C / n_head) % 2))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float eps = 1e-6f;
@@ -419,17 +191,18 @@ extern "C" int bd_fused_em_sample(
   const bf16* W2 = static_cast<const bf16*>(w2);
   const bf16* B2 = static_cast<const bf16*>(b2);
 
-  const int hd = C / n_head;
-  const int wtok = R / groups;
-  const size_t attn_smem = (size_t)3 * wtok * (hd + 2) * sizeof(bf16) +
-                           (size_t)wtok * wtok * sizeof(float);
+  const int hd = attention ? C / n_head : 0;
+  const int wtok = attention ? R / groups : 0;
+  const size_t attn_smem = window_attention_smem<bf16>(wtok, hd);
   if (attn_smem > 48 * 1024)
-    BD_CHECK(cudaFuncSetAttribute(window_attention_kernel,
+    BD_CHECK(cudaFuncSetAttribute(window_attention_kernel<bf16>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   static_cast<int>(attn_smem)));
-  const float attn_scale = 1.f / sqrtf(static_cast<float>(hd));
+  const float attn_scale = attention ? 1.f / sqrtf(static_cast<float>(hd)) : 0.f;
   const int grid_steps = num_steps + (final_chunk ? 1 : 0);
   const int proj_blocks = static_cast<int>(((size_t)R * C + 255) / 256);
+  // the MLP half's mods: scale, shift, gate after the attention half's three
+  const int mlp = attention ? 3 : 0;
 
   for (int s = 0; s < grid_steps; ++s) {
     const bf16* mods_s = mods + (size_t)s * R * W;
@@ -438,38 +211,58 @@ extern "C" int bd_fused_em_sample(
         static_cast<const float*>(in_b), h, C);
     BD_CHECK(cudaGetLastError());
     for (int l = 0; l < num_blocks; ++l) {
-      // the block's 6 mods: scale1, shift1, gate1, scale2, shift2, gate2
       const bf16* m = mods_s + (size_t)(l / switch_freq) * n_mods * C;
-      ln_modulate_kernel<<<R, 256, 0, st>>>(h, C, N1 + (size_t)l * 2 * C,
-                                            N1 + (size_t)l * 2 * C + C, m, W,
-                                            act, eps);
+      if (attention) {
+        // scale1, shift1, gate1 at m, m + C, m + 2C
+        ln_modulate_kernel<float, false><<<R, 256, 0, st>>>(
+            h, C, N1 + (size_t)l * 2 * C, N1 + (size_t)l * 2 * C + C, m, W,
+            m + C, W, act, eps);
+        BD_CHECK(cudaGetLastError());
+        Epilogue qkv_ep{};
+        qkv_ep.bias = Bqkv + (size_t)l * 3 * C;
+        qkv_ep.out = buf;
+        qkv_ep.ldo = 3 * C;
+        BD_CHECK(launch_gemm<kBiasBf16>(act, C, Wqkv + (size_t)l * 3 * C * C, C,
+                                        R, 3 * C, qkv_ep, st));
+        window_attention_kernel<bf16><<<groups * n_head, 256, attn_smem, st>>>(
+            buf, C, wtok, hd, n_head, attn_scale, act);
+        BD_CHECK(cudaGetLastError());
+        Epilogue o_ep{};
+        o_ep.bias = Bo + (size_t)l * C;
+        o_ep.resid = h;
+        o_ep.ldr = C;
+        o_ep.gate = m + 2 * C;
+        o_ep.ldg = W;
+        BD_CHECK(launch_gemm<kGatedResidual>(act, C, Wo + (size_t)l * C * C, C,
+                                             R, C, o_ep, st));
+      }
+      const bf16* mm = m + (size_t)mlp * C;
+      ln_modulate_kernel<float, false><<<R, 256, 0, st>>>(
+          h, C, N2 + (size_t)l * 2 * C, N2 + (size_t)l * 2 * C + C, mm, W,
+          mm + C, W, act, eps);
       BD_CHECK(cudaGetLastError());
-      BD_CHECK(launch_gemm<kBiasBf16>(act, C, Wqkv + (size_t)l * 3 * C * C, C,
-                                      R, 3 * C, Bqkv + (size_t)l * 3 * C, buf,
-                                      3 * C, nullptr, 0, nullptr, 0, 0, st));
-      window_attention_kernel<<<groups * n_head, 256, attn_smem, st>>>(
-          buf, C, wtok, hd, n_head, attn_scale, act);
-      BD_CHECK(cudaGetLastError());
-      BD_CHECK(launch_gemm<kGatedResidual>(
-          act, C, Wo + (size_t)l * C * C, C, R, C, Bo + (size_t)l * C, nullptr,
-          0, h, C, m + 2 * C, W, 0, st));
-      ln_modulate_kernel<<<R, 256, 0, st>>>(h, C, N2 + (size_t)l * 2 * C,
-                                            N2 + (size_t)l * 2 * C + C,
-                                            m + 3 * (size_t)C, W, act, eps);
-      BD_CHECK(cudaGetLastError());
+      Epilogue glu_ep{};
+      glu_ep.bias = B1 + (size_t)l * 2 * H;
+      glu_ep.out = buf;
+      glu_ep.ldo = H;
+      glu_ep.hidden = H;
       BD_CHECK(launch_gemm<kSwiGLU>(act, C, W1 + (size_t)l * 2 * H * C, C, R,
-                                    2 * H, B1 + (size_t)l * 2 * H, buf, H,
-                                    nullptr, 0, nullptr, 0, H, st));
-      BD_CHECK(launch_gemm<kGatedResidual>(
-          buf, H, W2 + (size_t)l * C * H, H, R, C, B2 + (size_t)l * C, nullptr,
-          0, h, C, m + 5 * (size_t)C, W, 0, st));
+                                    2 * H, glu_ep, st));
+      Epilogue down_ep{};
+      down_ep.bias = B2 + (size_t)l * C;
+      down_ep.resid = h;
+      down_ep.ldr = C;
+      down_ep.gate = mm + 2 * C;
+      down_ep.ldg = W;
+      BD_CHECK(launch_gemm<kGatedResidual>(buf, H, W2 + (size_t)l * C * H, H,
+                                           R, C, down_ep, st));
     }
     const bool stochastic = s < num_steps;
     final_em_kernel<<<half, 256, 0, st>>>(
         h, C, mods_s + (W - 2 * C), W, static_cast<const bf16*>(f_out_w),
         static_cast<const float*>(f_out_b), xf,
         stochastic ? nz + (size_t)s * half * ch : nullptr, half, ch, t_host[s],
-        dt_host[s], cfg, last_step, eps);
+        dt_host[s], cfg, last_step, bounded, eps);
     BD_CHECK(cudaGetLastError());
   }
   return 0;

@@ -1,0 +1,348 @@
+// Building blocks shared by the diffusion head's kernels (fused_head.cu, the
+// whole sampler; fused_block.cu, one head block per call): a bf16
+// tensor-core GEMM with fused epilogues, the LayerNorm + adaLN modulate
+// kernel and window attention.
+//
+// GEMM: mma.sync m16n8k16, fp32 accumulate, 3-stage cp.async pipeline,
+// 64x64 output tiles so that even a narrow product launches many blocks.
+// Weights stay in the torch Linear layout [out, in], which is the k-major B
+// operand mma.sync wants. The m tiles are the fastest grid index, so the
+// blocks that share a weight tile run together and the second read comes
+// from L2. A has any number of rows (the ragged last tile is zero-filled by
+// cp.async and not stored); N must be a multiple of 64 and K of 32.
+#pragma once
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kBM = 64, kBN = 64, kBK = 32, kStages = 3;
+constexpr int kBKP = kBK + 8;  // padded smem row (bf16): conflict-free reads
+
+enum GemmMode {
+  kBiasBf16 = 0,       // out bf16 = acc + bias
+  kGatedResidual = 1,  // resid fp32 += (acc + bias) * gate
+  kSwiGLU = 2,         // out bf16 = silu(bf16(h1)) * bf16(h2), h = acc + bias
+  kSwiGLUF32 = 3,      // out bf16 = silu(h1) * h2 with h1, h2 kept in fp32
+  kBiasF32 = 4,        // out fp32 = acc + bias
+  kGatedResidualBf16 = 5,  // out bf16 = x + (acc + bias) * gate
+};
+
+__host__ __device__ constexpr bool is_swiglu(int mode) {
+  return mode == kSwiGLU || mode == kSwiGLUF32;
+}
+
+// What the epilogue reads and writes; unused fields are ignored by a mode.
+// launch_gemm hands each field to the kernel as its own __restrict__
+// parameter: with the pointers behind a struct the compiler must assume they
+// alias and serialises the epilogue's loads behind its stores (the 14B
+// head's 50-step sample took 290 ms that way, 219 ms with __restrict__).
+struct Epilogue {
+  const bf16* bias;
+  void* out;           // bf16, or fp32 for kBiasF32
+  int ldo;
+  float* resid;        // kGatedResidual
+  int ldr;
+  const bf16* gate;    // gated modes; ldg 0 broadcasts one row
+  int ldg;
+  const bf16* x;       // kGatedResidualBf16: the residual input
+  int ldx;
+  int hidden;          // SwiGLU modes: columns of h1 (h2 follows)
+};
+
+template <int MODE>
+__device__ __forceinline__ int weight_row(int n0, int r, int hidden) {
+  if (is_swiglu(MODE)) {
+    // tile rows come in pairs of 8: [h1 cols c..c+7 | h2 cols c..c+7] ...
+    const int blk8 = r >> 3;
+    const int col = (n0 >> 1) + (blk8 >> 1) * 8 + (r & 7);
+    return (blk8 & 1) ? hidden + col : col;
+  }
+  return n0 + r;
+}
+
+// epilogue(A[M,K] @ W[N,K]^T); A row-major (lda), W torch Linear layout.
+template <int MODE>
+__global__ void __launch_bounds__(128)
+gemm_bf16_kernel(const bf16* __restrict__ A, int lda,
+                 const bf16* __restrict__ W, int K, int M,
+                 const bf16* __restrict__ bias, bf16* __restrict__ out,
+                 float* __restrict__ out_f32, int ldo, float* __restrict__ resid,
+                 int ldr, const bf16* __restrict__ gate, int ldg,
+                 const bf16* __restrict__ xres, int ldx, int hidden) {
+  __shared__ __align__(16) bf16 As[kStages][kBM][kBKP];
+  __shared__ __align__(16) bf16 Bs[kStages][kBN][kBKP];
+
+  const int m0 = blockIdx.x * kBM;
+  const int n0 = blockIdx.y * kBN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wm = warp & 1, wn = warp >> 1;
+
+  auto load_stage = [&](int slot, int kt) {
+    const int k0 = kt * kBK;
+#pragma unroll
+    for (int c = tid; c < kBM * (kBK / 8); c += 128) {
+      const int r = c >> 2, cc = (c & 3) * 8;
+      const int row = m0 + r;
+      const bf16* src = A + (size_t)min(row, M - 1) * lda + k0 + cc;
+      cp_async16(&As[slot][r][cc], src, row < M ? 16 : 0);
+    }
+#pragma unroll
+    for (int c = tid; c < kBN * (kBK / 8); c += 128) {
+      const int r = c >> 2, cc = (c & 3) * 8;
+      const bf16* src =
+          W + (size_t)weight_row<MODE>(n0, r, hidden) * K + k0 + cc;
+      cp_async16(&Bs[slot][r][cc], src, 16);
+    }
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      acc[a][b][0] = acc[a][b][1] = acc[a][b][2] = acc[a][b][3] = 0.f;
+
+  const int KT = K / kBK;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < KT) load_stage(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int pf = kt + kStages - 1;
+    if (pf < KT) load_stage(pf % kStages, pf);
+    cp_async_commit();
+    const int slot = kt % kStages;
+#pragma unroll
+    for (int ks = 0; ks < kBK / 16; ++ks) {
+      const int c = ks * 16 + tq * 2;
+      uint32_t af[2][4], bfr[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int r = wm * 32 + mt * 16 + g;
+        af[mt][0] = lds32(&As[slot][r][c]);
+        af[mt][1] = lds32(&As[slot][r + 8][c]);
+        af[mt][2] = lds32(&As[slot][r][c + 8]);
+        af[mt][3] = lds32(&As[slot][r + 8][c + 8]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int r = wn * 32 + nt * 8 + g;
+        bfr[nt][0] = lds32(&Bs[slot][r][c]);
+        bfr[nt][1] = lds32(&Bs[slot][r][c + 8]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_16816(acc[mt][nt], af[mt], bfr[nt]);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = m0 + wm * 32 + mt * 16 + g + (i >> 1) * 8;
+      if (row >= M) continue;
+      if (is_swiglu(MODE)) {
+#pragma unroll
+        for (int nt = 0; nt < 4; nt += 2) {
+          const int col = (n0 >> 1) + (wn * 2 + nt / 2) * 8 + tq * 2 + (i & 1);
+          float y1 = acc[mt][nt][i] + bf2f(bias[col]);
+          float y2 = acc[mt][nt + 1][i] + bf2f(bias[hidden + col]);
+          if (MODE == kSwiGLU) {
+            y1 = round_bf16(y1);
+            y2 = round_bf16(y2);
+          }
+          const float silu = y1 / (1.f + __expf(-y1));
+          out[(size_t)row * ldo + col] = __float2bfloat16(silu * y2);
+        }
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int col = n0 + wn * 32 + nt * 8 + tq * 2 + (i & 1);
+          const float y = acc[mt][nt][i] + bf2f(bias[col]);
+          if (MODE == kBiasBf16) {
+            out[(size_t)row * ldo + col] = __float2bfloat16(y);
+          } else if (MODE == kBiasF32) {
+            out_f32[(size_t)row * ldo + col] = y;
+          } else if (MODE == kGatedResidual) {
+            resid[(size_t)row * ldr + col] +=
+                y * bf2f(gate[(size_t)row * ldg + col]);
+          } else {  // kGatedResidualBf16
+            const float xv = bf2f(xres[(size_t)row * ldx + col]);
+            out[(size_t)row * ldo + col] =
+                __float2bfloat16(xv + y * bf2f(gate[(size_t)row * ldg + col]));
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int MODE>
+cudaError_t launch_gemm(const bf16* A, int lda, const bf16* W, int K, int M,
+                        int N, const Epilogue& ep, cudaStream_t st) {
+  dim3 grid((M + kBM - 1) / kBM, N / kBN);
+  gemm_bf16_kernel<MODE><<<grid, 128, 0, st>>>(
+      A, lda, W, K, M, ep.bias,
+      MODE == kBiasF32 ? nullptr : static_cast<bf16*>(ep.out),
+      MODE == kBiasF32 ? static_cast<float*>(ep.out) : nullptr, ep.ldo,
+      ep.resid, ep.ldr, ep.gate, ep.ldg, ep.x, ep.ldx, ep.hidden);
+  return cudaGetLastError();
+}
+
+// out[r] = bf16((LN(h[r]) * nw + nb) * (1 + scale[r]) + shift[r]), fp32
+// math; h rows are C apart, scale and shift rows ld_scale / ld_shift apart
+// (0 broadcasts one row). One block per row. TWO_PASS takes the centred
+// variance (the block kernels' LN); otherwise E[x^2] - E[x]^2 (the sampler's).
+template <typename T, bool TWO_PASS>
+__global__ void __launch_bounds__(256)
+ln_modulate_kernel(const T* __restrict__ h, int C,
+                   const bf16* __restrict__ nw, const bf16* __restrict__ nb,
+                   const bf16* __restrict__ scale, int ld_scale,
+                   const bf16* __restrict__ shift, int ld_shift,
+                   bf16* __restrict__ out, float eps) {
+  const int r = blockIdx.x;
+  const T* hr = h + (size_t)r * C;
+  auto val = [&](int i) -> float {
+    if constexpr (sizeof(T) == 4) return hr[i];
+    else return bf2f(hr[i]);
+  };
+  float s = 0.f, ss = 0.f;
+  for (int i = threadIdx.x; i < C; i += blockDim.x) {
+    const float x = val(i);
+    s += x;
+    if (!TWO_PASS) ss += x * x;
+  }
+  block_sum2(s, ss);
+  const float mean = s / C;
+  float var;
+  if (TWO_PASS) {
+    float dd = 0.f, unused = 0.f;
+    for (int i = threadIdx.x; i < C; i += blockDim.x) {
+      const float d = val(i) - mean;
+      dd += d * d;
+    }
+    block_sum2(dd, unused);
+    var = dd / C;
+  } else {
+    var = fmaxf(ss / C - mean * mean, 0.f);
+  }
+  const float rstd = rsqrtf(var + eps);
+  const bf16* sc = scale + (size_t)r * ld_scale;
+  const bf16* sh = shift + (size_t)r * ld_shift;
+  for (int i = threadIdx.x; i < C; i += blockDim.x) {
+    const float ln = (val(i) - mean) * rstd * bf2f(nw[i]) + bf2f(nb[i]);
+    out[(size_t)r * C + i] =
+        __float2bfloat16(ln * (1.f + bf2f(sc[i])) + bf2f(sh[i]));
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ float to_f32(T v) {
+  if constexpr (sizeof(T) == 4) return v;
+  else return bf2f(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v) {
+  if constexpr (sizeof(T) == 4) return v;
+  else return __float2bfloat16(v);
+}
+
+// Row stride of the q, k, v tiles in shared memory: an odd number of 32-bit
+// words, so that the rows fall in distinct banks.
+template <typename T>
+__host__ __device__ constexpr int window_ld(int hd) {
+  return sizeof(T) == 2 ? hd + 2 : hd + 1;
+}
+
+template <typename T>
+size_t window_attention_smem(int w, int hd) {
+  return (size_t)3 * w * window_ld<T>(hd) * sizeof(T) +
+         (size_t)w * w * sizeof(float);
+}
+
+// Window attention over qkv [R, 3C] of type T (column order (3, n_head, hd)):
+// bf16 for the sampler's stage activations, float for the block kernel's qkv,
+// each as its TPU kernel keeps it. One CTA per (group of w rows, head); q is
+// scaled and stored as T; scores, softmax and accumulation in fp32; out
+// [R, C] bf16. Dynamic shared memory: window_attention_smem<T>(w, hd).
+template <typename T>
+__global__ void __launch_bounds__(256)
+window_attention_kernel(const T* __restrict__ qkv, int C, int w, int hd,
+                        int n_head, float scale, bf16* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ldw = window_ld<T>(hd);
+  T* qs = reinterpret_cast<T*>(smem);
+  T* ks = qs + w * ldw;
+  T* vs = ks + w * ldw;
+  float* ps = reinterpret_cast<float*>(vs + w * ldw);
+
+  const int gi = blockIdx.x / n_head, hh = blockIdx.x % n_head;
+  const int row0 = gi * w;
+  const size_t ld = 3 * (size_t)C;
+  for (int idx = threadIdx.x; idx < w * hd; idx += blockDim.x) {
+    const int i = idx / hd, d = idx % hd;
+    const T* src = qkv + (size_t)(row0 + i) * ld + hh * hd + d;
+    qs[i * ldw + d] = from_f32<T>(to_f32(src[0]) * scale);
+    ks[i * ldw + d] = src[C];
+    vs[i * ldw + d] = src[2 * C];
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < w * w; idx += blockDim.x) {
+    const int i = idx / w, j = idx % w;
+    float acc = 0.f;
+    if constexpr (sizeof(T) == 2) {
+      const __nv_bfloat162* qa =
+          reinterpret_cast<const __nv_bfloat162*>(qs + i * ldw);
+      const __nv_bfloat162* ka =
+          reinterpret_cast<const __nv_bfloat162*>(ks + j * ldw);
+      for (int d = 0; d < hd / 2; ++d) {
+        const float2 a = __bfloat1622float2(qa[d]);
+        const float2 b = __bfloat1622float2(ka[d]);
+        acc += a.x * b.x + a.y * b.y;
+      }
+    } else {
+      for (int d = 0; d < hd; ++d) acc += qs[i * ldw + d] * ks[j * ldw + d];
+    }
+    ps[idx] = acc;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = warp; i < w; i += blockDim.x >> 5) {
+    float m = -INFINITY;
+    for (int j = lane; j < w; j += 32) m = fmaxf(m, ps[i * w + j]);
+    m = warp_max(m);
+    float sum = 0.f;
+    for (int j = lane; j < w; j += 32) {
+      const float e = expf(ps[i * w + j] - m);
+      ps[i * w + j] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    const float inv = 1.f / sum;
+    for (int j = lane; j < w; j += 32) ps[i * w + j] *= inv;
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < w * hd; idx += blockDim.x) {
+    const int i = idx / hd, d = idx % hd;
+    float acc = 0.f;
+    for (int j = 0; j < w; ++j) acc += ps[i * w + j] * to_f32(vs[j * ldw + d]);
+    out[(size_t)(row0 + i) * C + hh * hd + d] = __float2bfloat16(acc);
+  }
+}
+
+}  // namespace
+
+#define BD_CHECK(expr)                                  \
+  do {                                                  \
+    cudaError_t e_ = (expr);                            \
+    if (e_ != cudaSuccess) return static_cast<int>(e_); \
+  } while (0)

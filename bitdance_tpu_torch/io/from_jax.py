@@ -9,7 +9,9 @@ and ``convert_imagenet_ar_state``:
     module paths back to the reference's dotted names; Dense kernels
     [in, out] become [out, in] and conv kernels HWIO become OIHW;
   - a whole ImageNet training state (params and EMA, each {"ar", "head"})
-    loads into the port's TrainState.
+    loads into the port's TrainState;
+  - an ImageNet sampling tree (backbone, head, VQ decoder) becomes the
+    port's ImageNetSampler.
 Leaves may be numpy arrays or anything ``np.asarray`` accepts.
 """
 
@@ -168,3 +170,32 @@ def load_into(module: nn.Module, state: Mapping[str, np.ndarray]) -> nn.Module:
                 raise ValueError(f"{k}: shape {tuple(src.shape)} != {tuple(t.shape)}")
             t.copy_(src.to(dtype=t.dtype))
     return module
+
+
+def imagenet_sampler_from_jax(cfg, params: Mapping, head_params: Mapping,
+                              ae_params: Mapping | None, *,
+                              ddconfig: dict | None = None, device=None,
+                              dtype: torch.dtype = torch.float32):
+    """A JAX ImageNet sampling tree -> the port's ImageNetSampler on
+    ``device``: the stacked backbone params (with ``query_token`` for Nx
+    models), the flax head params (the MlpEncoder for 1x, the TransEncoder
+    at head dim 64 for Nx) and the flax VQModel params (decoder keys; None
+    leaves ``ae`` unset). The head's sampler stack is built here, so the
+    head's block weights become views into it."""
+    from bitdance_tpu_torch.io.random_init import IMAGENET_TOKENIZER
+    from bitdance_tpu_torch.models.imagenet_ar import (
+        ImageNetAR,
+        ImageNetSampler,
+        make_head,
+    )
+    from bitdance_tpu_torch.models.tokenizer import VQModel
+
+    kw = dict(device=device, dtype=dtype)
+    model = load_into(ImageNetAR(cfg, **kw), imagenet_ar_state_from_jax(params))
+    head = load_into(make_head(cfg, **kw), flax_state_from_jax(head_params))
+    ae = None
+    if ae_params is not None:
+        ae = load_into(VQModel(ddconfig or IMAGENET_TOKENIZER, **kw),
+                       flax_state_from_jax(ae_params)).eval()
+    return ImageNetSampler(cfg=cfg, model=model.eval(), head=head.eval(),
+                           head_stacked=head._stack_for_sampler(), ae=ae)

@@ -1,8 +1,8 @@
 """Random-init models made directly on a device (no weights ship with the
 repository): the T2I bundle (counterpart of the bundle building in
-benchmarks/bench_t2i.py) and the ImageNet training state with its tokenizer
-encoder. One deliberate difference from the reference: EVERY head weight is
-drawn non-zero, including the adaLN and final-layer projections that the
+benchmarks/bench_t2i.py), the ImageNet training state with its tokenizer
+encoder, and the ImageNet class-conditional sampler. One deliberate
+difference from the reference: EVERY head weight is drawn non-zero, including the adaLN and final-layer projections that the
 reference initialises to zero. With zero adaLN all gates are 0 and the
 head's blocks add nothing; with a zero final layer the loss has no gradient
 into the backbone, so a training step's backward would run on zeros.
@@ -14,7 +14,13 @@ import torch
 
 from bitdance_tpu_torch.models.connector import MLPConnector
 from bitdance_tpu_torch.models.diff_head import DiffHead
-from bitdance_tpu_torch.models.imagenet_ar import ImageNetARConfig
+from bitdance_tpu_torch.models.imagenet_ar import (
+    ImageNetAR,
+    ImageNetARConfig,
+    ImageNetSampler,
+    head_kwargs,
+    init_ar_params,
+)
 from bitdance_tpu_torch.models.qwen3 import Qwen3Config, init_qwen3
 from bitdance_tpu_torch.models.tokenizer import VQModel, init_vq
 from bitdance_tpu_torch.pipelines.t2i import T2IModelBundle
@@ -140,3 +146,23 @@ def build_random_tokenizer_encoder(device, dtype: torch.dtype = torch.float32,
     gen = torch.Generator(device=device).manual_seed(seed)
     return init_vq(ddconfig or IMAGENET_TOKENIZER, device, dtype, gen,
                    encoder=True, decoder=False)
+
+
+def build_random_imagenet_sampler(cfg: ImageNetARConfig, device,
+                                  dtype: torch.dtype = torch.bfloat16,
+                                  seed: int = 0) -> ImageNetSampler:
+    """An ImageNet class-conditional sampler on ``device`` from ``seed``:
+    the backbone as the JAX package initialises it (matrices and tables
+    N(0, 0.02), biases 0, norm gains 1), the head as :func:`init_head`
+    draws it (fan-in scaled, every weight non-zero, adaLN and final layer
+    included) with its sampler stack, and the frozen z-16 VQ decoder."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.device("meta"):
+        model = ImageNetAR(cfg, dtype=dtype)
+    model = init_ar_params(model.to_empty(device=device), gen)
+    model = model.eval().requires_grad_(False)
+    head = init_head(head_kwargs(cfg), device, dtype, gen)
+    stacked = head._stack_for_sampler()
+    ae = init_vq(IMAGENET_TOKENIZER, device, dtype, gen)
+    return ImageNetSampler(cfg=cfg, model=model, head=head,
+                           head_stacked=stacked, ae=ae)

@@ -1,13 +1,20 @@
 """Binary diffusion heads (port of bitdance_tpu/models/diff_head.py).
 
 Two net families, as in the JAX package:
-  - TransEncoder (the text-to-image head): window attention over the
-    parallel_num tokens, 6 shared adaLN mods per block, bounded output.
-    Serving runs it only through the stacked whole-sampler path
-    (:func:`_run_fused_sample` -> ops/fused_head.py).
+  - TransEncoder (the text-to-image head and the ImageNet Nx heads): window
+    attention over the parallel_num tokens, 6 shared adaLN mods per block,
+    bounded output unless ``bounded_output`` says otherwise.
   - MlpEncoder (the ImageNet 1x head): per-token SwiGLU residual blocks,
-    3 shared adaLN mods per block, unbounded output. :meth:`DiffNet.forward`
-    runs it for the flow-matching training loss (:meth:`DiffHead.forward`).
+    3 shared adaLN mods per block, unbounded output.
+:meth:`DiffNet.forward` runs either per call: with ``train=True`` (the
+flow-matching loss, :meth:`DiffHead.forward`) on plain modules, and at
+inference through the head-block kernels (ops/fused_block.py: one
+``fused_attn_block`` and one ``fused_mlp_block`` per TransBlock, one
+``fused_mlp_block`` per MlpResBlock), as the JAX package takes its Pallas
+blocks only when not training. :meth:`DiffHead.sample` sends guided
+sampling (cfg_mult 2) to the whole-sampler kernel (:func:`_run_fused_sample`
+-> ops/fused_head.py) and anything else to the per-call
+:func:`~bitdance_tpu_torch.models.sampling.euler_maruyama`.
 
 The modules hold the parameters under the reference's state-dict names
 (``net.input_proj``, ``net.time_embed.mlp.0``, ``net.res_blocks.{i}.attn.wqkv``
@@ -27,13 +34,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bitdance_tpu_torch.models.sampling import time_shift
-from bitdance_tpu_torch.ops.norms import layer_norm
+from bitdance_tpu_torch.models.sampling import euler_maruyama, time_shift
+from bitdance_tpu_torch.ops.fused_block import fused_attn_block, fused_mlp_block
 from bitdance_tpu_torch.ops.fused_head import (
     em_precompute,
     fused_em_sample,
     stack_diffnet_params,
 )
+from bitdance_tpu_torch.ops.norms import layer_norm
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0,
@@ -52,24 +60,66 @@ def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0,
 
 
 class WindowAttention(nn.Module):
-    def __init__(self, dim: int, device=None, dtype=None):
+    """Non-causal attention over the parallel window, fp32 softmax."""
+
+    def __init__(self, dim: int, n_head: int, device=None, dtype=None):
         super().__init__()
+        self.n_head = n_head
         self.wqkv = nn.Linear(dim, 3 * dim, device=device, dtype=dtype)
         self.wo = nn.Linear(dim, dim, device=device, dtype=dtype)
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, n, dim = x.shape
+        hd = dim // self.n_head
+        q, k, v = (t.reshape(b, n, self.n_head, hd).float()
+                   for t in self.wqkv(x).chunk(3, dim=-1))
+        s = torch.einsum("bqhd,bkhd->bhqk", q * hd ** -0.5, k)
+        o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
+        return self.wo(o.reshape(b, n, dim).to(x.dtype))
+
+
+def _swiglu_half(blk, norm: nn.LayerNorm, x: torch.Tensor, scale, shift, gate,
+                 train: bool) -> torch.Tensor:
+    """x + w2(silu(h1) * h2) * gate with h = LN(x) * (1 + scale) + shift:
+    plain modules in training, the fused_mlp_block kernel otherwise."""
+    if train:
+        h = layer_norm(x, norm.weight, norm.bias) * (1 + scale) + shift
+        h1, h2 = blk.w1(h).chunk(2, dim=-1)
+        return x + blk.w2(F.silu(h1) * h2) * gate
+    c = x.shape[-1]
+    rows = lambda t: t.reshape(-1, c)  # noqa: E731
+    return fused_mlp_block(
+        rows(x), rows(scale), rows(shift), rows(gate), norm.weight, norm.bias,
+        blk.w1.weight, blk.w1.bias, blk.w2.weight, blk.w2.bias,
+    ).reshape(x.shape)
+
 
 class TransBlock(nn.Module):
-    """adaLN window-attention + SwiGLU block (parameters only)."""
+    """adaLN window-attention + SwiGLU block (6 mods) over [G, W, C] groups
+    of window tokens."""
 
-    def __init__(self, channels: int, device=None, dtype=None):
+    def __init__(self, channels: int, n_head: int, device=None, dtype=None):
         super().__init__()
         hidden = int(channels * 1.5)
         kw = dict(device=device, dtype=dtype)
         self.norm1 = nn.LayerNorm(channels, eps=1e-6, **kw)
-        self.attn = WindowAttention(channels, **kw)
+        self.attn = WindowAttention(channels, n_head, **kw)
         self.norm2 = nn.LayerNorm(channels, eps=1e-6, **kw)
         self.w1 = nn.Linear(channels, 2 * hidden, **kw)
         self.w2 = nn.Linear(hidden, channels, **kw)
+
+    def forward(self, x: torch.Tensor, mods, train: bool = False) -> torch.Tensor:
+        scale1, shift1, gate1, scale2, shift2, gate2 = mods
+        if train:
+            h = layer_norm(x, self.norm1.weight, self.norm1.bias) \
+                * (1 + scale1) + shift1
+            x = x + self.attn(h) * gate1
+        else:
+            a = self.attn
+            x = fused_attn_block(x, scale1, shift1, gate1, self.norm1.weight,
+                                 self.norm1.bias, a.wqkv.weight, a.wqkv.bias,
+                                 a.wo.weight, a.wo.bias, a.n_head)
+        return _swiglu_half(self, self.norm2, x, scale2, shift2, gate2, train)
 
 
 class MlpResBlock(nn.Module):
@@ -84,11 +134,8 @@ class MlpResBlock(nn.Module):
         self.w1 = nn.Linear(channels, 2 * hidden, **kw)
         self.w2 = nn.Linear(hidden, channels, **kw)
 
-    def forward(self, x: torch.Tensor, mods) -> torch.Tensor:
-        scale, shift, gate = mods
-        h = layer_norm(x, self.norm.weight, self.norm.bias) * (1 + scale) + shift
-        h1, h2 = self.w1(h).chunk(2, dim=-1)
-        return x + self.w2(F.silu(h1) * h2) * gate
+    def forward(self, x: torch.Tensor, mods, train: bool = False) -> torch.Tensor:
+        return _swiglu_half(self, self.norm, x, *mods, train)
 
 
 class FinalLayer(nn.Module):
@@ -123,41 +170,46 @@ class DiffNet(nn.Module):
     ada_ln_blocks (shared adaLN, switched every num_res_blocks /
     num_ada_ln_blocks blocks), final_layer.
 
-    attention=True  -> TransEncoder (6 mods per block, bounded output;
-                       parameters only here)
-    attention=False -> MlpEncoder (3 mods per block, unbounded output;
-                       :meth:`forward`)
+    attention=True  -> TransEncoder (6 mods per block, bounded output)
+    attention=False -> MlpEncoder (3 mods per block, unbounded output)
+    bounded_output=None means "bounded iff attention".
     """
 
     def __init__(self, in_channels: int, model_channels: int, z_channels: int,
                  num_res_blocks: int, num_ada_ln_blocks: int = 2,
-                 attention: bool = True, device=None, dtype=None):
+                 attention: bool = True, bounded_output: bool | None = None,
+                 attn_head_dim: int = 128, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         c = model_channels
         self.attention = attention
+        self.bounded = attention if bounded_output is None else bounded_output
         self.n_mods = 6 if attention else 3
         self.input_proj = nn.Linear(in_channels, c, **kw)
         self.time_embed = TimestepEmbedder(c, **kw)
         self.cond_embed = nn.Linear(z_channels, c, **kw)
-        block = TransBlock if attention else MlpResBlock
-        self.res_blocks = nn.ModuleList(
-            [block(c, **kw) for _ in range(num_res_blocks)])
+        if attention:
+            blocks = [TransBlock(c, c // attn_head_dim, **kw)
+                      for _ in range(num_res_blocks)]
+        else:
+            blocks = [MlpResBlock(c, **kw) for _ in range(num_res_blocks)]
+        self.res_blocks = nn.ModuleList(blocks)
         self.ada_ln_blocks = nn.ModuleList(
             [nn.Linear(c, self.n_mods * c, **kw) for _ in range(num_ada_ln_blocks)])
         self.final_layer = FinalLayer(c, in_channels, **kw)
 
-    def forward(self, x: torch.Tensor, t: torch.Tensor,
-                c: torch.Tensor) -> torch.Tensor:
-        """MlpEncoder: x noisy latents [N, C_in]; t: [N]; c: conditioning
-        [N, z]. Computes in the weights' dtype; returns x's dtype."""
-        if self.attention:
-            raise NotImplementedError(
-                "the TransEncoder head's per-call forward is not ported yet; "
-                "the port samples it through ops/fused_head.py")
+    def forward(self, x: torch.Tensor, t: torch.Tensor, c: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
+        """x noisy latents, t [N], c conditioning: [N, C_in] / [N, z] for the
+        MlpEncoder, [G, W, C_in] / [G, W, z] (groups of window tokens) for
+        the TransEncoder. Computes in the weights' dtype; returns x's dtype.
+        ``train`` keeps the plain modules (the kernels have no backward)."""
         dt = self.input_proj.weight.dtype
         h = self.input_proj(x.to(dt))
-        y = F.silu(self.time_embed(t) + self.cond_embed(c.to(dt)))
+        t_emb = self.time_embed(t)
+        if x.ndim == 3:
+            t_emb = t_emb[:, None, :]
+        y = F.silu(t_emb + self.cond_embed(c.to(dt)))
         n_blocks, n_ada = len(self.res_blocks), len(self.ada_ln_blocks)
         switch_freq = max(1, n_blocks // n_ada)
         assert n_blocks % switch_freq == 0
@@ -165,8 +217,11 @@ class DiffNet(nn.Module):
         for i, blk in enumerate(self.res_blocks):
             if i > 0 and i % switch_freq == 0:
                 mods = self.ada_ln_blocks[i // switch_freq](y).chunk(self.n_mods, dim=-1)
-            h = blk(h, mods)
-        return self.final_layer(h, y).to(x.dtype)
+            h = blk(h, mods, train)
+        out = self.final_layer(h, y)
+        if self.bounded:
+            out = 2.0 * torch.sigmoid(out.float()) - 1.0
+        return out.to(x.dtype)
 
 
 def draw_sampler_noise(generator: torch.Generator, half: int, ch: int,
@@ -179,14 +234,15 @@ def draw_sampler_noise(generator: torch.Generator, half: int, ch: int,
 
 
 class DiffHead(nn.Module):
-    """Flow-matching x-prediction head: training loss (:meth:`forward`) and,
-    for the TransEncoder, sampling with CFG by Euler-Maruyama."""
+    """Flow-matching x-prediction head: training loss (:meth:`forward`) and
+    sampling with CFG by Euler-Maruyama (:meth:`sample`)."""
 
     def __init__(self, ch_target: int, ch_cond: int, ch_latent: int,
                  depth_latent: int, depth_adanln: int, parallel_num: int = 4,
                  use_swiglu: bool = True, attention: bool = True,
                  P_mean: float = 0.0, P_std: float = 1.0,
                  time_shift: float = 1.0, time_schedule: str = "logit_normal",
+                 bounded_output: bool | None = None,
                  attn_head_dim: int = 128, device=None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -201,9 +257,16 @@ class DiffHead(nn.Module):
         self.time_shift = time_shift
         self.time_schedule = time_schedule
         self.attn_head_dim = attn_head_dim
+        self.attention = attention
         self.net = DiffNet(ch_target, ch_latent, ch_cond, depth_latent,
-                           depth_adanln, attention=attention, device=device,
+                           depth_adanln, attention=attention,
+                           bounded_output=bounded_output,
+                           attn_head_dim=attn_head_dim, device=device,
                            dtype=dtype)
+
+    @property
+    def bounded(self) -> bool:
+        return self.net.bounded
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -230,9 +293,47 @@ class DiffHead(nn.Module):
         z = (1.0 - ti) * e + ti * xf
         denom = (1.0 - ti).clamp_min(0.05)
         v = (xf - z) / denom
-        x_pred = self.net(z.to(self.net.input_proj.weight.dtype), t, cond)
+        x_pred = self.net(z.to(self.net.input_proj.weight.dtype), t, cond,
+                          train=True)
         v_pred = (x_pred.float() - z) / denom
         return (v - v_pred).square().mean()
+
+    @torch.no_grad()
+    def sample(self, cond: torch.Tensor, generator: torch.Generator | None,
+               cfg: float, num_sampling_steps: int, cfg_mult: int,
+               stacked: dict | None = None) -> torch.Tensor:
+        """Euler-Maruyama sampling conditioned on ``cond`` (rows [cond;
+        uncond] when cfg_mult is 2).
+
+        cfg_mult 2 runs the whole-sampler kernel (:func:`_run_fused_sample`)
+        on ``stacked`` (stacked here when not given); anything else runs the
+        per-call :func:`euler_maruyama` over :meth:`DiffNet.forward`, whose
+        blocks are the head-block kernels. Both draw x0 and the per-step
+        noise through :func:`draw_sampler_noise`."""
+        if cfg_mult == 2:
+            if stacked is None:
+                stacked = self._stack_for_sampler()
+            return _run_fused_sample(self, stacked, cond, generator, cfg,
+                                     num_sampling_steps)
+        return self.sample_per_call(cond, generator, cfg, num_sampling_steps,
+                                    cfg_mult)
+
+    @torch.no_grad()
+    def sample_per_call(self, cond: torch.Tensor,
+                        generator: torch.Generator | None, cfg: float,
+                        num_sampling_steps: int, cfg_mult: int) -> torch.Tensor:
+        """:func:`euler_maruyama` over the per-call net forward, any
+        cfg_mult, with the whole sampler's draws (same generator, same
+        values in the same row order)."""
+        x_shape = [cond.shape[0] // cfg_mult, *cond.shape[1:-1], self.ch_target]
+        half = math.prod(x_shape[:-1])
+        x0, noise = draw_sampler_noise(generator, half, self.ch_target,
+                                       num_sampling_steps, cond.device)
+        return euler_maruyama(
+            self.net, cond, None, self.ch_target, cfg=cfg, cfg_mult=cfg_mult,
+            num_sampling_steps=num_sampling_steps, flow_shift=self.time_shift,
+            x_init=x0.reshape(x_shape),
+            noise=noise.reshape(num_sampling_steps, *x_shape))
 
     def _stack_for_sampler(self) -> dict:
         """The sampler's stacked weights. Afterwards the module's block and
@@ -251,12 +352,15 @@ def _share_stacked_storage(net: DiffNet, num_blocks: int, stacked: dict) -> None
     slices of ``stacked`` (same values and dtype), freeing their own copies."""
     pairs = []
     for i, b in enumerate(net.res_blocks[:num_blocks]):
-        pairs += [(b.norm1.weight, stacked["n1"][i, 0]),
-                  (b.norm1.bias, stacked["n1"][i, 1]),
-                  (b.norm2.weight, stacked["n2"][i, 0]),
-                  (b.norm2.bias, stacked["n2"][i, 1])]
-        for lin, key in ((b.attn.wqkv, "qkv"), (b.attn.wo, "o"), (b.w1, "1"),
-                         (b.w2, "2")):
+        linears = [(b.w1, "1"), (b.w2, "2")]
+        norm2 = b.norm2 if net.attention else b.norm
+        pairs += [(norm2.weight, stacked["n2"][i, 0]),
+                  (norm2.bias, stacked["n2"][i, 1])]
+        if net.attention:
+            pairs += [(b.norm1.weight, stacked["n1"][i, 0]),
+                      (b.norm1.bias, stacked["n1"][i, 1])]
+            linears += [(b.attn.wqkv, "qkv"), (b.attn.wo, "o")]
+        for lin, key in linears:
             pairs += [(lin.weight, stacked["w" + key][i]),
                       (lin.bias, stacked["b" + key][i])]
     row = 0
@@ -271,14 +375,20 @@ def _share_stacked_storage(net: DiffNet, num_blocks: int, stacked: dict) -> None
 def _run_fused_sample(head: DiffHead, stacked: dict, cond: torch.Tensor,
                       generator: torch.Generator, cfg: float,
                       num_sampling_steps: int) -> torch.Tensor:
-    """Whole-sampler invocation from pre-stacked weights.
+    """Whole-sampler invocation from pre-stacked weights. cond is [G, W, z]
+    (TransEncoder: G = 2n groups of W window tokens; returns [n, W, ch]) or
+    [R, z] (MlpEncoder: R = 2n independent rows, one group; returns
+    [n, ch]).
 
-    The mods of all 51 timesteps are precomputed in one product per AR step
+    The mods of all timesteps are precomputed in one product per AR step
     ([51, 128, 71680] bf16 per image at the 14B head, 0.9 GB), which fits the
     card, so the step-chunking the JAX package needs for a 16 GB chip is not
     used here (fused_em_sample still supports final_chunk=False)."""
-    g_all, w, _ = cond.shape
-    rows = g_all * w
+    if head.attention:
+        g_all, w, _ = cond.shape
+    else:
+        g_all, w = 1, cond.shape[0]
+    rows = g_all * w if head.attention else cond.shape[0]
     half = rows // 2
     last_step = 0.05
     # c_emb in fp32 (cond_w upcast), as the JAX package computes it
@@ -295,5 +405,24 @@ def _run_fused_sample(head: DiffHead, stacked: dict, cond: torch.Tensor,
         stacked, x0, noise, allmods, t_all, dt_all, cfg,
         num_blocks=head.depth_latent, num_ada=head.depth_adanln,
         n_head=head.ch_latent // head.attn_head_dim, groups=g_all,
+        attention=head.attention, bounded=head.bounded,
         last_step_size=last_step)
-    return out.reshape(g_all // 2, w, head.ch_target)
+    if head.attention:
+        return out.reshape(g_all // 2, w, head.ch_target)
+    return out
+
+
+def make_fused_sampler(head: DiffHead, stacked: dict | None = None):
+    """A sampling closure over weights stacked once, outside the AR loop
+    (here, when ``stacked`` is not given).
+
+    sample_fn(cond, generator, cfg, num_sampling_steps, cfg_mult) ->
+    latents, by :meth:`DiffHead.sample`."""
+    if stacked is None:
+        stacked = head._stack_for_sampler()
+
+    def sample_fn(cond, generator, cfg, num_sampling_steps, cfg_mult):
+        return head.sample(cond, generator, cfg, num_sampling_steps,
+                           cfg_mult=cfg_mult, stacked=stacked)
+
+    return sample_fn

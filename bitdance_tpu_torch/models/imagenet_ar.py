@@ -1,7 +1,7 @@
-"""ImageNet class-conditional AR models, training forward (port of
-bitdance_tpu/models/imagenet_ar.py: configs, make_head, proj_in,
-freqs_cis_table, train_ids, _attn_full, ar_backbone, forward_train,
-grid_to_tokens / tokens_to_grid).
+"""ImageNet class-conditional AR models: training forward and KV-cached
+sampling (port of bitdance_tpu/models/imagenet_ar.py: configs, make_head,
+proj_in, freqs_cis_table, train_ids, _attn_full, ar_backbone, forward_train,
+_init_cache, _forward_cached, sample, grid_to_tokens / tokens_to_grid).
 
 Llama-style pre-RMSNorm blocks with fused QKV, paired 2D RoPE over patch
 centres, SwiGLU FFN, class-embedding prefix tokens, learned query tokens for
@@ -9,9 +9,12 @@ parallel prediction, and a flow-matching diffusion head. The module keeps the
 reference state-dict names that
 ``bitdance_tpu/io/torch_import.py::convert_imagenet_ar_state`` reads
 (``cls_embedding.weight``, ``layers.{i}.attention.wqkv.weight`` ...), one
-module per layer where the JAX package stacks them. Attention goes through
-``ops/attention.py::masked_attention``: the flash kernels on the card.
-Sampling and its KV cache are not ported yet.
+module per layer where the JAX package stacks them. Training attention goes
+through ``ops/attention.py::masked_attention``: the flash kernels on the
+card. Sampling attention is plain torch (``attention_xla``), as it is plain
+XLA in the JAX package; the head samples through DiffHead.sample (the
+whole-sampler kernel when guided, the head-block kernels per call when not).
+The int8 KV cache and ``quantize_ar_params`` are not ported.
 """
 
 from __future__ import annotations
@@ -19,13 +22,14 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from bitdance_tpu_torch.models.diff_head import DiffHead
-from bitdance_tpu_torch.ops.attention import masked_attention
+from bitdance_tpu_torch.models.diff_head import DiffHead, make_fused_sampler
+from bitdance_tpu_torch.ops.attention import attention_xla, masked_attention
 from bitdance_tpu_torch.ops.norms import rms_norm
 from bitdance_tpu_torch.ops.quantize import flip_bits_uniform_prob
 from bitdance_tpu_torch.ops.rotary import (
@@ -33,6 +37,7 @@ from bitdance_tpu_torch.ops.rotary import (
     patch_center_coords_2d,
     rope_table_2d,
 )
+from bitdance_tpu_torch.utils.timing import PhaseTimer
 
 
 def find_multiple(n: int, k: int) -> int:
@@ -123,17 +128,23 @@ IMAGENET_MODELS = {"BitDance-B": config_b, "BitDance-L": config_l,
                    "BitDance-H": config_h, "BitDance-S": config_s}
 
 
-def make_head(cfg: ImageNetARConfig, device=None,
-              dtype: torch.dtype = torch.float32) -> DiffHead:
-    """The diffusion head: MlpEncoder for 1x, TransEncoder for Nx."""
+def head_kwargs(cfg: ImageNetARConfig) -> dict:
+    """DiffHead arguments of the model's head: MlpEncoder for 1x,
+    TransEncoder (SwiGLU, head dim 64) for Nx; both unbounded."""
     parallel = cfg.parallel_num > 1
-    return DiffHead(
+    return dict(
         ch_target=cfg.token_dim, ch_cond=cfg.dim, ch_latent=cfg.diff_dim,
         depth_latent=cfg.diff_layers, depth_adanln=cfg.diff_adanln_layers,
         time_shift=cfg.time_shift, time_schedule=cfg.time_schedule,
         P_mean=cfg.P_mean, P_std=cfg.P_std, parallel_num=cfg.parallel_num,
-        use_swiglu=parallel, attention=parallel, attn_head_dim=64,
-        device=device, dtype=dtype)
+        use_swiglu=parallel, attention=parallel, bounded_output=False,
+        attn_head_dim=64)
+
+
+def make_head(cfg: ImageNetARConfig, device=None,
+              dtype: torch.dtype = torch.float32) -> DiffHead:
+    """The diffusion head: MlpEncoder for 1x, TransEncoder for Nx."""
+    return DiffHead(**head_kwargs(cfg), device=device, dtype=dtype)
 
 
 class _Weight(nn.Module):
@@ -359,3 +370,182 @@ def grid_to_tokens(cfg: ImageNetARConfig, latents: torch.Tensor) -> torch.Tensor
     p = cfg.patch_size
     x = latents.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 5, 2, 4)
     return x.reshape(b, (h // p) * (w // p), c * p * p)
+
+
+# ---------------------------------------------------------------------------
+# KV-cached sampling
+# ---------------------------------------------------------------------------
+
+def _init_cache(cfg: ImageNetARConfig, batch: int, dtype=torch.float32,
+                device=None) -> dict:
+    """k/v buffers [L, B, prefix_len + num_tokens, H, D] (bf16 or fp32; the
+    int8 cache of the JAX package is not ported)."""
+    total = cfg.prefix_len + cfg.num_tokens
+    shape = (cfg.n_layer, batch, total, cfg.n_head, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _forward_cached(model: ImageNetAR, cfg: ImageNetARConfig, x: torch.Tensor,
+                    freqs_slice: torch.Tensor, cache: dict, cache_len: int,
+                    causal_block: bool) -> tuple[torch.Tensor, dict]:
+    """Cached forward of s new tokens at positions cache_len.. (written into
+    ``cache`` in place). causal_block: each new token sees the keys up to
+    itself (prefill); otherwise the new tokens see every cached key and each
+    other (a decode window). Attention reads only the live prefix
+    [:cache_len + s]; the JAX package reads a static window whose dead tail
+    is masked out, which gives the same result."""
+    b, s, _ = x.shape
+    nh, hd = cfg.n_head, cfg.head_dim
+    end = cache_len + s
+    mask = None
+    if causal_block:
+        q_abs = cache_len + torch.arange(s, device=x.device)
+        mask = (torch.arange(end, device=x.device)[None, :]
+                <= q_abs[:, None])[None, None]
+    x = rms_norm(x, model.emb_norm.weight)
+    for li, layer in enumerate(model.layers):
+        h = rms_norm(x, layer.attention_norm.weight)
+        q, k, v = layer.attention.wqkv(h).split(cfg.dim, dim=-1)
+        q = apply_rope_paired(q.reshape(b, s, nh, hd), freqs_slice)
+        cache["k"][li, :, cache_len:end] = apply_rope_paired(
+            k.reshape(b, s, nh, hd), freqs_slice)
+        cache["v"][li, :, cache_len:end] = v.reshape(b, s, nh, hd)
+        attn = attention_xla(q, cache["k"][li, :, :end], cache["v"][li, :, :end],
+                             mask)
+        x = x + layer.attention.wo(attn.to(x.dtype).reshape(b, s, -1))
+        h = rms_norm(x, layer.ffn_norm.weight)
+        h1, h2 = layer.feed_forward.w1(h).chunk(2, dim=-1)
+        x = x + layer.feed_forward.w2(F.silu(h1) * h2)
+    return rms_norm(x, model.norm.weight), cache
+
+
+def sample_freqs(cfg: ImageNetARConfig, device=None) -> torch.Tensor:
+    """RoPE table of the whole sampled sequence [prefix_len + num_tokens,
+    head_dim // 2, 2] (ps-raster order for parallel_num > 1)."""
+    coords = patch_center_coords_2d(cfg.resolution, cfg.down_size * cfg.patch_size,
+                                    device=device)
+    freqs = rope_table_2d(coords, cfg.head_dim, cls_token_num=cfg.prefix_len)
+    p = cfg.parallel_num
+    if p > 1:
+        ps = int(math.isqrt(p))
+        patch = freqs[cfg.prefix_len:]
+        hh, ww = cfg.h // ps, cfg.w // ps
+        patch = patch.reshape(hh, ps, ww, ps, *patch.shape[1:])
+        patch = patch.permute(0, 2, 1, 3, 4, 5).reshape(cfg.num_tokens,
+                                                        *freqs.shape[1:])
+        freqs = torch.cat([freqs[: cfg.prefix_len], patch], dim=0)
+    return freqs
+
+
+def _sign(pred: torch.Tensor) -> torch.Tensor:
+    """sign with 0 -> +1."""
+    s = torch.sign(pred)
+    return torch.where(s == 0, torch.ones_like(s), s)
+
+
+@torch.no_grad()
+def sample(model: ImageNetAR, head: DiffHead, cfg: ImageNetARConfig,
+           class_ids: torch.Tensor, generator: torch.Generator | None,
+           num_sampling_steps: int = 100, cfg_scale: float = 1.0,
+           cfg_schedule: str = "linear", head_sampler=None,
+           timing: dict | None = None) -> torch.Tensor:
+    """Generate ±1 latent tokens [n, num_tokens, token_dim] for class_ids [n].
+
+    cfg_scale > 1 samples rows [cond; null class] with guidance growing
+    linearly over the AR steps (cfg_schedule "linear"), and the head runs
+    the whole-sampler kernel; cfg_scale 1 samples the n rows alone, the head
+    per call. ``head_sampler`` is a :func:`make_fused_sampler` closure (pass
+    one over the head's stacked weights to stack them once for many
+    batches; the default stacks them here) or a function of the same
+    signature. The head draws from ``generator`` once per AR step. With a
+    ``timing`` dict, its keys prefill, decode (the backbone's AR steps) and
+    sampler are set to seconds (CUDA events on the card).
+
+    Decode steps feed the sampled tokens back through proj_in in the
+    weights' dtype (the JAX package promotes them to fp32 there)."""
+    dev = class_ids.device
+    use_cfg = cfg_scale > 1.0
+    cfg_mult = 2 if use_cfg else 1
+    cond = (torch.cat([class_ids, torch.full_like(class_ids, cfg.num_classes)])
+            if use_cfg else class_ids)
+    b2, n, p = cond.shape[0], class_ids.shape[0], cfg.parallel_num
+    num_steps = cfg.num_tokens // p
+    seq_len = num_steps if p > 1 else cfg.num_tokens
+    freqs = sample_freqs(cfg, device=dev)
+    c = model.cls_embedding(cond).reshape(b2, cfg.cls_token_num, cfg.dim)
+    dtype = c.dtype
+    cache = _init_cache(cfg, b2, dtype=dtype, device=dev)
+    sampler = head_sampler or make_fused_sampler(head)
+    phase = PhaseTimer(dev)
+
+    def head_sample(x: torch.Tensor, step: int) -> torch.Tensor:
+        """x [b2, p, dim] -> ±1 tokens [n, p, token_dim] (fp32)."""
+        x = x + model.pos_for_diff.weight[step * p:(step + 1) * p][None]
+        if cfg_schedule == "linear" and use_cfg:     # fp32, as in JAX
+            cfg_iter = float(np.float32(1.0) + np.float32(cfg_scale - 1.0)
+                             * np.float32(step) / np.float32(seq_len))
+        else:
+            cfg_iter = float(cfg_scale)
+        if p == 1:
+            x = x.reshape(-1, cfg.dim)
+        with phase("sampler"):
+            pred = sampler(x, generator, cfg_iter, num_sampling_steps,
+                           cfg_mult=cfg_mult)
+        return _sign(pred).reshape(n, p, cfg.token_dim)
+
+    with phase("prefill"):
+        if p > 1:
+            # the cls tokens causal, the last window (last cls token and the
+            # query tokens) bidirectional
+            prefix = torch.cat([c, model.query_token[None].expand(b2, -1, -1)], 1)
+            ncausal = cfg.cls_token_num - 1
+            _forward_cached(model, cfg, prefix[:, :ncausal], freqs[:ncausal],
+                            cache, 0, True)
+            x, _ = _forward_cached(model, cfg, prefix[:, ncausal:],
+                                   freqs[ncausal:cfg.prefix_len], cache,
+                                   ncausal, False)
+        else:
+            x, _ = _forward_cached(model, cfg, c, freqs[:cfg.cls_token_num],
+                                   cache, 0, True)
+            x = x[:, -1:]
+    preds = [head_sample(x[:, -p:], 0)]
+    for step in range(1, num_steps):
+        with phase("decode"):
+            emb = proj_in(model, preds[-1].to(dtype))
+            emb = torch.cat([emb] * cfg_mult, dim=0)
+            start = cfg.prefix_len + (step - 1) * p
+            x, _ = _forward_cached(model, cfg, emb, freqs[start:start + p],
+                                   cache, start, False)
+        preds.append(head_sample(x[:, -p:], step))
+    if timing is not None:
+        timing.clear()
+        timing.update(phase.totals())
+    out = torch.stack(preds, dim=1)                     # [n, steps, p, td]
+    return out.reshape(n, cfg.num_tokens, cfg.token_dim)
+
+
+@torch.no_grad()
+def decode_uint8(ae, cfg: ImageNetARConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """±1 tokens [n, num_tokens, token_dim] -> uint8 images [n, H, W, 3]
+    through the VQ decoder (eval/fid.py's run_decode: clip(127.5 * img +
+    128)), 8 images at a time to bound the decoder's activations."""
+    grid = tokens_to_grid(cfg, tokens)
+    out = []
+    for i in range(0, grid.shape[0], 8):
+        img = ae.decode(grid[i:i + 8]).float()
+        out.append(torch.clamp(127.5 * img + 128.0, 0, 255).to(torch.uint8))
+    return torch.cat(out, dim=0)
+
+
+@dataclasses.dataclass
+class ImageNetSampler:
+    """What class-conditional sampling needs: the backbone, the head with
+    its sampler stack (the head's block weights are views into it), and the
+    VQ decoder (a VQModel)."""
+
+    cfg: ImageNetARConfig
+    model: ImageNetAR
+    head: DiffHead
+    head_stacked: dict
+    ae: nn.Module

@@ -34,7 +34,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "bd_decode_attention": [_P] * 6 + [_I] * 6 + [_F, _P],
     "bd_fused_em_sample": ([_P, _P, _P, _I, _P, _P, _F] + [_P] * 17
-                           + [_I] * 10 + [_F, _P]),
+                           + [_I] * 12 + [_F, _P]),
+    "bd_fused_mlp_block": ([_P, _P, _I, _P, _I, _P, _I] + [_P] * 9 + [_I] * 3
+                           + [_F, _P]),
+    "bd_fused_attn_block": ([_P, _P, _I, _P, _I, _P, _I] + [_P] * 9 + [_I] * 4
+                            + [_F, _P]),
     "bd_flash_fwd": [_P] * 9 + [_I] * 6 + [_F, _P],
     "bd_flash_bwd_dq": [_P] * 11 + [_I] * 6 + [_F, _P],
     "bd_flash_bwd_dkv": [_P] * 12 + [_I] * 6 + [_F, _P],
@@ -133,9 +137,9 @@ def stream_ptr() -> int:
 def needs_grad(*tensors) -> bool:
     """True when autograd would want a backward through these inputs.
 
-    The inference kernels (decode attention, the sampler) have no backward;
-    their CUDA branch refuses such inputs (pure predicate, so the CPU tests
-    can hold it). The flash-attention kernels have theirs."""
+    The inference kernels (decode attention, the sampler, the head blocks)
+    have no backward; their CUDA branch refuses such inputs (pure predicate,
+    so the CPU tests can hold it). The flash-attention kernels have theirs."""
     return torch.is_grad_enabled() and any(
         isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
 

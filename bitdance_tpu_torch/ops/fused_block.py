@@ -1,0 +1,192 @@
+"""One adaLN block of the diffusion head per call (port of
+bitdance_tpu/ops/fused_block.py).
+
+  :func:`fused_mlp_block`:  h = LN(x) * (1 + scale) + shift;
+      [h1 | h2] = h @ w1.T + b1; out = x + (silu(h1) * h2 @ w2.T + b2) * gate
+      (a whole MlpResBlock, or the SwiGLU half of a TransBlock)
+  :func:`fused_attn_block`: h = LN(x) * (1 + scale) + shift per group of W
+      window tokens; qkv = h @ wqkv.T + bqkv, columns (3, n_head, hd);
+      o = softmax(q k^T / sqrt(hd)) v per head; out = x + (o @ wo.T + bo) * gate
+      (the attention half of a TransBlock)
+
+Weights keep the torch Linear layout [out, in] (the JAX package stores
+[in, out]). Beside each wrapper is its plain version (``*_reference``), with
+the TPU kernel's precision: two-pass fp32 LayerNorm statistics, product
+operands in the weights' dtype with fp32 accumulation, h12 and qkv kept in
+fp32, fp32 softmax, and the output rounded once to x's dtype.
+
+CPU tensors take the plain version; CUDA tensors run ``csrc/fused_block.cu``
+(bf16 everywhere) or raise. Both kernels are inference-only: like the JAX
+package, which gives them no VJP, the CUDA branch refuses autograd.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from bitdance_tpu_torch.ops import _cuda
+
+
+def _ln_modulate(x: torch.Tensor, scale, shift, ln_w, ln_b,
+                 eps: float) -> torch.Tensor:
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    ln = (xf - mean) * torch.rsqrt(var + eps) * ln_w.float() + ln_b.float()
+    return ln * (1.0 + scale.float()) + shift.float()
+
+
+def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ w.T with a rounded to w's dtype and an fp32 product."""
+    return a.to(w.dtype).float() @ w.float().t()
+
+
+def fused_mlp_block_reference(x, scale, shift, gate, ln_w, ln_b, w1, b1, w2,
+                              b2, eps: float = 1e-6) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_mlp_block`."""
+    h = _ln_modulate(x, scale, shift, ln_w, ln_b, eps)
+    h12 = _mm(h, w1) + b1.float()
+    hidden = h12.shape[-1] // 2
+    glu = F.silu(h12[..., :hidden]) * h12[..., hidden:]
+    out = _mm(glu, w2) + b2.float()
+    return (x.float() + out * gate.float()).to(x.dtype)
+
+
+def fused_attn_block_reference(x, scale, shift, gate, ln_w, ln_b, wqkv, bqkv,
+                               wo, bo, n_head: int,
+                               eps: float = 1e-6) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_attn_block`."""
+    g, w, c = x.shape
+    hd = c // n_head
+    h = _ln_modulate(x, scale, shift, ln_w, ln_b, eps)
+    qkv = (_mm(h, wqkv) + bqkv.float()).reshape(g, w, 3, n_head, hd)
+    q = qkv[:, :, 0] * hd ** -0.5
+    s = torch.einsum("gqhd,gkhd->ghqk", q, qkv[:, :, 1])
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("ghqk,gkhd->gqhd", p, qkv[:, :, 2]).reshape(g, w, c)
+    proj = _mm(o, wo) + bo.float()
+    return (x.float() + proj * gate.float()).to(x.dtype)
+
+
+def _mod_rows(name: str, m: torch.Tensor, shape, rows: int) -> torch.Tensor:
+    """A mod as [rows, C] bf16 with unit column stride and one row stride
+    (a slice of the adaLN output, or stride 0 for one broadcast row)."""
+    if tuple(m.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(m.shape)} != {tuple(shape)}")
+    m = m.reshape(rows, shape[-1])
+    if m.stride(1) != 1:
+        m = m.contiguous()
+    return m
+
+
+def _check_cuda(name: str, x: torch.Tensor, tensors: dict) -> None:
+    for k, t in tensors.items():
+        if t.device != x.device or t.dtype != torch.bfloat16:
+            raise ValueError(f"{name}: {k} must be bf16 on {x.device}, got "
+                             f"{t.dtype} on {t.device}")
+        if k not in ("scale", "shift", "gate") and not t.is_contiguous():
+            raise ValueError(f"{name}: {k} must be contiguous")
+
+
+def fused_mlp_block(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                    gate: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
+                    w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                    b2: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """One fused adaLN-SwiGLU residual block; dispatch by device.
+
+    x [rows, C]; scale, shift, gate [rows, C] (any row stride, 0 included);
+    ln_w, ln_b [C]; w1 [2H, C], b1 [2H]; w2 [C, H], b2 [C]. Returns
+    [rows, C] in x's dtype."""
+    if x.device.type == "cpu":
+        return fused_mlp_block_reference(x, scale, shift, gate, ln_w, ln_b, w1,
+                                         b1, w2, b2, eps)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"fused_mlp_block: no kernel for {x.device}")
+    params = dict(x=x, scale=scale, shift=shift, gate=gate, ln_w=ln_w,
+                  ln_b=ln_b, w1=w1, b1=b1, w2=w2, b2=b2)
+    _cuda.refuse_grad("fused_mlp_block", *params.values())
+    _check_cuda("fused_mlp_block", x, params)
+    if x.ndim != 2:
+        raise ValueError(f"fused_mlp_block: x must be [rows, C], got {tuple(x.shape)}")
+    rows, c = x.shape
+    hidden = w2.shape[1]
+    if (tuple(w1.shape) != (2 * hidden, c) or tuple(w2.shape) != (c, hidden)
+            or b1.numel() != 2 * hidden or b2.numel() != c
+            or ln_w.numel() != c or ln_b.numel() != c):
+        raise ValueError(f"fused_mlp_block: weights {tuple(w1.shape)}, "
+                         f"{tuple(w2.shape)} do not fit C = {c}")
+    if c % 64 or hidden % 32:
+        raise ValueError(f"fused_mlp_block: C = {c} must be a multiple of 64 "
+                         f"and H = {hidden} of 32")
+    mods = [_mod_rows(k, params[k], x.shape, rows) for k in ("scale", "shift", "gate")]
+    act = torch.empty((rows, c), dtype=torch.bfloat16, device=x.device)
+    glu = torch.empty((rows, hidden), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty_like(x)
+    code = _cuda.load().bd_fused_mlp_block(
+        x.data_ptr(), mods[0].data_ptr(), mods[0].stride(0),
+        mods[1].data_ptr(), mods[1].stride(0), mods[2].data_ptr(),
+        mods[2].stride(0), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
+        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), act.data_ptr(),
+        glu.data_ptr(), out.data_ptr(), rows, c, hidden, float(eps),
+        _cuda.stream_ptr())
+    _cuda.check(code, "fused_mlp_block")
+    fused_mlp_block.launches += 1
+    return out
+
+
+fused_mlp_block.launches = 0
+
+
+def fused_attn_block(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                     gate: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
+                     wqkv: torch.Tensor, bqkv: torch.Tensor, wo: torch.Tensor,
+                     bo: torch.Tensor, n_head: int,
+                     eps: float = 1e-6) -> torch.Tensor:
+    """Fused adaLN window-attention residual block; dispatch by device.
+
+    x [G, W, C], groups of W tokens; scale, shift, gate [G, W, C] (any
+    uniform row stride); wqkv [3C, C] with output columns (3, n_head, hd),
+    bqkv [3C]; wo [C, C], bo [C]. Returns [G, W, C] in x's dtype."""
+    if x.device.type == "cpu":
+        return fused_attn_block_reference(x, scale, shift, gate, ln_w, ln_b,
+                                          wqkv, bqkv, wo, bo, n_head, eps)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"fused_attn_block: no kernel for {x.device}")
+    params = dict(x=x, scale=scale, shift=shift, gate=gate, ln_w=ln_w,
+                  ln_b=ln_b, wqkv=wqkv, bqkv=bqkv, wo=wo, bo=bo)
+    _cuda.refuse_grad("fused_attn_block", *params.values())
+    _check_cuda("fused_attn_block", x, params)
+    if x.ndim != 3:
+        raise ValueError(f"fused_attn_block: x must be [G, W, C], got {tuple(x.shape)}")
+    g, w, c = x.shape
+    if (tuple(wqkv.shape) != (3 * c, c) or tuple(wo.shape) != (c, c)
+            or bqkv.numel() != 3 * c or bo.numel() != c
+            or ln_w.numel() != c or ln_b.numel() != c):
+        raise ValueError(f"fused_attn_block: weights {tuple(wqkv.shape)}, "
+                         f"{tuple(wo.shape)} do not fit C = {c}")
+    hd = c // n_head if n_head > 0 else 0
+    smem = (3 * w * (hd + 1) + w * w) * 4
+    if c % 64 or n_head <= 0 or c % n_head or smem > 227 * 1024:
+        raise ValueError(f"fused_attn_block: C = {c}, n_head = {n_head}, "
+                         f"W = {w}: C must be a multiple of 64 and of n_head, "
+                         f"and a window's fp32 q, k, v and scores must fit "
+                         f"227 KB of shared memory")
+    rows = g * w
+    mods = [_mod_rows(k, params[k], x.shape, rows) for k in ("scale", "shift", "gate")]
+    act = torch.empty((rows, c), dtype=torch.bfloat16, device=x.device)
+    qkv = torch.empty((rows, 3 * c), dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x)
+    code = _cuda.load().bd_fused_attn_block(
+        x.data_ptr(), mods[0].data_ptr(), mods[0].stride(0),
+        mods[1].data_ptr(), mods[1].stride(0), mods[2].data_ptr(),
+        mods[2].stride(0), ln_w.data_ptr(), ln_b.data_ptr(), wqkv.data_ptr(),
+        bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(), act.data_ptr(),
+        qkv.data_ptr(), out.data_ptr(), g, w, c, n_head, float(eps),
+        _cuda.stream_ptr())
+    _cuda.check(code, "fused_attn_block")
+    fused_attn_block.launches += 1
+    return out
+
+
+fused_attn_block.launches = 0

@@ -5,17 +5,23 @@ layout (:func:`stack_diffnet_params`), the per-AR-step mods precompute
 (:func:`em_precompute`), the plain sampler (:func:`fused_em_sample_reference`,
 with :func:`em_sample_stacked` as the JAX twin's counterpart) and the kernel
 wrapper :func:`fused_em_sample` (``csrc/fused_head.cu``), which CPU tensors
-send to the plain version.
+send to the plain version. Both head families: ``attention=True``, the
+TransEncoder (6 mods per block, window attention), and ``attention=False``,
+the MlpEncoder (3 mods per block, no attention half); ``bounded`` applies
+2*sigmoid-1 to the net's output (the T2I head; the ImageNet heads are
+unbounded).
 
 Stacked layout: the block matrices keep the torch Linear layout [out, in]
 per block, stacked on a leading block axis (the JAX package stores [in, out]):
-  wqkv [L, 3C, C]  bqkv [L, 3C]   wo [L, C, C]  bo [L, C]
+  wqkv [L, 3C, C]  bqkv [L, 3C]   wo [L, C, C]  bo [L, C]   (attention only)
   w1   [L, 2H, C]  b1   [L, 2H]   w2 [L, C, H]  b2 [L, C]
-  n1, n2 [L, 2, C] (LayerNorm weight; bias)
-  modcat_w [A*6*C + 2C, C], modcat_b: every ada group's projection and
+  n1 [L, 2, C] (attention only), n2 [L, 2, C] (LayerNorm weight; bias; the
+  MlpEncoder's one norm is n2)
+  modcat_w [A*m*C + 2C, C], modcat_b: every ada group's projection and
   the final layer's, concatenated, so one product per AR step gives all mods.
 allmods rows are [ada_0 mods | ada_1 mods | ... | final scale, shift]; within
-an ada group the 6 slices are scale1, shift1, gate1, scale2, shift2, gate2.
+an ada group the m = 6 slices are scale1, shift1, gate1, scale2, shift2, gate2
+(m = 3 for the MlpEncoder: scale, shift, gate).
 """
 
 from __future__ import annotations
@@ -32,9 +38,10 @@ def stack_diffnet_params(net, num_blocks: int,
                          dtype: torch.dtype = torch.bfloat16) -> dict:
     """DiffNet module -> stacked tensors for the sampler (see module doc).
 
-    Biases of the big products and the norm parameters take ``dtype``;
-    in_b, t_b*, cond_b, f_out_b and modcat_b stay float32, as in the JAX
-    package."""
+    The net's family decides the keys: the MlpEncoder's blocks have one
+    norm, stacked as n2, and no n1/wqkv/bqkv/wo/bo. Biases of the big
+    products and the norm parameters take ``dtype``; in_b, t_b*, cond_b,
+    f_out_b and modcat_b stay float32, as in the JAX package."""
     f32 = torch.float32
     blk = [net.res_blocks[i] for i in range(num_blocks)]
 
@@ -58,13 +65,17 @@ def stack_diffnet_params(net, num_blocks: int,
         "b1": stack(lambda b: b.w1.bias),
         "w2": stack(lambda b: b.w2.weight),
         "b2": stack(lambda b: b.w2.bias),
-        "n1": stack(lambda b: torch.stack([b.norm1.weight, b.norm1.bias])),
-        "n2": stack(lambda b: torch.stack([b.norm2.weight, b.norm2.bias])),
-        "wqkv": stack(lambda b: b.attn.wqkv.weight),
-        "bqkv": stack(lambda b: b.attn.wqkv.bias),
-        "wo": stack(lambda b: b.attn.wo.weight),
-        "bo": stack(lambda b: b.attn.wo.bias),
     }
+    if net.attention:
+        out.update(
+            n1=stack(lambda b: torch.stack([b.norm1.weight, b.norm1.bias])),
+            n2=stack(lambda b: torch.stack([b.norm2.weight, b.norm2.bias])),
+            wqkv=stack(lambda b: b.attn.wqkv.weight),
+            bqkv=stack(lambda b: b.attn.wqkv.bias),
+            wo=stack(lambda b: b.attn.wo.weight),
+            bo=stack(lambda b: b.attn.wo.bias))
+    else:
+        out["n2"] = stack(lambda b: torch.stack([b.norm.weight, b.norm.bias]))
     ada = [m.weight.detach() for m in net.ada_ln_blocks]
     ada_b = [m.bias.detach() for m in net.ada_ln_blocks]
     out["modcat_w"] = torch.cat(ada + [fl.ada_ln_modulation.weight.detach()],
@@ -127,14 +138,16 @@ def _attn_from_qkv(qkv: torch.Tensor, n_head: int, groups: int,
 
 def _net_forward(stacked: dict, x: torch.Tensor, mods_row: torch.Tensor, *,
                  num_blocks: int, switch_freq: int, n_head: int, groups: int,
+                 attention: bool = True, bounded: bool = True,
                  eps: float = 1e-6) -> torch.Tensor:
     """One DiffNet forward on rows [x; x] with precomputed mods -> fp32
-    [R, ch]. Precision as the TPU kernel #2 (fused_head.py:689): fp32
-    residual h, stage activations in the weights' dtype, fp32 statistics."""
+    [R, ch]. Precision as the TPU kernel #2 (fused_head.py:689), for both
+    families: fp32 residual h, stage activations in the weights' dtype,
+    fp32 statistics."""
     elem = stacked["n2"].dtype
     c_dim = stacked["n2"].shape[-1]
     hidden = stacked["w1"].shape[1] // 2
-    n_mods = 6
+    n_mods = 6 if attention else 3
 
     def lnmod(h, nrm, scale, shift):
         ln = _ln(h, eps) * nrm[0].float() + nrm[1].float()
@@ -146,21 +159,25 @@ def _net_forward(stacked: dict, x: torch.Tensor, mods_row: torch.Tensor, *,
         g = l // switch_freq
         m = mods_row[:, g * n_mods * c_dim:(g + 1) * n_mods * c_dim]
         sl = lambda j: m[:, j * c_dim:(j + 1) * c_dim]   # noqa: E731
-        a = lnmod(h, stacked["n1"][l], sl(0), sl(1))
-        qkv = (_dot(a, stacked["wqkv"][l]) + stacked["bqkv"][l].float()).to(elem)
-        att = _attn_from_qkv(qkv, n_head, groups, c_dim).to(elem)
-        proj = _dot(att, stacked["wo"][l]) + stacked["bo"][l].float()
-        h = h + proj * sl(2).float()
-        a = lnmod(h, stacked["n2"][l], sl(3), sl(4))
+        mlp = 0
+        if attention:
+            a = lnmod(h, stacked["n1"][l], sl(0), sl(1))
+            qkv = (_dot(a, stacked["wqkv"][l])
+                   + stacked["bqkv"][l].float()).to(elem)
+            att = _attn_from_qkv(qkv, n_head, groups, c_dim).to(elem)
+            proj = _dot(att, stacked["wo"][l]) + stacked["bo"][l].float()
+            h = h + proj * sl(2).float()
+            mlp = 3
+        a = lnmod(h, stacked["n2"][l], sl(mlp), sl(mlp + 1))
         h12 = (_dot(a, stacked["w1"][l]) + stacked["b1"][l].float()).to(elem)
         glu = (F.silu(h12[:, :hidden].float())
                * h12[:, hidden:].float()).to(elem)
         y = _dot(glu, stacked["w2"][l]) + stacked["b2"][l].float()
-        h = h + y * sl(5).float()
+        h = h + y * sl(mlp + 2).float()
     fm = mods_row[:, -2 * c_dim:].float()
     z = _ln(h, eps) * (1.0 + fm[:, :c_dim]) + fm[:, c_dim:]
     out = _dot(z, stacked["f_out_w"]) + stacked["f_out_b"]
-    return 2.0 * torch.sigmoid(out) - 1.0
+    return 2.0 * torch.sigmoid(out) - 1.0 if bounded else out
 
 
 def _as_floats(t) -> list[float]:
@@ -173,6 +190,7 @@ def fused_em_sample_reference(stacked: dict, x0: torch.Tensor,
                               noise: torch.Tensor, allmods: torch.Tensor,
                               t_all, dt_all, cfg: float, *, num_blocks: int,
                               num_ada: int, n_head: int = 0, groups: int = 1,
+                              attention: bool = True, bounded: bool = True,
                               last_step_size: float = 0.05,
                               final_chunk: bool = True) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_em_sample` (same arguments)."""
@@ -183,7 +201,7 @@ def fused_em_sample_reference(stacked: dict, x0: torch.Tensor,
     cfg = float(cfg)
     x = x0.float()
     kw = dict(num_blocks=num_blocks, switch_freq=switch_freq, n_head=n_head,
-              groups=groups)
+              groups=groups, attention=attention, bounded=bounded)
     for s in range(num_steps + (1 if final_chunk else 0)):
         out = _net_forward(stacked, x, allmods[s], **kw)
         t, dt = ts[s], dts[s]
@@ -204,7 +222,8 @@ def fused_em_sample_reference(stacked: dict, x0: torch.Tensor,
 def em_sample_stacked(stacked: dict, x0: torch.Tensor, noise: torch.Tensor,
                       allmods: torch.Tensor | None, t_all, dt_all, cfg: float,
                       *, num_blocks: int, num_ada: int, n_head: int = 0,
-                      groups: int = 1, last_step_size: float = 0.05,
+                      groups: int = 1, attention: bool = True,
+                      bounded: bool = True, last_step_size: float = 0.05,
                       c_emb: torch.Tensor | None = None) -> torch.Tensor:
     """Counterpart of the JAX stacked sampler: the plain sampler, computing
     allmods from c_emb when it is not given."""
@@ -214,16 +233,18 @@ def em_sample_stacked(stacked: dict, x0: torch.Tensor, noise: torch.Tensor,
     return fused_em_sample_reference(
         stacked, x0, noise, allmods, t_all, dt_all, cfg,
         num_blocks=num_blocks, num_ada=num_ada, n_head=n_head, groups=groups,
-        last_step_size=last_step_size)
+        attention=attention, bounded=bounded, last_step_size=last_step_size)
 
 
-_BLOCK_KEYS = ("n1", "n2", "wqkv", "bqkv", "wo", "bo", "w1", "b1", "w2", "b2")
+_MLP_KEYS = ("n2", "w1", "b1", "w2", "b2")
+_ATTN_KEYS = ("n1", "wqkv", "bqkv", "wo", "bo")
 
 
 def fused_em_sample(stacked: dict, x0: torch.Tensor, noise: torch.Tensor,
                     allmods: torch.Tensor, t_all, dt_all, cfg: float, *,
                     num_blocks: int, num_ada: int, n_head: int = 0,
-                    groups: int = 1, last_step_size: float = 0.05,
+                    groups: int = 1, attention: bool = True,
+                    bounded: bool = True, last_step_size: float = 0.05,
                     final_chunk: bool = True) -> torch.Tensor:
     """The whole EM sampling loop; dispatch by device.
 
@@ -232,18 +253,21 @@ def fused_em_sample(stacked: dict, x0: torch.Tensor, noise: torch.Tensor,
     runs num_steps EM updates and no final Euler step and returns the
     post-EM state); t_all/dt_all [S] (host values; a CPU tensor or a list
     avoids a device sync); cfg a float. CFG rows are [cond; uncond].
-    CPU tensors take :func:`fused_em_sample_reference`; CUDA tensors run
-    ``csrc/fused_head.cu`` (bf16 weights and mods) or raise.
+    attention selects the head family (groups and n_head matter only for
+    it; the MlpEncoder's rows are independent), bounded the 2*sigmoid-1
+    output. CPU tensors take :func:`fused_em_sample_reference`; CUDA tensors
+    run ``csrc/fused_head.cu`` (bf16 weights and mods) or raise.
     """
     kw = dict(num_blocks=num_blocks, num_ada=num_ada, n_head=n_head,
-              groups=groups, last_step_size=last_step_size,
-              final_chunk=final_chunk)
+              groups=groups, attention=attention, bounded=bounded,
+              last_step_size=last_step_size, final_chunk=final_chunk)
     if x0.device.type == "cpu":
         return fused_em_sample_reference(stacked, x0, noise, allmods, t_all,
                                          dt_all, cfg, **kw)
     if x0.device.type != "cuda":
         raise RuntimeError(f"fused_em_sample: no kernel for {x0.device}")
-    keys = list(_BLOCK_KEYS) + ["in_w", "f_out_w"]
+    keys = list(_MLP_KEYS) + (list(_ATTN_KEYS) if attention else []) \
+        + ["in_w", "f_out_w"]
     _cuda.refuse_grad("fused_em_sample", x0, noise, allmods,
                       *[stacked[k] for k in keys])
     num_steps = noise.shape[0]
@@ -258,7 +282,7 @@ def fused_em_sample(stacked: dict, x0: torch.Tensor, noise: torch.Tensor,
         if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != dev:
             raise ValueError(f"fused_em_sample: stacked[{k!r}] must be "
                              f"contiguous bf16 on {dev}, got {t.dtype}")
-    width = (num_ada * 6 + 2) * c_dim
+    width = (num_ada * (6 if attention else 3) + 2) * c_dim
     if allmods.dtype != torch.bfloat16 or tuple(allmods.shape) != \
             (grid_steps, rows, width) or not allmods.is_contiguous():
         raise ValueError("fused_em_sample: allmods must be contiguous bf16 "
@@ -277,9 +301,9 @@ def fused_em_sample(stacked: dict, x0: torch.Tensor, noise: torch.Tensor,
     f_out_b = stacked["f_out_b"].to(device=dev, dtype=torch.float32).contiguous()
     h = torch.empty((rows, c_dim), dtype=torch.float32, device=dev)
     act = torch.empty((rows, max(c_dim, hidden)), dtype=torch.bfloat16, device=dev)
-    buf = torch.empty((rows, max(3 * c_dim, hidden)), dtype=torch.bfloat16,
-                      device=dev)
-    ptr = lambda k: stacked[k].data_ptr()  # noqa: E731
+    buf = torch.empty((rows, max(3 * c_dim if attention else 0, hidden)),
+                      dtype=torch.bfloat16, device=dev)
+    ptr = lambda k: stacked[k].data_ptr() if k in keys else None  # noqa: E731
     lib = _cuda.load()
     code = lib.bd_fused_em_sample(
         x.data_ptr(), noise.data_ptr(), allmods.data_ptr(), allmods.shape[2],
@@ -291,7 +315,7 @@ def fused_em_sample(stacked: dict, x0: torch.Tensor, noise: torch.Tensor,
         h.data_ptr(), act.data_ptr(), buf.data_ptr(),
         half, ch, c_dim, hidden, num_blocks, num_steps,
         max(1, num_blocks // num_ada), max(n_head, 1), groups,
-        int(final_chunk), float(last_step_size),
+        int(attention), int(bounded), int(final_chunk), float(last_step_size),
         _cuda.stream_ptr())
     _cuda.check(code, "fused_em_sample")
     fused_em_sample.launches += 1

@@ -16,17 +16,18 @@ environment switches; the KV cache is updated in place.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
 
+from bitdance_tpu_torch.data.special_tokens import chatml_prompts, image_start_ids
 from bitdance_tpu_torch.models import qwen3 as q3
 from bitdance_tpu_torch.models.connector import MLPConnector
 from bitdance_tpu_torch.models.diff_head import DiffHead, _run_fused_sample
 from bitdance_tpu_torch.models.tokenizer import VQModel, tokens_to_latents
 from bitdance_tpu_torch.ops.quantize import sign_quantize
 from bitdance_tpu_torch.ops.rotary import pos_embed_2d, sincos_1d_table
+from bitdance_tpu_torch.utils.timing import PhaseTimer
 
 
 @dataclasses.dataclass
@@ -159,34 +160,6 @@ def decode_image(bundle: T2IModelBundle, tokens: torch.Tensor, latent_h: int,
     return bundle.ae.decode(latents)
 
 
-class _PhaseClock:
-    """Phase times in seconds: CUDA events on the card, the host clock on
-    the CPU (``last_timing["clock"]`` says which)."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.marks = []
-
-    def mark(self):
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append(ev)
-        else:
-            self.marks.append(time.perf_counter())
-
-    def spans(self, names) -> dict:
-        if self.cuda:
-            self.marks[-1].synchronize()
-            out = {n: a.elapsed_time(b) / 1000.0
-                   for n, a, b in zip(names, self.marks, self.marks[1:])}
-            out["clock"] = "cuda_events"
-        else:
-            out = {n: b - a for n, a, b in zip(names, self.marks, self.marks[1:])}
-            out["clock"] = "host"
-        return out
-
-
 class T2IPipeline:
     """User-facing pipeline: prompt string -> uint8 images [n, H, W, 3]."""
 
@@ -206,8 +179,6 @@ class T2IPipeline:
         self._geom_cache: dict = {}
 
     def _geometry(self, latent_h: int, latent_w: int):
-        from bitdance_tpu.data.special_tokens import image_start_ids
-
         geom = self._geom_cache.get((latent_h, latent_w))
         if geom is None:
             b = self.bundle
@@ -227,8 +198,6 @@ class T2IPipeline:
                  return_tokens: bool = False):
         """Returns uint8 images [n, H, W, 3] (numpy); with return_tokens, the
         tuple (images, ±1 tokens [n, h*w, z])."""
-        from bitdance_tpu.data.special_tokens import chatml_prompts
-
         b = self.bundle
         dev = b.device
         vp = b.vae_patch_size
@@ -248,26 +217,25 @@ class T2IPipeline:
         pads_t = torch.tensor(pads, dtype=torch.int32, device=dev)
         gen = torch.Generator(device=dev).manual_seed(seed)
 
-        clock = _PhaseClock(dev)
-        clock.mark()
-        cache, hidden = prefill_t2i(b, rows_t, pads_t, start_ids,
-                                    latent_h=latent_h, latent_w=latent_w,
-                                    num_images=num_images)
-        clock.mark()
-        tokens = decode_t2i(b, cache, hidden, pads_t, pe, gen, prompt_len=P,
-                            latent_h=latent_h, latent_w=latent_w,
-                            num_images=num_images,
-                            guidance_scale=float(guidance_scale),
-                            num_sampling_steps=num_sampling_steps)
-        del cache, hidden
-        clock.mark()
-        imgs = []
-        for i in range(tokens.shape[0]):
-            img = decode_image(b, tokens[i:i + 1], latent_h, latent_w)
-            imgs.append(torch.clamp(127.5 * img.float() + 128.0, 0, 255)
-                        .to(torch.uint8))
-        clock.mark()
-        self.last_timing = clock.spans(("prefill", "decode", "vae"))
+        phase = PhaseTimer(dev)
+        with phase("prefill"):
+            cache, hidden = prefill_t2i(b, rows_t, pads_t, start_ids,
+                                        latent_h=latent_h, latent_w=latent_w,
+                                        num_images=num_images)
+        with phase("decode"):
+            tokens = decode_t2i(b, cache, hidden, pads_t, pe, gen, prompt_len=P,
+                                latent_h=latent_h, latent_w=latent_w,
+                                num_images=num_images,
+                                guidance_scale=float(guidance_scale),
+                                num_sampling_steps=num_sampling_steps)
+            del cache, hidden
+        with phase("vae"):
+            imgs = []
+            for i in range(tokens.shape[0]):
+                img = decode_image(b, tokens[i:i + 1], latent_h, latent_w)
+                imgs.append(torch.clamp(127.5 * img.float() + 128.0, 0, 255)
+                            .to(torch.uint8))
+        self.last_timing = phase.totals()
         out = torch.cat(imgs, dim=0).cpu().numpy()
         if return_tokens:
             return out, tokens.float().cpu().numpy()

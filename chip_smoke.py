@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one NVIDIA GPU: text-to-image
-serving (BitDance-14B-64x) and ImageNet class-conditional training
-(BitDance-H-1x, 256 px).
+serving (BitDance-14B-64x), ImageNet class-conditional training
+(BitDance-H-1x, 256 px) and ImageNet class-conditional sampling
+(BitDance-H-1x and BitDance-B-16x, 256 px).
 
     python3 chip_smoke.py
 
@@ -22,13 +23,33 @@ Phases, run in this order, one line each, any failure exits non-zero:
                     encode_batch -> train_step: s/step, images/s, MFU, peak
                     memory, launch counts, and one step on the plain
                     attention path from the same state
-The last lines are the kernels' JSON record, the card's name and power
-limit, and {"ok": true, "device": {...}}. There is no CPU fallback: the
+  imagenet_kernels  random bf16 BitDance-H-1x and BitDance-B-16x samplers (the
+                    training state freed first); the head-block kernels
+                    fused_mlp_block (H-1x: 8 rows, C 1280; B-16x: 512 rows,
+                    C 768) and fused_attn_block (32 windows of 16, C 768, 12
+                    heads, with a window-off-by-one check) and the sampler's
+                    MlpEncoder and unbounded TransEncoder families vs plain
+  imagenet_h1x      32 classes at cfg 4.55 (linear schedule), 100 sampling
+                    steps, 256 AR steps, VQ decoder to uint8; then 8 classes
+                    unguided through the per-call head
+  imagenet_b16x     32 classes at cfg 6.1 and unguided, 16 AR steps; the
+                    guided batch again with its head at every AR step through
+                    both the whole sampler and the per-call blocks, whose +-1
+                    tokens must agree; the guided batch free-running (each
+                    path's tokens fed back) through the per-call and whole-
+                    sampler kernels and through their plain versions, whose
+                    agreements are reported; torch.profiler over one guided
+                    and one unguided batch
+The last lines are the kernels' JSON record (each kernel's launches on the
+main paths, error against its plain version, times, bound and, where one
+PyTorch call computes the same function, that call's time), the card's name
+and power limit, and {"ok": true, "device": {...}}. There is no CPU fallback: the
 script refuses to run without a CUDA device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import subprocess
@@ -72,14 +93,43 @@ FLASH_EDGE_V = 8.0
 # (H100, 700 W): loss 9.8e-6, grad norm 7.6e-5 relative.
 TRAIN_LOSS_REL = 1e-4
 TRAIN_GRAD_NORM_REL = 5e-4
-# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), for MFU
+# ImageNet sampling. The head blocks (#14, #15) and the sampler's MlpEncoder
+# and unbounded TransEncoder families against their plain versions at the
+# paths' shapes: max abs error relative to max |plain output| (bf16 outputs,
+# one ulp is 3.9e-3 of the value). Bounds are a few times the readings on the
+# H100 (PERF.md).
+# Readings (NVIDIA H100 80GB HBM3, 700 W): mlp_h1x 1.9e-3, mlp_b16x 3.0e-3,
+# attn_b16x 2.0e-3; the sampler over 4 steps 1.7e-2 (H-1x) and 2.0e-2 (B-16x)
+IMAGENET_BLOCK_MAX_REL_ERR = {"mlp_h1x": 1e-2, "mlp_b16x": 1e-2, "attn_b16x": 1e-2}
+IMAGENET_SAMPLER_MAX_REL_ERR = 5e-2
+# the first and last token of every window get shift + IMAGENET_EDGE_SHIFT,
+# which makes their q, k and v large: a window boundary off by one row then
+# moves the attention block's output by far more than its bound
+IMAGENET_EDGE_SHIFT = 8.0
+# the guided B-16x batch's head through the per-call path (#15 + #14 under
+# cfg_mult 2) and through the whole sampler, on the same conditioning and
+# draws at every AR step: their +-1 tokens must agree on this share. (Left
+# to run free, the per-call tokens feed back and the two batches drift apart:
+# 0.856 agreement over 16 AR steps on the H100, PERF.md.)
+CROSS_CHECK_AGREEMENT_FLOOR = 0.90
+IMAGENET_BATCH = 32          # sample_fid's per-process batch
+IMAGENET_STEPS = 100         # sampling steps of every ImageNet run
+UNGUIDED_H1X_IMAGES = 8
+# the unguided H-1x batch runs 25,856 per-call net calls at 100 steps, 2.9 ms
+# each from the host (90 s, PERF.md); it is cut to this many sampling steps
+UNGUIDED_H1X_STEPS = 25
+# H100 SXM dense bf16 tensor-core peak and HBM3 rate (NVIDIA data sheet, at
+# 700 W), for MFU and for each kernel's bound: the larger of the bytes the
+# function must move (each input read once, each output written once) over
+# the memory rate and its operations over the peak
 H100_BF16_PEAK = 989e12
+H100_HBM_BYTES_PER_S = 3.35e12
 # kernel-name substrings -> the groups a profile's time is summed into
 PROFILE_GROUPS = (
     ("products", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
     ("flash attention", ("flash_",)),
     ("decode attention", ("decode_attention",)),
-    ("sampler stages", ("window_attention", "ln_modulate", "final_em", "proj_in_kernel")),
+    ("head stages", ("window_attention", "ln_modulate", "final_em", "proj_in_kernel")),
     ("optimizer foreach", ("multi_tensor_apply",)),
     ("elementwise, casts, reductions", ("elementwise", "copy", "reduce", "Cat", "index",
                                        "embedding", "norm")),
@@ -88,6 +138,19 @@ PROFILE_GROUPS = (
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def roofline(n_bytes: float, flops: float) -> dict:
+    """The least time the card could take: bytes over the HBM rate or
+    operations over the bf16 tensor-core peak, whichever is larger."""
+    t_bytes = n_bytes / H100_HBM_BYTES_PER_S * 1e3
+    t_ops = flops / H100_BF16_PEAK * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def card_line() -> str:
@@ -207,6 +270,21 @@ def phase_decode_attention() -> dict:
                 f"version by >= {shift:.3e}); kernel {ms:.4f} ms, plain "
                 f"{pms:.4f} ms")
             rec = {"ms": ms, "plain_ms": pms}
+        # the last case: bound over the live keys, and SDPA with the same
+        # window as a boolean mask (GQA by enable_gqa)
+        live = (kv_len - kv_start).sum().item()
+        rec.update(roofline(nbytes(q, q) + 2 * hkv * d * 2 * live,
+                         4.0 * hq * s * d * live))
+        pos = torch.arange(L, device=dev)
+        mask = ((pos >= kv_start[:, None]) & (pos < kv_len[:, None]))[:, None, None]
+        mask = mask.expand(b, 1, s, L)
+        qt = q.transpose(1, 2)
+        rec["library_ms"] = cuda_time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, k, v, attn_mask=mask, enable_gqa=True), 50)
+        log("decode_attention", f"kv_len={L}: bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}); scaled_dot_product_attention "
+            f"{rec['library_ms']:.4f} ms")
     return {"max_abs_err": worst, **rec}
 
 
@@ -275,13 +353,35 @@ def phase_sampler(bundle) -> dict:
         err50 = (xk - xp).abs().max().item()
         ms = cuda_time_ms(run_k, 3, warmup=1)
         pms = cuda_time_ms(run_p, 3, warmup=1)
-        log("sampler", f"50 steps: kernel {ms:.2f} ms, plain {pms:.2f} ms; "
+        bd = sampler_bound(stacked, x0, noise, mods, attention=True,
+                           groups=kw["groups"], window=head.parallel_num)
+        log("sampler", f"50 steps: kernel {ms:.2f} ms, plain {pms:.2f} ms, "
+            f"bound {bd['bound_ms']:.3f} ms ({bd['bound_by']}); "
             f"+-1 agreement {agree:.4f} (floor {SAMPLER_SIGN_AGREEMENT_FLOOR}); "
             f"max abs diff {err50:.3e}; per net call kernel {ms / 51:.3f} ms")
         if not torch.isfinite(xk).all() or agree < SAMPLER_SIGN_AGREEMENT_FLOOR:
             raise SystemExit(f"sampler 50 steps: agreement {agree}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": pms,
-            "sign_agreement_50": agree}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, **bd,
+            "library_ms": None, "sign_agreement_50": agree}
+
+
+def sampler_bound(stacked, x0, noise, allmods, *, attention, groups=1,
+                  window=1) -> dict:
+    """Bound of one whole-sampler call: its inputs read once (the block
+    weights, the input and output projections, all mods, x0, noise) and its
+    output written once; operations of every net call's products (and window
+    attention)."""
+    mats = ["w1", "w2"] + (["wqkv", "wo"] if attention else [])
+    read = mats + ["b1", "b2", "n2", "in_w", "in_b", "f_out_w", "f_out_b"] \
+        + (["bqkv", "bo", "n1"] if attention else [])
+    rows, calls = 2 * x0.shape[0], allmods.shape[0]
+    per_call = sum(stacked[k].numel() for k in mats + ["in_w", "f_out_w"])
+    flops = 2.0 * rows * per_call * calls
+    if attention:
+        c, blocks = stacked["n2"].shape[-1], stacked["w1"].shape[0]
+        flops += 4.0 * groups * window * window * c * blocks * calls
+    return roofline(nbytes(*[stacked[k] for k in read], allmods, x0, noise, x0),
+                 flops)
 
 
 class StubTokenizer:
@@ -522,17 +622,58 @@ def phase_flash_attention() -> dict:
             "ms kernel/plain: "
             + ", ".join(f"{key} {rec[key][0]:.4f}/{rec[key][1]:.4f}"
                         for key in ("fwd", "dq", "dkv")))
+        if name == "path":
+            rec["bounds"] = _flash_bounds_and_library(q, k, v, do, ids)
         records[name] = rec
         del q, k, v, do, qr, kr, vr, o_ref, lse_ref
     path = records["path"]
     worst = lambda keys: max(r["errs"][key] for r in records.values()  # noqa: E731
                              for key in keys)
+    bd = path["bounds"]
     return {"flash_fwd": {"max_abs_err": worst(("o", "lse")), "ms": path["fwd"][0],
-                          "plain_ms": path["fwd"][1]},
+                          "plain_ms": path["fwd"][1], **bd["fwd"]},
             "flash_bwd_dq": {"max_abs_err": worst(("dq",)), "ms": path["dq"][0],
-                             "plain_ms": path["dq"][1]},
+                             "plain_ms": path["dq"][1], **bd["dq"]},
             "flash_bwd_dkv": {"max_abs_err": worst(("dk", "dv")),
-                              "ms": path["dkv"][0], "plain_ms": path["dkv"][1]}}
+                              "ms": path["dkv"][0], "plain_ms": path["dkv"][1],
+                              **bd["dkv"]}}
+
+
+def _flash_bounds_and_library(q, k, v, do, ids) -> dict:
+    """Bounds of the three flash kernels at one case, over the (query, key)
+    pairs its mask lets through, and the library's time for the same
+    function: scaled_dot_product_attention with the mask as a boolean
+    attn_mask, and its autograd backward (one call gives dq, dk and dv, so
+    both backward kernels are set beside that one time)."""
+    import torch
+
+    from bitdance_tpu_torch.ops.attention import mask_from_ids
+
+    mask = mask_from_ids(*ids)                          # [B, Lq, Lk]
+    pairs = mask.sum().item()
+    b, L, hq, d = q.shape
+    lse_b = b * hq * L * 4
+    idb = nbytes(*ids)
+    out = {"fwd": roofline(nbytes(q, k, v, q) + idb + lse_b, 4.0 * d * hq * pairs),
+           "dq": roofline(nbytes(q, k, v, do, q) + idb + 2 * lse_b, 6.0 * d * hq * pairs),
+           "dkv": roofline(nbytes(q, k, v, do, k, v) + idb + 2 * lse_b,
+                        8.0 * d * hq * pairs)}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    m4, gqa = mask[:, None], hq != k.shape[2]
+    with torch.no_grad():
+        fwd = cuda_time_ms(lambda: sdpa(qt, kt, vt, attn_mask=m4, enable_gqa=gqa), 20)
+    o = sdpa(qt, kt, vt, attn_mask=m4, enable_gqa=gqa)
+    dot = do.transpose(1, 2)
+    bwd = cuda_time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot,
+                                                   retain_graph=True), 20)
+    out["fwd"]["library_ms"] = fwd
+    out["dq"]["library_ms"] = out["dkv"]["library_ms"] = bwd
+    log("flash_attention", "bounds (ms): " + ", ".join(
+        f"{key} {r['bound_ms']:.4f} ({r['bound_by']})" for key, r in out.items())
+        + f"; scaled_dot_product_attention forward {fwd:.4f} ms, its autograd "
+        f"backward (dq, dk, dv) {bwd:.4f} ms")
+    return out
 
 
 def _forward_matmul_flops(state, cfg, batch: int) -> float:
@@ -683,6 +824,409 @@ def phase_train(card: str) -> dict:
             "peak_gib": peak}
 
 
+def _reset_counts() -> None:
+    for fn in _kernel_wrappers().values():
+        fn.launches = 0
+
+
+def _counts() -> dict:
+    return {name: fn.launches for name, fn in _kernel_wrappers().items()}
+
+
+def _kernel_wrappers() -> dict:
+    from bitdance_tpu_torch.ops.attention import flash_bwd_dkv, flash_bwd_dq, flash_fwd
+    from bitdance_tpu_torch.ops.decode_attention import decode_attention
+    from bitdance_tpu_torch.ops.fused_block import fused_attn_block, fused_mlp_block
+    from bitdance_tpu_torch.ops.fused_head import fused_em_sample
+
+    return {"decode_attention": decode_attention, "fused_em_sample": fused_em_sample,
+            "flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq,
+            "flash_bwd_dkv": flash_bwd_dkv, "fused_mlp_block": fused_mlp_block,
+            "fused_attn_block": fused_attn_block}
+
+
+def _block_inputs(g, lead, c, dev):
+    """x ~ N(0, 1) and adaLN mods ~ N(0, 0.25) as bf16 chunks of one
+    [.., 3C] tensor (the layout the head hands the kernels)."""
+    import torch
+
+    x = torch.randn((*lead, c), generator=g, device=dev).bfloat16()
+    ada = 0.5 * torch.randn((*lead, 3 * c), generator=g, device=dev)
+    return x, ada
+
+
+def _errors(got, want) -> tuple[float, float]:
+    """(max abs error, that error relative to max |want|)."""
+    err = (got.float() - want.float()).abs().max().item()
+    return err, err / want.float().abs().max().item()
+
+
+def _check_mlp_block(name, blk, norm, rows, dev, seed) -> dict:
+    import torch
+
+    from bitdance_tpu_torch.ops.fused_block import (
+        fused_mlp_block,
+        fused_mlp_block_reference,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = blk.w2.weight.shape[0]
+    x, ada = _block_inputs(g, (rows,), c, dev)
+    args = (x, *ada.bfloat16().chunk(3, dim=-1), norm.weight, norm.bias,
+            blk.w1.weight, blk.w1.bias, blk.w2.weight, blk.w2.bias)
+    with torch.no_grad():
+        got = fused_mlp_block(*args)
+        want = fused_mlp_block_reference(*args)
+        torch.cuda.synchronize()
+        err, rel = _errors(got, want)
+        ms = cuda_time_ms(lambda: fused_mlp_block(*args), 200, warmup=5)
+        pms = cuda_time_ms(lambda: fused_mlp_block_reference(*args), 50)
+    h = blk.w2.weight.shape[1]
+    bd = roofline(nbytes(x, x, *args[1:]), 6.0 * rows * c * h)
+    b = IMAGENET_BLOCK_MAX_REL_ERR[name]
+    log("imagenet_kernels", f"fused_mlp_block {name} rows={rows} C={c} H={h}: "
+        f"max abs err {err:.3e}, "
+        f"rel {rel:.3e} (bound {b}); kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+        f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    if not torch.isfinite(got).all() or rel > b:
+        raise SystemExit(f"fused_mlp_block {name}: rel err {rel} > {b}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, **bd, "library_ms": None}
+
+
+def _check_attn_block(blk, groups, window, dev, seed) -> dict:
+    import torch
+
+    from bitdance_tpu_torch.ops.fused_block import (
+        fused_attn_block,
+        fused_attn_block_reference,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = blk.attn
+    c = a.wo.weight.shape[0]
+    x, ada = _block_inputs(g, (groups, window), c, dev)
+    ada[:, [0, window - 1], c:2 * c] += IMAGENET_EDGE_SHIFT   # the shift mod
+    scale, shift, gate = ada.bfloat16().chunk(3, dim=-1)
+    w = (blk.norm1.weight, blk.norm1.bias, a.wqkv.weight, a.wqkv.bias,
+         a.wo.weight, a.wo.bias, a.n_head)
+    rows = groups * window
+
+    def off_by_one(t):        # windows start one row later
+        return t.reshape(rows, -1).roll(1, 0).reshape(groups, window, -1)
+
+    with torch.no_grad():
+        got = fused_attn_block(x, scale, shift, gate, *w)
+        want = fused_attn_block_reference(x, scale, shift, gate, *w)
+        torch.cuda.synchronize()
+        err, rel = _errors(got, want)
+        alt = fused_attn_block_reference(*map(off_by_one, (x, scale, shift, gate)), *w)
+        alt = alt.reshape(rows, c).roll(-1, 0).reshape(groups, window, c)
+        moved = _errors(alt, want)[1]
+        ms = cuda_time_ms(lambda: fused_attn_block(x, scale, shift, gate, *w),
+                          200, warmup=5)
+        pms = cuda_time_ms(lambda: fused_attn_block_reference(x, scale, shift, gate, *w),
+                           50)
+    b = IMAGENET_BLOCK_MAX_REL_ERR["attn_b16x"]
+    bd = roofline(nbytes(x, x, scale, shift, gate, *w[:6]),
+               8.0 * rows * c * c + 4.0 * groups * window * window * c)
+    log("imagenet_kernels", f"fused_attn_block G={groups} W={window} C={c} "
+        f"heads={a.n_head}: max abs err {err:.3e}, rel {rel:.3e} "
+        f"(bound {b}; a window off by one row moves the plain output by "
+        f"{moved:.3e} of its max); kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+        f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    if not torch.isfinite(got).all() or rel > b or moved < 4 * b:
+        raise SystemExit(f"fused_attn_block: rel err {rel} (bound {b}), "
+                         f"off-by-one shift {moved}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, **bd, "library_ms": None}
+
+
+def _check_imagenet_sampler(name, bundle, dev, seed) -> dict:
+    """The whole sampler at one ImageNet head and its guided path's rows
+    (IMAGENET_BATCH images, [cond; null class]): 4 steps against the plain
+    version (relative bound), then IMAGENET_STEPS steps (sign agreement and
+    times)."""
+    import torch
+
+    from bitdance_tpu_torch.models.sampling import time_shift
+    from bitdance_tpu_torch.ops.fused_head import (
+        em_precompute,
+        fused_em_sample,
+        fused_em_sample_reference,
+    )
+
+    head, stacked = bundle.head, bundle.head_stacked
+    p, C, ch = head.parallel_num, head.ch_latent, head.ch_target
+    half = IMAGENET_BATCH * p
+    kw = dict(num_blocks=head.depth_latent, num_ada=head.depth_adanln,
+              n_head=C // head.attn_head_dim, groups=2 * IMAGENET_BATCH if p > 1 else 1,
+              attention=head.attention, bounded=head.bounded)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cond = torch.randn((2 * half, bundle.cfg.dim), generator=g, device=dev).bfloat16()
+    c_emb = cond.float() @ stacked["cond_w"].float().t() + stacked["cond_b"]
+
+    def inputs(steps):
+        t_all = time_shift(torch.linspace(0.0, 0.95, steps + 1), head.time_shift)
+        dt_all = torch.cat([t_all[1:] - t_all[:-1], torch.zeros(1)])
+        x0 = torch.randn((half, ch), generator=g, device=dev)
+        noise = torch.randn((steps, half, ch), generator=g, device=dev)
+        return x0, noise, em_precompute(stacked, c_emb, t_all), t_all, dt_all
+
+    cfg = 4.0
+    with torch.no_grad():
+        args = inputs(4)
+        got = fused_em_sample(stacked, *args[:3], *args[3:], cfg, **kw)
+        want = fused_em_sample_reference(stacked, *args[:3], *args[3:], cfg, **kw)
+        torch.cuda.synchronize()
+        err, rel = _errors(got, want)
+        args = inputs(IMAGENET_STEPS)
+        run_k = lambda: fused_em_sample(stacked, *args[:3], *args[3:], cfg, **kw)  # noqa: E731
+        run_p = lambda: fused_em_sample_reference(stacked, *args[:3], *args[3:],  # noqa: E731
+                                                  cfg, **kw)
+        xk, xp = run_k(), run_p()
+        agree = (torch.sign(xk) == torch.sign(xp)).float().mean().item()
+        ms = cuda_time_ms(run_k, 3, warmup=1)
+        pms = cuda_time_ms(run_p, 2, warmup=1)
+    bd = sampler_bound(stacked, args[0], args[1], args[2], attention=head.attention,
+                       groups=kw["groups"], window=p)
+    fam = "TransEncoder" if head.attention else "MlpEncoder"
+    log("imagenet_kernels", f"fused_em_sample {name} ({fam}, unbounded, C={C}, "
+        f"{head.depth_latent} blocks, R={2 * half}): 4 steps max abs err {err:.3e}, "
+        f"rel {rel:.3e} (bound {IMAGENET_SAMPLER_MAX_REL_ERR}); {IMAGENET_STEPS} "
+        f"steps: +-1 agreement {agree:.4f} (floor {SAMPLER_SIGN_AGREEMENT_FLOOR}), "
+        f"kernel {ms:.2f} ms ({ms / (IMAGENET_STEPS + 1):.4f} per net call), plain "
+        f"{pms:.2f} ms, bound {bd['bound_ms']:.3f} ms ({bd['bound_by']})")
+    if (not torch.isfinite(xk).all() or rel > IMAGENET_SAMPLER_MAX_REL_ERR
+            or agree < SAMPLER_SIGN_AGREEMENT_FLOOR):
+        raise SystemExit(f"fused_em_sample {name}: rel {rel}, agreement {agree}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, **bd, "library_ms": None}
+
+
+def phase_imagenet_kernels(h1x, b16x) -> dict:
+    dev = h1x.head.net.input_proj.weight.device
+    hb, bb = h1x.head.net.res_blocks[0], b16x.head.net.res_blocks[0]
+    return {
+        "fused_mlp_block": _check_mlp_block("mlp_h1x", hb, hb.norm,
+                                            UNGUIDED_H1X_IMAGES, dev, 11),
+        "fused_mlp_block_b16x": _check_mlp_block("mlp_b16x", bb, bb.norm2,
+                                                 IMAGENET_BATCH * 16, dev, 12),
+        "fused_attn_block": _check_attn_block(bb, IMAGENET_BATCH, 16, dev, 13),
+        "fused_em_sample_mlp": _check_imagenet_sampler("h1x", h1x, dev, 14),
+        "fused_em_sample_b16x": _check_imagenet_sampler("b16x", b16x, dev, 15),
+    }
+
+
+def _imagenet_run(bundle, n: int, cfg_scale: float, seed: int, steps: int,
+                  head_sampler=None) -> dict:
+    """One class-conditional batch through ``sample`` and the VQ decoder,
+    with every kernel count set to 0 just before and read just after."""
+    import numpy as np
+    import torch
+
+    from bitdance_tpu_torch.models.diff_head import make_fused_sampler
+    from bitdance_tpu_torch.models.imagenet_ar import decode_uint8, sample, tokens_to_grid
+
+    cfg = bundle.cfg
+    dev = bundle.head.net.input_proj.weight.device
+    cls = torch.arange(n, device=dev) % cfg.num_classes
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    timing: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    tokens = sample(bundle.model, bundle.head, cfg, cls, gen,
+                    num_sampling_steps=steps, cfg_scale=cfg_scale,
+                    head_sampler=head_sampler or make_fused_sampler(
+                        bundle.head, bundle.head_stacked),
+                    timing=timing)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    images = decode_uint8(bundle.ae, cfg, tokens)
+    end.record()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _counts()
+    timing["vae"] = start.elapsed_time(end) / 1e3
+    with torch.no_grad():                    # the uint8 cast would hide NaN
+        raw = bundle.ae.decode(tokens_to_grid(cfg, tokens[:2]))
+    ok = (tuple(tokens.shape) == (n, cfg.num_tokens, cfg.token_dim)
+          and set(tokens.unique().tolist()) <= {-1.0, 1.0}
+          and images.dtype == torch.uint8
+          and tuple(images.shape) == (n, cfg.resolution, cfg.resolution, 3)
+          and bool(torch.isfinite(raw.float()).all()))
+    return {"tokens": tokens, "ok": ok, "s": dt, "timing": timing,
+            "counts": counts, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "image_mean": float(np.asarray(images.float().mean().item()))}
+
+
+def _log_run(phase, what, r, want: dict, card) -> None:
+    got = {k: r["counts"][k] for k in want}
+    timing = {k: (round(v, 4) if isinstance(v, float) else v)
+              for k, v in r["timing"].items()}
+    n = r["tokens"].shape[0]
+    log(phase, f"{what}: {r['s']:.3f} s/batch, {n / r['s']:.2f} images/s; "
+        f"phases {json.dumps(timing)}; peak memory {r['peak_gib']:.2f} GiB; "
+        f"launches {got} (want {want}); images uint8 mean {r['image_mean']:.2f}; "
+        f"tokens +1 share {(r['tokens'] > 0).float().mean().item():.3f}; card {card}")
+    if not r["ok"] or got != want:
+        raise SystemExit(f"{phase} {what} failed its checks")
+
+
+def phase_imagenet_h1x(bundle, card) -> dict:
+    """BitDance-H-1x: IMAGENET_BATCH classes guided at cfg 4.55 (the whole
+    sampler, 256 launches), then UNGUIDED_H1X_IMAGES unguided (per call:
+    12 fused_mlp_block launches per net call)."""
+    cfg, head = bundle.cfg, bundle.head
+    steps = cfg.num_tokens // cfg.parallel_num
+    guided = _imagenet_run(bundle, IMAGENET_BATCH, 4.55, 0, IMAGENET_STEPS)
+    _log_run("imagenet_h1x", f"{IMAGENET_BATCH} images, cfg 4.55 linear, "
+             f"{IMAGENET_STEPS} sampling steps, {steps} AR steps", guided,
+             {"fused_em_sample": steps, "fused_mlp_block": 0}, card)
+    unguided = _imagenet_run(bundle, UNGUIDED_H1X_IMAGES, 1.0, 1, UNGUIDED_H1X_STEPS)
+    _log_run("imagenet_h1x", f"{UNGUIDED_H1X_IMAGES} images unguided (cfg 1.0), "
+             f"{UNGUIDED_H1X_STEPS} sampling steps (cut from {IMAGENET_STEPS} for "
+             "the script's time)", unguided,
+             {"fused_em_sample": 0,
+              "fused_mlp_block": head.depth_latent * (UNGUIDED_H1X_STEPS + 1) * steps},
+             card)
+    return {"guided": guided["counts"], "unguided": unguided["counts"]}
+
+
+def phase_imagenet_b16x(bundle, card) -> dict:
+    """BitDance-B-16x: IMAGENET_BATCH classes guided at cfg 6.1 (16 whole-
+    sampler launches) and unguided (per call: one fused_attn_block and one
+    fused_mlp_block per block and net call); then the guided batch again,
+    its head run at every AR step through both the whole sampler (whose
+    tokens drive the batch) and the per-call path, from the same draws."""
+    cfg, head = bundle.cfg, bundle.head
+    steps = cfg.num_tokens // cfg.parallel_num
+    per_call = head.depth_latent * (IMAGENET_STEPS + 1) * steps
+    guided = _imagenet_run(bundle, IMAGENET_BATCH, 6.1, 0, IMAGENET_STEPS)
+    _log_run("imagenet_b16x", f"{IMAGENET_BATCH} images, cfg 6.1 linear, "
+             f"{IMAGENET_STEPS} sampling steps, {steps} AR steps", guided,
+             {"fused_em_sample": steps, "fused_attn_block": 0, "fused_mlp_block": 0},
+             card)
+    unguided = _imagenet_run(bundle, IMAGENET_BATCH, 1.0, 1, IMAGENET_STEPS)
+    _log_run("imagenet_b16x", f"{IMAGENET_BATCH} images unguided (cfg 1.0), "
+             f"{IMAGENET_STEPS} sampling steps", unguided,
+             {"fused_em_sample": 0, "fused_attn_block": per_call,
+              "fused_mlp_block": per_call}, card)
+    import torch
+
+    agree = []
+
+    def both_paths(cond, generator, cfg_iter, n_steps, cfg_mult):
+        state = generator.get_state()
+        whole = head.sample(cond, generator, cfg_iter, n_steps, cfg_mult,
+                            stacked=bundle.head_stacked)
+        generator.set_state(state)
+        per = head.sample_per_call(cond, generator, cfg_iter, n_steps, cfg_mult)
+        agree.append((torch.sign(whole) == torch.sign(per)).float().mean())
+        return whole
+
+    cross = _imagenet_run(bundle, IMAGENET_BATCH, 6.1, 0, IMAGENET_STEPS,
+                          head_sampler=both_paths)
+    share = torch.stack(agree).mean().item()
+    same = torch.equal(cross["tokens"], guided["tokens"])
+    _log_run("imagenet_b16x", "the guided batch, its head at every AR step "
+             "through the whole sampler and through the per-call path "
+             "(fused_attn_block + fused_mlp_block under cfg_mult 2) from the same "
+             f"draws: +-1 agreement {share:.4f} (floor {CROSS_CHECK_AGREEMENT_FLOOR}, "
+             f"per AR step {min(agree).item():.4f}-{max(agree).item():.4f}); "
+             f"tokens equal to the first guided run's: {same}", cross,
+             {"fused_em_sample": steps, "fused_attn_block": per_call,
+              "fused_mlp_block": per_call}, card)
+    if share < CROSS_CHECK_AGREEMENT_FLOOR or not same:
+        raise SystemExit(f"imagenet_b16x: per-call vs whole-sampler agreement "
+                         f"{share}, same tokens as the guided run: {same}")
+    _free_running(bundle, guided["tokens"])
+    # the unguided batch is profiled at the H-1x cut's sampling steps: at 100
+    # it was 181k kernels, and the script took 344 s with these two profiles
+    # against 200 s without them (H100)
+    for what, cfg_scale, n_steps in (("guided", 6.1, IMAGENET_STEPS),
+                                     ("unguided", 1.0, UNGUIDED_H1X_STEPS)):
+        profile_run("imagenet_b16x", f"one {what} batch of {IMAGENET_BATCH}, "
+                    f"{n_steps} sampling steps",
+                    lambda: _imagenet_run(bundle, IMAGENET_BATCH, cfg_scale, 2,
+                                          n_steps))
+    return {"guided": guided["counts"], "unguided": unguided["counts"]}
+
+
+@contextlib.contextmanager
+def _plain_head():
+    """The head's kernels replaced by their plain versions inside
+    models/diff_head.py (the *_reference blocks and
+    fused_em_sample_reference), which launch and count nothing."""
+    from bitdance_tpu_torch.models import diff_head as dh
+    from bitdance_tpu_torch.ops import fused_block as fb
+    from bitdance_tpu_torch.ops import fused_head as fh
+
+    names = ("fused_mlp_block", "fused_attn_block", "fused_em_sample")
+    saved = [getattr(dh, k) for k in names]
+    for k, mod in zip(names, (fb, fb, fh)):
+        setattr(dh, k, getattr(mod, k + "_reference"))
+    try:
+        yield
+    finally:
+        for k, f in zip(names, saved):
+            setattr(dh, k, f)
+
+
+def _free_running(bundle, whole_tokens) -> None:
+    """The guided B-16x batch with each head path's tokens fed back through
+    the backbone, all from the same draws: the per-call kernels (#15 + #14)
+    against the whole-sampler kernel (the guided batch's tokens), and the
+    same two paths through their plain versions, a witness of whether the
+    drift comes from rounding (the per-call residual is bf16, the whole
+    sampler's fp32) or from a kernel. Reported, not checked: free-running
+    tokens diverge once one token flips."""
+    head = bundle.head
+
+    def per_call(cond, generator, cfg_iter, n_steps, cfg_mult):
+        return head.sample_per_call(cond, generator, cfg_iter, n_steps, cfg_mult)
+
+    run = lambda **kw: _imagenet_run(bundle, IMAGENET_BATCH, 6.1, 0,  # noqa: E731
+                                     IMAGENET_STEPS, **kw)
+    t0 = time.perf_counter()
+    tokens = {"kernel_per_call": run(head_sampler=per_call)}
+    with _plain_head():
+        tokens["plain_per_call"] = run(head_sampler=per_call)
+        tokens["plain_whole"] = run()
+    if not all(r["ok"] for r in tokens.values()):
+        raise SystemExit("imagenet_b16x: a free-running batch failed its checks")
+    tokens = {k: r["tokens"] for k, r in tokens.items()}
+    tokens["kernel_whole"] = whole_tokens
+    share = lambda a, b: (tokens[a] == tokens[b]).float().mean().item()  # noqa: E731
+    pairs = (("kernel_per_call", "kernel_whole"), ("plain_per_call", "plain_whole"),
+             ("kernel_whole", "plain_whole"), ("kernel_per_call", "plain_per_call"))
+    log("imagenet_b16x", "the guided batch free-running from the same draws, +-1 "
+        "agreement: " + ", ".join(f"{a} vs {b} {share(a, b):.4f}" for a, b in pairs)
+        + f" ({time.perf_counter() - t0:.1f} s)")
+
+
+def build_imagenet_samplers():
+    """Random BitDance-H-1x and BitDance-B-16x samplers (bf16) on the card."""
+    import torch
+
+    from bitdance_tpu_torch.io.random_init import build_random_imagenet_sampler
+    from bitdance_tpu_torch.models.imagenet_ar import config_b, config_h
+
+    out = []
+    for name, cfg, seed in (("BitDance-H-1x", config_h(), 3),
+                            ("BitDance-B-16x", config_b(parallel_num=16), 4)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = build_random_imagenet_sampler(cfg, "cuda", seed=seed)
+        torch.cuda.synchronize()
+        n = lambda m: sum(p.numel() for p in m.parameters()) / 1e6  # noqa: E731
+        log("imagenet", f"{name} random bf16 sampler in {time.perf_counter() - t0:.1f} "
+            f"s: backbone {n(b.model):.1f} M, head {n(b.head):.1f} M, VQ decoder "
+            f"{n(b.ae):.1f} M parameters; "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        out.append(b)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -718,6 +1262,19 @@ def main() -> int:
     results.update(phase_flash_attention())
     train = phase_train(card)
     launches.update(train["launches"])
+    gc.collect()                            # the training state is gone
+    torch.cuda.empty_cache()
+
+    h1x, b16x = build_imagenet_samplers()
+    results.update(phase_imagenet_kernels(h1x, b16x))
+    h = phase_imagenet_h1x(h1x, card)
+    b = phase_imagenet_b16x(b16x, card)
+    launches.update({
+        "fused_em_sample_mlp": h["guided"]["fused_em_sample"],
+        "fused_em_sample_b16x": b["guided"]["fused_em_sample"],
+        "fused_mlp_block": (h["unguided"]["fused_mlp_block"]
+                            + b["unguided"]["fused_mlp_block"]),
+        "fused_attn_block": b["unguided"]["fused_attn_block"]})
 
     records = []
     meta = {
@@ -731,6 +1288,20 @@ def main() -> int:
                          "bitdance_tpu/ops/attention.py:456"),
         "flash_bwd_dkv": ("flash_bwd_dkv", "bitdance_tpu_torch/csrc/flash_attention.cu",
                           "bitdance_tpu/ops/attention.py:474"),
+        # the MlpEncoder family and the unbounded TransEncoder of the same
+        # kernel: the JAX package takes its per-block kernel #3 for both
+        # heads (177 MB and 60 MB of block weights, over its 48 MB resident
+        # limit)
+        "fused_em_sample_mlp": ("fused_em_sample_mlp",
+                                "bitdance_tpu_torch/csrc/fused_head.cu",
+                                "bitdance_tpu/ops/fused_head.py:1234"),
+        "fused_em_sample_b16x": ("fused_em_sample_b16x",
+                                 "bitdance_tpu_torch/csrc/fused_head.cu",
+                                 "bitdance_tpu/ops/fused_head.py:1234"),
+        "fused_mlp_block": ("fused_mlp_block", "bitdance_tpu_torch/csrc/fused_block.cu",
+                            "bitdance_tpu/ops/fused_block.py:95"),
+        "fused_attn_block": ("fused_attn_block", "bitdance_tpu_torch/csrc/fused_block.cu",
+                             "bitdance_tpu/ops/fused_block.py:183"),
     }
     for name, (key, src, repl) in meta.items():
         r = results[key]
@@ -738,8 +1309,8 @@ def main() -> int:
             raise SystemExit(f"{name} was not launched by the main path")
         records.append({"name": name, "route": "cuda", "source": src,
                         "replaces": repl, "launches": launches[name],
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                             "bound_ms", "bound_by", "library_ms")}})
     log("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(card)

@@ -139,3 +139,98 @@ def test_kernels_refuse_grad(dev):
     k = torch.zeros((1, 1, 4, 128), device=dev, dtype=torch.bfloat16)
     with pytest.raises(RuntimeError, match="no backward"):
         decode_attention(q, k, k, torch.ones(1, dtype=torch.int32, device=dev))
+
+
+def _block_weights(g, dev, c, n_out, n_in):
+    return (torch.randn((n_out, n_in), generator=g, device=dev) * n_in ** -0.5).bfloat16()
+
+
+@pytest.mark.parametrize("rows,c", [(8, 1280), (77, 256)])
+def test_fused_mlp_block_kernel(dev, rows, c):
+    """#14 vs its plain version (bf16; bounds a few bf16 ulps of the
+    output); mods read through a row stride and, for the gate, stride 0."""
+    from bitdance_tpu_torch.ops.fused_block import (
+        fused_mlp_block,
+        fused_mlp_block_reference,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    h = c * 3 // 2
+    x = torch.randn((rows, c), generator=g, device=dev).bfloat16()
+    ada = (0.5 * torch.randn((rows, 3 * c), generator=g, device=dev)).bfloat16()
+    scale, shift, _ = ada.chunk(3, dim=-1)
+    gate = ada[:1, 2 * c:].expand(rows, c)
+    ln_w = (1 + 0.1 * torch.randn(c, generator=g, device=dev)).bfloat16()
+    ln_b = (0.1 * torch.randn(c, generator=g, device=dev)).bfloat16()
+    w1, w2 = _block_weights(g, dev, c, 2 * h, c), _block_weights(g, dev, c, c, h)
+    b1 = (0.1 * torch.randn(2 * h, generator=g, device=dev)).bfloat16()
+    b2 = (0.1 * torch.randn(c, generator=g, device=dev)).bfloat16()
+    args = (x, scale, shift, gate, ln_w, ln_b, w1, b1, w2, b2)
+    n = fused_mlp_block.launches
+    with torch.no_grad():
+        got = fused_mlp_block(*args)
+        want = fused_mlp_block_reference(*args)
+    torch.cuda.synchronize()
+    assert fused_mlp_block.launches == n + 1 and got.dtype == torch.bfloat16
+    err = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+    assert err < 2e-2
+
+
+def test_fused_attn_block_kernel(dev):
+    """#15 vs its plain version at B-16x width (G 4, W 16, C 768, 12 heads)."""
+    from bitdance_tpu_torch.ops.fused_block import (
+        fused_attn_block,
+        fused_attn_block_reference,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    G, W, c, nh = 4, 16, 768, 12
+    x = torch.randn((G, W, c), generator=g, device=dev).bfloat16()
+    ada = (0.5 * torch.randn((G, W, 3 * c), generator=g, device=dev)).bfloat16()
+    scale, shift, gate = ada.chunk(3, dim=-1)
+    ln_w = (1 + 0.1 * torch.randn(c, generator=g, device=dev)).bfloat16()
+    ln_b = (0.1 * torch.randn(c, generator=g, device=dev)).bfloat16()
+    wqkv, wo = _block_weights(g, dev, c, 3 * c, c), _block_weights(g, dev, c, c, c)
+    bqkv = (0.1 * torch.randn(3 * c, generator=g, device=dev)).bfloat16()
+    bo = (0.1 * torch.randn(c, generator=g, device=dev)).bfloat16()
+    args = (x, scale, shift, gate, ln_w, ln_b, wqkv, bqkv, wo, bo, nh)
+    n = fused_attn_block.launches
+    with torch.no_grad():
+        got = fused_attn_block(*args)
+        want = fused_attn_block_reference(*args)
+    torch.cuda.synchronize()
+    assert fused_attn_block.launches == n + 1
+    err = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+    assert err < 2e-2
+
+
+def test_sampler_kernel_mlp_encoder(dev):
+    """The whole sampler's MlpEncoder family (3 mods, no attention,
+    unbounded) vs its plain version, small head."""
+    from bitdance_tpu_torch.io.random_init import init_head
+    from bitdance_tpu_torch.ops.fused_head import (
+        em_precompute,
+        fused_em_sample,
+        fused_em_sample_reference,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    head = init_head(dict(ch_target=16, ch_cond=256, ch_latent=256,
+                          depth_latent=4, depth_adanln=2, attention=False,
+                          use_swiglu=False), dev, torch.bfloat16, g)
+    s = head._stack_for_sampler()
+    assert "wqkv" not in s and s["modcat_w"].shape[0] == (2 * 3 + 2) * 256
+    cond = torch.randn((24, 256), generator=g, device=dev)
+    c_emb = cond @ s["cond_w"].float().t() + s["cond_b"]
+    t_all = torch.linspace(0.0, 0.95, 5)
+    dt_all = torch.cat([t_all[1:] - t_all[:-1], torch.zeros(1)])
+    mods = em_precompute(s, c_emb, t_all)
+    x0 = torch.randn((12, 16), generator=g, device=dev)
+    noise = torch.randn((4, 12, 16), generator=g, device=dev)
+    kw = dict(num_blocks=4, num_ada=2, attention=False, bounded=False)
+    with torch.no_grad():
+        got = fused_em_sample(s, x0, noise, mods, t_all, dt_all, 3.0, **kw)
+        want = fused_em_sample_reference(s, x0, noise, mods, t_all, dt_all,
+                                         3.0, **kw)
+    rel = (got - want).abs().max() / want.abs().max()
+    assert rel.item() < 5e-2

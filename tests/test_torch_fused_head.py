@@ -63,8 +63,10 @@ def setup():
 
 
 KW = dict(num_blocks=BLOCKS, num_ada=ADA, n_head=C // 128, groups=4)
-# the JAX sampler also serves the MlpEncoder heads; the port's has no switch
-JKW = dict(KW, attention=True, bounded=True)
+# the T2I head's family; test_torch_imagenet_sample.py holds the MlpEncoder
+# and the unbounded TransEncoder
+KW = dict(KW, attention=True, bounded=True)
+JKW = KW
 
 
 def _port(s, x0, noise, mods, t_all, dt_all, **kw):

@@ -1,6 +1,7 @@
-"""Package boundary of the port: no JAX, the only bitdance_tpu import is the
-jax-free special_tokens module; the weight bridge round-trips; the kernels'
-no-backward guard is a pure predicate."""
+"""Package boundary of the port: no JAX and nothing of bitdance_tpu (the port
+keeps its own special_tokens, which gives the JAX module's results); the
+weight bridge round-trips; the kernels' no-backward guard is a pure
+predicate."""
 
 import ast
 from pathlib import Path
@@ -12,7 +13,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-ALLOWED_FROM_JAX_PACKAGE = {"bitdance_tpu.data.special_tokens"}
+ALLOWED_FROM_JAX_PACKAGE: set = set()
 
 torch.set_num_threads(2)
 
@@ -44,13 +45,30 @@ def test_port_imports_no_jax(path):
             assert mod in ALLOWED_FROM_JAX_PACKAGE, (path, mod)
 
 
-def test_special_tokens_module_is_jax_free():
-    import bitdance_tpu.data.special_tokens as st
+class _StubTokenizer:
+    """Ids for any token string, the same on both sides."""
 
-    assert not [m for m in _imports(Path(st.__file__))
-                if m.split(".")[0] in ("jax", "flax")]
-    assert not [m for m in _imports(ROOT / "bitdance_tpu" / "__init__.py")
-                if m.split(".")[0] in ("jax", "flax")]
+    def convert_tokens_to_ids(self, tok):
+        return sum(ord(c) * (i + 1) for i, c in enumerate(tok))
+
+
+def test_special_tokens_module_is_jax_free():
+    """The port's special_tokens gives the JAX module's results (chatml
+    prompts; image start ids at 512 and 1024 px for parallel_num 16 and 64)."""
+    import bitdance_tpu.data.special_tokens as jst
+    import bitdance_tpu_torch.data.special_tokens as tst
+
+    for prompt in ("A cat", "", "a lighthouse at dusk, 1024\nsecond line"):
+        assert tst.chatml_prompts(prompt) == jst.chatml_prompts(prompt)
+    tok = _StubTokenizer()
+    for px in (512, 1024):
+        for p in (16, 64):
+            got = tst.image_start_ids(tok, px // 16, px // 16, p)
+            assert got == jst.image_start_ids(tok, px // 16, px // 16, p)
+            assert len(got) == 2 + p
+    assert tst.IMAGE_SIZE_LIST == jst.IMAGE_SIZE_LIST
+    assert not [m for m in _imports(Path(tst.__file__))
+                if m.split(".")[0] in ("jax", "flax", "bitdance_tpu")]
 
 
 def _np(module):
