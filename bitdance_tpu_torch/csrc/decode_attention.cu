@@ -1,9 +1,16 @@
-// Flash decode of a query block against a head-major bf16 KV cache.
+// Flash decode of a query block against a head-major KV cache.
 //
-// Replaces the TPU kernel bitdance_tpu/ops/decode_attention.py::_decode_kernel
-// (entry decode_attention_pallas): an S-row query block per (row b, q head)
-// attends the valid window [kv_start[b], kv_len[b]) of the cache, online
-// softmax in fp32, and a row whose window is empty returns 0.
+// Replaces two TPU kernels of bitdance_tpu/ops/decode_attention.py:
+//   _decode_kernel (entry decode_attention_pallas): separate bf16 k and v
+//     caches [B, Hkv, L, D];
+//   _decode_fusedkv_kernel (entry decode_attention_fusedkv): one fused ring
+//     buffer [B, Hkv, L, 2D] (k in lanes [:D], v in [D:]), bf16, or int8 with
+//     f32 scales [B, Hkv, 2, L] (k scales in row 0, v scales in row 1).
+// An S-row query block per (row b, q head) attends the valid window
+// [kv_start[b], kv_len[b]) of the cache, online softmax in fp32, and a row
+// whose window is empty returns 0. With an int8 buffer the scores take the k
+// scale of each key, p takes the v scale of each key before the PV product,
+// and the normaliser l sums the unscaled p, as the TPU kernel does.
 //
 // What bounds it on the H100: one AR step of the 14B model reads the whole
 // valid cache of each layer (2 CFG rows x 8 kv heads x up to 4226 x 128 x 2
@@ -18,7 +25,10 @@
 // m16n8k16, bf16 in, fp32 accumulate); P is rounded to bf16 for the PV
 // product, scores, the running max and the normaliser stay fp32. Tiles of
 // 64 keys outside the window are never loaded. The cache is read in place in
-// its head-major layout.
+// its head-major layout. An int8 tile is widened to bf16 as it is staged in
+// shared memory: |q| <= 127 is exact in bf16, so the same tensor-core
+// products serve both formats, and the int8 buffer moves a quarter of the
+// bytes of two bf16 caches (each key's scales ride beside it, 8 bytes).
 #include "common.cuh"
 
 namespace {
@@ -29,14 +39,39 @@ constexpr int kBKV = 64;       // keys per tile
 constexpr int kLDS = kD + 8;   // padded smem row (bf16): conflict-free reads
 constexpr float kNeg = -1e30f;
 
+// 16 bytes of a cache row -> bf16 in shared memory (8 bf16 or 16 int8 values)
+__device__ __forceinline__ void stage16(bf16* dst, const bf16* src, bool ok) {
+  *reinterpret_cast<uint4*>(dst) =
+      ok ? *reinterpret_cast<const uint4*>(src) : make_uint4(0, 0, 0, 0);
+}
+
+__device__ __forceinline__ void stage16(bf16* dst, const int8_t* src, bool ok) {
+  const uint4 raw = ok ? *reinterpret_cast<const uint4*>(src) : make_uint4(0, 0, 0, 0);
+  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+  uint32_t w[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    w[i] = pack_bf16x2(static_cast<float>(b[2 * i]), static_cast<float>(b[2 * i + 1]));
+  *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+  *reinterpret_cast<uint4*>(dst + 8) = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
+// T: cache element (bf16, or int8 with kv_sc [B*Hkv, 2, L] f32 scales);
+// k and v point at row 0 of head 0 and rows are ld elements apart (D for
+// separate caches, 2D for the fused buffer, whose v starts at k + D).
+template <typename T>
 __global__ void __launch_bounds__(128)
-decode_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, bf16* __restrict__ o,
+decode_attention_kernel(const bf16* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, int ld,
+                        const float* __restrict__ kv_sc, bf16* __restrict__ o,
                         const int* __restrict__ kv_len,
                         const int* __restrict__ kv_start, int S, int Hq,
                         int Hkv, int L, float scale, int n_qtiles) {
+  constexpr bool kQuant = sizeof(T) == 1;
+  constexpr int kE = 16 / sizeof(T);  // elements per 16-byte load
   __shared__ __align__(16) bf16 Ks[kBKV * kLDS];
   __shared__ __align__(16) bf16 Vs[kBKV * kLDS];
+  __shared__ float kS[kBKV], vS[kBKV];
 
   const int qt = blockIdx.x % n_qtiles;
   const int bh = blockIdx.x / n_qtiles;
@@ -75,22 +110,25 @@ decode_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float m_i[2] = {kNeg, kNeg};
   float l_i[2] = {0.f, 0.f};
 
-  const size_t head_off = ((size_t)b * Hkv + hk) * (size_t)L * kD;
-  const bf16* kh = k + head_off;
-  const bf16* vh = v + head_off;
+  const size_t head_off = ((size_t)b * Hkv + hk) * (size_t)L * ld;
+  const T* kh = k + head_off;
+  const T* vh = v + head_off;
+  const float* ksc = kQuant ? kv_sc + ((size_t)b * Hkv + hk) * 2 * (size_t)L : nullptr;
 
   for (int kb = (start / kBKV) * kBKV; kb < len; kb += kBKV) {
     __syncthreads();  // previous tile fully consumed
-    for (int c = threadIdx.x; c < kBKV * (kD / 8); c += blockDim.x) {
-      const int r = c / (kD / 8), cc = (c % (kD / 8)) * 8;
+    for (int c = threadIdx.x; c < kBKV * (kD / kE); c += blockDim.x) {
+      const int r = c / (kD / kE), cc = (c % (kD / kE)) * kE;
       const int key = kb + r;
-      uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
-      if (key < L) {
-        kv4 = *reinterpret_cast<const uint4*>(kh + (size_t)key * kD + cc);
-        vv4 = *reinterpret_cast<const uint4*>(vh + (size_t)key * kD + cc);
-      }
-      *reinterpret_cast<uint4*>(Ks + r * kLDS + cc) = kv4;
-      *reinterpret_cast<uint4*>(Vs + r * kLDS + cc) = vv4;
+      const bool ok = key < L;
+      const size_t off = (size_t)(ok ? key : 0) * ld + cc;
+      stage16(Ks + r * kLDS + cc, kh + off, ok);
+      stage16(Vs + r * kLDS + cc, vh + off, ok);
+    }
+    if (kQuant && threadIdx.x < kBKV) {
+      const int key = kb + threadIdx.x;
+      kS[threadIdx.x] = key < L ? ksc[key] : 0.f;
+      vS[threadIdx.x] = key < L ? ksc[L + key] : 0.f;
     }
     __syncthreads();
 
@@ -115,7 +153,9 @@ decode_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int i = 0; i < 4; ++i) {
         const int key = kb + nt * 8 + tq * 2 + (i & 1);
         const bool valid = key >= start && key < len;
-        s[nt][i] = valid ? s[nt][i] * scale : kNeg;
+        float sv = s[nt][i] * scale;
+        if (kQuant) sv *= kS[key - kb];
+        s[nt][i] = valid ? sv : kNeg;
         mx[i >> 1] = fmaxf(mx[i >> 1], s[nt][i]);
       }
     }
@@ -136,8 +176,8 @@ decode_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const int key = kb + nt * 8 + tq * 2 + (i & 1);
         const bool valid = key >= start && key < len;
         const float p = valid ? __expf(s[nt][i] - m_i[i >> 1]) : 0.f;
-        s[nt][i] = p;
         l_i[i >> 1] += p;  // per-thread partial; reduced over the quad at the end
+        s[nt][i] = kQuant ? p * vS[key - kb] : p;  // the PV operand
       }
     }
 #pragma unroll
@@ -198,6 +238,32 @@ decode_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 }  // namespace
 
+static int launch_decode(const void* q, const void* k, const void* v, int ld,
+                         const void* kv_sc, void* out, const void* kv_len,
+                         const void* kv_start, int B, int S, int Hq, int Hkv,
+                         int L, int D, float scale, void* stream) {
+  if (D != kD || Hq % Hkv != 0 || B <= 0 || S <= 0 || L <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = (Hq / Hkv) * S;
+  const int n_qtiles = (rows + kBQ - 1) / kBQ;
+  dim3 grid(B * Hkv * n_qtiles);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* qp = static_cast<const bf16*>(q);
+  const auto* lens = static_cast<const int*>(kv_len);
+  const auto* starts = static_cast<const int*>(kv_start);
+  if (kv_sc != nullptr) {
+    decode_attention_kernel<int8_t><<<grid, 128, 0, st>>>(
+        qp, static_cast<const int8_t*>(k), static_cast<const int8_t*>(v), ld,
+        static_cast<const float*>(kv_sc), static_cast<bf16*>(out), lens, starts,
+        S, Hq, Hkv, L, scale, n_qtiles);
+  } else {
+    decode_attention_kernel<bf16><<<grid, 128, 0, st>>>(
+        qp, static_cast<const bf16*>(k), static_cast<const bf16*>(v), ld, nullptr,
+        static_cast<bf16*>(out), lens, starts, S, Hq, Hkv, L, scale, n_qtiles);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // q [B,S,Hq,D], k/v [B,Hkv,L,D] (one layer of the head-major cache), out like
 // q; kv_len/kv_start [B] int32 on the device. Returns cudaGetLastError().
 extern "C" int bd_decode_attention(const void* q, const void* k, const void* v,
@@ -205,15 +271,21 @@ extern "C" int bd_decode_attention(const void* q, const void* k, const void* v,
                                    const void* kv_start, int B, int S, int Hq,
                                    int Hkv, int L, int D, float scale,
                                    void* stream) {
-  if (D != kD || Hq % Hkv != 0 || B <= 0 || S <= 0 || L <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = (Hq / Hkv) * S;
-  const int n_qtiles = (rows + kBQ - 1) / kBQ;
-  dim3 grid(B * Hkv * n_qtiles);
-  decode_attention_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out),
-      static_cast<const int*>(kv_len), static_cast<const int*>(kv_start), S,
-      Hq, Hkv, L, scale, n_qtiles);
-  return static_cast<int>(cudaGetLastError());
+  return launch_decode(q, k, v, D, nullptr, out, kv_len, kv_start, B, S, Hq,
+                       Hkv, L, D, scale, stream);
+}
+
+// q [B,S,Hq,D] bf16; kv [B,Hkv,L,2D] (one layer of the fused ring buffer):
+// bf16 when kv_sc is null, else int8 with kv_sc [B,Hkv,2,L] f32. out like q.
+extern "C" int bd_decode_attention_fusedkv(const void* q, const void* kv,
+                                           const void* kv_sc, void* out,
+                                           const void* kv_len,
+                                           const void* kv_start, int B, int S,
+                                           int Hq, int Hkv, int L, int D,
+                                           float scale, void* stream) {
+  if (kv_sc != nullptr)
+    return launch_decode(q, kv, static_cast<const int8_t*>(kv) + D, 2 * D, kv_sc,
+                         out, kv_len, kv_start, B, S, Hq, Hkv, L, D, scale, stream);
+  return launch_decode(q, kv, static_cast<const bf16*>(kv) + D, 2 * D, nullptr,
+                       out, kv_len, kv_start, B, S, Hq, Hkv, L, D, scale, stream);
 }

@@ -34,7 +34,17 @@
 // for both families: fp32 residual h, bf16 stage activations, fp32 LN
 // statistics, softmax and accumulation. At 64 rows and C 1280 the 64x64
 // output tiles give only 20-60 blocks per product, under half the 132 SMs.
-#include "head_blocks.cuh"
+//
+// Quant mode (quant = 1 int8, 2 packed int4; the TPU kernel's W8A8 / W4A8
+// mode, stage_quant + stage_dot, TransEncoder only): each of the four block
+// products takes its fp32 stage input (LN + modulate, the window attention's
+// output, silu(h1) * h2), quantizes it per row to int8 once, and runs the s8
+// GEMM of int8_gemm.cuh on int8 [out, in] or packed [out, in/2] weights with
+// per-output-column scales, y = acc * (sa * ws) before the same bias, gated
+// residual and SwiGLU epilogues; qkv and h1/h2 are still rounded to bf16.
+// Weight bytes per net call halve (int8) or quarter (int4), so does the
+// bound; the four row quantizations add four small launches per block.
+#include "int8_gemm.cuh"
 
 namespace {
 
@@ -144,6 +154,78 @@ final_em_kernel(const float* __restrict__ h, int C,
   }
 }
 
+// The quantized pointers of one sampler call: int8 (or packed) block
+// matrices, their per-output-column scales, and the fp32 stage input, its
+// int8 rows and their scales (scratch).
+struct QuantBlock {
+  const int8_t *wqkv, *wo, *w1, *w2;
+  const float *wqkv_s, *wo_s, *w1_s, *w2_s;
+  float* actf;
+  int8_t* aq;
+  float* sa;
+};
+
+// One TransEncoder block with W8A8 / W4A8 products (the bf16 path's stages
+// with the quantization in front of each product).
+template <bool INT4>
+cudaError_t quant_block(const QuantBlock& qb, int l, float* h, const bf16* m,
+                        int W, const bf16* n1, const bf16* n2, const bf16* bqkv,
+                        const bf16* bo, const bf16* b1, const bf16* b2, bf16* buf,
+                        int R, int C, int H, int n_head, int groups, int wtok,
+                        int hd, float attn_scale, size_t attn_smem, float eps,
+                        cudaStream_t st) {
+  const int cs = INT4 ? C / 2 : C, hs = INT4 ? H / 2 : H;  // stored K
+  ln_modulate_kernel<float, false, float><<<R, 256, 0, st>>>(
+      h, C, n1 + (size_t)l * 2 * C, n1 + (size_t)l * 2 * C + C, m, W, m + C, W,
+      qb.actf, eps);
+  BD_CHECK_ERR(cudaGetLastError());
+  BD_CHECK_ERR(launch_quantize_rows(qb.actf, C, C, qb.aq, C, qb.sa, R, st));
+  Epilogue qkv_ep{};
+  qkv_ep.bias = bqkv + (size_t)l * 3 * C;
+  qkv_ep.out = buf;
+  qkv_ep.ldo = 3 * C;
+  BD_CHECK_ERR((launch_gemm_s8<kBiasBf16, INT4>(
+      qb.aq, C, qb.sa, qb.wqkv + (size_t)l * 3 * C * cs, qb.wqkv_s + (size_t)l * 3 * C,
+      C, R, 3 * C, qkv_ep, st)));
+  window_attention_kernel<bf16, float><<<groups * n_head, 256, attn_smem, st>>>(
+      buf, C, wtok, hd, n_head, attn_scale, qb.actf);
+  BD_CHECK_ERR(cudaGetLastError());
+  BD_CHECK_ERR(launch_quantize_rows(qb.actf, C, C, qb.aq, C, qb.sa, R, st));
+  Epilogue o_ep{};
+  o_ep.bias = bo + (size_t)l * C;
+  o_ep.resid = h;
+  o_ep.ldr = C;
+  o_ep.gate = m + 2 * C;
+  o_ep.ldg = W;
+  BD_CHECK_ERR((launch_gemm_s8<kGatedResidual, INT4>(
+      qb.aq, C, qb.sa, qb.wo + (size_t)l * C * cs, qb.wo_s + (size_t)l * C, C, R, C,
+      o_ep, st)));
+  const bf16* mm = m + (size_t)3 * C;  // scale2, shift2, gate2
+  ln_modulate_kernel<float, false, float><<<R, 256, 0, st>>>(
+      h, C, n2 + (size_t)l * 2 * C, n2 + (size_t)l * 2 * C + C, mm, W, mm + C, W,
+      qb.actf, eps);
+  BD_CHECK_ERR(cudaGetLastError());
+  BD_CHECK_ERR(launch_quantize_rows(qb.actf, C, C, qb.aq, C, qb.sa, R, st));
+  Epilogue glu_ep{};
+  glu_ep.bias = b1 + (size_t)l * 2 * H;
+  glu_ep.out = qb.actf;
+  glu_ep.ldo = H;
+  glu_ep.hidden = H;
+  BD_CHECK_ERR((launch_gemm_s8<kSwiGLUQ, INT4>(
+      qb.aq, C, qb.sa, qb.w1 + (size_t)l * 2 * H * cs, qb.w1_s + (size_t)l * 2 * H, C,
+      R, 2 * H, glu_ep, st)));
+  BD_CHECK_ERR(launch_quantize_rows(qb.actf, H, H, qb.aq, H, qb.sa, R, st));
+  Epilogue down_ep{};
+  down_ep.bias = b2 + (size_t)l * C;
+  down_ep.resid = h;
+  down_ep.ldr = C;
+  down_ep.gate = mm + 2 * C;
+  down_ep.ldg = W;
+  return launch_gemm_s8<kGatedResidual, INT4>(
+      qb.aq, H, qb.sa, qb.w2 + (size_t)l * C * hs, qb.w2_s + (size_t)l * C, H, R, C,
+      down_ep, st);
+}
+
 }  // namespace
 
 // Runs the whole sampler on `stream`. x [half, ch] fp32 holds x0 on entry and
@@ -153,7 +235,10 @@ final_em_kernel(const float* __restrict__ h, int C,
 // Weights are stacked per block in the torch Linear layout ([L, out, in]);
 // n1, wqkv, bqkv, wo and bo are read only when attention=1. h (fp32 [R, C]),
 // act (bf16 [R, max(C, H)]) and buf (bf16 [R, max(3C, H)]) are scratch.
-// Returns the first CUDA error, or 0.
+// quant 1 (int8) / 2 (packed int4), attention=1 only: wqkv, wo, w1, w2 are
+// int8 [L, out, in] / [L, out, in/2] with f32 scales *_s [L, out]; actf
+// (fp32 [R, max(C, H)]), aq (int8, the same shape) and sa (fp32 [R]) are
+// scratch. Returns the first CUDA error, or 0.
 extern "C" int bd_fused_em_sample(
     void* x, const void* noise, const void* allmods, int W,
     const float* t_host, const float* dt_host, float cfg, const void* in_w,
@@ -163,12 +248,23 @@ extern "C" int bd_fused_em_sample(
     const void* b2, void* h_scratch, void* act_scratch, void* buf_scratch,
     int half, int ch, int C, int H, int num_blocks, int num_steps,
     int switch_freq, int n_head, int groups, int attention, int bounded,
-    int final_chunk, float last_step, void* stream) {
+    int final_chunk, float last_step, int quant, const void* wqkv_s,
+    const void* wo_s, const void* w1_s, const void* w2_s, void* actf, void* aq,
+    void* sa, void* stream) {
   const int R = 2 * half;
   const int n_mods = attention ? 6 : 3;
   if (ch > kMaxCh || C % kBN != 0 || C % kBK != 0 || H % kBK != 0 ||
       (2 * H) % kBN != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int qk = quant == 2 ? 2 * kQBK : kQBK;  // K granularity of the s8 GEMM
+  if (quant < 0 || quant > 2 || (quant && (!attention || C % qk || H % qk)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const QuantBlock qb{static_cast<const int8_t*>(wqkv), static_cast<const int8_t*>(wo),
+                      static_cast<const int8_t*>(w1), static_cast<const int8_t*>(w2),
+                      static_cast<const float*>(wqkv_s), static_cast<const float*>(wo_s),
+                      static_cast<const float*>(w1_s), static_cast<const float*>(w2_s),
+                      static_cast<float*>(actf), static_cast<int8_t*>(aq),
+                      static_cast<float*>(sa)};
   if (attention && (C % n_head != 0 || R % groups != 0 || R / groups > 64 ||
                     (C / n_head) % 2))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -194,10 +290,14 @@ extern "C" int bd_fused_em_sample(
   const int hd = attention ? C / n_head : 0;
   const int wtok = attention ? R / groups : 0;
   const size_t attn_smem = window_attention_smem<bf16>(wtok, hd);
-  if (attn_smem > 48 * 1024)
+  if (attn_smem > 48 * 1024) {
     BD_CHECK(cudaFuncSetAttribute(window_attention_kernel<bf16>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   static_cast<int>(attn_smem)));
+    BD_CHECK(cudaFuncSetAttribute(window_attention_kernel<bf16, float>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  static_cast<int>(attn_smem)));
+  }
   const float attn_scale = attention ? 1.f / sqrtf(static_cast<float>(hd)) : 0.f;
   const int grid_steps = num_steps + (final_chunk ? 1 : 0);
   const int proj_blocks = static_cast<int>(((size_t)R * C + 255) / 256);
@@ -212,6 +312,12 @@ extern "C" int bd_fused_em_sample(
     BD_CHECK(cudaGetLastError());
     for (int l = 0; l < num_blocks; ++l) {
       const bf16* m = mods_s + (size_t)(l / switch_freq) * n_mods * C;
+      if (quant) {
+        BD_CHECK((quant == 2 ? quant_block<true> : quant_block<false>)(
+            qb, l, h, m, W, N1, N2, Bqkv, Bo, B1, B2, buf, R, C, H, n_head,
+            groups, wtok, hd, attn_scale, attn_smem, eps, st));
+        continue;
+      }
       if (attention) {
         // scale1, shift1, gate1 at m, m + C, m + 2C
         ln_modulate_kernel<float, false><<<R, 256, 0, st>>>(

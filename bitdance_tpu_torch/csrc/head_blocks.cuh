@@ -26,10 +26,17 @@ enum GemmMode {
   kSwiGLUF32 = 3,      // out bf16 = silu(h1) * h2 with h1, h2 kept in fp32
   kBiasF32 = 4,        // out fp32 = acc + bias
   kGatedResidualBf16 = 5,  // out bf16 = x + (acc + bias) * gate
+  kOutBf16 = 6,        // out bf16 = acc (no bias)
+  kOutF32 = 7,         // out fp32 = acc (no bias)
+  kSwiGLUQ = 8,        // out fp32 = silu(bf16(h1)) * bf16(h2), h = acc + bias
 };
 
 __host__ __device__ constexpr bool is_swiglu(int mode) {
-  return mode == kSwiGLU || mode == kSwiGLUF32;
+  return mode == kSwiGLU || mode == kSwiGLUF32 || mode == kSwiGLUQ;
+}
+
+__host__ __device__ constexpr bool out_is_f32(int mode) {
+  return mode == kBiasF32 || mode == kOutF32 || mode == kSwiGLUQ;
 }
 
 // What the epilogue reads and writes; unused fields are ignored by a mode.
@@ -59,6 +66,74 @@ __device__ __forceinline__ int weight_row(int n0, int r, int hidden) {
     return (blk8 & 1) ? hidden + col : col;
   }
   return n0 + r;
+}
+
+// The epilogue of one 64x64 output tile: acc[mt][nt][i] is the product
+// (already dequantized by an integer GEMM) at row m0 + wm*32 + mt*16 + g +
+// (i/2)*8 and tile column wn*32 + nt*8 + 2*tq + i%2 of the 4 warps' 2x2
+// layout; SwiGLU tiles hold h1 and h2 columns in alternating groups of 8
+// (weight_row). Rows at or past M are not stored.
+template <int MODE>
+__device__ __forceinline__ void store_tile(
+    const float (&acc)[2][4][4], int m0, int n0, int M,
+    const bf16* __restrict__ bias, bf16* __restrict__ out,
+    float* __restrict__ out_f32, int ldo, float* __restrict__ resid, int ldr,
+    const bf16* __restrict__ gate, int ldg, const bf16* __restrict__ xres,
+    int ldx, int hidden) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wm = warp & 1, wn = warp >> 1;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = m0 + wm * 32 + mt * 16 + g + (i >> 1) * 8;
+      if (row >= M) continue;
+      if (is_swiglu(MODE)) {
+#pragma unroll
+        for (int nt = 0; nt < 4; nt += 2) {
+          const int col = (n0 >> 1) + (wn * 2 + nt / 2) * 8 + tq * 2 + (i & 1);
+          float y1 = acc[mt][nt][i] + bf2f(bias[col]);
+          float y2 = acc[mt][nt + 1][i] + bf2f(bias[hidden + col]);
+          if (MODE != kSwiGLUF32) {
+            y1 = round_bf16(y1);
+            y2 = round_bf16(y2);
+          }
+          const float silu = y1 / (1.f + __expf(-y1));
+          if (MODE == kSwiGLUQ)
+            out_f32[(size_t)row * ldo + col] = silu * y2;
+          else
+            out[(size_t)row * ldo + col] = __float2bfloat16(silu * y2);
+        }
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int col = n0 + wn * 32 + nt * 8 + tq * 2 + (i & 1);
+          if (MODE == kOutBf16) {
+            out[(size_t)row * ldo + col] = __float2bfloat16(acc[mt][nt][i]);
+            continue;
+          }
+          if (MODE == kOutF32) {
+            out_f32[(size_t)row * ldo + col] = acc[mt][nt][i];
+            continue;
+          }
+          const float y = acc[mt][nt][i] + bf2f(bias[col]);
+          if (MODE == kBiasBf16) {
+            out[(size_t)row * ldo + col] = __float2bfloat16(y);
+          } else if (MODE == kBiasF32) {
+            out_f32[(size_t)row * ldo + col] = y;
+          } else if (MODE == kGatedResidual) {
+            resid[(size_t)row * ldr + col] +=
+                y * bf2f(gate[(size_t)row * ldg + col]);
+          } else {  // kGatedResidualBf16
+            const float xv = bf2f(xres[(size_t)row * ldx + col]);
+            out[(size_t)row * ldo + col] =
+                __float2bfloat16(xv + y * bf2f(gate[(size_t)row * ldg + col]));
+          }
+        }
+      }
+    }
+  }
 }
 
 // epilogue(A[M,K] @ W[N,K]^T); A row-major (lda), W torch Linear layout.
@@ -142,47 +217,8 @@ gemm_bf16_kernel(const bf16* __restrict__ A, int lda,
     }
   }
   cp_async_wait<0>();
-
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = m0 + wm * 32 + mt * 16 + g + (i >> 1) * 8;
-      if (row >= M) continue;
-      if (is_swiglu(MODE)) {
-#pragma unroll
-        for (int nt = 0; nt < 4; nt += 2) {
-          const int col = (n0 >> 1) + (wn * 2 + nt / 2) * 8 + tq * 2 + (i & 1);
-          float y1 = acc[mt][nt][i] + bf2f(bias[col]);
-          float y2 = acc[mt][nt + 1][i] + bf2f(bias[hidden + col]);
-          if (MODE == kSwiGLU) {
-            y1 = round_bf16(y1);
-            y2 = round_bf16(y2);
-          }
-          const float silu = y1 / (1.f + __expf(-y1));
-          out[(size_t)row * ldo + col] = __float2bfloat16(silu * y2);
-        }
-      } else {
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int col = n0 + wn * 32 + nt * 8 + tq * 2 + (i & 1);
-          const float y = acc[mt][nt][i] + bf2f(bias[col]);
-          if (MODE == kBiasBf16) {
-            out[(size_t)row * ldo + col] = __float2bfloat16(y);
-          } else if (MODE == kBiasF32) {
-            out_f32[(size_t)row * ldo + col] = y;
-          } else if (MODE == kGatedResidual) {
-            resid[(size_t)row * ldr + col] +=
-                y * bf2f(gate[(size_t)row * ldg + col]);
-          } else {  // kGatedResidualBf16
-            const float xv = bf2f(xres[(size_t)row * ldx + col]);
-            out[(size_t)row * ldo + col] =
-                __float2bfloat16(xv + y * bf2f(gate[(size_t)row * ldg + col]));
-          }
-        }
-      }
-    }
-  }
+  store_tile<MODE>(acc, m0, n0, M, bias, out, out_f32, ldo, resid, ldr, gate,
+                   ldg, xres, ldx, hidden);
 }
 
 template <int MODE>
@@ -191,8 +227,8 @@ cudaError_t launch_gemm(const bf16* A, int lda, const bf16* W, int K, int M,
   dim3 grid((M + kBM - 1) / kBM, N / kBN);
   gemm_bf16_kernel<MODE><<<grid, 128, 0, st>>>(
       A, lda, W, K, M, ep.bias,
-      MODE == kBiasF32 ? nullptr : static_cast<bf16*>(ep.out),
-      MODE == kBiasF32 ? static_cast<float*>(ep.out) : nullptr, ep.ldo,
+      out_is_f32(MODE) ? nullptr : static_cast<bf16*>(ep.out),
+      out_is_f32(MODE) ? static_cast<float*>(ep.out) : nullptr, ep.ldo,
       ep.resid, ep.ldr, ep.gate, ep.ldg, ep.x, ep.ldx, ep.hidden);
   return cudaGetLastError();
 }
@@ -201,13 +237,14 @@ cudaError_t launch_gemm(const bf16* A, int lda, const bf16* W, int K, int M,
 // math; h rows are C apart, scale and shift rows ld_scale / ld_shift apart
 // (0 broadcasts one row). One block per row. TWO_PASS takes the centred
 // variance (the block kernels' LN); otherwise E[x^2] - E[x]^2 (the sampler's).
-template <typename T, bool TWO_PASS>
+// OutT float keeps the fp32 value (the quantized sampler's stage input).
+template <typename T, bool TWO_PASS, typename OutT = bf16>
 __global__ void __launch_bounds__(256)
 ln_modulate_kernel(const T* __restrict__ h, int C,
                    const bf16* __restrict__ nw, const bf16* __restrict__ nb,
                    const bf16* __restrict__ scale, int ld_scale,
                    const bf16* __restrict__ shift, int ld_shift,
-                   bf16* __restrict__ out, float eps) {
+                   OutT* __restrict__ out, float eps) {
   const int r = blockIdx.x;
   const T* hr = h + (size_t)r * C;
   auto val = [&](int i) -> float {
@@ -239,8 +276,9 @@ ln_modulate_kernel(const T* __restrict__ h, int C,
   const bf16* sh = shift + (size_t)r * ld_shift;
   for (int i = threadIdx.x; i < C; i += blockDim.x) {
     const float ln = (val(i) - mean) * rstd * bf2f(nw[i]) + bf2f(nb[i]);
-    out[(size_t)r * C + i] =
-        __float2bfloat16(ln * (1.f + bf2f(sc[i])) + bf2f(sh[i]));
+    const float y = ln * (1.f + bf2f(sc[i])) + bf2f(sh[i]);
+    if constexpr (sizeof(OutT) == 4) out[(size_t)r * C + i] = y;
+    else out[(size_t)r * C + i] = __float2bfloat16(y);
   }
 }
 
@@ -273,11 +311,12 @@ size_t window_attention_smem(int w, int hd) {
 // bf16 for the sampler's stage activations, float for the block kernel's qkv,
 // each as its TPU kernel keeps it. One CTA per (group of w rows, head); q is
 // scaled and stored as T; scores, softmax and accumulation in fp32; out
-// [R, C] bf16. Dynamic shared memory: window_attention_smem<T>(w, hd).
-template <typename T>
+// [R, C] OutT (bf16, or fp32 for the quantized sampler's stage input).
+// Dynamic shared memory: window_attention_smem<T>(w, hd).
+template <typename T, typename OutT = bf16>
 __global__ void __launch_bounds__(256)
 window_attention_kernel(const T* __restrict__ qkv, int C, int w, int hd,
-                        int n_head, float scale, bf16* __restrict__ out) {
+                        int n_head, float scale, OutT* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ldw = window_ld<T>(hd);
   T* qs = reinterpret_cast<T*>(smem);
@@ -335,7 +374,7 @@ window_attention_kernel(const T* __restrict__ qkv, int C, int w, int hd,
     const int i = idx / hd, d = idx % hd;
     float acc = 0.f;
     for (int j = 0; j < w; ++j) acc += ps[i * w + j] * to_f32(vs[j * ldw + d]);
-    out[(size_t)(row0 + i) * C + hh * hd + d] = __float2bfloat16(acc);
+    out[(size_t)(row0 + i) * C + hh * hd + d] = from_f32<OutT>(acc);
   }
 }
 
@@ -345,4 +384,10 @@ window_attention_kernel(const T* __restrict__ qkv, int C, int w, int hd,
   do {                                                  \
     cudaError_t e_ = (expr);                            \
     if (e_ != cudaSuccess) return static_cast<int>(e_); \
+  } while (0)
+
+#define BD_CHECK_ERR(expr)                \
+  do {                                    \
+    cudaError_t e_ = (expr);              \
+    if (e_ != cudaSuccess) return e_;     \
   } while (0)

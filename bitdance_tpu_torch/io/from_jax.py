@@ -4,7 +4,11 @@ The reverse of bitdance_tpu/io/torch_import.py's ``convert_qwen3_state``,
 ``convert_diffhead_state``, ``convert_projector_state``, ``convert_ae_state``
 and ``convert_imagenet_ar_state``:
   - the stacked Qwen3 and ImageNet AR dicts (layer tensors [L, in, out])
-    become per-layer torch Linear weights [out, in];
+    become per-layer torch Linear weights [out, in]; a quantized Qwen3 tree
+    (QTensor / Q4Tensor leaves, int8 q [L, in, out] or packed [L, in/2, out]
+    with s [L, 1, out]) becomes the port's QLinear / Q4Linear buffers
+    (q [out, in] or [out, in/2], s [out]) by a byte transpose that keeps
+    the nibble pairing, and an int8 embedding table its QEmbedding;
   - flax trees (DiffHead, MLPConnector, VQModel encoder and decoder) map
     module paths back to the reference's dotted names; Dense kernels
     [in, out] become [out, in] and conv kernels HWIO become OIHW;
@@ -57,17 +61,57 @@ def _np(x) -> np.ndarray:
     return np.asarray(x, dtype=np.float32)
 
 
+def _quant_kind(leaf) -> str | None:
+    """"int8" for a QTensor leaf, "int4" for a Q4Tensor, None otherwise (by
+    the NamedTuple's class name: the port does not import the JAX package)."""
+    return {"QTensor": "int8", "Q4Tensor": "int4"}.get(type(leaf).__name__)
+
+
+def qwen3_quant_modes(params: Mapping) -> tuple[str | None, bool]:
+    """(format of the layer projections: None, "int8" or "int4"; whether
+    the embedding table is int8) of a JAX Qwen3 tree."""
+    return (_quant_kind(params["layers"]["q_proj"]),
+            _quant_kind(params["embed_tokens"]) is not None)
+
+
 def qwen3_state_from_jax(params: Mapping) -> dict[str, np.ndarray]:
-    """Stacked JAX Qwen3 params -> HF-named state dict (numpy)."""
+    """Stacked JAX Qwen3 params -> HF-named state dict (numpy). Quantized
+    leaves give ``<name>.q`` (int8) and ``<name>.s`` (f32) entries instead
+    of ``<name>.weight``."""
     layers = params["layers"]
-    n = _np(layers["q_proj"]).shape[0]
-    sd = {"model.embed_tokens.weight": _np(params["embed_tokens"]),
-          "model.norm.weight": _np(params["final_norm"])}
+    emb = params["embed_tokens"]
+    if _quant_kind(emb):
+        sd = {"model.embed_tokens.q": np.asarray(emb.q, np.int8),
+              "model.embed_tokens.s": _np(emb.s).reshape(-1)}
+    else:
+        sd = {"model.embed_tokens.weight": _np(emb)}
+    sd["model.norm.weight"] = _np(params["final_norm"])
     for name, (key, transposed) in _QWEN_LAYER_KEYS.items():
-        stack = _np(layers[name])
-        for i in range(n):
+        leaf = layers[name]
+        if _quant_kind(leaf):
+            q, sc = np.asarray(leaf.q, np.int8), _np(leaf.s)
+            base = key[:-len(".weight")]
+            for i in range(q.shape[0]):
+                sd[f"model.layers.{i}.{base}.q"] = np.ascontiguousarray(q[i].T)
+                sd[f"model.layers.{i}.{base}.s"] = sc[i].reshape(-1)
+            continue
+        stack = _np(leaf)
+        for i in range(stack.shape[0]):
             sd[f"model.layers.{i}.{key}"] = stack[i].T if transposed else stack[i]
     return sd
+
+
+def qwen3_from_jax(cfg, params: Mapping, device=None,
+                   dtype: torch.dtype = torch.float32):
+    """A JAX Qwen3 tree (bf16/f32 or quantized) -> the port's Qwen3Model on
+    ``device``, with the quantized modules its leaves call for."""
+    from bitdance_tpu_torch.models.qwen3 import Qwen3Model, quantized_structure_
+
+    model = Qwen3Model(cfg, device=device, dtype=dtype)
+    mode, embed_int8 = qwen3_quant_modes(params)
+    if mode is not None or embed_int8:
+        quantized_structure_(model, mode, embed_int8)
+    return load_into(model, qwen3_state_from_jax(params)).eval()
 
 
 # stacked ImageNet AR layer key -> (reference layer key, stored transposed)
@@ -168,6 +212,9 @@ def load_into(module: nn.Module, state: Mapping[str, np.ndarray]) -> nn.Module:
             src = torch.from_numpy(np.array(state[k], copy=True))
             if tuple(src.shape) != tuple(t.shape):
                 raise ValueError(f"{k}: shape {tuple(src.shape)} != {tuple(t.shape)}")
+            if (src.dtype == torch.int8) != (t.dtype == torch.int8):
+                raise ValueError(f"{k}: int8 and float do not convert "
+                                 f"({src.dtype} into {t.dtype})")
             t.copy_(src.to(dtype=t.dtype))
     return module
 

@@ -10,6 +10,9 @@ into the backbone, so a training step's backward would run on zeros.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
+
 import torch
 
 from bitdance_tpu_torch.models.connector import MLPConnector
@@ -21,7 +24,7 @@ from bitdance_tpu_torch.models.imagenet_ar import (
     head_kwargs,
     init_ar_params,
 )
-from bitdance_tpu_torch.models.qwen3 import Qwen3Config, init_qwen3
+from bitdance_tpu_torch.models.qwen3 import Qwen3Config, init_qwen3, quantize_qwen3_
 from bitdance_tpu_torch.models.tokenizer import VQModel, init_vq
 from bitdance_tpu_torch.pipelines.t2i import T2IModelBundle
 from bitdance_tpu_torch.train.imagenet_train import (
@@ -96,13 +99,58 @@ def init_projector(z: int, hidden: int, device, dtype: torch.dtype,
     return proj.eval().requires_grad_(False)
 
 
+def _module_tree_copy(m: torch.nn.Module) -> torch.nn.Module:
+    """New module objects down the tree, sharing every parameter and buffer:
+    replacing a submodule of the copy leaves the original untouched."""
+    c = copy.copy(m)
+    c._modules = {k: None if v is None else _module_tree_copy(v)
+                  for k, v in m._modules.items()}
+    return c
+
+
+QUANT_CONFIGS = {
+    # the JAX package's serving configurations (README "FULL-DEPTH 40/40
+    # layers, packed int4 W4A8 LLM+head, int8 KV"; pipelines/loader.py
+    # quantize_llm / quantize_head): LLM projections, head block matrices
+    "int4": ("int4", "int4"),
+    "int8": ("int8", True),
+}
+
+
+def quantize_bundle_(bundle: T2IModelBundle, mode: str, *,
+                     keep_source: bool = False) -> T2IModelBundle:
+    """Quantize a bundle for serving: ``"int4"`` (packed int4 W4A8 Qwen3
+    projections, int8 embedding table, W4A8 head sampler) or ``"int8"``
+    (W8A8 projections, bf16 embedding, W8A8 head sampler). The LLM is
+    converted layer by layer on its device and the head's sampler stack is
+    rebuilt once, quantized. The VQ decoder and projector stay as they are.
+
+    In place by default (each bf16 projection is freed as its quantized
+    replacement lands). keep_source=True leaves ``bundle`` as it was and
+    returns a new bundle that shares its unquantized parts (module objects
+    are copied, tensors are not), so both formats can come from the same
+    weights."""
+    llm_mode, head_quant = QUANT_CONFIGS[mode]
+    llm, head = bundle.llm, bundle.head
+    if keep_source:
+        llm, head = _module_tree_copy(llm), copy.copy(head)
+    quantize_qwen3_(llm, llm_mode)
+    head.sample_weight_quant = head_quant
+    stacked = head._stack_for_sampler()
+    if keep_source:
+        return dataclasses.replace(bundle, llm=llm, head=head, head_stacked=stacked)
+    bundle.head_stacked = stacked
+    return bundle
+
+
 def build_random_bundle(device, *, llm_cfg: Qwen3Config | None = None,
                         geometry: dict | None = None,
                         dtype: torch.dtype = torch.bfloat16,
                         seed: int = 0) -> T2IModelBundle:
     """Full bundle on ``device`` from ``seed``; defaults to BitDance-14B-64x
     at full width and depth. The head's sampler stack is built before the
-    LLM so the stacking transient never sits beside the 26 GB layer stack."""
+    LLM so the stacking transient never sits beside the 26 GB layer stack.
+    :func:`quantize_bundle_` converts it for quantized serving."""
     geo = BITDANCE_14B_64X if geometry is None else geometry
     cfg = llm_cfg or Qwen3Config.qwen3_14b()
     gen = torch.Generator(device=device).manual_seed(seed)

@@ -39,6 +39,7 @@ from bitdance_tpu_torch.ops.fused_block import fused_attn_block, fused_mlp_block
 from bitdance_tpu_torch.ops.fused_head import (
     em_precompute,
     fused_em_sample,
+    quant_mode,
     stack_diffnet_params,
 )
 from bitdance_tpu_torch.ops.norms import layer_norm
@@ -243,8 +244,8 @@ class DiffHead(nn.Module):
                  P_mean: float = 0.0, P_std: float = 1.0,
                  time_shift: float = 1.0, time_schedule: str = "logit_normal",
                  bounded_output: bool | None = None,
-                 attn_head_dim: int = 128, device=None,
-                 dtype: torch.dtype = torch.float32):
+                 attn_head_dim: int = 128, sample_weight_quant: bool | str = False,
+                 device=None, dtype: torch.dtype = torch.float32):
         super().__init__()
         if attention and not use_swiglu:
             raise NotImplementedError("the TransEncoder's plain-MLP blocks "
@@ -258,6 +259,10 @@ class DiffHead(nn.Module):
         self.time_schedule = time_schedule
         self.attn_head_dim = attn_head_dim
         self.attention = attention
+        # False, True (int8) or "int4": the format of the block matrices in
+        # the sampler's stack (W8A8 / W4A8 sampling); training and the
+        # per-call blocks keep the module's weights
+        self.sample_weight_quant = sample_weight_quant
         self.net = DiffNet(ch_target, ch_latent, ch_cond, depth_latent,
                            depth_adanln, attention=attention,
                            bounded_output=bounded_output,
@@ -336,15 +341,23 @@ class DiffHead(nn.Module):
             noise=noise.reshape(num_sampling_steps, *x_shape))
 
     def _stack_for_sampler(self) -> dict:
-        """The sampler's stacked weights. Afterwards the module's block and
-        adaLN weights are views into them, so the device holds one copy."""
+        """The sampler's stacked weights, quantized per
+        ``sample_weight_quant``. Unquantized, the module's block and adaLN
+        weights become views into them, so the device holds one copy."""
         dtype = self.net.input_proj.weight.dtype
         stacked = stack_diffnet_params(
             self.net, self.depth_latent,
-            dtype=torch.bfloat16 if dtype == torch.bfloat16 else torch.float32)
+            dtype=torch.bfloat16 if dtype == torch.bfloat16 else torch.float32,
+            quant=self.sample_weight_quant)
         if stacked["w1"].dtype == dtype:
             _share_stacked_storage(self.net, self.depth_latent, stacked)
         return stacked
+
+
+def _quant_itemsize(sample_weight_quant) -> float:
+    """Bytes per block-matrix weight in the sampler's stack: 2 (bf16), 1
+    (int8) or 0.5 (packed int4)."""
+    return {None: 2, "int8": 1, "int4": 0.5}[quant_mode(sample_weight_quant)]
 
 
 def _share_stacked_storage(net: DiffNet, num_blocks: int, stacked: dict) -> None:
@@ -406,7 +419,7 @@ def _run_fused_sample(head: DiffHead, stacked: dict, cond: torch.Tensor,
         num_blocks=head.depth_latent, num_ada=head.depth_adanln,
         n_head=head.ch_latent // head.attn_head_dim, groups=g_all,
         attention=head.attention, bounded=head.bounded,
-        last_step_size=last_step)
+        last_step_size=last_step, quant=head.sample_weight_quant)
     if head.attention:
         return out.reshape(g_all // 2, w, head.ch_target)
     return out

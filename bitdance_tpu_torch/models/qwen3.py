@@ -8,6 +8,14 @@ Parameter names follow HF ``Qwen3ForCausalLM`` (``model.embed_tokens``,
 never reads ``lm_head``, so the module has none. Linear layers are plain
 ``F.linear`` (the JAX package computes them outside any Pallas kernel); the
 windowed decode attention is the port's CUDA kernel on the card.
+
+Quantized serving (:func:`quantize_qwen3_`): the seven projections of every
+layer become :class:`QLinear` (int8 W8A8, ``torch._int_mm`` on the card, as
+the JAX package leaves it to XLA) or :class:`Q4Linear` (packed int4 W4A8,
+the ``csrc/w4a8.cu`` kernel on the card), and in int4 mode the embedding
+table becomes :class:`QEmbedding` (int8 rows, dequantized to bf16 on
+gather). ``init_kv_cache(int8=True)`` gives the fused int8 ring buffer, which
+the decode block reads through the fused-KV kernel.
 """
 
 from __future__ import annotations
@@ -19,7 +27,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from bitdance_tpu_torch.ops.attention import attention_xla
-from bitdance_tpu_torch.ops.decode_attention import windowed_decode_attention
+from bitdance_tpu_torch.ops.decode_attention import (
+    dequantize_fused_kv,
+    quantize_kv_rows,
+    windowed_decode_attention,
+    windowed_decode_attention_fusedkv,
+)
+from bitdance_tpu_torch.ops.int4 import Q4Tensor, int4_matmul, quantize_linear_int4
+from bitdance_tpu_torch.ops.int8 import QTensor, int8_matmul, quantize_linear
 from bitdance_tpu_torch.ops.norms import rms_norm
 from bitdance_tpu_torch.ops.rotary import apply_rope_half
 
@@ -135,12 +150,133 @@ def init_qwen3(cfg: Qwen3Config, device, dtype: torch.dtype = torch.bfloat16,
     return m.eval().requires_grad_(False)
 
 
+class QLinear(nn.Module):
+    """Bias-free int8 W8A8 linear: buffers q int8 [N, K], s f32 [N]."""
+
+    def __init__(self, in_features: int, out_features: int, device=None):
+        super().__init__()
+        self.register_buffer("q", torch.zeros((out_features, self._stored(in_features)),
+                                              dtype=torch.int8, device=device))
+        self.register_buffer("s", torch.ones(out_features, dtype=torch.float32,
+                                             device=device))
+
+    @staticmethod
+    def _stored(in_features: int) -> int:
+        return in_features
+
+    @property
+    def weight_q(self):
+        return QTensor(self.q, self.s)
+
+    @staticmethod
+    def _quantize(w: torch.Tensor):
+        return quantize_linear(w)
+
+    def fill_(self, w: torch.Tensor) -> None:
+        """Quantize the float weight [N, K] into the buffers."""
+        qt = self._quantize(w)
+        self.q.copy_(qt.q)
+        self.s.copy_(qt.s)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return int8_matmul(x, self.weight_q)
+
+
+class Q4Linear(QLinear):
+    """Bias-free packed-int4 W4A8 linear: q int8 [N, K/2], s f32 [N]."""
+
+    @staticmethod
+    def _stored(in_features: int) -> int:
+        return in_features // 2
+
+    @property
+    def weight_q(self):
+        return Q4Tensor(self.q, self.s)
+
+    @staticmethod
+    def _quantize(w: torch.Tensor):
+        return quantize_linear_int4(w)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return int4_matmul(x, self.weight_q)
+
+
+class QEmbedding(nn.Module):
+    """int8 embedding table q [V, D] with per-hidden-column scales s [D]
+    (the JAX package's quantize_linear of the [V, D] table)."""
+
+    def __init__(self, num: int, dim: int, device=None):
+        super().__init__()
+        self.register_buffer("q", torch.zeros((num, dim), dtype=torch.int8,
+                                              device=device))
+        self.register_buffer("s", torch.ones(dim, dtype=torch.float32, device=device))
+
+    def fill_(self, w: torch.Tensor) -> None:
+        """Quantize the float table [V, D], the scale over the vocabulary."""
+        qt = quantize_linear(w.t())
+        self.q.copy_(qt.q.t())
+        self.s.copy_(qt.s)
+
+
+_PROJ = (("self_attn", ("q_proj", "k_proj", "v_proj", "o_proj")),
+         ("mlp", ("gate_proj", "up_proj", "down_proj")))
+
+
+@torch.no_grad()
+def quantized_structure_(model: Qwen3Model, mode: str | None, embed_int8: bool,
+                         fill: bool = False) -> Qwen3Model:
+    """Replace the seven projections of every layer by ``mode``'s module
+    (``"int8"`` QLinear, ``"int4"`` Q4Linear, None keeps them) and, with
+    embed_int8, the embedding by a QEmbedding. fill=True quantizes each
+    replaced weight into its module; otherwise the modules are left to be
+    loaded (a JAX QTensor / Q4Tensor tree). Modules are replaced on their
+    parents one at a time, so each float weight can be freed as its
+    replacement lands."""
+    cls = {"int8": QLinear, "int4": Q4Linear, None: None}[mode]
+    for layer in model.model.layers if cls else ():
+        for part, names in _PROJ:
+            parent = getattr(layer, part)
+            for name in names:
+                lin = getattr(parent, name)
+                new = cls(lin.in_features, lin.out_features, device=lin.weight.device)
+                if fill:
+                    new.fill_(lin.weight.detach())
+                setattr(parent, name, new)
+    emb = model.model.embed_tokens
+    if embed_int8 and not isinstance(emb, QEmbedding):
+        new = QEmbedding(*emb.weight.shape, device=emb.weight.device)
+        if fill:
+            new.fill_(emb.weight.detach())
+        model.model.embed_tokens = new
+    return model
+
+
+def quantize_qwen3_(model: Qwen3Model, mode: str) -> Qwen3Model:
+    """Quantize IN PLACE, layer by layer on the model's device (no second
+    bf16 copy): ``"int8"`` -> QLinear projections (quantize_qwen3_params),
+    ``"int4"`` -> Q4Linear projections and an int8 QEmbedding
+    (quantize_qwen3_params_int4). Norm gains keep their dtype; the model has
+    no lm_head to drop. A module-tree copy of a model (same parameters, new
+    module objects) can be quantized while the original stays bf16."""
+    if mode not in ("int8", "int4"):
+        raise ValueError(f"quantize_qwen3_: mode {mode!r} is not 'int8' or 'int4'")
+    return quantized_structure_(model, mode, embed_int8=mode == "int4", fill=True)
+
+
 def init_kv_cache(cfg: Qwen3Config, batch: int, max_len: int,
-                  dtype: torch.dtype = torch.float32, device=None) -> dict:
+                  dtype: torch.dtype = torch.float32, device=None,
+                  int8: bool = False) -> dict:
     """HEAD-MAJOR buffers [L, B, Hkv, max_len, D] for k and v (the layout
-    the decode-attention kernel reads in place)."""
-    shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads, max_len,
-             cfg.head_dim)
+    the decode-attention kernel reads in place). int8=True: ONE fused int8
+    buffer "kv" [L, B, Hkv, max_len, 2D] (k | v lanes) with f32 scales "sc"
+    [L, B, Hkv, 2, max_len], a quarter of two bf16 buffers."""
+    L, hkv, hd = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim
+    if int8:
+        return {"kv": torch.zeros((L, batch, hkv, max_len, 2 * hd), dtype=torch.int8,
+                                  device=device),
+                "sc": torch.zeros((L, batch, hkv, 2, max_len), dtype=torch.float32,
+                                  device=device)}
+    shape = (L, batch, hkv, max_len, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -155,7 +291,11 @@ def _rope_at(cfg: Qwen3Config, positions: torch.Tensor):
 
 
 def embed_tokens(model: Qwen3Model, token_ids: torch.Tensor) -> torch.Tensor:
-    return F.embedding(token_ids, model.model.embed_tokens.weight)
+    emb = model.model.embed_tokens
+    if isinstance(emb, QEmbedding):
+        # gather int8 rows, dequantize just those (bf16, as the JAX package)
+        return (emb.q[token_ids].float() * emb.s).to(torch.bfloat16)
+    return F.embedding(token_ids, emb.weight)
 
 
 def qwen3_forward_cached(model: Qwen3Model, embeds: torch.Tensor,
@@ -170,6 +310,11 @@ def qwen3_forward_cached(model: Qwen3Model, embeds: torch.Tensor,
     causal_block=False: the block sees itself and the whole valid cache
     [kv_start, cache_len + S), through the decode-attention kernel.
 
+    An int8 cache (init_kv_cache(int8=True)) takes the new rows quantized
+    per (head, position); the causal prefill reads it dequantized (plain
+    torch, as the JAX package's XLA path) and the decode block through the
+    fused-KV kernel.
+
     The cache is updated IN PLACE by slice assignment (the JAX function
     returns a new one); it is returned as well. Returns (hidden [B, S, D],
     cache).
@@ -178,8 +323,8 @@ def qwen3_forward_cached(model: Qwen3Model, embeds: torch.Tensor,
     b, s, _ = embeds.shape
     hq, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     eps = cfg.rms_norm_eps
-    k_all, v_all = cache["k"], cache["v"]
-    max_len = k_all.shape[3]
+    int8_cache = "kv" in cache
+    max_len = (cache["kv"] if int8_cache else cache["k"]).shape[3]
     dev = embeds.device
     cos, sin = _rope_at(cfg, positions)
     new_len = cache_len + s
@@ -203,14 +348,28 @@ def qwen3_forward_cached(model: Qwen3Model, embeds: torch.Tensor,
         v = at.v_proj(h).view(b, s, hkv, hd)
         q = apply_rope_half(q, cos, sin)
         k = apply_rope_half(k, cos, sin)
-        k_all[li, :, :, cache_len:new_len] = k.transpose(1, 2).to(k_all.dtype)
-        v_all[li, :, :, cache_len:new_len] = v.transpose(1, 2).to(v_all.dtype)
-        if causal_block:
-            attn = attention_xla(q, k_all[li].transpose(1, 2),
-                                 v_all[li].transpose(1, 2), mask)
+        if int8_cache:
+            kv_new, sc_new = quantize_kv_rows(k, v)
+            cache["kv"][li, :, :, cache_len:new_len] = kv_new
+            cache["sc"][li, :, :, :, cache_len:new_len] = sc_new
+            kv_l, sc_l = cache["kv"][li], cache["sc"][li]
+            if causal_block:
+                kd, vd = dequantize_fused_kv(kv_l, sc_l)
+                attn = attention_xla(q, kd.transpose(1, 2).to(q.dtype),
+                                     vd.transpose(1, 2).to(q.dtype), mask)
+            else:
+                attn = windowed_decode_attention_fusedkv(q, kv_l, kv_len_vec,
+                                                         kv_start, sc_l)
         else:
-            attn = windowed_decode_attention(q, k_all[li], v_all[li],
-                                             kv_len_vec, kv_start)
+            k_all, v_all = cache["k"], cache["v"]
+            k_all[li, :, :, cache_len:new_len] = k.transpose(1, 2).to(k_all.dtype)
+            v_all[li, :, :, cache_len:new_len] = v.transpose(1, 2).to(v_all.dtype)
+            if causal_block:
+                attn = attention_xla(q, k_all[li].transpose(1, 2),
+                                     v_all[li].transpose(1, 2), mask)
+            else:
+                attn = windowed_decode_attention(q, k_all[li], v_all[li],
+                                                 kv_len_vec, kv_start)
         x = x + at.o_proj(attn.to(x.dtype).reshape(b, s, hq * hd))
         h = rms_norm(x, layer.post_attention_layernorm.weight, eps)
         x = x + layer.mlp(h)

@@ -22,6 +22,15 @@ per block, stacked on a leading block axis (the JAX package stores [in, out]):
 allmods rows are [ada_0 mods | ada_1 mods | ... | final scale, shift]; within
 an ada group the m = 6 slices are scale1, shift1, gate1, scale2, shift2, gate2
 (m = 3 for the MlpEncoder: scale, shift, gate).
+
+Quantized stacks (``quant=True``: int8, ``quant="int4"``: packed int4; the
+JAX package's W8A8 / W4A8 sampler): the four block matrices are stored
+per output row, wqkv [L, 3C, C] int8 or [L, 3C, C/2] packed (k, k + C/2),
+with f32 scales wqkv_s [L, 3C] (likewise wo, w1, w2); modcat_w is int8
+with modcat_w_s whatever the block format. Each stage's input is quantized
+per row to int8 once (``quantize_rows``) and each product runs s8 x s8 ->
+s32 with the scales applied to the sum. The mode reaches the sampler as an
+explicit ``quant`` argument, not from the stored shapes.
 """
 
 from __future__ import annotations
@@ -32,21 +41,63 @@ import torch
 import torch.nn.functional as F
 
 from bitdance_tpu_torch.ops import _cuda
+from bitdance_tpu_torch.ops.int4 import int4_matmul_reference, quantize_linear_int4
+from bitdance_tpu_torch.ops.int8 import QTensor, int8_matmul, quantize_linear, quantize_rows
+
+_QUANT_MODES = (None, "int8", "int4")
+
+
+def quant_mode(quant) -> str | None:
+    """DiffHead.sample_weight_quant (False / True / "int4") -> None, "int8"
+    or "int4"."""
+    mode = {False: None, None: None, True: "int8"}.get(quant, quant)
+    if mode not in _QUANT_MODES:
+        raise ValueError(f"quant {quant!r}: expected False, True or 'int4'")
+    return mode
+
+
+def quantize_cols(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-column int8 of a [out, in] weight: (int8 [out, in], f32
+    scales [out]); the JAX function's [in, out] / [1, out], transposed."""
+    qt = quantize_linear(w)
+    return qt.q, qt.s
+
+
+def quantize_cols_int4(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-column int4 of a [out, in] weight, packed along in: byte
+    [n, j] holds in-row j (low nibble) and j + in/2 (high nibble). Returns
+    (int8 [out, in/2], f32 scales [out])."""
+    qt = quantize_linear_int4(w)
+    return qt.q, qt.s
 
 
 def stack_diffnet_params(net, num_blocks: int,
-                         dtype: torch.dtype = torch.bfloat16) -> dict:
+                         dtype: torch.dtype = torch.bfloat16,
+                         quant: bool | str = False) -> dict:
     """DiffNet module -> stacked tensors for the sampler (see module doc).
 
     The net's family decides the keys: the MlpEncoder's blocks have one
     norm, stacked as n2, and no n1/wqkv/bqkv/wo/bo. Biases of the big
     products and the norm parameters take ``dtype``; in_b, t_b*, cond_b,
-    f_out_b and modcat_b stay float32, as in the JAX package."""
+    f_out_b and modcat_b stay float32, as in the JAX package. ``quant``
+    (True: int8, "int4": packed) stores wqkv, wo, w1, w2 quantized from the
+    net's weights, one block at a time, with ``*_s`` scales, and modcat_w as
+    int8 (quantized from its ``dtype`` values)."""
     f32 = torch.float32
+    mode = quant_mode(quant)
     blk = [net.res_blocks[i] for i in range(num_blocks)]
 
     def stack(get, dt=dtype):
         return torch.stack([get(b).detach().to(dt) for b in blk]).contiguous()
+
+    def put(key, get):
+        if mode is None:
+            out[key] = stack(get)
+            return
+        qfn = quantize_cols_int4 if mode == "int4" else quantize_cols
+        qs = [qfn(get(b).detach()) for b in blk]
+        out[key] = torch.stack([q for q, _ in qs]).contiguous()
+        out[key + "_s"] = torch.stack([sc for _, sc in qs]).contiguous()
 
     te = net.time_embed.mlp
     fl = net.final_layer
@@ -61,25 +112,29 @@ def stack_diffnet_params(net, num_blocks: int,
         "cond_b": net.cond_embed.bias.detach().to(f32),
         "f_out_w": fl.linear.weight.detach().to(dtype).contiguous(),
         "f_out_b": fl.linear.bias.detach().to(f32),
-        "w1": stack(lambda b: b.w1.weight),
         "b1": stack(lambda b: b.w1.bias),
-        "w2": stack(lambda b: b.w2.weight),
         "b2": stack(lambda b: b.w2.bias),
     }
+    put("w1", lambda b: b.w1.weight)
+    put("w2", lambda b: b.w2.weight)
     if net.attention:
         out.update(
             n1=stack(lambda b: torch.stack([b.norm1.weight, b.norm1.bias])),
             n2=stack(lambda b: torch.stack([b.norm2.weight, b.norm2.bias])),
-            wqkv=stack(lambda b: b.attn.wqkv.weight),
             bqkv=stack(lambda b: b.attn.wqkv.bias),
-            wo=stack(lambda b: b.attn.wo.weight),
             bo=stack(lambda b: b.attn.wo.bias))
+        put("wqkv", lambda b: b.attn.wqkv.weight)
+        put("wo", lambda b: b.attn.wo.weight)
     else:
         out["n2"] = stack(lambda b: torch.stack([b.norm.weight, b.norm.bias]))
     ada = [m.weight.detach() for m in net.ada_ln_blocks]
     ada_b = [m.bias.detach() for m in net.ada_ln_blocks]
-    out["modcat_w"] = torch.cat(ada + [fl.ada_ln_modulation.weight.detach()],
-                                dim=0).to(dtype).contiguous()
+    modcat = torch.cat(ada + [fl.ada_ln_modulation.weight.detach()],
+                       dim=0).to(dtype).contiguous()
+    if mode is None:
+        out["modcat_w"] = modcat
+    else:
+        out["modcat_w"], out["modcat_w_s"] = quantize_cols(modcat)
     out["modcat_b"] = torch.cat(ada_b + [fl.ada_ln_modulation.bias.detach()],
                                 dim=0).to(f32)
     return out
@@ -89,6 +144,19 @@ def _dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """a @ w.T with a cast to w's dtype, returned as float32. (In bf16 the
     product is rounded to bf16 before the cast; the JAX dot keeps fp32.)"""
     return torch.matmul(a.to(w.dtype), w.t()).float()
+
+
+def _mmq(a: torch.Tensor, w: torch.Tensor, scale: torch.Tensor | None,
+         int4: bool = False) -> torch.Tensor:
+    """a @ w.T -> float32: the plain product (scale None), or W8A8 / W4A8:
+    a quantized per row from float32, the integer sum exact, then
+    acc * (sa * scale). int4: w is packed [out, in/2] and each nibble plane
+    contracts its half of a."""
+    if scale is None:
+        return _dot(a, w)
+    if int4:
+        return int4_matmul_reference(*quantize_rows(a.float()), w, scale)
+    return int8_matmul(a.float(), QTensor(w, scale))
 
 
 def _ln(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -115,8 +183,9 @@ def em_precompute(stacked: dict, c_emb: torch.Tensor, t_all: torch.Tensor,
     te = _dot(F.silu(te), stacked["t_w2"]) + stacked["t_b2"]
     y = F.silu(te[:, None, :] + c_emb[None])                # [S, R, C]
     s_dim, r_dim, c_dim = y.shape
-    allmods = _dot(y.reshape(s_dim * r_dim, c_dim), stacked["modcat_w"]) \
-        + stacked["modcat_b"]
+    # W8A8 on a quantized stack (plain torch: torch._int_mm on the card)
+    allmods = _mmq(y.reshape(s_dim * r_dim, c_dim), stacked["modcat_w"],
+                   stacked.get("modcat_w_s")) + stacked["modcat_b"]
     return allmods.to(out_dtype).reshape(s_dim, r_dim, -1)
 
 
@@ -139,19 +208,30 @@ def _attn_from_qkv(qkv: torch.Tensor, n_head: int, groups: int,
 def _net_forward(stacked: dict, x: torch.Tensor, mods_row: torch.Tensor, *,
                  num_blocks: int, switch_freq: int, n_head: int, groups: int,
                  attention: bool = True, bounded: bool = True,
-                 eps: float = 1e-6) -> torch.Tensor:
+                 quant: str | None = None, eps: float = 1e-6) -> torch.Tensor:
     """One DiffNet forward on rows [x; x] with precomputed mods -> fp32
     [R, ch]. Precision as the TPU kernel #2 (fused_head.py:689), for both
     families: fp32 residual h, stage activations in the weights' dtype,
-    fp32 statistics."""
+    fp32 statistics. With quant ("int8" / "int4", kernel #2's stage_quant
+    and stage_dot) each stage's fp32 input (LN + modulate, the attention
+    output, silu(h1) * h2) is row-quantized as it is, without the bf16
+    rounding, and qkv and h12 are still stored in the weights' dtype."""
     elem = stacked["n2"].dtype
     c_dim = stacked["n2"].shape[-1]
-    hidden = stacked["w1"].shape[1] // 2
+    hidden = stacked["b1"].shape[1] // 2
     n_mods = 6 if attention else 3
+    int4 = quant == "int4"
+
+    def stage(a):
+        return a if quant else a.to(elem)
+
+    def prod(a, key, l):
+        return _mmq(a, stacked[key][l], stacked[key + "_s"][l] if quant else None,
+                    int4)
 
     def lnmod(h, nrm, scale, shift):
         ln = _ln(h, eps) * nrm[0].float() + nrm[1].float()
-        return (ln * (1.0 + scale.float()) + shift.float()).to(elem)
+        return stage(ln * (1.0 + scale.float()) + shift.float())
 
     combined = torch.cat([x, x], dim=0)
     h = _dot(combined, stacked["in_w"]) + stacked["in_b"]
@@ -162,17 +242,15 @@ def _net_forward(stacked: dict, x: torch.Tensor, mods_row: torch.Tensor, *,
         mlp = 0
         if attention:
             a = lnmod(h, stacked["n1"][l], sl(0), sl(1))
-            qkv = (_dot(a, stacked["wqkv"][l])
-                   + stacked["bqkv"][l].float()).to(elem)
-            att = _attn_from_qkv(qkv, n_head, groups, c_dim).to(elem)
-            proj = _dot(att, stacked["wo"][l]) + stacked["bo"][l].float()
+            qkv = (prod(a, "wqkv", l) + stacked["bqkv"][l].float()).to(elem)
+            att = stage(_attn_from_qkv(qkv, n_head, groups, c_dim))
+            proj = prod(att, "wo", l) + stacked["bo"][l].float()
             h = h + proj * sl(2).float()
             mlp = 3
         a = lnmod(h, stacked["n2"][l], sl(mlp), sl(mlp + 1))
-        h12 = (_dot(a, stacked["w1"][l]) + stacked["b1"][l].float()).to(elem)
-        glu = (F.silu(h12[:, :hidden].float())
-               * h12[:, hidden:].float()).to(elem)
-        y = _dot(glu, stacked["w2"][l]) + stacked["b2"][l].float()
+        h12 = (prod(a, "w1", l) + stacked["b1"][l].float()).to(elem)
+        glu = stage(F.silu(h12[:, :hidden].float()) * h12[:, hidden:].float())
+        y = prod(glu, "w2", l) + stacked["b2"][l].float()
         h = h + y * sl(mlp + 2).float()
     fm = mods_row[:, -2 * c_dim:].float()
     z = _ln(h, eps) * (1.0 + fm[:, :c_dim]) + fm[:, c_dim:]
@@ -192,7 +270,8 @@ def fused_em_sample_reference(stacked: dict, x0: torch.Tensor,
                               num_ada: int, n_head: int = 0, groups: int = 1,
                               attention: bool = True, bounded: bool = True,
                               last_step_size: float = 0.05,
-                              final_chunk: bool = True) -> torch.Tensor:
+                              final_chunk: bool = True,
+                              quant: str | None = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_em_sample` (same arguments)."""
     num_steps = noise.shape[0]
     switch_freq = max(1, num_blocks // num_ada)
@@ -201,7 +280,8 @@ def fused_em_sample_reference(stacked: dict, x0: torch.Tensor,
     cfg = float(cfg)
     x = x0.float()
     kw = dict(num_blocks=num_blocks, switch_freq=switch_freq, n_head=n_head,
-              groups=groups, attention=attention, bounded=bounded)
+              groups=groups, attention=attention, bounded=bounded,
+              quant=quant_mode(quant))
     for s in range(num_steps + (1 if final_chunk else 0)):
         out = _net_forward(stacked, x, allmods[s], **kw)
         t, dt = ts[s], dts[s]
@@ -224,16 +304,18 @@ def em_sample_stacked(stacked: dict, x0: torch.Tensor, noise: torch.Tensor,
                       *, num_blocks: int, num_ada: int, n_head: int = 0,
                       groups: int = 1, attention: bool = True,
                       bounded: bool = True, last_step_size: float = 0.05,
-                      c_emb: torch.Tensor | None = None) -> torch.Tensor:
+                      c_emb: torch.Tensor | None = None,
+                      quant: str | None = None) -> torch.Tensor:
     """Counterpart of the JAX stacked sampler: the plain sampler, computing
-    allmods from c_emb when it is not given."""
+    allmods from c_emb when it is not given (W8A8 on a quantized stack)."""
     if allmods is None:
         allmods = em_precompute(stacked, c_emb, torch.as_tensor(t_all),
                                 out_dtype=stacked["in_w"].dtype)
     return fused_em_sample_reference(
         stacked, x0, noise, allmods, t_all, dt_all, cfg,
         num_blocks=num_blocks, num_ada=num_ada, n_head=n_head, groups=groups,
-        attention=attention, bounded=bounded, last_step_size=last_step_size)
+        attention=attention, bounded=bounded, last_step_size=last_step_size,
+        quant=quant)
 
 
 _MLP_KEYS = ("n2", "w1", "b1", "w2", "b2")
@@ -245,7 +327,8 @@ def fused_em_sample(stacked: dict, x0: torch.Tensor, noise: torch.Tensor,
                     num_blocks: int, num_ada: int, n_head: int = 0,
                     groups: int = 1, attention: bool = True,
                     bounded: bool = True, last_step_size: float = 0.05,
-                    final_chunk: bool = True) -> torch.Tensor:
+                    final_chunk: bool = True,
+                    quant: str | bool | None = None) -> torch.Tensor:
     """The whole EM sampling loop; dispatch by device.
 
     x0 [half, ch] f32 (cond rows); noise [num_steps, half, ch] f32; allmods
@@ -255,17 +338,25 @@ def fused_em_sample(stacked: dict, x0: torch.Tensor, noise: torch.Tensor,
     avoids a device sync); cfg a float. CFG rows are [cond; uncond].
     attention selects the head family (groups and n_head matter only for
     it; the MlpEncoder's rows are independent), bounded the 2*sigmoid-1
-    output. CPU tensors take :func:`fused_em_sample_reference`; CUDA tensors
-    run ``csrc/fused_head.cu`` (bf16 weights and mods) or raise.
+    output. quant ("int8" or True, "int4"; the stack built with the same
+    mode) runs the W8A8 / W4A8 products of the TPU kernel's quant mode, for
+    the TransEncoder only. CPU tensors take :func:`fused_em_sample_reference`;
+    CUDA tensors run ``csrc/fused_head.cu`` (bf16 weights, norms, biases and
+    mods; int8 block matrices with f32 scales when quantized) or raise.
     """
+    mode = quant_mode(quant)
     kw = dict(num_blocks=num_blocks, num_ada=num_ada, n_head=n_head,
               groups=groups, attention=attention, bounded=bounded,
               last_step_size=last_step_size, final_chunk=final_chunk)
     if x0.device.type == "cpu":
         return fused_em_sample_reference(stacked, x0, noise, allmods, t_all,
-                                         dt_all, cfg, **kw)
+                                         dt_all, cfg, quant=mode, **kw)
     if x0.device.type != "cuda":
         raise RuntimeError(f"fused_em_sample: no kernel for {x0.device}")
+    if mode is not None and not attention:
+        raise ValueError("fused_em_sample: the quantized sampler is checked "
+                         "for the TransEncoder only (attention=True)")
+    mats = ("w1", "w2") + (("wqkv", "wo") if attention else ())
     keys = list(_MLP_KEYS) + (list(_ATTN_KEYS) if attention else []) \
         + ["in_w", "f_out_w"]
     _cuda.refuse_grad("fused_em_sample", x0, noise, allmods,
@@ -275,13 +366,27 @@ def fused_em_sample(stacked: dict, x0: torch.Tensor, noise: torch.Tensor,
     half, ch = x0.shape
     rows = 2 * half
     c_dim = stacked["n2"].shape[-1]
-    hidden = stacked["w1"].shape[1] // 2
+    hidden = stacked["b1"].shape[1] // 2
     dev = x0.device
     for k in keys:
         t = stacked[k]
-        if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != dev:
+        want = torch.int8 if (mode and k in mats) else torch.bfloat16
+        if t.dtype != want or not t.is_contiguous() or t.device != dev:
             raise ValueError(f"fused_em_sample: stacked[{k!r}] must be "
-                             f"contiguous bf16 on {dev}, got {t.dtype}")
+                             f"contiguous {want} on {dev}, got {t.dtype}")
+    if mode is not None:
+        div = 2 if mode == "int4" else 1
+        shapes = {"wqkv": (3 * c_dim, c_dim), "wo": (c_dim, c_dim),
+                  "w1": (2 * hidden, c_dim), "w2": (c_dim, hidden)}
+        for k in mats:
+            n_out, k_in = shapes[k]
+            sc = stacked[k + "_s"]
+            if tuple(stacked[k].shape) != (num_blocks, n_out, k_in // div) or \
+                    sc.dtype != torch.float32 or tuple(sc.shape) != (num_blocks, n_out) \
+                    or not sc.is_contiguous() or sc.device != dev:
+                raise ValueError(f"fused_em_sample: {mode} stack {k!r} "
+                                 f"{tuple(stacked[k].shape)} / scales "
+                                 f"{tuple(sc.shape)} {sc.dtype} do not match")
     width = (num_ada * (6 if attention else 3) + 2) * c_dim
     if allmods.dtype != torch.bfloat16 or tuple(allmods.shape) != \
             (grid_steps, rows, width) or not allmods.is_contiguous():
@@ -300,23 +405,32 @@ def fused_em_sample(stacked: dict, x0: torch.Tensor, noise: torch.Tensor,
     in_b = stacked["in_b"].to(device=dev, dtype=torch.float32).contiguous()
     f_out_b = stacked["f_out_b"].to(device=dev, dtype=torch.float32).contiguous()
     h = torch.empty((rows, c_dim), dtype=torch.float32, device=dev)
-    act = torch.empty((rows, max(c_dim, hidden)), dtype=torch.bfloat16, device=dev)
+    wide = max(c_dim, hidden)
+    act = torch.empty((rows, wide), dtype=torch.bfloat16, device=dev)
     buf = torch.empty((rows, max(3 * c_dim if attention else 0, hidden)),
                       dtype=torch.bfloat16, device=dev)
-    ptr = lambda k: stacked[k].data_ptr() if k in keys else None  # noqa: E731
+    ptr = lambda k: stacked[k].data_ptr() if k in stacked else None  # noqa: E731
+    q_ptrs = [None] * 7
+    if mode is not None:
+        # fp32 stage inputs, their int8 rows and the row scales
+        qbufs = (torch.empty((rows, wide), dtype=torch.float32, device=dev),
+                 torch.empty((rows, wide), dtype=torch.int8, device=dev),
+                 torch.empty((rows,), dtype=torch.float32, device=dev))
+        q_ptrs = [ptr(k + "_s") for k in ("wqkv", "wo", "w1", "w2")] \
+            + [t.data_ptr() for t in qbufs]
     lib = _cuda.load()
     code = lib.bd_fused_em_sample(
         x.data_ptr(), noise.data_ptr(), allmods.data_ptr(), allmods.shape[2],
         ts.data_ptr(), dts.data_ptr(), float(cfg),
         stacked["in_w"].data_ptr(), in_b.data_ptr(),
         stacked["f_out_w"].data_ptr(), f_out_b.data_ptr(),
-        ptr("n1"), ptr("n2"), ptr("wqkv"), ptr("bqkv"), ptr("wo"), ptr("bo"),
-        ptr("w1"), ptr("b1"), ptr("w2"), ptr("b2"),
+        *[ptr(k) if k in keys else None
+          for k in ("n1", "n2", "wqkv", "bqkv", "wo", "bo", "w1", "b1", "w2", "b2")],
         h.data_ptr(), act.data_ptr(), buf.data_ptr(),
         half, ch, c_dim, hidden, num_blocks, num_steps,
         max(1, num_blocks // num_ada), max(n_head, 1), groups,
         int(attention), int(bounded), int(final_chunk), float(last_step_size),
-        _cuda.stream_ptr())
+        _QUANT_MODES.index(mode), *q_ptrs, _cuda.stream_ptr())
     _cuda.check(code, "fused_em_sample")
     fused_em_sample.launches += 1
     return x

@@ -56,7 +56,7 @@ class T2IModelBundle:
 
     @property
     def device(self) -> torch.device:
-        return self.llm.model.embed_tokens.weight.device
+        return self.llm.model.norm.weight.device
 
     def stacked_head(self) -> dict:
         if self.head_stacked is None:
@@ -74,8 +74,10 @@ def build_pos_table(bundle: T2IModelBundle) -> torch.Tensor:
 @torch.no_grad()
 def prefill_t2i(bundle: T2IModelBundle, prompt_ids: torch.Tensor,
                 prompt_pad: torch.Tensor, img_start_ids: torch.Tensor, *,
-                latent_h: int, latent_w: int, num_images: int):
-    """Both prefill passes; returns (cache, hidden [2n, p, D])."""
+                latent_h: int, latent_w: int, num_images: int,
+                kv_int8: bool = False):
+    """Both prefill passes; returns (cache, hidden [2n, p, D]). kv_int8: the
+    fused int8 ring buffer (qwen3.init_kv_cache(int8=True))."""
     llm = bundle.llm
     p = bundle.parallel_num
     n2 = 2 * num_images
@@ -91,7 +93,7 @@ def prefill_t2i(bundle: T2IModelBundle, prompt_ids: torch.Tensor,
     positions = torch.clamp(idx[None] - prompt_pad[:, None], min=0)
 
     cache = q3.init_kv_cache(llm.cfg, n2, cache_max, dtype=prompt_emb.dtype,
-                             device=prompt_emb.device)
+                             device=prompt_emb.device, int8=kv_int8)
     pre1 = P + 2
     _, cache = q3.qwen3_forward_cached(
         llm, seq_emb[:, :pre1], positions[:, :pre1], cache, 0, prompt_pad,
@@ -140,11 +142,11 @@ def generate_tokens(bundle: T2IModelBundle, prompt_ids: torch.Tensor,
                     pos_embed_for_diff: torch.Tensor,
                     generator: torch.Generator, *, latent_h: int,
                     latent_w: int, num_images: int, guidance_scale: float,
-                    num_sampling_steps: int) -> torch.Tensor:
+                    num_sampling_steps: int, kv_int8: bool = False) -> torch.Tensor:
     """Prefill + AR decode; returns ±1 tokens [n, h*w, z]."""
     cache, hidden = prefill_t2i(bundle, prompt_ids, prompt_pad, img_start_ids,
                                 latent_h=latent_h, latent_w=latent_w,
-                                num_images=num_images)
+                                num_images=num_images, kv_int8=kv_int8)
     return decode_t2i(bundle, cache, hidden, prompt_pad, pos_embed_for_diff,
                       generator, prompt_len=prompt_ids.shape[1],
                       latent_h=latent_h, latent_w=latent_w,
@@ -165,7 +167,8 @@ class T2IPipeline:
 
     PROMPT_BUCKETS = (64, 128, 256, 512)
 
-    def __init__(self, bundle: T2IModelBundle, tokenizer=None):
+    def __init__(self, bundle: T2IModelBundle, tokenizer=None,
+                 kv_int8: bool = False):
         # TF32 off for both fp32 products and fp32 cuDNN convolutions: the
         # serving path is bf16 (TF32 never applies there), and its fp32
         # pieces (the head's c_emb, the plain kernel twins) stay full fp32,
@@ -174,6 +177,7 @@ class T2IPipeline:
         torch.backends.cudnn.allow_tf32 = False
         self.bundle = bundle
         self.tokenizer = tokenizer
+        self.kv_int8 = kv_int8
         self.last_timing: dict = {}
         self.pos_table = build_pos_table(bundle)
         self._geom_cache: dict = {}
@@ -221,7 +225,8 @@ class T2IPipeline:
         with phase("prefill"):
             cache, hidden = prefill_t2i(b, rows_t, pads_t, start_ids,
                                         latent_h=latent_h, latent_w=latent_w,
-                                        num_images=num_images)
+                                        num_images=num_images,
+                                        kv_int8=self.kv_int8)
         with phase("decode"):
             tokens = decode_t2i(b, cache, hidden, pads_t, pe, gen, prompt_len=P,
                                 latent_h=latent_h, latent_w=latent_w,

@@ -15,6 +15,21 @@ Phases, run in this order, one line each, any failure exits non-zero:
                     .generate: two prompts at 512 px, one at 1024 px
   profile           torch.profiler over one more 512 px
                     request: device busy share and time by kernel
+  quant_kernels     the quantized serving kernels vs their plain versions, from
+                    the same bf16 weights: the W4A8 matmul at the seven Qwen3
+                    projections (M = 128 and 132), the fused-KV decode on bf16
+                    and int8 buffers at the three decode windows (with the
+                    window-off-by-one check), the sampler's W8A8 and W4A8 modes
+                    at the 14B head (4 steps, then sign agreement over 50)
+  e2e_quant         the bundle quantized layer by layer: the int8 configuration
+                    (W8A8 Qwen3, W8A8 head, int8 KV) on the first 512 px
+                    request, freed; then the int4 flagship (packed-int4 W4A8
+                    Qwen3, int8 embedding, W4A8 head, int8 KV) on the same
+                    three requests as e2e: s/image, phases, peak memory, the
+                    quantized weights' GiB, launch counts, token agreement with
+                    bf16 (reported; also over the first AR step) and int4 !=
+                    int8 grids (checked); torch.profiler over one more int4
+                    512 px request
   flash_attention   the forward, dq and dk/dv kernels vs the plain version and
                     its autograd grads: the training path's shapes, B-16x
                     block windows, two packed documents, GQA at head dim 128
@@ -118,14 +133,27 @@ UNGUIDED_H1X_IMAGES = 8
 # the unguided H-1x batch runs 25,856 per-call net calls at 100 steps, 2.9 ms
 # each from the host (90 s, PERF.md); it is cut to this many sampling steps
 UNGUIDED_H1X_STEPS = 25
-# H100 SXM dense bf16 tensor-core peak and HBM3 rate (NVIDIA data sheet, at
-# 700 W), for MFU and for each kernel's bound: the larger of the bytes the
-# function must move (each input read once, each output written once) over
-# the memory rate and its operations over the peak
+# Quantized serving. W4A8 matmul vs its plain version (the same int8 rows,
+# the integer sums exact on both sides): only the output's rounding can
+# differ, max abs error relative to max |plain|.
+W4A8_MAX_REL_ERR = 1e-5
+# the quantized samplers over 4 steps against their plain versions: both
+# quantize the same fp32 stage inputs, but an fp32 summation-order
+# difference moves an activation across an int8 step now and then, and the
+# kernel keeps qkv and h1/h2 in bf16 as the bf16 sampler does: the bf16
+# sampler's bound; over 50 steps the bf16 sampler's sign-agreement floor.
+QUANT_SAMPLER_MAX_REL_ERR = 5e-2
+# H100 SXM dense bf16 and int8 tensor-core peaks and HBM3 rate (NVIDIA data
+# sheet, at 700 W), for MFU and for each kernel's bound: the larger of the
+# bytes the function must move (each input read once, each output written
+# once) over the memory rate and its operations over the peak of their type
 H100_BF16_PEAK = 989e12
+H100_INT8_PEAK = 1979e12
 H100_HBM_BYTES_PER_S = 3.35e12
-# kernel-name substrings -> the groups a profile's time is summed into
+# kernel-name substrings -> the groups a profile's time is summed into (the
+# first group that matches)
 PROFILE_GROUPS = (
+    ("integer products", ("gemm_s8", "quantize_rows", "i16832gemm")),
     ("products", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
     ("flash attention", ("flash_",)),
     ("decode attention", ("decode_attention",)),
@@ -144,11 +172,12 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def roofline(n_bytes: float, flops: float) -> dict:
+def roofline(n_bytes: float, flops: float, int_ops: float = 0.0) -> dict:
     """The least time the card could take: bytes over the HBM rate or
-    operations over the bf16 tensor-core peak, whichever is larger."""
+    operations over the tensor-core peaks (flops at bf16's, int_ops at
+    int8's), whichever is larger."""
     t_bytes = n_bytes / H100_HBM_BYTES_PER_S * 1e3
-    t_ops = flops / H100_BF16_PEAK * 1e3
+    t_ops = (flops / H100_BF16_PEAK + int_ops / H100_INT8_PEAK) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -366,22 +395,26 @@ def phase_sampler(bundle) -> dict:
 
 
 def sampler_bound(stacked, x0, noise, allmods, *, attention, groups=1,
-                  window=1) -> dict:
+                  window=1, quant=None) -> dict:
     """Bound of one whole-sampler call: its inputs read once (the block
-    weights, the input and output projections, all mods, x0, noise) and its
-    output written once; operations of every net call's products (and window
-    attention)."""
+    weights and their scales, the input and output projections, all mods,
+    x0, noise) and its output written once; operations of every net call's
+    products (integer ones at the int8 peak when quantized; a packed int4
+    byte holds two weights) and window attention."""
     mats = ["w1", "w2"] + (["wqkv", "wo"] if attention else [])
     read = mats + ["b1", "b2", "n2", "in_w", "in_b", "f_out_w", "f_out_b"] \
-        + (["bqkv", "bo", "n1"] if attention else [])
+        + (["bqkv", "bo", "n1"] if attention else []) \
+        + ([k + "_s" for k in mats] if quant else [])
     rows, calls = 2 * x0.shape[0], allmods.shape[0]
-    per_call = sum(stacked[k].numel() for k in mats + ["in_w", "f_out_w"])
-    flops = 2.0 * rows * per_call * calls
+    block_w = sum(stacked[k].numel() for k in mats) * (2 if quant == "int4" else 1)
+    proj_w = stacked["in_w"].numel() + stacked["f_out_w"].numel()
+    block_ops = 2.0 * rows * block_w * calls
+    flops = 2.0 * rows * proj_w * calls + (0.0 if quant else block_ops)
     if attention:
         c, blocks = stacked["n2"].shape[-1], stacked["w1"].shape[0]
         flops += 4.0 * groups * window * window * c * blocks * calls
     return roofline(nbytes(*[stacked[k] for k in read], allmods, x0, noise, x0),
-                 flops)
+                    flops, block_ops if quant else 0.0)
 
 
 class StubTokenizer:
@@ -400,6 +433,11 @@ class StubTokenizer:
         return self.special[tok]
 
 
+E2E_REQUESTS = [("a red fox in the snow, 512", 512, 0),
+                ("a lighthouse at dusk, 512", 512, 1),
+                ("a bowl of ramen on a wooden table, 1024", 1024, 2)]
+
+
 def phase_e2e(bundle, card: str) -> dict:
     import numpy as np
     import torch
@@ -410,9 +448,7 @@ def phase_e2e(bundle, card: str) -> dict:
 
     pipe = T2IPipeline(bundle, StubTokenizer(bundle.parallel_num))
     layers = bundle.llm_cfg.num_hidden_layers
-    requests = [("a red fox in the snow, 512", 512, 0),
-                ("a lighthouse at dusk, 512", 512, 1),
-                ("a bowl of ramen on a wooden table, 1024", 1024, 2)]
+    requests = E2E_REQUESTS
     decode_attention.launches = 0
     fused_em_sample.launches = 0
     per_request = []
@@ -441,7 +477,8 @@ def phase_e2e(bundle, card: str) -> dict:
             f"tokens +1 share {(tok > 0).mean():.3f}; card {card}")
         if not ok:
             raise SystemExit(f"e2e {px}px request failed its checks")
-        per_request.append({"px": px, "s_per_image": dt, "timing": timing})
+        per_request.append({"px": px, "s_per_image": dt, "timing": timing,
+                            "tokens": torch.from_numpy(tok)})
     # the decoder's float output is finite (the uint8 cast would hide NaN)
     from bitdance_tpu_torch.pipelines.t2i import decode_image
 
@@ -463,6 +500,306 @@ def phase_profile(bundle) -> None:
     profile_run("profile", "512 px request",
                 lambda: pipe.generate("profile request", 512, 512, seed=8),
                 lambda: f"last_timing {json.dumps(pipe.last_timing)}")
+
+
+def _w4a8_case(w, m, dev, g) -> dict:
+    """One W4A8 product at [m, K] x packed [N, K/2]: kernel vs plain (the
+    same int8 rows, exact integer sums), times, bound, and torch._int_mm on
+    the unpacked int8 weight (the same integer product, twice the bytes)."""
+    import torch
+
+    from bitdance_tpu_torch.ops.int4 import int4_matmul, int4_matmul_reference, unpack_int4
+    from bitdance_tpu_torch.ops.int8 import quantize_rows
+
+    n, kh = w.q.shape
+    x = torch.randn((m, 2 * kh), generator=g, device=dev).bfloat16()
+    got = int4_matmul(x, w)
+    xq, sx = quantize_rows(x)
+    want = int4_matmul_reference(xq, sx, w.q, w.s, torch.bfloat16)
+    torch.cuda.synchronize()
+    err, rel = _errors(got, want)
+    w8 = torch.cat(unpack_int4(w.q), dim=1)                 # [N, K] int8
+    return {"err": err, "rel": rel,
+            "ms": cuda_time_ms(lambda: int4_matmul(x, w), 20),
+            "plain_ms": cuda_time_ms(lambda: int4_matmul_reference(
+                *quantize_rows(x), w.q, w.s, torch.bfloat16), 5),
+            "library_ms": cuda_time_ms(lambda: torch._int_mm(xq, w8.t()), 20),
+            "bytes": nbytes(x, w.q, w.s, got), "ops": 2.0 * m * n * 2 * kh}
+
+
+def _check_w4a8(bundle, dev) -> dict:
+    """K1 at the seven projections of layer 0 (quantized to int4 here) for
+    the AR step's 128 rows and the first prefill pass's 132."""
+    import torch
+
+    from bitdance_tpu_torch.ops.int4 import quantize_linear_int4
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    layer = bundle.llm.model.layers[0]
+    projs = {name: getattr(getattr(layer, part), name) for part, names in (
+        ("self_attn", ("q_proj", "k_proj", "v_proj", "o_proj")),
+        ("mlp", ("gate_proj", "up_proj", "down_proj"))) for name in names}
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+    worst = 0.0
+    for name, lin in projs.items():
+        w = quantize_linear_int4(lin.weight)
+        for m in (128, 132):
+            c = _w4a8_case(w, m, dev, g)
+            bd = roofline(c["bytes"], 0.0, c["ops"])
+            log("quant_kernels", f"w4a8_matmul {name} M={m} N={w.q.shape[0]} "
+                f"K={2 * w.q.shape[1]}: max abs err {c['err']:.3e} rel {c['rel']:.3e} "
+                f"(bound {W4A8_MAX_REL_ERR}); kernel {c['ms']:.4f} ms, plain "
+                f"{c['plain_ms']:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+                f"({bd['bound_by']}), torch._int_mm on int8 weights "
+                f"{c['library_ms']:.4f} ms")
+            if not c["rel"] <= W4A8_MAX_REL_ERR:
+                raise SystemExit(f"w4a8_matmul {name} M={m}: rel err {c['rel']}")
+            worst = max(worst, c["err"])
+            if m == 128:
+                for k in tot:
+                    tot[k] += c[k]
+    bd = roofline(tot.pop("bytes"), 0.0, tot.pop("ops"))
+    log("quant_kernels", f"w4a8_matmul, one layer's seven products at M=128: "
+        f"kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, bound "
+        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}), torch._int_mm "
+        f"{tot['library_ms']:.4f} ms")
+    return {"max_abs_err": worst, **tot, **bd}
+
+
+def _check_decode_fusedkv(dev) -> dict:
+    """K2 on a fused bf16 buffer and an int8 one (quantized from the same
+    k, v) at the decode windows of phase_decode_attention, edges poisoned,
+    with the window-off-by-one check on the plain version."""
+    import torch
+
+    from bitdance_tpu_torch.ops.decode_attention import (
+        decode_attention_fusedkv,
+        decode_attention_fusedkv_reference,
+        dequantize_fused_kv,
+        quantize_kv_rows,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    b, s, hq, hkv, d = 2, 64, 40, 8, 128
+    P, p, L = 64, 64, 64 + 2 + 64 + 64 * 64
+    q = torch.randn((b, s, hq, d), generator=g, device=dev).bfloat16()
+    k = torch.randn((b, hkv, L, d), generator=g, device=dev).bfloat16()
+    v0 = torch.randn((b, hkv, L, d), generator=g, device=dev).bfloat16()
+    kv_start = torch.tensor([0, 50], dtype=torch.int32, device=dev)
+    cases = {"prefill_pass2": P + 2 + p, "mid_decode": P + 2 + p + 32 * p,
+             "last_step": L}
+    worst, rec = 0.0, {}
+    for fmt in ("bf16", "int8"):
+        for name, n in cases.items():
+            kv_len = torch.full((b,), n, dtype=torch.int32, device=dev)
+            v = _poison_window_edges(v0, kv_start, kv_len)
+            if fmt == "int8":
+                kv, sc = quantize_kv_rows(k.transpose(1, 2), v.transpose(1, 2))
+                kv, sc = kv.contiguous(), sc.contiguous()
+            else:
+                kv, sc = torch.cat([k, v], dim=-1), None
+            got = decode_attention_fusedkv(q, kv, kv_len, kv_start, sc)
+            want = decode_attention_fusedkv_reference(q, kv, kv_len, kv_start, sc)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            shifted = [(kv_len - 1, kv_start), (kv_len, kv_start + 1)]
+            if n < L:
+                shifted.append((kv_len + 1, kv_start))
+            shift = min((decode_attention_fusedkv_reference(q, kv, nl, ns, sc).float()
+                         - want.float()).abs().max().item() for nl, ns in shifted)
+            bound = DECODE_MAX_ABS_ERR[name]
+            if not torch.isfinite(got).all() or err > bound or shift < 4 * bound:
+                raise SystemExit(f"decode_attention_fusedkv {fmt} {name}: max abs "
+                                 f"err {err} (bound {bound}), off-by-one {shift}")
+            ms = cuda_time_ms(lambda: decode_attention_fusedkv(q, kv, kv_len, kv_start,
+                                                               sc), 50)
+            pms = cuda_time_ms(lambda: decode_attention_fusedkv_reference(
+                q, kv, kv_len, kv_start, sc), 10)
+            log("quant_kernels", f"decode_attention_fusedkv {fmt} {name} kv_len={n}: "
+                f"max abs err {err:.3e} (bound {bound}; off by one key moves the "
+                f"plain version by >= {shift:.3e}); kernel {ms:.4f} ms, plain "
+                f"{pms:.4f} ms")
+            if fmt == "int8":
+                worst = max(worst, err)
+                rec = {"ms": ms, "plain_ms": pms}
+    # the int8 buffer at the last step: bound over the live keys (k and v
+    # int8 with their two f32 scales per key), SDPA on its dequantized bf16 k/v
+    live = (kv_len - kv_start).sum().item()
+    rec.update(roofline(nbytes(q, q) + hkv * (2 * d + 8) * live,
+                        4.0 * hq * s * d * live))
+    kd, vd = (t.bfloat16() for t in dequantize_fused_kv(kv, sc))
+    pos = torch.arange(L, device=dev)
+    mask = ((pos >= kv_start[:, None]) & (pos < kv_len[:, None]))[:, None, None]
+    mask = mask.expand(b, 1, s, L)
+    qt = q.transpose(1, 2)
+    rec["library_ms"] = cuda_time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kd, vd, attn_mask=mask, enable_gqa=True), 50)
+    log("quant_kernels", f"decode_attention_fusedkv int8 kv_len={L}: bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); scaled_dot_product_attention "
+        f"on the dequantized bf16 k/v {rec['library_ms']:.4f} ms")
+    return {"max_abs_err": worst, **rec}
+
+
+def _check_quant_sampler(bundle, mode, dev) -> dict:
+    """K3: the sampler's W8A8 / W4A8 mode at the 14B head, stacks quantized
+    from the bundle's bf16 head: 4 steps at R = 128 against the plain quant
+    sampler, then 50 steps (sign agreement, times, bound)."""
+    import torch
+
+    from bitdance_tpu_torch.ops.fused_head import (
+        fused_em_sample,
+        fused_em_sample_reference,
+        stack_diffnet_params,
+    )
+
+    head = bundle.head
+    stacked = stack_diffnet_params(head.net, head.depth_latent, torch.bfloat16,
+                                   quant="int4" if mode == "int4" else True)
+    kw = dict(num_blocks=head.depth_latent, num_ada=head.depth_adanln,
+              n_head=head.ch_latent // head.attn_head_dim, groups=2,
+              last_step_size=0.05, quant=mode)
+    cfg = 7.5
+    x0, noise, mods, t_all, dt_all = _head_inputs(stacked, head, 4, 21, dev)
+    got = fused_em_sample(stacked, x0, noise, mods, t_all, dt_all, cfg, **kw)
+    want = fused_em_sample_reference(stacked, x0, noise, mods, t_all, dt_all, cfg, **kw)
+    torch.cuda.synchronize()
+    err, rel = _errors(got, want)
+    x0, noise, mods, t_all, dt_all = _head_inputs(stacked, head, 50, 22, dev)
+    run_k = lambda: fused_em_sample(stacked, x0, noise, mods, t_all,  # noqa: E731
+                                    dt_all, cfg, **kw)
+    run_p = lambda: fused_em_sample_reference(stacked, x0, noise, mods,  # noqa: E731
+                                              t_all, dt_all, cfg, **kw)
+    xk, xp = run_k(), run_p()
+    agree = (torch.sign(xk) == torch.sign(xp)).float().mean().item()
+    ms = cuda_time_ms(run_k, 3, warmup=1)
+    pms = cuda_time_ms(run_p, 1, warmup=1)
+    bd = sampler_bound(stacked, x0, noise, mods, attention=True, groups=2,
+                       window=head.parallel_num, quant=mode)
+    wbytes = nbytes(*[stacked[k] for k in ("wqkv", "wo", "w1", "w2")])
+    log("quant_kernels", f"fused_em_sample {mode} (block weights {wbytes / 1e9:.3f} "
+        f"GB): 4 steps max abs err {err:.3e}, rel {rel:.3e} (bound "
+        f"{QUANT_SAMPLER_MAX_REL_ERR}); 50 steps: kernel {ms:.2f} ms "
+        f"({ms / 51:.3f} per net call), plain {pms:.2f} ms, bound "
+        f"{bd['bound_ms']:.3f} ms ({bd['bound_by']}); +-1 agreement {agree:.4f} "
+        f"(floor {SAMPLER_SIGN_AGREEMENT_FLOOR})")
+    if (not torch.isfinite(xk).all() or rel > QUANT_SAMPLER_MAX_REL_ERR
+            or agree < SAMPLER_SIGN_AGREEMENT_FLOOR):
+        raise SystemExit(f"fused_em_sample {mode}: rel {rel}, agreement {agree}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, **bd, "library_ms": None}
+
+
+def phase_quant_kernels(bundle) -> dict:
+    import torch
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = {"w4a8_matmul": _check_w4a8(bundle, dev),
+               "decode_attention_fusedkv": _check_decode_fusedkv(dev),
+               "fused_em_sample_int8": _check_quant_sampler(bundle, "int8", dev),
+               "fused_em_sample_int4": _check_quant_sampler(bundle, "int4", dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("quant_kernels", f"done in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _quant_gib(bundle) -> float:
+    """GiB of the quantized weights: the LLM's int8 / packed buffers with
+    their scales and the head's quantized stack (block matrices, modcat)."""
+    from bitdance_tpu_torch.models.qwen3 import QEmbedding, QLinear
+
+    st = bundle.head_stacked
+    n = sum(nbytes(m.q, m.s) for m in bundle.llm.modules()
+            if isinstance(m, (QLinear, QEmbedding)))
+    n += nbytes(*[st[k] for k in st if k.endswith("_s") or st[k].dtype.itemsize == 1])
+    return n / 2**30
+
+
+def _quant_request(pipe, prompt, px, seed, bf16_tok, card, tag) -> dict:
+    import numpy as np
+    import torch
+
+    layers = pipe.bundle.llm_cfg.num_hidden_layers
+    steps = (px // 16) ** 2 // pipe.bundle.parallel_num
+    int4 = tag == "int4"
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, tok = pipe.generate(prompt, px, px, num_sampling_steps=50, guidance_scale=7.5,
+                             num_images=1, seed=seed, return_tokens=True)
+    dt = time.perf_counter() - t0
+    got = _counts()
+    want = {"w4a8_matmul": 7 * layers * (2 + steps) if int4 else 0,
+            "decode_attention_fusedkv": layers * (1 + steps),
+            "fused_em_sample": steps, "decode_attention": 0}
+    tok = torch.from_numpy(tok)
+    agree = (tok == bf16_tok).float().mean().item()
+    p = pipe.bundle.parallel_num        # the first AR step's tokens: no feedback yet
+    agree1 = (tok[:, :p] == bf16_tok[:, :p]).float().mean().item()
+    timing = {k: (round(v, 4) if isinstance(v, float) else v)
+              for k, v in pipe.last_timing.items()}
+    log("e2e_quant", f"{tag} {px}x{px}, 50 steps, cfg 7.5: {dt:.3f} s/image; "
+        f"last_timing {json.dumps(timing)}; launches "
+        + ", ".join(f"{k} +{got[k]} (want {v})" for k, v in want.items())
+        + f"; +-1 agreement with the bf16 tokens of the same prompt and seed "
+        f"{agree:.4f} (first AR step {agree1:.4f}); image {img.shape} mean "
+        f"{img.mean():.2f}; card {card}")
+    ok = (img.dtype == np.uint8 and img.shape == (1, px, px, 3)
+          and tuple(tok.shape) == (1, (px // 16) ** 2, 32)
+          and set(tok.unique().tolist()) <= {-1.0, 1.0}
+          and all(got[k] == v for k, v in want.items()))
+    if not ok:
+        raise SystemExit(f"e2e_quant {tag} {px}px request failed its checks")
+    return {"tokens": tok, "launches": {k: got[k] for k in want}, "s": dt}
+
+
+def phase_e2e_quant(bundle, card: str, bf16_tokens: list) -> dict:
+    """The int8 configuration from a module-tree copy of the bf16 bundle
+    (the bf16 weights stay), one request, freed; then the int4 flagship
+    converted in place, three requests. Returns the kernels' launches."""
+    import torch
+
+    from bitdance_tpu_torch.io.random_init import quantize_bundle_
+    from bitdance_tpu_torch.pipelines.t2i import T2IPipeline
+
+    tok = StubTokenizer(bundle.parallel_num)
+    runs = {}
+    for tag in ("int8", "int4"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qb = quantize_bundle_(bundle, tag, keep_source=tag == "int8")
+        torch.cuda.synchronize()
+        log("e2e_quant", f"{tag} bundle quantized layer by layer in "
+            f"{time.perf_counter() - t0:.1f} s: quantized weights "
+            f"{_quant_gib(qb):.2f} GiB; {torch.cuda.memory_allocated() / 2**30:.2f} "
+            "GiB allocated")
+        pipe = T2IPipeline(qb, tok, kv_int8=True)
+        torch.cuda.reset_peak_memory_stats()
+        reqs = E2E_REQUESTS[:1] if tag == "int8" else E2E_REQUESTS
+        runs[tag] = [_quant_request(pipe, prompt, px, seed, bf16_tokens[i], card, tag)
+                     for i, (prompt, px, seed) in enumerate(reqs)]
+        log("e2e_quant", f"{tag}: peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if tag == "int4":
+            profile_run("e2e_quant", "int4 512 px request",
+                        lambda: pipe.generate("profile request", 512, 512, seed=8),
+                        lambda: f"last_timing {json.dumps(pipe.last_timing)}")
+        del qb, pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+    same = (runs["int4"][0]["tokens"] == runs["int8"][0]["tokens"]).float().mean().item()
+    log("e2e_quant", f"int4 vs int8 tokens of the same 512 px request: +-1 "
+        f"agreement {same:.4f} (the grids must differ)")
+    if same == 1.0:
+        raise SystemExit("e2e_quant: the int4 and int8 token grids are identical")
+    total = lambda tag, k: sum(r["launches"][k] for r in runs[tag])  # noqa: E731
+    return {"w4a8_matmul": total("int4", "w4a8_matmul"),
+            "decode_attention_fusedkv": total("int4", "decode_attention_fusedkv")
+            + total("int8", "decode_attention_fusedkv"),
+            "fused_em_sample_int8": total("int8", "fused_em_sample"),
+            "fused_em_sample_int4": total("int4", "fused_em_sample")}
 
 
 def profile_run(phase: str, what: str, run, extra=lambda: "") -> None:
@@ -835,14 +1172,19 @@ def _counts() -> dict:
 
 def _kernel_wrappers() -> dict:
     from bitdance_tpu_torch.ops.attention import flash_bwd_dkv, flash_bwd_dq, flash_fwd
-    from bitdance_tpu_torch.ops.decode_attention import decode_attention
+    from bitdance_tpu_torch.ops.decode_attention import (
+        decode_attention,
+        decode_attention_fusedkv,
+    )
     from bitdance_tpu_torch.ops.fused_block import fused_attn_block, fused_mlp_block
     from bitdance_tpu_torch.ops.fused_head import fused_em_sample
+    from bitdance_tpu_torch.ops.int4 import int4_matmul
 
     return {"decode_attention": decode_attention, "fused_em_sample": fused_em_sample,
             "flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq,
             "flash_bwd_dkv": flash_bwd_dkv, "fused_mlp_block": fused_mlp_block,
-            "fused_attn_block": fused_attn_block}
+            "fused_attn_block": fused_attn_block, "w4a8_matmul": int4_matmul,
+            "decode_attention_fusedkv": decode_attention_fusedkv}
 
 
 def _block_inputs(g, lead, c, dev):
@@ -1253,10 +1595,13 @@ def main() -> int:
     launches = phase_e2e(bundle, card)
     log("e2e", f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     phase_profile(bundle)
+    bf16_tokens = [r.pop("tokens") for r in launches.pop("requests")]
+    results.update(phase_quant_kernels(bundle))
+    launches.update(phase_e2e_quant(bundle, card, bf16_tokens))
     del bundle                              # the training phases need the room
     gc.collect()
     torch.cuda.empty_cache()
-    log("train", f"T2I bundle freed: {torch.cuda.memory_allocated() / 2**30:.2f} "
+    log("train", f"T2I bundles freed: {torch.cuda.memory_allocated() / 2**30:.2f} "
         "GiB allocated")
 
     results.update(phase_flash_attention())
@@ -1302,6 +1647,18 @@ def main() -> int:
                             "bitdance_tpu/ops/fused_block.py:95"),
         "fused_attn_block": ("fused_attn_block", "bitdance_tpu_torch/csrc/fused_block.cu",
                              "bitdance_tpu/ops/fused_block.py:183"),
+        "w4a8_matmul": ("w4a8_matmul", "bitdance_tpu_torch/csrc/w4a8.cu",
+                        "bitdance_tpu/ops/int4.py:121"),
+        "decode_attention_fusedkv": ("decode_attention_fusedkv",
+                                     "bitdance_tpu_torch/csrc/decode_attention.cu",
+                                     "bitdance_tpu/ops/decode_attention.py:340"),
+        # the quant mode of kernel #2 (stage_quant / stage_dot)
+        "fused_em_sample_int8": ("fused_em_sample_int8",
+                                 "bitdance_tpu_torch/csrc/fused_head.cu",
+                                 "bitdance_tpu/ops/fused_head.py:1076"),
+        "fused_em_sample_int4": ("fused_em_sample_int4",
+                                 "bitdance_tpu_torch/csrc/fused_head.cu",
+                                 "bitdance_tpu/ops/fused_head.py:1076"),
     }
     for name, (key, src, repl) in meta.items():
         r = results[key]

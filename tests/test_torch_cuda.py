@@ -234,3 +234,96 @@ def test_sampler_kernel_mlp_encoder(dev):
                                          3.0, **kw)
     rel = (got - want).abs().max() / want.abs().max()
     assert rel.item() < 5e-2
+
+
+@pytest.mark.parametrize("m,n,k,dtype", [(132, 192, 256, torch.bfloat16),
+                                         (5, 64, 384, torch.float32)])
+def test_w4a8_matmul_kernel(dev, m, n, k, dtype):
+    """K1 vs its plain version (exact integer sums): the same int8 rows,
+    so only the dtype of the output can differ."""
+    from bitdance_tpu_torch.ops.int4 import (
+        int4_matmul,
+        int4_matmul_reference,
+        quantize_linear_int4,
+    )
+    from bitdance_tpu_torch.ops.int8 import quantize_rows
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((m, k), generator=g, device=dev).to(dtype)
+    w = quantize_linear_int4(torch.randn((n, k), generator=g, device=dev))
+    n0 = int4_matmul.launches
+    with torch.no_grad():
+        got = int4_matmul(x, w)
+        want = int4_matmul_reference(*quantize_rows(x), w.q, w.s, dtype)
+    torch.cuda.synchronize()
+    assert int4_matmul.launches == n0 + 1 and got.dtype == dtype
+    err = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+    assert err < 1e-5
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_attention_fusedkv_kernel(dev, quant):
+    """K2 vs its plain version on a fused bf16 or int8 buffer: GQA, per-row
+    windows with kv_start > 0, an empty window."""
+    from bitdance_tpu_torch.ops.decode_attention import (
+        decode_attention_fusedkv,
+        decode_attention_fusedkv_reference,
+        pack_kv_rows,
+        quantize_kv_rows,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    q = torch.randn((3, 16, 8, 128), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((3, 300, 2, 128), generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    kv, sc = quantize_kv_rows(k, v) if quant else (pack_kv_rows(k, v), None)
+    kv = kv.contiguous()
+    sc = sc.contiguous() if quant else None
+    kv_len = torch.tensor([300, 170, 40], dtype=torch.int32, device=dev)
+    kv_start = torch.tensor([0, 37, 40], dtype=torch.int32, device=dev)
+    n = decode_attention_fusedkv.launches
+    with torch.no_grad():
+        got = decode_attention_fusedkv(q, kv, kv_len, kv_start, sc)
+        want = decode_attention_fusedkv_reference(q, kv, kv_len, kv_start, sc)
+    torch.cuda.synchronize()
+    assert decode_attention_fusedkv.launches == n + 1
+    assert (got[2] == 0).all()
+    assert (got.float() - want.float()).abs().max().item() < 2e-2
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_sampler_kernel_quant(dev, quant):
+    """K3: the sampler's W8A8 / W4A8 mode vs its plain version, small head
+    (C 256, H 384): the same integer products up to rounding flips of the
+    int8 activations."""
+    from bitdance_tpu_torch.io.random_init import init_head
+    from bitdance_tpu_torch.ops.fused_head import (
+        em_precompute,
+        fused_em_sample,
+        fused_em_sample_reference,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    head = init_head(dict(ch_target=32, ch_cond=256, ch_latent=256,
+                          depth_latent=4, depth_adanln=2, parallel_num=16,
+                          sample_weight_quant=True if quant == "int8" else "int4"),
+                     dev, torch.bfloat16, g)
+    s = head._stack_for_sampler()
+    assert s["w1"].dtype == torch.int8 and "w1_s" in s
+    cond = torch.randn((4, 16, 256), generator=g, device=dev)
+    c_emb = cond.reshape(64, 256) @ s["cond_w"].float().t() + s["cond_b"]
+    t_all = torch.linspace(0.0, 0.95, 5)
+    dt_all = torch.cat([t_all[1:] - t_all[:-1], torch.zeros(1)])
+    mods = em_precompute(s, c_emb, t_all)
+    x0 = torch.randn((32, 32), generator=g, device=dev)
+    noise = torch.randn((4, 32, 32), generator=g, device=dev)
+    kw = dict(num_blocks=4, num_ada=2, n_head=2, groups=4, quant=quant)
+    n = fused_em_sample.launches
+    with torch.no_grad():
+        got = fused_em_sample(s, x0, noise, mods, t_all, dt_all, 3.0, **kw)
+        want = fused_em_sample_reference(s, x0, noise, mods, t_all, dt_all,
+                                         3.0, **kw)
+    torch.cuda.synchronize()
+    assert fused_em_sample.launches == n + 1
+    rel = (got - want).abs().max() / want.abs().max()
+    assert rel.item() < 5e-2

@@ -157,9 +157,27 @@ def test_no_grad_guard_is_a_pure_predicate():
 
 
 def test_kernel_wrappers_refuse_non_cuda_non_cpu_devices():
-    from bitdance_tpu_torch.ops.decode_attention import decode_attention
+    from bitdance_tpu_torch.ops.decode_attention import (
+        decode_attention,
+        decode_attention_fusedkv,
+    )
+    from bitdance_tpu_torch.ops.fused_head import fused_em_sample
+    from bitdance_tpu_torch.ops.int4 import Q4Tensor, int4_matmul
 
     q = torch.zeros((1, 1, 2, 128), device="meta")
     k = torch.zeros((1, 1, 4, 128), device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
         decode_attention(q, k, k, torch.ones(1, dtype=torch.int32))
+    kv = torch.zeros((1, 1, 4, 256), dtype=torch.int8, device="meta")
+    sc = torch.zeros((1, 1, 2, 4), device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        decode_attention_fusedkv(q, kv, torch.ones(1, dtype=torch.int32), None, sc)
+    w = Q4Tensor(torch.zeros((64, 64), dtype=torch.int8, device="meta"),
+                 torch.zeros(64, device="meta"))
+    with pytest.raises(RuntimeError, match="no kernel"):
+        int4_matmul(torch.zeros((4, 128), device="meta"), w)
+    x0 = torch.zeros((4, 8), device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        fused_em_sample({}, x0, torch.zeros((2, 4, 8), device="meta"), None,
+                        [0.0, 0.5, 0.9], [0.5, 0.4, 0.0], 2.0, num_blocks=2,
+                        num_ada=2, quant="int4")
