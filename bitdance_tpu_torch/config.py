@@ -1,0 +1,119 @@
+"""Training configurations from the 14B yaml schema (port of
+bitdance_tpu/config.py: mllm_config_from_yaml, mllm_train_config_from_yaml).
+
+The builders take a plain dict (the yaml parsed by any loader), since the
+card's machine may have no PyYAML. ``BITDANCE_14B_64X`` mirrors the model,
+data and training blocks of train/configs/bitdance_14b_64x.yaml.
+"""
+
+from __future__ import annotations
+
+from bitdance_tpu_torch.models.mllm import MLLMConfig
+from bitdance_tpu_torch.models.qwen3 import Qwen3Config
+from bitdance_tpu_torch.train.mllm_train import MLLMTrainConfig
+
+# train/configs/bitdance_14b_64x.yaml (model, data and training blocks)
+BITDANCE_14B_64X = {
+    "model": {
+        "vit_patch_size": 16,
+        "encoder": {
+            "max_bs": 16,
+            "vt_forward_func": "group",
+            "params": {
+                "gan_decoder": False,
+                "checkpoint": None,
+                "ddconfig": {"double_z": False, "z_channels": 32, "in_channels": 3,
+                             "out_ch": 3, "ch": 256, "ch_mult": [1, 1, 2, 2, 4],
+                             "num_res_blocks": 4},
+            },
+        },
+        "llm": {"type": "qwen3", "checkpoint": "Qwen/Qwen3-14B"},
+        "head": {
+            "text_pred": "standard",
+            "vision_pred": {
+                "type": "diffusion_parallel_x", "model_dim": 5120, "num_blocks": 6,
+                "num_adaln": 2, "time_shift": 1.0, "time_schedule": "logit_normal",
+                "diff_batch_mul": 1, "parallel_num": 64, "P_mean": -0.8,
+                "P_std": 0.8, "use_swiglu": True,
+            },
+            "vision_perturb": 0.1,
+            "pe_max_len": 2048,
+        },
+    },
+    "data": {
+        "vit_patch_size": 16,
+        "use_native_resolution": True,
+        "max_num_tokens_per_sample": 16384,
+        "expected_num_tokens": 33280,
+        "max_num_tokens": 37376,
+        "data_seed": 42,
+        "text_cond_dropout_prob": 0.1,
+    },
+    "training": {
+        "results_dir": "results", "global_seed": 4396, "auto_resume": True,
+        "log_every": 10, "save_every": 1000, "validate_every": 1000,
+        "total_steps": 1_000_000, "grad_accumulation_steps": 1,
+        "warmup_steps": 2000, "lr_scheduler": "constant", "lr": 1e-5,
+        "min_lr": 1e-7, "beta1": 0.9, "beta2": 0.95, "eps": 1e-15,
+        "max_grad_norm": 1.0, "loss_weight_text": 0.01, "loss_weight_vision": 1.0,
+        "num_replicate": 1, "num_shard": 8, "sharding_strategy": "HYBRID_SHARD",
+    },
+}
+
+
+def mllm_config_from_yaml(cfg: dict, vocab_size: int) -> MLLMConfig:
+    """MLLMConfig from a bitdance_14b_*.yaml dict (config.py:51-97). The
+    live-kv-tile bound comes from the data block's per-sample token cap,
+    ceil(max_num_tokens_per_sample / 512) + 1 tiles of the JAX kernel; an
+    explicit model.attn_max_live_kv overrides and 0 means dense."""
+    m = cfg["model"]
+    vp = m["head"]["vision_pred"]
+    max_doc = int(cfg.get("data", {}).get("max_num_tokens_per_sample", 0))
+    live_kv = int(m.get("attn_max_live_kv", -(-max_doc // 512) + 1 if max_doc else 0))
+    llm_block = m["llm"]
+    if llm_block.get("hidden_size"):
+        llm = Qwen3Config(
+            vocab_size=vocab_size, hidden_size=llm_block["hidden_size"],
+            intermediate_size=llm_block["intermediate_size"],
+            num_hidden_layers=llm_block["num_hidden_layers"],
+            num_attention_heads=llm_block["num_attention_heads"],
+            num_key_value_heads=llm_block["num_key_value_heads"],
+            head_dim=llm_block["head_dim"])
+    else:
+        llm = Qwen3Config.qwen3_14b(vocab_size)
+    return MLLMConfig(
+        llm=llm,
+        z_channels=m["encoder"]["params"]["ddconfig"]["z_channels"],
+        vit_patch_size=m["vit_patch_size"],
+        parallel_num=vp.get("parallel_num", 1),
+        head_model_dim=vp.get("model_dim", 1024),
+        head_num_blocks=vp.get("num_blocks", 3),
+        head_num_adaln=vp.get("num_adaln", 1),
+        head_use_swiglu=vp.get("use_swiglu", False),
+        P_mean=vp.get("P_mean", 0.0),
+        P_std=vp.get("P_std", 1.0),
+        time_shift=vp.get("time_shift", 1.0),
+        diff_batch_mul=vp.get("diff_batch_mul", 1),
+        vision_perturb=m["head"].get("vision_perturb", 0.0),
+        pe_max_len=m["head"].get("pe_max_len", 4096),
+        attn_max_live_kv=live_kv or None,
+    )
+
+
+def mllm_train_config_from_yaml(cfg: dict) -> MLLMTrainConfig:
+    """MLLMTrainConfig from the yaml's training block (config.py:100-118)."""
+    t = cfg["training"]
+    return MLLMTrainConfig(
+        lr=float(t["lr"]),
+        min_lr=float(t.get("min_lr", 0.0)),
+        betas=(float(t.get("beta1", 0.9)), float(t.get("beta2", 0.95))),
+        eps=float(t.get("eps", 1e-8)),
+        warmup_steps=int(t.get("warmup_steps", 0)),
+        total_steps=int(t.get("total_steps", 1_000_000)),
+        decay_start=(int(t.get("warmup_steps", 0))
+                     if t.get("lr_scheduler", "constant") == "cosine" else -1),
+        max_grad_norm=float(t.get("max_grad_norm", 1.0)),
+        loss_weight_text=float(t.get("loss_weight_text", 1.0)),
+        loss_weight_vision=float(t.get("loss_weight_vision", 1.0)),
+        grad_accum=int(t.get("grad_accum", t.get("gradient_accumulation_steps", 1))),
+    )

@@ -5,6 +5,11 @@
 //   _flash_kernel          (pallas_call :285)  -> flash_fwd_kernel
 //   _flash_bwd_dq_kernel   (pallas_call :456)  -> flash_bwd_dq_kernel
 //   _flash_bwd_dkv_kernel  (pallas_call :474)  -> flash_bwd_dkv_kernel
+// and, behind flash_attention_sparse / _flash_sparse_core, the same three
+// kernels instantiated with kSparse = true:
+//   _flash_kernel_sparse          (pallas_call :767)   forward
+//   _flash_bwd_dq_kernel_sparse   (pallas_call :964)   dq
+//   _flash_bwd_dkv_kernel_sparse  (pallas_call :1013)  dk/dv
 //
 // Mask model: every token carries (block_id, doc_id); query i sees key j iff
 // doc_q[i] == doc_k[j] and block_k[j] <= block_q[i]. A row that sees no key
@@ -29,6 +34,16 @@
 // query block, or disjoint doc ranges), which holds for unsorted ids. Ragged
 // lengths are handled in the kernel: rows and keys past L are zero-filled by
 // cp.async and masked out.
+//
+// Sparse iteration (packed training, where most tiles are dead): the loop
+// runs over a per-tile list of live tile indices built on the device
+// (ops/attention.py::kv_tile_map), tile_map[b, i, 0:count[b, i]], instead of
+// over every tile with a skip. Forward and dq read the per-q-tile list of
+// 64-key tiles; dk/dv the transposed per-kv-tile list of BQ-row q tiles.
+// The dense kernels read every tile's ids (and the dead tiles' nothing
+// else); the sparse ones read only the listed tiles, so their work and
+// traffic follow the live pairs. The id mask is applied inside every listed
+// tile as in the dense kernels, so the outputs are the dense kernels'.
 #include <climits>
 
 #include "common.cuh"
@@ -139,14 +154,15 @@ __device__ __forceinline__ void c_to_a(uint32_t a[4], const float c0[4],
 // ---------------------------------------------------------------------------
 // forward: o [B, Lq, Hq, D] bf16, lse [B, Hq, Lq] fp32
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, bool kSparse>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
                  float* __restrict__ lse, const int* __restrict__ qb,
                  const int* __restrict__ qd, const int* __restrict__ kb,
-                 const int* __restrict__ kd, int Lq, int Lk, int Hq, int Hkv,
-                 float scale) {
+                 const int* __restrict__ kd, const int* __restrict__ tmap,
+                 const int* __restrict__ tcnt, int S, int Lq, int Lk, int Hq,
+                 int Hkv, float scale) {
   constexpr int LDS = D + 8;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
@@ -164,7 +180,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int* qd_b = qd + (size_t)b * Lq;
   const int* kb_b = kb + (size_t)b * Lk;
   const int* kd_b = kd + (size_t)b * Lk;
-  id_range<kBQ>(qb_b, qd_b, q0, Lq, qr);
+  if (!kSparse) id_range<kBQ>(qb_b, qd_b, q0, Lq, qr);
 
   int row[2], rb[2], rd[2];
   bool rv[2];
@@ -200,19 +216,20 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t kv_stride = (size_t)Hkv * D;
   const bf16* kh = k + ((size_t)b * Lk * Hkv + hk) * D;
   const bf16* vh = v + ((size_t)b * Lk * Hkv + hk) * D;
-  const int n_kt = (Lk + kBK - 1) / kBK;
+  const int* tm = tmap + ((size_t)b * gridDim.x + qt) * S;
+  const int n_it = kSparse ? tcnt[b * gridDim.x + qt] : (Lk + kBK - 1) / kBK;
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBK;
+  for (int it = 0; it < n_it; ++it) {
+    const int k0 = (kSparse ? tm[it] : it) * kBK;
     __syncthreads();  // previous tile consumed; qr visible on the first pass
-    id_range<kBK>(kb_b, kd_b, k0, Lk, kr);
+    if (!kSparse) id_range<kBK>(kb_b, kd_b, k0, Lk, kr);
     if (threadIdx.x < kBK) {
       const int idx = k0 + threadIdx.x;
       kb_s[threadIdx.x] = idx < Lk ? kb_b[idx] : 0;
       kd_s[threadIdx.x] = idx < Lk ? kd_b[idx] : 0;
     }
     __syncthreads();
-    if (!tile_live(qr, kr)) continue;  // block-uniform
+    if (!kSparse && !tile_live(qr, kr)) continue;  // block-uniform
     load_rows<D, kBK>(Ks, kh, k0, Lk, kv_stride);
     load_rows<D, kBK>(Vs, vh, k0, Lk, kv_stride);
     cp_async_commit();
@@ -309,7 +326,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ---------------------------------------------------------------------------
 // backward dq: p = exp(s - lse), ds = p (dp - delta), dq = scale * ds K
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, bool kSparse>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -317,7 +334,8 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const float* __restrict__ delta, bf16* __restrict__ dq,
                     const int* __restrict__ qb, const int* __restrict__ qd,
                     const int* __restrict__ kb, const int* __restrict__ kd,
-                    int Lq, int Lk, int Hq, int Hkv, float scale) {
+                    const int* __restrict__ tmap, const int* __restrict__ tcnt,
+                    int S, int Lq, int Lk, int Hq, int Hkv, float scale) {
   constexpr int LDS = D + 8;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
@@ -337,7 +355,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int* qd_b = qd + (size_t)b * Lq;
   const int* kb_b = kb + (size_t)b * Lk;
   const int* kd_b = kd + (size_t)b * Lk;
-  id_range<kBQ>(qb_b, qd_b, q0, Lq, qr);
+  if (!kSparse) id_range<kBQ>(qb_b, qd_b, q0, Lq, qr);
 
   const size_t q_stride = (size_t)Hq * D;
   const size_t q_head = ((size_t)b * Lq * Hq + h) * D;
@@ -367,20 +385,21 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t kv_stride = (size_t)Hkv * D;
   const bf16* kh = k + ((size_t)b * Lk * Hkv + hk) * D;
   const bf16* vh = v + ((size_t)b * Lk * Hkv + hk) * D;
-  const int n_kt = (Lk + kBK - 1) / kBK;
   const int r0 = warp * 16;
+  const int* tm = tmap + ((size_t)b * gridDim.x + qt) * S;
+  const int n_it = kSparse ? tcnt[b * gridDim.x + qt] : (Lk + kBK - 1) / kBK;
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBK;
+  for (int it = 0; it < n_it; ++it) {
+    const int k0 = (kSparse ? tm[it] : it) * kBK;
     __syncthreads();
-    id_range<kBK>(kb_b, kd_b, k0, Lk, kr);
+    if (!kSparse) id_range<kBK>(kb_b, kd_b, k0, Lk, kr);
     if (threadIdx.x < kBK) {
       const int idx = k0 + threadIdx.x;
       kb_s[threadIdx.x] = idx < Lk ? kb_b[idx] : 0;
       kd_s[threadIdx.x] = idx < Lk ? kd_b[idx] : 0;
     }
     __syncthreads();
-    if (!tile_live(qr, kr)) continue;
+    if (!kSparse && !tile_live(qr, kr)) continue;
     load_rows<D, kBK>(Ks, kh, k0, Lk, kv_stride);
     load_rows<D, kBK>(Vs, vh, k0, Lk, kv_stride);
     cp_async_commit();
@@ -448,7 +467,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // backward dk/dv: summed over the q heads of the GQA group in registers
 //   dv = sum_h P^T dO,  dk = scale * sum_h dS^T Q
 // ---------------------------------------------------------------------------
-template <int D, int BQ>
+template <int D, int BQ, bool kSparse>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -456,8 +475,9 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const float* __restrict__ delta, bf16* __restrict__ dk,
                      bf16* __restrict__ dv, const int* __restrict__ qb,
                      const int* __restrict__ qd, const int* __restrict__ kb,
-                     const int* __restrict__ kd, int Lq, int Lk, int Hq,
-                     int Hkv, float scale) {
+                     const int* __restrict__ kd, const int* __restrict__ tmap,
+                     const int* __restrict__ tcnt, int S, int Lq, int Lk,
+                     int Hq, int Hkv, float scale) {
   constexpr int LDS = D + 8;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
@@ -479,7 +499,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int* qd_b = qd + (size_t)b * Lq;
   const int* kb_b = kb + (size_t)b * Lk;
   const int* kd_b = kd + (size_t)b * Lk;
-  id_range<kBK>(kb_b, kd_b, k0, Lk, kr);
+  if (!kSparse) id_range<kBK>(kb_b, kd_b, k0, Lk, kr);
 
   const size_t kv_stride = (size_t)Hkv * D;
   const size_t kv_head = ((size_t)b * Lk * Hkv + hk) * D;
@@ -504,18 +524,19 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int i = 0; i < 4; ++i) dka[n][i] = dva[n][i] = 0.f;
 
   const size_t q_stride = (size_t)Hq * D;
-  const int n_qt = (Lq + BQ - 1) / BQ;
   const int r0 = warp * 16;
+  const int* tm = tmap + ((size_t)b * gridDim.x + kt) * S;
+  const int n_it = kSparse ? tcnt[b * gridDim.x + kt] : (Lq + BQ - 1) / BQ;
 
   for (int gh = 0; gh < group; ++gh) {
     const int h = hk * group + gh;
     const size_t q_head = ((size_t)b * Lq * Hq + h) * D;
     const float* lse_h = lse + ((size_t)b * Hq + h) * Lq;
     const float* dl_h = delta + ((size_t)b * Hq + h) * Lq;
-    for (int qt = 0; qt < n_qt; ++qt) {
-      const int q0 = qt * BQ;
+    for (int it = 0; it < n_it; ++it) {
+      const int q0 = (kSparse ? tm[it] : it) * BQ;
       __syncthreads();  // previous q tile consumed; kr visible on first pass
-      id_range<BQ>(qb_b, qd_b, q0, Lq, qr);
+      if (!kSparse) id_range<BQ>(qb_b, qd_b, q0, Lq, qr);
       if (threadIdx.x < BQ) {
         const int idx = q0 + threadIdx.x;
         const bool ok = idx < Lq;
@@ -525,7 +546,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         dl_s[threadIdx.x] = ok ? dl_h[idx] : 0.f;
       }
       __syncthreads();
-      if (!tile_live(qr, kr)) continue;
+      if (!kSparse && !tile_live(qr, kr)) continue;
       load_rows<D, BQ>(Qs, q + q_head, q0, Lq, q_stride);
       load_rows<D, BQ>(dOs, dout + q_head, q0, Lq, q_stride);
       cp_async_commit();
@@ -609,13 +630,22 @@ bool bad_shape(int B, int Lq, int Lk, int Hq, int Hkv, int D) {
          (D != 64 && D != 128) || B > 65535 || Hq > 65535;
 }
 
-template <int D>
+// The tile list of a sparse launch: tmap [B, n_tiles, S] int32 (tile
+// indices, ascending; entries past the count are not read) and tcnt
+// [B, n_tiles] int32, n_tiles the launch's grid.x. Dense launches pass null.
+struct TileList {
+  const int* map;
+  const int* cnt;
+  int S;
+};
+
+template <int D, bool kSparse>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                const void* qb, const void* qd, const void* kb, const void* kd,
-               int B, int Lq, int Lk, int Hq, int Hkv, float scale,
+               TileList tl, int B, int Lq, int Lk, int Hq, int Hkv, float scale,
                cudaStream_t st) {
   const int smem = 2 * kBK * (D + 8) * 2 + 2 * kBK * 4;
-  auto kern = flash_fwd_kernel<D>;
+  auto kern = flash_fwd_kernel<D, kSparse>;
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((Lq + kBQ - 1) / kBQ, Hq, B);
@@ -624,17 +654,19 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
       static_cast<float*>(lse), static_cast<const int*>(qb),
       static_cast<const int*>(qd), static_cast<const int*>(kb),
-      static_cast<const int*>(kd), Lq, Lk, Hq, Hkv, scale);
+      static_cast<const int*>(kd), tl.map, tl.cnt, tl.S, Lq, Lk, Hq, Hkv,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, bool kSparse>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, const void* qb,
-              const void* qd, const void* kb, const void* kd, int B, int Lq,
-              int Lk, int Hq, int Hkv, float scale, cudaStream_t st) {
+              const void* qd, const void* kb, const void* kd, TileList tl,
+              int B, int Lq, int Lk, int Hq, int Hkv, float scale,
+              cudaStream_t st) {
   const int smem = (2 * kBQ + 2 * kBK) * (D + 8) * 2 + 2 * kBK * 4;
-  auto kern = flash_bwd_dq_kernel<D>;
+  auto kern = flash_bwd_dq_kernel<D, kSparse>;
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((Lq + kBQ - 1) / kBQ, Hq, B);
@@ -644,21 +676,28 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<bf16*>(dq), static_cast<const int*>(qb),
       static_cast<const int*>(qd), static_cast<const int*>(kb),
-      static_cast<const int*>(kd), Lq, Lk, Hq, Hkv, scale);
+      static_cast<const int*>(kd), tl.map, tl.cnt, tl.S, Lq, Lk, Hq, Hkv,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // q tile of the dk/dv kernel: 64 rows at D=64; 32 at D=128, so the two
-// fp32 accumulators (2 x 64 registers a thread) leave room for S and dP
+// fp32 accumulators (2 x 64 registers a thread) leave room for S and dP.
+// A sparse launch's transposed list counts q tiles of this size.
 template <int D>
+constexpr int dkv_bq() {
+  return D == 64 ? 64 : 32;
+}
+
+template <int D, bool kSparse>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv,
                const void* qb, const void* qd, const void* kb, const void* kd,
-               int B, int Lq, int Lk, int Hq, int Hkv, float scale,
+               TileList tl, int B, int Lq, int Lk, int Hq, int Hkv, float scale,
                cudaStream_t st) {
-  constexpr int BQ = D == 64 ? 64 : 32;
+  constexpr int BQ = dkv_bq<D>();
   const int smem = (2 * kBK + 2 * BQ) * (D + 8) * 2 + 4 * BQ * 4;
-  auto kern = flash_bwd_dkv_kernel<D, BQ>;
+  auto kern = flash_bwd_dkv_kernel<D, BQ, kSparse>;
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((Lk + kBK - 1) / kBK, Hkv, B);
@@ -668,9 +707,55 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv),
       static_cast<const int*>(qb), static_cast<const int*>(qd),
-      static_cast<const int*>(kb), static_cast<const int*>(kd), Lq, Lk, Hq,
-      Hkv, scale);
+      static_cast<const int*>(kb), static_cast<const int*>(kd), tl.map,
+      tl.cnt, tl.S, Lq, Lk, Hq, Hkv, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kSparse>
+int run_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+        const void* qb, const void* qd, const void* kb, const void* kd,
+        TileList tl, int B, int Lq, int Lk, int Hq, int Hkv, int D,
+        float scale, void* stream) {
+  if (bad_shape(B, Lq, Lk, Hq, Hkv, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  return D == 64 ? launch_fwd<64, kSparse>(q, k, v, o, lse, qb, qd, kb, kd, tl,
+                                           B, Lq, Lk, Hq, Hkv, scale, st)
+                 : launch_fwd<128, kSparse>(q, k, v, o, lse, qb, qd, kb, kd,
+                                            tl, B, Lq, Lk, Hq, Hkv, scale, st);
+}
+
+template <bool kSparse>
+int run_dq(const void* q, const void* k, const void* v, const void* dout,
+       const void* lse, const void* delta, void* dqp, const void* qb,
+       const void* qd, const void* kb, const void* kd, TileList tl, int B,
+       int Lq, int Lk, int Hq, int Hkv, int D, float scale, void* stream) {
+  if (bad_shape(B, Lq, Lk, Hq, Hkv, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  return D == 64 ? launch_dq<64, kSparse>(q, k, v, dout, lse, delta, dqp, qb,
+                                          qd, kb, kd, tl, B, Lq, Lk, Hq, Hkv,
+                                          scale, st)
+                 : launch_dq<128, kSparse>(q, k, v, dout, lse, delta, dqp, qb,
+                                           qd, kb, kd, tl, B, Lq, Lk, Hq, Hkv,
+                                           scale, st);
+}
+
+template <bool kSparse>
+int run_dkv(const void* q, const void* k, const void* v, const void* dout,
+        const void* lse, const void* delta, void* dk, void* dv, const void* qb,
+        const void* qd, const void* kb, const void* kd, TileList tl, int B,
+        int Lq, int Lk, int Hq, int Hkv, int D, float scale, void* stream) {
+  if (bad_shape(B, Lq, Lk, Hq, Hkv, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  return D == 64 ? launch_dkv<64, kSparse>(q, k, v, dout, lse, delta, dk, dv,
+                                           qb, qd, kb, kd, tl, B, Lq, Lk, Hq,
+                                           Hkv, scale, st)
+                 : launch_dkv<128, kSparse>(q, k, v, dout, lse, delta, dk, dv,
+                                            qb, qd, kb, kd, tl, B, Lq, Lk, Hq,
+                                            Hkv, scale, st);
 }
 
 }  // namespace
@@ -682,13 +767,8 @@ extern "C" int bd_flash_fwd(const void* q, const void* k, const void* v,
                             const void* kb, const void* kd, int B, int Lq,
                             int Lk, int Hq, int Hkv, int D, float scale,
                             void* stream) {
-  if (bad_shape(B, Lq, Lk, Hq, Hkv, D))
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto st = static_cast<cudaStream_t>(stream);
-  return D == 64 ? launch_fwd<64>(q, k, v, o, lse, qb, qd, kb, kd, B, Lq, Lk,
-                                  Hq, Hkv, scale, st)
-                 : launch_fwd<128>(q, k, v, o, lse, qb, qd, kb, kd, B, Lq, Lk,
-                                   Hq, Hkv, scale, st);
+  return run_fwd<false>(q, k, v, o, lse, qb, qd, kb, kd, TileList{nullptr, nullptr, 0},
+                    B, Lq, Lk, Hq, Hkv, D, scale, stream);
 }
 
 // dout like q; lse, delta [B,Hq,Lq] fp32. Writes dq like q.
@@ -698,13 +778,9 @@ extern "C" int bd_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* qd, const void* kb, const void* kd,
                                int B, int Lq, int Lk, int Hq, int Hkv, int D,
                                float scale, void* stream) {
-  if (bad_shape(B, Lq, Lk, Hq, Hkv, D))
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto st = static_cast<cudaStream_t>(stream);
-  return D == 64 ? launch_dq<64>(q, k, v, dout, lse, delta, dq, qb, qd, kb,
-                                 kd, B, Lq, Lk, Hq, Hkv, scale, st)
-                 : launch_dq<128>(q, k, v, dout, lse, delta, dq, qb, qd, kb,
-                                  kd, B, Lq, Lk, Hq, Hkv, scale, st);
+  return run_dq<false>(q, k, v, dout, lse, delta, dq, qb, qd, kb, kd,
+                     TileList{nullptr, nullptr, 0}, B, Lq, Lk, Hq, Hkv, D,
+                     scale, stream);
 }
 
 // Writes dk, dv like k (bf16), each summed over its GQA group of q heads.
@@ -714,11 +790,54 @@ extern "C" int bd_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 const void* qb, const void* qd, const void* kb,
                                 const void* kd, int B, int Lq, int Lk, int Hq,
                                 int Hkv, int D, float scale, void* stream) {
-  if (bad_shape(B, Lq, Lk, Hq, Hkv, D))
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto st = static_cast<cudaStream_t>(stream);
-  return D == 64 ? launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, qb, qd,
-                                  kb, kd, B, Lq, Lk, Hq, Hkv, scale, st)
-                 : launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, qb, qd,
-                                   kb, kd, B, Lq, Lk, Hq, Hkv, scale, st);
+  return run_dkv<false>(q, k, v, dout, lse, delta, dk, dv, qb, qd, kb, kd,
+                    TileList{nullptr, nullptr, 0}, B, Lq, Lk, Hq, Hkv, D,
+                    scale, stream);
+}
+
+// The sparse entries take the same tensors plus a tile list: tmap
+// [B, ceil(Lq/64), S] and tcnt [B, ceil(Lq/64)] of 64-key tiles (forward,
+// dq); for dk/dv tmap [B, ceil(Lk/64), S] and tcnt [B, ceil(Lk/64)] of
+// q tiles of 64 rows (D=64) or 32 rows (D=128).
+extern "C" int bd_flash_fwd_sparse(const void* q, const void* k, const void* v,
+                                   void* o, void* lse, const void* qb,
+                                   const void* qd, const void* kb,
+                                   const void* kd, const void* tmap,
+                                   const void* tcnt, int S, int B, int Lq,
+                                   int Lk, int Hq, int Hkv, int D, float scale,
+                                   void* stream) {
+  return run_fwd<true>(q, k, v, o, lse, qb, qd, kb, kd,
+                   TileList{static_cast<const int*>(tmap),
+                            static_cast<const int*>(tcnt), S},
+                   B, Lq, Lk, Hq, Hkv, D, scale, stream);
+}
+
+extern "C" int bd_flash_bwd_dq_sparse(const void* q, const void* k,
+                                      const void* v, const void* dout,
+                                      const void* lse, const void* delta,
+                                      void* dqp, const void* qb, const void* qd,
+                                      const void* kb, const void* kd,
+                                      const void* tmap, const void* tcnt,
+                                      int S, int B, int Lq, int Lk, int Hq,
+                                      int Hkv, int D, float scale,
+                                      void* stream) {
+  return run_dq<true>(q, k, v, dout, lse, delta, dqp, qb, qd, kb, kd,
+                    TileList{static_cast<const int*>(tmap),
+                             static_cast<const int*>(tcnt), S},
+                    B, Lq, Lk, Hq, Hkv, D, scale, stream);
+}
+
+extern "C" int bd_flash_bwd_dkv_sparse(const void* q, const void* k,
+                                       const void* v, const void* dout,
+                                       const void* lse, const void* delta,
+                                       void* dk, void* dv, const void* qb,
+                                       const void* qd, const void* kb,
+                                       const void* kd, const void* tmap,
+                                       const void* tcnt, int S, int B, int Lq,
+                                       int Lk, int Hq, int Hkv, int D,
+                                       float scale, void* stream) {
+  return run_dkv<true>(q, k, v, dout, lse, delta, dk, dv, qb, qd, kb, kd,
+                   TileList{static_cast<const int*>(tmap),
+                            static_cast<const int*>(tcnt), S},
+                   B, Lq, Lk, Hq, Hkv, D, scale, stream);
 }

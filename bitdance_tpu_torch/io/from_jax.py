@@ -15,7 +15,11 @@ and ``convert_imagenet_ar_state``:
   - a whole ImageNet training state (params and EMA, each {"ar", "head"})
     loads into the port's TrainState;
   - an ImageNet sampling tree (backbone, head, VQ decoder) becomes the
-    port's ImageNetSampler.
+    port's ImageNetSampler;
+  - a packed-training tree ``init_mllm_params`` ({"llm": stacked Qwen3
+    with lm_head, "projector", "head"}) becomes the port's MLLM, and a
+    whole MLLM TrainState (params, the AdamW moments and count of the optax
+    state, EMA if any, step) loads into the port's TrainState.
 Leaves may be numpy arrays or anything ``np.asarray`` accepts.
 """
 
@@ -246,3 +250,66 @@ def imagenet_sampler_from_jax(cfg, params: Mapping, head_params: Mapping,
                        flax_state_from_jax(ae_params)).eval()
     return ImageNetSampler(cfg=cfg, model=model.eval(), head=head.eval(),
                            head_stacked=head._stack_for_sampler(), ae=ae)
+
+
+def mllm_state_from_jax(params: Mapping) -> dict[str, np.ndarray]:
+    """``init_mllm_params`` tree -> state dict of the port's MLLM ("llm.*"
+    with "llm.lm_head.weight" [V, D], "projector.*", "head.*")."""
+    llm = params["llm"]
+    sd = {f"llm.{k}": v for k, v in qwen3_state_from_jax(llm).items()}
+    if "lm_head" in llm:
+        sd["llm.lm_head.weight"] = np.ascontiguousarray(_np(llm["lm_head"]).T)
+    for part in ("projector", "head"):
+        sd.update({f"{part}.{k}": v for k, v in flax_state_from_jax(params[part]).items()})
+    return sd
+
+
+def mllm_from_jax(cfg, params: Mapping, device="cuda",
+                  dtype: torch.dtype = torch.float32):
+    """A JAX packed-training tree -> the port's MLLM on ``device``."""
+    from bitdance_tpu_torch.models.mllm import MLLM
+
+    return load_into(MLLM(cfg, device=device, dtype=dtype), mllm_state_from_jax(params))
+
+
+def _adam_state(opt_state):
+    """The (count, mu, nu) node of an optax state (the chain of
+    clip_by_global_norm and adamw), found by its fields."""
+    stack = [opt_state]
+    while stack:
+        node = stack.pop()
+        if hasattr(node, "mu") and hasattr(node, "nu") and hasattr(node, "count"):
+            return node
+        if hasattr(node, "inner_state"):
+            stack.append(node.inner_state)
+        elif isinstance(node, (tuple, list)):
+            stack.extend(node)
+    raise ValueError("no AdamW state (mu, nu, count) in the optax state")
+
+
+def load_mllm_train_state(state, jax_state) -> None:
+    """Copy a JAX MLLM ``TrainState`` into the port's ``TrainState`` in
+    place: parameters, the AdamW first and second moments and their count
+    (torch AdamW's exp_avg, exp_avg_sq, step), EMA when both keep one, and
+    the step count."""
+    load_into(state.model, mllm_state_from_jax(jax_state.params))
+    adam = _adam_state(jax_state.opt_state)
+    mu, nu = mllm_state_from_jax(adam.mu), mllm_state_from_jax(adam.nu)
+    count = float(np.asarray(adam.count))
+    names = dict(zip(state.tx.params, state.tx.names))
+    with torch.no_grad():
+        for p in state.tx.params:
+            n = names[p]
+            # laid out like the parameter, as the fused kernel reads them
+            # (a transposed JAX kernel's moments arrive in column order)
+            as_p = lambda a: torch.empty_like(p).copy_(  # noqa: E731
+                torch.from_numpy(np.array(a, copy=True)))
+            state.tx.opt.state[p] = {
+                "step": torch.tensor(count, dtype=torch.float32, device=p.device),
+                "exp_avg": as_p(mu[n]), "exp_avg_sq": as_p(nu[n])}
+        if state.ema is not None and jax_state.ema_params is not None:
+            ema = mllm_state_from_jax(jax_state.ema_params)
+            for k, t in state.ema.items():
+                t.copy_(torch.from_numpy(np.array(ema[k], copy=True)).to(t.dtype))
+    state.step = int(np.asarray(jax_state.step))
+    state.tx.count = state.step

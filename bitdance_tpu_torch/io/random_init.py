@@ -187,6 +187,36 @@ def build_random_train_state(cfg: ImageNetARConfig, tcfg: ImageNetTrainConfig,
     return make_train_state(model, tcfg)
 
 
+def build_random_mllm_train_state(cfg, tcfg, device="cuda",
+                                  dtype: torch.dtype = torch.bfloat16, seed: int = 0,
+                                  std: float = 0.02) -> TrainState:
+    """A packed-training state (models/mllm.py MLLM, its AdamW, EMA only if
+    tcfg asks) built on the meta device and drawn on ``device`` from
+    ``seed``, in ``dtype`` (parameters, gradients and moments all in it):
+    the LLM as the JAX package initialises it (matrices, embedding and
+    lm_head N(0, std), norm gains 1), the projector lecun-normal with zero
+    biases, the head as :func:`init_head` draws it (fan-in scaled, every
+    weight non-zero)."""
+    from bitdance_tpu_torch.models.mllm import MLLM
+    from bitdance_tpu_torch.train.mllm_train import make_state, make_tx
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.device("meta"):
+        model = MLLM(cfg, dtype=dtype)
+    model = model.to_empty(device=device)
+    with torch.no_grad():
+        for name, p in model.llm.named_parameters():
+            if name.endswith("norm.weight"):
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, std, generator=gen)
+        for lin in (model.projector.fc1, model.projector.fc2):
+            lin.weight.normal_(0.0, lin.weight.shape[1] ** -0.5, generator=gen)
+            lin.bias.zero_()
+    draw_head_(model.head, gen, std=std)
+    return make_state(model, make_tx(model, tcfg), tcfg)
+
+
 def build_random_tokenizer_encoder(device, dtype: torch.dtype = torch.float32,
                                    seed: int = 1,
                                    ddconfig: dict | None = None) -> VQModel:

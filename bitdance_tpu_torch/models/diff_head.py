@@ -33,6 +33,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from bitdance_tpu_torch.models.sampling import euler_maruyama, time_shift
 from bitdance_tpu_torch.ops.fused_block import fused_attn_block, fused_mlp_block
@@ -198,6 +199,10 @@ class DiffNet(nn.Module):
         self.ada_ln_blocks = nn.ModuleList(
             [nn.Linear(c, self.n_mods * c, **kw) for _ in range(num_ada_ln_blocks)])
         self.final_layer = FinalLayer(c, in_channels, **kw)
+        # recompute each block in the backward (training only): the 14B
+        # head's fp32 norm and softmax intermediates at ~30k rows would
+        # otherwise hold ~12 GB a block for the backward
+        self.grad_checkpointing = False
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, c: torch.Tensor,
                 train: bool = False) -> torch.Tensor:
@@ -218,7 +223,10 @@ class DiffNet(nn.Module):
         for i, blk in enumerate(self.res_blocks):
             if i > 0 and i % switch_freq == 0:
                 mods = self.ada_ln_blocks[i // switch_freq](y).chunk(self.n_mods, dim=-1)
-            h = blk(h, mods, train)
+            if train and self.grad_checkpointing and torch.is_grad_enabled():
+                h = checkpoint(blk, h, mods, train, use_reentrant=False)
+            else:
+                h = blk(h, mods, train)
         out = self.final_layer(h, y)
         if self.bounded:
             out = 2.0 * torch.sigmoid(out.float()) - 1.0
@@ -245,7 +253,8 @@ class DiffHead(nn.Module):
                  time_shift: float = 1.0, time_schedule: str = "logit_normal",
                  bounded_output: bool | None = None,
                  attn_head_dim: int = 128, sample_weight_quant: bool | str = False,
-                 device=None, dtype: torch.dtype = torch.float32):
+                 per_token_loss: bool = False, device=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if attention and not use_swiglu:
             raise NotImplementedError("the TransEncoder's plain-MLP blocks "
@@ -259,6 +268,7 @@ class DiffHead(nn.Module):
         self.time_schedule = time_schedule
         self.attn_head_dim = attn_head_dim
         self.attention = attention
+        self.per_token_loss = per_token_loss
         # False, True (int8) or "int4": the format of the block matrices in
         # the sampler's stack (W8A8 / W4A8 sampling); training and the
         # per-call blocks keep the module's weights
@@ -275,13 +285,14 @@ class DiffHead(nn.Module):
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        """Scalar flow-matching training loss (the MlpEncoder head's). x: ±1
-        targets [N, C]; cond: backbone states [N, ch_cond]. t is
+        """Flow-matching training loss. x: ±1 targets [N, C] (MlpEncoder) or
+        [N, P, C] (TransEncoder, N groups of P window tokens); cond: backbone
+        states of the same leading shape. t (one per row of N) is
         logit-normal (P_mean, P_std) or uniform, then time-shifted;
         z = (1-t) e + t x; the net predicts x, the loss is the MSE of the
         implied velocities with 1 - t clamped at 0.05. Draws t then e from
-        ``generator``. The parallel heads' per-token loss comes with their
-        training forward."""
+        ``generator``. Scalar, or with ``per_token_loss`` and 3-D x the
+        per-token MSE [N, P] (diff_head.py:379-410)."""
         xf = x.float()
         n = x.shape[0]
         if self.time_schedule == "logit_normal":
@@ -301,7 +312,10 @@ class DiffHead(nn.Module):
         x_pred = self.net(z.to(self.net.input_proj.weight.dtype), t, cond,
                           train=True)
         v_pred = (x_pred.float() - z) / denom
-        return (v - v_pred).square().mean()
+        sq = (v - v_pred).square()
+        if self.per_token_loss and sq.ndim == 3:
+            return sq.mean(dim=2)
+        return sq.mean()
 
     @torch.no_grad()
     def sample(self, cond: torch.Tensor, generator: torch.Generator | None,

@@ -1,13 +1,16 @@
-"""Qwen3 decoder backbone for cached generation (port of
-bitdance_tpu/models/qwen3.py: the config, random init, the head-major KV
-cache, ``embed_tokens`` and ``qwen3_forward_cached``).
+"""Qwen3 decoder backbone (port of bitdance_tpu/models/qwen3.py: the
+config, random init, the head-major KV cache, ``embed_tokens``,
+``qwen3_forward_cached`` for generation and the uncached ``qwen3_forward``
+for training).
 
 Parameter names follow HF ``Qwen3ForCausalLM`` (``model.embed_tokens``,
-``model.layers.{i}.self_attn.q_proj`` ...), which
+``model.layers.{i}.self_attn.q_proj`` ..., ``lm_head``), which
 ``bitdance_tpu/io/torch_import.py::convert_qwen3_state`` reads. Generation
-never reads ``lm_head``, so the module has none. Linear layers are plain
+never reads ``lm_head``, so a model has one only when built with
+``lm_head=True`` (training's text loss). Linear layers are plain
 ``F.linear`` (the JAX package computes them outside any Pallas kernel); the
-windowed decode attention is the port's CUDA kernel on the card.
+windowed decode attention and the training path's (sparse) flash attention
+are the port's CUDA kernels on the card.
 
 Quantized serving (:func:`quantize_qwen3_`): the seven projections of every
 layer become :class:`QLinear` (int8 W8A8, ``torch._int_mm`` on the card, as
@@ -25,8 +28,9 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from bitdance_tpu_torch.ops.attention import attention_xla
+from bitdance_tpu_torch.ops.attention import attention_xla, masked_attention, sparse_plan
 from bitdance_tpu_torch.ops.decode_attention import (
     dequantize_fused_kv,
     quantize_kv_rows,
@@ -123,13 +127,23 @@ class Qwen3Body(nn.Module):
 
 
 class Qwen3Model(nn.Module):
-    """Holds the backbone under ``model.`` (HF state-dict names)."""
+    """Holds the backbone under ``model.`` (HF state-dict names) and, with
+    ``lm_head`` and untied embeddings, the output projection ``lm_head``."""
 
     def __init__(self, cfg: Qwen3Config, device=None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, lm_head: bool = False):
         super().__init__()
         self.cfg = cfg
         self.model = Qwen3Body(cfg, device, dtype)
+        if lm_head and not cfg.tie_word_embeddings:
+            self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
+                                     device=device, dtype=dtype)
+
+    def output_weight(self) -> torch.Tensor:
+        """[D, V] view of the text-loss projection: ``lm_head`` or the tied
+        embedding (mllm.py:156-158)."""
+        lm = getattr(self, "lm_head", None)
+        return (lm if lm is not None else self.model.embed_tokens).weight.t()
 
 
 def init_qwen3(cfg: Qwen3Config, device, dtype: torch.dtype = torch.bfloat16,
@@ -296,6 +310,61 @@ def embed_tokens(model: Qwen3Model, token_ids: torch.Tensor) -> torch.Tensor:
         # gather int8 rows, dequantize just those (bf16, as the JAX package)
         return (emb.q[token_ids].float() * emb.s).to(torch.bfloat16)
     return F.embedding(token_ids, emb.weight)
+
+
+def qwen3_forward(model: Qwen3Model, embeds: torch.Tensor,
+                  positions: torch.Tensor, block_ids: torch.Tensor,
+                  doc_ids: torch.Tensor, attn_impl: str = "auto",
+                  remat: bool = False, max_live_kv: int | None = None,
+                  remat_policy: str = "full") -> torch.Tensor:
+    """Full (uncached) forward over packed/padded embeds (qwen3.py:300-358).
+
+    embeds [B, S, D]; positions, block_ids, doc_ids [B, S]. Returns the
+    final-norm hidden states [B, S, D]. Attention is ``masked_attention``
+    under the (block, doc) ids; ``max_live_kv`` (this port's 64-key tiles)
+    switches its kernel route to sparse iteration, with the tile lists built
+    once here, outside the layers, and shared by all of them. remat=True
+    recomputes each layer in the backward (torch.utils.checkpoint,
+    non-reentrant): remat_policy "full" keeps only each layer's input;
+    "dots" (saving the products' outputs) is not ported.
+    """
+    if remat_policy not in ("full", "dots"):
+        raise ValueError(f"qwen3_forward: unknown remat_policy {remat_policy!r}")
+    if remat and remat_policy == "dots":
+        raise NotImplementedError("qwen3_forward: remat_policy 'dots' is not "
+                                  "ported (ROADMAP A4); use 'full'")
+    cfg = model.cfg
+    b, s, _ = embeds.shape
+    hq, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    eps = cfg.rms_norm_eps
+    cos, sin = _rope_at(cfg, positions)
+    plan = None
+    kernel_route = attn_impl == "kernel" or (
+        attn_impl == "auto" and embeds.device.type == "cuda" and s * s > 256 * 256)
+    if max_live_kv is not None and kernel_route:
+        plan = sparse_plan(block_ids, doc_ids, block_ids, doc_ids, max_live_kv, hd)
+
+    def layer_fn(x: torch.Tensor, layer: Qwen3DecoderLayer) -> torch.Tensor:
+        at = layer.self_attn
+        h = rms_norm(x, layer.input_layernorm.weight, eps)
+        q = rms_norm(at.q_proj(h).view(b, s, hq, hd), at.q_norm.weight, eps)
+        k = rms_norm(at.k_proj(h).view(b, s, hkv, hd), at.k_norm.weight, eps)
+        v = at.v_proj(h).view(b, s, hkv, hd)
+        q = apply_rope_half(q, cos, sin)
+        k = apply_rope_half(k, cos, sin)
+        attn = masked_attention(q, k, v, block_ids, doc_ids, block_ids, doc_ids,
+                                implementation=attn_impl, plan=plan)
+        x = x + at.o_proj(attn.reshape(b, s, hq * hd))
+        h = rms_norm(x, layer.post_attention_layernorm.weight, eps)
+        return x + layer.mlp(h)
+
+    x = embeds
+    for layer in model.model.layers:
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(layer_fn, x, layer, use_reentrant=False)
+        else:
+            x = layer_fn(x, layer)
+    return rms_norm(x, model.model.norm.weight, eps)
 
 
 def qwen3_forward_cached(model: Qwen3Model, embeds: torch.Tensor,

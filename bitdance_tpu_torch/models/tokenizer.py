@@ -1,6 +1,12 @@
 """Binary visual tokenizer (port of bitdance_tpu/models/tokenizer.py:
-GroupNorm32, Conv2D, ResBlock, Encoder, depth_to_space, Upsampler,
-AdaptiveGroupNorm, Decoder, VQModel.encode_raw / decode, tokens_to_latents).
+GroupNorm32, Conv2D, ResBlock, Encoder (with ``trunk``), depth_to_space,
+Upsampler, AdaptiveGroupNorm, Decoder, VQModel.encode / encode_raw /
+decode, latents_to_tokens, tokens_to_latents).
+
+``VQModel.encode`` on the card runs the encoder's trunk, then its
+GroupNorm / swish / 1x1 conv / sign tail as one kernel
+(ops/fused_encode.py, TPU kernel #13), for every geometry: the card has no
+VMEM limit to test against (the JAX package's fused_encode_tail_available).
 
 The public functions keep the JAX package's NHWC layout; inside, tensors are
 NCHW in channels_last memory, and the convolutions go to cuDNN on the card
@@ -17,7 +23,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from bitdance_tpu_torch.ops.fused_encode import fused_encode_tail
 from bitdance_tpu_torch.ops.norms import group_norm, swish
+from bitdance_tpu_torch.ops.quantize import sign_quantize
 
 
 def _group_norm(x: torch.Tensor, weight, bias, eps: float) -> torch.Tensor:
@@ -106,7 +114,9 @@ class Encoder(nn.Module):
         self.norm_out = GroupNorm32(block_in, **kw)
         self.conv_out = Conv2D(block_in, z_channels, 1, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def trunk(self, x: torch.Tensor) -> torch.Tensor:
+        """Everything before the quantization tail (norm_out, swish,
+        conv_out), which ``VQModel.encode`` fuses into one kernel."""
         x = self.conv_in(x)
         for level in self.down:
             for blk in level.block:
@@ -115,7 +125,10 @@ class Encoder(nn.Module):
                 x = level.downsample(x)
         for blk in self.mid_block:
             x = blk(x)
-        return self.conv_out(swish(self.norm_out(x)))
+        return x
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv_out(swish(self.norm_out(self.trunk(x))))
 
 
 def depth_to_space(x: torch.Tensor, block_size: int) -> torch.Tensor:
@@ -230,13 +243,32 @@ class VQModel(nn.Module):
                                    dd["z_channels"], dd.get("out_ch", 3),
                                    device=device, dtype=dtype)
 
+    def _nchw(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.encoder.conv_in.weight.dtype
+        return x.to(dt).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+
     def encode_raw(self, x: torch.Tensor) -> torch.Tensor:
         """Image NHWC in [-1, 1] -> pre-quantization encoder output NHWC
-        [B, h, w, z] (what GFQ quantizes in training). The fused
-        GroupNorm/swish/conv/sign tail of ``encode`` is not ported yet."""
-        dt = self.encoder.conv_in.weight.dtype
-        x = x.to(dt).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        return self.encoder(x).permute(0, 2, 3, 1)
+        [B, h, w, z] (what GFQ quantizes in training)."""
+        return self.encoder(self._nchw(x)).permute(0, 2, 3, 1)
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        """Image NHWC in [-1, 1] -> ±1 latents NHWC [B, h, w, z] in the
+        model's dtype. On the card: the trunk, then the fused tail kernel
+        (trunk channels must be a multiple of 32); on the CPU: the encoder
+        and ``sign_quantize``."""
+        enc = self.encoder
+        if x.device.type == "cpu":
+            return sign_quantize(self.encode_raw(x))
+        trunk_ch = self.ddconfig["ch"] * self.ddconfig["ch_mult"][-1]
+        if trunk_ch % 32:
+            raise ValueError(f"VQModel.encode: the fused tail needs trunk channels "
+                             f"divisible by 32, got {trunk_ch}")
+        h = enc.trunk(self._nchw(x)).permute(0, 2, 3, 1)          # NHWC view
+        w = enc.conv_out.weight
+        return fused_encode_tail(h, enc.norm_out.weight, enc.norm_out.bias,
+                                 w.reshape(w.shape[0], -1).t(), enc.conv_out.bias,
+                                 eps=enc.norm_out.eps)
 
     def decode(self, quant: torch.Tensor) -> torch.Tensor:
         """±1 latents NHWC [B, h, w, z] -> image NHWC [B, H, W, 3]."""
@@ -244,6 +276,15 @@ class VQModel(nn.Module):
         z = quant.to(dt).permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
         return self.decoder(z).permute(0, 2, 3, 1)
+
+
+def latents_to_tokens(quant: torch.Tensor, ps: int = 1) -> torch.Tensor:
+    """[B, h, w, C] -> [B, h*w, C] with ps-raster ordering (the inverse of
+    :func:`tokens_to_latents`)."""
+    b, h, w, c = quant.shape
+    hh, ww = h // ps, w // ps
+    x = quant.reshape(b, hh, ps, ww, ps, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h * w, c)
 
 
 def tokens_to_latents(tokens: torch.Tensor, h: int, w: int,

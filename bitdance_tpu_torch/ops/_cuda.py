@@ -44,6 +44,10 @@ _SIGNATURES = {
     "bd_flash_fwd": [_P] * 9 + [_I] * 6 + [_F, _P],
     "bd_flash_bwd_dq": [_P] * 11 + [_I] * 6 + [_F, _P],
     "bd_flash_bwd_dkv": [_P] * 12 + [_I] * 6 + [_F, _P],
+    "bd_flash_fwd_sparse": [_P] * 11 + [_I] * 7 + [_F, _P],
+    "bd_flash_bwd_dq_sparse": [_P] * 13 + [_I] * 7 + [_F, _P],
+    "bd_flash_bwd_dkv_sparse": [_P] * 14 + [_I] * 7 + [_F, _P],
+    "bd_fused_encode_tail": [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,6 +1,7 @@
 """Attention under the (block_id, doc_id) mask model (port of
 bitdance_tpu/ops/attention.py: mask_from_ids, attention_xla, flash_attention
-with its custom VJP, masked_attention).
+with its custom VJP, the sparse-iteration flash_attention_sparse with its
+tile maps, masked_attention).
 
 Every token carries two int32 ids and query i sees key j iff
 ``doc_q[i] == doc_k[j]`` and ``block_k[j] <= block_q[i]`` (causal: block =
@@ -12,11 +13,23 @@ plain differentiable version (and the forward kernel's plain version);
 ``flash_bwd_dq_reference`` and ``flash_bwd_dkv_reference`` are the backward
 kernels'. The three wrappers take their plain versions only for CPU
 tensors; on a CUDA tensor they launch their kernel or raise.
+
+Sparse iteration (packed training): :func:`sparse_plan` builds, once per
+batch on the device, the per-q-tile list of live 64-key tiles
+(:func:`kv_tile_map`) and its transpose, the per-kv-tile list of live q
+tiles, and checks both against their bounds with one host read: an
+undersized bound RAISES (the JAX function clamps the counts and drops
+tiles). ``flash_fwd_sparse``, ``flash_bwd_dq_sparse`` and
+``flash_bwd_dkv_sparse`` are the same three kernels iterating those lists;
+their plain versions (``flash_sparse_reference``, ``flash_sparse_dq_reference``,
+``flash_sparse_dkv_reference``) compute over exactly the listed tiles, so a
+dropped or extra tile shows.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -24,6 +37,14 @@ from bitdance_tpu_torch.ops import _cuda
 
 NEG_INF = -1e30
 MASKED_LSE = 1e30   # lse of a row that sees no key: exp(s - lse) == 0
+# tile sizes of the CUDA kernels (csrc/flash_attention.cu kBQ, kBK); the
+# dk/dv kernel's q tiles are 32 rows at head dim 128 and 64 at head dim 64
+TILE = 64
+Q_PAD_DOC, KV_PAD_DOC = -3, -2   # doc ids of rows padded up to a tile
+
+
+def dkv_block_q(head_dim: int) -> int:
+    return 32 if head_dim == 128 else TILE
 
 
 def mask_from_ids(q_block: torch.Tensor, q_doc: torch.Tensor,
@@ -275,22 +296,463 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  kv_doc_ids, float(scale))
 
 
+# ---------------------------------------------------------------------------
+# Sparse-iteration flash attention: tile maps
+# ---------------------------------------------------------------------------
+
+def _pad_ids(t: torch.Tensor, n: int, value: int) -> torch.Tensor:
+    t = t.to(torch.int32)
+    if t.shape[-1] == n:
+        return t
+    pad = torch.full((*t.shape[:-1], n - t.shape[-1]), value, dtype=torch.int32,
+                     device=t.device)
+    return torch.cat([t, pad], dim=-1)
+
+
+def _range_overlap(q_min, q_max, k_min, k_max) -> torch.Tensor:
+    """[B, n_q, n_k]: the q tile's [min, max] meets the kv tile's."""
+    return ~((k_min[:, None, :] > q_max[:, :, None])
+             | (k_max[:, None, :] < q_min[:, :, None]))
+
+
+def tile_live_matrix(q_block_ids: torch.Tensor, q_doc_ids: torch.Tensor,
+                     kv_block_ids: torch.Tensor, kv_doc_ids: torch.Tensor,
+                     block_q: int, block_k: int) -> torch.Tensor:
+    """[B, n_q, n_k] bool: tile (i, j) is live unless provably fully masked
+    (min kv block id > max q block id, or no doc id the two tiles could
+    share). Lengths must be multiples of the tile sizes.
+
+    Negative doc ids are padding (packer padding -1, tile padding -3 / -2)
+    and are tested apart from the documents: two tiles are live by doc when
+    their ranges of non-negative ids meet or their ranges of negative ids
+    meet. Where every id is >= 0 this is the JAX function's test
+    (attention.py:612-635). That test takes one [min, max] over all ids, so
+    a q tile holding a document's end and the packer's padding (doc -1)
+    spans every document: every earlier kv tile is live and the row exceeds
+    any bound set from the longest document (ROADMAP C5)."""
+    b, lq = q_block_ids.shape
+    lk = kv_block_ids.shape[1]
+    n_q, n_k = lq // block_q, lk // block_k
+    big = torch.iinfo(torch.int32).max
+    qb = q_block_ids.reshape(b, n_q, block_q)
+    kb = kv_block_ids.reshape(b, n_k, block_k)
+    blk_live = kb.amin(-1)[:, None, :] <= qb.amax(-1)[:, :, None]
+
+    def ranges(d: torch.Tensor, n: int, size: int):
+        d = d.reshape(b, n, size)
+        pos, neg = d >= 0, d < 0
+        big_t = torch.full((), big, dtype=d.dtype, device=d.device)
+        return (torch.where(pos, d, big_t).amin(-1), torch.where(pos, d, -big_t).amax(-1),
+                torch.where(neg, d, big_t).amin(-1), torch.where(neg, d, -big_t).amax(-1))
+
+    qp_min, qp_max, qn_min, qn_max = ranges(q_doc_ids, n_q, block_q)
+    kp_min, kp_max, kn_min, kn_max = ranges(kv_doc_ids, n_k, block_k)
+    doc_live = (_range_overlap(qp_min, qp_max, kp_min, kp_max)
+                | _range_overlap(qn_min, qn_max, kn_min, kn_max))
+    return blk_live & doc_live
+
+
+def select_live_tiles(live: torch.Tensor, max_n: int):
+    """live [B, R, C] bool -> (tile_map [B, R, max_n], counts [B, R]) int32:
+    per row, the live column indices in ascending order; trailing entries
+    repeat the last live index. Counts are clamped to max_n, as in the JAX
+    function (attention.py:638-652); :func:`sparse_plan` checks the
+    unclamped counts first and raises instead of dropping."""
+    counts = live.sum(-1).to(torch.int32)
+    order = torch.argsort((~live).to(torch.int8), dim=-1, stable=True)
+    sel = order[..., :max_n]
+    if sel.shape[-1] < max_n:
+        sel = torch.cat([sel, sel[..., -1:].expand(*sel.shape[:-1],
+                                                   max_n - sel.shape[-1])], -1)
+    last = torch.gather(sel, -1, (counts.long() - 1).clamp(min=0)[..., None])
+    pos = torch.arange(max_n, device=live.device)
+    tile_map = torch.where(pos < counts[..., None], sel, last).to(torch.int32)
+    return tile_map, counts.clamp(max=max_n)
+
+
+def kv_tile_map(q_block_ids: torch.Tensor, q_doc_ids: torch.Tensor,
+                kv_block_ids: torch.Tensor, kv_doc_ids: torch.Tensor,
+                block_q: int, block_k: int, max_live_kv: int):
+    """Per-(batch, q-tile) list of live kv tiles, ascending."""
+    live = tile_live_matrix(q_block_ids, q_doc_ids, kv_block_ids, kv_doc_ids,
+                            block_q, block_k)
+    return select_live_tiles(live, max_live_kv)
+
+
+def live_tile_bound(max_doc_tokens: int) -> int:
+    """Live 64-key tiles a 64-row q tile can see, from the data guarantee
+    that no document is longer than ``max_doc_tokens``, nor any block (a
+    parallel window, or the packer's padding, which is one block). A q tile
+    can hold the end of one document and the start of the next: its rows
+    reach back to the start of the first one's document and forward to the
+    end of the last one's block, an interval of at most 2 * max_doc + 62
+    tokens, which touches at most ceil((n - 1) / 64) + 1 tiles."""
+    n = 2 * max_doc_tokens + TILE - 2
+    return -(-(n - 1) // TILE) + 1
+
+
+class SparsePlan(NamedTuple):
+    """The tile lists of one batch's ids, built once and shared by every
+    layer. kv_map [B, ceil(Lq/64), max_live_kv] and kv_counts list 64-key
+    tiles per 64-row q tile (forward, dq); q_map [B, ceil(Lk/64),
+    max_live_q] and q_counts list q tiles of ``block_q_dkv`` rows per 64-key
+    tile (dk/dv). int32 on the ids' device."""
+    kv_map: torch.Tensor
+    kv_counts: torch.Tensor
+    q_map: torch.Tensor
+    q_counts: torch.Tensor
+    block_q_dkv: int
+
+
+def sparse_plan(q_block_ids: torch.Tensor, q_doc_ids: torch.Tensor,
+                kv_block_ids: torch.Tensor, kv_doc_ids: torch.Tensor,
+                max_live_kv: int, head_dim: int) -> SparsePlan:
+    """Build both tile lists (ids [B, L]) and check them: raises ValueError
+    if any q tile has more than ``max_live_kv`` live kv tiles or any kv tile
+    more than max_live_q = max_live_kv * 64 / block_q_dkv + 1 live q tiles
+    (the JAX backward's bound, attention.py:922, in this port's tiles). One
+    host read."""
+    b, lq = q_block_ids.shape
+    lk = kv_block_ids.shape[1]
+    bqd = dkv_block_q(head_dim)
+    n_q, n_k = -(-lq // TILE), -(-lk // TILE)
+    n_qd = -(-lq // bqd)
+    max_live_kv = min(max_live_kv, n_k)
+    max_live_q = min(n_qd, max_live_kv * TILE // bqd + 1)
+    qb = _pad_ids(q_block_ids, n_q * TILE, 0)
+    qd = _pad_ids(q_doc_ids, n_q * TILE, Q_PAD_DOC)
+    kb = _pad_ids(kv_block_ids, n_k * TILE, 0)
+    kd = _pad_ids(kv_doc_ids, n_k * TILE, KV_PAD_DOC)
+    live = tile_live_matrix(qb, qd, kb, kd, TILE, TILE)
+    live_t = tile_live_matrix(qb[:, :n_qd * bqd], qd[:, :n_qd * bqd], kb, kd,
+                              bqd, TILE).transpose(1, 2)
+    most_kv, most_q = torch.stack([live.sum(-1).amax(), live_t.sum(-1).amax()]).tolist()
+    if most_kv > max_live_kv or most_q > max_live_q:
+        raise ValueError(
+            f"sparse flash attention: a q tile has {most_kv} live kv tiles "
+            f"(bound {max_live_kv}) and a kv tile {most_q} live q tiles (bound "
+            f"{max_live_q}); size max_live_kv from the longest document "
+            "(live_tile_bound)")
+    kv_map, kv_counts = select_live_tiles(live, max_live_kv)
+    q_map, q_counts = select_live_tiles(live_t, max_live_q)
+    return SparsePlan(kv_map.contiguous(), kv_counts.contiguous(),
+                      q_map.contiguous(), q_counts.contiguous(), bqd)
+
+
+# ---------------------------------------------------------------------------
+# Sparse-iteration flash attention: plain versions (over the listed tiles)
+# ---------------------------------------------------------------------------
+
+def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    if x.shape[1] == n:
+        return x
+    return torch.cat([x, x.new_zeros((x.shape[0], n - x.shape[1], *x.shape[2:]))], 1)
+
+
+def _gather_tiles(tile_map, counts, tile: int):
+    """Row indices [B, R, S*tile] of the listed tiles and their validity
+    (entry j < count) [B, R, S*tile], S the largest count (entries past it
+    are never valid)."""
+    s = max(1, int(counts.max()))
+    tile_map = tile_map[..., :s]
+    ar = torch.arange(tile, device=tile_map.device)
+    idx = (tile_map.long()[..., None] * tile + ar).flatten(-2)
+    valid = (torch.arange(s, device=tile_map.device) < counts[..., None])
+    return idx, valid.repeat_interleave(tile, dim=-1)
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x [B, L, ...] at rows idx [B, R, K] -> [B, R, K, ...]."""
+    bidx = torch.arange(x.shape[0], device=x.device)[:, None, None]
+    return x[bidx, idx]
+
+
+def _heads(x: torch.Tensor, group: int) -> torch.Tensor:
+    """[..., Hkv, D] -> [..., Hq, D] (each kv head repeated for its group)."""
+    return x.repeat_interleave(group, dim=-2) if group > 1 else x
+
+
+def _sparse_fwd_tiles(q, k, v, qb, qd, kb, kd, tile_map, counts, scale):
+    """(s-mask, p, normaliser ...) helpers of the plain forward and dq: q
+    tiles [B, n_q, 64, Hq, D] against their listed keys."""
+    b, lq, hq, d = q.shape
+    group = hq // k.shape[2]
+    n_q = tile_map.shape[1]
+    lqp, lkp = n_q * TILE, -(-k.shape[1] // TILE) * TILE
+    qt = _pad_rows(q, lqp).reshape(b, n_q, TILE, hq, d)
+    qbt = _pad_ids(qb, lqp, 0).reshape(b, n_q, TILE)
+    qdt = _pad_ids(qd, lqp, Q_PAD_DOC).reshape(b, n_q, TILE)
+    idx, valid = _gather_tiles(tile_map, counts, TILE)
+    kg = _heads(_take(_pad_rows(k, lkp), idx).float(), group)
+    vg = _heads(_take(_pad_rows(v, lkp), idx).float(), group)
+    kbg = _take(_pad_ids(kb, lkp, 0), idx)
+    kdg = _take(_pad_ids(kd, lkp, KV_PAD_DOC), idx)
+    mask = ((qdt[..., :, None] == kdg[..., None, :])
+            & (kbg[..., None, :] <= qbt[..., :, None]) & valid[..., None, :])
+    s = torch.einsum("bnqhd,bnkhd->bnhqk", qt.float() * scale, kg)
+    return qt, kg, vg, mask[:, :, None], s, lqp
+
+
+def flash_sparse_reference(q, k, v, q_block_ids, q_doc_ids, kv_block_ids,
+                           kv_doc_ids, tile_map, counts,
+                           scale: float | None = None, return_lse: bool = False):
+    """Plain sparse forward: each 64-row q tile attends over exactly the
+    64-key tiles tile_map[b, i, :counts[b, i]] under the id mask; fp32
+    softmax, differentiable. Shapes and conventions as
+    :func:`flash_attention_reference` (a row that sees no key gives 0 and
+    lse 1e30)."""
+    b, lq, hq, d = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    _, _, vg, mask, s, lqp = _sparse_fwd_tiles(
+        q, k, v, q_block_ids, q_doc_ids, kv_block_ids, kv_doc_ids, tile_map,
+        counts, scale)
+    s = torch.where(mask, s, torch.full((), NEG_INF, device=s.device))
+    m = s.amax(dim=-1, keepdim=True).detach()
+    p = torch.where(mask, torch.exp(s - m), torch.zeros((), device=s.device))
+    l = p.sum(dim=-1, keepdim=True)
+    live = l > 0
+    safe = torch.where(live, l, torch.ones((), device=l.device))
+    o = torch.einsum("bnhqk,bnkhd->bnqhd", p / safe, vg)
+    o = o.reshape(b, lqp, hq, d)[:, :lq].to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.where(live, m + torch.log(safe),
+                      torch.full((), MASKED_LSE, device=l.device))[..., 0]
+    lse = lse.permute(0, 2, 1, 3).reshape(b, hq, lqp)[:, :, :lq]
+    return o, lse
+
+
+def flash_sparse_dq_reference(q, k, v, dout, lse, delta, q_block_ids,
+                              q_doc_ids, kv_block_ids, kv_doc_ids, tile_map,
+                              counts, scale: float) -> torch.Tensor:
+    """Plain version of the sparse dq kernel over the forward's tile list:
+    p = exp(s - lse), ds = p (dp - delta), dq = scale ds K."""
+    b, lq, hq, d = q.shape
+    _, kg, vg, mask, s, lqp = _sparse_fwd_tiles(
+        q, k, v, q_block_ids, q_doc_ids, kv_block_ids, kv_doc_ids, tile_map,
+        counts, scale)
+    n_q = tile_map.shape[1]
+    tiles = lambda t: _pad_rows(t.transpose(1, 2), lqp).reshape(  # noqa: E731
+        b, n_q, TILE, hq).permute(0, 1, 3, 2)[..., None]
+    p = torch.where(mask, torch.exp(s - tiles(lse)), torch.zeros((), device=s.device))
+    dot = _pad_rows(dout, lqp).reshape(b, n_q, TILE, hq, d).float()
+    dp = torch.einsum("bnqhd,bnkhd->bnhqk", dot, vg)
+    ds = p * (dp - tiles(delta))
+    dq = torch.einsum("bnhqk,bnkhd->bnqhd", ds, kg) * scale
+    return dq.reshape(b, lqp, hq, d)[:, :lq].to(q.dtype)
+
+
+def flash_sparse_dkv_reference(q, k, v, dout, lse, delta, q_block_ids,
+                               q_doc_ids, kv_block_ids, kv_doc_ids, q_map,
+                               q_counts, block_q: int, scale: float):
+    """Plain version of the sparse dk/dv kernel over the transposed list:
+    each 64-key tile against exactly the q tiles (of ``block_q`` rows)
+    q_map[b, j, :q_counts[b, j]]; dk = scale ds^T Q, dv = p^T dO, each
+    summed over its GQA group."""
+    b, lk, hkv, d = k.shape
+    hq = q.shape[2]
+    group = hq // hkv
+    n_k = q_map.shape[1]
+    lkp, lqp = n_k * TILE, -(-q.shape[1] // block_q) * block_q
+    idx, valid = _gather_tiles(q_map, q_counts, block_q)
+    qg = _take(_pad_rows(q, lqp), idx).float()               # [B, n_k, K, Hq, D]
+    dog = _take(_pad_rows(dout, lqp), idx).float()
+    qbg = _take(_pad_ids(q_block_ids, lqp, 0), idx)
+    qdg = _take(_pad_ids(q_doc_ids, lqp, Q_PAD_DOC), idx)
+    rows = lambda t: _take(_pad_rows(t.transpose(1, 2), lqp), idx).permute(  # noqa: E731
+        0, 1, 3, 2)[..., None]                                # [B, n_k, Hq, K, 1]
+    kt = _heads(_pad_rows(k, lkp).reshape(b, n_k, TILE, hkv, d).float(), group)
+    vt = _heads(_pad_rows(v, lkp).reshape(b, n_k, TILE, hkv, d).float(), group)
+    kbt = _pad_ids(kv_block_ids, lkp, 0).reshape(b, n_k, TILE)
+    kdt = _pad_ids(kv_doc_ids, lkp, KV_PAD_DOC).reshape(b, n_k, TILE)
+    mask = ((qdg[..., :, None] == kdt[..., None, :])
+            & (kbt[..., None, :] <= qbg[..., :, None]) & valid[..., :, None])[:, :, None]
+    s = torch.einsum("bnqhd,bnkhd->bnhqk", qg * scale, kt)
+    p = torch.where(mask, torch.exp(s - rows(lse)), torch.zeros((), device=s.device))
+    dp = torch.einsum("bnqhd,bnkhd->bnhqk", dog, vt)
+    ds = p * (dp - rows(delta))
+    dk = torch.einsum("bnhqk,bnqhd->bnkhd", ds, qg) * scale
+    dv = torch.einsum("bnhqk,bnqhd->bnkhd", p, dog)
+    fold = lambda t: t.reshape(b, n_k, TILE, hkv, group, d).sum(4).reshape(  # noqa: E731
+        b, lkp, hkv, d)[:, :lk]
+    return fold(dk).to(k.dtype), fold(dv).to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Sparse-iteration flash attention: kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check_plan(name: str, plan: SparsePlan, b: int, lq: int, lk: int, d: int):
+    n_q, n_k = -(-lq // TILE), -(-lk // TILE)
+    ok = (plan.kv_map.shape[:2] == (b, n_q) and plan.kv_counts.shape == (b, n_q)
+          and plan.q_map.shape[:2] == (b, n_k) and plan.q_counts.shape == (b, n_k)
+          and plan.block_q_dkv == dkv_block_q(d))
+    if not ok or any(t.dtype != torch.int32 or not t.is_contiguous()
+                     for t in plan[:4]):
+        raise ValueError(f"{name}: the tile plan does not fit q [{b}, {lq}] "
+                         f"k [{b}, {lk}] at head dim {d}")
+
+
+def flash_fwd_sparse(q, k, v, q_block_ids, q_doc_ids, kv_block_ids, kv_doc_ids,
+                     plan: SparsePlan, scale: float):
+    """(o, lse) of masked flash attention over plan's kv tile lists."""
+    if q.device.type == "cpu":
+        with torch.no_grad():
+            return flash_sparse_reference(q, k, v, q_block_ids, q_doc_ids,
+                                          kv_block_ids, kv_doc_ids, plan.kv_map,
+                                          plan.kv_counts, scale, return_lse=True)
+    _check("flash_fwd_sparse", q, k, v)
+    b, lq, hq, d = q.shape
+    lk, hkv = k.shape[1], k.shape[2]
+    _check_plan("flash_fwd_sparse", plan, b, lq, lk, d)
+    qb, qd = (_ids(t, b, lq, q.device) for t in (q_block_ids, q_doc_ids))
+    kb, kd = (_ids(t, b, lk, q.device) for t in (kv_block_ids, kv_doc_ids))
+    o = torch.empty_like(q)
+    lse = torch.empty((b, hq, lq), dtype=torch.float32, device=q.device)
+    _cuda.check(_cuda.load().bd_flash_fwd_sparse(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        qb.data_ptr(), qd.data_ptr(), kb.data_ptr(), kd.data_ptr(),
+        plan.kv_map.data_ptr(), plan.kv_counts.data_ptr(), plan.kv_map.shape[2],
+        b, lq, lk, hq, hkv, d, float(scale), _cuda.stream_ptr()), "flash_fwd_sparse")
+    flash_fwd_sparse.launches += 1
+    return o, lse
+
+
+def flash_bwd_dq_sparse(q, k, v, dout, lse, delta, q_block_ids, q_doc_ids,
+                        kv_block_ids, kv_doc_ids, plan: SparsePlan,
+                        scale: float) -> torch.Tensor:
+    """dq over plan's kv tile lists (like q)."""
+    if q.device.type == "cpu":
+        return flash_sparse_dq_reference(q, k, v, dout, lse, delta, q_block_ids,
+                                         q_doc_ids, kv_block_ids, kv_doc_ids,
+                                         plan.kv_map, plan.kv_counts, scale)
+    _check("flash_bwd_dq_sparse", q, k, v, dout)
+    b, lq, hq, d = q.shape
+    lk, hkv = k.shape[1], k.shape[2]
+    _check_plan("flash_bwd_dq_sparse", plan, b, lq, lk, d)
+    qb, qd = (_ids(t, b, lq, q.device) for t in (q_block_ids, q_doc_ids))
+    kb, kd = (_ids(t, b, lk, q.device) for t in (kv_block_ids, kv_doc_ids))
+    dq = torch.empty_like(q)
+    _cuda.check(_cuda.load().bd_flash_bwd_dq_sparse(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.contiguous().data_ptr(), delta.contiguous().data_ptr(),
+        dq.data_ptr(), qb.data_ptr(), qd.data_ptr(), kb.data_ptr(), kd.data_ptr(),
+        plan.kv_map.data_ptr(), plan.kv_counts.data_ptr(), plan.kv_map.shape[2],
+        b, lq, lk, hq, hkv, d, float(scale), _cuda.stream_ptr()),
+        "flash_bwd_dq_sparse")
+    flash_bwd_dq_sparse.launches += 1
+    return dq
+
+
+def flash_bwd_dkv_sparse(q, k, v, dout, lse, delta, q_block_ids, q_doc_ids,
+                         kv_block_ids, kv_doc_ids, plan: SparsePlan,
+                         scale: float):
+    """(dk, dv) over plan's transposed lists, summed per GQA group."""
+    if q.device.type == "cpu":
+        return flash_sparse_dkv_reference(q, k, v, dout, lse, delta, q_block_ids,
+                                          q_doc_ids, kv_block_ids, kv_doc_ids,
+                                          plan.q_map, plan.q_counts,
+                                          plan.block_q_dkv, scale)
+    _check("flash_bwd_dkv_sparse", q, k, v, dout)
+    b, lq, hq, d = q.shape
+    lk, hkv = k.shape[1], k.shape[2]
+    _check_plan("flash_bwd_dkv_sparse", plan, b, lq, lk, d)
+    qb, qd = (_ids(t, b, lq, q.device) for t in (q_block_ids, q_doc_ids))
+    kb, kd = (_ids(t, b, lk, q.device) for t in (kv_block_ids, kv_doc_ids))
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _cuda.check(_cuda.load().bd_flash_bwd_dkv_sparse(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.contiguous().data_ptr(), delta.contiguous().data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), qb.data_ptr(), qd.data_ptr(),
+        kb.data_ptr(), kd.data_ptr(), plan.q_map.data_ptr(),
+        plan.q_counts.data_ptr(), plan.q_map.shape[2], b, lq, lk, hq, hkv, d,
+        float(scale), _cuda.stream_ptr()), "flash_bwd_dkv_sparse")
+    flash_bwd_dkv_sparse.launches += 1
+    return dk, dv
+
+
+flash_fwd_sparse.launches = 0
+flash_bwd_dq_sparse.launches = 0
+flash_bwd_dkv_sparse.launches = 0
+
+
+class _FlashSparse(torch.autograd.Function):
+    """Sparse-iteration core (the custom VJP of _flash_sparse_core,
+    attention.py:783-1041): the forward saves lse; the backward runs dq over
+    the forward's lists and dk/dv over the transposed lists (as the JAX
+    code does; its docstring's "reuses the dense kernels" is stale)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qb, qd, kb, kd, plan, scale):
+        o, lse = flash_fwd_sparse(q, k, v, qb, qd, kb, kd, plan, scale)
+        ctx.save_for_backward(q, k, v, qb, qd, kb, kd, o, lse)
+        ctx.plan, ctx.scale = plan, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, qb, qd, kb, kd, o, lse = ctx.saved_tensors
+        dout = dout.to(q.dtype).contiguous()
+        delta = (dout.float() * o.float()).sum(dim=-1).transpose(1, 2).contiguous()
+        dq = flash_bwd_dq_sparse(q, k, v, dout, lse, delta, qb, qd, kb, kd,
+                                 ctx.plan, ctx.scale)
+        dk, dv = flash_bwd_dkv_sparse(q, k, v, dout, lse, delta, qb, qd, kb, kd,
+                                      ctx.plan, ctx.scale)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def flash_attention_sparse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           q_block_ids: torch.Tensor, q_doc_ids: torch.Tensor,
+                           kv_block_ids: torch.Tensor, kv_doc_ids: torch.Tensor,
+                           max_live_kv: int | None = None,
+                           scale: float | None = None,
+                           plan: SparsePlan | None = None) -> torch.Tensor:
+    """Differentiable splash-style flash attention (attention.py:669-717):
+    only live kv tiles are visited. ``max_live_kv`` counts this port's
+    64-key tiles (:func:`live_tile_bound` derives it from the longest
+    document); a ``plan`` built once by :func:`sparse_plan` may be given
+    instead. An undersized bound raises."""
+    d = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if plan is None:
+        if max_live_kv is None:
+            raise ValueError("flash_attention_sparse: give max_live_kv or a plan")
+        plan = sparse_plan(_ids(q_block_ids, q.shape[0], q.shape[1], q.device),
+                           _ids(q_doc_ids, q.shape[0], q.shape[1], q.device),
+                           _ids(kv_block_ids, k.shape[0], k.shape[1], q.device),
+                           _ids(kv_doc_ids, k.shape[0], k.shape[1], q.device),
+                           max_live_kv, d)
+    return _FlashSparse.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                              q_block_ids, q_doc_ids, kv_block_ids, kv_doc_ids,
+                              plan, float(scale))
+
+
+
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      q_block_ids: torch.Tensor, q_doc_ids: torch.Tensor,
                      kv_block_ids: torch.Tensor, kv_doc_ids: torch.Tensor,
                      scale: float | None = None,
-                     implementation: str = "auto") -> torch.Tensor:
+                     implementation: str = "auto",
+                     max_live_kv: int | None = None,
+                     plan: SparsePlan | None = None) -> torch.Tensor:
     """Attention under the (block, doc) mask model; kernel or plain.
 
     "auto" follows the JAX package's rule (attention.py:1081-1096): the flash
     kernels on the accelerator when Lq * Lk > 256^2, otherwise the plain
-    dense-mask ``attention_xla``. "kernel" forces :func:`flash_attention`
-    (plain versions on CPU tensors), "plain" the dense path.
+    dense-mask ``attention_xla``. "kernel" forces the flash kernels (plain
+    versions on CPU tensors), "plain" the dense path. On the kernel route a
+    ``max_live_kv`` (64-key tiles) or a ``plan`` switches to
+    :func:`flash_attention_sparse`.
     """
     if implementation == "auto":
         big = q.shape[1] * k.shape[1] > 256 * 256
         implementation = "kernel" if (q.device.type == "cuda" and big) else "plain"
     if implementation == "kernel":
+        if max_live_kv is not None or plan is not None:
+            return flash_attention_sparse(q, k, v, q_block_ids, q_doc_ids,
+                                          kv_block_ids, kv_doc_ids, max_live_kv,
+                                          scale, plan)
         return flash_attention(q, k, v, q_block_ids, q_doc_ids, kv_block_ids,
                                kv_doc_ids, scale)
     if implementation != "plain":

@@ -103,9 +103,10 @@ def make_train_state(model: ImageNetTrainModel,
 
 
 def init_train_state(cfg: ImageNetARConfig, tcfg: ImageNetTrainConfig,
-                     device="cpu", generator: torch.Generator | None = None
+                     device="cuda", generator: torch.Generator | None = None
                      ) -> opt_lib.TrainState:
-    """fp32 model with the JAX package's init, its optimizer and EMA."""
+    """fp32 model with the JAX package's init, its optimizer and EMA, on the
+    card unless ``device`` says otherwise."""
     with torch.device("meta"):
         model = ImageNetTrainModel(cfg)
     model = model.to_empty(device=device)

@@ -4,9 +4,9 @@ bitdance_tpu/train/optim.py).
 The JAX package chains ``optax.clip_by_global_norm`` and ``optax.adamw``
 with a decay mask; this module keeps those semantics on torch tensors:
   - clipping: g unchanged when ||g|| < max, else (g / ||g||) * max;
-  - AdamW (torch.optim.AdamW; the same update as optax's up to rounding),
-    no weight decay for tensors with ndim < 2 or whose name contains a
-    non-decay key;
+  - AdamW (torch.optim.AdamW's fused kernel on every device; the same
+    update as optax's up to rounding), no weight decay for tensors with
+    ndim < 2 or whose name contains a non-decay key;
   - the schedule is read at the count BEFORE the update, as optax does, so
     under warmup the first step's learning rate is 0 and the parameters
     first move at step 2;
@@ -55,8 +55,9 @@ def decay_mask(named_params: Mapping[str, torch.Tensor],
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, fp32."""
-    norms = torch._foreach_norm([t.float() for t in tensors])
+    """sqrt of the sum of squares of every element, fp32 (each tensor's
+    norm accumulated in fp32 without an fp32 copy of it)."""
+    norms = torch._foreach_norm(list(tensors), 2, dtype=torch.float32)
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
@@ -80,8 +81,11 @@ class AdamW:
             {"params": [p for n, p in named_params.items() if not mask[n]],
              "weight_decay": 0.0},
         ]
+        # the fused kernel: no temporaries the size of the parameters (the
+        # bf16 14B step's moments are 18 GB); the CPU has it too, so the
+        # tests against optax run the code the card runs
         self.opt = torch.optim.AdamW([g for g in groups if g["params"]], lr=0.0,
-                                     betas=betas, eps=eps)
+                                     betas=betas, eps=eps, fused=True)
 
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor]) -> None:
@@ -96,7 +100,9 @@ class AdamW:
             torch._foreach_mul_(grads, torch.where(
                 clip, torch.full((), self.max_grad_norm, device=norm.device), one))
         for p, g in zip(self.params, grads):
-            p.grad = g
+            # the fused kernel wants each gradient laid out as its parameter
+            # (a transposed view's gradient, e.g. lm_head's, arrives transposed)
+            p.grad = g if g.stride() == p.stride() else g.contiguous()
         lr = self.lr_schedule(self.count)
         for group in self.opt.param_groups:
             group["lr"] = lr
@@ -117,23 +123,27 @@ def ema_update(ema: Sequence[torch.Tensor], params: Sequence[torch.Tensor],
 
 @dataclasses.dataclass
 class TrainState:
-    """Model (fp32 master parameters), optimizer, EMA copies, step count."""
+    """Model (master parameters), optimizer, EMA copies (None without EMA),
+    step count."""
 
     model: nn.Module
     tx: AdamW
-    ema: dict[str, torch.Tensor]
+    ema: dict[str, torch.Tensor] | None
     step: int = 0
 
     @staticmethod
-    def create(model: nn.Module, tx: AdamW) -> "TrainState":
-        ema = {n: p.detach().clone() for n, p in model.named_parameters()}
+    def create(model: nn.Module, tx: AdamW, with_ema: bool = True) -> "TrainState":
+        ema = ({n: p.detach().clone() for n, p in model.named_parameters()}
+               if with_ema else None)
         return TrainState(model=model, tx=tx, ema=ema, step=0)
 
 
 def apply_gradients(state: TrainState, grads: Sequence[torch.Tensor],
                     ema_decay: float = 0.9999) -> TrainState:
-    """Optimizer update, then EMA of the new parameters; step + 1."""
+    """Optimizer update, then (if the state keeps one) EMA of the new
+    parameters; step + 1."""
     state.tx.update(grads)
-    ema_update([state.ema[n] for n in state.tx.names], state.tx.params, ema_decay)
+    if state.ema is not None:
+        ema_update([state.ema[n] for n in state.tx.names], state.tx.params, ema_decay)
     state.step += 1
     return state

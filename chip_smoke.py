@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one NVIDIA GPU: text-to-image
 serving (BitDance-14B-64x), ImageNet class-conditional training
-(BitDance-H-1x, 256 px) and ImageNet class-conditional sampling
-(BitDance-H-1x and BitDance-B-16x, 256 px).
+(BitDance-H-1x, 256 px), ImageNet class-conditional sampling
+(BitDance-H-1x and BitDance-B-16x, 256 px), packed multimodal training of
+BitDance-14B-64x (full width, 4 of 40 layers) and tokenizer reconstruction
+(the release VQ tokenizer, 256 and 1024 px).
 
     python3 chip_smoke.py
 
@@ -55,6 +57,34 @@ Phases, run in this order, one line each, any failure exits non-zero:
                     sampler kernels and through their plain versions, whose
                     agreements are reported; torch.profiler over one guided
                     and one unguided batch
+  flash_sparse      the sparse-iteration flash kernels (forward, dq, dk/dv) vs
+                    their plain versions over the same tile lists and the
+                    autograd Function vs autograd of the plain forward, on 7
+                    T2I samples packed into 8,192 tokens at 40 / 8 heads, head
+                    dim 128; three maps one tile off (a diagonal tile dropped
+                    where a document starts, a middle tile dropped deep in a
+                    document, that tile listed twice) must each move o by >=
+                    4x its per-row bound, an undersized max_live_kv must
+                    raise; equal to the dense kernels on the same inputs
+  mllm              random bf16 BitDance-14B-64x train state (MLLM_LAYERS of
+                    40 layers at full width, vocab 152,064, no EMA; the
+                    ImageNet samplers freed first), one packed sequence from
+                    GreedyPacker at the yaml's budget (37,376 tokens; text and
+                    vision loss rows at the packer's default budget, as the
+                    JAX trainer packs them), steps on the sparse kernels:
+                    per-step losses, grad norm, launch counts (2 x layers
+                    forward, layers dq and dk/dv), s/step, tokens/s, MFU,
+                    peak memory, a profile, the chunked CE's time at the
+                    budget and at the loss rows, the sparse kernels at the
+                    step's shape vs their plain versions (run in chunks)
+                    and equal to the dense kernels, and one step on the
+                    dense kernels from the same state and draws
+  encode_kernel     the encode tail vs its plain version at the release
+                    tokenizer's trunk shapes (256, 512, 1024 px), bf16 and fp32
+  tokenizer         the release VQ tokenizer (random bf16): reconstruct 16
+                    images at 256 px (batch 8) and 2 at 1024 px through the
+                    encode tail: exact ±1 latents, shapes, images/s, encode /
+                    decode times, PSNR (reported)
 The last lines are the kernels' JSON record (each kernel's launches on the
 main paths, error against its plain version, times, bound and, where one
 PyTorch call computes the same function, that call's time), the card's name
@@ -143,6 +173,31 @@ W4A8_MAX_REL_ERR = 1e-5
 # kernel keeps qkv and h1/h2 in bf16 as the bf16 sampler does: the bf16
 # sampler's bound; over 50 steps the bf16 sampler's sign-agreement floor.
 QUANT_SAMPLER_MAX_REL_ERR = 5e-2
+# sparse flash attention (#10-#12) against its plain version on a packed
+# 8,192-token case and at the 14B step's 37,376 tokens (40 / 8 heads, head
+# dim 128): the dense kernels' bounds (the sparse kernels are the same
+# arithmetic over listed tiles; a few times the readings of the first H100
+# run, PERF.md), relative to max |value|; o also per token row, relative to
+# that row's own max |o| over heads and dims (rows deep in a long document
+# are far below the tensor's max, and a wrong tile there shows only so)
+FLASH_SPARSE_MAX_REL_ERR = {"o": 1.5e-2, "o_row": 1.5e-2, "lse": 1e-6, "dq": 1.5e-2,
+                            "dk": 1.5e-2, "dv": 1.5e-2}
+# BitDance-14B-64x packed training: full width, MLLM_LAYERS of its 40 layers
+# (all 40 need the FSDP of ROADMAP A11), MLLM_STEPS steps on the sparse
+# kernels
+MLLM_LAYERS = 4
+MLLM_STEPS = 6
+MLLM_PEAK_GIB = 75.0
+# the dense-kernel step from the same state and draws: the sparse and dense
+# kernels compute the same tiles in the same order (0 difference in o), so
+# the step differs only by atomics' order in bf16 backward sums (embedding)
+MLLM_DENSE_LOSS_REL = 1e-4
+MLLM_DENSE_GRAD_NORM_REL = 1e-3
+# the encode tail (#13) vs its plain version: raw output relative to max |x|
+# (bf16 output: a few ulps; fp32: summation order), and exact signs wherever
+# the plain raw value clears the repo's sign margin
+ENCODE_MAX_REL_ERR = {True: 1.6e-2, False: 1e-5}   # keyed by "is bf16"
+SIGN_MARGIN = 1e-3
 # H100 SXM dense bf16 and int8 tensor-core peaks and HBM3 rate (NVIDIA data
 # sheet, at 700 W), for MFU and for each kernel's bound: the larger of the
 # bytes the function must move (each input read once, each output written
@@ -1171,12 +1226,20 @@ def _counts() -> dict:
 
 
 def _kernel_wrappers() -> dict:
-    from bitdance_tpu_torch.ops.attention import flash_bwd_dkv, flash_bwd_dq, flash_fwd
+    from bitdance_tpu_torch.ops.attention import (
+        flash_bwd_dkv,
+        flash_bwd_dkv_sparse,
+        flash_bwd_dq,
+        flash_bwd_dq_sparse,
+        flash_fwd,
+        flash_fwd_sparse,
+    )
     from bitdance_tpu_torch.ops.decode_attention import (
         decode_attention,
         decode_attention_fusedkv,
     )
     from bitdance_tpu_torch.ops.fused_block import fused_attn_block, fused_mlp_block
+    from bitdance_tpu_torch.ops.fused_encode import fused_encode_tail
     from bitdance_tpu_torch.ops.fused_head import fused_em_sample
     from bitdance_tpu_torch.ops.int4 import int4_matmul
 
@@ -1184,7 +1247,11 @@ def _kernel_wrappers() -> dict:
             "flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq,
             "flash_bwd_dkv": flash_bwd_dkv, "fused_mlp_block": fused_mlp_block,
             "fused_attn_block": fused_attn_block, "w4a8_matmul": int4_matmul,
-            "decode_attention_fusedkv": decode_attention_fusedkv}
+            "decode_attention_fusedkv": decode_attention_fusedkv,
+            "flash_fwd_sparse": flash_fwd_sparse,
+            "flash_bwd_dq_sparse": flash_bwd_dq_sparse,
+            "flash_bwd_dkv_sparse": flash_bwd_dkv_sparse,
+            "fused_encode_tail": fused_encode_tail}
 
 
 def _block_inputs(g, lead, c, dev):
@@ -1546,6 +1613,637 @@ def _free_running(bundle, whole_tokens) -> None:
         + f" ({time.perf_counter() - t0:.1f} s)")
 
 
+# ---------------------------------------------------------------------------
+# BitDance-14B-64x packed training (sparse flash kernels #10-#12) and the
+# tokenizer's encode tail (#13)
+# ---------------------------------------------------------------------------
+
+def _t2i_samples(n: int, seed: int, side: int = 32, prompt: int = 40, p: int = 64):
+    """Seeded T2I samples as benchmarks/bench_train.py draws them: prompts
+    of ``prompt`` token ids, side x side ±1 latents (512 px at side 32)."""
+    import numpy as np
+
+    from bitdance_tpu_torch.data.packing import T2ISample
+
+    rng = np.random.default_rng(seed)
+    return [T2ISample(
+        text_ids=rng.integers(1, 2000, prompt),
+        image_latents=np.sign(rng.normal(size=(side * side, 32))).astype(np.float32),
+        latent_h=side, latent_w=side, vision_start_id=2001, res_h_id=2033,
+        res_w_id=2033, query_ids=np.arange(2100, 2100 + p - 1), text_loss=True)
+        for _ in range(n)]
+
+
+def _sparse_case(dev):
+    """q, k, v, do (bf16, Qwen3-14B's 40 / 8 heads at head dim 128) over the
+    ids of 7 samples packed by the port's packer into 8,192 tokens (7,910
+    tokens of 7 documents, then the packer's padding, one block of 282), and
+    the bound on live 64-key tiles from the longest document."""
+    import torch
+
+    from bitdance_tpu_torch.data.packing import pack_t2i_batch, sincos_1d_table_np
+    from bitdance_tpu_torch.ops.attention import live_tile_bound
+
+    samples = _t2i_samples(7, 77)
+    raw = pack_t2i_batch(samples, 64, 8192, sincos_1d_table_np(64, 64))
+    blk = torch.from_numpy(raw["block_ids"]).to(dev)[None]
+    doc = torch.from_numpy(raw["doc_ids"]).to(dev)[None]
+    ids = (blk, doc, blk, doc)
+    L = blk.shape[1]
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn((1, L, 40, 128), generator=g, device=dev).bfloat16()
+    k = torch.randn((1, L, 8, 128), generator=g, device=dev).bfloat16()
+    v = torch.randn((1, L, 8, 128), generator=g, device=dev).bfloat16()
+    do = torch.randn((1, L, 40, 128), generator=g, device=dev).bfloat16()
+    longest = 40 + 3 + 63 + 32 * 32
+    return q, k, v, do, ids, live_tile_bound(longest), longest
+
+
+def _row_stats(got, want):
+    """Per token row of [B, L, H, D] tensors: (max abs error, max |want|)
+    over the row's heads and dims, each [B, L]."""
+    return ((got.float() - want.float()).abs().amax(dim=(2, 3)),
+            want.float().abs().amax(dim=(2, 3)))
+
+
+def _row_rel(err, mag) -> float:
+    """The largest per-row error relative to its row's own max |want|."""
+    return (err / mag.clamp_min(1e-30)).max().item()
+
+
+def _one_tile_off(plan, ids, longest: int) -> dict:
+    """Three kv tile lists one tile off plan's: the diagonal tile dropped
+    from the q tile where document 1 starts (its first rows see nothing
+    else), a middle tile dropped from a q tile deep in document 0 (rows that
+    see about 1,000 keys), and that tile listed twice there."""
+    import torch
+
+    doc = ids[1][0]
+    start = int((doc[1:] != doc[:-1]).nonzero()[0]) + 1
+    deep = (longest - 1) // 64 - 1
+    if int(doc[0]) != int(doc[deep * 64 + 63]):
+        raise SystemExit("flash_sparse: the deep q tile is not inside document 0")
+
+    def listed(row):
+        return plan.kv_map[0, row, :plan.kv_counts[0, row]]
+
+    def edit(row, tiles):
+        m, c = plan.kv_map.clone(), plan.kv_counts.clone()
+        m[0, row, :tiles.numel()] = tiles
+        c[0, row] = tiles.numel()
+        return m, c
+
+    row = start // 64
+    first = listed(row)
+    deep_tiles = listed(deep)
+    mid = deep_tiles[deep_tiles.numel() // 2]
+    return {
+        f"diagonal tile {row} dropped where document 1 starts": edit(row, first[first != row]),
+        f"tile {int(mid)} of {deep_tiles.numel()} dropped from q tile {deep}":
+            edit(deep, deep_tiles[deep_tiles != mid]),
+        f"tile {int(mid)} listed twice in q tile {deep}":
+            edit(deep, torch.cat([deep_tiles, mid[None]])),
+    }
+
+
+def phase_flash_sparse() -> dict:
+    """#10-#12 against their plain versions (which compute over exactly the
+    listed tiles) and their autograd Function against autograd of the plain
+    forward, on a packed 8,192-token case; each map one tile off must move o
+    by >= 4x its per-row bound, an undersized bound must raise, and the
+    dense kernels must give the same bits; times, bounds over the live
+    pairs, and SDPA's."""
+    import torch
+
+    from bitdance_tpu_torch.ops.attention import (
+        flash_attention_sparse,
+        flash_bwd_dkv,
+        flash_bwd_dkv_sparse,
+        flash_bwd_dq,
+        flash_bwd_dq_sparse,
+        flash_fwd,
+        flash_fwd_sparse,
+        flash_sparse_dkv_reference,
+        flash_sparse_dq_reference,
+        flash_sparse_reference,
+        sparse_plan,
+    )
+
+    dev = torch.device("cuda")
+    q, k, v, do, ids, bound, longest = _sparse_case(dev)
+    scale = 128 ** -0.5
+    plan = sparse_plan(*ids, bound, 128)
+    most = int(plan.kv_counts.max())
+    try:
+        sparse_plan(*ids, most - 1, 128)
+    except ValueError as e:
+        log("flash_sparse", f"undersized bound {most - 1} raised: {str(e)[:100]}")
+    else:
+        raise SystemExit("flash_sparse: an undersized max_live_kv did not raise")
+    o, lse = flash_fwd_sparse(q, k, v, *ids, plan, scale)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = flash_bwd_dq_sparse(q, k, v, do, lse, delta, *ids, plan, scale)
+    dk, dv = flash_bwd_dkv_sparse(q, k, v, do, lse, delta, *ids, plan, scale)
+    # the same Function under autograd against autograd of the plain forward
+    qk, kk, vk = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    flash_attention_sparse(qk, kk, vk, *ids, plan=plan).backward(do)
+    qr, kr, vr = (t.float().requires_grad_() for t in (q, k, v))
+    o_ref, lse_ref = flash_sparse_reference(qr, kr, vr, *ids, plan.kv_map,
+                                            plan.kv_counts, scale, return_lse=True)
+    o_ref.backward(do.float())
+    torch.cuda.synchronize()
+    errs, rel = {}, {}
+    for key, got, want in (("o", o, o_ref), ("lse", lse, lse_ref), ("dq", dq, qr.grad),
+                           ("dk", dk, kr.grad), ("dv", dv, vr.grad),
+                           ("dq_function", qk.grad, qr.grad),
+                           ("dk_function", kk.grad, kr.grad),
+                           ("dv_function", vk.grad, vr.grad)):
+        if not torch.isfinite(got).all():
+            raise SystemExit(f"flash_sparse: {key} not finite")
+        errs[key], rel[key] = _errors(got, want)
+    rel["o_row"] = _row_rel(*_row_stats(o, o_ref))
+    # the dense kernels (#7-#9) on the same inputs: the same tiles in the
+    # same order, so the same bits
+    o_d, lse_d = flash_fwd(q, k, v, *ids, scale)
+    dk_d, dv_d = flash_bwd_dkv(q, k, v, do, lse, delta, *ids, scale)
+    dense = {"o": (o, o_d), "lse": (lse, lse_d),
+             "dq": (dq, flash_bwd_dq(q, k, v, do, lse, delta, *ids, scale)),
+             "dk": (dk, dk_d), "dv": (dv, dv_d)}
+    dense = {key: _errors(a, b)[0] for key, (a, b) in dense.items()}
+    # the plain forward over maps one tile off, per row against the true map
+    with torch.no_grad():
+        shifts = {what: _row_rel(*_row_stats(flash_sparse_reference(
+            qr, kr, vr, *ids, m, c, scale), o_ref))
+            for what, (m, c) in _one_tile_off(plan, ids, longest).items()}
+    bounds = FLASH_SPARSE_MAX_REL_ERR
+    bad = [key for key, e in rel.items()
+           if e > bounds[key if key in bounds else key.split("_")[0]]]
+    if bad or min(shifts.values()) < 4 * bounds["o_row"] or any(dense.values()):
+        raise SystemExit(f"flash_sparse: rel errors {rel} (bounds {bounds}); maps one "
+                         f"tile off move o per row by {shifts}; vs the dense kernels "
+                         f"{dense}")
+    with torch.no_grad():
+        times = {
+            "fwd": (cuda_time_ms(lambda: flash_fwd_sparse(q, k, v, *ids, plan, scale), 20),
+                    cuda_time_ms(lambda: flash_sparse_reference(
+                        q, k, v, *ids, plan.kv_map, plan.kv_counts, scale,
+                        return_lse=True), 3)),
+            "dq": (cuda_time_ms(lambda: flash_bwd_dq_sparse(
+                q, k, v, do, lse, delta, *ids, plan, scale), 20),
+                cuda_time_ms(lambda: flash_sparse_dq_reference(
+                    q, k, v, do, lse, delta, *ids, plan.kv_map, plan.kv_counts,
+                    scale), 3)),
+            "dkv": (cuda_time_ms(lambda: flash_bwd_dkv_sparse(
+                q, k, v, do, lse, delta, *ids, plan, scale), 20),
+                cuda_time_ms(lambda: flash_sparse_dkv_reference(
+                    q, k, v, do, lse, delta, *ids, plan.q_map, plan.q_counts,
+                    plan.block_q_dkv, scale), 3))}
+        dense_ms = {"fwd": cuda_time_ms(lambda: flash_fwd(q, k, v, *ids, scale), 20),
+                    "dq": cuda_time_ms(lambda: flash_bwd_dq(
+                        q, k, v, do, lse, delta, *ids, scale), 20),
+                    "dkv": cuda_time_ms(lambda: flash_bwd_dkv(
+                        q, k, v, do, lse, delta, *ids, scale), 20)}
+    log("flash_sparse", f"q {tuple(q.shape)} k {tuple(k.shape)}, 7 packed documents of "
+        f"{longest} tokens + padding; max_live_kv {bound} 64-key tiles from the longest "
+        f"document (most live {most}, mean {plan.kv_counts.float().mean():.2f} of "
+        f"{plan.kv_map.shape[1]}); dk/dv lists of {plan.block_q_dkv}-row q tiles, most "
+        f"{int(plan.q_counts.max())} of bound {plan.q_map.shape[2]}")
+    log("flash_sparse", "max abs err vs plain (relative to max |value|, bound): "
+        + ", ".join(f"{key} {errs[key]:.3e} ({rel[key]:.2e}, "
+                    f"{bounds[key.split('_')[0]]})" for key in errs)
+        + f"; o per row {rel['o_row']:.2e} of the row's max |o| (bound "
+        f"{bounds['o_row']}); vs the dense kernels (max abs): "
+        + ", ".join(f"{key} {e:.3e}" for key, e in dense.items()))
+    log("flash_sparse", "maps one tile off move o per row by (bound >= "
+        f"{4 * bounds['o_row']:.3g}): "
+        + "; ".join(f"{what} {e:.3e}" for what, e in shifts.items()))
+    log("flash_sparse", "ms kernel/plain (dense kernel): " + ", ".join(
+        f"{key} {a:.4f}/{b:.4f} ({dense_ms[key]:.4f})" for key, (a, b) in times.items()))
+    bd = _flash_bounds_and_library(q, k, v, do, ids)
+    worst = lambda keys: max(errs[key] for key in keys)  # noqa: E731
+    return {"flash_fwd_sparse": {"max_abs_err": worst(("o", "lse")), "ms": times["fwd"][0],
+                                 "plain_ms": times["fwd"][1], **bd["fwd"]},
+            "flash_bwd_dq_sparse": {"max_abs_err": worst(("dq", "dq_function")),
+                                    "ms": times["dq"][0], "plain_ms": times["dq"][1],
+                                    **bd["dq"]},
+            "flash_bwd_dkv_sparse": {"max_abs_err": worst(("dk", "dv", "dk_function",
+                                                           "dv_function")),
+                                     "ms": times["dkv"][0], "plain_ms": times["dkv"][1],
+                                     **bd["dkv"]}}
+
+
+def _mllm_fwd_flops(state, cfg, batch, n_txt: int, n_vis: int) -> float:
+    """Forward matmul FLOPs of one step, benchmarks/bench_train.py:239-247's
+    formula: the layer stack on every packed token, lm_head on ``n_txt``
+    text-loss rows, the head on ``n_vis`` vision-loss rows."""
+    n_tokens = batch.position_ids.numel()
+    m = state.model
+    layers = sum(p.numel() for p in m.llm.model.layers.parameters())
+    head = sum(p.numel() for p in m.head.parameters())
+    return (2.0 * n_tokens * layers + 2.0 * n_txt * cfg.llm.vocab_size * cfg.llm.hidden_size
+            + 2.0 * n_vis * cfg.diff_batch_mul * head)
+
+
+def _sparse_vs_plain_chunked(q, k, v, do, got, ids, plan, scale, tiles: int = 128):
+    """The sparse kernels' outputs ``got`` = (o, lse, dq, dk, dv) on a long
+    packed sequence against their plain versions, run per kv head (with its
+    q-head group) over ranges of ``tiles`` 64-row tiles (q tiles for o, lse
+    and dq, kv tiles for dk and dv) to bound the plain versions' memory.
+    Returns {key: (max abs error, relative to max |want|)} with o's largest
+    per-row relative error under "o_row"."""
+    import torch
+
+    from bitdance_tpu_torch.ops.attention import (
+        flash_sparse_dkv_reference,
+        flash_sparse_dq_reference,
+        flash_sparse_reference,
+    )
+
+    o, lse, dq, dk, dv = got
+    qb, qd, kb, kd = ids
+    L, hq, hkv = q.shape[1], q.shape[2], k.shape[2]
+    grp = hq // hkv
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    err = dict.fromkeys(("o", "lse", "dq", "dk", "dv"), 0.0)
+    mag = dict(err)
+    row_err = torch.zeros((1, L), device=q.device)
+    row_mag = torch.zeros_like(row_err)
+
+    def fold(key, g, w):
+        err[key] = max(err[key], (g.float() - w.float()).abs().max().item())
+        mag[key] = max(mag[key], w.float().abs().max().item())
+
+    n_q, n_k = plan.kv_map.shape[1], plan.q_map.shape[1]
+    with torch.no_grad():
+        for h in range(hkv):
+            hs, ks = slice(h * grp, (h + 1) * grp), slice(h, h + 1)
+            kh, vh = k[:, :, ks], v[:, :, ks]
+            for r0 in range(0, n_q, tiles):
+                rows = slice(r0 * 64, min(n_q, r0 + tiles) * 64)
+                m, c = plan.kv_map[:, r0:r0 + tiles], plan.kv_counts[:, r0:r0 + tiles]
+                qc, dc = q[:, rows, hs], do[:, rows, hs]
+                lc, dlc = lse[:, hs, rows], delta[:, hs, rows]
+                want_o, want_lse = flash_sparse_reference(
+                    qc, kh, vh, qb[:, rows], qd[:, rows], kb, kd, m, c, scale,
+                    return_lse=True)
+                fold("o", o[:, rows, hs], want_o)
+                fold("lse", lc, want_lse)
+                e, w = _row_stats(o[:, rows, hs], want_o)
+                row_err[:, rows] = torch.maximum(row_err[:, rows], e)
+                row_mag[:, rows] = torch.maximum(row_mag[:, rows], w)
+                del want_o, want_lse
+                fold("dq", dq[:, rows, hs], flash_sparse_dq_reference(
+                    qc, kh, vh, dc, lc, dlc, qb[:, rows], qd[:, rows], kb, kd, m, c,
+                    scale))
+            for c0 in range(0, n_k, tiles):
+                cols = slice(c0 * 64, min(n_k, c0 + tiles) * 64)
+                want_dk, want_dv = flash_sparse_dkv_reference(
+                    q[:, :, hs], k[:, cols, ks], v[:, cols, ks], do[:, :, hs],
+                    lse[:, hs], delta[:, hs], qb, qd, kb[:, cols], kd[:, cols],
+                    plan.q_map[:, c0:c0 + tiles], plan.q_counts[:, c0:c0 + tiles],
+                    plan.block_q_dkv, scale)
+                fold("dk", dk[:, cols, ks], want_dk)
+                fold("dv", dv[:, cols, ks], want_dv)
+    out = {key: (err[key], err[key] / mag[key]) for key in err}
+    out["o_row"] = (None, _row_rel(row_err, row_mag))
+    return out
+
+
+def phase_mllm(card: str) -> dict:
+    """Path A: BitDance-14B-64x packed training at full width, MLLM_LAYERS of
+    40 layers, bf16 parameters, gradients and AdamW moments, one packed
+    sequence at the yaml's budget; steps on the sparse kernels, then one
+    step on the dense kernels from the same state."""
+    import dataclasses
+
+    import torch
+
+    from bitdance_tpu_torch.config import (
+        BITDANCE_14B_64X,
+        mllm_config_from_yaml,
+        mllm_train_config_from_yaml,
+    )
+    from bitdance_tpu_torch.data.packing import (
+        GreedyPacker,
+        pack_t2i_batch,
+        sincos_1d_table_np,
+        stack_packed_batches,
+    )
+    from bitdance_tpu_torch.io.random_init import build_random_mllm_train_state
+    from bitdance_tpu_torch.models.mllm import PackedBatch
+    from bitdance_tpu_torch.ops.attention import (
+        flash_bwd_dkv,
+        flash_bwd_dkv_sparse,
+        flash_bwd_dq,
+        flash_bwd_dq_sparse,
+        flash_fwd,
+        flash_fwd_sparse,
+        sparse_plan,
+    )
+    from bitdance_tpu_torch.ops.chunked_ce import chunked_cross_entropy
+    from bitdance_tpu_torch.train.mllm_train import loss_and_grads, train_step
+
+    dev = torch.device("cuda")
+    yaml = BITDANCE_14B_64X
+    cfg = mllm_config_from_yaml(yaml, 152064)
+    cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
+        cfg.llm, num_hidden_layers=MLLM_LAYERS))
+    tcfg = dataclasses.replace(mllm_train_config_from_yaml(yaml), warmup_steps=0)
+    data = yaml["data"]
+    p = cfg.parallel_num
+    packer = GreedyPacker(p, data["expected_num_tokens"], data["max_num_tokens"],
+                          data["max_num_tokens_per_sample"])
+    chosen, seed = None, 0
+    while chosen is None:
+        for s in _t2i_samples(8, 1000 + seed):
+            chosen = chosen or packer.add(s)
+        seed += 1
+    # the text and vision loss budgets at the packer's default (the
+    # sequence budget), as scripts/train_mllm.py packs them
+    raw = pack_t2i_batch(chosen, p, data["max_num_tokens"],
+                         sincos_1d_table_np(cfg.llm.hidden_size // 2, cfg.pe_max_len))
+    batch = PackedBatch.from_numpy(stack_packed_batches([raw]), dev)
+    L = batch.position_ids.shape[1]
+    used = int((batch.doc_ids >= 0).sum())
+    n_txt = int((batch.ce_text_weights > 0).sum())
+    n_vis = int((batch.vision_loss_weights > 0).sum())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = build_random_mllm_train_state(cfg, tcfg, dev, torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    m = state.model
+    count = lambda mod: sum(x.numel() for x in mod.parameters())  # noqa: E731
+    log("mllm", f"BitDance-14B-64x random bf16 train state ({MLLM_LAYERS} of 40 Qwen3-14B "
+        f"layers, vocab {cfg.llm.vocab_size}, head {cfg.head_model_dim} x "
+        f"{cfg.head_num_blocks} blocks, no EMA: {state.ema is None}) in "
+        f"{time.perf_counter() - t0:.1f} s: layers {count(m.llm.model.layers) / 1e9:.3f} B, "
+        f"embedding + lm_head {(count(m.llm) - count(m.llm.model.layers)) / 1e9:.3f} B, head "
+        f"{count(m.head) / 1e9:.3f} B, projector {count(m.projector) / 1e6:.1f} M parameters; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    plan = sparse_plan(batch.block_ids, batch.doc_ids, batch.block_ids, batch.doc_ids,
+                       cfg.attn_live_tiles(), cfg.llm.head_dim)
+    log("mllm", f"packed {len(chosen)} samples (40-token prompts, 512 px) by GreedyPacker "
+        f"(expected {data['expected_num_tokens']}, max {data['max_num_tokens']}): "
+        f"{used} of {L} tokens in documents; {n_txt} text-loss rows of the CE's "
+        f"{batch.ce_text_indexes.numel()}, {n_vis} vision-loss rows of the head's "
+        f"{batch.vision_loss_indexes.numel()}; attn_max_live_kv {cfg.attn_max_live_kv} JAX tiles -> "
+        f"{cfg.attn_live_tiles()} 64-key tiles; live kv tiles per q tile: most "
+        f"{int(plan.kv_counts.max())}, mean {plan.kv_counts.float().mean():.2f} of "
+        f"{plan.kv_map.shape[1]}")
+    del plan
+    flops = _mllm_fwd_flops(state, cfg, batch, n_txt, n_vis)
+    flops_all = _mllm_fwd_flops(state, cfg, batch, batch.ce_text_indexes.numel(),
+                                batch.vision_loss_indexes.numel())
+    watch = {n: x for n, x in m.named_parameters()
+             if n in ("llm.model.layers.0.self_attn.q_proj.weight", "llm.lm_head.weight",
+                      "llm.model.embed_tokens.weight", "head.net.final_layer.linear.weight",
+                      "projector.fc1.weight")}
+    init = {n: x.detach().clone() for n, x in watch.items()}
+    sparse_fns = (flash_fwd_sparse, flash_bwd_dq_sparse, flash_bwd_dkv_sparse)
+    dense_fns = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+    want = (2 * MLLM_LAYERS, MLLM_LAYERS, MLLM_LAYERS, 0, 0, 0)
+    _reset_counts()
+    steps = []
+    for i in range(MLLM_STEPS):
+        before = tuple(f.launches for f in sparse_fns + dense_fns)
+        t = time.perf_counter()
+        mt = train_step(state, batch, i, cfg=cfg, tcfg=tcfg)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        mt = {k: val.item() for k, val in mt.items()}
+        got = tuple(f.launches - b for f, b in zip(sparse_fns + dense_fns, before))
+        moved = {n.split(".")[-2]: (x.detach() != init[n]).any().item()
+                 for n, x in watch.items()}
+        steps.append({"s": dt, **mt})
+        log("mllm", f"step {i + 1}: {dt:.3f} s; loss {mt['loss']:.5f} (ce_loss_text "
+            f"{mt['ce_loss_text']:.5f}, ce_loss_vision {mt['ce_loss_vision']:.5f}), "
+            f"grad_norm {mt['grad_norm']:.5f}; launches sparse fwd/dq/dkv, dense "
+            f"fwd/dq/dkv {got}; parameters moved {moved}")
+        finite = all(val == val and abs(val) < float("inf") for val in mt.values())
+        if got != want or not finite or not all(moved.values()):
+            raise SystemExit(f"mllm step {i + 1} failed its checks (launches {got}, "
+                             f"want {want})")
+    launches = {"flash_fwd_sparse": flash_fwd_sparse.launches,
+                "flash_bwd_dq_sparse": flash_bwd_dq_sparse.launches,
+                "flash_bwd_dkv_sparse": flash_bwd_dkv_sparse.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steady = sorted(s["s"] for s in steps[2:])
+    s_step = steady[len(steady) // 2]
+    mfu = 3 * flops / s_step / H100_BF16_PEAK
+    log("mllm", f"steady s/step {s_step:.4f} (median of steps 3-{MLLM_STEPS}: "
+        f"{', '.join(f'{s:.4f}' for s in steady)}); {L / s_step:.1f} tokens/s ({used / s_step:.1f} "
+        f"in documents); 3 x forward matmul FLOPs on the loss rows {3 * flops / 1e12:.2f} "
+        f"TFLOP -> {3 * flops / s_step / 1e12:.1f} TFLOP/s, MFU {mfu:.4f} of the "
+        f"{H100_BF16_PEAK / 1e12:.0f} TFLOP/s dense bf16 peak (with the padding rows the "
+        f"step computes {3 * flops_all / 1e12:.2f} TFLOP: MFU {mfu * flops_all / flops:.4f}); "
+        f"peak memory {peak:.2f} GiB; "
+        f"launches per step sparse fwd/dq/dkv {want[:3]} (2 x layers: the checkpointed "
+        f"layers run the forward again); card {card}")
+    if peak > MLLM_PEAK_GIB:
+        raise SystemExit(f"mllm: peak memory {peak:.2f} GiB over {MLLM_PEAK_GIB}")
+    profile_run("mllm", "one train step (sparse attention)",
+                lambda: train_step(state, batch, 90, cfg=cfg, tcfg=tcfg))
+    # the chunked CE (forward and backward) at the CE's budget and at the
+    # text-loss rows alone: what the padding rows cost
+    g = torch.Generator(device=dev).manual_seed(8)
+    lm_w = m.llm.output_weight().detach()
+    ce_ms = {}
+    for rows in (batch.ce_text_indexes.numel(), n_txt):
+        h = torch.randn((rows, cfg.llm.hidden_size), generator=g, device=dev).bfloat16()
+        lab = torch.randint(0, cfg.llm.vocab_size, (rows,), generator=g, device=dev)
+        h.requires_grad_()
+        w = lm_w.clone().requires_grad_()
+        ce_ms[rows] = cuda_time_ms(lambda: torch.autograd.grad(  # noqa: B023
+            chunked_cross_entropy(h, w, lab).sum(), (h, w)), 1, warmup=1)
+        del h, w, lab
+    log("mllm", "chunked CE forward + backward (152,064 columns, fp32 products): "
+        + ", ".join(f"{rows} rows {t:.1f} ms" for rows, t in ce_ms.items()))
+    # the sparse kernels at this batch's shape: against their plain versions
+    # (in chunks) and the dense kernels (the same bits)
+    hq, hkv, hd = cfg.llm.num_attention_heads, cfg.llm.num_key_value_heads, cfg.llm.head_dim
+    q = torch.randn((1, L, hq, hd), generator=g, device=dev).bfloat16()
+    k = torch.randn((1, L, hkv, hd), generator=g, device=dev).bfloat16()
+    v = torch.randn((1, L, hkv, hd), generator=g, device=dev).bfloat16()
+    do = torch.randn((1, L, hq, hd), generator=g, device=dev).bfloat16()
+    ids = (batch.block_ids, batch.doc_ids, batch.block_ids, batch.doc_ids)
+    plan = sparse_plan(*ids, cfg.attn_live_tiles(), hd)
+    sc = hd ** -0.5
+    with torch.no_grad():
+        o, lse = flash_fwd_sparse(q, k, v, *ids, plan, sc)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        dq = flash_bwd_dq_sparse(q, k, v, do, lse, delta, *ids, plan, sc)
+        dk, dv = flash_bwd_dkv_sparse(q, k, v, do, lse, delta, *ids, plan, sc)
+        o_d, lse_d = flash_fwd(q, k, v, *ids, sc)
+        dk_d, dv_d = flash_bwd_dkv(q, k, v, do, lse, delta, *ids, sc)
+        equal = {"o": torch.equal(o, o_d), "lse": torch.equal(lse, lse_d),
+                 "dq": torch.equal(dq, flash_bwd_dq(q, k, v, do, lse, delta, *ids, sc)),
+                 "dk": torch.equal(dk, dk_d), "dv": torch.equal(dv, dv_d)}
+        del o_d, lse_d, dk_d, dv_d
+        ms = [cuda_time_ms(fn, 5) for fn in (
+            lambda: flash_fwd_sparse(q, k, v, *ids, plan, sc),
+            lambda: flash_fwd(q, k, v, *ids, sc),
+            lambda: flash_bwd_dq_sparse(q, k, v, do, lse, delta, *ids, plan, sc),
+            lambda: flash_bwd_dq(q, k, v, do, lse, delta, *ids, sc),
+            lambda: flash_bwd_dkv_sparse(q, k, v, do, lse, delta, *ids, plan, sc),
+            lambda: flash_bwd_dkv(q, k, v, do, lse, delta, *ids, sc))]
+    t = time.perf_counter()
+    errs = _sparse_vs_plain_chunked(q, k, v, do, (o, lse, dq, dk, dv), ids, plan, sc)
+    t = time.perf_counter() - t
+    bounds = FLASH_SPARSE_MAX_REL_ERR
+    log("mllm", f"attention at the step's shape q {tuple(q.shape)}: ms sparse/dense "
+        f"kernel fwd {ms[0]:.3f}/{ms[1]:.3f}, dq {ms[2]:.3f}/{ms[3]:.3f}, dkv "
+        f"{ms[4]:.3f}/{ms[5]:.3f}; equal to the dense kernels {equal}; vs plain "
+        f"(in chunks, {t:.1f} s) max abs err (relative, bound): " + ", ".join(
+            (f"{key} {e:.3e} ({r:.2e}, {bounds[key]})" if e is not None
+             else f"{key} {r:.2e} of the row's max |o| ({bounds[key]})")
+            for key, (e, r) in errs.items()))
+    bad = [key for key, (_, r) in errs.items() if r > bounds[key]]
+    if bad or not all(equal.values()):
+        raise SystemExit(f"mllm: the sparse kernels at the step's shape: over their "
+                         f"bounds {bad}, equal to the dense kernels {equal}")
+    del q, k, v, do, o, lse, delta, dq, dk, dv, plan
+    # one step's loss and grad norm on the dense kernels from the same state
+    # and draws as the sparse ones
+    cfg_dense = dataclasses.replace(cfg, attn_max_live_kv=None)
+    ms_, grads = loss_and_grads(state, batch, 7, cfg=cfg, tcfg=tcfg)
+    del grads
+    ms_ = {k: val.item() for k, val in ms_.items()}
+    before = tuple(f.launches for f in sparse_fns + dense_fns)
+    t = time.perf_counter()
+    md = train_step(state, batch, 7, cfg=cfg_dense, tcfg=tcfg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    md = {k: val.item() for k, val in md.items()}
+    got = tuple(f.launches - b for f, b in zip(sparse_fns + dense_fns, before))
+    rl = abs(md["loss"] - ms_["loss"]) / abs(ms_["loss"])
+    rg = abs(md["grad_norm"] - ms_["grad_norm"]) / ms_["grad_norm"]
+    log("mllm", f"dense-kernel step from the same state: {dt:.3f} s, launches {got}; "
+        f"loss {md['loss']:.6f} vs sparse {ms_['loss']:.6f} (rel {rl:.2e}, bound "
+        f"{MLLM_DENSE_LOSS_REL}); grad_norm {md['grad_norm']:.6f} vs {ms_['grad_norm']:.6f} "
+        f"(rel {rg:.2e}, bound {MLLM_DENSE_GRAD_NORM_REL})")
+    if (rl > MLLM_DENSE_LOSS_REL or rg > MLLM_DENSE_GRAD_NORM_REL
+            or got != (0, 0, 0, 2 * MLLM_LAYERS, MLLM_LAYERS, MLLM_LAYERS)):
+        raise SystemExit("mllm: the dense-kernel step disagrees with the sparse one")
+    return {"launches": launches, "s_per_step": s_step, "mfu": mfu, "peak_gib": peak}
+
+
+def _encode_case(shape, dtype, dev, seed):
+    """A trunk output x (GroupNorm-ready, mean 0.3) and the tail's weights."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = shape[-1]
+    x = (1.5 * torch.randn(shape, generator=g, device=dev) + 0.3).to(dtype)
+    gw = 1 + 0.2 * torch.randn(c, generator=g, device=dev)
+    gb = 0.2 * torch.randn(c, generator=g, device=dev)
+    w = (torch.randn((c, 32), generator=g, device=dev) / c ** 0.5).to(dtype)
+    b = 0.1 * torch.randn(32, generator=g, device=dev)
+    return x, gw, gb, w, b
+
+
+def phase_encode_kernel() -> dict:
+    """#13 vs its plain version at the release tokenizer's trunk shapes
+    (C 1024 at 1/16 of 256, 512 and 1024 px), bf16 and fp32: the raw tail
+    (before the sign) within its bound, the ±1 output exact wherever the
+    plain raw value clears SIGN_MARGIN."""
+    import torch
+
+    from bitdance_tpu_torch.ops.fused_encode import (
+        fused_encode_tail,
+        fused_encode_tail_reference,
+    )
+
+    dev = torch.device("cuda")
+    rec, worst = None, 0.0
+    for name, shape in (("256px", (8, 16, 16, 1024)), ("512px", (8, 32, 32, 1024)),
+                        ("1024px", (2, 64, 64, 1024))):
+        for dtype in (torch.bfloat16, torch.float32):
+            args = _encode_case(shape, dtype, dev, sum(shape))
+            raw = fused_encode_tail(*args, quantize=False)
+            ref = fused_encode_tail_reference(*args, quantize=False)
+            sgn = fused_encode_tail(*args)
+            torch.cuda.synchronize()
+            err, rel = _errors(raw, ref)
+            clear = ref.float().abs() > SIGN_MARGIN
+            flips = int(((sgn != torch.where(ref > 0, 1.0, -1.0).to(sgn.dtype))
+                         & clear).sum())
+            vals = set(sgn.unique().tolist())
+            bound = ENCODE_MAX_REL_ERR[dtype == torch.bfloat16]
+            log("encode_kernel", f"{name} {tuple(shape)} {str(dtype)[6:]}: raw max abs err "
+                f"{err:.3e} ({rel:.2e} of max, bound {bound}); ±1 outputs {sorted(vals)}, "
+                f"{flips} sign flips where |plain| > {SIGN_MARGIN} "
+                f"({clear.float().mean().item():.5f} of outputs)")
+            if rel > bound or flips or not vals <= {-1.0, 1.0}:
+                raise SystemExit(f"encode_kernel {name} {dtype} failed its checks")
+            worst = max(worst, err)
+            if name == "1024px" and dtype == torch.bfloat16:
+                x = args[0]
+                ms = cuda_time_ms(lambda: fused_encode_tail(*args), 20)
+                pms = cuda_time_ms(lambda: fused_encode_tail_reference(*args), 5)
+                n_px = x.numel() // x.shape[-1]
+                bd = roofline(nbytes(x, args[3]) + n_px * 32 * x.element_size(),
+                              2.0 * n_px * x.shape[-1] * 32)
+                rec = {"ms": ms, "plain_ms": pms, **bd, "library_ms": None}
+                log("encode_kernel", f"1024px bf16: kernel {ms:.4f} ms, plain {pms:.4f} "
+                    f"ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}); no single "
+                    "PyTorch call computes the tail")
+    return {"fused_encode_tail": {"max_abs_err": worst, **rec}}
+
+
+def phase_tokenizer(card: str) -> dict:
+    """Path B: the release tokenizer (ch 256, mult [1,1,2,2,4], 4 res
+    blocks, z 32; scripts/eval_tokenizer_recon.py) random bf16 on the card,
+    ``reconstruct`` on 16 seeded 256 px images (batch 8) and 2 at 1024 px:
+    exact ±1 latents through #13, shapes, images/s, encode / decode phase
+    times, PSNR against the input (random weights: reported only)."""
+    import numpy as np
+    import torch
+
+    from bitdance_tpu_torch.eval.recon import psnr, reconstruct
+    from bitdance_tpu_torch.io.random_init import BITDANCE_14B_64X as GEO
+    from bitdance_tpu_torch.models.tokenizer import init_vq
+    from bitdance_tpu_torch.ops.fused_encode import fused_encode_tail
+    from bitdance_tpu_torch.utils.timing import PhaseTimer
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    ae = init_vq(GEO["ddconfig"], dev, torch.bfloat16, gen, encoder=True, decoder=True)
+    log("tokenizer", f"release VQ tokenizer {GEO['ddconfig']} random bf16: "
+        f"{sum(p.numel() for p in ae.parameters()) / 1e6:.1f} M parameters")
+    rng = np.random.default_rng(12)
+    out = {}
+    fused_encode_tail.launches = 0
+    for px, n, batch in ((256, 16, 8), (1024, 2, 8)):
+        imgs = np.clip(rng.normal(size=(n, px, px, 3)) * 0.5, -1, 1).astype(np.float32)
+        reconstruct(ae, imgs[:1], batch=1)              # warm-up (cuDNN plans)
+        before = fused_encode_tail.launches
+        timer, lat = PhaseTimer(dev), []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rec = reconstruct(ae, imgs, batch=batch, timer=timer, latents_out=lat)
+        dt = time.perf_counter() - t
+        tot = timer.totals()
+        launches = fused_encode_tail.launches - before
+        h = px // 16
+        shapes_ok = (rec.shape == imgs.shape and all(
+            tuple(q.shape[1:]) == (h, h, 32) for q in lat) and sum(q.shape[0] for q in lat) == n)
+        pm1 = all(set(q.unique().tolist()) <= {-1.0, 1.0} for q in lat)
+        log("tokenizer", f"{n} x {px} px, batch {batch}: {dt:.3f} s, {n / dt:.2f} images/s; "
+            f"encode {tot['encode']:.3f} s, decode {tot['decode']:.3f} s (CUDA events); "
+            f"latents {tuple(lat[0].shape)} exactly ±1: {pm1}; fused_encode_tail launches "
+            f"{launches}; PSNR vs input {psnr(imgs, rec):.2f} dB (random weights); card {card}")
+        if not (shapes_ok and pm1 and np.isfinite(rec).all()
+                and launches == -(-n // batch)):
+            raise SystemExit(f"tokenizer {px} px failed its checks")
+        out[px] = {"s": dt, "images_per_s": n / dt, **tot}
+    # one warm-up image and ceil(n / batch) batches per size
+    if fused_encode_tail.launches != 2 + 2 + 1:
+        raise SystemExit(f"tokenizer: {fused_encode_tail.launches} encode-tail launches")
+    out["launches"] = fused_encode_tail.launches
+    return out
+
+
 def build_imagenet_samplers():
     """Random BitDance-H-1x and BitDance-B-16x samplers (bf16) on the card."""
     import torch
@@ -1620,6 +2318,18 @@ def main() -> int:
         "fused_mlp_block": (h["unguided"]["fused_mlp_block"]
                             + b["unguided"]["fused_mlp_block"]),
         "fused_attn_block": b["unguided"]["fused_attn_block"]})
+    del h1x, b16x                           # packed training needs the room
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    results.update(phase_flash_sparse())
+    mllm = phase_mllm(card)
+    launches.update(mllm["launches"])
+    del mllm
+    gc.collect()                            # the 14B training state is gone
+    torch.cuda.empty_cache()
+    results.update(phase_encode_kernel())
+    launches["fused_encode_tail"] = phase_tokenizer(card)["launches"]
 
     records = []
     meta = {
@@ -1659,6 +2369,16 @@ def main() -> int:
         "fused_em_sample_int4": ("fused_em_sample_int4",
                                  "bitdance_tpu_torch/csrc/fused_head.cu",
                                  "bitdance_tpu/ops/fused_head.py:1076"),
+        "flash_fwd_sparse": ("flash_fwd_sparse", "bitdance_tpu_torch/csrc/flash_attention.cu",
+                             "bitdance_tpu/ops/attention.py:767"),
+        "flash_bwd_dq_sparse": ("flash_bwd_dq_sparse",
+                                "bitdance_tpu_torch/csrc/flash_attention.cu",
+                                "bitdance_tpu/ops/attention.py:964"),
+        "flash_bwd_dkv_sparse": ("flash_bwd_dkv_sparse",
+                                 "bitdance_tpu_torch/csrc/flash_attention.cu",
+                                 "bitdance_tpu/ops/attention.py:1013"),
+        "fused_encode_tail": ("fused_encode_tail", "bitdance_tpu_torch/csrc/fused_encode.cu",
+                              "bitdance_tpu/ops/fused_encode.py:83"),
     }
     for name, (key, src, repl) in meta.items():
         r = results[key]

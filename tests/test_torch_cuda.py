@@ -327,3 +327,87 @@ def test_sampler_kernel_quant(dev, quant):
     assert fused_em_sample.launches == n + 1
     rel = (got - want).abs().max() / want.abs().max()
     assert rel.item() < 5e-2
+
+
+@pytest.mark.parametrize("hq,hkv,d,lens", [(10, 2, 128, (70, 150, 230, 40)),
+                                           (4, 4, 64, (200, 330, 90))])
+def test_flash_sparse_kernels(dev, hq, hkv, d, lens):
+    """#10-#12 vs their plain versions over the same tile lists, and equal
+    to the dense kernels (#7-#9) on the same inputs."""
+    from bitdance_tpu_torch.ops.attention import (
+        flash_bwd_dkv,
+        flash_bwd_dkv_sparse,
+        flash_bwd_dq,
+        flash_bwd_dq_sparse,
+        flash_fwd,
+        flash_fwd_sparse,
+        flash_sparse_dkv_reference,
+        flash_sparse_dq_reference,
+        flash_sparse_reference,
+        live_tile_bound,
+        sparse_plan,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    blk = torch.arange(sum(lens), device=dev, dtype=torch.int32)[None]
+    doc = torch.cat([torch.full((n,), i, device=dev, dtype=torch.int32)
+                     for i, n in enumerate(lens)])[None]
+    ids = (blk, doc, blk, doc)
+    L = blk.shape[1]
+    q, do = (torch.randn((1, L, hq, d), generator=g, device=dev).bfloat16() for _ in "ab")
+    k, v = (torch.randn((1, L, hkv, d), generator=g, device=dev).bfloat16() for _ in "ab")
+    plan = sparse_plan(*ids, live_tile_bound(max(lens)), d)
+    sc = d ** -0.5
+    counts = (flash_fwd_sparse.launches, flash_bwd_dq_sparse.launches,
+              flash_bwd_dkv_sparse.launches)
+    o, lse = flash_fwd_sparse(q, k, v, *ids, plan, sc)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = flash_bwd_dq_sparse(q, k, v, do, lse, delta, *ids, plan, sc)
+    dk, dv = flash_bwd_dkv_sparse(q, k, v, do, lse, delta, *ids, plan, sc)
+    assert (flash_fwd_sparse.launches, flash_bwd_dq_sparse.launches,
+            flash_bwd_dkv_sparse.launches) == tuple(c + 1 for c in counts)
+    o_ref, lse_ref = flash_sparse_reference(q, k, v, *ids, plan.kv_map, plan.kv_counts,
+                                            sc, return_lse=True)
+    dq_ref = flash_sparse_dq_reference(q, k, v, do, lse, delta, *ids, plan.kv_map,
+                                       plan.kv_counts, sc)
+    dk_ref, dv_ref = flash_sparse_dkv_reference(q, k, v, do, lse, delta, *ids, plan.q_map,
+                                                plan.q_counts, plan.block_q_dkv, sc)
+    rel = lambda a, b: ((a.float() - b.float()).abs().max()  # noqa: E731
+                        / b.float().abs().max()).item()
+    for got, want in ((o, o_ref), (dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        assert rel(got, want) < 1.5e-2
+    assert rel(lse, lse_ref) < 1e-6
+    assert torch.equal(o, flash_fwd(q, k, v, *ids, sc)[0])
+    assert torch.equal(dq, flash_bwd_dq(q, k, v, do, lse, delta, *ids, sc))
+    assert all(torch.equal(a, b) for a, b in zip(
+        (dk, dv), flash_bwd_dkv(q, k, v, do, lse, delta, *ids, sc)))
+
+
+@pytest.mark.parametrize("shape,dtype", [((8, 16, 16, 1024), torch.bfloat16),
+                                         ((2, 64, 64, 1024), torch.float32),
+                                         ((3, 5, 7, 256), torch.bfloat16)])
+def test_fused_encode_tail_kernel(dev, shape, dtype):
+    """#13 vs its plain version: raw output within a few output ulps, ±1
+    exact wherever the plain raw value clears the 1e-3 sign margin."""
+    from bitdance_tpu_torch.ops.fused_encode import (
+        fused_encode_tail,
+        fused_encode_tail_reference,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    c = shape[-1]
+    x = (1.5 * torch.randn(shape, generator=g, device=dev) + 0.3).to(dtype)
+    gw = 1 + 0.2 * torch.randn(c, generator=g, device=dev)
+    gb = 0.2 * torch.randn(c, generator=g, device=dev)
+    w = (torch.randn((c, 32), generator=g, device=dev) / c ** 0.5).to(dtype)
+    b = 0.1 * torch.randn(32, generator=g, device=dev)
+    n = fused_encode_tail.launches
+    raw = fused_encode_tail(x, gw, gb, w, b, quantize=False)
+    sgn = fused_encode_tail(x, gw, gb, w, b)
+    assert fused_encode_tail.launches == n + 2
+    ref = fused_encode_tail_reference(x, gw, gb, w, b, quantize=False)
+    bound = 1.6e-2 if dtype == torch.bfloat16 else 1e-5
+    assert ((raw.float() - ref.float()).abs().max() / ref.float().abs().max()).item() < bound
+    clear = ref.float().abs() > 1e-3
+    assert set(sgn.unique().tolist()) <= {-1.0, 1.0}
+    assert (sgn == torch.where(ref > 0, 1.0, -1.0).to(sgn.dtype))[clear].all()

@@ -295,7 +295,7 @@ def test_init_train_state_follows_jax_init():
     """Zero adaLN and final layer, unit norm gains, N(0, 0.02) backbone; EMA
     starts equal to the parameters; step 0."""
     cfg = tia.ImageNetARConfig(**TINY)
-    st = tit.init_train_state(cfg, tit.ImageNetTrainConfig(),
+    st = tit.init_train_state(cfg, tit.ImageNetTrainConfig(), device="cpu",
                               generator=torch.Generator().manual_seed(0))
     sd = dict(st.model.named_parameters())
     assert sd["head.net.ada_ln_blocks.0.weight"].abs().max() == 0
@@ -319,7 +319,7 @@ def test_load_jax_train_state_params_and_ema():
     jstate, _ = jit_.train_step(jstate, jnp.asarray(tokens), jnp.asarray(cls),
                                 jax.random.PRNGKey(0), cfg=jcfg, head=head, tx=tx,
                                 ema_decay=0.5, mixed_precision=False)
-    state = tit.init_train_state(tcfg, tit.ImageNetTrainConfig())
+    state = tit.init_train_state(tcfg, tit.ImageNetTrainConfig(), device="cpu")
     load_imagenet_train_state(state, jstate)
     want = imagenet_train_state_from_jax(jstate.params)
     want_ema = imagenet_train_state_from_jax(jstate.ema_params)
