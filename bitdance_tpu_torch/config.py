@@ -1,5 +1,6 @@
 """Training configurations from the 14B yaml schema (port of
-bitdance_tpu/config.py: mllm_config_from_yaml, mllm_train_config_from_yaml).
+bitdance_tpu/config.py: mllm_config_from_yaml, mllm_train_config_from_yaml,
+head_config_from_json).
 
 The builders take a plain dict (the yaml parsed by any loader), since the
 card's machine may have no PyYAML. ``BITDANCE_14B_64X`` mirrors the model,
@@ -116,4 +117,23 @@ def mllm_train_config_from_yaml(cfg: dict) -> MLLMTrainConfig:
         loss_weight_text=float(t.get("loss_weight_text", 1.0)),
         loss_weight_vision=float(t.get("loss_weight_vision", 1.0)),
         grad_accum=int(t.get("grad_accum", t.get("gradient_accumulation_steps", 1))),
+    )
+
+
+def head_config_from_json(j: dict) -> dict:
+    """vision_head_config.json -> DiffHead kwargs (config.py:127-141, the
+    reference t2i_pipeline.py:62-67). ``diff_batch_mul`` repeats the targets
+    in training only; the port's DiffHead does not take it."""
+    return dict(
+        ch_target=j["ch_target"],
+        ch_cond=j["ch_cond"],
+        ch_latent=j["ch_latent"],
+        depth_latent=j["depth_latent"],
+        depth_adanln=j["depth_adanln"],
+        time_shift=j.get("time_shift", 1.0),
+        P_mean=j.get("P_mean", 0.0),
+        P_std=j.get("P_std", 1.0),
+        parallel_num=j.get("parallel_num", 4),
+        diff_batch_mul=j.get("diff_batch_mul", 1),
+        use_swiglu=j.get("use_swiglu", False),
     )

@@ -30,10 +30,14 @@
 // residual stream (out and down products), and SwiGLU (the w1 product loads
 // matching h1/h2 weight rows into one tile so each thread holds both halves
 // of its output column). LN + modulate, window attention and the final layer
-// + EM update are small fp32 kernels. Precision follows the TPU kernel #2
-// for both families: fp32 residual h, bf16 stage activations, fp32 LN
-// statistics, softmax and accumulation. At 64 rows and C 1280 the 64x64
-// output tiles give only 20-60 blocks per product, under half the 132 SMs.
+// + EM update are small fp32 kernels. Precision follows the TPU kernel the
+// JAX package routes the stack to (round_residual, decided by the caller from
+// the block weights' bytes): #2 (the 14B head) keeps an fp32 residual h with
+// bf16 stage activations; #3/#4 (the ImageNet heads) run _block_body, which
+// rounds h and every elementwise stage to bf16 (head_block<true>). LN
+// statistics, softmax and accumulation stay fp32 in both. At 64 rows and
+// C 1280 the 64x64 output tiles give only 20-60 blocks per product, under
+// half the 132 SMs.
 //
 // Quant mode (quant = 1 int8, 2 packed int4; the TPU kernel's W8A8 / W4A8
 // mode, stage_quant + stage_dot, TransEncoder only): each of the four block
@@ -47,21 +51,6 @@
 #include "int8_gemm.cuh"
 
 namespace {
-
-// h[r, n] = in_b[n] + sum_k bf16(x[r % half, k]) * in_w[n, k]   (rows [x; x])
-__global__ void proj_in_kernel(const float* __restrict__ x, int half, int ch,
-                               const bf16* __restrict__ w,
-                               const float* __restrict__ b, float* __restrict__ h,
-                               int C) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)2 * half * C) return;
-  const int r = static_cast<int>(idx / C), n = static_cast<int>(idx % C);
-  const float* xr = x + (size_t)(r % half) * ch;
-  const bf16* wr = w + (size_t)n * ch;
-  float acc = 0.f;
-  for (int kk = 0; kk < ch; ++kk) acc += round_bf16(xr[kk]) * bf2f(wr[kk]);
-  h[idx] = acc + b[n];
-}
 
 constexpr int kMaxCh = 32;
 
@@ -238,7 +227,8 @@ cudaError_t quant_block(const QuantBlock& qb, int l, float* h, const bf16* m,
 // quant 1 (int8) / 2 (packed int4), attention=1 only: wqkv, wo, w1, w2 are
 // int8 [L, out, in] / [L, out, in/2] with f32 scales *_s [L, out]; actf
 // (fp32 [R, max(C, H)]), aq (int8, the same shape) and sa (fp32 [R]) are
-// scratch. Returns the first CUDA error, or 0.
+// scratch. round_residual 1 (bf16 only): _block_body's rounding (#3/#4).
+// Returns the first CUDA error, or 0.
 extern "C" int bd_fused_em_sample(
     void* x, const void* noise, const void* allmods, int W,
     const float* t_host, const float* dt_host, float cfg, const void* in_w,
@@ -250,14 +240,15 @@ extern "C" int bd_fused_em_sample(
     int switch_freq, int n_head, int groups, int attention, int bounded,
     int final_chunk, float last_step, int quant, const void* wqkv_s,
     const void* wo_s, const void* w1_s, const void* w2_s, void* actf, void* aq,
-    void* sa, void* stream) {
+    void* sa, int round_residual, void* stream) {
   const int R = 2 * half;
   const int n_mods = attention ? 6 : 3;
   if (ch > kMaxCh || C % kBN != 0 || C % kBK != 0 || H % kBK != 0 ||
       (2 * H) % kBN != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int qk = quant == 2 ? 2 * kQBK : kQBK;  // K granularity of the s8 GEMM
-  if (quant < 0 || quant > 2 || (quant && (!attention || C % qk || H % qk)))
+  if (quant < 0 || quant > 2 ||
+      (quant && (!attention || C % qk || H % qk || round_residual)))
     return static_cast<int>(cudaErrorInvalidValue);
   const QuantBlock qb{static_cast<const int8_t*>(wqkv), static_cast<const int8_t*>(wo),
                       static_cast<const int8_t*>(w1), static_cast<const int8_t*>(w2),
@@ -286,6 +277,7 @@ extern "C" int bd_fused_em_sample(
   const bf16* B1 = static_cast<const bf16*>(b1);
   const bf16* W2 = static_cast<const bf16*>(w2);
   const bf16* B2 = static_cast<const bf16*>(b2);
+  const HeadBlockWeights wts{N1, N2, Wqkv, Bqkv, Wo, Bo, W1, B1, W2, B2};
 
   const int hd = attention ? C / n_head : 0;
   const int wtok = attention ? R / groups : 0;
@@ -301,14 +293,12 @@ extern "C" int bd_fused_em_sample(
   const float attn_scale = attention ? 1.f / sqrtf(static_cast<float>(hd)) : 0.f;
   const int grid_steps = num_steps + (final_chunk ? 1 : 0);
   const int proj_blocks = static_cast<int>(((size_t)R * C + 255) / 256);
-  // the MLP half's mods: scale, shift, gate after the attention half's three
-  const int mlp = attention ? 3 : 0;
 
   for (int s = 0; s < grid_steps; ++s) {
     const bf16* mods_s = mods + (size_t)s * R * W;
     proj_in_kernel<<<proj_blocks, 256, 0, st>>>(
         xf, half, ch, static_cast<const bf16*>(in_w),
-        static_cast<const float*>(in_b), h, C);
+        static_cast<const float*>(in_b), h, R, C, round_residual);
     BD_CHECK(cudaGetLastError());
     for (int l = 0; l < num_blocks; ++l) {
       const bf16* m = mods_s + (size_t)(l / switch_freq) * n_mods * C;
@@ -318,50 +308,9 @@ extern "C" int bd_fused_em_sample(
             groups, wtok, hd, attn_scale, attn_smem, eps, st));
         continue;
       }
-      if (attention) {
-        // scale1, shift1, gate1 at m, m + C, m + 2C
-        ln_modulate_kernel<float, false><<<R, 256, 0, st>>>(
-            h, C, N1 + (size_t)l * 2 * C, N1 + (size_t)l * 2 * C + C, m, W,
-            m + C, W, act, eps);
-        BD_CHECK(cudaGetLastError());
-        Epilogue qkv_ep{};
-        qkv_ep.bias = Bqkv + (size_t)l * 3 * C;
-        qkv_ep.out = buf;
-        qkv_ep.ldo = 3 * C;
-        BD_CHECK(launch_gemm<kBiasBf16>(act, C, Wqkv + (size_t)l * 3 * C * C, C,
-                                        R, 3 * C, qkv_ep, st));
-        window_attention_kernel<bf16><<<groups * n_head, 256, attn_smem, st>>>(
-            buf, C, wtok, hd, n_head, attn_scale, act);
-        BD_CHECK(cudaGetLastError());
-        Epilogue o_ep{};
-        o_ep.bias = Bo + (size_t)l * C;
-        o_ep.resid = h;
-        o_ep.ldr = C;
-        o_ep.gate = m + 2 * C;
-        o_ep.ldg = W;
-        BD_CHECK(launch_gemm<kGatedResidual>(act, C, Wo + (size_t)l * C * C, C,
-                                             R, C, o_ep, st));
-      }
-      const bf16* mm = m + (size_t)mlp * C;
-      ln_modulate_kernel<float, false><<<R, 256, 0, st>>>(
-          h, C, N2 + (size_t)l * 2 * C, N2 + (size_t)l * 2 * C + C, mm, W,
-          mm + C, W, act, eps);
-      BD_CHECK(cudaGetLastError());
-      Epilogue glu_ep{};
-      glu_ep.bias = B1 + (size_t)l * 2 * H;
-      glu_ep.out = buf;
-      glu_ep.ldo = H;
-      glu_ep.hidden = H;
-      BD_CHECK(launch_gemm<kSwiGLU>(act, C, W1 + (size_t)l * 2 * H * C, C, R,
-                                    2 * H, glu_ep, st));
-      Epilogue down_ep{};
-      down_ep.bias = B2 + (size_t)l * C;
-      down_ep.resid = h;
-      down_ep.ldr = C;
-      down_ep.gate = mm + 2 * C;
-      down_ep.ldg = W;
-      BD_CHECK(launch_gemm<kGatedResidual>(buf, H, W2 + (size_t)l * C * H, H,
-                                           R, C, down_ep, st));
+      BD_CHECK((round_residual ? head_block<true> : head_block<false>)(
+          wts, l, h, m, W, act, buf, R, C, H, attention != 0, n_head, groups,
+          eps, st));
     }
     const bool stochastic = s < num_steps;
     final_em_kernel<<<half, 256, 0, st>>>(

@@ -1,7 +1,8 @@
 // Building blocks shared by the diffusion head's kernels (fused_head.cu, the
-// whole sampler; fused_block.cu, one head block per call): a bf16
-// tensor-core GEMM with fused epilogues, the LayerNorm + adaLN modulate
-// kernel and window attention.
+// whole sampler; fused_block.cu, one head block per call; fused_net.cu, one
+// whole net forward): a bf16 tensor-core GEMM with fused epilogues, the
+// LayerNorm + adaLN modulate kernel, window attention, the input projection
+// and one whole bf16 head block (head_block).
 //
 // GEMM: mma.sync m16n8k16, fp32 accumulate, 3-stage cp.async pipeline,
 // 64x64 output tiles so that even a narrow product launches many blocks.
@@ -13,6 +14,18 @@
 #pragma once
 
 #include "common.cuh"
+
+#define BD_CHECK(expr)                                  \
+  do {                                                  \
+    cudaError_t e_ = (expr);                            \
+    if (e_ != cudaSuccess) return static_cast<int>(e_); \
+  } while (0)
+
+#define BD_CHECK_ERR(expr)                \
+  do {                                    \
+    cudaError_t e_ = (expr);              \
+    if (e_ != cudaSuccess) return e_;     \
+  } while (0)
 
 namespace {
 
@@ -29,10 +42,14 @@ enum GemmMode {
   kOutBf16 = 6,        // out bf16 = acc (no bias)
   kOutF32 = 7,         // out fp32 = acc (no bias)
   kSwiGLUQ = 8,        // out fp32 = silu(bf16(h1)) * bf16(h2), h = acc + bias
+  // the TPU kernels' _block_body in bf16 (every elementwise op rounds):
+  kGatedResidualRound = 9,  // resid = bf16(resid + bf16(bf16(acc + bias) * gate))
+  kSwiGLURound = 10,   // out bf16 = bf16(silu(bf16(h1))) * bf16(h2)
 };
 
 __host__ __device__ constexpr bool is_swiglu(int mode) {
-  return mode == kSwiGLU || mode == kSwiGLUF32 || mode == kSwiGLUQ;
+  return mode == kSwiGLU || mode == kSwiGLUF32 || mode == kSwiGLUQ ||
+         mode == kSwiGLURound;
 }
 
 __host__ __device__ constexpr bool out_is_f32(int mode) {
@@ -99,7 +116,8 @@ __device__ __forceinline__ void store_tile(
             y1 = round_bf16(y1);
             y2 = round_bf16(y2);
           }
-          const float silu = y1 / (1.f + __expf(-y1));
+          float silu = y1 / (1.f + __expf(-y1));
+          if (MODE == kSwiGLURound) silu = round_bf16(silu);
           if (MODE == kSwiGLUQ)
             out_f32[(size_t)row * ldo + col] = silu * y2;
           else
@@ -125,6 +143,11 @@ __device__ __forceinline__ void store_tile(
           } else if (MODE == kGatedResidual) {
             resid[(size_t)row * ldr + col] +=
                 y * bf2f(gate[(size_t)row * ldg + col]);
+          } else if (MODE == kGatedResidualRound) {
+            const size_t ri = (size_t)row * ldr + col;
+            const float g =
+                round_bf16(round_bf16(y) * bf2f(gate[(size_t)row * ldg + col]));
+            resid[ri] = round_bf16(resid[ri] + g);
           } else {  // kGatedResidualBf16
             const float xv = bf2f(xres[(size_t)row * ldx + col]);
             out[(size_t)row * ldo + col] =
@@ -238,7 +261,9 @@ cudaError_t launch_gemm(const bf16* A, int lda, const bf16* W, int K, int M,
 // (0 broadcasts one row). One block per row. TWO_PASS takes the centred
 // variance (the block kernels' LN); otherwise E[x^2] - E[x]^2 (the sampler's).
 // OutT float keeps the fp32 value (the quantized sampler's stage input).
-template <typename T, bool TWO_PASS, typename OutT = bf16>
+// CHAIN rounds as _block_body's bf16 ops do: the LN output, its affine
+// (product, then sum), 1 + scale, the modulated product and the final sum.
+template <typename T, bool TWO_PASS, typename OutT = bf16, bool CHAIN = false>
 __global__ void __launch_bounds__(256)
 ln_modulate_kernel(const T* __restrict__ h, int C,
                    const bf16* __restrict__ nw, const bf16* __restrict__ nb,
@@ -275,8 +300,15 @@ ln_modulate_kernel(const T* __restrict__ h, int C,
   const bf16* sc = scale + (size_t)r * ld_scale;
   const bf16* sh = shift + (size_t)r * ld_shift;
   for (int i = threadIdx.x; i < C; i += blockDim.x) {
-    const float ln = (val(i) - mean) * rstd * bf2f(nw[i]) + bf2f(nb[i]);
-    const float y = ln * (1.f + bf2f(sc[i])) + bf2f(sh[i]);
+    float y;
+    if (CHAIN) {
+      const float a = round_bf16((val(i) - mean) * rstd);
+      const float b = round_bf16(round_bf16(a * bf2f(nw[i])) + bf2f(nb[i]));
+      y = round_bf16(b * round_bf16(1.f + bf2f(sc[i]))) + bf2f(sh[i]);
+    } else {
+      const float ln = (val(i) - mean) * rstd * bf2f(nw[i]) + bf2f(nb[i]);
+      y = ln * (1.f + bf2f(sc[i])) + bf2f(sh[i]);
+    }
     if constexpr (sizeof(OutT) == 4) out[(size_t)r * C + i] = y;
     else out[(size_t)r * C + i] = __float2bfloat16(y);
   }
@@ -378,16 +410,93 @@ window_attention_kernel(const T* __restrict__ qkv, int C, int w, int hd,
   }
 }
 
+// h[r, n] = in_b[n] + sum_k bf16(x[r % x_rows, k]) * w[n, k] in fp32 (rows
+// [x; x] for the sampler, x_rows = R for one net call), rounded to bf16
+// when round_out (the residual of _block_body). One thread per output; ch is
+// the latent width (16 or 32), too narrow for the tensor-core GEMM.
+__global__ void proj_in_kernel(const float* __restrict__ x, int x_rows, int ch,
+                               const bf16* __restrict__ w,
+                               const float* __restrict__ b, float* __restrict__ h,
+                               int R, int C, int round_out) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (size_t)R * C) return;
+  const int r = static_cast<int>(idx / C), n = static_cast<int>(idx % C);
+  const float* xr = x + (size_t)(r % x_rows) * ch;
+  const bf16* wr = w + (size_t)n * ch;
+  float acc = 0.f;
+  for (int kk = 0; kk < ch; ++kk) acc += round_bf16(xr[kk]) * bf2f(wr[kk]);
+  const float v = acc + b[n];
+  h[idx] = round_out ? round_bf16(v) : v;
+}
+
+// The bf16 weights of a head's blocks, stacked per block in the torch Linear
+// layout ([L, out, in]); n1, wqkv, bqkv, wo, bo only for the TransEncoder.
+struct HeadBlockWeights {
+  const bf16 *n1, *n2, *wqkv, *bqkv, *wo, *bo, *w1, *b1, *w2, *b2;
+};
+
+// One bf16 block l on the residual h (fp32 [R, C]) as a chain of launches:
+// attention half (TransEncoder: LN + modulate, qkv product, window attention
+// over groups of R / groups rows, output product with its gated residual),
+// then the MLP half (LN + modulate, SwiGLU product, down product with its
+// gated residual). m: the block's mods, bf16 rows ldm apart (scale, shift,
+// gate [, scale, shift, gate]). act (bf16 [R, max(C, H)]) and buf (bf16
+// [R, max(3C, H)]) are scratch. ROUND=false is the TPU kernel #2's
+// precision (fp32 residual); ROUND=true is _block_body's (#3-#5): every
+// elementwise stage and the residual rounded to bf16. The caller sets the
+// window attention's shared-memory limit when it exceeds 48 KB.
+template <bool ROUND>
+cudaError_t head_block(const HeadBlockWeights& w, int l, float* h, const bf16* m,
+                       int ldm, bf16* act, bf16* buf, int R, int C, int H,
+                       bool attention, int n_head, int groups, float eps,
+                       cudaStream_t st) {
+  constexpr int kResid = ROUND ? kGatedResidualRound : kGatedResidual;
+  constexpr int kGlu = ROUND ? kSwiGLURound : kSwiGLU;
+  if (attention) {
+    const int wtok = R / groups, hd = C / n_head;
+    ln_modulate_kernel<float, false, bf16, ROUND><<<R, 256, 0, st>>>(
+        h, C, w.n1 + (size_t)l * 2 * C, w.n1 + (size_t)l * 2 * C + C, m, ldm,
+        m + C, ldm, act, eps);
+    BD_CHECK_ERR(cudaGetLastError());
+    Epilogue qkv_ep{};
+    qkv_ep.bias = w.bqkv + (size_t)l * 3 * C;
+    qkv_ep.out = buf;
+    qkv_ep.ldo = 3 * C;
+    BD_CHECK_ERR(launch_gemm<kBiasBf16>(act, C, w.wqkv + (size_t)l * 3 * C * C, C,
+                                        R, 3 * C, qkv_ep, st));
+    window_attention_kernel<bf16><<<groups * n_head, 256,
+                                    window_attention_smem<bf16>(wtok, hd), st>>>(
+        buf, C, wtok, hd, n_head, 1.f / sqrtf(static_cast<float>(hd)), act);
+    BD_CHECK_ERR(cudaGetLastError());
+    Epilogue o_ep{};
+    o_ep.bias = w.bo + (size_t)l * C;
+    o_ep.resid = h;
+    o_ep.ldr = C;
+    o_ep.gate = m + 2 * C;
+    o_ep.ldg = ldm;
+    BD_CHECK_ERR(launch_gemm<kResid>(act, C, w.wo + (size_t)l * C * C, C, R, C,
+                                     o_ep, st));
+  }
+  const bf16* mm = m + (size_t)(attention ? 3 : 0) * C;
+  ln_modulate_kernel<float, false, bf16, ROUND><<<R, 256, 0, st>>>(
+      h, C, w.n2 + (size_t)l * 2 * C, w.n2 + (size_t)l * 2 * C + C, mm, ldm,
+      mm + C, ldm, act, eps);
+  BD_CHECK_ERR(cudaGetLastError());
+  Epilogue glu_ep{};
+  glu_ep.bias = w.b1 + (size_t)l * 2 * H;
+  glu_ep.out = buf;
+  glu_ep.ldo = H;
+  glu_ep.hidden = H;
+  BD_CHECK_ERR(launch_gemm<kGlu>(act, C, w.w1 + (size_t)l * 2 * H * C, C, R,
+                                 2 * H, glu_ep, st));
+  Epilogue down_ep{};
+  down_ep.bias = w.b2 + (size_t)l * C;
+  down_ep.resid = h;
+  down_ep.ldr = C;
+  down_ep.gate = mm + 2 * C;
+  down_ep.ldg = ldm;
+  return launch_gemm<kResid>(buf, H, w.w2 + (size_t)l * C * H, H, R, C, down_ep,
+                             st);
+}
+
 }  // namespace
-
-#define BD_CHECK(expr)                                  \
-  do {                                                  \
-    cudaError_t e_ = (expr);                            \
-    if (e_ != cudaSuccess) return static_cast<int>(e_); \
-  } while (0)
-
-#define BD_CHECK_ERR(expr)                \
-  do {                                    \
-    cudaError_t e_ = (expr);              \
-    if (e_ != cudaSuccess) return e_;     \
-  } while (0)

@@ -16,6 +16,7 @@ import contextlib
 import numpy as np
 import torch
 
+from bitdance_tpu_torch.utils.precision import full_fp32
 from bitdance_tpu_torch.utils.timing import PhaseTimer
 
 
@@ -69,6 +70,7 @@ def reconstruct(model, images: np.ndarray, batch: int = 8,
     images: [N, H, W, 3] in [-1, 1]; returns the same shape and range
     (clipped), float32. ``timer`` gets "encode" and "decode" spans;
     ``latents_out`` collects each batch's latents."""
+    full_fp32()
     dev = model.decoder.conv_in.weight.device
     outs = []
     for i in range(0, images.shape[0], batch):

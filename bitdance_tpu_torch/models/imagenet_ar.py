@@ -37,6 +37,7 @@ from bitdance_tpu_torch.ops.rotary import (
     patch_center_coords_2d,
     rope_table_2d,
 )
+from bitdance_tpu_torch.utils.precision import full_fp32
 from bitdance_tpu_torch.utils.timing import PhaseTimer
 
 
@@ -221,11 +222,19 @@ def init_ar_params(model: ImageNetAR, generator: torch.Generator | None = None,
     return model
 
 
+def _linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """lin(x) in x's dtype: fp32 activations promote bf16 weights to fp32, as
+    a JAX product of an fp32 array with bf16 weights does."""
+    w = lin.weight.to(x.dtype)
+    return F.linear(x, w, None if lin.bias is None else lin.bias.to(x.dtype))
+
+
 def proj_in(model: ImageNetAR, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU connector from latent tokens to the model width."""
+    """SwiGLU connector from latent tokens to the model width, in x's dtype
+    (the sampler feeds it fp32 tokens, as the JAX package does)."""
     p = model.proj_in
-    h1, h2 = p.w1(x).chunk(2, dim=-1)
-    return p.w2(F.silu(h1) * h2)
+    h1, h2 = _linear(x, p.w1).chunk(2, dim=-1)
+    return _linear(F.silu(h1) * h2, p.w2)
 
 
 def freqs_cis_table(cfg: ImageNetARConfig, device=None) -> torch.Tensor:
@@ -406,17 +415,17 @@ def _forward_cached(model: ImageNetAR, cfg: ImageNetARConfig, x: torch.Tensor,
     x = rms_norm(x, model.emb_norm.weight)
     for li, layer in enumerate(model.layers):
         h = rms_norm(x, layer.attention_norm.weight)
-        q, k, v = layer.attention.wqkv(h).split(cfg.dim, dim=-1)
+        q, k, v = _linear(h, layer.attention.wqkv).split(cfg.dim, dim=-1)
         q = apply_rope_paired(q.reshape(b, s, nh, hd), freqs_slice)
         cache["k"][li, :, cache_len:end] = apply_rope_paired(
             k.reshape(b, s, nh, hd), freqs_slice)
         cache["v"][li, :, cache_len:end] = v.reshape(b, s, nh, hd)
         attn = attention_xla(q, cache["k"][li, :, :end], cache["v"][li, :, :end],
                              mask)
-        x = x + layer.attention.wo(attn.to(x.dtype).reshape(b, s, -1))
+        x = x + _linear(attn.to(x.dtype).reshape(b, s, -1), layer.attention.wo)
         h = rms_norm(x, layer.ffn_norm.weight)
-        h1, h2 = layer.feed_forward.w1(h).chunk(2, dim=-1)
-        x = x + layer.feed_forward.w2(F.silu(h1) * h2)
+        h1, h2 = _linear(h, layer.feed_forward.w1).chunk(2, dim=-1)
+        x = x + _linear(F.silu(h1) * h2, layer.feed_forward.w2)
     return rms_norm(x, model.norm.weight), cache
 
 
@@ -462,8 +471,11 @@ def sample(model: ImageNetAR, head: DiffHead, cfg: ImageNetARConfig,
     ``timing`` dict, its keys prefill, decode (the backbone's AR steps) and
     sampler are set to seconds (CUDA events on the card).
 
-    Decode steps feed the sampled tokens back through proj_in in the
-    weights' dtype (the JAX package promotes them to fp32 there)."""
+    Decode steps feed the sampled tokens back as fp32, as the JAX package
+    does: proj_in and the cached backbone then run in fp32 on the weights
+    (fp32 activations, bf16 KV cache for a bf16 model), while the prefill
+    runs in the weights' dtype."""
+    full_fp32()
     dev = class_ids.device
     use_cfg = cfg_scale > 1.0
     cfg_mult = 2 if use_cfg else 1
@@ -512,7 +524,7 @@ def sample(model: ImageNetAR, head: DiffHead, cfg: ImageNetARConfig,
     preds = [head_sample(x[:, -p:], 0)]
     for step in range(1, num_steps):
         with phase("decode"):
-            emb = proj_in(model, preds[-1].to(dtype))
+            emb = proj_in(model, preds[-1])
             emb = torch.cat([emb] * cfg_mult, dim=0)
             start = cfg.prefix_len + (step - 1) * p
             x, _ = _forward_cached(model, cfg, emb, freqs[start:start + p],
@@ -530,6 +542,7 @@ def decode_uint8(ae, cfg: ImageNetARConfig, tokens: torch.Tensor) -> torch.Tenso
     """±1 tokens [n, num_tokens, token_dim] -> uint8 images [n, H, W, 3]
     through the VQ decoder (eval/fid.py's run_decode: clip(127.5 * img +
     128)), 8 images at a time to bound the decoder's activations."""
+    full_fp32()
     grid = tokens_to_grid(cfg, tokens)
     out = []
     for i in range(0, grid.shape[0], 8):

@@ -36,7 +36,8 @@ _SIGNATURES = {
     "bd_decode_attention_fusedkv": [_P] * 6 + [_I] * 6 + [_F, _P],
     "bd_w4a8_matmul": [_P, _I] + [_P] * 5 + [_I] * 3 + [_P],
     "bd_fused_em_sample": ([_P, _P, _P, _I, _P, _P, _F] + [_P] * 17
-                           + [_I] * 12 + [_F, _I] + [_P] * 7 + [_P]),
+                           + [_I] * 12 + [_F, _I] + [_P] * 7 + [_I, _P]),
+    "bd_fused_diffnet_forward": [_P] * 32 + [_I] * 12 + [_P],
     "bd_fused_mlp_block": ([_P, _P, _I, _P, _I, _P, _I] + [_P] * 9 + [_I] * 3
                            + [_F, _P]),
     "bd_fused_attn_block": ([_P, _P, _I, _P, _I, _P, _I] + [_P] * 9 + [_I] * 4

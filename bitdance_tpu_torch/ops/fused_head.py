@@ -31,6 +31,21 @@ with modcat_w_s whatever the block format. Each stage's input is quantized
 per row to int8 once (``quantize_rows``) and each product runs s8 x s8 ->
 s32 with the scales applied to the sum. The mode reaches the sampler as an
 explicit ``quant`` argument, not from the stored shapes.
+
+Residual precision (:func:`rounds_residual`): the JAX package routes its
+whole sampler by weight bytes, and the routes round differently. Kernels #3
+and #4 (per-block and resident weights; the ImageNet heads) run
+``_block_body``, which carries the residual h and every elementwise stage in
+the weights' dtype; kernel #2 (streamed weights; the 14B head, bf16 or
+quantized) keeps h in fp32. The port applies the same rule to the same
+stack, in its plain version and in ``csrc/fused_head.cu``.
+
+:func:`fused_diffnet_forward` is one whole DiffNet forward (the TPU kernel
+#5, ``_fused_net_kernel``): the t-embedding MLP, the input projection, every
+block with ``_block_body``'s rounding and the final layer, in one host call
+(``csrc/fused_net.cu``), with :func:`fused_diffnet_forward_reference` beside
+it. It reads the adaLN groups and the final layer's modulation as row
+slices of ``modcat_w`` / ``modcat_b`` (:func:`adaln_views`), never copies.
 """
 
 from __future__ import annotations
@@ -168,6 +183,91 @@ def _ln(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (x - mean) * torch.rsqrt(var + eps)
 
 
+def _dot_acc(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ w.T with a cast to w's dtype and fp32 accumulation, as the TPU
+    kernels' _dot (preferred_element_type=f32) and the card kernels' GEMMs:
+    the cast operands multiply in fp32 on every device (each product of two
+    bf16 values is exact in fp32, with TF32 on or off), so a bias added
+    after it meets the fp32 sum, as in the kernels."""
+    return torch.matmul(a.to(w.dtype).float(), w.float().t())
+
+
+_RESIDENT_BYTES = 48 * 1024 * 1024
+_STREAM_BLOCK_BYTES = 60 * 1024 * 1024
+
+
+def block_weight_bytes(stacked: dict, attention: bool) -> int:
+    """Bytes of the per-block tensors the JAX router counts
+    (fused_head.py:1138-1145): w1, b1, w2, b2, n2, the attention half's
+    n1, wqkv, bqkv, wo, bo, and the quantized matrices' scales."""
+    mats = ("w1", "w2") + (("wqkv", "wo") if attention else ())
+    keys = list(_MLP_KEYS) + (list(_ATTN_KEYS) if attention else []) \
+        + [k + "_s" for k in mats if k + "_s" in stacked]
+    return sum(stacked[k].numel() * stacked[k].element_size() for k in keys)
+
+
+def rounds_residual(stacked: dict, num_blocks: int, attention: bool) -> bool:
+    """Whether the JAX package's fused_em_sample runs this stack on a kernel
+    that rounds the residual to the weights' dtype at each block: resident
+    #4 when the block weights are <= 48 MB, else #3 unless
+    2 * bytes // num_blocks > 60 MB sends it to the streamed #2, which keeps
+    h in fp32 (fused_head.py:1145-1160). The ImageNet heads (C 768 / 1280)
+    round; the 14B head (C 5120, bf16 or quantized) does not. A quantized
+    stack always takes kernel #2's precision: the port's quant mode is that
+    kernel's (the JAX package quantizes only the 14B head, which the rule
+    sends to #2)."""
+    if "w1_s" in stacked:
+        return False
+    wb = block_weight_bytes(stacked, attention)
+    if wb <= _RESIDENT_BYTES:
+        return True
+    return not 2 * wb // num_blocks > _STREAM_BLOCK_BYTES
+
+
+def _block_body(h: torch.Tensor, mods: torch.Tensor, stacked: dict, l: int, *,
+                attention: bool, n_head: int, groups: int,
+                eps: float = 1e-6, fp32_qkv_h12: bool = False) -> torch.Tensor:
+    """One block as the TPU kernels #3-#5 compute it (fused_head.py:248-292):
+    h and the mods are cast to the weights' dtype, and so is every
+    elementwise stage (LN output, its affine and modulation, qkv, the
+    attention output, both gated products and the residual sums, h12 and
+    silu(h1)); LN statistics, softmax and product accumulation stay fp32.
+    In bf16 each torch op rounds, as each bf16 op of the kernel does.
+    fp32_qkv_h12 keeps qkv and h12 in fp32 as the per-call blocks #14 / #15
+    do: a twin the card check holds kernel #5 away from. Returns h in the
+    weights' dtype."""
+    elem = stacked["n2"].dtype
+    stage = torch.float32 if fp32_qkv_h12 else elem
+    c = h.shape[-1]
+    hidden = stacked["b1"].shape[1] // 2
+    h = h.to(elem)
+    mods = mods.to(elem)
+
+    def sl(j):
+        return mods[:, j * c:(j + 1) * c]
+
+    def moded(x, which, nrm):
+        ln = _ln(x, eps).to(elem) * nrm[0].to(elem) + nrm[1].to(elem)
+        return ln * (1.0 + sl(which)) + sl(which + 1)
+
+    def prod(a, key):
+        return _dot_acc(a, stacked[key][l])
+
+    mlp = 0
+    if attention:
+        ha = moded(h, 0, stacked["n1"][l])
+        qkv = (prod(ha, "wqkv") + stacked["bqkv"][l].float()).to(stage)
+        att = _attn_from_qkv(qkv, n_head, groups, c).to(elem)
+        proj = (prod(att, "wo") + stacked["bo"][l].float()).to(elem)
+        h = h + proj * sl(2)
+        mlp = 3
+    hm = moded(h, mlp, stacked["n2"][l])
+    h12 = (prod(hm, "w1") + stacked["b1"][l].float()).to(stage)
+    glu = F.silu(h12[:, :hidden].float()).to(elem) * h12[:, hidden:]
+    mlp_out = (prod(glu, "w2") + stacked["b2"][l].float()).to(elem)
+    return h + mlp_out * sl(mlp + 2)
+
+
 def em_precompute(stacked: dict, c_emb: torch.Tensor, t_all: torch.Tensor,
                   t_freq_size: int = 256,
                   out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
@@ -205,17 +305,55 @@ def _attn_from_qkv(qkv: torch.Tensor, n_head: int, groups: int,
     return torch.einsum("ghqk,gkhd->gqhd", p, v).reshape(rows, c_dim)
 
 
+def _rounded_blocks(h: torch.Tensor, group_mods, group_of, final_mods: torch.Tensor,
+                    stacked: dict, *, num_blocks: int, attention: bool,
+                    n_head: int, groups: int, bounded: bool, eps: float = 1e-6,
+                    fp32_qkv_h12: bool = False) -> torch.Tensor:
+    """The blocks and final layer of kernels #3-#5 from the fp32 input
+    projection h [R, C]: block l runs :func:`_block_body` on
+    group_mods(group_of(l)) (called once per run of equal groups), then the
+    final adaLN LayerNorm on final_mods [R, 2C] and the output product in
+    fp32, 2*sigmoid-1 when bounded. Returns fp32 [R, ch]."""
+    c = stacked["n2"].shape[-1]
+    g_prev, mods = None, None
+    for l in range(num_blocks):
+        g = group_of(l)
+        if g != g_prev:
+            g_prev, mods = g, group_mods(g)
+        h = _block_body(h, mods, stacked, l, attention=attention, n_head=n_head,
+                        groups=groups, eps=eps, fp32_qkv_h12=fp32_qkv_h12)
+    fm = final_mods.float()
+    z = _ln(h, eps) * (1.0 + fm[:, :c]) + fm[:, c:]
+    out = _dot_acc(z, stacked["f_out_w"]) + stacked["f_out_b"]
+    return 2.0 * torch.sigmoid(out) - 1.0 if bounded else out
+
+
 def _net_forward(stacked: dict, x: torch.Tensor, mods_row: torch.Tensor, *,
                  num_blocks: int, switch_freq: int, n_head: int, groups: int,
                  attention: bool = True, bounded: bool = True,
-                 quant: str | None = None, eps: float = 1e-6) -> torch.Tensor:
+                 quant: str | None = None, round_residual: bool = False,
+                 eps: float = 1e-6) -> torch.Tensor:
     """One DiffNet forward on rows [x; x] with precomputed mods -> fp32
-    [R, ch]. Precision as the TPU kernel #2 (fused_head.py:689), for both
-    families: fp32 residual h, stage activations in the weights' dtype,
-    fp32 statistics. With quant ("int8" / "int4", kernel #2's stage_quant
-    and stage_dot) each stage's fp32 input (LN + modulate, the attention
-    output, silu(h1) * h2) is row-quantized as it is, without the bf16
-    rounding, and qkv and h12 are still stored in the weights' dtype."""
+    [R, ch]. round_residual=False: precision as the TPU kernel #2
+    (fused_head.py:689): fp32 residual h, stage activations in the weights'
+    dtype, fp32 statistics. With quant ("int8" / "int4", kernel #2's
+    stage_quant and stage_dot) each stage's fp32 input (LN + modulate, the
+    attention output, silu(h1) * h2) is row-quantized as it is, without the
+    bf16 rounding, and qkv and h12 are still stored in the weights' dtype.
+    round_residual=True: the blocks of kernels #3 and #4
+    (:func:`_block_body`)."""
+    if round_residual:
+        if quant:
+            raise ValueError("_net_forward: a quantized stack keeps kernel #2's "
+                             "fp32 residual")
+        c_dim = stacked["n2"].shape[-1]
+        mc = (6 if attention else 3) * c_dim
+        h = _dot_acc(torch.cat([x, x], dim=0), stacked["in_w"]) + stacked["in_b"]
+        return _rounded_blocks(
+            h, lambda g: mods_row[:, g * mc:(g + 1) * mc], lambda l: l // switch_freq,
+            mods_row[:, -2 * c_dim:], stacked, num_blocks=num_blocks,
+            attention=attention, n_head=n_head, groups=groups, bounded=bounded,
+            eps=eps)
     elem = stacked["n2"].dtype
     c_dim = stacked["n2"].shape[-1]
     hidden = stacked["b1"].shape[1] // 2
@@ -271,7 +409,8 @@ def fused_em_sample_reference(stacked: dict, x0: torch.Tensor,
                               attention: bool = True, bounded: bool = True,
                               last_step_size: float = 0.05,
                               final_chunk: bool = True,
-                              quant: str | None = None) -> torch.Tensor:
+                              quant: str | None = None,
+                              round_residual: bool | None = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_em_sample` (same arguments)."""
     num_steps = noise.shape[0]
     switch_freq = max(1, num_blocks // num_ada)
@@ -279,9 +418,11 @@ def fused_em_sample_reference(stacked: dict, x0: torch.Tensor,
     ts, dts = _as_floats(t_all), _as_floats(dt_all)
     cfg = float(cfg)
     x = x0.float()
+    if round_residual is None:
+        round_residual = rounds_residual(stacked, num_blocks, attention)
     kw = dict(num_blocks=num_blocks, switch_freq=switch_freq, n_head=n_head,
               groups=groups, attention=attention, bounded=bounded,
-              quant=quant_mode(quant))
+              quant=quant_mode(quant), round_residual=round_residual)
     for s in range(num_steps + (1 if final_chunk else 0)):
         out = _net_forward(stacked, x, allmods[s], **kw)
         t, dt = ts[s], dts[s]
@@ -307,7 +448,8 @@ def em_sample_stacked(stacked: dict, x0: torch.Tensor, noise: torch.Tensor,
                       c_emb: torch.Tensor | None = None,
                       quant: str | None = None) -> torch.Tensor:
     """Counterpart of the JAX stacked sampler: the plain sampler, computing
-    allmods from c_emb when it is not given (W8A8 on a quantized stack)."""
+    allmods from c_emb when it is not given (W8A8 on a quantized stack),
+    with an fp32 residual (the JAX function's default glue_dtype)."""
     if allmods is None:
         allmods = em_precompute(stacked, c_emb, torch.as_tensor(t_all),
                                 out_dtype=stacked["in_w"].dtype)
@@ -315,7 +457,7 @@ def em_sample_stacked(stacked: dict, x0: torch.Tensor, noise: torch.Tensor,
         stacked, x0, noise, allmods, t_all, dt_all, cfg,
         num_blocks=num_blocks, num_ada=num_ada, n_head=n_head, groups=groups,
         attention=attention, bounded=bounded, last_step_size=last_step_size,
-        quant=quant)
+        quant=quant, round_residual=False)
 
 
 _MLP_KEYS = ("n2", "w1", "b1", "w2", "b2")
@@ -340,22 +482,31 @@ def fused_em_sample(stacked: dict, x0: torch.Tensor, noise: torch.Tensor,
     it; the MlpEncoder's rows are independent), bounded the 2*sigmoid-1
     output. quant ("int8" or True, "int4"; the stack built with the same
     mode) runs the W8A8 / W4A8 products of the TPU kernel's quant mode, for
-    the TransEncoder only. CPU tensors take :func:`fused_em_sample_reference`;
-    CUDA tensors run ``csrc/fused_head.cu`` (bf16 weights, norms, biases and
-    mods; int8 block matrices with f32 scales when quantized) or raise.
+    the TransEncoder only. :func:`rounds_residual` decides from the stack,
+    as the JAX router does, whether the residual is carried in the weights'
+    dtype, as kernels #3 and #4 do. CPU tensors take
+    :func:`fused_em_sample_reference`; CUDA tensors run
+    ``csrc/fused_head.cu`` (bf16 weights, norms, biases and mods; int8 block
+    matrices with f32 scales when quantized) or raise.
     """
     mode = quant_mode(quant)
+    if x0.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"fused_em_sample: no kernel for {x0.device}")
+    round_residual = rounds_residual(stacked, num_blocks, attention)
     kw = dict(num_blocks=num_blocks, num_ada=num_ada, n_head=n_head,
               groups=groups, attention=attention, bounded=bounded,
               last_step_size=last_step_size, final_chunk=final_chunk)
     if x0.device.type == "cpu":
         return fused_em_sample_reference(stacked, x0, noise, allmods, t_all,
-                                         dt_all, cfg, quant=mode, **kw)
-    if x0.device.type != "cuda":
-        raise RuntimeError(f"fused_em_sample: no kernel for {x0.device}")
+                                         dt_all, cfg, quant=mode,
+                                         round_residual=round_residual, **kw)
     if mode is not None and not attention:
         raise ValueError("fused_em_sample: the quantized sampler is checked "
                          "for the TransEncoder only (attention=True)")
+    if mode is not None and round_residual:
+        raise ValueError("fused_em_sample: the quantized sampler keeps an fp32 "
+                         "residual (kernel #2); a quantized stack small enough "
+                         "for kernels #3/#4 is not ported")
     mats = ("w1", "w2") + (("wqkv", "wo") if attention else ())
     keys = list(_MLP_KEYS) + (list(_ATTN_KEYS) if attention else []) \
         + ["in_w", "f_out_w"]
@@ -430,10 +581,164 @@ def fused_em_sample(stacked: dict, x0: torch.Tensor, noise: torch.Tensor,
         half, ch, c_dim, hidden, num_blocks, num_steps,
         max(1, num_blocks // num_ada), max(n_head, 1), groups,
         int(attention), int(bounded), int(final_chunk), float(last_step_size),
-        _QUANT_MODES.index(mode), *q_ptrs, _cuda.stream_ptr())
+        _QUANT_MODES.index(mode), *q_ptrs, int(round_residual), _cuda.stream_ptr())
     _cuda.check(code, "fused_em_sample")
     fused_em_sample.launches += 1
     return x
 
 
 fused_em_sample.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel #5: one whole DiffNet forward (fused_head.py:_fused_net_kernel)
+# ---------------------------------------------------------------------------
+
+def adaln_views(stacked: dict, num_ada: int, attention: bool):
+    """The adaLN groups' and the final layer's modulation as row slices of
+    ``modcat_w`` [A*m*C + 2C, C] and ``modcat_b``: group g is rows
+    [g*m*C, (g+1)*m*C), the final layer's 2C rows come last. Views, not
+    copies (the JAX package pops its separate ada_w / f_ada_w stacks, ~660 MB
+    at the 14B head). Returns ([(w_g, b_g)], (f_w, f_b))."""
+    if "modcat_w_s" in stacked:
+        raise ValueError("adaln_views: the modulation is int8 in a quantized "
+                         "stack; kernel #5 takes a bf16 or fp32 stack")
+    c = stacked["n2"].shape[-1]
+    mc = (6 if attention else 3) * c
+    w, b = stacked["modcat_w"], stacked["modcat_b"]
+    if w.shape[0] != num_ada * mc + 2 * c:
+        raise ValueError(f"adaln_views: modcat_w has {w.shape[0]} rows, not "
+                         f"{num_ada} groups of {mc} + {2 * c}")
+    groups = [(w[g * mc:(g + 1) * mc], b[g * mc:(g + 1) * mc]) for g in range(num_ada)]
+    return groups, (w[num_ada * mc:], b[num_ada * mc:])
+
+
+def fused_diffnet_forward_reference(stacked: dict, x: torch.Tensor,
+                                    t: torch.Tensor, c_emb: torch.Tensor, *,
+                                    num_blocks: int, num_ada: int,
+                                    n_head: int = 0, attention: bool = True,
+                                    bounded: bool = True, t_freq_size: int = 256,
+                                    eps: float = 1e-6, group_of=None,
+                                    fp32_qkv_h12: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_diffnet_forward` (same
+    arguments), step for step as the TPU kernel #5: prologue (t-embedding
+    MLP, y = silu(te + c_emb), h = x @ in_w + in_b) in fp32, the adaLN mods
+    recomputed at each group boundary, :func:`_block_body` per block, then
+    the final adaLN LayerNorm and output product in fp32.
+
+    Twins for the card check, which holds the kernel away from them:
+    group_of(l) picks block l's adaLN group (default l // switch), and
+    fp32_qkv_h12 keeps qkv and h12 in fp32 as #14 / #15 do."""
+    from bitdance_tpu_torch.models.diff_head import timestep_embedding
+
+    squeeze = x.ndim == 2
+    xg = x[None] if squeeze else x
+    g, w, ch = xg.shape
+    rows = g * w
+    c = stacked["n2"].shape[-1]
+    switch = max(1, num_blocks // num_ada)
+    ada, (f_w, f_b) = adaln_views(stacked, num_ada, attention)
+    tf = timestep_embedding(t.reshape(rows).float(), t_freq_size)
+    te = _dot_acc(tf, stacked["t_w0"]) + stacked["t_b0"]
+    te = _dot_acc(F.silu(te), stacked["t_w2"]) + stacked["t_b2"]
+    y = F.silu(te + c_emb.reshape(rows, c).float())
+    h = _dot_acc(xg.reshape(rows, ch).float(), stacked["in_w"]) + stacked["in_b"]
+    out = _rounded_blocks(
+        h, lambda gi: _dot_acc(y, ada[gi][0]) + ada[gi][1],
+        group_of or (lambda l: l // switch), _dot_acc(y, f_w) + f_b, stacked,
+        num_blocks=num_blocks, attention=attention, n_head=n_head, groups=g,
+        bounded=bounded, eps=eps, fp32_qkv_h12=fp32_qkv_h12)
+    return out.reshape(x.shape).to(x.dtype)
+
+
+def net_launches(num_blocks: int, num_ada: int, attention: bool) -> int:
+    """Kernel launches of one :func:`fused_diffnet_forward` call on the card:
+    6 for the prologue, 2 per adaLN group, 3 per MlpEncoder block or 7 per
+    TransEncoder block, 2 for the final layer (csrc/fused_net.cu)."""
+    switch = max(1, num_blocks // num_ada)
+    groups = len(range(0, num_blocks, switch))
+    return 6 + 2 * groups + (7 if attention else 3) * num_blocks + 2
+
+
+def fused_diffnet_forward(stacked: dict, x: torch.Tensor, t: torch.Tensor,
+                          c_emb: torch.Tensor, *, num_blocks: int, num_ada: int,
+                          n_head: int = 0, attention: bool = True,
+                          bounded: bool = True,
+                          t_freq_size: int = 256) -> torch.Tensor:
+    """One whole DiffNet forward; dispatch by device.
+
+    x [G, W, ch] (TransEncoder: G groups of W window rows) or [R, ch]
+    (MlpEncoder: independent rows); t the leading dims of x; c_emb the
+    leading dims of x and C (cond @ cond_w + cond_b, computed by the
+    caller). Returns x's shape and dtype. ``stacked`` is
+    :func:`stack_diffnet_params`' layout (unquantized); the adaLN groups are
+    read from modcat_w (:func:`adaln_views`). CPU tensors take
+    :func:`fused_diffnet_forward_reference`; CUDA tensors run
+    ``csrc/fused_net.cu`` on a bf16 stack (an fp32 stack raises)."""
+    kw = dict(num_blocks=num_blocks, num_ada=num_ada, n_head=n_head,
+              attention=attention, bounded=bounded, t_freq_size=t_freq_size)
+    if x.device.type == "cpu":
+        return fused_diffnet_forward_reference(stacked, x, t, c_emb, **kw)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"fused_diffnet_forward: no kernel for {x.device}")
+    keys = list(_MLP_KEYS) + (list(_ATTN_KEYS) if attention else []) \
+        + ["in_w", "t_w0", "t_w2", "f_out_w", "modcat_w"]
+    f32_keys = ["in_b", "t_b0", "t_b2", "f_out_b", "modcat_b"]
+    _cuda.refuse_grad("fused_diffnet_forward", x, t, c_emb,
+                      *[stacked[k] for k in keys])
+    adaln_views(stacked, num_ada, attention)         # shape check
+    dev = x.device
+    for k in keys + f32_keys:
+        want = torch.float32 if k in f32_keys else torch.bfloat16
+        v = stacked[k]
+        if v.dtype != want or not v.is_contiguous() or v.device != dev:
+            raise ValueError(f"fused_diffnet_forward: stacked[{k!r}] must be "
+                             f"contiguous {want} on {dev}, got {v.dtype} on "
+                             f"{v.device}")
+    squeeze = x.ndim == 2
+    groups, w = (1, x.shape[0]) if squeeze else x.shape[:2]
+    rows, ch = groups * w, x.shape[-1]
+    c = stacked["n2"].shape[-1]
+    hidden = stacked["b1"].shape[1] // 2
+    switch = max(1, num_blocks // num_ada)
+    if (num_blocks - 1) // switch >= num_ada or ch > 32:
+        raise ValueError(f"fused_diffnet_forward: {num_blocks} blocks need "
+                         f"{(num_blocks - 1) // switch + 1} adaLN groups, the "
+                         f"stack has {num_ada}; ch = {ch} (at most 32)")
+    if (tuple(t.shape) != tuple(x.shape[:-1])
+            or tuple(c_emb.shape) != tuple(x.shape[:-1]) + (c,)):
+        raise ValueError(f"fused_diffnet_forward: t {tuple(t.shape)} and c_emb "
+                         f"{tuple(c_emb.shape)} do not match x {tuple(x.shape)}")
+    if (tuple(stacked["in_w"].shape) != (c, ch) or t_freq_size % 64 or c % 64
+            or tuple(stacked["t_w0"].shape) != (c, t_freq_size)):
+        raise ValueError(f"fused_diffnet_forward: in_w {tuple(stacked['in_w'].shape)}"
+                         f" / t_w0 {tuple(stacked['t_w0'].shape)} do not fit C = "
+                         f"{c}, ch = {ch}, t_freq_size = {t_freq_size} (a "
+                         "multiple of 64)")
+    xf = x.reshape(rows, ch).float().contiguous()
+    tf = t.reshape(rows).float().contiguous()
+    cf = c_emb.reshape(rows, c).float().contiguous()
+    m = (6 if attention else 3) * c
+    f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
+    b16 = lambda *s: torch.empty(s, dtype=torch.bfloat16, device=dev)  # noqa: E731
+    out = f32(rows, ch)
+    scratch = dict(tfreq=b16(rows, t_freq_size), f32buf=f32(rows, max(m, 2 * c)),
+                   h=f32(rows, c), y=f32(rows, c), y16=b16(rows, c),
+                   mods=b16(rows, m), act=b16(rows, max(c, hidden)),
+                   buf=b16(rows, max(3 * c if attention else 0, hidden)))
+    ptr = lambda k: stacked[k].data_ptr() if k in stacked else None  # noqa: E731
+    code = _cuda.load().bd_fused_diffnet_forward(
+        xf.data_ptr(), tf.data_ptr(), cf.data_ptr(), out.data_ptr(),
+        *[ptr(k) for k in ("in_w", "in_b", "t_w0", "t_b0", "t_w2", "t_b2",
+                           "modcat_w", "modcat_b", "f_out_w", "f_out_b",
+                           "n1", "n2", "wqkv", "bqkv", "wo", "bo",
+                           "w1", "b1", "w2", "b2")],
+        *[v.data_ptr() for v in scratch.values()],
+        groups, w, ch, c, hidden, num_blocks, num_ada, switch, max(n_head, 1),
+        t_freq_size, int(attention), int(bounded), _cuda.stream_ptr())
+    _cuda.check(code, "fused_diffnet_forward")
+    fused_diffnet_forward.launches += 1
+    return out.reshape(x.shape).to(x.dtype)
+
+
+fused_diffnet_forward.launches = 0

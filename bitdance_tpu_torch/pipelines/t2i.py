@@ -27,6 +27,7 @@ from bitdance_tpu_torch.models.diff_head import DiffHead, _run_fused_sample
 from bitdance_tpu_torch.models.tokenizer import VQModel, tokens_to_latents
 from bitdance_tpu_torch.ops.quantize import sign_quantize
 from bitdance_tpu_torch.ops.rotary import pos_embed_2d, sincos_1d_table
+from bitdance_tpu_torch.utils.precision import full_fp32
 from bitdance_tpu_torch.utils.timing import PhaseTimer
 
 
@@ -169,12 +170,9 @@ class T2IPipeline:
 
     def __init__(self, bundle: T2IModelBundle, tokenizer=None,
                  kv_int8: bool = False):
-        # TF32 off for both fp32 products and fp32 cuDNN convolutions: the
-        # serving path is bf16 (TF32 never applies there), and its fp32
-        # pieces (the head's c_emb, the plain kernel twins) stay full fp32,
-        # as in the JAX package. cuDNN would otherwise default to TF32.
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        # the serving path is bf16 (TF32 never applies there); its fp32
+        # pieces (the head's c_emb, the plain kernel twins) stay full fp32
+        full_fp32()
         self.bundle = bundle
         self.tokenizer = tokenizer
         self.kv_int8 = kv_int8

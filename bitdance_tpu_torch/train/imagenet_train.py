@@ -30,6 +30,7 @@ from bitdance_tpu_torch.models.imagenet_ar import (
 )
 from bitdance_tpu_torch.models.tokenizer import VQModel
 from bitdance_tpu_torch.train import optim as opt_lib
+from bitdance_tpu_torch.utils.precision import full_fp32
 
 NON_DECAY_KEYS = ("proj_in", "cls_embedding", "query_token")
 
@@ -126,6 +127,7 @@ def train_step(state: opt_lib.TrainState, latent_tokens: torch.Tensor,
     tensors on the device, without a host sync. ``norms_of`` maps a label to
     a substring of parameter names and adds "grad_norm_<label>", the
     pre-clip gradient norm of those parameters."""
+    full_fp32()
     model = state.model
     names = state.tx.names
     params = state.tx.params
@@ -152,6 +154,7 @@ def encode_batch(ae: VQModel, cfg: ImageNetARConfig,
                  images: torch.Tensor) -> torch.Tensor:
     """Images NHWC in [-1, 1] -> ±1 latent tokens [B, num_tokens, token_dim]:
     encode_raw, GFQ with 4 codebooks (inference), grid_to_tokens."""
+    full_fp32()
     raw = ae.encode_raw(images)
     q = gfq_quantize(raw, num_codebooks=4, training=False).quantized
     return grid_to_tokens(cfg, q)

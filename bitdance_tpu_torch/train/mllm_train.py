@@ -25,6 +25,7 @@ from bitdance_tpu_torch.models.mllm import (
     mllm_forward_train_batched,
 )
 from bitdance_tpu_torch.train import optim as opt_lib
+from bitdance_tpu_torch.utils.precision import full_fp32
 
 
 @dataclasses.dataclass
@@ -79,6 +80,7 @@ def loss_and_grads(state: opt_lib.TrainState, batch: PackedBatch, seed: int, *,
     global sequence index (microbatch a starts at a * B), so the result does
     not depend on how a fixed set of sequences is split between B and
     grad_accum (to fp32 accumulation order)."""
+    full_fp32()
     model = state.model
     params = state.tx.params
     if tcfg.grad_accum > 1:

@@ -3,8 +3,10 @@
 serving (BitDance-14B-64x), ImageNet class-conditional training
 (BitDance-H-1x, 256 px), ImageNet class-conditional sampling
 (BitDance-H-1x and BitDance-B-16x, 256 px), packed multimodal training of
-BitDance-14B-64x (full width, 4 of 40 layers) and tokenizer reconstruction
-(the release VQ tokenizer, 256 and 1024 px).
+BitDance-14B-64x (full width, 4 of 40 layers), tokenizer reconstruction
+(the release VQ tokenizer, 256 and 1024 px), and the release directory of
+BitDance-14B-64x (export, load_t2i_pipeline, the CLI; full width, 2 of 40
+layers).
 
     python3 chip_smoke.py
 
@@ -57,6 +59,21 @@ Phases, run in this order, one line each, any failure exits non-zero:
                     sampler kernels and through their plain versions, whose
                     agreements are reported; torch.profiler over one guided
                     and one unguided batch
+  fused_net         the one-call DiffNet forward (#5) vs its plain version at
+                    the H-1x MlpEncoder's unguided 8 and guided 64 rows and
+                    the B-16x TransEncoder's 32 windows of 16, on the
+                    sampler's stack and on one with its adaLN groups
+                    poisoned so a group read one block late (and for B-16x
+                    windows one row off) moves the output >= 4x the bound;
+                    each block alone against a bound that the plain twin
+                    with fp32 qkv and h12 (#14 / #15's rounding) exceeds;
+                    kernels per call counted in a captured CUDA graph and
+                    held to net_launches; its time, plain time and bound
+                    beside the per-call route's (DiffNet.forward: #14 / #15
+                    and torch glue); then the unguided H-1x and B-16x
+                    batches again from the same draws with every net call
+                    through #5: s/batch and token agreement with the
+                    per-call route
   flash_sparse      the sparse-iteration flash kernels (forward, dq, dk/dv) vs
                     their plain versions over the same tile lists and the
                     autograd Function vs autograd of the plain forward, on 7
@@ -85,6 +102,14 @@ Phases, run in this order, one line each, any failure exits non-zero:
                     images at 256 px (batch 8) and 2 at 1024 px through the
                     encode tail: exact ±1 latents, shapes, images/s, encode /
                     decode times, PSNR (reported)
+  release           random bf16 BitDance-14B-64x at 2 of 40 layers exported
+                    as a release directory under build/ (fp32 LLM, bf16
+                    head, decoder and projector; free space checked first),
+                    loaded by load_t2i_pipeline: a 512 px grid equal to the
+                    in-memory bundle's, a 2-image request, a quantized load
+                    (int8 LLM and embedding, int4 head) equal to the same
+                    quantizers in memory, the CLI's PNG equal to the
+                    in-memory image; export / load times and GB on disk
 The last lines are the kernels' JSON record (each kernel's launches on the
 main paths, error against its plain version, times, bound and, where one
 PyTorch call computes the same function, that call's time), the card's name
@@ -157,6 +182,24 @@ IMAGENET_EDGE_SHIFT = 8.0
 # to run free, the per-call tokens feed back and the two batches drift apart:
 # 0.856 agreement over 16 AR steps on the H100, PERF.md.)
 CROSS_CHECK_AGREEMENT_FLOOR = 0.90
+# kernel #5 (the whole net per call) vs its plain version: both round at
+# _block_body's points and accumulate every product in fp32, so only
+# summation order and the bf16 roundings it flips differ. Whole net, max abs
+# error relative to max |plain output|, on the poisoned stack (adaLN groups
+# 1.. scaled by -3; B-16x with the window-edge rows) and on the sampler's
+# own: about 3x the H100 readings (NVIDIA H100 80GB HBM3, 700 W) 3.7e-3 /
+# 1.9e-3 (H-1x, 8 and 64 rows) and 2.2e-2 / 9.3e-3 (B-16x). Through 6-12
+# blocks that round every op, the flips compound until the plain twin with
+# fp32 qkv and h12 (the per-call blocks' rounding) reads no further from
+# plain than the kernel does (3.5e-3 / 2.7e-3 and 2.6e-2 / 9.1e-3), so the
+# rounding is held one block at a time: each block run alone on the
+# sampler's stack, mean |error| / mean |plain| averaged over the blocks.
+# There the kernel read 1.1-1.8e-4 (H-1x) and 2.3e-4 (B-16x), the twin
+# 5.6-6.3e-4 and 7.0e-4; each bound sits between, and the twin must read
+# above it, so a kernel that rounds as #14 / #15 do fails.
+FUSED_NET_MAX_REL_ERR = {"h1x": {"poisoned": 1e-2, "sampler": 6e-3},
+                         "b16x": {"poisoned": 6e-2, "sampler": 3e-2}}
+FUSED_NET_BLOCK_MEAN_REL_ERR = {"h1x": 2.8e-4, "b16x": 4e-4}
 IMAGENET_BATCH = 32          # sample_fid's per-process batch
 IMAGENET_STEPS = 100         # sampling steps of every ImageNet run
 UNGUIDED_H1X_IMAGES = 8
@@ -264,9 +307,10 @@ def phase_device() -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
-    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in full fp32
-    torch.backends.cudnn.allow_tf32 = False         # fp32 convs in full fp32
     from bitdance_tpu_torch.ops import _cuda
+    from bitdance_tpu_torch.utils.precision import full_fp32
+
+    full_fp32()          # as every entry point of the port sets it
 
     nvcc = subprocess.run([_cuda._nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
@@ -1240,7 +1284,7 @@ def _kernel_wrappers() -> dict:
     )
     from bitdance_tpu_torch.ops.fused_block import fused_attn_block, fused_mlp_block
     from bitdance_tpu_torch.ops.fused_encode import fused_encode_tail
-    from bitdance_tpu_torch.ops.fused_head import fused_em_sample
+    from bitdance_tpu_torch.ops.fused_head import fused_diffnet_forward, fused_em_sample
     from bitdance_tpu_torch.ops.int4 import int4_matmul
 
     return {"decode_attention": decode_attention, "fused_em_sample": fused_em_sample,
@@ -1251,7 +1295,8 @@ def _kernel_wrappers() -> dict:
             "flash_fwd_sparse": flash_fwd_sparse,
             "flash_bwd_dq_sparse": flash_bwd_dq_sparse,
             "flash_bwd_dkv_sparse": flash_bwd_dkv_sparse,
-            "fused_encode_tail": fused_encode_tail}
+            "fused_encode_tail": fused_encode_tail,
+            "fused_diffnet_forward": fused_diffnet_forward}
 
 
 def _block_inputs(g, lead, c, dev):
@@ -1498,7 +1543,8 @@ def phase_imagenet_h1x(bundle, card) -> dict:
              {"fused_em_sample": 0,
               "fused_mlp_block": head.depth_latent * (UNGUIDED_H1X_STEPS + 1) * steps},
              card)
-    return {"guided": guided["counts"], "unguided": unguided["counts"]}
+    return {"guided": guided["counts"], "unguided": unguided["counts"],
+            "unguided_run": unguided}
 
 
 def phase_imagenet_b16x(bundle, card) -> dict:
@@ -1558,7 +1604,292 @@ def phase_imagenet_b16x(bundle, card) -> dict:
                     f"{n_steps} sampling steps",
                     lambda: _imagenet_run(bundle, IMAGENET_BATCH, cfg_scale, 2,
                                           n_steps))
-    return {"guided": guided["counts"], "unguided": unguided["counts"]}
+    return {"guided": guided["counts"], "unguided": unguided["counts"],
+            "unguided_run": unguided}
+
+
+# ---------------------------------------------------------------------------
+# Kernel #5: one whole DiffNet forward (csrc/fused_net.cu)
+# ---------------------------------------------------------------------------
+
+def _net_inputs(head, stacked, lead, dev, seed, edge_rows=False):
+    """x [*lead, ch], t [*lead] (one t per group for the TransEncoder, as
+    the sampler gives), cond [*lead, z] and c_emb = cond @ cond_w + cond_b.
+    edge_rows: the first and last row of every window get a large cond, so
+    their adaLN mods, and with them their q, k and v, are large: a window
+    off by one row then moves the net's output far past its bound."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ch = head.ch_target
+    x = torch.randn((*lead, ch), generator=g, device=dev)
+    t_rows = torch.rand((lead[0],), generator=g, device=dev) * 0.9 + 0.05
+    t = t_rows[:, None].expand(lead).contiguous() if len(lead) == 2 else t_rows
+    cond = torch.randn((*lead, head.ch_cond), generator=g, device=dev)
+    if edge_rows:
+        cond[:, [0, lead[1] - 1]] *= IMAGENET_EDGE_SHIFT
+    cond = cond.bfloat16()
+    c_emb = cond.float() @ stacked["cond_w"].float().t() + stacked["cond_b"]
+    return x, t, t_rows, cond, c_emb
+
+
+def _poisoned_groups(stacked, num_ada: int, attention: bool) -> dict:
+    """The stack with adaLN groups 1.. scaled by -3 (a copy of modcat_w), so
+    a group read one block late moves the net far past its bound."""
+    mc = (6 if attention else 3) * stacked["n2"].shape[-1]
+    w = stacked["modcat_w"].clone()
+    w[mc:num_ada * mc] *= -3.0
+    return dict(stacked, modcat_w=w)
+
+
+def net_bound(stacked, x, t, c_emb, *, attention, groups=1, window=1) -> dict:
+    """Bound of one net call: every weight it reads (the block stacks, the
+    t-MLP, the input and output projections, all of modcat) and x, t, c_emb
+    once, the output once; operations of its products and window
+    attention."""
+    mats = ["w1", "w2", "t_w0", "t_w2", "in_w", "f_out_w", "modcat_w"] \
+        + (["wqkv", "wo"] if attention else [])
+    vecs = ["b1", "b2", "n2", "t_b0", "t_b2", "in_b", "f_out_b", "modcat_b"] \
+        + (["bqkv", "bo", "n1"] if attention else [])
+    rows = x.numel() // x.shape[-1]
+    flops = 2.0 * rows * sum(stacked[k].numel() for k in mats)
+    if attention:
+        c, blocks = stacked["n2"].shape[-1], stacked["w1"].shape[0]
+        flops += 4.0 * groups * window * window * c * blocks
+    return roofline(nbytes(*[stacked[k] for k in mats + vecs], x, t, c_emb, x), flops)
+
+
+def _captured_kernels(run) -> int:
+    """Kernel launches of one call of ``run``: the kernel nodes of a CUDA
+    graph captured from it on a side stream (driver API, relaxed mode, after
+    one warm-up call there so the allocator holds the call's blocks). The
+    graph is destroyed unlaunched. A host sync inside ``run`` ends the
+    capture with an error, which fails the run."""
+    import ctypes
+
+    import torch
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    vp, sz = ctypes.c_void_p, ctypes.c_size_t
+    cu.cuStreamBeginCapture_v2.argtypes = [vp, ctypes.c_int]
+    cu.cuStreamEndCapture.argtypes = [vp, ctypes.POINTER(vp)]
+    cu.cuGraphGetNodes.argtypes = [vp, vp, ctypes.POINTER(sz)]
+    cu.cuGraphNodeGetType.argtypes = [vp, ctypes.POINTER(ctypes.c_int)]
+    cu.cuGraphDestroy.argtypes = [vp]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.synchronize()
+    graph, handle = vp(), vp(side.cuda_stream)
+    with torch.cuda.stream(side):
+        if cu.cuStreamBeginCapture_v2(handle, 2):        # CU_STREAM_CAPTURE_MODE_RELAXED
+            raise SystemExit("fused_net: cuStreamBeginCapture failed")
+        try:
+            run()
+        finally:
+            code = cu.cuStreamEndCapture(handle, ctypes.byref(graph))
+    if code:
+        raise SystemExit(f"fused_net: the captured call failed (CUresult {code})")
+    n = sz(0)
+    cu.cuGraphGetNodes(graph, None, ctypes.byref(n))
+    nodes = (vp * n.value)()
+    cu.cuGraphGetNodes(graph, ctypes.cast(nodes, vp), ctypes.byref(n))
+    kind, kernels = ctypes.c_int(), 0
+    for node in nodes:
+        cu.cuGraphNodeGetType(node, ctypes.byref(kind))
+        kernels += kind.value == 0                        # CU_GRAPH_NODE_TYPE_KERNEL
+    cu.cuGraphDestroy(graph)
+    return kernels
+
+
+def _one_block_gaps(stacked, x, t, c_emb, kw) -> tuple[float, float]:
+    """Each block run alone through #5 (a view of the stack holding block l
+    only) against the plain version, and the plain twin with fp32 qkv and
+    h12 against it: mean |difference| / mean |plain|, averaged over the
+    blocks. Returns (kernel, twin)."""
+    import torch
+
+    from bitdance_tpu_torch.ops.fused_head import (
+        _ATTN_KEYS,
+        _MLP_KEYS,
+        fused_diffnet_forward,
+        fused_diffnet_forward_reference,
+    )
+
+    keys = list(_MLP_KEYS) + (list(_ATTN_KEYS) if kw["attention"] else [])
+    gap = lambda a, b: ((a - b).abs().mean() / b.abs().mean()).item()  # noqa: E731
+    one = dict(kw, num_blocks=1)
+    kern, twin = [], []
+    for l in range(kw["num_blocks"]):
+        st = dict(stacked, **{k: stacked[k][l:l + 1] for k in keys})
+        want = fused_diffnet_forward_reference(st, x, t, c_emb, **one)
+        kern.append(gap(fused_diffnet_forward(st, x, t, c_emb, **one), want))
+        twin.append(gap(fused_diffnet_forward_reference(st, x, t, c_emb,
+                                                        fp32_qkv_h12=True, **one), want))
+    return sum(kern) / len(kern), sum(twin) / len(twin)
+
+
+def _check_fused_net(name, bundle, lead, dev, seed) -> dict:
+    """#5 against its plain version at one of the sampling paths' shapes, on
+    the poisoned stack (adaLN groups 1.. scaled by -3) and on the sampler's
+    own, each within its bound; one block at a time, within its bound while
+    the twin that keeps qkv and h12 in fp32 (the per-call blocks' rounding)
+    reads outside it (_one_block_gaps); the poisoned twins
+    (adaLN group switched one block late; for the TransEncoder also windows
+    one row off) at >= 4x the poisoned bound; launches per call counted from
+    a captured graph against net_launches; and the per-call route
+    (DiffNet.forward: #14 / #15 and torch glue) on the same inputs."""
+    import torch
+
+    from bitdance_tpu_torch.ops.fused_head import (
+        fused_diffnet_forward,
+        fused_diffnet_forward_reference,
+        net_launches,
+    )
+
+    head, attention = bundle.head, bundle.head.attention
+    kw = dict(num_blocks=head.depth_latent, num_ada=head.depth_adanln,
+              n_head=head.ch_latent // head.attn_head_dim if attention else 0,
+              attention=attention, bounded=head.bounded)
+    switch = max(1, kw["num_blocks"] // kw["num_ada"])
+    stacks = {"poisoned": _poisoned_groups(bundle.head_stacked, kw["num_ada"], attention),
+              "sampler": bundle.head_stacked}
+    stacked = stacks["poisoned"]
+    x, t, t_rows, cond, c_emb = _net_inputs(head, stacked, lead, dev, seed,
+                                            edge_rows=attention)
+    bounds = FUSED_NET_MAX_REL_ERR[name]
+    want, err, rel, twin = {}, {}, {}, {}
+    with torch.no_grad():
+        for k, st in stacks.items():
+            got = fused_diffnet_forward(st, x, t, c_emb, **kw)
+            want[k] = fused_diffnet_forward_reference(st, x, t, c_emb, **kw)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                raise SystemExit(f"fused_diffnet_forward {name}: non-finite output")
+            err[k], rel[k] = _errors(got, want[k])
+            twin[k] = _errors(fused_diffnet_forward_reference(
+                st, x, t, c_emb, fp32_qkv_h12=True, **kw), want[k])[1]
+        want_p = want["poisoned"]
+        xs, ts, _, _, cs = _net_inputs(head, stacked, lead, dev, seed + 100)
+        blk = dict(zip(("kernel", "fp32 qkv and h12 twin"),
+                       _one_block_gaps(bundle.head_stacked, xs, ts, cs, kw)))
+        late = lambda l: max(l - 1, 0) // switch  # noqa: E731
+        moved = {"adaLN one block late": _errors(fused_diffnet_forward_reference(
+            stacked, x, t, c_emb, group_of=late, **kw), want_p)[1]}
+        if attention:
+            rows = x.shape[0] * x.shape[1]
+            roll = lambda v: v.reshape(rows, -1).roll(1, 0).reshape(*lead, -1)  # noqa: E731
+            alt = fused_diffnet_forward_reference(
+                stacked, roll(x), roll(t[..., None])[..., 0], roll(c_emb), **kw)
+            alt = alt.reshape(rows, -1).roll(-1, 0).reshape(x.shape)
+            moved["windows one row off"] = _errors(alt, want_p)[1]
+        # the per-call route holds the sampler's weights
+        pc_rel = _errors(head.net(x, t_rows, cond), want["sampler"])[1]
+        ms = cuda_time_ms(lambda: fused_diffnet_forward(stacked, x, t, c_emb, **kw),
+                          100, warmup=5)
+        pms = cuda_time_ms(lambda: fused_diffnet_forward_reference(
+            stacked, x, t, c_emb, **kw), 20)
+        rms = cuda_time_ms(lambda: head.net(x, t_rows, cond), 100, warmup=5)
+        n_fused = _captured_kernels(lambda: fused_diffnet_forward(stacked, x, t, c_emb,
+                                                                  **kw))
+        n_route = _captured_kernels(lambda: head.net(x, t_rows, cond))
+    bd = net_bound(stacked, x, t, c_emb, attention=attention,
+                   groups=lead[0] if attention else 1,
+                   window=lead[1] if attention else 1)
+    want_n = net_launches(kw["num_blocks"], kw["num_ada"], attention)
+    fam = "TransEncoder" if attention else "MlpEncoder"
+    fmt = lambda d: json.dumps({k: float(f"{v:.4g}") for k, v in d.items()})  # noqa: E731
+    log("fused_net", f"fused_diffnet_forward {name} ({fam}, C={head.ch_latent}, "
+        f"{kw['num_blocks']} blocks, {kw['num_ada']} groups, x {tuple(x.shape)}): "
+        f"max abs err {fmt(err)}, rel {fmt(rel)} (bounds "
+        f"{fmt(bounds)}; the fp32-qkv-and-h12 twin reads {fmt(twin)}); one block "
+        f"at a time, mean rel {fmt(blk)} (bound {FUSED_NET_BLOCK_MEAN_REL_ERR[name]}"
+        f", the twin above it); poisoned plain twins move it by {fmt(moved)} of max "
+        f"(floor {4 * bounds['poisoned']}); kernel {ms:.4f} ms ({n_fused} kernels "
+        f"per call in a captured graph, net_launches {want_n}), plain {pms:.4f} ms, "
+        f"per-call route (DiffNet.forward) {rms:.4f} ms ({n_route} kernels per "
+        f"call in a captured graph; rel {pc_rel:.3e} from #5's plain version), "
+        f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    bb = FUSED_NET_BLOCK_MEAN_REL_ERR[name]
+    if (any(rel[k] > bounds[k] for k in stacks) or blk["kernel"] > bb
+            or blk["fp32 qkv and h12 twin"] <= bb
+            or min(moved.values()) < 4 * bounds["poisoned"] or n_fused != want_n):
+        raise SystemExit(f"fused_diffnet_forward {name}: rel {rel} (bounds {bounds}), "
+                         f"one block at a time {blk} (bound {bb}), poisoned {moved}, "
+                         f"{n_fused} kernels per call (net_launches {want_n})")
+    return {"max_abs_err": err["poisoned"], "ms": ms, "plain_ms": pms, **bd,
+            "library_ms": None, "route_ms": rms}
+
+
+def fused_net_sampler(head, stacked):
+    """The unguided per-call sampler with every net call through #5: the
+    draws and the loop of DiffHead.sample_per_call, its net_fn a closure
+    over fused_diffnet_forward (c_emb computed once per AR step). A
+    measurement of the smoke script, not a route of DiffHead."""
+    import math
+
+    import torch
+
+    from bitdance_tpu_torch.models.diff_head import draw_sampler_noise
+    from bitdance_tpu_torch.models.sampling import euler_maruyama
+    from bitdance_tpu_torch.ops.fused_head import fused_diffnet_forward
+
+    kw = dict(num_blocks=head.depth_latent, num_ada=head.depth_adanln,
+              n_head=head.ch_latent // head.attn_head_dim if head.attention else 0,
+              attention=head.attention, bounded=head.bounded)
+
+    def sample_fn(cond, generator, cfg, num_sampling_steps, cfg_mult):
+        c_emb = cond.float() @ stacked["cond_w"].float().t() + stacked["cond_b"]
+
+        def net_fn(x, t, _cond):
+            tt = t[:, None].expand(x.shape[:-1]) if x.ndim == 3 else t
+            return fused_diffnet_forward(stacked, x, tt, c_emb, **kw)
+
+        x_shape = [cond.shape[0] // cfg_mult, *cond.shape[1:-1], head.ch_target]
+        half = math.prod(x_shape[:-1])
+        x0, noise = draw_sampler_noise(generator, half, head.ch_target,
+                                       num_sampling_steps, cond.device)
+        with torch.no_grad():
+            return euler_maruyama(
+                net_fn, cond, None, head.ch_target, cfg=cfg, cfg_mult=cfg_mult,
+                num_sampling_steps=num_sampling_steps, flow_shift=head.time_shift,
+                x_init=x0.reshape(x_shape),
+                noise=noise.reshape(num_sampling_steps, *x_shape))
+
+    return sample_fn
+
+
+def phase_fused_net(h1x, b16x, unguided_tokens: dict, card: str) -> dict:
+    """#5 at the ImageNet heads' shapes (H-1x MlpEncoder: the unguided 8 and
+    guided 64 rows; B-16x TransEncoder: 32 windows of 16), then the
+    unguided batches of imagenet_h1x and imagenet_b16x again from the same
+    draws with every net call through #5 (the kernel's main path here; the
+    counts set to 0 before and read after), against today's per-call route
+    (their tokens and s/batch from the earlier phases)."""
+    dev = h1x.head.net.input_proj.weight.device
+    out = {
+        "h1x_8": _check_fused_net("h1x", h1x, (UNGUIDED_H1X_IMAGES,), dev, 21),
+        "h1x_64": _check_fused_net("h1x", h1x, (2 * IMAGENET_BATCH,), dev, 22),
+        "b16x": _check_fused_net("b16x", b16x, (IMAGENET_BATCH, 16), dev, 23),
+    }
+    launches = 0
+    for name, bundle, n, steps in (("h1x", h1x, UNGUIDED_H1X_IMAGES, UNGUIDED_H1X_STEPS),
+                                   ("b16x", b16x, IMAGENET_BATCH, IMAGENET_STEPS)):
+        ar_steps = bundle.cfg.num_tokens // bundle.cfg.parallel_num
+        r = _imagenet_run(bundle, n, 1.0, 1, steps,
+                          head_sampler=fused_net_sampler(bundle.head,
+                                                         bundle.head_stacked))
+        route = unguided_tokens[name]
+        agree = (r["tokens"] == route["tokens"]).float().mean().item()
+        _log_run("fused_net", f"{name}: {n} images unguided, {steps} sampling steps "
+                 f"through #5 (per-call route: {route['s']:.3f} s/batch); +-1 "
+                 f"agreement with the per-call route's tokens {agree:.4f}", r,
+                 {"fused_diffnet_forward": ar_steps * (steps + 1),
+                  "fused_mlp_block": 0, "fused_attn_block": 0}, card)
+        launches += r["counts"]["fused_diffnet_forward"]
+    out["launches"] = launches
+    return out
 
 
 @contextlib.contextmanager
@@ -2244,6 +2575,183 @@ def phase_tokenizer(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The release directory: export, load_t2i_pipeline and the CLI
+# ---------------------------------------------------------------------------
+
+RELEASE_LAYERS = 2           # of the 40: the fp32 LLM alone is 8.8 GB at 2
+RELEASE_REQUEST = ("a lighthouse at dusk, released", 512, 11)
+
+
+def _png_pixels(path):
+    """uint8 [H, W, 3] of an 8-bit RGB PNG with filter-0 rows (what
+    cli/t2i.py writes); raises on anything else."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    data = open(path, "rb").read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise SystemExit(f"{path}: not a PNG")
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if zlib.crc32(kind + body) & 0xFFFFFFFF != struct.unpack(
+                ">I", data[pos + 8 + n:pos + 12 + n])[0]:
+            raise SystemExit(f"{path}: bad CRC in {kind}")
+        if kind == b"IHDR":
+            w, h, depth, color = struct.unpack(">IIBB", body[:10])
+            if (depth, color) != (8, 2):
+                raise SystemExit(f"{path}: depth {depth} color {color}")
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise SystemExit(f"{path}: filtered rows")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def phase_release(card: str) -> dict:
+    """A random BitDance-14B-64x bundle at full width, RELEASE_LAYERS of its
+    40 layers, exported as a release directory (the LLM as fp32 HF Qwen3,
+    the head, VQ decoder and projector in their bf16, as the released
+    shards are) under the gitignored build/, loaded back with
+    load_t2i_pipeline: one 512 px request whose +-1 grid must equal the
+    in-memory bundle's bit for bit, one 2-image request (R = 256 sampler
+    rows), one quantized load (int8 W8A8 LLM, int8 embedding, int4 W4A8
+    head) whose grid must equal the same quantizers applied in memory; then
+    the CLI once on the directory as a subprocess (its PNG must equal the
+    in-memory image). The directory is deleted."""
+    import copy
+    import dataclasses
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from bitdance_tpu_torch.io.random_init import (
+        BITDANCE_14B_64X,
+        _module_tree_copy,
+        build_random_bundle,
+    )
+    from bitdance_tpu_torch.models.qwen3 import Qwen3Config, quantized_structure_
+    from bitdance_tpu_torch.ops.fused_head import fused_em_sample
+    from bitdance_tpu_torch.pipelines.loader import load_t2i_pipeline
+    from bitdance_tpu_torch.pipelines.t2i import T2IPipeline
+    from bitdance_tpu_torch.train.checkpoints import export_hf_qwen3, export_release_dir
+
+    root = Path(__file__).resolve().parent / "build"
+    out_dir = root / "release_14b"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(Qwen3Config.qwen3_14b(), num_hidden_layers=RELEASE_LAYERS)
+    bundle = build_random_bundle("cuda", llm_cfg=cfg, seed=5)
+    tok = StubTokenizer(bundle.parallel_num)
+    prompt, px, seed = RELEASE_REQUEST
+
+    def request(pipe, n=1):
+        img, tokens = pipe.generate(prompt, px, px, num_sampling_steps=50,
+                                    guidance_scale=7.5, num_images=n, seed=seed,
+                                    return_tokens=True)
+        ok = (img.shape == (n, px, px, 3) and tokens.shape == (n, (px // 16) ** 2, 32)
+              and set(np.unique(tokens).tolist()) <= {-1.0, 1.0})
+        if not ok:
+            raise SystemExit(f"release: a {n}-image request failed its checks")
+        return img, tokens
+
+    mem_img, mem_tok = request(T2IPipeline(bundle, tok))
+    llm_q = quantized_structure_(_module_tree_copy(bundle.llm), "int8",
+                                 embed_int8=True, fill=True)
+    head_q = copy.copy(bundle.head)
+    head_q.sample_weight_quant = "int4"
+    bundle_q = dataclasses.replace(bundle, llm=llm_q, head=head_q,
+                                   head_stacked=head_q._stack_for_sampler())
+    _, mem_tok_q = request(T2IPipeline(bundle_q, tok))
+    del bundle_q, llm_q, head_q
+    log("release", f"BitDance-14B-64x at {RELEASE_LAYERS} of 40 layers: bundle and "
+        f"the two in-memory requests in {time.perf_counter() - t0:.1f} s")
+
+    need = sum(p.numel() * 4 for p in bundle.llm.parameters()) + sum(
+        p.numel() * p.element_size()
+        for m in (bundle.head, bundle.ae, bundle.projector) for p in m.state_dict().values())
+    root.mkdir(exist_ok=True)
+    free = shutil.disk_usage(root).free
+    if free < 1.05 * need:
+        raise SystemExit(f"release: the export needs {need / 1e9:.1f} GB under "
+                         f"{root}, {free / 1e9:.1f} GB are free (short by "
+                         f"{(1.05 * need - free) / 1e9:.1f} GB)")
+    geo = BITDANCE_14B_64X
+    t0 = time.perf_counter()
+    export_release_dir(str(out_dir), ae=bundle.ae, head=bundle.head,
+                       projector=bundle.projector, dtype=None, configs={
+                           "ae_config": {"ddconfig": geo["ddconfig"], "gan_decoder": False},
+                           "vision_head_config": dict(geo["head"])})
+    export_hf_qwen3(bundle.llm, str(out_dir))
+    export_s = time.perf_counter() - t0
+    gb = sum(f.stat().st_size for f in out_dir.iterdir()) / 1e9
+    del bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    try:
+        t0 = time.perf_counter()
+        pipe = load_t2i_pipeline(str(out_dir), tokenizer=tok)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        _, tokens = request(pipe)
+        same = np.array_equal(tokens, mem_tok)
+        fused_em_sample.launches = 0
+        t0 = time.perf_counter()
+        request(pipe, 2)
+        two_s = time.perf_counter() - t0
+        two_launches = fused_em_sample.launches
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        pipe = load_t2i_pipeline(str(out_dir), quantize_llm=True, quantize_head="int4",
+                                 quantize_embed=True, tokenizer=tok)
+        torch.cuda.synchronize()
+        load_q_s = time.perf_counter() - t0
+        _, tokens_q = request(pipe)
+        same_q = np.array_equal(tokens_q, mem_tok_q)
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+        png = out_dir / "cli.png"
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; from bitdance_tpu_torch.cli "
+             "import t2i; sys.exit(t2i.main(sys.argv[1:], tokenizer="
+             "chip_smoke.StubTokenizer(64)))", str(out_dir), "--prompt", prompt,
+             "--resolution", str(px), "--seed", str(seed), "--out", str(png)],
+            cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+            timeout=600)
+        cli_s = time.perf_counter() - t0
+        if cli.returncode != 0:
+            raise SystemExit(f"release: the CLI failed:\n{cli.stderr[-3000:]}")
+        cli_same = np.array_equal(_png_pixels(png), mem_img[0])
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    steps = (px // 16) ** 2 // 64
+    log("release", f"export {export_s:.1f} s, {gb:.2f} GB on disk; load "
+        f"{load_s:.1f} s (bf16), {load_q_s:.1f} s (int8 LLM and embedding, int4 "
+        f"head); {px} px grid equal to the in-memory bundle's: {same}; 2-image "
+        f"request {two_s:.2f} s ({two_launches} sampler launches at R = 256, want "
+        f"{steps}); quantized grid equal to the in-memory quantizers': {same_q}; "
+        f"CLI {cli_s:.1f} s ({cli.stdout.strip().splitlines()[-1]}), PNG equal to "
+        f"the in-memory image: {cli_same}; card {card}")
+    if not (same and same_q and cli_same and two_launches == steps):
+        raise SystemExit("release: a loaded grid, the CLI's image or the "
+                         "2-image request failed its check")
+    return {"export_s": export_s, "gb": gb, "load_s": load_s, "load_q_s": load_q_s}
+
+
 def build_imagenet_samplers():
     """Random BitDance-H-1x and BitDance-B-16x samplers (bf16) on the card."""
     import torch
@@ -2312,6 +2820,10 @@ def main() -> int:
     results.update(phase_imagenet_kernels(h1x, b16x))
     h = phase_imagenet_h1x(h1x, card)
     b = phase_imagenet_b16x(b16x, card)
+    net = phase_fused_net(h1x, b16x, {"h1x": h.pop("unguided_run"),
+                                      "b16x": b.pop("unguided_run")}, card)
+    results["fused_net"] = net["h1x_8"]
+    launches["fused_diffnet_forward"] = net["launches"]
     launches.update({
         "fused_em_sample_mlp": h["guided"]["fused_em_sample"],
         "fused_em_sample_b16x": b["guided"]["fused_em_sample"],
@@ -2330,6 +2842,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     results.update(phase_encode_kernel())
     launches["fused_encode_tail"] = phase_tokenizer(card)["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_release(card)
 
     records = []
     meta = {
@@ -2379,6 +2894,10 @@ def main() -> int:
                                  "bitdance_tpu/ops/attention.py:1013"),
         "fused_encode_tail": ("fused_encode_tail", "bitdance_tpu_torch/csrc/fused_encode.cu",
                               "bitdance_tpu/ops/fused_encode.py:83"),
+        # the H-1x unguided rows (8 x C 1280); the B-16x shape's numbers are
+        # in the fused_net phase's log
+        "fused_diffnet_forward": ("fused_net", "bitdance_tpu_torch/csrc/fused_net.cu",
+                                  "bitdance_tpu/ops/fused_head.py:426"),
     }
     for name, (key, src, repl) in meta.items():
         r = results[key]

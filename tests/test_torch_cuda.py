@@ -411,3 +411,62 @@ def test_fused_encode_tail_kernel(dev, shape, dtype):
     clear = ref.float().abs() > 1e-3
     assert set(sgn.unique().tolist()) <= {-1.0, 1.0}
     assert (sgn == torch.where(ref > 0, 1.0, -1.0).to(sgn.dtype))[clear].all()
+
+
+BLOCK_BOUND = {False: 3e-5, True: 1.5e-4}
+
+
+@pytest.mark.parametrize("attention", [False, True], ids=["mlp", "trans"])
+def test_fused_diffnet_forward_kernel(dev, attention):
+    """Kernel #5 (one whole net call) vs its plain version, small heads of
+    both families: the whole net's max error relative to max |plain|, then
+    each block run alone, whose mean error relative to mean |plain| must
+    stay under a bound that the plain twin with fp32 qkv and h12 (the
+    per-call blocks' rounding) exceeds. Bounds: a few times the H100
+    readings (NVIDIA H100 80GB HBM3, 700 W; mlp: whole 3.8e-4, per block
+    3.3e-6 against the twin's 8.9e-4; trans: whole 2.0e-3, per block 3.2e-5
+    against 1.2e-3). An fp32 stack on the card raises."""
+    from bitdance_tpu_torch.io.random_init import init_head
+    from bitdance_tpu_torch.ops.fused_head import (
+        _ATTN_KEYS,
+        _MLP_KEYS,
+        fused_diffnet_forward,
+        fused_diffnet_forward_reference,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    head = init_head(dict(ch_target=16, ch_cond=256, ch_latent=256, depth_latent=4,
+                          depth_adanln=2, attention=attention, attn_head_dim=64,
+                          parallel_num=16, bounded_output=attention),
+                     dev, torch.bfloat16, g)
+    s = head._stack_for_sampler()
+    lead = (6, 16) if attention else (40,)
+    x = torch.randn((*lead, 16), generator=g, device=dev)
+    t = torch.rand(lead, generator=g, device=dev)
+    c_emb = torch.randn((*lead, 256), generator=g, device=dev)
+    kw = dict(num_blocks=4, num_ada=2, n_head=4 if attention else 0,
+              attention=attention, bounded=attention)
+    n = fused_diffnet_forward.launches
+    with torch.no_grad():
+        got = fused_diffnet_forward(s, x, t, c_emb, **kw)
+        want = fused_diffnet_forward_reference(s, x, t, c_emb, **kw)
+    assert fused_diffnet_forward.launches == n + 1
+    assert got.shape == x.shape and got.dtype == x.dtype
+    rel = (got - want).abs().max() / want.abs().max()
+    assert rel.item() < (6e-3 if attention else 1.5e-3)
+    keys = list(_MLP_KEYS) + (list(_ATTN_KEYS) if attention else [])
+    one = dict(kw, num_blocks=1)
+    gap = lambda a, b: ((a - b).abs().mean() / b.abs().mean()).item()  # noqa: E731
+    kern, twin = [], []
+    with torch.no_grad():
+        for l in range(4):
+            st = dict(s, **{k: s[k][l:l + 1] for k in keys})
+            want = fused_diffnet_forward_reference(st, x, t, c_emb, **one)
+            kern.append(gap(fused_diffnet_forward(st, x, t, c_emb, **one), want))
+            twin.append(gap(fused_diffnet_forward_reference(
+                st, x, t, c_emb, fp32_qkv_h12=True, **one), want))
+    bound = BLOCK_BOUND[attention]
+    assert sum(kern) / 4 < bound < sum(twin) / 4, (kern, twin)
+    f32 = {k: v.float() if v.dtype == torch.bfloat16 else v for k, v in s.items()}
+    with pytest.raises(ValueError, match="bfloat16"):
+        fused_diffnet_forward(f32, x, t, c_emb, **kw)

@@ -1,7 +1,8 @@
-"""Package boundary of the port: no JAX and nothing of bitdance_tpu (the port
-keeps its own special_tokens, which gives the JAX module's results); the
-weight bridge round-trips; the kernels' no-backward guard is a pure
-predicate."""
+"""Package boundary of the port: no JAX and nothing of bitdance_tpu, in the
+source and at import time (the port keeps its own special_tokens, which
+gives the JAX module's results; the release readers need no safetensors or
+transformers package); the weight bridge round-trips; the kernels'
+no-backward guard is a pure predicate."""
 
 import ast
 from pathlib import Path
@@ -43,6 +44,42 @@ def test_port_imports_no_jax(path):
         assert top not in ("jax", "jaxlib", "flax", "optax", "orbax"), (path, mod)
         if top == "bitdance_tpu":
             assert mod in ALLOWED_FROM_JAX_PACKAGE, (path, mod)
+
+
+# modules added with kernel #5 and the release directory; the AST check
+# above covers every file, this list makes sure none of them goes missing
+RELEASE_SLICE_MODULES = (
+    "bitdance_tpu_torch.cli.t2i", "bitdance_tpu_torch.io.release",
+    "bitdance_tpu_torch.io.safetensors", "bitdance_tpu_torch.pipelines.loader",
+    "bitdance_tpu_torch.train.checkpoints", "bitdance_tpu_torch.utils.precision",
+)
+
+
+def test_every_port_module_imports_without_jax():
+    """Import every module of the port in a fresh process where importing
+    jax, flax, optax, orbax, safetensors, transformers or bitdance_tpu
+    raises: no module reaches them at import time, directly or not."""
+    import subprocess
+    import sys
+
+    files = sorted((ROOT / "bitdance_tpu_torch").rglob("*.py"))
+    mods = [".".join(f.relative_to(ROOT).with_suffix("").parts) for f in files]
+    mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m for m in mods]
+    assert set(RELEASE_SLICE_MODULES) <= set(mods)
+    script = (
+        "import importlib, sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
+        "                                  'safetensors', 'transformers', 'bitdance_tpu'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print('ok', len(sys.modules))\n")
+    res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0 and res.stdout.startswith("ok"), res.stderr[-3000:]
 
 
 class _StubTokenizer:
@@ -181,3 +218,8 @@ def test_kernel_wrappers_refuse_non_cuda_non_cpu_devices():
         fused_em_sample({}, x0, torch.zeros((2, 4, 8), device="meta"), None,
                         [0.0, 0.5, 0.9], [0.5, 0.4, 0.0], 2.0, num_blocks=2,
                         num_ada=2, quant="int4")
+    from bitdance_tpu_torch.ops.fused_head import fused_diffnet_forward
+
+    with pytest.raises(RuntimeError, match="no kernel"):
+        fused_diffnet_forward({}, x0, torch.zeros(4, device="meta"), x0,
+                              num_blocks=2, num_ada=2, attention=False)
