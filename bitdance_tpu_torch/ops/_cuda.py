@@ -32,8 +32,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "bd_decode_attention": [_P] * 6 + [_I] * 6 + [_F, _P],
-    "bd_decode_attention_fusedkv": [_P] * 6 + [_I] * 6 + [_F, _P],
+    "bd_decode_attention": [_P] * 9,
+    "bd_decode_attention_fusedkv": [_P] * 9,
+    "bd_decode_blocks_per_sm": [_I],
     "bd_w4a8_matmul": [_P, _I] + [_P] * 5 + [_I] * 3 + [_P],
     "bd_fused_em_sample": ([_P, _P, _P, _I, _P, _P, _F] + [_P] * 17
                            + [_I] * 12 + [_F, _I] + [_P] * 7 + [_I, _P]),
@@ -138,7 +139,10 @@ def check(code: int, name: str) -> None:
 
 
 def stream_ptr() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current device's current CUDA stream as an int, from the raw
+    accessor PyTorch's generated code uses (a Stream object costs several
+    microseconds of host time a launch)."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
 
 
 def needs_grad(*tensors) -> bool:

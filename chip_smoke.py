@@ -13,7 +13,13 @@ layers).
 Phases, run in this order, one line each, any failure exits non-zero:
   device            torch / CUDA / nvcc versions, card name and power limit
   build             nvcc builds bitdance_tpu_torch/csrc into build/
-  decode_attention  kernel vs its plain version at the path's shapes
+  decode_attention  kernel vs its plain version at the path's shapes: the
+                    three decode windows and one with its edges where the
+                    cache's splits meet, window-off-by-one check, two launches
+                    bit-equal, the split count, kernel (eager, device-only,
+                    host per call), plain and SDPA times at each window, and
+                    device times around the split count at 1024 and 512 px,
+                    B 2 and 4
   sampler           whole-sampler kernel vs its plain version at the 14B head
   e2e               full-width random BitDance-14B-64x bundle, T2IPipeline
                     .generate: two prompts at 512 px, one at 1024 px
@@ -22,8 +28,8 @@ Phases, run in this order, one line each, any failure exits non-zero:
   quant_kernels     the quantized serving kernels vs their plain versions, from
                     the same bf16 weights: the W4A8 matmul at the seven Qwen3
                     projections (M = 128 and 132), the fused-KV decode on bf16
-                    and int8 buffers at the three decode windows (with the
-                    window-off-by-one check), the sampler's W8A8 and W4A8 modes
+                    and int8 buffers with decode_attention's checks and times,
+                    the sampler's W8A8 and W4A8 modes
                     at the 14B head (4 steps, then sign agreement over 50)
   e2e_quant         the bundle quantized layer by layer: the int8 configuration
                     (W8A8 Qwen3, W8A8 head, int8 KV) on the first 512 px
@@ -254,7 +260,7 @@ PROFILE_GROUPS = (
     ("integer products", ("gemm_s8", "quantize_rows", "i16832gemm")),
     ("products", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
     ("flash attention", ("flash_",)),
-    ("decode attention", ("decode_attention",)),
+    ("decode attention", ("decode_attention", "split_decode", "split_combine")),
     ("head stages", ("window_attention", "ln_modulate", "final_em", "proj_in_kernel")),
     ("optimizer foreach", ("multi_tensor_apply",)),
     ("elementwise, casts, reductions", ("elementwise", "copy", "reduce", "Cat", "index",
@@ -300,6 +306,22 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host time of one call in microseconds: ``calls`` calls timed on the
+    host clock with nothing waiting on the card (200 two-launch calls stay
+    inside the launch queue), so it reads what a call costs the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
 
 
 def phase_device() -> None:
@@ -351,69 +373,206 @@ def _poison_window_edges(v, kv_start, kv_len):
     return v
 
 
-def phase_decode_attention() -> dict:
+def cuda_graph_time_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Device time per call: ``calls`` calls captured in one CUDA graph and
+    replayed ``reps`` times, so no host launch cost is counted."""
     import torch
 
-    from bitdance_tpu_torch.ops.decode_attention import (
-        decode_attention,
-        decode_attention_reference,
-    )
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (calls * reps)
+
+
+# the 1024 px geometry of the 14B-64x decode: 2 CFG rows (the second left-
+# padded by 50), 64 tokens, 40 / 8 heads, a cache of 4226 positions
+DECODE_SHAPE = dict(b=2, s=64, hq=40, hkv=8, d=128)
+DECODE_L = 64 + 2 + 64 + 64 * 64
+DECODE_WINDOWS = {"prefill_pass2": 64 + 2 + 64, "mid_decode": 64 + 2 + 64 + 32 * 64,
+                  "last_step": DECODE_L}
+
+
+def _decode_buffers(fmt, k, v):
+    """The cache arguments of a format: bf16 head-major k, v; a fused bf16
+    buffer; or the int8 fused buffer and its scales, from the same k, v."""
+    import torch
+
+    from bitdance_tpu_torch.ops.decode_attention import quantize_kv_rows
+
+    if fmt == "bf16":
+        return (k, v)
+    if fmt == "fused_bf16":
+        return (torch.cat([k, v], dim=-1), None)
+    kv, sc = quantize_kv_rows(k.transpose(1, 2), v.transpose(1, 2))
+    return (kv.contiguous(), sc.contiguous())
+
+
+def _decode_fns(fmt, q, bufs, kv_len, kv_start, **kw):
+    """(kernel, plain version, the same attention as one SDPA call) on the
+    same inputs; SDPA takes the window as a boolean mask, GQA by enable_gqa,
+    and an int8 buffer dequantized to bf16. ``kw`` goes to the kernel's
+    wrapper (n_splits)."""
+    import torch
+
+    from bitdance_tpu_torch.ops import decode_attention as da
+
+    if fmt == "bf16":
+        kernel = lambda: da.decode_attention(q, *bufs, kv_len, kv_start, **kw)  # noqa: E731
+        plain = lambda: da.decode_attention_reference(q, *bufs, kv_len, kv_start)  # noqa: E731
+        kd, vd = bufs
+    else:
+        kernel = lambda: da.decode_attention_fusedkv(q, bufs[0], kv_len, kv_start,  # noqa: E731
+                                                     bufs[1], **kw)
+        plain = lambda: da.decode_attention_fusedkv_reference(  # noqa: E731
+            q, bufs[0], kv_len, kv_start, bufs[1])
+        kd, vd = (t.bfloat16().contiguous() for t in da.dequantize_fused_kv(*bufs))
+    L = kd.shape[2]
+    pos = torch.arange(L, device=q.device)
+    mask = ((pos >= kv_start[:, None]) & (pos < kv_len[:, None]))[:, None, None]
+    mask = mask.expand(q.shape[0], 1, q.shape[1], L)
+    qt = q.transpose(1, 2)
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qt, kd, vd, attn_mask=mask, enable_gqa=True)
+    return kernel, plain, library
+
+
+def _check_decode(fmt: str, seed: int, phase: str) -> dict:
+    """One decode kernel format against its plain version at the decode
+    windows, edges poisoned, with the window-off-by-one check on the plain
+    version, two launches bit for bit, the split count, and at each of the
+    three windows the kernel's time (eager, the record's ms; device-only
+    from a CUDA graph; the wrapper's host time a call), the plain version's
+    and one SDPA call's (eager, the record's library_ms, and device-only).
+    A fourth case puts every window edge on a 64-key tile edge where the
+    full cache's splits meet (bound: mid_decode's); then the split sweeps
+    of `_split_sweeps`. Returns the last step's record."""
+    import torch
+
+    from bitdance_tpu_torch.ops.decode_attention import kernel_splits
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(0)
-    b, s, hq, hkv, d = 2, 64, 40, 8, 128
-    P, p, L = 64, 64, 64 + 2 + 64 + 64 * 64              # 1024 px geometry
+    sh = DECODE_SHAPE
+    b, s, hq, hkv, d, L = sh["b"], sh["s"], sh["hq"], sh["hkv"], sh["d"], DECODE_L
+    g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((b, s, hq, d), generator=g, device=dev).bfloat16()
     k = torch.randn((b, hkv, L, d), generator=g, device=dev).bfloat16()
     v0 = torch.randn((b, hkv, L, d), generator=g, device=dev).bfloat16()
-    kv_start = torch.tensor([0, 50], dtype=torch.int32, device=dev)  # left pads
+    quant = fmt == "int8"
+    n_splits = kernel_splits(q.shape, hkv, L, dev, quant)
+    tiles = -(-L // 64)
+    edge = 64 * (tiles // n_splits)        # where the full cache's second split starts
+    cases = {name: ([0, 50], [n, n]) for name, n in DECODE_WINDOWS.items()}
+    cases["split_edges"] = ([0, edge], [2 * edge, L])
+    bounds = dict(DECODE_MAX_ABS_ERR, split_edges=DECODE_MAX_ABS_ERR["mid_decode"])
     worst, rec = 0.0, {}
-    cases = {"prefill_pass2": P + 2 + p, "mid_decode": P + 2 + p + 32 * p,
-             "last_step": L}
     with torch.no_grad():
-        for name, n in cases.items():
-            kv_len = torch.full((b,), n, dtype=torch.int32, device=dev)
-            v = _poison_window_edges(v0, kv_start, kv_len)
-            got = decode_attention(q, k, v, kv_len, kv_start)
-            want = decode_attention_reference(q, k, v, kv_len, kv_start)
+        for name, (starts, lens) in cases.items():
+            kv_start = torch.tensor(starts, dtype=torch.int32, device=dev)
+            kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+            bufs = _decode_buffers(fmt, k, _poison_window_edges(v0, kv_start, kv_len))
+            kernel, plain, library = _decode_fns(fmt, q, bufs, kv_len, kv_start)
+            got, again = kernel(), kernel()
+            want = plain()
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
+            same = torch.equal(got, again)
             # how far the plain version moves when the window is off by one
             shifted = [(kv_len - 1, kv_start), (kv_len, kv_start + 1)]
-            if n < L:
+            if max(lens) < L:
                 shifted.append((kv_len + 1, kv_start))
-            shift = min(
-                (decode_attention_reference(q, k, v, nl, ns).float()
-                 - want.float()).abs().max().item() for nl, ns in shifted)
-            bound = DECODE_MAX_ABS_ERR[name]
-            if not torch.isfinite(got).all() or err > bound or shift < 4 * bound:
-                raise SystemExit(f"decode_attention {name}: max abs err {err} "
-                                 f"(bound {bound}), off-by-one shift {shift}")
+            shift = min((_decode_fns(fmt, q, bufs, nl, ns)[1]().float()
+                         - want.float()).abs().max().item() for nl, ns in shifted)
+            bound = bounds[name]
+            if not torch.isfinite(got).all() or err > bound or shift < 4 * bound \
+                    or not same:
+                raise SystemExit(f"{phase} {fmt} {name}: max abs err {err} (bound "
+                                 f"{bound}), off-by-one shift {shift}, two launches "
+                                 f"bit-equal {same}")
             worst = max(worst, err)
-            ms = cuda_time_ms(lambda: decode_attention(q, k, v, kv_len, kv_start), 50)
-            pms = cuda_time_ms(
-                lambda: decode_attention_reference(q, k, v, kv_len, kv_start), 10)
-            log("decode_attention", f"{name} kv_len={n}: max abs err {err:.3e} "
-                f"(bound {bound}; a window off by one key moves the plain "
-                f"version by >= {shift:.3e}); kernel {ms:.4f} ms, plain "
-                f"{pms:.4f} ms")
-            rec = {"ms": ms, "plain_ms": pms}
-        # the last case: bound over the live keys, and SDPA with the same
-        # window as a boolean mask (GQA by enable_gqa)
-        live = (kv_len - kv_start).sum().item()
-        rec.update(roofline(nbytes(q, q) + 2 * hkv * d * 2 * live,
-                         4.0 * hq * s * d * live))
-        pos = torch.arange(L, device=dev)
-        mask = ((pos >= kv_start[:, None]) & (pos < kv_len[:, None]))[:, None, None]
-        mask = mask.expand(b, 1, s, L)
-        qt = q.transpose(1, 2)
-        rec["library_ms"] = cuda_time_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, k, v, attn_mask=mask, enable_gqa=True), 50)
-        log("decode_attention", f"kv_len={L}: bound {rec['bound_ms']:.4f} ms "
-            f"({rec['bound_by']}); scaled_dot_product_attention "
-            f"{rec['library_ms']:.4f} ms")
+            msg = (f"{fmt} {name} kv_start={starts} kv_len={lens} n_splits={n_splits}: "
+                   f"max abs err {err:.3e} (bound {bound}; a window off by one key "
+                   f"moves the plain version by >= {shift:.3e}); two launches "
+                   "bit-equal")
+            if name != "split_edges":
+                # the record's ms and library_ms eager (CUDA events over 50
+                # calls, host launch cost included, as for every kernel);
+                # device-only from a captured graph beside them, and the
+                # wrapper's host time a call
+                t = {"ms": cuda_time_ms(kernel, 50), "plain_ms": cuda_time_ms(plain, 10),
+                     "library_ms": cuda_time_ms(library, 50),
+                     "device_ms": cuda_graph_time_ms(kernel),
+                     "library_device_ms": cuda_graph_time_ms(library),
+                     "host_us": host_us(kernel)}
+                msg += (f"; kernel {t['ms']:.4f} ms eager ({t['device_ms']:.4f} "
+                        f"device-only, {t['host_us']:.1f} us host a call), plain "
+                        f"{t['plain_ms']:.4f} ms, scaled_dot_product_attention "
+                        f"{t['library_ms']:.4f} ms eager ({t['library_device_ms']:.4f} "
+                        "device-only)")
+                rec = t
+            log(phase, msg)
+        # the last step: bound over the live keys (bf16 k and v, or int8 k
+        # and v with their two f32 scales per key)
+        kv_start = torch.tensor([0, 50], dtype=torch.int32, device=dev)
+        live = (L - kv_start).sum().item()
+        per_key = hkv * (2 * d + 8) if quant else 2 * hkv * d * 2
+        rec.update(roofline(nbytes(q, q) + per_key * live, 4.0 * hq * s * d * live))
+        log(phase, f"{fmt} kv_len={L}: bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+        _split_sweeps(fmt, g, phase)
+    for key in ("library_device_ms", "host_us"):
+        rec.pop(key)
     return {"max_abs_err": worst, **rec}
+
+
+# the split rule's shapes (B, cache length): the 1024 px and 512 px (16 AR
+# steps) caches at B 2, and a 2-image request (B 4: 2 images x 2 CFG rows)
+DECODE_SWEEPS = {"1024px_b2": (2, DECODE_L), "512px_b2": (2, 64 + 2 + 64 + 16 * 64),
+                 "1024px_b4": (4, DECODE_L), "512px_b4": (4, 64 + 2 + 64 + 16 * 64)}
+
+
+def _split_sweeps(fmt: str, g, phase: str) -> None:
+    """Device ms of one format's kernel at the split count
+    `decode_splits` picks and one and two splits either side, with every
+    row's window the whole cache (kv_start 0 or 50), at DECODE_SWEEPS."""
+    import torch
+
+    from bitdance_tpu_torch.ops.decode_attention import kernel_splits
+
+    sh = DECODE_SHAPE
+    s, hq, hkv, d = sh["s"], sh["hq"], sh["hkv"], sh["d"]
+    dev = torch.device("cuda")
+    for name, (b, L) in DECODE_SWEEPS.items():
+        q = torch.randn((b, s, hq, d), generator=g, device=dev).bfloat16()
+        k, v = (torch.randn((b, hkv, L, d), generator=g, device=dev).bfloat16()
+                for _ in range(2))
+        bufs = _decode_buffers(fmt, k, v)
+        kv_start = torch.tensor([0, 50] * (b // 2), dtype=torch.int32, device=dev)
+        kv_len = torch.full((b,), L, dtype=torch.int32, device=dev)
+        n_splits = kernel_splits(q.shape, hkv, L, dev, fmt == "int8")
+        tiles = -(-L // 64)
+        alt = {n: cuda_graph_time_ms(_decode_fns(fmt, q, bufs, kv_len, kv_start,
+                                                 n_splits=n)[0])
+               for n in range(n_splits - 2, n_splits + 3) if 1 <= n <= tiles}
+        log(phase, f"{fmt} split sweep {name} B={b} kv_len={L}: picks n_splits="
+            f"{n_splits}; device ms at n_splits " + ", ".join(
+                f"{n}: {ms:.4f}" for n, ms in sorted(alt.items())))
+
+
+def phase_decode_attention() -> dict:
+    return _check_decode("bf16", 0, "decode_attention")
 
 
 def _head_inputs(stacked, head, steps, seed, dev, images=1):
@@ -667,77 +826,10 @@ def _check_w4a8(bundle, dev) -> dict:
 
 def _check_decode_fusedkv(dev) -> dict:
     """K2 on a fused bf16 buffer and an int8 one (quantized from the same
-    k, v) at the decode windows of phase_decode_attention, edges poisoned,
-    with the window-off-by-one check on the plain version."""
-    import torch
-
-    from bitdance_tpu_torch.ops.decode_attention import (
-        decode_attention_fusedkv,
-        decode_attention_fusedkv_reference,
-        dequantize_fused_kv,
-        quantize_kv_rows,
-    )
-
-    g = torch.Generator(device=dev).manual_seed(12)
-    b, s, hq, hkv, d = 2, 64, 40, 8, 128
-    P, p, L = 64, 64, 64 + 2 + 64 + 64 * 64
-    q = torch.randn((b, s, hq, d), generator=g, device=dev).bfloat16()
-    k = torch.randn((b, hkv, L, d), generator=g, device=dev).bfloat16()
-    v0 = torch.randn((b, hkv, L, d), generator=g, device=dev).bfloat16()
-    kv_start = torch.tensor([0, 50], dtype=torch.int32, device=dev)
-    cases = {"prefill_pass2": P + 2 + p, "mid_decode": P + 2 + p + 32 * p,
-             "last_step": L}
-    worst, rec = 0.0, {}
-    for fmt in ("bf16", "int8"):
-        for name, n in cases.items():
-            kv_len = torch.full((b,), n, dtype=torch.int32, device=dev)
-            v = _poison_window_edges(v0, kv_start, kv_len)
-            if fmt == "int8":
-                kv, sc = quantize_kv_rows(k.transpose(1, 2), v.transpose(1, 2))
-                kv, sc = kv.contiguous(), sc.contiguous()
-            else:
-                kv, sc = torch.cat([k, v], dim=-1), None
-            got = decode_attention_fusedkv(q, kv, kv_len, kv_start, sc)
-            want = decode_attention_fusedkv_reference(q, kv, kv_len, kv_start, sc)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            shifted = [(kv_len - 1, kv_start), (kv_len, kv_start + 1)]
-            if n < L:
-                shifted.append((kv_len + 1, kv_start))
-            shift = min((decode_attention_fusedkv_reference(q, kv, nl, ns, sc).float()
-                         - want.float()).abs().max().item() for nl, ns in shifted)
-            bound = DECODE_MAX_ABS_ERR[name]
-            if not torch.isfinite(got).all() or err > bound or shift < 4 * bound:
-                raise SystemExit(f"decode_attention_fusedkv {fmt} {name}: max abs "
-                                 f"err {err} (bound {bound}), off-by-one {shift}")
-            ms = cuda_time_ms(lambda: decode_attention_fusedkv(q, kv, kv_len, kv_start,
-                                                               sc), 50)
-            pms = cuda_time_ms(lambda: decode_attention_fusedkv_reference(
-                q, kv, kv_len, kv_start, sc), 10)
-            log("quant_kernels", f"decode_attention_fusedkv {fmt} {name} kv_len={n}: "
-                f"max abs err {err:.3e} (bound {bound}; off by one key moves the "
-                f"plain version by >= {shift:.3e}); kernel {ms:.4f} ms, plain "
-                f"{pms:.4f} ms")
-            if fmt == "int8":
-                worst = max(worst, err)
-                rec = {"ms": ms, "plain_ms": pms}
-    # the int8 buffer at the last step: bound over the live keys (k and v
-    # int8 with their two f32 scales per key), SDPA on its dequantized bf16 k/v
-    live = (kv_len - kv_start).sum().item()
-    rec.update(roofline(nbytes(q, q) + hkv * (2 * d + 8) * live,
-                        4.0 * hq * s * d * live))
-    kd, vd = (t.bfloat16() for t in dequantize_fused_kv(kv, sc))
-    pos = torch.arange(L, device=dev)
-    mask = ((pos >= kv_start[:, None]) & (pos < kv_len[:, None]))[:, None, None]
-    mask = mask.expand(b, 1, s, L)
-    qt = q.transpose(1, 2)
-    rec["library_ms"] = cuda_time_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kd, vd, attn_mask=mask, enable_gqa=True), 50)
-    log("quant_kernels", f"decode_attention_fusedkv int8 kv_len={L}: bound "
-        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); scaled_dot_product_attention "
-        f"on the dequantized bf16 k/v {rec['library_ms']:.4f} ms")
-    return {"max_abs_err": worst, **rec}
+    k, v) at the decode windows of phase_decode_attention; the int8
+    buffer's record."""
+    _check_decode("fused_bf16", 12, "quant_kernels")
+    return _check_decode("int8", 12, "quant_kernels")
 
 
 def _check_quant_sampler(bundle, mode, dev) -> dict:
@@ -2906,7 +2998,9 @@ def main() -> int:
         records.append({"name": name, "route": "cuda", "source": src,
                         "replaces": repl, "launches": launches[name],
                         **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                             "bound_ms", "bound_by", "library_ms")}})
+                                             "bound_ms", "bound_by", "library_ms")},
+                        # #1 / #6 also carry their device-only time
+                        **({"device_ms": r["device_ms"]} if "device_ms" in r else {})})
     log("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(card)

@@ -291,6 +291,88 @@ def test_decode_attention_fusedkv_kernel(dev, quant):
     assert (got.float() - want.float()).abs().max().item() < 2e-2
 
 
+@pytest.mark.parametrize("fmt", ["bf16", "fused_bf16", "int8"])
+@pytest.mark.parametrize("splits", ["one", "tiles"])
+def test_decode_attention_split_counts(dev, fmt, splits):
+    """Both wrappers with n_splits forced to 1 and to the cache's tile count
+    (5 tiles of 64 keys; windows that start and end inside tiles and on
+    them, an empty one): within a few bf16 ulps of the plain version, the
+    empty window exactly 0, and two launches bit-equal."""
+    from bitdance_tpu_torch.ops.decode_attention import (
+        decode_attention,
+        decode_attention_fusedkv,
+        decode_attention_fusedkv_reference,
+        decode_attention_reference,
+        quantize_kv_rows,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn((4, 16, 8, 128), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((4, 2, 300, 128), generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    kv_len = torch.tensor([300, 170, 256, 40], dtype=torch.int32, device=dev)
+    kv_start = torch.tensor([0, 37, 64, 40], dtype=torch.int32, device=dev)
+    n_splits = 1 if splits == "one" else 5
+    if fmt == "bf16":
+        run = lambda: decode_attention(q, k, v, kv_len, kv_start,  # noqa: E731
+                                       n_splits=n_splits)
+        want = decode_attention_reference(q, k, v, kv_len, kv_start)
+    else:
+        if fmt == "int8":
+            kv, sc = quantize_kv_rows(k.transpose(1, 2), v.transpose(1, 2))
+            kv, sc = kv.contiguous(), sc.contiguous()
+        else:
+            kv, sc = torch.cat([k, v], dim=-1), None
+        run = lambda: decode_attention_fusedkv(q, kv, kv_len, kv_start, sc,  # noqa: E731
+                                               n_splits=n_splits)
+        want = decode_attention_fusedkv_reference(q, kv, kv_len, kv_start, sc)
+    with torch.no_grad():
+        got, again = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert (got[3] == 0).all()
+    assert (got.float() - want.float()).abs().max().item() < 2e-2
+    with pytest.raises(ValueError, match="n_splits"):
+        (decode_attention(q, k, v, kv_len, kv_start, n_splits=6) if fmt == "bf16"
+         else decode_attention_fusedkv(q, kv, kv_len, kv_start, sc, n_splits=6))
+
+
+def test_decode_attention_shared_scratch(dev):
+    """The partials' scratch kept per stream: calls of growing and shrinking
+    size in turn, and a call captured in a CUDA graph and replayed, give
+    the bits of a lone eager call of the same shape."""
+    from bitdance_tpu_torch.ops.decode_attention import decode_attention
+
+    g = torch.Generator(device=dev).manual_seed(6)
+
+    def case(b, L):
+        q = torch.randn((b, 16, 8, 128), generator=g, device=dev).bfloat16()
+        k, v = (torch.randn((b, 2, L, 128), generator=g, device=dev).bfloat16()
+                for _ in range(2))
+        kv_len = torch.full((b,), L - 3, dtype=torch.int32, device=dev)
+        kv_start = torch.zeros((b,), dtype=torch.int32, device=dev)
+        return lambda: decode_attention(q, k, v, kv_len, kv_start)  # noqa: E731
+
+    small, large = case(2, 200), case(6, 900)
+    with torch.no_grad():
+        want_small, want_large = small().clone(), large().clone()
+        got = [small(), large(), small(), large()]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            large()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = large()
+        small()                               # eager use of the cached scratch
+        graph.replay()
+    torch.cuda.synchronize()
+    for out, want in zip(got, [want_small, want_large] * 2):
+        assert torch.equal(out, want)
+    assert torch.equal(captured, want_large)
+
+
 @pytest.mark.parametrize("quant", ["int8", "int4"])
 def test_sampler_kernel_quant(dev, quant):
     """K3: the sampler's W8A8 / W4A8 mode vs its plain version, small head
