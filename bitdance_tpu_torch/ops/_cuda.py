@@ -35,7 +35,7 @@ _SIGNATURES = {
     "bd_decode_attention": [_P] * 9,
     "bd_decode_attention_fusedkv": [_P] * 9,
     "bd_decode_blocks_per_sm": [_I],
-    "bd_w4a8_matmul": [_P, _I] + [_P] * 5 + [_I] * 3 + [_P],
+    "bd_w4a8_matmul": [_P] * 9,
     "bd_fused_em_sample": ([_P, _P, _P, _I, _P, _P, _F] + [_P] * 17
                            + [_I] * 12 + [_F, _I] + [_P] * 7 + [_I, _P]),
     "bd_fused_diffnet_forward": [_P] * 32 + [_I] * 12 + [_P],

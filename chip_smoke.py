@@ -27,7 +27,10 @@ Phases, run in this order, one line each, any failure exits non-zero:
                     request: device busy share and time by kernel
   quant_kernels     the quantized serving kernels vs their plain versions, from
                     the same bf16 weights: the W4A8 matmul at the seven Qwen3
-                    projections (M = 128 and 132), the fused-KV decode on bf16
+                    projections (M = 5, 128, 132 and 300; bit-equal, also at
+                    split counts 1 and all stages), warm, cold over six
+                    layers' weights, the GEMM alone, torch._int_mm warm and
+                    cold, a split sweep at M 128; the fused-KV decode on bf16
                     and int8 buffers with decode_attention's checks and times,
                     the sampler's W8A8 and W4A8 modes
                     at the 14B head (4 steps, then sign agreement over 50)
@@ -38,8 +41,9 @@ Phases, run in this order, one line each, any failure exits non-zero:
                     three requests as e2e: s/image, phases, peak memory, the
                     quantized weights' GiB, launch counts, token agreement with
                     bf16 (reported; also over the first AR step) and int4 !=
-                    int8 grids (checked); torch.profiler over one more int4
-                    512 px request
+                    int8 grids (checked); the W4A8 matmul at every (M, N, K)
+                    the int4 requests gave it; torch.profiler over one more
+                    int4 512 px request
   flash_attention   the forward, dq and dk/dv kernels vs the plain version and
                     its autograd grads: the training path's shapes, B-16x
                     block windows, two packed documents, GQA at head dim 128
@@ -212,10 +216,19 @@ UNGUIDED_H1X_IMAGES = 8
 # the unguided H-1x batch runs 25,856 per-call net calls at 100 steps, 2.9 ms
 # each from the host (90 s, PERF.md); it is cut to this many sampling steps
 UNGUIDED_H1X_STEPS = 25
-# Quantized serving. W4A8 matmul vs its plain version (the same int8 rows,
-# the integer sums exact on both sides): only the output's rounding can
-# differ, max abs error relative to max |plain|.
-W4A8_MAX_REL_ERR = 1e-5
+# Quantized serving. W4A8 matmul vs its plain version: the same int8 rows,
+# the integer sums exact on both sides (at every split count of K) and the
+# scaling in the same fp32 order, so the outputs must be equal bit for bit.
+# The seven projections of one Qwen3-14B layer, (N, K) in layer order.
+QWEN3_14B_PROJS = {"q_proj": (5120, 5120), "k_proj": (1024, 5120),
+                   "v_proj": (1024, 5120), "o_proj": (5120, 5120),
+                   "gate_proj": (17408, 5120), "up_proj": (17408, 5120),
+                   "down_proj": (5120, 17408)}
+# cold timing: the seven products in layer order over this many layers'
+# packed weights (165 MB a layer), so each layer's weights come from HBM
+# after the other layers have passed through the 50 MB L2, as in a decode
+# step
+W4A8_COLD_LAYERS = 6
 # the quantized samplers over 4 steps against their plain versions: both
 # quantize the same fp32 stage inputs, but an fp32 summation-order
 # difference moves an activation across an int8 step now and then, and the
@@ -257,7 +270,9 @@ H100_HBM_BYTES_PER_S = 3.35e12
 # kernel-name substrings -> the groups a profile's time is summed into (the
 # first group that matches)
 PROFILE_GROUPS = (
-    ("integer products", ("gemm_s8", "quantize_rows", "i16832gemm")),
+    ("row quantization #16", ("quantize_image",)),
+    ("W4A8 GEMM #16", ("w4a8",)),
+    ("integer products (#2's quant mode, int8 LLM)", ("gemm_s8", "quantize_rows", "i16832gemm")),
     ("products", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
     ("flash attention", ("flash_",)),
     ("decode attention", ("decode_attention", "split_decode", "split_combine")),
@@ -760,68 +775,208 @@ def phase_profile(bundle) -> None:
                 lambda: f"last_timing {json.dumps(pipe.last_timing)}")
 
 
-def _w4a8_case(w, m, dev, g) -> dict:
+def _w4a8_case(w, m, dev, g, timed: bool = True) -> dict:
     """One W4A8 product at [m, K] x packed [N, K/2]: kernel vs plain (the
-    same int8 rows, exact integer sums), times, bound, and torch._int_mm on
-    the unpacked int8 weight (the same integer product, twice the bytes)."""
+    same int8 rows, exact integer sums), and whether a second launch and
+    every tile split 1 and w4a8_stages(K) ways give the same bits; timed: the kernel's
+    time, the GEMM launch alone on the quantized rows (gemm_ms), the
+    plain version's, bound, and torch._int_mm on the unpacked int8 weight
+    (the same integer product, twice the bytes)."""
     import torch
 
-    from bitdance_tpu_torch.ops.int4 import int4_matmul, int4_matmul_reference, unpack_int4
+    from bitdance_tpu_torch.ops.int4 import (
+        int4_matmul,
+        int4_matmul_reference,
+        kernel_splits,
+        unpack_int4,
+        w4a8_quantize,
+        w4a8_stages,
+    )
     from bitdance_tpu_torch.ops.int8 import quantize_rows
 
     n, kh = w.q.shape
     x = torch.randn((m, 2 * kh), generator=g, device=dev).bfloat16()
     got = int4_matmul(x, w)
+    others = [int4_matmul(x, w), int4_matmul(x, w, n_splits=1),
+              int4_matmul(x, w, n_splits=w4a8_stages(2 * kh))]
     xq, sx = quantize_rows(x)
     want = int4_matmul_reference(xq, sx, w.q, w.s, torch.bfloat16)
     torch.cuda.synchronize()
     err, rel = _errors(got, want)
-    w8 = torch.cat(unpack_int4(w.q), dim=1)                 # [N, K] int8
-    return {"err": err, "rel": rel,
+    out = {"err": err, "rel": rel, "equal": all(torch.equal(o, got) for o in others),
+           "splits": kernel_splits(m, n, 2 * kh, dev)}
+    if timed:
+        w8 = torch.cat(unpack_int4(w.q), dim=1)                 # [N, K] int8
+        rows = w4a8_quantize(x)                             # the GEMM alone
+        out.update({
             "ms": cuda_time_ms(lambda: int4_matmul(x, w), 20),
+            "gemm_ms": cuda_time_ms(lambda: int4_matmul(x, w, rows=rows), 20),
             "plain_ms": cuda_time_ms(lambda: int4_matmul_reference(
                 *quantize_rows(x), w.q, w.s, torch.bfloat16), 5),
             "library_ms": cuda_time_ms(lambda: torch._int_mm(xq, w8.t()), 20),
-            "bytes": nbytes(x, w.q, w.s, got), "ops": 2.0 * m * n * 2 * kh}
+            "bytes": nbytes(x, w.q, w.s, got), "ops": 2.0 * m * n * 2 * kh})
+    return out
+
+
+def w4a8_layers(q4, n_layers: int, dev, g) -> list:
+    """Random packed weights of n_layers Qwen3-14B layers (QWEN3_14B_PROJS;
+    uniform bytes, scales in [1e-4, 1.1e-3]) as ``q4.Q4Tensor``s, for timing
+    walks: the products' time does not depend on the values."""
+    import torch
+
+    return [{name: q4.Q4Tensor(
+        q=torch.randint(-128, 128, (n, k // 2), generator=g, device=dev, dtype=torch.int8),
+        s=torch.rand((n,), generator=g, device=dev) * 1e-3 + 1e-4)
+        for name, (n, k) in QWEN3_14B_PROJS.items()} for _ in range(n_layers)]
+
+
+def w4a8_walk_ms(run, layers) -> float:
+    """Device ms per layer of ``run(name, weight)`` over the seven
+    projections of each layer in layer order, captured as one CUDA graph
+    and replayed 5 times (device time: the eager walk would time the host
+    between short products): with W4A8_COLD_LAYERS layers every weight
+    arrives cold from HBM."""
+    def walk():
+        for lw in layers:
+            for name, w in lw.items():
+                run(name, w)
+
+    return cuda_graph_time_ms(walk, calls=1, reps=5) / len(layers)
+
+
+def w4a8_cold(q4, dev, g, m: int = 128) -> dict:
+    """cold_ms and library_cold_ms: ``q4.int4_matmul`` and torch._int_mm on
+    the unpacked int8 weights, seven products a layer in layer order over
+    W4A8_COLD_LAYERS layers, per layer."""
+    import torch
+
+    layers = w4a8_layers(q4, W4A8_COLD_LAYERS, dev, g)
+    xs = {k: torch.randn((m, k), generator=g, device=dev).bfloat16() for k in (5120, 17408)}
+    cold = w4a8_walk_ms(lambda name, w: q4.int4_matmul(xs[QWEN3_14B_PROJS[name][1]], w), layers)
+    xqs = {k: torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+           for k in xs}
+    unpacked = [{name: torch.cat(q4.unpack_int4(w.q), dim=1) for name, w in lw.items()}
+                for lw in layers]
+    del layers
+    lib = w4a8_walk_ms(lambda name, w8: torch._int_mm(xqs[w8.shape[1]], w8.t()), unpacked)
+    return {"cold_ms": cold, "library_cold_ms": lib}
+
+
+def _w4a8_sweep(dev, g) -> None:
+    """Device ms (captured CUDA graphs) of each projection at M 128 at the
+    schedule w4a8_splits picks and with every tile split 1 to all stages
+    ways (down_proj: 1-24, 34, 68)."""
+    import torch
+
+    from bitdance_tpu_torch.ops import int4
+
+    layer = w4a8_layers(int4, 1, dev, g)[0]
+    for name, (n, k) in QWEN3_14B_PROJS.items():
+        if name in ("v_proj", "up_proj"):          # the same shapes as k_proj, gate_proj
+            continue
+        x = torch.randn((128, k), generator=g, device=dev).bfloat16()
+        w = layer[name]
+        top = int4.w4a8_stages(k)
+        counts = range(1, top + 1) if top <= 40 else [*range(1, 25), 34, 68]
+        picked = cuda_graph_time_ms(lambda: int4.int4_matmul(x, w), calls=10)
+        ms = {c: cuda_graph_time_ms(lambda c=c: int4.int4_matmul(x, w, n_splits=c), calls=10)
+              for c in counts}
+        log("quant_kernels", f"w4a8_matmul split sweep {name} M=128 N={n} K={k}: picks "
+            f"(tail_from, n_splits) {int4.kernel_splits(128, n, k, dev)}, {picked:.4f} ms; "
+            "every tile split, device ms at n_splits "
+            + ", ".join(f"{c}: {t:.4f}" for c, t in ms.items()))
 
 
 def _check_w4a8(bundle, dev) -> dict:
     """K1 at the seven projections of layer 0 (quantized to int4 here) for
-    the AR step's 128 rows and the first prefill pass's 132."""
+    the AR step's 128 rows and the first prefill pass's 132, a ragged 5 and
+    300 (three token chunks): 0 error against plain, two launches and every
+    tile split 1 and all stages ways bit-equal; times at 128 and 132; the
+    cold walk, the split sweep and the host time of one call."""
     import torch
 
-    from bitdance_tpu_torch.ops.int4 import quantize_linear_int4
+    from bitdance_tpu_torch.ops import int4
 
     g = torch.Generator(device=dev).manual_seed(11)
     layer = bundle.llm.model.layers[0]
     projs = {name: getattr(getattr(layer, part), name) for part, names in (
         ("self_attn", ("q_proj", "k_proj", "v_proj", "o_proj")),
         ("mlp", ("gate_proj", "up_proj", "down_proj"))) for name in names}
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "ops": 0.0}
-    worst = 0.0
+    tot = {"ms": 0.0, "gemm_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
+           "ops": 0.0}
+    worst, splits = 0.0, {}
     for name, lin in projs.items():
-        w = quantize_linear_int4(lin.weight)
-        for m in (128, 132):
-            c = _w4a8_case(w, m, dev, g)
-            bd = roofline(c["bytes"], 0.0, c["ops"])
-            log("quant_kernels", f"w4a8_matmul {name} M={m} N={w.q.shape[0]} "
-                f"K={2 * w.q.shape[1]}: max abs err {c['err']:.3e} rel {c['rel']:.3e} "
-                f"(bound {W4A8_MAX_REL_ERR}); kernel {c['ms']:.4f} ms, plain "
-                f"{c['plain_ms']:.4f} ms, bound {bd['bound_ms']:.4f} ms "
-                f"({bd['bound_by']}), torch._int_mm on int8 weights "
-                f"{c['library_ms']:.4f} ms")
-            if not c["rel"] <= W4A8_MAX_REL_ERR:
-                raise SystemExit(f"w4a8_matmul {name} M={m}: rel err {c['rel']}")
+        w = int4.quantize_linear_int4(lin.weight)
+        for m in (128, 132, 5, 300):
+            c = _w4a8_case(w, m, dev, g, timed=m in (128, 132))
+            msg = (f"w4a8_matmul {name} M={m} N={w.q.shape[0]} K={2 * w.q.shape[1]}: "
+                   f"max abs err {c['err']:.3e} (must be 0), second launch and every "
+                   f"tile split 1 / all stages ways bit-equal {c['equal']}, (tail_from, "
+                   f"n_splits) {c['splits']}")
+            if "ms" in c:
+                bd = roofline(c["bytes"], 0.0, c["ops"])
+                msg += (f"; kernel {c['ms']:.4f} ms (GEMM alone {c['gemm_ms']:.4f}), plain "
+                        f"{c['plain_ms']:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+                        f"({bd['bound_by']}), torch._int_mm on int8 weights "
+                        f"{c['library_ms']:.4f} ms")
+            log("quant_kernels", msg)
+            if c["err"] != 0 or not c["equal"]:
+                raise SystemExit(f"w4a8_matmul {name} M={m}: err {c['err']}, "
+                                 f"bit-equal {c['equal']}")
             worst = max(worst, c["err"])
             if m == 128:
+                splits[name] = c["splits"]
                 for k in tot:
                     tot[k] += c[k]
     bd = roofline(tot.pop("bytes"), 0.0, tot.pop("ops"))
+    cold = w4a8_cold(int4, dev, g)
+    x = torch.randn((128, 5120), generator=g, device=dev).bfloat16()
+    wk = int4.quantize_linear_int4(projs["k_proj"].weight)
+    host = host_us(lambda: int4.int4_matmul(x, wk))
     log("quant_kernels", f"w4a8_matmul, one layer's seven products at M=128: "
-        f"kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, bound "
-        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}), torch._int_mm "
-        f"{tot['library_ms']:.4f} ms")
-    return {"max_abs_err": worst, **tot, **bd}
+        f"kernel {tot['ms']:.4f} ms warm, {cold['cold_ms']:.4f} cold "
+        f"({W4A8_COLD_LAYERS} layers in turn); GEMM alone {tot['gemm_ms']:.4f}; plain "
+        f"{tot['plain_ms']:.4f} ms; bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}); "
+        f"torch._int_mm {tot['library_ms']:.4f} warm, {cold['library_cold_ms']:.4f} cold; "
+        f"n_splits {json.dumps(splits)}; host {host:.1f} us a k_proj call")
+    _w4a8_sweep(dev, g)
+    return {"max_abs_err": worst, **tot, **bd, **cold, "splits": splits}
+
+
+def w4a8_shapes_seen() -> list:
+    """The distinct (M, N, K) int4_matmul has been called with since its
+    per-shape cache (int4._CALLS) was last cleared."""
+    from bitdance_tpu_torch.ops import int4
+
+    return sorted({(call[0], key[3], key[0][-1]) for key, call in int4._CALLS.items()})
+
+
+def _check_w4a8_seen(bundle, shapes, dev) -> None:
+    """K1 at each (M, N, K) the int4 requests gave it, on the int4 bundle's
+    layer-0 weight of that shape: 0 error, two launches bit-equal."""
+    import torch
+
+    from bitdance_tpu_torch.models.qwen3 import Q4Linear
+    from bitdance_tpu_torch.ops.int4 import int4_matmul, int4_matmul_reference
+    from bitdance_tpu_torch.ops.int8 import quantize_rows
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    weights = {}
+    for mod in bundle.llm.model.layers[0].modules():
+        if isinstance(mod, Q4Linear):
+            n, kh = mod.weight_q.q.shape
+            weights.setdefault((n, 2 * kh), mod.weight_q)
+    for m, n, k in shapes:
+        w = weights[(n, k)]
+        x = torch.randn((m, k), generator=g, device=dev).bfloat16()
+        got, again = int4_matmul(x, w), int4_matmul(x, w)
+        want = int4_matmul_reference(*quantize_rows(x), w.q, w.s, torch.bfloat16)
+        torch.cuda.synchronize()
+        err = _errors(got, want)[0]
+        log("e2e_quant", f"w4a8_matmul at the requests' M={m} N={n} K={k}: max abs err "
+            f"{err:.3e}, two launches bit-equal {torch.equal(got, again)}")
+        if err != 0 or not torch.equal(got, again):
+            raise SystemExit(f"w4a8_matmul M={m} N={n} K={k}: err {err}")
 
 
 def _check_decode_fusedkv(dev) -> dict:
@@ -953,6 +1108,7 @@ def phase_e2e_quant(bundle, card: str, bf16_tokens: list) -> dict:
     import torch
 
     from bitdance_tpu_torch.io.random_init import quantize_bundle_
+    from bitdance_tpu_torch.ops import int4
     from bitdance_tpu_torch.pipelines.t2i import T2IPipeline
 
     tok = StubTokenizer(bundle.parallel_num)
@@ -969,11 +1125,17 @@ def phase_e2e_quant(bundle, card: str, bf16_tokens: list) -> dict:
         pipe = T2IPipeline(qb, tok, kv_int8=True)
         torch.cuda.reset_peak_memory_stats()
         reqs = E2E_REQUESTS[:1] if tag == "int8" else E2E_REQUESTS
+        int4._CALLS.clear()                 # so the calls planned are the requests'
         runs[tag] = [_quant_request(pipe, prompt, px, seed, bf16_tokens[i], card, tag)
                      for i, (prompt, px, seed) in enumerate(reqs)]
         log("e2e_quant", f"{tag}: peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         if tag == "int4":
+            shapes = w4a8_shapes_seen()
+            log("e2e_quant", f"int4_matmul's (M, N, K) on the int4 requests: {shapes}")
+            if not {128, 132} <= {m for m, _, _ in shapes}:
+                raise SystemExit(f"e2e_quant: int4 requests gave M {shapes}")
+            _check_w4a8_seen(qb, shapes, torch.device("cuda"))
             profile_run("e2e_quant", "int4 512 px request",
                         lambda: pipe.generate("profile request", 512, 512, seed=8),
                         lambda: f"last_timing {json.dumps(pipe.last_timing)}")
@@ -2936,7 +3098,12 @@ def main() -> int:
     launches["fused_encode_tail"] = phase_tokenizer(card)["launches"]
     gc.collect()
     torch.cuda.empty_cache()
+    from bitdance_tpu_torch.ops import int4
+
+    int4._CALLS.clear()
     phase_release(card)
+    log("release", f"int4_matmul's (M, N, K) on the release phase's loads: "
+        f"{w4a8_shapes_seen() or 'none (its quantized load serves the LLM in int8)'}")
 
     records = []
     meta = {
@@ -2999,8 +3166,10 @@ def main() -> int:
                         "replaces": repl, "launches": launches[name],
                         **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
                                              "bound_ms", "bound_by", "library_ms")},
-                        # #1 / #6 also carry their device-only time
-                        **({"device_ms": r["device_ms"]} if "device_ms" in r else {})})
+                        # #1 / #6 also carry their device-only time; #16 its
+                        # cold-L2 times, the GEMM launch alone and its splits
+                        **{k: r[k] for k in ("device_ms", "cold_ms", "library_cold_ms",
+                                             "gemm_ms", "splits") if k in r}})
     log("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(card)

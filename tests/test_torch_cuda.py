@@ -237,7 +237,11 @@ def test_sampler_kernel_mlp_encoder(dev):
 
 
 @pytest.mark.parametrize("m,n,k,dtype", [(132, 192, 256, torch.bfloat16),
-                                         (5, 64, 384, torch.float32)])
+                                         (5, 64, 384, torch.float32),
+                                         (1, 1024, 5120, torch.bfloat16),
+                                         (132, 1024, 5120, torch.bfloat16),
+                                         (300, 320, 512, torch.float32),
+                                         (5, 64, 17408, torch.bfloat16)])
 def test_w4a8_matmul_kernel(dev, m, n, k, dtype):
     """K1 vs its plain version (exact integer sums): the same int8 rows,
     so only the dtype of the output can differ."""
@@ -259,6 +263,85 @@ def test_w4a8_matmul_kernel(dev, m, n, k, dtype):
     assert int4_matmul.launches == n0 + 1 and got.dtype == dtype
     err = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
     assert err < 1e-5
+
+
+def _w4a8_inputs(dev, m, n, k, seed):
+    from bitdance_tpu_torch.ops.int4 import Q4Tensor
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device=dev).bfloat16()
+    q = torch.randint(-128, 128, (n, k // 2), generator=g, device=dev, dtype=torch.int8)
+    s = torch.rand((n,), generator=g, device=dev) * 1e-2 + 1e-3
+    return x, Q4Tensor(q=q, s=s)
+
+
+@pytest.mark.parametrize("n_splits", [1, None, "max"])
+def test_w4a8_split_counts_are_bit_equal(dev, n_splits):
+    """N 1024 (k_proj's) with every tile whole, at the picked schedule and
+    split into every stage: exact against plain, and equal bits."""
+    from bitdance_tpu_torch.ops.int4 import int4_matmul, int4_matmul_reference, w4a8_stages
+    from bitdance_tpu_torch.ops.int8 import quantize_rows
+
+    x, w = _w4a8_inputs(dev, 128, 1024, 5120, 21)
+    splits = w4a8_stages(5120) if n_splits == "max" else n_splits
+    with torch.no_grad():
+        got = int4_matmul(x, w, n_splits=splits)
+        again = int4_matmul(x, w, n_splits=splits)
+        whole = int4_matmul(x, w, n_splits=1)
+        want = int4_matmul_reference(*quantize_rows(x), w.q, w.s, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, again) and torch.equal(got, whole)
+
+
+def test_w4a8_poisoned_inputs_catch_layout_faults(dev):
+    """On inputs where a swapped nibble plane, a k chunk read 32 columns
+    off or a transposed store each move the plain version's output by far
+    more than a bf16 ulp, the kernel equals the plain version exactly."""
+    from bitdance_tpu_torch.ops.int4 import int4_matmul, int4_matmul_reference, pack_int4
+    from bitdance_tpu_torch.ops.int4 import Q4Tensor, unpack_int4
+    from bitdance_tpu_torch.ops.int8 import quantize_rows
+
+    m = n = 128
+    x, w = _w4a8_inputs(dev, m, n, 1024, 22)
+    x[:, 512:] *= 4.0                                     # the high plane's columns dominate
+    lo, hi = unpack_int4(w.q)
+    lo = torch.where(torch.arange(512, device=dev) % 64 < 32, lo, -lo)  # k chunks alternate
+    w = Q4Tensor(q=pack_int4(torch.cat([lo, hi], dim=1)), s=w.s)
+    xq, sx = quantize_rows(x)
+    with torch.no_grad():
+        got = int4_matmul(x, w)
+        want = int4_matmul_reference(xq, sx, w.q, w.s, torch.bfloat16)
+        swapped = int4_matmul_reference(xq, sx, pack_int4(torch.cat([hi, lo], dim=1)), w.s,
+                                        torch.bfloat16)
+        shifted = int4_matmul_reference(torch.roll(xq, 32, dims=1), sx, w.q, w.s,
+                                        torch.bfloat16)
+    torch.cuda.synchronize()
+    scale = want.float().abs().max()
+    for wrong in (swapped, shifted, want.t()):
+        assert (wrong.float() - want.float()).abs().max() > 0.1 * scale
+    assert torch.equal(got, want)
+
+
+def test_w4a8_graph_capture_equals_lone_calls(dev):
+    """Two products of different shapes captured in one CUDA graph (each
+    call its own scratch) give the bits of lone calls (the shared scratch)."""
+    from bitdance_tpu_torch.ops.int4 import int4_matmul
+
+    xa, wa = _w4a8_inputs(dev, 128, 1024, 5120, 23)      # k_proj: split tiles
+    xb, wb = _w4a8_inputs(dev, 132, 17408, 1024, 24)     # a split tail
+    with torch.no_grad():
+        lone = (int4_matmul(xa, wa), int4_matmul(xb, wb))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            int4_matmul(xa, wa)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = (int4_matmul(xa, wa), int4_matmul(xb, wb))
+        graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o, want in zip(outs, lone))
 
 
 @pytest.mark.parametrize("quant", [False, True])
