@@ -342,7 +342,7 @@ def qwen3_forward(model: Qwen3Model, embeds: torch.Tensor,
     kernel_route = attn_impl == "kernel" or (
         attn_impl == "auto" and embeds.device.type == "cuda" and s * s > 256 * 256)
     if max_live_kv is not None and kernel_route:
-        plan = sparse_plan(block_ids, doc_ids, block_ids, doc_ids, max_live_kv, hd)
+        plan = sparse_plan(block_ids, doc_ids, block_ids, doc_ids, max_live_kv)
 
     def layer_fn(x: torch.Tensor, layer: Qwen3DecoderLayer) -> torch.Tensor:
         at = layer.self_attn

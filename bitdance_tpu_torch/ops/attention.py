@@ -12,7 +12,10 @@ dk/dv summed over each GQA group). :func:`flash_attention_reference` is the
 plain differentiable version (and the forward kernel's plain version);
 ``flash_bwd_dq_reference`` and ``flash_bwd_dkv_reference`` are the backward
 kernels'. The three wrappers take their plain versions only for CPU
-tensors; on a CUDA tensor they launch their kernel or raise.
+tensors; on a CUDA tensor they launch their kernel or raise. The autograd
+Functions make the int32 ids once in the forward and hand the same tensors
+to both backward kernels; :func:`tile_classes` is the plain twin of the
+backward kernels' dead / partial / full classification of tile pairs.
 
 Sparse iteration (packed training): :func:`sparse_plan` builds, once per
 batch on the device, the per-q-tile list of live 64-key tiles
@@ -37,14 +40,10 @@ from bitdance_tpu_torch.ops import _cuda
 
 NEG_INF = -1e30
 MASKED_LSE = 1e30   # lse of a row that sees no key: exp(s - lse) == 0
-# tile sizes of the CUDA kernels (csrc/flash_attention.cu kBQ, kBK); the
-# dk/dv kernel's q tiles are 32 rows at head dim 128 and 64 at head dim 64
+# tile size of the CUDA kernels (csrc/flash_attention.cu kBQ, kBK): q tiles
+# (the dk/dv kernel's too) and kv tiles of 64 rows
 TILE = 64
 Q_PAD_DOC, KV_PAD_DOC = -3, -2   # doc ids of rows padded up to a tile
-
-
-def dkv_block_q(head_dim: int) -> int:
-    return 32 if head_dim == 128 else TILE
 
 
 def mask_from_ids(q_block: torch.Tensor, q_doc: torch.Tensor,
@@ -170,7 +169,24 @@ def flash_bwd_dkv_reference(q, k, v, dout, lse, delta, q_block_ids, q_doc_ids,
 # ---------------------------------------------------------------------------
 
 def _ids(t: torch.Tensor, b: int, n: int, device) -> torch.Tensor:
+    """ids of any int dtype, broadcastable to [b, n] -> contiguous int32
+    [b, n] on ``device`` (no copy when they already are)."""
+    if (t.dtype == torch.int32 and t.device == device and t.shape == (b, n)
+            and t.is_contiguous()):
+        return t
     return t.to(device=device, dtype=torch.int32).expand(b, n).contiguous()
+
+
+def _ids_once(q, k, q_block_ids, q_doc_ids, kv_block_ids, kv_doc_ids):
+    """The four id tensors as the kernels take them (:func:`_ids`), made
+    once per attention call: the forward saves them for both backward
+    kernels, and a kv id tensor that is the q one (self-attention) is
+    converted once."""
+    b, lq, lk, dev = q.shape[0], q.shape[1], k.shape[1], q.device
+    qb, qd = _ids(q_block_ids, b, lq, dev), _ids(q_doc_ids, b, lq, dev)
+    kb = qb if kv_block_ids is q_block_ids and lk == lq else _ids(kv_block_ids, b, lk, dev)
+    kd = qd if kv_doc_ids is q_doc_ids and lk == lq else _ids(kv_doc_ids, b, lk, dev)
+    return qb, qd, kb, kd
 
 
 def _check(name: str, q, k, v, *more) -> None:
@@ -262,14 +278,16 @@ flash_bwd_dkv.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward saves lse; backward takes delta = sum(do * o) as a plain
-    reduction, then the dq and dk/dv kernels (the custom VJP of
+    """Forward saves lse and the int32 ids it made (:func:`_ids_once`);
+    backward takes delta = sum(do * o) as a plain reduction, then the dq and
+    dk/dv kernels on those ids, with no id copies (the custom VJP of
     _flash_core, attention.py:508-541)."""
 
     @staticmethod
     def forward(ctx, q, k, v, qb, qd, kb, kd, scale):
-        o, lse = flash_fwd(q, k, v, qb, qd, kb, kd, scale)
-        ctx.save_for_backward(q, k, v, qb, qd, kb, kd, o, lse)
+        ids = _ids_once(q, k, qb, qd, kb, kd)
+        o, lse = flash_fwd(q, k, v, *ids, scale)
+        ctx.save_for_backward(q, k, v, *ids, o, lse)
         ctx.scale = scale
         return o
 
@@ -352,6 +370,51 @@ def tile_live_matrix(q_block_ids: torch.Tensor, q_doc_ids: torch.Tensor,
     return blk_live & doc_live
 
 
+TILE_DEAD, TILE_PARTIAL, TILE_FULL = 0, 1, 2
+
+
+def _tile_ranges(block_ids: torch.Tensor, doc_ids: torch.Tensor, tile: int):
+    """(block min, block max, doc min, doc max) [B, ceil(L / tile)] over
+    each tile's ids inside L."""
+    b, n_ids = block_ids.shape
+    n = -(-n_ids // tile)
+    hi, lo = torch.iinfo(torch.int32).max, torch.iinfo(torch.int32).min
+
+    def tiles(t: torch.Tensor, fill: int) -> torch.Tensor:
+        pad = t.new_full((b, n * tile - n_ids), fill)
+        return torch.cat([t, pad], 1).reshape(b, n, tile)
+
+    return (tiles(block_ids, hi).amin(-1), tiles(block_ids, lo).amax(-1),
+            tiles(doc_ids, hi).amin(-1), tiles(doc_ids, lo).amax(-1))
+
+
+def tile_classes(q_block_ids: torch.Tensor, q_doc_ids: torch.Tensor,
+                 kv_block_ids: torch.Tensor, kv_doc_ids: torch.Tensor,
+                 block_q: int, block_k: int) -> torch.Tensor:
+    """[B, ceil(Lq / block_q), ceil(Lk / block_k)] int8 class of each
+    (q tile, kv tile) pair under the backward kernels' rule
+    (csrc/flash_attention.cu::pair_class), ids int32 [B, L]: TILE_DEAD when
+    no query can see a key (min kv block > max q block, or disjoint doc
+    ranges), TILE_FULL when every query sees every key (both tiles inside
+    L, max kv block <= min q block, one doc id on both sides), else
+    TILE_PARTIAL. The kernels skip dead pairs and take full ones without
+    per-element id compares. Plain twin for the tests; the card path never
+    calls it."""
+    lq, lk = q_block_ids.shape[1], kv_block_ids.shape[1]
+    qb_min, qb_max, qd_min, qd_max = (r[:, :, None] for r in _tile_ranges(
+        q_block_ids, q_doc_ids, block_q))
+    kb_min, kb_max, kd_min, kd_max = (r[:, None, :] for r in _tile_ranges(
+        kv_block_ids, kv_doc_ids, block_k))
+    dead = (kb_min > qb_max) | (kd_min > qd_max) | (kd_max < qd_min)
+    dev = q_block_ids.device
+    whole = (((torch.arange(qb_min.shape[1], device=dev) + 1) * block_q <= lq)[:, None]
+             & ((torch.arange(kb_min.shape[2], device=dev) + 1) * block_k <= lk)[None, :])
+    full = (whole & (kb_max <= qb_min) & (qd_min == qd_max) & (kd_min == kd_max)
+            & (qd_min == kd_min))
+    return torch.where(dead, TILE_DEAD, torch.where(full, TILE_FULL, TILE_PARTIAL)).to(
+        torch.int8)
+
+
 def select_live_tiles(live: torch.Tensor, max_n: int):
     """live [B, R, C] bool -> (tile_map [B, R, max_n], counts [B, R]) int32:
     per row, the live column indices in ascending order; trailing entries
@@ -395,8 +458,9 @@ class SparsePlan(NamedTuple):
     """The tile lists of one batch's ids, built once and shared by every
     layer. kv_map [B, ceil(Lq/64), max_live_kv] and kv_counts list 64-key
     tiles per 64-row q tile (forward, dq); q_map [B, ceil(Lk/64),
-    max_live_q] and q_counts list q tiles of ``block_q_dkv`` rows per 64-key
-    tile (dk/dv). int32 on the ids' device."""
+    max_live_q] and q_counts list the transposed lists, q tiles of
+    ``block_q_dkv`` (64) rows per 64-key tile (dk/dv). int32 on the ids'
+    device."""
     kv_map: torch.Tensor
     kv_counts: torch.Tensor
     q_map: torch.Tensor
@@ -406,27 +470,21 @@ class SparsePlan(NamedTuple):
 
 def sparse_plan(q_block_ids: torch.Tensor, q_doc_ids: torch.Tensor,
                 kv_block_ids: torch.Tensor, kv_doc_ids: torch.Tensor,
-                max_live_kv: int, head_dim: int) -> SparsePlan:
+                max_live_kv: int) -> SparsePlan:
     """Build both tile lists (ids [B, L]) and check them: raises ValueError
     if any q tile has more than ``max_live_kv`` live kv tiles or any kv tile
-    more than max_live_q = max_live_kv * 64 / block_q_dkv + 1 live q tiles
-    (the JAX backward's bound, attention.py:922, in this port's tiles). One
-    host read."""
+    more than max_live_q = max_live_kv + 1 live q tiles (the JAX backward's
+    bound, attention.py:922, in this port's tiles). One host read."""
     b, lq = q_block_ids.shape
     lk = kv_block_ids.shape[1]
-    bqd = dkv_block_q(head_dim)
     n_q, n_k = -(-lq // TILE), -(-lk // TILE)
-    n_qd = -(-lq // bqd)
     max_live_kv = min(max_live_kv, n_k)
-    max_live_q = min(n_qd, max_live_kv * TILE // bqd + 1)
-    qb = _pad_ids(q_block_ids, n_q * TILE, 0)
-    qd = _pad_ids(q_doc_ids, n_q * TILE, Q_PAD_DOC)
-    kb = _pad_ids(kv_block_ids, n_k * TILE, 0)
-    kd = _pad_ids(kv_doc_ids, n_k * TILE, KV_PAD_DOC)
-    live = tile_live_matrix(qb, qd, kb, kd, TILE, TILE)
-    live_t = tile_live_matrix(qb[:, :n_qd * bqd], qd[:, :n_qd * bqd], kb, kd,
-                              bqd, TILE).transpose(1, 2)
-    most_kv, most_q = torch.stack([live.sum(-1).amax(), live_t.sum(-1).amax()]).tolist()
+    max_live_q = min(n_q, max_live_kv + 1)
+    live = tile_live_matrix(_pad_ids(q_block_ids, n_q * TILE, 0),
+                            _pad_ids(q_doc_ids, n_q * TILE, Q_PAD_DOC),
+                            _pad_ids(kv_block_ids, n_k * TILE, 0),
+                            _pad_ids(kv_doc_ids, n_k * TILE, KV_PAD_DOC), TILE, TILE)
+    most_kv, most_q = torch.stack([live.sum(-1).amax(), live.sum(-2).amax()]).tolist()
     if most_kv > max_live_kv or most_q > max_live_q:
         raise ValueError(
             f"sparse flash attention: a q tile has {most_kv} live kv tiles "
@@ -434,9 +492,9 @@ def sparse_plan(q_block_ids: torch.Tensor, q_doc_ids: torch.Tensor,
             f"{max_live_q}); size max_live_kv from the longest document "
             "(live_tile_bound)")
     kv_map, kv_counts = select_live_tiles(live, max_live_kv)
-    q_map, q_counts = select_live_tiles(live_t, max_live_q)
+    q_map, q_counts = select_live_tiles(live.transpose(1, 2), max_live_q)
     return SparsePlan(kv_map.contiguous(), kv_counts.contiguous(),
-                      q_map.contiguous(), q_counts.contiguous(), bqd)
+                      q_map.contiguous(), q_counts.contiguous(), TILE)
 
 
 # ---------------------------------------------------------------------------
@@ -582,15 +640,15 @@ def flash_sparse_dkv_reference(q, k, v, dout, lse, delta, q_block_ids,
 # Sparse-iteration flash attention: kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_plan(name: str, plan: SparsePlan, b: int, lq: int, lk: int, d: int):
+def _check_plan(name: str, plan: SparsePlan, b: int, lq: int, lk: int):
     n_q, n_k = -(-lq // TILE), -(-lk // TILE)
     ok = (plan.kv_map.shape[:2] == (b, n_q) and plan.kv_counts.shape == (b, n_q)
           and plan.q_map.shape[:2] == (b, n_k) and plan.q_counts.shape == (b, n_k)
-          and plan.block_q_dkv == dkv_block_q(d))
+          and plan.block_q_dkv == TILE)
     if not ok or any(t.dtype != torch.int32 or not t.is_contiguous()
                      for t in plan[:4]):
         raise ValueError(f"{name}: the tile plan does not fit q [{b}, {lq}] "
-                         f"k [{b}, {lk}] at head dim {d}")
+                         f"k [{b}, {lk}]")
 
 
 def flash_fwd_sparse(q, k, v, q_block_ids, q_doc_ids, kv_block_ids, kv_doc_ids,
@@ -604,7 +662,7 @@ def flash_fwd_sparse(q, k, v, q_block_ids, q_doc_ids, kv_block_ids, kv_doc_ids,
     _check("flash_fwd_sparse", q, k, v)
     b, lq, hq, d = q.shape
     lk, hkv = k.shape[1], k.shape[2]
-    _check_plan("flash_fwd_sparse", plan, b, lq, lk, d)
+    _check_plan("flash_fwd_sparse", plan, b, lq, lk)
     qb, qd = (_ids(t, b, lq, q.device) for t in (q_block_ids, q_doc_ids))
     kb, kd = (_ids(t, b, lk, q.device) for t in (kv_block_ids, kv_doc_ids))
     o = torch.empty_like(q)
@@ -629,7 +687,7 @@ def flash_bwd_dq_sparse(q, k, v, dout, lse, delta, q_block_ids, q_doc_ids,
     _check("flash_bwd_dq_sparse", q, k, v, dout)
     b, lq, hq, d = q.shape
     lk, hkv = k.shape[1], k.shape[2]
-    _check_plan("flash_bwd_dq_sparse", plan, b, lq, lk, d)
+    _check_plan("flash_bwd_dq_sparse", plan, b, lq, lk)
     qb, qd = (_ids(t, b, lq, q.device) for t in (q_block_ids, q_doc_ids))
     kb, kd = (_ids(t, b, lk, q.device) for t in (kv_block_ids, kv_doc_ids))
     dq = torch.empty_like(q)
@@ -656,7 +714,7 @@ def flash_bwd_dkv_sparse(q, k, v, dout, lse, delta, q_block_ids, q_doc_ids,
     _check("flash_bwd_dkv_sparse", q, k, v, dout)
     b, lq, hq, d = q.shape
     lk, hkv = k.shape[1], k.shape[2]
-    _check_plan("flash_bwd_dkv_sparse", plan, b, lq, lk, d)
+    _check_plan("flash_bwd_dkv_sparse", plan, b, lq, lk)
     qb, qd = (_ids(t, b, lq, q.device) for t in (q_block_ids, q_doc_ids))
     kb, kd = (_ids(t, b, lk, q.device) for t in (kv_block_ids, kv_doc_ids))
     dk = torch.empty_like(k)
@@ -679,14 +737,16 @@ flash_bwd_dkv_sparse.launches = 0
 
 class _FlashSparse(torch.autograd.Function):
     """Sparse-iteration core (the custom VJP of _flash_sparse_core,
-    attention.py:783-1041): the forward saves lse; the backward runs dq over
-    the forward's lists and dk/dv over the transposed lists (as the JAX
-    code does; its docstring's "reuses the dense kernels" is stale)."""
+    attention.py:783-1041): the forward saves lse and its int32 ids; the
+    backward runs dq over the forward's lists and dk/dv over the transposed
+    lists, on those ids (as the JAX code does; its docstring's "reuses the
+    dense kernels" is stale)."""
 
     @staticmethod
     def forward(ctx, q, k, v, qb, qd, kb, kd, plan, scale):
-        o, lse = flash_fwd_sparse(q, k, v, qb, qd, kb, kd, plan, scale)
-        ctx.save_for_backward(q, k, v, qb, qd, kb, kd, o, lse)
+        ids = _ids_once(q, k, qb, qd, kb, kd)
+        o, lse = flash_fwd_sparse(q, k, v, *ids, plan, scale)
+        ctx.save_for_backward(q, k, v, *ids, o, lse)
         ctx.plan, ctx.scale = plan, scale
         return o
 
@@ -715,16 +775,12 @@ def flash_attention_sparse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     instead. An undersized bound raises."""
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    ids = _ids_once(q, k, q_block_ids, q_doc_ids, kv_block_ids, kv_doc_ids)
     if plan is None:
         if max_live_kv is None:
             raise ValueError("flash_attention_sparse: give max_live_kv or a plan")
-        plan = sparse_plan(_ids(q_block_ids, q.shape[0], q.shape[1], q.device),
-                           _ids(q_doc_ids, q.shape[0], q.shape[1], q.device),
-                           _ids(kv_block_ids, k.shape[0], k.shape[1], q.device),
-                           _ids(kv_doc_ids, k.shape[0], k.shape[1], q.device),
-                           max_live_kv, d)
-    return _FlashSparse.apply(q.contiguous(), k.contiguous(), v.contiguous(),
-                              q_block_ids, q_doc_ids, kv_block_ids, kv_doc_ids,
+        plan = sparse_plan(*ids, max_live_kv)
+    return _FlashSparse.apply(q.contiguous(), k.contiguous(), v.contiguous(), *ids,
                               plan, float(scale))
 
 

@@ -1291,27 +1291,44 @@ def phase_flash_attention() -> dict:
         if bad or shift < 4 * bounds["o"]:
             raise SystemExit(f"flash_attention {name}: rel errors {rel} (bounds "
                              f"{bounds}); a mask off by one moves o by {shift}")
-        rec = {"errs": errs}
+        # two launches of each backward kernel give the same bits
         with torch.no_grad():
-            rec["fwd"] = (cuda_time_ms(lambda: flash_fwd(q, k, v, *ids, scale), 20),
-                          cuda_time_ms(lambda: flash_attention_reference(
-                              q, k, v, *ids, scale, return_lse=True), 5))
-            rec["dq"] = (cuda_time_ms(lambda: flash_bwd_dq(
-                q, k, v, do, lse, delta, *ids, scale), 20),
-                cuda_time_ms(lambda: flash_bwd_dq_reference(
-                    q, k, v, do, lse, delta, *ids, scale), 5))
-            rec["dkv"] = (cuda_time_ms(lambda: flash_bwd_dkv(
-                q, k, v, do, lse, delta, *ids, scale), 20),
-                cuda_time_ms(lambda: flash_bwd_dkv_reference(
-                    q, k, v, do, lse, delta, *ids, scale), 5))
+            same = {"dq": torch.equal(dq, flash_bwd_dq(q, k, v, do, lse, delta, *ids,
+                                                       scale)),
+                    "dkv": all(map(torch.equal, (dk, dv), flash_bwd_dkv(
+                        q, k, v, do, lse, delta, *ids, scale)))}
+        if not all(same.values()):
+            raise SystemExit(f"flash_attention {name}: two launches differ {same}")
+        rec = {"errs": errs}
+        # the wrappers timed on the ids as the autograd Function hands them
+        # (int32 [B, L] contiguous, made once by the forward): eager over 20
+        # calls (the record's ms), device-only from a captured graph, and
+        # the host time a call
+        pids = tuple(t.contiguous() for t in ids)
+        fns = {"fwd": (lambda: flash_fwd(q, k, v, *pids, scale),
+                       lambda: flash_attention_reference(q, k, v, *ids, scale,
+                                                         return_lse=True)),
+               "dq": (lambda: flash_bwd_dq(q, k, v, do, lse, delta, *pids, scale),
+                      lambda: flash_bwd_dq_reference(q, k, v, do, lse, delta, *ids,
+                                                     scale)),
+               "dkv": (lambda: flash_bwd_dkv(q, k, v, do, lse, delta, *pids, scale),
+                       lambda: flash_bwd_dkv_reference(q, k, v, do, lse, delta, *ids,
+                                                       scale))}
+        with torch.no_grad():
+            for key, (kernel, plain) in fns.items():
+                rec[key] = {"ms": cuda_time_ms(kernel, 20), "plain_ms": cuda_time_ms(plain, 5),
+                            "device_ms": cuda_graph_time_ms(kernel),
+                            "host_us": host_us(kernel)}
         log("flash_attention", f"{name} q {tuple(q.shape)} k {tuple(k.shape)}: "
             "max abs err (relative to max |value|, bound): "
             + ", ".join(f"{key} {errs[key]:.3e} ({rel[key]:.2e}, {bounds[key]})"
                         for key in errs)
-            + f"; a mask off by one moves o by >= {shift:.3e} of max |o|; "
-            "ms kernel/plain: "
-            + ", ".join(f"{key} {rec[key][0]:.4f}/{rec[key][1]:.4f}"
-                        for key in ("fwd", "dq", "dkv")))
+            + f"; a mask off by one moves o by >= {shift:.3e} of max |o|; two launches "
+            "of dq and of dk/dv bit-equal; ms kernel eager (device-only, host us a "
+            "call)/plain: "
+            + ", ".join(f"{key} {r['ms']:.4f} ({r['device_ms']:.4f}, {r['host_us']:.1f})"
+                        f"/{r['plain_ms']:.4f}"
+                        for key, r in ((key, rec[key]) for key in fns)))
         if name == "path":
             rec["bounds"] = _flash_bounds_and_library(q, k, v, do, ids)
         records[name] = rec
@@ -1320,13 +1337,46 @@ def phase_flash_attention() -> dict:
     worst = lambda keys: max(r["errs"][key] for r in records.values()  # noqa: E731
                              for key in keys)
     bd = path["bounds"]
-    return {"flash_fwd": {"max_abs_err": worst(("o", "lse")), "ms": path["fwd"][0],
-                          "plain_ms": path["fwd"][1], **bd["fwd"]},
-            "flash_bwd_dq": {"max_abs_err": worst(("dq",)), "ms": path["dq"][0],
-                             "plain_ms": path["dq"][1], **bd["dq"]},
-            "flash_bwd_dkv": {"max_abs_err": worst(("dk", "dv")),
-                              "ms": path["dkv"][0], "plain_ms": path["dkv"][1],
+    return {"flash_fwd": {"max_abs_err": worst(("o", "lse")), **path["fwd"], **bd["fwd"]},
+            "flash_bwd_dq": {"max_abs_err": worst(("dq",)), **path["dq"], **bd["dq"]},
+            "flash_bwd_dkv": {"max_abs_err": worst(("dk", "dv")), **path["dkv"],
                               **bd["dkv"]}}
+
+
+def sdpa_times(q, k, v, do, mask, iters: int):
+    """scaled_dot_product_attention on q, k, v ([B, L, H, D]) with a boolean
+    attn_mask: (forward eager ms, forward device-only ms, autograd backward
+    eager ms, backward device-only ms). Eager: CUDA events over ``iters``
+    calls. Device-only from captured graphs; autograd runs a backward on its
+    forward's stream, so the backward is captured with its forward (on
+    leaves no earlier graph holds) and the forward's graph time taken off."""
+    import torch
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gqa = q.shape[2] != k.shape[2]
+    dot = do.transpose(1, 2)
+
+    def leaves():
+        return [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+
+    def fwd_of(qkv):
+        return sdpa(*qkv, attn_mask=mask, enable_gqa=gqa)
+
+    qkv = leaves()
+    with torch.no_grad():
+        fwd = cuda_time_ms(lambda: fwd_of(qkv), iters)
+        fwd_dev = cuda_graph_time_ms(lambda: fwd_of(qkv))
+    captured = leaves()
+
+    def fwd_bwd():
+        with torch.enable_grad():
+            return torch.autograd.grad(fwd_of(captured), captured, dot)
+
+    both_dev = cuda_graph_time_ms(fwd_bwd)
+    with torch.enable_grad():
+        o = fwd_of(qkv)
+    bwd = cuda_time_ms(lambda: torch.autograd.grad(o, qkv, dot, retain_graph=True), iters)
+    return fwd, fwd_dev, bwd, both_dev - fwd_dev
 
 
 def _flash_bounds_and_library(q, k, v, do, ids) -> dict:
@@ -1334,7 +1384,8 @@ def _flash_bounds_and_library(q, k, v, do, ids) -> dict:
     pairs its mask lets through, and the library's time for the same
     function: scaled_dot_product_attention with the mask as a boolean
     attn_mask, and its autograd backward (one call gives dq, dk and dv, so
-    both backward kernels are set beside that one time)."""
+    both backward kernels are set beside that one time); eager (the
+    record's library_ms) and device-only from a captured graph."""
     import torch
 
     from bitdance_tpu_torch.ops.attention import mask_from_ids
@@ -1348,21 +1399,15 @@ def _flash_bounds_and_library(q, k, v, do, ids) -> dict:
            "dq": roofline(nbytes(q, k, v, do, q) + idb + 2 * lse_b, 6.0 * d * hq * pairs),
            "dkv": roofline(nbytes(q, k, v, do, k, v) + idb + 2 * lse_b,
                         8.0 * d * hq * pairs)}
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-    m4, gqa = mask[:, None], hq != k.shape[2]
-    with torch.no_grad():
-        fwd = cuda_time_ms(lambda: sdpa(qt, kt, vt, attn_mask=m4, enable_gqa=gqa), 20)
-    o = sdpa(qt, kt, vt, attn_mask=m4, enable_gqa=gqa)
-    dot = do.transpose(1, 2)
-    bwd = cuda_time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot,
-                                                   retain_graph=True), 20)
-    out["fwd"]["library_ms"] = fwd
-    out["dq"]["library_ms"] = out["dkv"]["library_ms"] = bwd
+    fwd, fwd_dev, bwd, bwd_dev = sdpa_times(q, k, v, do, mask[:, None], 20)
+    out["fwd"].update(library_ms=fwd, library_device_ms=fwd_dev)
+    for key in ("dq", "dkv"):
+        out[key].update(library_ms=bwd, library_device_ms=bwd_dev)
     log("flash_attention", "bounds (ms): " + ", ".join(
         f"{key} {r['bound_ms']:.4f} ({r['bound_by']})" for key, r in out.items())
-        + f"; scaled_dot_product_attention forward {fwd:.4f} ms, its autograd "
-        f"backward (dq, dk, dv) {bwd:.4f} ms")
+        + f"; scaled_dot_product_attention forward {fwd:.4f} ms eager ({fwd_dev:.4f} "
+        f"device-only), its autograd backward (dq, dk, dv) {bwd:.4f} ms eager "
+        f"({bwd_dev:.4f} device-only)")
     return out
 
 
@@ -2317,10 +2362,10 @@ def phase_flash_sparse() -> dict:
     dev = torch.device("cuda")
     q, k, v, do, ids, bound, longest = _sparse_case(dev)
     scale = 128 ** -0.5
-    plan = sparse_plan(*ids, bound, 128)
+    plan = sparse_plan(*ids, bound)
     most = int(plan.kv_counts.max())
     try:
-        sparse_plan(*ids, most - 1, 128)
+        sparse_plan(*ids, most - 1)
     except ValueError as e:
         log("flash_sparse", f"undersized bound {most - 1} raised: {str(e)[:100]}")
     else:
@@ -2360,13 +2405,19 @@ def phase_flash_sparse() -> dict:
         shifts = {what: _row_rel(*_row_stats(flash_sparse_reference(
             qr, kr, vr, *ids, m, c, scale), o_ref))
             for what, (m, c) in _one_tile_off(plan, ids, longest).items()}
+    with torch.no_grad():   # two launches of each backward kernel: the same bits
+        same = {"dq": torch.equal(dq, flash_bwd_dq_sparse(q, k, v, do, lse, delta, *ids,
+                                                          plan, scale)),
+                "dkv": all(map(torch.equal, (dk, dv), flash_bwd_dkv_sparse(
+                    q, k, v, do, lse, delta, *ids, plan, scale)))}
     bounds = FLASH_SPARSE_MAX_REL_ERR
     bad = [key for key, e in rel.items()
            if e > bounds[key if key in bounds else key.split("_")[0]]]
-    if bad or min(shifts.values()) < 4 * bounds["o_row"] or any(dense.values()):
+    if bad or min(shifts.values()) < 4 * bounds["o_row"] or any(dense.values()) \
+            or not all(same.values()):
         raise SystemExit(f"flash_sparse: rel errors {rel} (bounds {bounds}); maps one "
                          f"tile off move o per row by {shifts}; vs the dense kernels "
-                         f"{dense}")
+                         f"{dense}; two launches bit-equal {same}")
     with torch.no_grad():
         times = {
             "fwd": (cuda_time_ms(lambda: flash_fwd_sparse(q, k, v, *ids, plan, scale), 20),
@@ -2388,6 +2439,14 @@ def phase_flash_sparse() -> dict:
                         q, k, v, do, lse, delta, *ids, scale), 20),
                     "dkv": cuda_time_ms(lambda: flash_bwd_dkv(
                         q, k, v, do, lse, delta, *ids, scale), 20)}
+        # the backward kernels device-only (captured graph) and the host's
+        # time a call
+        extra = {key: {"device_ms": cuda_graph_time_ms(fn), "host_us": host_us(fn)}
+                 for key, fn in (
+                     ("dq", lambda: flash_bwd_dq_sparse(q, k, v, do, lse, delta, *ids,
+                                                        plan, scale)),
+                     ("dkv", lambda: flash_bwd_dkv_sparse(q, k, v, do, lse, delta, *ids,
+                                                          plan, scale)))}
     log("flash_sparse", f"q {tuple(q.shape)} k {tuple(k.shape)}, 7 packed documents of "
         f"{longest} tokens + padding; max_live_kv {bound} 64-key tiles from the longest "
         f"document (most live {most}, mean {plan.kv_counts.float().mean():.2f} of "
@@ -2402,19 +2461,22 @@ def phase_flash_sparse() -> dict:
     log("flash_sparse", "maps one tile off move o per row by (bound >= "
         f"{4 * bounds['o_row']:.3g}): "
         + "; ".join(f"{what} {e:.3e}" for what, e in shifts.items()))
-    log("flash_sparse", "ms kernel/plain (dense kernel): " + ", ".join(
-        f"{key} {a:.4f}/{b:.4f} ({dense_ms[key]:.4f})" for key, (a, b) in times.items()))
+    log("flash_sparse", "two launches of dq and of dk/dv bit-equal; ms kernel/plain "
+        "(dense kernel): " + ", ".join(
+            f"{key} {a:.4f}/{b:.4f} ({dense_ms[key]:.4f})" for key, (a, b) in times.items())
+        + "; backward device-only (host us a call): " + ", ".join(
+            f"{key} {r['device_ms']:.4f} ({r['host_us']:.1f})" for key, r in extra.items()))
     bd = _flash_bounds_and_library(q, k, v, do, ids)
     worst = lambda keys: max(errs[key] for key in keys)  # noqa: E731
     return {"flash_fwd_sparse": {"max_abs_err": worst(("o", "lse")), "ms": times["fwd"][0],
                                  "plain_ms": times["fwd"][1], **bd["fwd"]},
             "flash_bwd_dq_sparse": {"max_abs_err": worst(("dq", "dq_function")),
                                     "ms": times["dq"][0], "plain_ms": times["dq"][1],
-                                    **bd["dq"]},
+                                    **extra["dq"], **bd["dq"]},
             "flash_bwd_dkv_sparse": {"max_abs_err": worst(("dk", "dv", "dk_function",
                                                            "dv_function")),
                                      "ms": times["dkv"][0], "plain_ms": times["dkv"][1],
-                                     **bd["dkv"]}}
+                                     **extra["dkv"], **bd["dkv"]}}
 
 
 def _mllm_fwd_flops(state, cfg, batch, n_txt: int, n_vis: int) -> float:
@@ -2567,7 +2629,7 @@ def phase_mllm(card: str) -> dict:
         f"{count(m.head) / 1e9:.3f} B, projector {count(m.projector) / 1e6:.1f} M parameters; "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     plan = sparse_plan(batch.block_ids, batch.doc_ids, batch.block_ids, batch.doc_ids,
-                       cfg.attn_live_tiles(), cfg.llm.head_dim)
+                       cfg.attn_live_tiles())
     log("mllm", f"packed {len(chosen)} samples (40-token prompts, 512 px) by GreedyPacker "
         f"(expected {data['expected_num_tokens']}, max {data['max_num_tokens']}): "
         f"{used} of {L} tokens in documents; {n_txt} text-loss rows of the CE's "
@@ -2652,7 +2714,7 @@ def phase_mllm(card: str) -> dict:
     v = torch.randn((1, L, hkv, hd), generator=g, device=dev).bfloat16()
     do = torch.randn((1, L, hq, hd), generator=g, device=dev).bfloat16()
     ids = (batch.block_ids, batch.doc_ids, batch.block_ids, batch.doc_ids)
-    plan = sparse_plan(*ids, cfg.attn_live_tiles(), hd)
+    plan = sparse_plan(*ids, cfg.attn_live_tiles())
     sc = hd ** -0.5
     with torch.no_grad():
         o, lse = flash_fwd_sparse(q, k, v, *ids, plan, sc)
@@ -3166,10 +3228,13 @@ def main() -> int:
                         "replaces": repl, "launches": launches[name],
                         **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
                                              "bound_ms", "bound_by", "library_ms")},
-                        # #1 / #6 also carry their device-only time; #16 its
-                        # cold-L2 times, the GEMM launch alone and its splits
-                        **{k: r[k] for k in ("device_ms", "cold_ms", "library_cold_ms",
-                                             "gemm_ms", "splits") if k in r}})
+                        # #1 / #6 and the flash kernels also carry their
+                        # device-only time (#7-#9: the host's a call, SDPA's
+                        # device-only); #16 its cold-L2 times, the GEMM
+                        # launch alone and its splits
+                        **{k: r[k] for k in ("device_ms", "host_us", "library_device_ms",
+                                             "cold_ms", "library_cold_ms", "gemm_ms",
+                                             "splits") if k in r}})
     log("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(card)

@@ -131,6 +131,73 @@ def test_flash_attention_kernels(dev, b, l, hq, hkv, d, lens):
         assert err(got, want) < 3e-2
 
 
+# (b, L, hq, hkv, d, ids): ragged L at D 64 and D 128, GQA 40 / 8, a packed
+# doc boundary inside a tile, rows that see no key, and unsorted ids
+BACKWARD_CASES = {
+    "causal_ragged_d64": (2, 200, 4, 4, 64, (200,)),
+    "gqa40_8_d128_docs": (1, 330, 40, 8, 128, (140, 190)),
+    "packed_ragged_d64": (2, 459, 4, 2, 64, (100, 230, 129)),
+    "unsorted_empty_rows_d128": (1, 230, 4, 1, 128, None),
+}
+
+
+@pytest.mark.parametrize("name", list(BACKWARD_CASES))
+def test_flash_backward_kernels(dev, name):
+    """#8 and #9 vs their plain versions on the forward's lse (bounds:
+    chip_smoke.py's _FLASH_BOUNDS, relative to max |value|), with dead,
+    partial and full tile pairs where the ids are sorted; rows that see no
+    key get dq 0; two launches bit-equal; #11 / #12 equal to them."""
+    from bitdance_tpu_torch.ops.attention import (
+        TILE,
+        TILE_DEAD,
+        TILE_FULL,
+        TILE_PARTIAL,
+        flash_bwd_dkv,
+        flash_bwd_dkv_reference,
+        flash_bwd_dkv_sparse,
+        flash_bwd_dq,
+        flash_bwd_dq_reference,
+        flash_bwd_dq_sparse,
+        flash_fwd,
+        sparse_plan,
+        tile_classes,
+    )
+
+    b, L, hq, hkv, d, lens = BACKWARD_CASES[name]
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, do = (torch.randn((b, L, hq, d), generator=g, device=dev).bfloat16() for _ in "ab")
+    k, v = (torch.randn((b, L, hkv, d), generator=g, device=dev).bfloat16() for _ in "ab")
+    if lens is None:
+        block = torch.randint(0, 60, (L,), generator=g, device=dev).int()
+        doc = torch.randint(0, 3, (L,), generator=g, device=dev).int()
+        qdoc = torch.where(torch.arange(L, device=dev) < 7, 9, doc).int()
+        ids = tuple(t.expand(b, L).contiguous() for t in (block, qdoc, block, doc))
+    else:
+        block, doc = _packed_ids(lens, dev)
+        ids = tuple(t.expand(b, L).contiguous() for t in (block, doc, block, doc))
+        classes = set(tile_classes(*ids, TILE, TILE).unique().tolist())
+        assert classes == {TILE_DEAD, TILE_PARTIAL, TILE_FULL}
+    sc = d ** -0.5
+    o, lse = flash_fwd(q, k, v, *ids, sc)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, *ids, sc)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, *ids, sc)
+    dq_ref = flash_bwd_dq_reference(q, k, v, do, lse, delta, *ids, sc)
+    dk_ref, dv_ref = flash_bwd_dkv_reference(q, k, v, do, lse, delta, *ids, sc)
+    rel = lambda a, r: ((a.float() - r.float()).abs().max()  # noqa: E731
+                        / r.float().abs().max()).item()
+    for got, want, bound in ((dq, dq_ref, 1.5e-2), (dk, dk_ref, 1.5e-2), (dv, dv_ref, 1.2e-2)):
+        assert torch.isfinite(got).all() and rel(got, want) < bound
+    if lens is None:
+        assert (lse[:, :, :7] == 1e30).all() and (dq[:, :7] == 0).all()
+    assert torch.equal(dq, flash_bwd_dq(q, k, v, do, lse, delta, *ids, sc))
+    assert all(map(torch.equal, (dk, dv), flash_bwd_dkv(q, k, v, do, lse, delta, *ids, sc)))
+    plan = sparse_plan(*ids, -(-L // TILE))
+    assert torch.equal(dq, flash_bwd_dq_sparse(q, k, v, do, lse, delta, *ids, plan, sc))
+    assert all(map(torch.equal, (dk, dv),
+                   flash_bwd_dkv_sparse(q, k, v, do, lse, delta, *ids, plan, sc)))
+
+
 def test_kernels_refuse_grad(dev):
     from bitdance_tpu_torch.ops.decode_attention import decode_attention
 
@@ -521,7 +588,7 @@ def test_flash_sparse_kernels(dev, hq, hkv, d, lens):
     L = blk.shape[1]
     q, do = (torch.randn((1, L, hq, d), generator=g, device=dev).bfloat16() for _ in "ab")
     k, v = (torch.randn((1, L, hkv, d), generator=g, device=dev).bfloat16() for _ in "ab")
-    plan = sparse_plan(*ids, live_tile_bound(max(lens)), d)
+    plan = sparse_plan(*ids, live_tile_bound(max(lens)))
     sc = d ** -0.5
     counts = (flash_fwd_sparse.launches, flash_bwd_dq_sparse.launches,
               flash_bwd_dkv_sparse.launches)

@@ -111,7 +111,7 @@ def test_sparse_forward_matches_jax(name):
     want = np.asarray(_jax_sparse(q, k, v, ids, jmax))
     got = ta.flash_attention_sparse(*_t(q, k, v), *_t(*ids), max_live_kv=tmax)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
-    plan = ta.sparse_plan(*_t(*ids), tmax, q.shape[-1])
+    plan = ta.sparse_plan(*_t(*ids), tmax)
     o, lse = ta.flash_sparse_reference(*_t(q, k, v), *_t(*ids), plan.kv_map,
                                        plan.kv_counts, return_lse=True)
     o_d, lse_d = ta.flash_attention_reference(*_t(q, k, v), *_t(*ids), return_lse=True)
@@ -130,7 +130,7 @@ def test_sparse_gradients_match_jax_custom_vjp(name):
         return jnp.sum(_jax_sparse(q, k, v, ids, jmax) * w)
 
     want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
-    plan = ta.sparse_plan(*_t(*ids), tmax, q.shape[-1])
+    plan = ta.sparse_plan(*_t(*ids), tmax)
     fns = {"function": lambda *a: ta.flash_attention_sparse(*a, plan=plan),
            "reference": lambda *a: ta.flash_sparse_reference(*a, plan.kv_map,
                                                              plan.kv_counts)}
@@ -145,9 +145,9 @@ def test_sparse_gradients_match_jax_custom_vjp(name):
 def test_sparse_plan_raises_on_undersized_bound():
     """The JAX function clamps and drops tiles; the port raises."""
     *_, ids, _, tmax = _inputs("packed")
-    ta.sparse_plan(*_t(*ids), tmax, 64)
+    ta.sparse_plan(*_t(*ids), tmax)
     with pytest.raises(ValueError, match="live kv tiles"):
-        ta.sparse_plan(*_t(*ids), 2, 64)
+        ta.sparse_plan(*_t(*ids), 2)
 
 
 def test_dropped_or_extra_tile_shows_in_plain_version():
@@ -156,7 +156,7 @@ def test_dropped_or_extra_tile_shows_in_plain_version():
     set as built gives the dense result."""
     q, k, v, _, ids, _, tmax = _inputs("gqa5_d128")
     tq, tk, tv = _t(q, k, v)
-    plan = ta.sparse_plan(*_t(*ids), tmax, 128)
+    plan = ta.sparse_plan(*_t(*ids), tmax)
     dense = ta.flash_attention_reference(tq, tk, tv, *_t(*ids))
     ok = ta.flash_sparse_reference(tq, tk, tv, *_t(*ids), plan.kv_map, plan.kv_counts)
     np.testing.assert_allclose(ok.numpy(), dense.numpy(), **TOL)
@@ -221,7 +221,7 @@ def test_plain_sparse_backward_versions_bf16():
     tids = _t(*ids)
     rq, rk, rv = (x.float().requires_grad_() for x in (tq, tk, tv))
     (ta.flash_attention_reference(rq, rk, rv, *tids) * torch.from_numpy(w)).sum().backward()
-    plan = ta.sparse_plan(*tids, tmax, 128)
+    plan = ta.sparse_plan(*tids, tmax)
     scale = 128 ** -0.5
     o, lse = ta.flash_fwd_sparse(tq, tk, tv, *tids, plan, scale)
     do = torch.from_numpy(w).bfloat16()
@@ -254,13 +254,13 @@ def test_live_tile_bound_covers_packed_documents():
                torch.tensor(doc, dtype=torch.int32)[None]]
         longest = int(np.bincount(doc).max())
         ta.sparse_plan(ids[0], ids[1], ids[0], ids[1],
-                       ta.live_tile_bound(longest), 128)
+                       ta.live_tile_bound(longest))
 
 
 def test_sparse_wrappers_refuse_non_cuda_non_cpu_devices():
     q = torch.zeros((1, 64, 2, 64), device="meta", dtype=torch.bfloat16)
     ids = torch.zeros((1, 64), dtype=torch.int32)
-    plan = ta.sparse_plan(ids, ids, ids, ids, 1, 64)
+    plan = ta.sparse_plan(ids, ids, ids, ids, 1)
     with pytest.raises(RuntimeError, match="no kernel"):
         ta.flash_fwd_sparse(q, q, q, ids, ids, ids, ids, plan, 0.125)
     lse = torch.zeros((1, 2, 64), device="meta")
