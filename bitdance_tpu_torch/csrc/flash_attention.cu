@@ -23,21 +23,16 @@
 // ~79 MB (dk/dv) at that shape, 0.020 / 0.024 ms at 3.35 TB/s.
 //
 // Tensors stay in the model's [B, L, H, D] layout (no transposes); lse and
-// delta are [B, Hq, Lq] fp32. Ragged lengths are handled in the kernels:
-// rows and keys past L are zero-filled by cp.async and masked out.
+// delta are [B, Hq, Lq] fp32 (lse in the natural log). Ragged lengths are
+// handled in the kernels: rows and keys past L are zero-filled by cp.async
+// and masked out.
 //
-// Forward: one (b, q head, 64-row q tile) per block of 4 warps, each warp
-// owning 16 rows, a loop over 64-key tiles in place of the TPU's sequential
-// grid axis, products on mma.sync m16n8k16 (bf16 in, fp32 accumulate); a
-// tile is skipped with the TPU kernel's conservative test (min key block >
-// max query block, or disjoint doc ranges), which holds for unsorted ids.
-//
-// Backward, one design for dq and dk/dv:
+// One design for the forward, dq and dk/dv:
 // - A block is one warpgroup owning 64 rows: one (q head, b, 64-row q tile)
-//   for dq, with a loop over 64-key tiles; one (kv head, b, 64-key tile) for
-//   dk/dv, with a loop over the q heads of its GQA group and their q tiles,
-//   so the group sum happens in registers. No atomics: two launches give
-//   the same bits.
+//   for the forward and dq, with a loop over 64-key tiles; one (kv head, b,
+//   64-key tile) for dk/dv, with a loop over the q heads of its GQA group
+//   and their q tiles, so the group sum happens in registers. No atomics:
+//   two launches give the same bits.
 // - Live tiles decided up front. Each block computes the id ranges of every
 //   tile it may visit once, classifies each pair dead, partial or full
 //   (pair_class) and lists the live ones in ascending order in shared
@@ -45,18 +40,25 @@
 //   full tile (every query sees every key) skips the per-element id
 //   compares. Dense and sparse instantiations classify identically and
 //   visit the same live tiles in the same order: the same bits.
-// - A 2-stage cp.async ring. The fixed side (Q and dO, or K and V) is
-//   copied once; the other side's tiles (with their ids, and for dk/dv the
-//   q rows' lse and delta) arrive in wgmma's 128-byte swizzle, the next
-//   tile's copies in flight while the current tile's products run.
+// - A 2-stage cp.async ring. The fixed side (Q, with dO for dq; K and V for
+//   dk/dv) is copied once; the other side's tiles (with their ids, and for
+//   dk/dv the q rows' lse and delta) arrive in wgmma's 128-byte swizzle, the
+//   next tile's copies in flight while the current tile's products run.
 // - Products on wgmma (m64nNk16, bf16 in, fp32 accumulate). S = Q K^T and
 //   dP = dO V^T (dk/dv: S^T = K Q^T, dP^T = V dO^T) read both operands
-//   K-major from shared memory; P = exp2(S scale log2(e) - lse log2(e)) and
-//   dS = P (dP - delta) stay in registers, rounded to bf16 as the A operand
-//   of dQ += dS K (dV += P^T dO, dK += dS^T Q), whose B is the same tile
-//   read MN-major. Nothing is gathered element by element.
-// - Load balance: dq issues the last q tiles (the heaviest under a causal
-//   mask) first; dk/dv issues kv tile 0 (the heaviest) first.
+//   K-major from shared memory; P and dS stay in registers, rounded to bf16
+//   as the A operand of O += P V (forward), dQ += dS K (dV += P^T dO,
+//   dK += dS^T Q), whose B is the same tile read MN-major. Nothing is
+//   gathered element by element.
+// - The forward's softmax runs online in the log2 domain: per row the
+//   running max m of the raw scores and p = exp2(s scale log2(e) - m scale
+//   log2(e)), one FFMA and one ex2 an element; O is rescaled in registers
+//   between a tile's two products, when no wgmma is in flight. The epilogue
+//   divides by the row sum, stages O through shared memory for 16-byte
+//   stores and writes lse = (m scale log2(e) + log2(l)) ln(2).
+//   The backward's p = exp2(s scale log2(e) - lse log2(e)) reads that lse.
+// - Load balance: the forward and dq issue the last q tiles (the heaviest
+//   under a causal mask) first; dk/dv issues kv tile 0 (the heaviest) first.
 //
 // Sparse iteration (packed training, where most tiles are dead): the loop
 // runs over a per-tile list of live tile indices built on the device
@@ -65,279 +67,24 @@
 // dk/dv the transposed per-kv-tile list of 64-row q tiles. The dense
 // kernels read every tile's ids (and the dead tiles' nothing else); the
 // sparse ones only the listed tiles', so their work and traffic follow the
-// live pairs. The id mask is applied inside every visited tile as in the
-// dense kernels, so the outputs are the dense kernels'.
+// live pairs. Each visited tile is classified and masked as in the dense
+// kernels, so the outputs are the dense kernels'.
 #include <climits>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;  // 4 warps; the backward's one warpgroup
+constexpr int kThreads = 128;  // 4 warps: one warpgroup
 constexpr int kBQ = 64;        // q rows per block (forward, dq); per q tile (dk/dv)
 constexpr int kBK = 64;        // keys per tile; dk/dv: keys per block
 constexpr float kNeg = -1e30f;
 constexpr float kMaskedLse = 1e30f;
 constexpr int kMaxSmem = 226 * 1024;  // dynamic shared memory a block may use
-
-// {block min, block max, doc min, doc max} over the valid ids
-// [start, min(start + N, L)), computed by warp 0 into out[4] (shared).
-// With no valid id the block min is INT_MAX, so the tile test fails.
-template <int N>
-__device__ __forceinline__ void id_range(const int* __restrict__ bid,
-                                         const int* __restrict__ did,
-                                         int start, int L, int* out) {
-  if (threadIdx.x >= 32) return;
-  int bmin = INT_MAX, bmax = INT_MIN, dmin = INT_MAX, dmax = INT_MIN;
-  for (int i = threadIdx.x; i < N; i += 32) {
-    const int idx = start + i;
-    if (idx < L) {
-      const int bb = bid[idx], dd = did[idx];
-      bmin = min(bmin, bb);
-      bmax = max(bmax, bb);
-      dmin = min(dmin, dd);
-      dmax = max(dmax, dd);
-    }
-  }
-  bmin = __reduce_min_sync(0xffffffffu, bmin);
-  bmax = __reduce_max_sync(0xffffffffu, bmax);
-  dmin = __reduce_min_sync(0xffffffffu, dmin);
-  dmax = __reduce_max_sync(0xffffffffu, dmax);
-  if (threadIdx.x == 0) {
-    out[0] = bmin;
-    out[1] = bmax;
-    out[2] = dmin;
-    out[3] = dmax;
-  }
-}
-
-// the TPU kernel's live-tile test (attention.py:170-179)
-__device__ __forceinline__ bool tile_live(const int* qr, const int* kr) {
-  return kr[0] <= qr[1] && !(kr[2] > qr[3] || kr[3] < qr[2]);
-}
-
-// rows [row0, row0 + R) of a [*, L, H, D] head view into smem (row pitch
-// D + 8); rows past L are zero-filled. Starts cp.async copies (no commit).
-template <int D, int R>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row0,
-                                          int L, size_t stride) {
-  constexpr int LDS = D + 8;
-  for (int c = threadIdx.x; c < R * (D / 8); c += kThreads) {
-    const int r = c / (D / 8), cc = (c % (D / 8)) * 8;
-    const int row = row0 + r;
-    const bf16* p = src + (size_t)min(row, L - 1) * stride + cc;
-    cp_async16(dst + r * LDS + cc, p, row < L ? 16 : 0);
-  }
-}
-
-// B fragment where the tile's rows are the n index and columns the k index
-// (K rows for Q K^T): n = n0 + g, k = kk*16 + 2t..
-template <int LDS>
-__device__ __forceinline__ void frag_b_rows(uint32_t bf[2], const bf16* tile,
-                                            int n0, int kk, int g, int tq) {
-  const bf16* p = tile + (n0 + g) * LDS + kk * 16 + tq * 2;
-  bf[0] = lds32(p);
-  bf[1] = lds32(p + 8);
-}
-
-// B fragment where the tile's rows are the k index and columns the n index
-// (V rows for P V): k = k0 + 2t.., n = n0 + g
-template <int LDS>
-__device__ __forceinline__ void frag_b_cols(uint32_t bf[2], const bf16* tile,
-                                            int k0, int n0, int g, int tq) {
-  const bf16* p = tile + (k0 + tq * 2) * LDS + n0 + g;
-  __nv_bfloat162 lo, hi;
-  lo.x = p[0];
-  lo.y = p[LDS];
-  hi.x = p[8 * LDS];
-  hi.y = p[9 * LDS];
-  bf[0] = *reinterpret_cast<uint32_t*>(&lo);
-  bf[1] = *reinterpret_cast<uint32_t*>(&hi);
-}
-
-// the C fragments of two adjacent n-tiles (16 x 8 each) as one A fragment
-__device__ __forceinline__ void c_to_a(uint32_t a[4], const float c0[4],
-                                       const float c1[4]) {
-  a[0] = pack_bf16x2(c0[0], c0[1]);
-  a[1] = pack_bf16x2(c0[2], c0[3]);
-  a[2] = pack_bf16x2(c1[0], c1[1]);
-  a[3] = pack_bf16x2(c1[2], c1[3]);
-}
+constexpr float kLn2 = 0.6931471805599453f;
 
 // ---------------------------------------------------------------------------
-// forward: o [B, Lq, Hq, D] bf16, lse [B, Hq, Lq] fp32
-// ---------------------------------------------------------------------------
-template <int D, bool kSparse>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, const int* __restrict__ qb,
-                 const int* __restrict__ qd, const int* __restrict__ kb,
-                 const int* __restrict__ kd, const int* __restrict__ tmap,
-                 const int* __restrict__ tcnt, int S, int Lq, int Lk, int Hq,
-                 int Hkv, float scale) {
-  constexpr int LDS = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + kBK * LDS;
-  int* kb_s = reinterpret_cast<int*>(Vs + kBK * LDS);
-  int* kd_s = kb_s + kBK;
-  __shared__ int qr[4], kr[4];
-
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int q0 = qt * kBQ;
-  const int* qb_b = qb + (size_t)b * Lq;
-  const int* qd_b = qd + (size_t)b * Lq;
-  const int* kb_b = kb + (size_t)b * Lk;
-  const int* kd_b = kd + (size_t)b * Lk;
-  if (!kSparse) id_range<kBQ>(qb_b, qd_b, q0, Lq, qr);
-
-  int row[2], rb[2], rd[2];
-  bool rv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    row[i] = q0 + warp * 16 + g + i * 8;
-    rv[i] = row[i] < Lq;
-    rb[i] = rv[i] ? qb_b[row[i]] : 0;
-    rd[i] = rv[i] ? qd_b[row[i]] : 0;
-  }
-
-  const size_t q_stride = (size_t)Hq * D;
-  const bf16* qh = q + ((size_t)b * Lq * Hq + h) * D;
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const bf16* qrow = qh + (size_t)(rv[i] ? row[i] : 0) * q_stride;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int c = kk * 16 + tq * 2;
-      qf[kk][i] = rv[i] ? lds32(qrow + c) : 0u;
-      qf[kk][i + 2] = rv[i] ? lds32(qrow + c + 8) : 0u;
-    }
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m_i[2] = {kNeg, kNeg};
-  float l_i[2] = {0.f, 0.f};
-
-  const size_t kv_stride = (size_t)Hkv * D;
-  const bf16* kh = k + ((size_t)b * Lk * Hkv + hk) * D;
-  const bf16* vh = v + ((size_t)b * Lk * Hkv + hk) * D;
-  const int* tm = tmap + ((size_t)b * gridDim.x + qt) * S;
-  const int n_it = kSparse ? tcnt[b * gridDim.x + qt] : (Lk + kBK - 1) / kBK;
-
-  for (int it = 0; it < n_it; ++it) {
-    const int k0 = (kSparse ? tm[it] : it) * kBK;
-    __syncthreads();  // previous tile consumed; qr visible on the first pass
-    if (!kSparse) id_range<kBK>(kb_b, kd_b, k0, Lk, kr);
-    if (threadIdx.x < kBK) {
-      const int idx = k0 + threadIdx.x;
-      kb_s[threadIdx.x] = idx < Lk ? kb_b[idx] : 0;
-      kd_s[threadIdx.x] = idx < Lk ? kd_b[idx] : 0;
-    }
-    __syncthreads();
-    if (!kSparse && !tile_live(qr, kr)) continue;  // block-uniform
-    load_rows<D, kBK>(Ks, kh, k0, Lk, kv_stride);
-    load_rows<D, kBK>(Vs, vh, k0, Lk, kv_stride);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-
-    float s[kBK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBK / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t bf[2];
-        frag_b_rows<LDS>(bf, Ks, nt * 8, kk, g, tq);
-        mma_16816(s[nt], qf[kk], bf);
-      }
-    }
-
-    float mx[2] = {kNeg, kNeg};
-#pragma unroll
-    for (int nt = 0; nt < kBK / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kl = nt * 8 + tq * 2 + (i & 1), r = i >> 1;
-        const bool ok = rv[r] && k0 + kl < Lk && kd_s[kl] == rd[r] &&
-                        kb_s[kl] <= rb[r];
-        s[nt][i] = ok ? s[nt][i] * scale : kNeg;
-        mx[r] = fmaxf(mx[r], s[nt][i]);
-      }
-    }
-    float corr[2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 1));
-      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 2));
-      const float m_new = fmaxf(m_i[j], mx[j]);
-      corr[j] = __expf(m_i[j] - m_new);
-      m_i[j] = m_new;
-      l_i[j] *= corr[j];
-    }
-#pragma unroll
-    for (int nt = 0; nt < kBK / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kl = nt * 8 + tq * 2 + (i & 1), r = i >> 1;
-        const bool ok = rv[r] && k0 + kl < Lk && kd_s[kl] == rd[r] &&
-                        kb_s[kl] <= rb[r];
-        // masked again after exp: a row masked so far has m_i == kNeg
-        const float p = ok ? __expf(s[nt][i] - m_i[r]) : 0.f;
-        s[nt][i] = p;
-        l_i[r] += p;  // per-thread partial, reduced over the quad at the end
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= corr[0];
-      acc[n][1] *= corr[0];
-      acc[n][2] *= corr[1];
-      acc[n][3] *= corr[1];
-    }
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t pa[4];
-      c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t bf[2];
-        frag_b_cols<LDS>(bf, Vs, kk * 16, n * 8, g, tq);
-        mma_16816(acc[n], pa, bf);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float l = l_i[i];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    if (!rv[i]) continue;
-    const float inv = l > 0.f ? 1.f / l : 0.f;  // fully masked row -> 0
-    bf16* orow = o + (((size_t)b * Lq + row[i]) * Hq + h) * D;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const int c = n * 8 + tq * 2;
-      *reinterpret_cast<__nv_bfloat162*>(orow + c) = __floats2bfloat162_rn(
-          acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
-    }
-    if (tq == 0)
-      lse[((size_t)b * Hq + h) * Lq + row[i]] =
-          l > 0.f ? m_i[i] + logf(l) : kMaskedLse;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward: tile classes, the live-tile list, the swizzled tile copy
+// tile classes, the live-tile list, the swizzled tile copy
 // ---------------------------------------------------------------------------
 constexpr int kDead = 0, kPartial = 1, kFull = 2;
 
@@ -432,6 +179,24 @@ __device__ __forceinline__ void load_tile(unsigned char* dst, const bf16* src, i
   }
 }
 
+// kv tile t (rows [64 t, 64 t + 64) of the [*, Lk, Hkv, D] head views kh,
+// vh) into a ring stage of the forward or dq: the K tile, the V tile, then
+// the tile's 64 block ids and 64 doc ids (one id a thread). Starts cp.async
+// copies (no commit).
+template <int D>
+__device__ __forceinline__ void load_kv_stage(unsigned char* slot, const bf16* kh, const bf16* vh,
+                                              const int* kb, const int* kd, int t, int Lk,
+                                              size_t stride) {
+  static_assert(kThreads == 2 * kBK, "one id copy a thread");
+  constexpr int kTile = kBK * D * 2;
+  load_tile<D, kBK>(slot, kh, t * kBK, Lk, stride);
+  load_tile<D, kBK>(slot + kTile, vh, t * kBK, Lk, stride);
+  const int tid = threadIdx.x, key = t * kBK + (tid & (kBK - 1));
+  const bool ok = key < Lk;
+  cp_async4(reinterpret_cast<int*>(slot + 2 * kTile) + tid, (tid < kBK ? kb : kd) + (ok ? key : 0),
+            ok ? 4 : 0);
+}
+
 // wgmma descriptors of a swizzled tile of kRows rows: K-major at k step kk
 // (32 bytes a step inside a 128-byte row, then the next 64-column half),
 // and MN-major at k step kk (16 rows a step; the halves as the leading
@@ -445,16 +210,23 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t addr, int kk) {
   return gmma_desc(addr + kk * 2048, kRows * 128, 1024);
 }
 
-// Shared memory of the backward kernels: a 2-stage ring, each stage
-// 1024-byte aligned, then the live-tile list (4 bytes a candidate), from a
-// base aligned in 1024 bytes of slack. One tile is in flight while one is
-// computed (a third stage measured no faster). dq: the Q and dO tiles, then
-// two stages of (K tile, V tile, the tile's 64 block and 64 doc ids).
+// Shared memory of the kernels: the fixed tiles, then a 2-stage ring, each
+// stage 1024-byte aligned, then the live-tile list (4 bytes a candidate),
+// from a base aligned in 1024 bytes of slack. One tile is in flight while
+// one is computed (a third stage measured no faster for dq). dq: the Q and
+// dO tiles, then two stages of (K tile, V tile, the tile's 64 block and 64
+// doc ids); the forward the same without dO.
 template <int D>
 struct DqSmem {
   static constexpr int kTile = kBK * D * 2;
   static constexpr int kStage = (2 * kTile + 2 * kBK * 4 + 1023) / 1024 * 1024;
   static constexpr int kFixed = 1024 + 2 * kTile + 2 * kStage;
+};
+template <int D>
+struct FwdSmem {
+  static constexpr int kTile = DqSmem<D>::kTile;
+  static constexpr int kStage = DqSmem<D>::kStage;
+  static constexpr int kFixed = 1024 + kTile + 2 * kStage;
 };
 // dk/dv: the K and V tiles, then two stages of (Q tile, dO tile, and the
 // 64 q rows' lse, delta, block ids and doc ids)
@@ -496,6 +268,215 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], float m
       *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * stride + cc * 8) =
           *reinterpret_cast<const uint4*>(stage + r * kPitch + cc * 16);
   }
+}
+
+// The forward's online softmax over one tile, from S (64 rows x 64 keys, C
+// fragments): this thread's two rows' running max m (of the raw scores; kNeg
+// while a row has seen no key) and partial sum l (over this thread's
+// columns) move on, corr is the factor by which the rows' O must be
+// rescaled, and p = exp2(s scale log2(e) - m scale log2(e)), 0 where masked
+// (by a select after the exp), is rounded to bf16 as P V's A fragments.
+// kMasked: a partial tile (ids = the tile's 64 block ids, then its 64 doc
+// ids); a full tile compares no ids. Both run the same instructions on a
+// visible p, so the dense and sparse kernels give the same bits.
+template <bool kMasked>
+__device__ __forceinline__ void fwd_p(uint32_t (&pa)[kBK / 16][4], const float (&s)[kBK / 8][4],
+                                      const int* ids, float (&m)[2], float (&l)[2],
+                                      float (&corr)[2], const int rb[2], const int rd[2],
+                                      float scale_log2, int k0, int Lk, int tq) {
+  uint32_t seen = 0;  // bit nt * 4 + i: s[nt][i] is visible (kMasked only)
+  float mx[2] = {kNeg, kNeg};
+#pragma unroll
+  for (int nt = 0; nt < kBK / 8; ++nt) {
+    const int c = nt * 8 + tq * 2;
+    int2 kbp = make_int2(0, 0), kdp = make_int2(0, 0);
+    if (kMasked) {
+      kbp = *reinterpret_cast<const int2*>(ids + c);
+      kdp = *reinterpret_cast<const int2*>(ids + kBK + c);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = i >> 1, odd = i & 1;
+      const bool ok = !kMasked || (k0 + c + odd < Lk && (odd ? kdp.y : kdp.x) == rd[r] &&
+                                   (odd ? kbp.y : kbp.x) <= rb[r]);
+      if (kMasked) seen |= (ok ? 1u : 0u) << (nt * 4 + i);
+      if (ok) mx[r] = fmaxf(mx[r], s[nt][i]);
+    }
+  }
+  float neg_m2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    const float m2 = __fmul_rn(m_new, scale_log2);
+    // 1 while the max stands (a row that saw no key keeps kNeg), 0 for a
+    // row's first visible key
+    corr[r] = exp2_approx(__fsub_rn(__fmul_rn(m[r], scale_log2), m2));
+    m[r] = m_new;
+    neg_m2[r] = -m2;
+    l[r] = __fmul_rn(l[r], corr[r]);
+  }
+#pragma unroll
+  for (int nt = 0; nt < kBK / 8; ++nt) {
+    float p[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = i >> 1;
+      p[i] = exp2_approx(__fmaf_rn(s[nt][i], scale_log2, neg_m2[r]));
+      if (kMasked && !(seen >> (nt * 4 + i) & 1u)) p[i] = 0.f;
+      l[r] = __fadd_rn(l[r], p[i]);
+    }
+    pa[nt >> 1][(nt & 1) * 2] = pack_bf16x2(p[0], p[1]);
+    pa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16x2(p[2], p[3]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward: o [B, Lq, Hq, D] bf16, lse [B, Hq, Lq] fp32 (natural log)
+// grid (Hq, B, q tiles); the last q tile first
+// ---------------------------------------------------------------------------
+// At D 64 the registers are capped for 4 blocks an SM (128 a thread, a
+// 20-byte spill; 144 uncapped gave 3 blocks and took 1.07x as long at the
+// ImageNet shape). At D 128 shared memory (83 KB) allows 2 blocks an SM;
+// the bound's 1 lets ptxas take 231 registers (182 without it, 1.03x as
+// long at the packed 8,192-token case).
+template <int D, bool kSparse>
+__global__ void __launch_bounds__(kThreads, D == 64 ? 4 : 1)
+flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 float* __restrict__ lse, const int* __restrict__ qb,
+                 const int* __restrict__ qd, const int* __restrict__ kb,
+                 const int* __restrict__ kd, const int* __restrict__ tmap,
+                 const int* __restrict__ tcnt, int S, int Lq, int Lk, int Hq,
+                 int Hkv, float scale) {
+  using Sm = FwdSmem<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* const smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* const ring = smem + Sm::kTile;
+  int* const list = reinterpret_cast<int*>(ring + 2 * Sm::kStage);
+  __shared__ int n_live_s;
+
+  const int h = blockIdx.x, b = blockIdx.y, n_qt = gridDim.z;
+  const int qt = n_qt - 1 - blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int q0 = qt * kBQ;
+  const int* qb_b = qb + (size_t)b * Lq;
+  const int* qd_b = qd + (size_t)b * Lq;
+  const int* kb_b = kb + (size_t)b * Lk;
+  const int* kd_b = kd + (size_t)b * Lk;
+  const size_t q_stride = (size_t)Hq * D, kv_stride = (size_t)Hkv * D;
+  const size_t q_head = ((size_t)b * Lq * Hq + h) * D;
+  const bf16* kh = k + ((size_t)b * Lk * Hkv + hk) * D;
+  const bf16* vh = v + ((size_t)b * Lk * Hkv + hk) * D;
+  auto load_kv = [&](int t, int st) {
+    load_kv_stage<D>(ring + st * Sm::kStage, kh, vh, kb_b, kd_b, t, Lk, kv_stride);
+  };
+
+  // The Q tile and the first candidate kv tile are in flight while the
+  // candidates are classified, as in dq.
+  const int* map = kSparse ? tmap + ((size_t)b * n_qt + qt) * S : nullptr;
+  const int n_cand = kSparse ? tcnt[b * n_qt + qt] : (Lk + kBK - 1) / kBK;
+  const int t_first = kSparse && n_cand > 0 ? map[0] : 0;
+  load_tile<D, kBQ>(smem, q + q_head, q0, Lq, q_stride);
+  if (n_cand > 0) load_kv(t_first, 0);
+  cp_async_commit();
+  const int n_live = live_tiles<kBK, true>(warp_id_range(qb_b, qd_b, q0, kBQ, Lq),
+                                           q0 + kBQ <= Lq, kb_b, kd_b, Lk, map, n_cand, list,
+                                           &n_live_s);
+  if (n_live > 0 && list[0] >> 2 != t_first) {
+    cp_async_wait<0>();  // this thread's copies into slot 0 have landed
+    load_kv(list[0] >> 2, 0);
+    cp_async_commit();
+  }
+
+  // this thread's two q rows (warp * 16 + g + 8 i); a row past Lq computes
+  // on zeros and is not written
+  int rb[2], rd[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + warp * 16 + g + i * 8;
+    rb[i] = row < Lq ? qb_b[row] : 0;
+    rd[i] = row < Lq ? qd_b[row] : 0;
+  }
+  const float scale_log2 = scale * kLog2e;
+  const uint32_t q_addr = smem_u32(smem);
+
+  // O is defined by the first P V wgmma (scale-d 0) and rescaled between
+  // tiles only after the wait, before the next fence (no wgmma in flight)
+  float acc[D / 8][4];
+  float s[kBK / 8][4];
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+  for (int j = 0; j < n_live; ++j) {
+    cp_async_wait<0>();
+    fence_async_shared();  // this thread's copies, to wgmma
+    // tile j (and on the first pass Q) has landed; every warp is done with
+    // tile j - 1, whose slot takes tile j + 1
+    __syncthreads();
+    if (j + 1 < n_live) load_kv(list[j + 1] >> 2, (j + 1) & 1);
+    cp_async_commit();
+    const int e = list[j];
+    const unsigned char* slot = ring + (j & 1) * Sm::kStage;
+    const uint32_t k_addr = smem_u32(slot), v_addr = k_addr + Sm::kTile;
+
+    // S = Q K^T: 64 q rows x 64 keys
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(s, desc_k<kBQ>(q_addr, kk), desc_k<kBK>(k_addr, kk), kk > 0);
+    wgmma_commit_wait();
+
+    uint32_t pa[kBK / 16][4];
+    float corr[2];
+    const int* ids = reinterpret_cast<const int*>(slot + 2 * Sm::kTile);
+    if ((e & 3) == kFull)
+      fwd_p<false>(pa, s, ids, m, l, corr, rb, rd, scale_log2, (e >> 2) * kBK, Lk, tq);
+    else
+      fwd_p<true>(pa, s, ids, m, l, corr, rb, rd, scale_log2, (e >> 2) * kBK, Lk, tq);
+    if (j > 0) {
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        acc[n][0] = __fmul_rn(acc[n][0], corr[0]);
+        acc[n][1] = __fmul_rn(acc[n][1], corr[0]);
+        acc[n][2] = __fmul_rn(acc[n][2], corr[1]);
+        acc[n][3] = __fmul_rn(acc[n][3], corr[1]);
+      }
+    }
+
+    // O += P V: V read MN-major
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      wgmma_rs_mn(acc, pa[kk], desc_mn<kBK>(v_addr, kk), j > 0 || kk > 0);
+    wgmma_commit_wait();
+  }
+  cp_async_wait<0>();  // no copy may outlive the block
+
+  // the rows' sums over the quad; o = O / l (0 where a row saw no key) and
+  // lse = (m scale log2(e) + log2(l)) ln(2) (1e30 there)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float lt = l[i];
+    lt = __fadd_rn(lt, __shfl_xor_sync(0xffffffffu, lt, 1));
+    lt = __fadd_rn(lt, __shfl_xor_sync(0xffffffffu, lt, 2));
+    const float inv = lt > 0.f ? __fdiv_rn(1.f, lt) : 0.f;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      acc[n][2 * i] = __fmul_rn(acc[n][2 * i], inv);
+      acc[n][2 * i + 1] = __fmul_rn(acc[n][2 * i + 1], inv);
+    }
+    const int row = q0 + warp * 16 + g + i * 8;
+    if (tq == 0 && row < Lq)
+      lse[((size_t)b * Hq + h) * Lq + row] =
+          lt > 0.f ? __fmul_rn(__fadd_rn(__fmul_rn(m[i], scale_log2), log2f(lt)), kLn2)
+                   : kMaskedLse;
+  }
+  // staged where Q and the ring were (0 where no tile was live: acc was
+  // never written)
+  static_assert(64 * (D * 2 + 16) <= Sm::kTile + 2 * Sm::kStage, "staging fits");
+  store_rows<D>(acc, 1.f, n_live == 0, smem, o + q_head, q0, Lq, q_stride);
 }
 
 // dq's p and ds for one tile, from S and dP (64 rows x 64 keys, C
@@ -585,7 +566,6 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const int* __restrict__ tmap, const int* __restrict__ tcnt,
                     int S, int Lq, int Lk, int Hq, int Hkv, float scale) {
   using Sm = DqSmem<D>;
-  static_assert(kThreads == 2 * kBK, "one id copy a thread");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* const smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* const ring = smem + 2 * Sm::kTile;
@@ -606,15 +586,8 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t q_head = ((size_t)b * Lq * Hq + h) * D;
   const bf16* kh = k + ((size_t)b * Lk * Hkv + hk) * D;
   const bf16* vh = v + ((size_t)b * Lk * Hkv + hk) * D;
-  // kv tile t into ring slot st: K, V, then its block ids and doc ids
   auto load_kv = [&](int t, int st) {
-    unsigned char* slot = ring + st * Sm::kStage;
-    load_tile<D, kBK>(slot, kh, t * kBK, Lk, kv_stride);
-    load_tile<D, kBK>(slot + Sm::kTile, vh, t * kBK, Lk, kv_stride);
-    const int key = t * kBK + (tid & (kBK - 1));
-    const bool ok = key < Lk;
-    cp_async4(reinterpret_cast<int*>(slot + 2 * Sm::kTile) + tid,
-              (tid < kBK ? kb_b : kd_b) + (ok ? key : 0), ok ? 4 : 0);
+    load_kv_stage<D>(ring + st * Sm::kStage, kh, vh, kb_b, kd_b, t, Lk, kv_stride);
   };
 
   // The block's Q and dO tiles and the first candidate kv tile are in
@@ -875,12 +848,14 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                const void* qb, const void* qd, const void* kb, const void* kd,
                TileList tl, int B, int Lq, int Lk, int Hq, int Hkv, float scale,
                cudaStream_t st) {
-  const int smem = 2 * kBK * (D + 8) * 2 + 2 * kBK * 4;
+  const int n_list = kSparse ? tl.S : (Lk + kBK - 1) / kBK;
+  const int smem = FwdSmem<D>::kFixed + 4 * n_list;
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   auto kern = flash_fwd_kernel<D, kSparse>;
   static unsigned done = 0;
   cudaError_t e = allow_smem_once(kern, done);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((Lq + kBQ - 1) / kBQ, Hq, B);
+  dim3 grid(Hq, B, (Lq + kBQ - 1) / kBQ);
   kern<<<grid, kThreads, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),

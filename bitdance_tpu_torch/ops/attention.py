@@ -15,7 +15,9 @@ kernels'. The three wrappers take their plain versions only for CPU
 tensors; on a CUDA tensor they launch their kernel or raise. The autograd
 Functions make the int32 ids once in the forward and hand the same tensors
 to both backward kernels; :func:`tile_classes` is the plain twin of the
-backward kernels' dead / partial / full classification of tile pairs.
+kernels' dead / partial / full classification of tile pairs, and
+:func:`flash_fwd_twin` of the forward kernel's arithmetic (both for the
+tests).
 
 Sparse iteration (packed training): :func:`sparse_plan` builds, once per
 batch on the device, the per-q-tile list of live 64-key tiles
@@ -413,6 +415,68 @@ def tile_classes(q_block_ids: torch.Tensor, q_doc_ids: torch.Tensor,
             & (qd_min == kd_min))
     return torch.where(dead, TILE_DEAD, torch.where(full, TILE_FULL, TILE_PARTIAL)).to(
         torch.int8)
+
+
+def flash_fwd_twin(q, k, v, q_block_ids, q_doc_ids, kv_block_ids, kv_doc_ids,
+                   scale: float, tile_map=None, counts=None):
+    """Plain twin of the forward kernel's arithmetic
+    (csrc/flash_attention.cu::flash_fwd_kernel), for the tests; the card
+    path never calls it. Per 64-row q tile, its candidate 64-key tiles in the
+    kernel's order (every kv tile, or tile_map[b, i, :counts[b, i]] where a
+    sparse plan is given), the dead ones (:func:`tile_classes`) skipped and
+    ids compared on partial ones only; an online softmax in the log2 domain
+    (running max m of the raw scores, p = exp2(s scale log2(e) - m scale
+    log2(e)), 0 where masked); P rounded to bf16 before P V. Returns
+    (o = O / l in q's dtype, lse = (m scale log2(e) + log2(l)) ln(2) [B, Hq,
+    Lq] fp32), 0 and 1e30 where a row sees no key. ids int32 [B, L]."""
+    b, lq, hq, d = q.shape
+    lk, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    n_q, n_k = -(-lq // TILE), -(-lk // TILE)
+    classes = tile_classes(q_block_ids, q_doc_ids, kv_block_ids, kv_doc_ids, TILE,
+                           TILE).tolist()
+    sl2 = torch.tensor(scale * math.log2(math.e), dtype=torch.float32)
+    qp = _pad_rows(q.float(), n_q * TILE)
+    kp, vp = (_heads(_pad_rows(t.float(), n_k * TILE), group) for t in (k, v))
+    qbp, qdp = (_pad_ids(t, n_q * TILE, 0) for t in (q_block_ids, q_doc_ids))
+    kbp, kdp = (_pad_ids(t, n_k * TILE, 0) for t in (kv_block_ids, kv_doc_ids))
+    key_in = torch.arange(n_k * TILE) < lk
+    o = torch.zeros((b, n_q * TILE, hq, d))
+    lse = torch.full((b, hq, n_q * TILE), MASKED_LSE)
+    for bi in range(b):
+        for i in range(n_q):
+            rows = slice(i * TILE, (i + 1) * TILE)
+            qt = qp[bi, rows].transpose(0, 1)                        # [Hq, 64, D]
+            m = torch.full((hq, TILE), NEG_INF)
+            l = torch.zeros((hq, TILE))
+            acc = torch.zeros((hq, TILE, d))
+            cand = (range(n_k) if tile_map is None
+                    else tile_map[bi, i, :int(counts[bi, i])].tolist())
+            for t in cand:
+                cls = classes[bi][i][t]
+                if cls == TILE_DEAD:
+                    continue
+                keys = slice(t * TILE, (t + 1) * TILE)
+                s = qt @ kp[bi, keys].permute(1, 2, 0)              # [Hq, 64, 64]
+                if cls == TILE_PARTIAL:
+                    vis = (key_in[keys] & (kdp[bi, keys] == qdp[bi, rows, None])
+                           & (kbp[bi, keys] <= qbp[bi, rows, None]))
+                else:
+                    vis = torch.ones((TILE, TILE), dtype=torch.bool)
+                m_new = torch.maximum(m, torch.where(vis, s, NEG_INF).amax(-1))
+                m2 = m_new * sl2
+                corr = torch.exp2(m * sl2 - m2)
+                p = torch.where(vis, torch.exp2(s * sl2 - m2[..., None]), 0.0)
+                l = l * corr + p.sum(-1)
+                acc = (acc * corr[..., None]
+                       + p.bfloat16().float() @ vp[bi, keys].transpose(0, 1))
+                m = m_new
+            live = l > 0
+            safe = torch.where(live, l, 1.0)
+            o[bi, rows] = torch.where(live[..., None], acc / safe[..., None], 0.0).transpose(0, 1)
+            lse[bi, :, rows] = torch.where(live, (m * sl2 + torch.log2(safe)) * math.log(2),
+                                           MASKED_LSE)
+    return o[:, :lq].to(q.dtype), lse[:, :, :lq]
 
 
 def select_live_tiles(live: torch.Tensor, max_n: int):

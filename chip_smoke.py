@@ -371,7 +371,7 @@ def phase_build() -> None:
     log("build", f"{_cuda.build_info['path']} in "
         f"{time.perf_counter() - t0:.1f} s (nvcc {_cuda.build_info['seconds']:.1f} s)")
     for line in _cuda.build_info.get("log", "").splitlines():
-        if "registers" in line or "spill" in line:
+        if any(w in line for w in ("entry function", "registers", "spill", "C751")):
             log("build", "ptxas: " + line.strip())
 
 
@@ -1291,9 +1291,10 @@ def phase_flash_attention() -> dict:
         if bad or shift < 4 * bounds["o"]:
             raise SystemExit(f"flash_attention {name}: rel errors {rel} (bounds "
                              f"{bounds}); a mask off by one moves o by {shift}")
-        # two launches of each backward kernel give the same bits
+        # two launches of each kernel give the same bits
         with torch.no_grad():
-            same = {"dq": torch.equal(dq, flash_bwd_dq(q, k, v, do, lse, delta, *ids,
+            same = {"fwd": all(map(torch.equal, (o, lse), flash_fwd(q, k, v, *ids, scale))),
+                    "dq": torch.equal(dq, flash_bwd_dq(q, k, v, do, lse, delta, *ids,
                                                        scale)),
                     "dkv": all(map(torch.equal, (dk, dv), flash_bwd_dkv(
                         q, k, v, do, lse, delta, *ids, scale)))}
@@ -1324,8 +1325,8 @@ def phase_flash_attention() -> dict:
             + ", ".join(f"{key} {errs[key]:.3e} ({rel[key]:.2e}, {bounds[key]})"
                         for key in errs)
             + f"; a mask off by one moves o by >= {shift:.3e} of max |o|; two launches "
-            "of dq and of dk/dv bit-equal; ms kernel eager (device-only, host us a "
-            "call)/plain: "
+            "of the forward, dq and dk/dv bit-equal; ms kernel eager (device-only, host "
+            "us a call)/plain: "
             + ", ".join(f"{key} {r['ms']:.4f} ({r['device_ms']:.4f}, {r['host_us']:.1f})"
                         f"/{r['plain_ms']:.4f}"
                         for key, r in ((key, rec[key]) for key in fns)))
@@ -2405,8 +2406,10 @@ def phase_flash_sparse() -> dict:
         shifts = {what: _row_rel(*_row_stats(flash_sparse_reference(
             qr, kr, vr, *ids, m, c, scale), o_ref))
             for what, (m, c) in _one_tile_off(plan, ids, longest).items()}
-    with torch.no_grad():   # two launches of each backward kernel: the same bits
-        same = {"dq": torch.equal(dq, flash_bwd_dq_sparse(q, k, v, do, lse, delta, *ids,
+    with torch.no_grad():   # two launches of each kernel: the same bits
+        same = {"fwd": all(map(torch.equal, (o, lse), flash_fwd_sparse(q, k, v, *ids, plan,
+                                                                       scale))),
+                "dq": torch.equal(dq, flash_bwd_dq_sparse(q, k, v, do, lse, delta, *ids,
                                                           plan, scale)),
                 "dkv": all(map(torch.equal, (dk, dv), flash_bwd_dkv_sparse(
                     q, k, v, do, lse, delta, *ids, plan, scale)))}
@@ -2439,10 +2442,10 @@ def phase_flash_sparse() -> dict:
                         q, k, v, do, lse, delta, *ids, scale), 20),
                     "dkv": cuda_time_ms(lambda: flash_bwd_dkv(
                         q, k, v, do, lse, delta, *ids, scale), 20)}
-        # the backward kernels device-only (captured graph) and the host's
-        # time a call
+        # the kernels device-only (captured graph) and the host's time a call
         extra = {key: {"device_ms": cuda_graph_time_ms(fn), "host_us": host_us(fn)}
                  for key, fn in (
+                     ("fwd", lambda: flash_fwd_sparse(q, k, v, *ids, plan, scale)),
                      ("dq", lambda: flash_bwd_dq_sparse(q, k, v, do, lse, delta, *ids,
                                                         plan, scale)),
                      ("dkv", lambda: flash_bwd_dkv_sparse(q, k, v, do, lse, delta, *ids,
@@ -2461,15 +2464,15 @@ def phase_flash_sparse() -> dict:
     log("flash_sparse", "maps one tile off move o per row by (bound >= "
         f"{4 * bounds['o_row']:.3g}): "
         + "; ".join(f"{what} {e:.3e}" for what, e in shifts.items()))
-    log("flash_sparse", "two launches of dq and of dk/dv bit-equal; ms kernel/plain "
-        "(dense kernel): " + ", ".join(
+    log("flash_sparse", "two launches of the forward, dq and dk/dv bit-equal; ms "
+        "kernel/plain (dense kernel): " + ", ".join(
             f"{key} {a:.4f}/{b:.4f} ({dense_ms[key]:.4f})" for key, (a, b) in times.items())
-        + "; backward device-only (host us a call): " + ", ".join(
+        + "; device-only (host us a call): " + ", ".join(
             f"{key} {r['device_ms']:.4f} ({r['host_us']:.1f})" for key, r in extra.items()))
     bd = _flash_bounds_and_library(q, k, v, do, ids)
     worst = lambda keys: max(errs[key] for key in keys)  # noqa: E731
     return {"flash_fwd_sparse": {"max_abs_err": worst(("o", "lse")), "ms": times["fwd"][0],
-                                 "plain_ms": times["fwd"][1], **bd["fwd"]},
+                                 "plain_ms": times["fwd"][1], **extra["fwd"], **bd["fwd"]},
             "flash_bwd_dq_sparse": {"max_abs_err": worst(("dq", "dq_function")),
                                     "ms": times["dq"][0], "plain_ms": times["dq"][1],
                                     **extra["dq"], **bd["dq"]},
@@ -2556,14 +2559,14 @@ def _sparse_vs_plain_chunked(q, k, v, do, got, ids, plan, scale, tiles: int = 12
     return out
 
 
-def phase_mllm(card: str) -> dict:
-    """Path A: BitDance-14B-64x packed training at full width, MLLM_LAYERS of
-    40 layers, bf16 parameters, gradients and AdamW moments, one packed
-    sequence at the yaml's budget; steps on the sparse kernels, then one
-    step on the dense kernels from the same state."""
+def mllm_step_batch(dev):
+    """The 14B packed training step's configuration (MLLM_LAYERS of 40
+    layers, no warmup) and its one packed sequence: (cfg, tcfg, the yaml's
+    data section, the packed samples, the PackedBatch on ``dev``). The
+    samples are added to GreedyPacker until it emits a sequence; the text
+    and vision loss budgets are the packer's default (the sequence budget),
+    as scripts/train_mllm.py packs them."""
     import dataclasses
-
-    import torch
 
     from bitdance_tpu_torch.config import (
         BITDANCE_14B_64X,
@@ -2576,21 +2579,8 @@ def phase_mllm(card: str) -> dict:
         sincos_1d_table_np,
         stack_packed_batches,
     )
-    from bitdance_tpu_torch.io.random_init import build_random_mllm_train_state
     from bitdance_tpu_torch.models.mllm import PackedBatch
-    from bitdance_tpu_torch.ops.attention import (
-        flash_bwd_dkv,
-        flash_bwd_dkv_sparse,
-        flash_bwd_dq,
-        flash_bwd_dq_sparse,
-        flash_fwd,
-        flash_fwd_sparse,
-        sparse_plan,
-    )
-    from bitdance_tpu_torch.ops.chunked_ce import chunked_cross_entropy
-    from bitdance_tpu_torch.train.mllm_train import loss_and_grads, train_step
 
-    dev = torch.device("cuda")
     yaml = BITDANCE_14B_64X
     cfg = mllm_config_from_yaml(yaml, 152064)
     cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
@@ -2605,11 +2595,35 @@ def phase_mllm(card: str) -> dict:
         for s in _t2i_samples(8, 1000 + seed):
             chosen = chosen or packer.add(s)
         seed += 1
-    # the text and vision loss budgets at the packer's default (the
-    # sequence budget), as scripts/train_mllm.py packs them
     raw = pack_t2i_batch(chosen, p, data["max_num_tokens"],
                          sincos_1d_table_np(cfg.llm.hidden_size // 2, cfg.pe_max_len))
-    batch = PackedBatch.from_numpy(stack_packed_batches([raw]), dev)
+    return cfg, tcfg, data, chosen, PackedBatch.from_numpy(stack_packed_batches([raw]), dev)
+
+
+def phase_mllm(card: str) -> dict:
+    """Path A: BitDance-14B-64x packed training at full width, MLLM_LAYERS of
+    40 layers, bf16 parameters, gradients and AdamW moments, one packed
+    sequence at the yaml's budget; steps on the sparse kernels, then one
+    step on the dense kernels from the same state."""
+    import dataclasses
+
+    import torch
+
+    from bitdance_tpu_torch.io.random_init import build_random_mllm_train_state
+    from bitdance_tpu_torch.ops.attention import (
+        flash_bwd_dkv,
+        flash_bwd_dkv_sparse,
+        flash_bwd_dq,
+        flash_bwd_dq_sparse,
+        flash_fwd,
+        flash_fwd_sparse,
+        sparse_plan,
+    )
+    from bitdance_tpu_torch.ops.chunked_ce import chunked_cross_entropy
+    from bitdance_tpu_torch.train.mllm_train import loss_and_grads, train_step
+
+    dev = torch.device("cuda")
+    cfg, tcfg, data, chosen, batch = mllm_step_batch(dev)
     L = batch.position_ids.shape[1]
     used = int((batch.doc_ids >= 0).sum())
     n_txt = int((batch.ce_text_weights > 0).sum())
@@ -2734,12 +2748,15 @@ def phase_mllm(card: str) -> dict:
             lambda: flash_bwd_dq(q, k, v, do, lse, delta, *ids, sc),
             lambda: flash_bwd_dkv_sparse(q, k, v, do, lse, delta, *ids, plan, sc),
             lambda: flash_bwd_dkv(q, k, v, do, lse, delta, *ids, sc))]
+        fwd_dev = cuda_graph_time_ms(lambda: flash_fwd_sparse(q, k, v, *ids, plan, sc),
+                                     calls=5, reps=2)
     t = time.perf_counter()
     errs = _sparse_vs_plain_chunked(q, k, v, do, (o, lse, dq, dk, dv), ids, plan, sc)
     t = time.perf_counter() - t
     bounds = FLASH_SPARSE_MAX_REL_ERR
     log("mllm", f"attention at the step's shape q {tuple(q.shape)}: ms sparse/dense "
-        f"kernel fwd {ms[0]:.3f}/{ms[1]:.3f}, dq {ms[2]:.3f}/{ms[3]:.3f}, dkv "
+        f"kernel fwd {ms[0]:.3f}/{ms[1]:.3f} (sparse device-only {fwd_dev:.3f}), dq "
+        f"{ms[2]:.3f}/{ms[3]:.3f}, dkv "
         f"{ms[4]:.3f}/{ms[5]:.3f}; equal to the dense kernels {equal}; vs plain "
         f"(in chunks, {t:.1f} s) max abs err (relative, bound): " + ", ".join(
             (f"{key} {e:.3e} ({r:.2e}, {bounds[key]})" if e is not None

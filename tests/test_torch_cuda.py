@@ -198,6 +198,59 @@ def test_flash_backward_kernels(dev, name):
                    flash_bwd_dkv_sparse(q, k, v, do, lse, delta, *ids, plan, sc)))
 
 
+@pytest.mark.parametrize("name", list(BACKWARD_CASES))
+def test_flash_forward_kernels(dev, name):
+    """#7 vs its plain version (bounds: chip_smoke.py's _FLASH_BOUNDS, o
+    relative to max |o|, lse to max |lse| over the rows that see a key),
+    with dead, partial and full tile pairs where the ids are sorted; rows
+    that see no key get o 0 and lse 1e30; two launches bit-equal; #10 equal
+    to it."""
+    from bitdance_tpu_torch.ops.attention import (
+        TILE,
+        TILE_DEAD,
+        TILE_FULL,
+        TILE_PARTIAL,
+        flash_attention_reference,
+        flash_fwd,
+        flash_fwd_sparse,
+        sparse_plan,
+        tile_classes,
+    )
+
+    b, L, hq, hkv, d, lens = BACKWARD_CASES[name]
+    g = torch.Generator(device=dev).manual_seed(4)
+    q = torch.randn((b, L, hq, d), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((b, L, hkv, d), generator=g, device=dev).bfloat16() for _ in "ab")
+    if lens is None:
+        block = torch.randint(0, 60, (L,), generator=g, device=dev).int()
+        doc = torch.randint(0, 3, (L,), generator=g, device=dev).int()
+        qdoc = torch.where(torch.arange(L, device=dev) < 7, 9, doc).int()
+        ids = tuple(t.expand(b, L).contiguous() for t in (block, qdoc, block, doc))
+    else:
+        block, doc = _packed_ids(lens, dev)
+        ids = tuple(t.expand(b, L).contiguous() for t in (block, doc, block, doc))
+        classes = set(tile_classes(*ids, TILE, TILE).unique().tolist())
+        assert classes == {TILE_DEAD, TILE_PARTIAL, TILE_FULL}
+    sc = d ** -0.5
+    with torch.no_grad():
+        o, lse = flash_fwd(q, k, v, *ids, sc)
+        o_ref, lse_ref = flash_attention_reference(q, k, v, *ids, sc, return_lse=True)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert lse.shape == (b, hq, L) and torch.isfinite(o).all()
+    live = lse_ref < 1e29
+    assert torch.equal(live, lse < 1e29)
+    rel_o = ((o.float() - o_ref.float()).abs().max() / o_ref.float().abs().max()).item()
+    rel_lse = ((lse[live] - lse_ref[live]).abs().max() / lse_ref[live].abs().max()).item()
+    assert rel_o < 1.2e-2 and rel_lse < 1e-6
+    if lens is None:
+        assert (lse[:, :, :7] == 1e30).all() and (o[:, :7] == 0).all()
+    again = flash_fwd(q, k, v, *ids, sc)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    plan = sparse_plan(*ids, -(-L // TILE))
+    sparse = flash_fwd_sparse(q, k, v, *ids, plan, sc)
+    assert torch.equal(o, sparse[0]) and torch.equal(lse, sparse[1])
+
+
 def test_kernels_refuse_grad(dev):
     from bitdance_tpu_torch.ops.decode_attention import decode_attention
 

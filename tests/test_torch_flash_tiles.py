@@ -1,13 +1,25 @@
-"""The flash backward kernels' tile classes and the ids they are handed.
+"""The flash kernels' tile classes, the forward's arithmetic, and the ids
+the backward kernels are handed.
 
-``tile_classes`` is the plain twin of the backward kernels' rule for a
-(q tile, kv tile) pair (csrc/flash_attention.cu::pair_class): dead pairs
-are skipped, full pairs take no per-element id compares. Held against
-``mask_from_ids`` at the kernels' 64-row tiles: a dead pair has no visible
-(query, key), and a pair is full exactly when both tiles lie inside L and
-every (query, key) is visible. On the ids of chip_smoke.py's four flash
-cases (the ImageNet H-1x and B-16x training ids among them), a packed T2I
-batch from the port's packer, and ragged or unsorted ids.
+``tile_classes`` is the plain twin of the kernels' rule for a (q tile, kv
+tile) pair (csrc/flash_attention.cu::pair_class): dead pairs are skipped,
+full pairs take no per-element id compares. Held against ``mask_from_ids``
+at the kernels' 64-row tiles: a dead pair has no visible (query, key), and
+a pair is full exactly when both tiles lie inside L and every (query, key)
+is visible. On the ids of chip_smoke.py's four flash cases (the ImageNet
+H-1x and B-16x training ids among them), a packed T2I batch from the port's
+packer, and ragged or unsorted ids.
+
+``flash_fwd_twin`` is the plain twin of the forward kernel's arithmetic (the
+live tiles in the kernel's order, ids compared on partial tiles only, the
+log2-domain online softmax, P rounded to bf16 before P V). Held against the
+Pallas forward, dense and sparse, in interpret mode on the same cases at
+small widths (D 64 and 128, GQA), within the card's bounds
+(chip_smoke.py::_FLASH_BOUNDS: o 1.2e-2 of max |o|, lse 1e-6 of max |lse|).
+The sparse kernel gives the dense kernel's bits only if its list holds
+every tile with a visible pair: the tiles the two visit apart then hold
+none, and a tile in which a row sees no key leaves the row's max, sum and
+O as they were; the twin shows it over the sparse plan and over every tile.
 
 The autograd Functions convert the ids once in the forward and hand the
 same int32 tensors to both backward kernels; with ids of another dtype and
@@ -103,6 +115,97 @@ def test_tile_classes_agree_with_mask(name):
     # visible below the diagonal and invisible above it
     if name != "unsorted":
         assert full.any() and dead.any() and (cls == ta.TILE_PARTIAL).any()
+
+
+# the card's bounds (chip_smoke.py::_FLASH_BOUNDS), relative to max |value|
+FWD_BOUNDS = {"o": 1.2e-2, "lse": 1e-6}
+# per case: head dim, q heads, kv heads
+FWD_WIDTHS = {"path": (64, 4, 2), "b16x": (64, 4, 4), "packed": (64, 4, 2),
+              "gqa_d128": (128, 5, 1), "t2i_packed": (128, 4, 2), "ragged": (64, 4, 1),
+              "unsorted": (128, 4, 2)}
+
+
+def _jax_forward(q, k, v, ids, sparse):
+    """(o [B, Lq, Hq, D], lse [B, Hq, Lq]) of the Pallas forward in interpret
+    mode (_flash_kernel, or _flash_kernel_sparse with every kv tile allowed:
+    no bound drops a tile, ROADMAP C5), padded to 128-row tiles as
+    flash_attention and flash_attention_sparse pad."""
+    lq, lk, d = q.shape[1], k.shape[1], q.shape[3]
+    lq_p, lk_p = ja._round_up(lq, 128), ja._round_up(lk, 128)
+    qb, qd, kb, kd = (jnp.asarray(x.numpy()) for x in ids)
+    tr = lambda x, n: jnp.transpose(ja._pad_axis(jnp.asarray(x), 1, n), (0, 2, 1, 3))  # noqa: E731
+    args = (tr(q, lq_p), tr(k, lk_p), tr(v, lk_p), ja._pad_axis(qb, 1, lq_p, 0),
+            ja._pad_axis(qd, 1, lq_p, -3), ja._pad_axis(kb, 1, lk_p, 0),
+            ja._pad_axis(kd, 1, lk_p, -2), d ** -0.5, 128, 128)
+    if sparse:
+        o, lse = ja._flash_sparse_forward_padded(*args, lk_p // 128, True)
+    else:
+        o, lse = ja._flash_forward_padded(*args, True)
+    return np.asarray(o).transpose(0, 2, 1, 3)[:, :lq], np.asarray(lse)[:, :, :lq, 0]
+
+
+def _bf16_inputs(seed, b, lq, lk, hq, hkv, d):
+    """q, k, v as float32 arrays of bf16 values (what the kernel reads)."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.normal(size=(b, n, h, d)).astype(np.float32))
+                 .bfloat16().float().numpy() for n, h in ((lq, hq), (lk, hkv), (lk, hkv)))
+
+
+@pytest.mark.parametrize("route", ["dense", "sparse"])
+@pytest.mark.parametrize("name", CASES)
+def test_forward_twin_matches_jax(name, route):
+    """The forward kernel's plain twin (over every kv tile, or over the
+    sparse plan's lists) vs the Pallas forward: o and lse within the card's
+    bounds; a row that sees no key gets o 0 and lse 1e30 on both sides."""
+    ids = _ids(name)
+    d, hq, hkv = FWD_WIDTHS[name]
+    lq, lk = ids[0].shape[1], ids[2].shape[1]
+    q, k, v = _bf16_inputs(5, 1, lq, lk, hq, hkv, d)
+    want_o, want_lse = _jax_forward(q, k, v, ids, route == "sparse")
+    lists = ()
+    if route == "sparse":
+        plan = ta.sparse_plan(*ids, -(-lk // TILE))
+        lists = (plan.kv_map, plan.kv_counts)
+    o, lse = ta.flash_fwd_twin(*(torch.from_numpy(x).bfloat16() for x in (q, k, v)), *ids,
+                               d ** -0.5, *lists)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    o, lse = o.float().numpy(), lse.numpy()
+    live = want_lse < 1e29
+    assert live.any()
+    assert np.abs(o - want_o).max() <= FWD_BOUNDS["o"] * np.abs(want_o).max()
+    assert (np.abs(lse[live] - want_lse[live]).max()
+            <= FWD_BOUNDS["lse"] * np.abs(want_lse[live]).max())
+    np.testing.assert_array_equal(lse[~live], np.float32(ta.MASKED_LSE))
+    rows = ~live.any(axis=1)                         # [B, Lq]: no head sees a key
+    np.testing.assert_array_equal(o[rows], 0.0)
+    if name == "unsorted":                         # doc 7 (the first 5 rows), and others
+        assert rows[:, :5].all()
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_sparse_plan_lists_every_tile_with_a_visible_pair(name):
+    """The precondition of sparse = dense bit for bit: for every q tile the
+    plan's list (kv_map[:count]) holds every kv tile with a visible (query,
+    key) pair. Tiles that tile_classes calls live by their id ranges may be
+    left out (the packed T2I batch's padding tiles span every document):
+    they hold no visible pair, so visiting them changes no bit, and the
+    forward's twin gives the same bits over the plan as over every tile."""
+    ids = _ids(name)
+    cls = ta.tile_classes(*ids, TILE, TILE)
+    any_vis, _, _ = _mask_tiles(ids)
+    plan = ta.sparse_plan(*ids, cls.shape[2])
+    listed = torch.zeros_like(any_vis)
+    for bi in range(listed.shape[0]):
+        for i in range(listed.shape[1]):
+            listed[bi, i, plan.kv_map[bi, i, :plan.kv_counts[bi, i]].long()] = True
+    assert not (any_vis & ~listed).any(), "a tile with a visible pair is not listed"
+    if name == "t2i_packed":
+        assert ((cls != ta.TILE_DEAD) & ~listed).any()
+    lq, lk = ids[0].shape[1], ids[2].shape[1]
+    q, k, v = (torch.from_numpy(x).bfloat16() for x in _bf16_inputs(9, 1, lq, lk, 2, 1, 64))
+    dense = ta.flash_fwd_twin(q, k, v, *ids, 0.125)
+    sparse = ta.flash_fwd_twin(q, k, v, *ids, 0.125, plan.kv_map, plan.kv_counts)
+    assert all(map(torch.equal, dense, sparse))
 
 
 def _recording(monkeypatch, names):
