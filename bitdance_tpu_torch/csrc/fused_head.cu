@@ -34,10 +34,23 @@
 // JAX package routes the stack to (round_residual, decided by the caller from
 // the block weights' bytes): #2 (the 14B head) keeps an fp32 residual h with
 // bf16 stage activations; #3/#4 (the ImageNet heads) run _block_body, which
-// rounds h and every elementwise stage to bf16 (head_block<true>). LN
-// statistics, softmax and accumulation stay fp32 in both. At 64 rows and
-// C 1280 the 64x64 output tiles give only 20-60 blocks per product, under
-// half the 132 SMs.
+// rounds h and every elementwise stage to bf16. LN statistics, softmax and
+// accumulation stay fp32 in both. #2's products run on that GEMM, whose
+// 64x64 output tiles give a 64-row product only 20-60 blocks; #3/#4's run on
+// the wgmma head GEMM of head_gemm.cuh (a TMA ring, split-K by
+// ops/fused_head.py::head_gemm_plan), and every launch of their chain is
+// programmatic, so each product's first weight tiles are in flight before
+// the kernel ahead of it ends (head_block on hg::RoundLaunch). Two of their stage kernels
+// were redesigned too once the products no longer hid them (at B-16x the
+// stage kernels held a third of a net call on the card): the input
+// projection loads vectors (proj_in_rows_kernel), and the final layer
+// issues its loads together and spreads its product over the warps
+// (final_em_rows_kernel); #2 keeps the first versions. Tried and not kept:
+// window attention with a warp per window and head (31 against 14 us a
+// launch at B-16x: its k and v rows came from device memory one vector load
+// at a time), LN + modulate with a warp per row (6.5 against 4.4 us at
+// H-1x: 8 blocks for 64 rows) or with each thread's loads issued together
+// (no faster at H-1x, slower at B-16x).
 //
 // Quant mode (quant = 1 int8, 2 packed int4; the TPU kernel's W8A8 / W4A8
 // mode, stage_quant + stage_dot, TransEncoder only): each of the four block
@@ -48,6 +61,7 @@
 // residual and SwiGLU epilogues; qkv and h1/h2 are still rounded to bf16.
 // Weight bytes per net call halve (int8) or quarter (int4), so does the
 // bound; the four row quantizations add four small launches per block.
+#include "head_gemm.cuh"
 #include "int8_gemm.cuh"
 
 namespace {
@@ -64,6 +78,8 @@ final_em_kernel(const float* __restrict__ h, int C,
                 float* __restrict__ x, const float* __restrict__ noise,
                 int half, int ch, float t, float dt, float cfg,
                 float last_step, int bounded, float eps) {
+  pdl_trigger();
+  pdl_wait();
   __shared__ float red[8][2 * kMaxCh];
   __shared__ float outs[2][kMaxCh];
   const int i = blockIdx.x;
@@ -141,6 +157,138 @@ final_em_kernel(const float* __restrict__ h, int C,
     }
     x[(size_t)i * ch + c] = xn;
   }
+}
+
+// final_em_kernel's function for the round route (#3/#4), its loads in
+// flight together and its product spread over the warps: each thread's
+// values of the two rows (C <= 2048) loaded into registers at once, their
+// modulated LN z (bf16 values) staged in shared memory (dynamic, 2 C
+// floats), then warp v takes the (row,
+// channel) dot products v, v + 8, v + 16, v + 24 (+ 32 ...), each lane a
+// stride of k with the four products' loads interleaved, four accumulators
+// a lane and four warp sums (final_em_kernel's 64 accumulators a thread
+// and 64 warp sums took 19-26 us a launch).
+__global__ void __launch_bounds__(256)
+final_em_rows_kernel(const float* __restrict__ h, int C, const bf16* __restrict__ fmods,
+                     int ld_mods, const bf16* __restrict__ fw, const float* __restrict__ fb,
+                     float* __restrict__ x, const float* __restrict__ noise, int half, int ch,
+                     float t, float dt, float cfg, float last_step, int bounded, float eps) {
+  pdl_trigger();
+  pdl_wait();
+  constexpr int kPer = 8;  // C <= 2048: each thread's values of a row in registers
+  extern __shared__ float z[];  // [2][C]
+  __shared__ float outs[2][kMaxCh];
+  const int i = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  float hv[2][kPer], sc[2][kPer], sh[2][kPer];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const float* hr = h + (size_t)(i + j * half) * C;
+    const bf16* fm = fmods + (size_t)(i + j * half) * ld_mods;
+#pragma unroll
+    for (int q = 0; q < kPer; ++q)
+      if (tid + q * 256 < C) {
+        hv[j][q] = hr[tid + q * 256];
+        sc[j][q] = bf2f(fm[tid + q * 256]);
+        sh[j][q] = bf2f(fm[C + tid + q * 256]);
+      }
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    float s = 0.f, ss = 0.f;
+#pragma unroll
+    for (int q = 0; q < kPer; ++q)
+      if (tid + q * 256 < C) {
+        s += hv[j][q];
+        ss += hv[j][q] * hv[j][q];
+      }
+    block_sum2(s, ss);
+    const float mean = s / C;
+    const float rstd = rsqrtf(fmaxf(ss / C - mean * mean, 0.f) + eps);
+#pragma unroll
+    for (int q = 0; q < kPer; ++q)
+      if (tid + q * 256 < C)
+        z[j * C + tid + q * 256] =
+            round_bf16((hv[j][q] - mean) * rstd * (1.f + sc[j][q]) + sh[j][q]);
+  }
+  __syncthreads();
+  for (int p0 = warp; p0 < 2 * ch; p0 += 32) {  // four (row, channel) pairs a warp
+    float acc[4] = {};
+    const float* zr[4];
+    const bf16* wr[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {  // a pair past 2 ch reads pair 0 and is not stored
+      const int p = p0 + 8 * q < 2 * ch ? p0 + 8 * q : 0;
+      zr[q] = z + (p / ch) * C;
+      wr[q] = fw + (size_t)(p % ch) * C;
+    }
+#pragma unroll 4
+    for (int k = lane; k < C; k += 32)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[q] += zr[q][k] * bf2f(wr[q][k]);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int p = p0 + 8 * q;
+      const float v = warp_sum(acc[q]);
+      if (lane == 0 && p < 2 * ch) {
+        const float o = v + fb[p % ch];
+        outs[p / ch][p % ch] = bounded ? 2.f / (1.f + expf(-o)) - 1.f : o;
+      }
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < ch) {
+    const int c = threadIdx.x;
+    const float xv = x[(size_t)i * ch + c];
+    const float denom = fmaxf(1.f - t, 0.05f);
+    const float v_cond = (outs[0][c] - xv) / denom;
+    const float v_unc = (outs[1][c] - xv) / denom;
+    const float vc = v_unc + cfg * (v_cond - v_unc);
+    float xn;
+    if (noise != nullptr) {
+      const float var = (1.f - t) * (1.f - t) + t * (1.f - t);
+      const float score = (t * vc - xv) / var;
+      const float drift = vc + (1.f - t) * score;
+      const float ns = sqrtf(2.f * (1.f - t) * dt);
+      xn = xv + drift * dt + ns * noise[(size_t)i * ch + c];
+    } else {
+      xn = xv + vc * last_step;
+    }
+    x[(size_t)i * ch + c] = xn;
+  }
+}
+
+// proj_in_kernel's function for the round route with the latent width CH a
+// template constant, so that each thread's x and w rows load as vectors
+// (proj_in_kernel took 16 us a launch at B-16x's 1024 x 768)
+template <int CH>
+__global__ void __launch_bounds__(256)
+proj_in_rows_kernel(const float* __restrict__ x, int x_rows, const bf16* __restrict__ w,
+                    const float* __restrict__ b, float* __restrict__ h, int R, int C) {
+  pdl_trigger();
+  pdl_wait();
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (size_t)R * C) return;
+  const int r = static_cast<int>(idx / C), n = static_cast<int>(idx % C);
+  const float4* xr = reinterpret_cast<const float4*>(x + (size_t)(r % x_rows) * CH);
+  const uint4* wr = reinterpret_cast<const uint4*>(w + (size_t)n * CH);
+  float xs[CH], ws[CH];
+#pragma unroll
+  for (int k = 0; k < CH / 4; ++k) {
+    const float4 v = xr[k];
+    xs[4 * k] = v.x, xs[4 * k + 1] = v.y, xs[4 * k + 2] = v.z, xs[4 * k + 3] = v.w;
+  }
+#pragma unroll
+  for (int k = 0; k < CH / 8; ++k) {
+    float f[8];
+    hg::unpack8(wr[k], f);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) ws[8 * k + e] = f[e];
+  }
+  float acc = 0.f;
+#pragma unroll
+  for (int k = 0; k < CH; ++k) acc += round_bf16(xs[k]) * ws[k];
+  h[idx] = round_bf16(acc + b[n]);
 }
 
 // The quantized pointers of one sampler call: int8 (or packed) block
@@ -227,8 +375,11 @@ cudaError_t quant_block(const QuantBlock& qb, int l, float* h, const bf16* m,
 // quant 1 (int8) / 2 (packed int4), attention=1 only: wqkv, wo, w1, w2 are
 // int8 [L, out, in] / [L, out, in/2] with f32 scales *_s [L, out]; actf
 // (fp32 [R, max(C, H)]), aq (int8, the same shape) and sa (fp32 [R]) are
-// scratch. round_residual 1 (bf16 only): _block_body's rounding (#3/#4).
-// Returns the first CUDA error, or 0.
+// scratch. round_residual 1 (bf16 only): _block_body's rounding (#3/#4) on
+// the head GEMM of head_gemm.cuh: gemm_plan (host, 12 ints) is {bm, bn,
+// splits} of qkv, wo, w1 and w2 (ops/fused_head.py::round_route_plan), and
+// every launch of the chain is programmatic when pdl (0 only to measure what
+// that saves). Returns the first CUDA error, or 0.
 extern "C" int bd_fused_em_sample(
     void* x, const void* noise, const void* allmods, int W,
     const float* t_host, const float* dt_host, float cfg, const void* in_w,
@@ -240,7 +391,7 @@ extern "C" int bd_fused_em_sample(
     int switch_freq, int n_head, int groups, int attention, int bounded,
     int final_chunk, float last_step, int quant, const void* wqkv_s,
     const void* wo_s, const void* w1_s, const void* w2_s, void* actf, void* aq,
-    void* sa, int round_residual, void* stream) {
+    void* sa, int round_residual, const int* gemm_plan, int pdl, void* stream) {
   const int R = 2 * half;
   const int n_mods = attention ? 6 : 3;
   if (ch > kMaxCh || C % kBN != 0 || C % kBK != 0 || H % kBK != 0 ||
@@ -291,15 +442,43 @@ extern "C" int bd_fused_em_sample(
                                   static_cast<int>(attn_smem)));
   }
   const float attn_scale = attention ? 1.f / sqrtf(static_cast<float>(hd)) : 0.f;
+  // go launches the stage kernels of both routes and the round route's
+  // products on head_gemm.cuh, every launch of that chain programmatic when
+  // pdl; a shape its GEMM cannot take is refused
+  hg::Plan plan[4] = {};
+  hg::Product pr[4];
+  const hg::RoundLaunch go{pr, plan, round_residual && pdl, st};
+  if (round_residual) {
+    if (gemm_plan == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    for (int i = 0; i < 4; ++i)
+      plan[i] = {gemm_plan[3 * i], gemm_plan[3 * i + 1], gemm_plan[3 * i + 2]};
+    const int L = num_blocks;
+    bool ok = hg::make_product(act, R, C, W1, L * 2 * H, 2 * H, true, plan[kW1], &pr[kW1]) &&
+              hg::make_product(buf, R, H, W2, L * C, C, false, plan[kW2], &pr[kW2]);
+    if (attention)
+      ok = ok &&
+           hg::make_product(act, R, C, Wqkv, L * 3 * C, 3 * C, false, plan[kQkv], &pr[kQkv]) &&
+           hg::make_product(act, R, C, Wo, L * C, C, false, plan[kWo], &pr[kWo]);
+    ok = ok && C <= 2048;  // 8 values a thread in final_em_rows_kernel
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int grid_steps = num_steps + (final_chunk ? 1 : 0);
   const int proj_blocks = static_cast<int>(((size_t)R * C + 255) / 256);
 
   for (int s = 0; s < grid_steps; ++s) {
     const bf16* mods_s = mods + (size_t)s * R * W;
-    proj_in_kernel<<<proj_blocks, 256, 0, st>>>(
-        xf, half, ch, static_cast<const bf16*>(in_w),
-        static_cast<const float*>(in_b), h, R, C, round_residual);
-    BD_CHECK(cudaGetLastError());
+    const bf16* iw = static_cast<const bf16*>(in_w);
+    const float* ib = static_cast<const float*>(in_b);
+    if (round_residual && ch == 16)
+      BD_CHECK(go.stage(dim3(proj_blocks), 256, 0, proj_in_rows_kernel<16>,
+                        static_cast<const float*>(xf), half, iw, ib, h, R, C));
+    else if (round_residual && ch == 32)
+      BD_CHECK(go.stage(dim3(proj_blocks), 256, 0, proj_in_rows_kernel<32>,
+                        static_cast<const float*>(xf), half, iw, ib, h, R, C));
+    else
+      BD_CHECK(go.stage(dim3(proj_blocks), 256, 0, proj_in_kernel,
+                        static_cast<const float*>(xf), half, ch, iw, ib, h, R, C,
+                        round_residual));
     for (int l = 0; l < num_blocks; ++l) {
       const bf16* m = mods_s + (size_t)(l / switch_freq) * n_mods * C;
       if (quant) {
@@ -308,17 +487,56 @@ extern "C" int bd_fused_em_sample(
             groups, wtok, hd, attn_scale, attn_smem, eps, st));
         continue;
       }
-      BD_CHECK((round_residual ? head_block<true> : head_block<false>)(
-          wts, l, h, m, W, act, buf, R, C, H, attention != 0, n_head, groups,
-          eps, st));
+      if (round_residual)
+        BD_CHECK(head_block<true>(wts, l, h, m, W, act, buf, R, C, H, attention != 0, n_head,
+                                  groups, eps, go));
+      else
+        BD_CHECK(head_block<false>(wts, l, h, m, W, act, buf, R, C, H, attention != 0,
+                                   n_head, groups, eps, StreamLaunch{st}));
     }
     const bool stochastic = s < num_steps;
-    final_em_kernel<<<half, 256, 0, st>>>(
-        h, C, mods_s + (W - 2 * C), W, static_cast<const bf16*>(f_out_w),
-        static_cast<const float*>(f_out_b), xf,
-        stochastic ? nz + (size_t)s * half * ch : nullptr, half, ch, t_host[s],
-        dt_host[s], cfg, last_step, bounded, eps);
-    BD_CHECK(cudaGetLastError());
+    BD_CHECK(go.stage(dim3(half), 256, round_residual ? 2 * C * sizeof(float) : 0,
+                      round_residual ? final_em_rows_kernel : final_em_kernel,
+                      static_cast<const float*>(h), C, mods_s + (W - 2 * C), W,
+                      static_cast<const bf16*>(f_out_w),
+                      static_cast<const float*>(f_out_b), xf,
+                      stochastic ? nz + (size_t)s * half * ch : nullptr, half, ch,
+                      t_host[s], dt_host[s], cfg, last_step, bounded, eps));
   }
   return 0;
+}
+
+// One product of the round route's head GEMM (ops/fused_head.py::head_gemm),
+// for its checks and timings: a [R, K] bf16, w [N, K] bf16, bias bf16 [N];
+// shape {R, N, K, ldg, mode, bm, bn, splits}; mode 0 (kBiasBf16: out bf16
+// [R, N]), 9 (kGatedResidualRound: resid fp32 [R, N] in place, gate bf16
+// rows ldg apart) or 10 (kSwiGLURound, w rows [h1; h2]: out bf16 [R, N /
+// 2]). Returns the first CUDA error, or 0.
+extern "C" int bd_head_gemm(const void* a, const void* w, const void* bias, void* out,
+                            void* resid, const void* gate, const int* shape, void* stream) {
+  const int R = shape[0], N = shape[1], K = shape[2], ldg = shape[3], mode = shape[4];
+  const hg::Plan plan{shape[5], shape[6], shape[7]};
+  hg::Product pr;
+  if (!hg::make_product(static_cast<const bf16*>(a), R, K, static_cast<const bf16*>(w), N, N,
+                        mode == kSwiGLURound, plan, &pr) ||
+      N % 16 != 0 || ldg % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Epilogue ep{};
+  ep.bias = static_cast<const bf16*>(bias);
+  ep.out = out;
+  ep.ldo = mode == kSwiGLURound ? N / 2 : N;
+  ep.resid = static_cast<float*>(resid);
+  ep.ldr = N;
+  ep.gate = static_cast<const bf16*>(gate);
+  ep.ldg = ldg;
+  ep.hidden = N / 2;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case kBiasBf16: return static_cast<int>(hg::gemm<kBiasBf16>(pr, 0, plan, ep, false, st));
+    case kGatedResidualRound:
+      return static_cast<int>(hg::gemm<kGatedResidualRound>(pr, 0, plan, ep, false, st));
+    case kSwiGLURound:
+      return static_cast<int>(hg::gemm<kSwiGLURound>(pr, 0, plan, ep, false, st));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

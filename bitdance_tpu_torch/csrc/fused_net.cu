@@ -232,7 +232,7 @@ extern "C" int bd_fused_diffnet_forward(
       BD_CHECK(cudaGetLastError());
     }
     BD_CHECK(head_block<true>(wts, l, h, mods, m, act, buf, R, C, H,
-                              attention != 0, n_head, groups, eps, st));
+                              attention != 0, n_head, groups, eps, StreamLaunch{st}));
   }
 
   // final layer

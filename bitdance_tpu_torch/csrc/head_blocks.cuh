@@ -270,6 +270,8 @@ ln_modulate_kernel(const T* __restrict__ h, int C,
                    const bf16* __restrict__ scale, int ld_scale,
                    const bf16* __restrict__ shift, int ld_shift,
                    OutT* __restrict__ out, float eps) {
+  pdl_trigger();
+  pdl_wait();
   const int r = blockIdx.x;
   const T* hr = h + (size_t)r * C;
   auto val = [&](int i) -> float {
@@ -355,6 +357,8 @@ window_attention_kernel(const T* __restrict__ qkv, int C, int w, int hd,
   T* ks = qs + w * ldw;
   T* vs = ks + w * ldw;
   float* ps = reinterpret_cast<float*>(vs + w * ldw);
+  pdl_trigger();
+  pdl_wait();
 
   const int gi = blockIdx.x / n_head, hh = blockIdx.x % n_head;
   const int row0 = gi * w;
@@ -418,6 +422,8 @@ __global__ void proj_in_kernel(const float* __restrict__ x, int x_rows, int ch,
                                const bf16* __restrict__ w,
                                const float* __restrict__ b, float* __restrict__ h,
                                int R, int C, int round_out) {
+  pdl_trigger();
+  pdl_wait();
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (size_t)R * C) return;
   const int r = static_cast<int>(idx / C), n = static_cast<int>(idx % C);
@@ -435,68 +441,89 @@ struct HeadBlockWeights {
   const bf16 *n1, *n2, *wqkv, *bqkv, *wo, *bo, *w1, *b1, *w2, *b2;
 };
 
+// The products of a head block, in the order a plan lists them.
+enum BlockProduct { kQkv = 0, kWo = 1, kW1 = 2, kW2 = 3 };
+
+// How head_block launches its kernels: each stage kernel plainly on the
+// stream, each product on launch_gemm (kernels #2 and #5). go.gemm<MODE>(p,
+// A, lda, W, w_row0, K, R, N, ep) runs epilogue(A @ W[w_row0 :
+// w_row0 + N]^T) for product p of the block; head_gemm.cuh's hg::RoundLaunch
+// (#3/#4) runs the same calls on the wgmma head GEMM.
+struct StreamLaunch {
+  cudaStream_t st;
+
+  template <typename... Params, typename... Args>
+  cudaError_t stage(dim3 grid, int threads, size_t smem, void (*kernel)(Params...),
+                    Args... args) const {
+    kernel<<<grid, threads, smem, st>>>(static_cast<Params>(args)...);
+    return cudaGetLastError();
+  }
+
+  template <int MODE>
+  cudaError_t gemm(BlockProduct, const bf16* A, int lda, const bf16* W, int w_row0, int K,
+                   int R, int N, const Epilogue& ep) const {
+    return launch_gemm<MODE>(A, lda, W + (size_t)w_row0 * K, K, R, N, ep, st);
+  }
+};
+
 // One bf16 block l on the residual h (fp32 [R, C]) as a chain of launches:
 // attention half (TransEncoder: LN + modulate, qkv product, window attention
 // over groups of R / groups rows, output product with its gated residual),
 // then the MLP half (LN + modulate, SwiGLU product, down product with its
-// gated residual). m: the block's mods, bf16 rows ldm apart (scale, shift,
-// gate [, scale, shift, gate]). act (bf16 [R, max(C, H)]) and buf (bf16
-// [R, max(3C, H)]) are scratch. ROUND=false is the TPU kernel #2's
-// precision (fp32 residual); ROUND=true is _block_body's (#3-#5): every
-// elementwise stage and the residual rounded to bf16. The caller sets the
-// window attention's shared-memory limit when it exceeds 48 KB.
-template <bool ROUND>
+// gated residual), each launched by `go` (StreamLaunch, or hg::RoundLaunch).
+// m: the block's mods, bf16 rows ldm apart (scale, shift, gate [, scale,
+// shift, gate]). act (bf16 [R, max(C, H)]) and buf (bf16 [R, max(3C, H)])
+// are scratch. ROUND=false is the TPU kernel #2's precision (fp32
+// residual); ROUND=true is _block_body's (#3-#5): every elementwise stage
+// and the residual rounded to bf16. The caller sets the window attention's
+// shared-memory limit when it exceeds 48 KB.
+template <bool ROUND, typename Launch>
 cudaError_t head_block(const HeadBlockWeights& w, int l, float* h, const bf16* m,
                        int ldm, bf16* act, bf16* buf, int R, int C, int H,
                        bool attention, int n_head, int groups, float eps,
-                       cudaStream_t st) {
+                       const Launch& go) {
   constexpr int kResid = ROUND ? kGatedResidualRound : kGatedResidual;
   constexpr int kGlu = ROUND ? kSwiGLURound : kSwiGLU;
+  auto ln = [&](const bf16* nrm, const bf16* mm) {
+    return go.stage(dim3(R), 256, 0, ln_modulate_kernel<float, false, bf16, ROUND>,
+                    static_cast<const float*>(h), C, nrm, nrm + C, mm, ldm, mm + C, ldm, act,
+                    eps);
+  };
   if (attention) {
     const int wtok = R / groups, hd = C / n_head;
-    ln_modulate_kernel<float, false, bf16, ROUND><<<R, 256, 0, st>>>(
-        h, C, w.n1 + (size_t)l * 2 * C, w.n1 + (size_t)l * 2 * C + C, m, ldm,
-        m + C, ldm, act, eps);
-    BD_CHECK_ERR(cudaGetLastError());
+    BD_CHECK_ERR(ln(w.n1 + (size_t)l * 2 * C, m));
     Epilogue qkv_ep{};
     qkv_ep.bias = w.bqkv + (size_t)l * 3 * C;
     qkv_ep.out = buf;
     qkv_ep.ldo = 3 * C;
-    BD_CHECK_ERR(launch_gemm<kBiasBf16>(act, C, w.wqkv + (size_t)l * 3 * C * C, C,
-                                        R, 3 * C, qkv_ep, st));
-    window_attention_kernel<bf16><<<groups * n_head, 256,
-                                    window_attention_smem<bf16>(wtok, hd), st>>>(
-        buf, C, wtok, hd, n_head, 1.f / sqrtf(static_cast<float>(hd)), act);
-    BD_CHECK_ERR(cudaGetLastError());
+    BD_CHECK_ERR(go.template gemm<kBiasBf16>(kQkv, act, C, w.wqkv, l * 3 * C, C, R, 3 * C,
+                                             qkv_ep));
+    BD_CHECK_ERR(go.stage(dim3(groups * n_head), 256, window_attention_smem<bf16>(wtok, hd),
+                          window_attention_kernel<bf16>, static_cast<const bf16*>(buf), C,
+                          wtok, hd, n_head, 1.f / sqrtf(static_cast<float>(hd)), act));
     Epilogue o_ep{};
     o_ep.bias = w.bo + (size_t)l * C;
     o_ep.resid = h;
     o_ep.ldr = C;
     o_ep.gate = m + 2 * C;
     o_ep.ldg = ldm;
-    BD_CHECK_ERR(launch_gemm<kResid>(act, C, w.wo + (size_t)l * C * C, C, R, C,
-                                     o_ep, st));
+    BD_CHECK_ERR(go.template gemm<kResid>(kWo, act, C, w.wo, l * C, C, R, C, o_ep));
   }
   const bf16* mm = m + (size_t)(attention ? 3 : 0) * C;
-  ln_modulate_kernel<float, false, bf16, ROUND><<<R, 256, 0, st>>>(
-      h, C, w.n2 + (size_t)l * 2 * C, w.n2 + (size_t)l * 2 * C + C, mm, ldm,
-      mm + C, ldm, act, eps);
-  BD_CHECK_ERR(cudaGetLastError());
+  BD_CHECK_ERR(ln(w.n2 + (size_t)l * 2 * C, mm));
   Epilogue glu_ep{};
   glu_ep.bias = w.b1 + (size_t)l * 2 * H;
   glu_ep.out = buf;
   glu_ep.ldo = H;
   glu_ep.hidden = H;
-  BD_CHECK_ERR(launch_gemm<kGlu>(act, C, w.w1 + (size_t)l * 2 * H * C, C, R,
-                                 2 * H, glu_ep, st));
+  BD_CHECK_ERR(go.template gemm<kGlu>(kW1, act, C, w.w1, l * 2 * H, C, R, 2 * H, glu_ep));
   Epilogue down_ep{};
   down_ep.bias = w.b2 + (size_t)l * C;
   down_ep.resid = h;
   down_ep.ldr = C;
   down_ep.gate = mm + 2 * C;
   down_ep.ldg = ldm;
-  return launch_gemm<kResid>(buf, H, w.w2 + (size_t)l * C * H, H, R, C, down_ep,
-                             st);
+  return go.template gemm<kResid>(kW2, buf, H, w.w2, l * C, H, R, C, down_ep);
 }
 
 }  // namespace

@@ -37,7 +37,8 @@ _SIGNATURES = {
     "bd_decode_blocks_per_sm": [_I],
     "bd_w4a8_matmul": [_P] * 9,
     "bd_fused_em_sample": ([_P, _P, _P, _I, _P, _P, _F] + [_P] * 17
-                           + [_I] * 12 + [_F, _I] + [_P] * 7 + [_I, _P]),
+                           + [_I] * 12 + [_F, _I] + [_P] * 7 + [_I, _P, _I, _P]),
+    "bd_head_gemm": [_P] * 8,
     "bd_fused_diffnet_forward": [_P] * 32 + [_I] * 12 + [_P],
     "bd_fused_mlp_block": ([_P, _P, _I, _P, _I, _P, _I] + [_P] * 9 + [_I] * 3
                            + [_F, _P]),
@@ -90,10 +91,11 @@ def _build(so: Path) -> None:
         jobs.append((obj, subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    log, failed = [], False
+    log, failed = [], []
     for obj, proc in jobs:
         log.append(proc.communicate()[0])
-        failed |= proc.returncode != 0
+        if proc.returncode != 0:
+            failed.append(log[-1])
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     if not failed:
         link = subprocess.run(
@@ -101,13 +103,14 @@ def _build(so: Path) -> None:
              "-o", str(tmp), *[str(o) for o, _ in jobs]],
             capture_output=True, text=True)
         log.append(link.stdout + link.stderr)
-        failed = link.returncode != 0
+        if link.returncode != 0:
+            failed.append(log[-1])
     for obj, _ in jobs:
         obj.unlink(missing_ok=True)
     build_info["seconds"] = time.perf_counter() - t0
     build_info["log"] = "".join(log)
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + build_info["log"][-6000:])
+    if failed:   # the failing sources' own output, not the others' ptxas lines
+        raise RuntimeError("nvcc failed:\n" + "".join(failed)[-6000:])
     os.replace(tmp, so)
     so.with_suffix(".log").write_text(build_info["log"])
 

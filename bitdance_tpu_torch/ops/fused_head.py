@@ -40,6 +40,15 @@ the weights' dtype; kernel #2 (streamed weights; the 14B head, bf16 or
 quantized) keeps h in fp32. The port applies the same rule to the same
 stack, in its plain version and in ``csrc/fused_head.cu``.
 
+The ImageNet heads' route (kernels #3/#4, ``round_residual``) runs its
+block products on the head GEMM of ``csrc/head_gemm.cuh``:
+:func:`head_gemm_plan` picks each product's tile and split-K count,
+:func:`head_gemm` launches one product alone (its checks and timings), and
+:func:`head_gemm_split_plain` is the plain twin of a split product (fp32
+partials over the planned K ranges, summed in split order, then the
+rounding epilogue); ``fused_em_sample_reference(splits=...)`` runs the whole
+plain sampler on it.
+
 :func:`fused_diffnet_forward` is one whole DiffNet forward (the TPU kernel
 #5, ``_fused_net_kernel``): the t-embedding MLP, the input projection, every
 block with ``_block_body``'s rounding and the final layer, in one host call
@@ -51,6 +60,7 @@ slices of ``modcat_w`` / ``modcat_b`` (:func:`adaln_views`), never copies.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -174,6 +184,54 @@ def _mmq(a: torch.Tensor, w: torch.Tensor, scale: torch.Tensor | None,
     return int8_matmul(a.float(), QTensor(w, scale))
 
 
+HEAD_GEMM_BK = 64                  # k of one ring stage of csrc/head_gemm.cuh
+HEAD_GEMM_BN = 128                 # out-features of an output tile
+HEAD_GEMM_MAX_SPLITS = 8           # a product's splits form one thread block cluster
+HEAD_GEMM_MODES = {"bias": 0, "gated": 9, "swiglu": 10}   # GemmMode in head_blocks.cuh
+
+
+class HeadGemmPlan(NamedTuple):
+    bm: int        # rows of an output tile: 64 (one warpgroup) or 128 (two)
+    bn: int        # columns (out-features) of an output tile
+    splits: int    # K split this many ways
+
+
+def head_gemm_plan(rows: int, n: int, k: int, sm_count: int = 132) -> HeadGemmPlan:
+    """Tile and split-K count of one head GEMM product [rows, k] x [n, k]^T.
+
+    bm is 64 up to 64 rows, else 128. When the output tiles leave SMs idle,
+    K is split in a power of two of ways, at most 8 (the split blocks of a
+    tile form one cluster), so that tiles x splits fill one wave of
+    ``sm_count`` and no more, every split walking at least two ring stages
+    of 64 k (H-1x at 64 rows: w1 30 tiles x 4, w2 10 x 8; B-16x at 1024: qkv
+    and w1 144 tiles x 1, wo and w2 48 x 2)."""
+    bn = HEAD_GEMM_BN
+    if n % bn or k % HEAD_GEMM_BK or rows < 1:
+        raise ValueError(f"head_gemm_plan: [{rows}, {k}] x [{n}, {k}]^T needs N % "
+                         f"{bn} == 0 and K % {HEAD_GEMM_BK} == 0")
+    bm = 64 if rows <= 64 else 128
+    tiles = -(-rows // bm) * (n // bn)
+    steps = k // HEAD_GEMM_BK
+    cap = max(1, min(sm_count // tiles, steps // 2, HEAD_GEMM_MAX_SPLITS))
+    return HeadGemmPlan(bm, bn, 1 << (cap.bit_length() - 1))
+
+
+def head_gemm_split_ranges(k: int, splits: int) -> list[tuple[int, int]]:
+    """The K range [k0, k1) of each split, as the kernel walks them: split s
+    takes ring stages [s T / S, (s + 1) T / S) of T = k / 64."""
+    steps = k // HEAD_GEMM_BK
+    return [(s * steps // splits * HEAD_GEMM_BK, (s + 1) * steps // splits * HEAD_GEMM_BK)
+            for s in range(splits)]
+
+
+def round_route_plan(rows: int, c: int, hidden: int, attention: bool,
+                     sm_count: int = 132) -> dict[str, HeadGemmPlan]:
+    """:func:`head_gemm_plan` of each block product of the round route."""
+    shapes = {"wqkv": (3 * c, c), "wo": (c, c), "w1": (2 * hidden, c), "w2": (c, hidden)}
+    keys = ("wqkv", "wo", "w1", "w2") if attention else ("w1", "w2")
+    return {key: head_gemm_plan(rows, *shapes[key], sm_count) for key in keys}
+
+
 def _ln(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm without affine, one-pass E[x^2] - E[x]^2 statistics in fp32
     (the TPU kernels' _ln)."""
@@ -190,6 +248,91 @@ def _dot_acc(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     bf16 values is exact in fp32, with TF32 on or off), so a bias added
     after it meets the fp32 sum, as in the kernels."""
     return torch.matmul(a.to(w.dtype).float(), w.float().t())
+
+
+def _dot_acc_split(a: torch.Tensor, w: torch.Tensor, splits: int = 1) -> torch.Tensor:
+    """:func:`_dot_acc` as the head GEMM's splits sum it: fp32 partials over
+    :func:`head_gemm_split_ranges`, added in split order."""
+    if splits == 1:
+        return _dot_acc(a, w)
+    acc = None
+    for k0, k1 in head_gemm_split_ranges(w.shape[1], splits):
+        part = _dot_acc(a[:, k0:k1], w[:, k0:k1])
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def head_gemm_split_plain(a: torch.Tensor, w: torch.Tensor, mode: str, bias: torch.Tensor,
+                          gate: torch.Tensor | None = None,
+                          resid: torch.Tensor | None = None,
+                          splits: int = 1) -> torch.Tensor:
+    """Plain version of :func:`head_gemm`: y = a @ w.T + bias from the split
+    partials (:func:`_dot_acc_split`), then _block_body's bf16 epilogue:
+    "bias" bf16(y); "gated" the residual bf16(resid + bf16(bf16(y) * gate)),
+    returned as fp32; "swiglu" (w rows [h1; h2]) bf16(silu(bf16(h1))) *
+    bf16(h2)."""
+    y = _dot_acc_split(a, w, splits) + bias.float()
+    bf = torch.bfloat16
+    if mode == "bias":
+        return y.to(bf)
+    if mode == "gated":
+        return (resid.to(bf) + y.to(bf) * gate.to(bf)).float()
+    if mode == "swiglu":
+        h12 = y.to(bf)
+        hidden = w.shape[0] // 2
+        return F.silu(h12[:, :hidden].float()).to(bf) * h12[:, hidden:]
+    raise ValueError(f"head_gemm: mode {mode!r} not in {sorted(HEAD_GEMM_MODES)}")
+
+
+def head_gemm(a: torch.Tensor, w: torch.Tensor, mode: str, bias: torch.Tensor, *,
+              gate: torch.Tensor | None = None, resid: torch.Tensor | None = None,
+              plan: HeadGemmPlan | None = None) -> torch.Tensor:
+    """One product of the round route's head GEMM (``csrc/head_gemm.cuh``):
+    a [R, K] bf16, w [N, K] bf16 (the torch Linear layout; "swiglu": rows
+    [h1; h2]), bias [N] bf16. "gated" takes gate [R, N] bf16 (rows may lie
+    apart) and updates resid [R, N] fp32 (bf16 values) in place, as the
+    sampler does, and returns it. ``plan`` defaults to :func:`head_gemm_plan`
+    at the card's SM count. CPU tensors take
+    :func:`head_gemm_split_plain` with the plan's splits; CUDA tensors launch
+    the kernel or raise."""
+    if mode not in HEAD_GEMM_MODES:
+        raise ValueError(f"head_gemm: mode {mode!r} not in {sorted(HEAD_GEMM_MODES)}")
+    rows, k = a.shape
+    n = w.shape[0]
+    cuda = a.device.type == "cuda"
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count if cuda else 132
+    plan = plan or head_gemm_plan(rows, n, k, sms)
+    gated = mode == "gated"
+    if a.device.type == "cpu":
+        out = head_gemm_split_plain(a, w, mode, bias, gate, resid, plan.splits)
+        return resid.copy_(out) if gated else out
+    if not cuda:
+        raise RuntimeError(f"head_gemm: no kernel for {a.device}")
+    _cuda.refuse_grad("head_gemm", a, w)
+    for t, want in ((a, (rows, k)), (w, (n, k)), (bias, (n,))):
+        if t.dtype != torch.bfloat16 or tuple(t.shape) != want or not t.is_contiguous():
+            raise ValueError(f"head_gemm: want contiguous bf16 {want}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if gated and (resid is None or resid.dtype != torch.float32
+                  or tuple(resid.shape) != (rows, n) or not resid.is_contiguous()
+                  or gate is None or gate.dtype != torch.bfloat16
+                  or tuple(gate.shape) != (rows, n) or gate.stride(1) != 1):
+        raise ValueError("head_gemm: 'gated' needs resid fp32 [R, N] and gate bf16 [R, N]")
+    dev = a.device
+    out = resid if gated else torch.empty(
+        (rows, n // 2 if mode == "swiglu" else n), dtype=torch.bfloat16, device=dev)
+    shape = torch.tensor([rows, n, k, gate.stride(0) if gated else 0, HEAD_GEMM_MODES[mode],
+                          *plan], dtype=torch.int32)
+    code = _cuda.load().bd_head_gemm(
+        a.data_ptr(), w.data_ptr(), bias.data_ptr(), None if gated else out.data_ptr(),
+        out.data_ptr() if gated else None, gate.data_ptr() if gated else None,
+        shape.data_ptr(), _cuda.stream_ptr())
+    _cuda.check(code, "head_gemm")
+    head_gemm.launches += 1
+    return out
+
+
+head_gemm.launches = 0
 
 
 _RESIDENT_BYTES = 48 * 1024 * 1024
@@ -226,7 +369,8 @@ def rounds_residual(stacked: dict, num_blocks: int, attention: bool) -> bool:
 
 def _block_body(h: torch.Tensor, mods: torch.Tensor, stacked: dict, l: int, *,
                 attention: bool, n_head: int, groups: int,
-                eps: float = 1e-6, fp32_qkv_h12: bool = False) -> torch.Tensor:
+                eps: float = 1e-6, fp32_qkv_h12: bool = False,
+                splits: dict | None = None) -> torch.Tensor:
     """One block as the TPU kernels #3-#5 compute it (fused_head.py:248-292):
     h and the mods are cast to the weights' dtype, and so is every
     elementwise stage (LN output, its affine and modulation, qkv, the
@@ -234,8 +378,9 @@ def _block_body(h: torch.Tensor, mods: torch.Tensor, stacked: dict, l: int, *,
     silu(h1)); LN statistics, softmax and product accumulation stay fp32.
     In bf16 each torch op rounds, as each bf16 op of the kernel does.
     fp32_qkv_h12 keeps qkv and h12 in fp32 as the per-call blocks #14 / #15
-    do: a twin the card check holds kernel #5 away from. Returns h in the
-    weights' dtype."""
+    do: a twin the card check holds kernel #5 away from. splits ({"w1": S,
+    ...}) sums a product's fp32 partials as the head GEMM's split-K does
+    (:func:`_dot_acc_split`). Returns h in the weights' dtype."""
     elem = stacked["n2"].dtype
     stage = torch.float32 if fp32_qkv_h12 else elem
     c = h.shape[-1]
@@ -251,7 +396,7 @@ def _block_body(h: torch.Tensor, mods: torch.Tensor, stacked: dict, l: int, *,
         return ln * (1.0 + sl(which)) + sl(which + 1)
 
     def prod(a, key):
-        return _dot_acc(a, stacked[key][l])
+        return _dot_acc_split(a, stacked[key][l], (splits or {}).get(key, 1))
 
     mlp = 0
     if attention:
@@ -308,7 +453,7 @@ def _attn_from_qkv(qkv: torch.Tensor, n_head: int, groups: int,
 def _rounded_blocks(h: torch.Tensor, group_mods, group_of, final_mods: torch.Tensor,
                     stacked: dict, *, num_blocks: int, attention: bool,
                     n_head: int, groups: int, bounded: bool, eps: float = 1e-6,
-                    fp32_qkv_h12: bool = False) -> torch.Tensor:
+                    fp32_qkv_h12: bool = False, splits: dict | None = None) -> torch.Tensor:
     """The blocks and final layer of kernels #3-#5 from the fp32 input
     projection h [R, C]: block l runs :func:`_block_body` on
     group_mods(group_of(l)) (called once per run of equal groups), then the
@@ -321,7 +466,7 @@ def _rounded_blocks(h: torch.Tensor, group_mods, group_of, final_mods: torch.Ten
         if g != g_prev:
             g_prev, mods = g, group_mods(g)
         h = _block_body(h, mods, stacked, l, attention=attention, n_head=n_head,
-                        groups=groups, eps=eps, fp32_qkv_h12=fp32_qkv_h12)
+                        groups=groups, eps=eps, fp32_qkv_h12=fp32_qkv_h12, splits=splits)
     fm = final_mods.float()
     z = _ln(h, eps) * (1.0 + fm[:, :c]) + fm[:, c:]
     out = _dot_acc(z, stacked["f_out_w"]) + stacked["f_out_b"]
@@ -332,7 +477,7 @@ def _net_forward(stacked: dict, x: torch.Tensor, mods_row: torch.Tensor, *,
                  num_blocks: int, switch_freq: int, n_head: int, groups: int,
                  attention: bool = True, bounded: bool = True,
                  quant: str | None = None, round_residual: bool = False,
-                 eps: float = 1e-6) -> torch.Tensor:
+                 eps: float = 1e-6, splits: dict | None = None) -> torch.Tensor:
     """One DiffNet forward on rows [x; x] with precomputed mods -> fp32
     [R, ch]. round_residual=False: precision as the TPU kernel #2
     (fused_head.py:689): fp32 residual h, stage activations in the weights'
@@ -341,7 +486,7 @@ def _net_forward(stacked: dict, x: torch.Tensor, mods_row: torch.Tensor, *,
     attention output, silu(h1) * h2) is row-quantized as it is, without the
     bf16 rounding, and qkv and h12 are still stored in the weights' dtype.
     round_residual=True: the blocks of kernels #3 and #4
-    (:func:`_block_body`)."""
+    (:func:`_block_body`, the products split by splits)."""
     if round_residual:
         if quant:
             raise ValueError("_net_forward: a quantized stack keeps kernel #2's "
@@ -353,7 +498,7 @@ def _net_forward(stacked: dict, x: torch.Tensor, mods_row: torch.Tensor, *,
             h, lambda g: mods_row[:, g * mc:(g + 1) * mc], lambda l: l // switch_freq,
             mods_row[:, -2 * c_dim:], stacked, num_blocks=num_blocks,
             attention=attention, n_head=n_head, groups=groups, bounded=bounded,
-            eps=eps)
+            eps=eps, splits=splits)
     elem = stacked["n2"].dtype
     c_dim = stacked["n2"].shape[-1]
     hidden = stacked["b1"].shape[1] // 2
@@ -410,8 +555,12 @@ def fused_em_sample_reference(stacked: dict, x0: torch.Tensor,
                               last_step_size: float = 0.05,
                               final_chunk: bool = True,
                               quant: str | None = None,
-                              round_residual: bool | None = None) -> torch.Tensor:
-    """Plain PyTorch version of :func:`fused_em_sample` (same arguments)."""
+                              round_residual: bool | None = None,
+                              splits: dict | None = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_em_sample` (same arguments).
+    On the round route, splits ({"w1": S, ...}: the split counts of
+    :func:`round_route_plan`) sums each product's K splits as the card's
+    head GEMM does; None sums each in one pass."""
     num_steps = noise.shape[0]
     switch_freq = max(1, num_blocks // num_ada)
     half = x0.shape[0]
@@ -422,7 +571,7 @@ def fused_em_sample_reference(stacked: dict, x0: torch.Tensor,
         round_residual = rounds_residual(stacked, num_blocks, attention)
     kw = dict(num_blocks=num_blocks, switch_freq=switch_freq, n_head=n_head,
               groups=groups, attention=attention, bounded=bounded,
-              quant=quant_mode(quant), round_residual=round_residual)
+              quant=quant_mode(quant), round_residual=round_residual, splits=splits)
     for s in range(num_steps + (1 if final_chunk else 0)):
         out = _net_forward(stacked, x, allmods[s], **kw)
         t, dt = ts[s], dts[s]
@@ -470,7 +619,8 @@ def fused_em_sample(stacked: dict, x0: torch.Tensor, noise: torch.Tensor,
                     groups: int = 1, attention: bool = True,
                     bounded: bool = True, last_step_size: float = 0.05,
                     final_chunk: bool = True,
-                    quant: str | bool | None = None) -> torch.Tensor:
+                    quant: str | bool | None = None,
+                    _pdl: bool = True) -> torch.Tensor:
     """The whole EM sampling loop; dispatch by device.
 
     x0 [half, ch] f32 (cond rows); noise [num_steps, half, ch] f32; allmods
@@ -484,7 +634,10 @@ def fused_em_sample(stacked: dict, x0: torch.Tensor, noise: torch.Tensor,
     mode) runs the W8A8 / W4A8 products of the TPU kernel's quant mode, for
     the TransEncoder only. :func:`rounds_residual` decides from the stack,
     as the JAX router does, whether the residual is carried in the weights'
-    dtype, as kernels #3 and #4 do. CPU tensors take
+    dtype, as kernels #3 and #4 do; that route runs its block products on
+    the head GEMM (:func:`round_route_plan`; a C or H it cannot tile
+    raises), every launch of its chain programmatic (``_pdl=False`` only to
+    measure what that saves). CPU tensors take
     :func:`fused_em_sample_reference`; CUDA tensors run
     ``csrc/fused_head.cu`` (bf16 weights, norms, biases and mods; int8 block
     matrices with f32 scales when quantized) or raise.
@@ -569,6 +722,19 @@ def fused_em_sample(stacked: dict, x0: torch.Tensor, noise: torch.Tensor,
                  torch.empty((rows,), dtype=torch.float32, device=dev))
         q_ptrs = [ptr(k + "_s") for k in ("wqkv", "wo", "w1", "w2")] \
             + [t.data_ptr() for t in qbufs]
+    # the round route's products on the head GEMM: its plans (qkv, wo, w1, w2;
+    # unused ones zero); a shape it cannot take raises
+    gemm_plan = torch.zeros(12, dtype=torch.int32)
+    if round_residual:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        try:
+            plans = round_route_plan(rows, c_dim, hidden, attention, sms)
+        except ValueError as e:
+            raise ValueError(f"fused_em_sample: C = {c_dim}, H = {hidden} do not fit "
+                             f"the head GEMM ({e})") from None
+        for i, key in enumerate(("wqkv", "wo", "w1", "w2")):
+            if key in plans:
+                gemm_plan[3 * i:3 * i + 3] = torch.tensor(plans[key], dtype=torch.int32)
     lib = _cuda.load()
     code = lib.bd_fused_em_sample(
         x.data_ptr(), noise.data_ptr(), allmods.data_ptr(), allmods.shape[2],
@@ -581,7 +747,8 @@ def fused_em_sample(stacked: dict, x0: torch.Tensor, noise: torch.Tensor,
         half, ch, c_dim, hidden, num_blocks, num_steps,
         max(1, num_blocks // num_ada), max(n_head, 1), groups,
         int(attention), int(bounded), int(final_chunk), float(last_step_size),
-        _QUANT_MODES.index(mode), *q_ptrs, int(round_residual), _cuda.stream_ptr())
+        _QUANT_MODES.index(mode), *q_ptrs, int(round_residual), gemm_plan.data_ptr(),
+        int(_pdl), _cuda.stream_ptr())
     _cuda.check(code, "fused_em_sample")
     fused_em_sample.launches += 1
     return x

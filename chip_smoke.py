@@ -57,7 +57,14 @@ Phases, run in this order, one line each, any failure exits non-zero:
                     fused_mlp_block (H-1x: 8 rows, C 1280; B-16x: 512 rows,
                     C 768) and fused_attn_block (32 windows of 16, C 768, 12
                     heads, with a window-off-by-one check) and the sampler's
-                    MlpEncoder and unbounded TransEncoder families vs plain
+                    MlpEncoder and unbounded TransEncoder families vs plain,
+                    each sampler's call eager and device-only with and
+                    without PDL against the per-net-call bound, its launches
+                    per net call (captured); every product of #3/#4's head
+                    GEMM at 64 (H-1x) and 1024 (B-16x) rows against its split
+                    twin (a row, an output column and a K stage off by one
+                    must move the twin >= 4x the bound; two launches
+                    bit-equal), cold-L2 times against torch.matmul
   imagenet_h1x      32 classes at cfg 4.55 (linear schedule), 100 sampling
                     steps, 256 AR steps, VQ decoder to uint8; then 8 classes
                     unguided through the per-call head
@@ -182,6 +189,16 @@ TRAIN_GRAD_NORM_REL = 5e-4
 # attn_b16x 2.0e-3; the sampler over 4 steps 1.7e-2 (H-1x) and 2.0e-2 (B-16x)
 IMAGENET_BLOCK_MAX_REL_ERR = {"mlp_h1x": 1e-2, "mlp_b16x": 1e-2, "attn_b16x": 1e-2}
 IMAGENET_SAMPLER_MAX_REL_ERR = 5e-2
+# #3/#4's head GEMM (csrc/head_gemm.cuh) per product against its split twin
+# (the same K splits summed in the same order, then the same bf16 epilogue),
+# max |error| / max |twin|: the in-split sums differ in fp32 order only, so
+# an output moves by a bf16 ulp where it sits at a rounding boundary.
+# Readings (NVIDIA H100 80GB HBM3, 700 W) over the H-1x and B-16x products:
+# bias 3.2e-3, gated 1.5e-3-1.7e-3, swiglu 4.7e-4-2.2e-3
+HEAD_GEMM_MAX_REL_ERR = {"bias": 1e-2, "gated": 5e-3, "swiglu": 1e-2}
+# block product -> (head GEMM mode, its bias)
+HEAD_GEMM_PRODUCTS = {"wqkv": ("bias", "bqkv"), "wo": ("gated", "bo"),
+                      "w1": ("swiglu", "b1"), "w2": ("gated", "b2")}
 # the first and last token of every window get shift + IMAGENET_EDGE_SHIFT,
 # which makes their q, k and v large: a window boundary off by one row then
 # moves the attention block's output by far more than its bound
@@ -276,7 +293,7 @@ PROFILE_GROUPS = (
     ("products", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
     ("flash attention", ("flash_",)),
     ("decode attention", ("decode_attention", "split_decode", "split_combine")),
-    ("head stages", ("window_attention", "ln_modulate", "final_em", "proj_in_kernel")),
+    ("head stages", ("window_attention", "ln_modulate", "final_em", "proj_in")),
     ("optimizer foreach", ("multi_tensor_apply",)),
     ("elementwise, casts, reductions", ("elementwise", "copy", "reduce", "Cat", "index",
                                        "embedding", "norm")),
@@ -668,16 +685,19 @@ def phase_sampler(bundle) -> dict:
 
 
 def sampler_bound(stacked, x0, noise, allmods, *, attention, groups=1,
-                  window=1, quant=None) -> dict:
+                  window=1, quant=None, l2_bytes=None) -> dict:
     """Bound of one whole-sampler call: its inputs read once (the block
     weights and their scales, the input and output projections, all mods,
-    x0, noise) and its output written once; operations of every net call's
-    products (integer ones at the int8 peak when quantized; a packed int4
-    byte holds two weights) and window attention."""
+    x0, noise) and its output written once; then, since each net call needs
+    the one before it, every net call after the first streams the block
+    stack again, less what the L2 can hold (l2_bytes, default the card's):
+    max(0, stack - L2) bytes for each of those net calls. Operations of every net call's products (integer ones
+    at the int8 peak when quantized; a packed int4 byte holds two weights)
+    and window attention."""
     mats = ["w1", "w2"] + (["wqkv", "wo"] if attention else [])
-    read = mats + ["b1", "b2", "n2", "in_w", "in_b", "f_out_w", "f_out_b"] \
-        + (["bqkv", "bo", "n1"] if attention else []) \
+    stack = mats + ["b1", "b2", "n2"] + (["bqkv", "bo", "n1"] if attention else []) \
         + ([k + "_s" for k in mats] if quant else [])
+    read = stack + ["in_w", "in_b", "f_out_w", "f_out_b"]
     rows, calls = 2 * x0.shape[0], allmods.shape[0]
     block_w = sum(stacked[k].numel() for k in mats) * (2 if quant == "int4" else 1)
     proj_w = stacked["in_w"].numel() + stacked["f_out_w"].numel()
@@ -686,7 +706,12 @@ def sampler_bound(stacked, x0, noise, allmods, *, attention, groups=1,
     if attention:
         c, blocks = stacked["n2"].shape[-1], stacked["w1"].shape[0]
         flops += 4.0 * groups * window * window * c * blocks * calls
-    return roofline(nbytes(*[stacked[k] for k in read], allmods, x0, noise, x0),
+    if l2_bytes is None:
+        import torch
+
+        l2_bytes = torch.cuda.get_device_properties(x0.device).L2_cache_size
+    streamed = max(0, calls - 1) * max(0, nbytes(*[stacked[k] for k in stack]) - l2_bytes)
+    return roofline(nbytes(*[stacked[k] for k in read], allmods, x0, noise, x0) + streamed,
                     flops, block_ops if quant else 0.0)
 
 
@@ -1694,19 +1719,14 @@ def _check_attn_block(blk, groups, window, dev, seed) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": pms, **bd, "library_ms": None}
 
 
-def _check_imagenet_sampler(name, bundle, dev, seed) -> dict:
-    """The whole sampler at one ImageNet head and its guided path's rows
-    (IMAGENET_BATCH images, [cond; null class]): 4 steps against the plain
-    version (relative bound), then IMAGENET_STEPS steps (sign agreement and
-    times)."""
+def imagenet_sampler_inputs(bundle, dev, seed):
+    """The whole sampler's keywords at one ImageNet head and its guided
+    path's rows (IMAGENET_BATCH images, [cond; null class]), and inputs(steps)
+    -> (x0, noise, allmods, t_all, dt_all), drawn from one generator."""
     import torch
 
     from bitdance_tpu_torch.models.sampling import time_shift
-    from bitdance_tpu_torch.ops.fused_head import (
-        em_precompute,
-        fused_em_sample,
-        fused_em_sample_reference,
-    )
+    from bitdance_tpu_torch.ops.fused_head import em_precompute
 
     head, stacked = bundle.head, bundle.head_stacked
     p, C, ch = head.parallel_num, head.ch_latent, head.ch_target
@@ -1725,6 +1745,22 @@ def _check_imagenet_sampler(name, bundle, dev, seed) -> dict:
         noise = torch.randn((steps, half, ch), generator=g, device=dev)
         return x0, noise, em_precompute(stacked, c_emb, t_all), t_all, dt_all
 
+    return kw, inputs
+
+
+def _check_imagenet_sampler(name, bundle, dev, seed) -> dict:
+    """The whole sampler at one ImageNet head and its guided path's rows
+    (IMAGENET_BATCH images, [cond; null class]): 4 steps against the plain
+    version (relative bound), then IMAGENET_STEPS steps (sign agreement and
+    times)."""
+    import torch
+
+    from bitdance_tpu_torch.ops.fused_head import fused_em_sample, fused_em_sample_reference
+
+    head, stacked = bundle.head, bundle.head_stacked
+    p, C = head.parallel_num, head.ch_latent
+    half = IMAGENET_BATCH * p
+    kw, inputs = imagenet_sampler_inputs(bundle, dev, seed)
     cfg = 4.0
     with torch.no_grad():
         args = inputs(4)
@@ -1740,25 +1776,160 @@ def _check_imagenet_sampler(name, bundle, dev, seed) -> dict:
         agree = (torch.sign(xk) == torch.sign(xp)).float().mean().item()
         ms = cuda_time_ms(run_k, 3, warmup=1)
         pms = cuda_time_ms(run_p, 2, warmup=1)
+        times = sampler_times(lambda pdl: fused_em_sample(stacked, *args[:3], *args[3:], cfg,
+                                                          _pdl=pdl, **kw))
+        per_net = _sampler_launches(lambda s: fused_em_sample(
+            stacked, args[0], args[1][:s], args[2][:s + 1], args[3], args[4], cfg, **kw))
     bd = sampler_bound(stacked, args[0], args[1], args[2], attention=head.attention,
                        groups=kw["groups"], window=p)
     fam = "TransEncoder" if head.attention else "MlpEncoder"
+    calls = IMAGENET_STEPS + 1
     log("imagenet_kernels", f"fused_em_sample {name} ({fam}, unbounded, C={C}, "
         f"{head.depth_latent} blocks, R={2 * half}): 4 steps max abs err {err:.3e}, "
         f"rel {rel:.3e} (bound {IMAGENET_SAMPLER_MAX_REL_ERR}); {IMAGENET_STEPS} "
         f"steps: +-1 agreement {agree:.4f} (floor {SAMPLER_SIGN_AGREEMENT_FLOOR}), "
-        f"kernel {ms:.2f} ms ({ms / (IMAGENET_STEPS + 1):.4f} per net call), plain "
-        f"{pms:.2f} ms, bound {bd['bound_ms']:.3f} ms ({bd['bound_by']})")
+        f"kernel {ms:.2f} ms ({ms / calls:.4f} per net call), plain "
+        f"{pms:.2f} ms, bound {bd['bound_ms']:.3f} ms ({bd['bound_by']}, "
+        f"{bd['bound_ms'] / calls:.4f} per net call); per net call "
+        + ", ".join(f"{q} {v / calls:.4f}" for q, v in times.items())
+        + f" ms; {per_net:g} launches per net call (captured)")
     if (not torch.isfinite(xk).all() or rel > IMAGENET_SAMPLER_MAX_REL_ERR
             or agree < SAMPLER_SIGN_AGREEMENT_FLOOR):
         raise SystemExit(f"fused_em_sample {name}: rel {rel}, agreement {agree}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, **bd, "library_ms": None}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, **bd, "library_ms": None,
+            **times, "launches_per_net_call": per_net}
+
+
+def sampler_times(run) -> dict:
+    """One whole-sampler call of the round route, ms: device-only (a
+    captured graph), and eager and device-only with its launches plain
+    (run(pdl) calls fused_em_sample with _pdl=pdl)."""
+    plain = lambda: run(False)  # noqa: E731
+    return {"device_ms": cuda_graph_time_ms(lambda: run(True), calls=1, reps=3),
+            "no_pdl_ms": cuda_time_ms(plain, 3, warmup=1),
+            "no_pdl_device_ms": cuda_graph_time_ms(plain, calls=1, reps=3)}
+
+
+def _head_gemm_operands(stacked, key, rows, g, dev):
+    """One block product of the round route at ``rows``: a ~ N(0, 1) bf16,
+    and for the gated modes a residual ~ N(0, 1) (bf16 values) and a gate ~
+    N(0, 0.25) whose rows lie apart as the sampler's mods do."""
+    import torch
+
+    mode = HEAD_GEMM_PRODUCTS[key][0]
+    n, k = stacked[key].shape[1:]
+    a = torch.randn((rows, k), generator=g, device=dev).bfloat16()
+    kw = {}
+    if mode == "gated":
+        kw["resid"] = torch.randn((rows, n), generator=g, device=dev).bfloat16().float()
+        kw["gate"] = (0.5 * torch.randn((rows, 3 * n), generator=g, device=dev)
+                      ).bfloat16()[:, n:2 * n]
+    return a, kw
+
+
+def head_gemm_walk(stacked, key, a, kw, plan):
+    """The product over every block's weights in turn (the stack is larger
+    than the L2, so each launch finds its weights cold): a callable."""
+    from bitdance_tpu_torch.ops.fused_head import head_gemm
+
+    mode, bkey = HEAD_GEMM_PRODUCTS[key]
+    w, b = stacked[key], stacked[bkey]
+    return lambda: [head_gemm(a, w[l], mode, b[l], plan=plan, **kw) for l in range(w.shape[0])]
+
+
+def matmul_walk(stacked, key, a):
+    """torch.matmul at the same shape over the same walk."""
+    w = stacked[key]
+    return lambda: [a @ w[l].t() for l in range(w.shape[0])]
+
+
+def head_gemm_bound(a, w, mode, kw) -> dict:
+    """One product: a, w and the bias read, the output written (the gated
+    modes read the gate and read and write the residual), 2 R N K flops."""
+    rows, n = a.shape[0], w.shape[0]
+    out = rows * (n // 2 if mode == "swiglu" else n) * 2
+    extra = (nbytes(kw["gate"]) + 2 * nbytes(kw["resid"])) if mode == "gated" else out
+    return roofline(nbytes(a, w) + 2 * n + extra, 2.0 * rows * n * a.shape[1])
+
+
+def _check_head_gemm(name, bundle, rows, dev, seed) -> dict:
+    """#3/#4's head GEMM at the family's sampling rows, every product of
+    block 0 against its split twin (the plan's splits): a relative bound per
+    mode; an A row, a weight row (an output column) and a K stage off by one
+    must each move the twin by >= 4x that bound; two launches bit-equal.
+    Then device-only ms a product over every block's weights in turn (cold
+    L2), torch.matmul on the same walk, the bound."""
+    import torch
+
+    from bitdance_tpu_torch.ops.fused_head import (
+        HEAD_GEMM_BK,
+        head_gemm,
+        head_gemm_plan,
+        head_gemm_split_plain,
+    )
+
+    stacked = bundle.head_stacked
+    keys = ("wqkv", "wo", "w1", "w2") if bundle.head.attention else ("w1", "w2")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for key in keys:
+        mode, bkey = HEAD_GEMM_PRODUCTS[key]
+        w, bias = stacked[key][0], stacked[bkey][0]
+        n, k = w.shape
+        plan = head_gemm_plan(rows, n, k, sms)
+        a, kw = _head_gemm_operands(stacked, key, rows, g, dev)
+
+        def run():   # the gated residual is updated in place: a fresh copy
+            fresh = {q: v.clone() if q == "resid" else v for q, v in kw.items()}
+            return head_gemm(a, w, mode, bias, plan=plan, **fresh)
+
+        def twin(a=a, w=w):
+            return head_gemm_split_plain(a, w, mode, bias, splits=plan.splits, **kw)
+
+        with torch.no_grad():
+            got, again, want = run(), run(), twin()
+            torch.cuda.synchronize()
+            err, rel = _errors(got, want)
+            moved = {"row": _errors(twin(a=a.roll(1, 0)), want)[1],
+                     "column": _errors(twin(w=w.roll(1, 0)), want)[1],
+                     "k_stage": _errors(twin(a=a.roll(HEAD_GEMM_BK, 1)), want)[1]}
+            same = torch.equal(got, again)
+            walk = head_gemm_walk(stacked, key, a, kw, plan)
+            lib = matmul_walk(stacked, key, a)
+            blocks = stacked[key].shape[0]
+            dms = cuda_graph_time_ms(walk, calls=4, reps=3) / blocks
+            ms = cuda_time_ms(walk, 10) / blocks
+            lib_dms = cuda_graph_time_ms(lib, calls=4, reps=3) / blocks
+            lib_ms = cuda_time_ms(lib, 10) / blocks
+        bound = HEAD_GEMM_MAX_REL_ERR[mode]
+        bd = head_gemm_bound(a, w, mode, kw)
+        log("imagenet_kernels", f"head_gemm {name} {key} ({mode}) R={rows} [{n}, {k}], plan "
+            f"bm {plan.bm} bn {plan.bn} x {plan.splits} split(s): max abs err {err:.3e}, "
+            f"rel {rel:.3e} (bound {bound}) against the split twin; off by one: "
+            + ", ".join(f"{q} {v:.3e}" for q, v in moved.items())
+            + f" (>= {4 * bound:g}); 2 launches bit-equal {same}; cold L2 over "
+            f"{blocks} blocks: {ms:.4f} ms eager, {dms:.4f} device-only; torch.matmul "
+            f"{lib_ms:.4f} / {lib_dms:.4f}; bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+        if (not torch.isfinite(got.float()).all() or rel > bound or not same
+                or min(moved.values()) < 4 * bound):
+            raise SystemExit(f"head_gemm {name} {key}: rel {rel} (bound {bound}), "
+                             f"off by one {moved}, bit-equal {same}")
+        out[key] = {"mode": mode, "splits": plan.splits, "rel_err": rel, "ms": ms,
+                    "device_ms": dms, "library_ms": lib_ms, "library_device_ms": lib_dms, **bd}
+    return out
+
+
+def _sampler_launches(run_steps) -> float:
+    """Kernel launches of one net call of the whole sampler: the kernel
+    nodes of a captured 4-step call less those of a 2-step one, halved."""
+    return (_captured_kernels(lambda: run_steps(4)) - _captured_kernels(lambda: run_steps(2))) / 2
 
 
 def phase_imagenet_kernels(h1x, b16x) -> dict:
     dev = h1x.head.net.input_proj.weight.device
     hb, bb = h1x.head.net.res_blocks[0], b16x.head.net.res_blocks[0]
-    return {
+    out = {
         "fused_mlp_block": _check_mlp_block("mlp_h1x", hb, hb.norm,
                                             UNGUIDED_H1X_IMAGES, dev, 11),
         "fused_mlp_block_b16x": _check_mlp_block("mlp_b16x", bb, bb.norm2,
@@ -1767,6 +1938,11 @@ def phase_imagenet_kernels(h1x, b16x) -> dict:
         "fused_em_sample_mlp": _check_imagenet_sampler("h1x", h1x, dev, 14),
         "fused_em_sample_b16x": _check_imagenet_sampler("b16x", b16x, dev, 15),
     }
+    out["fused_em_sample_mlp"]["products"] = _check_head_gemm(
+        "h1x", h1x, 2 * IMAGENET_BATCH, dev, 16)
+    out["fused_em_sample_b16x"]["products"] = _check_head_gemm(
+        "b16x", b16x, 2 * IMAGENET_BATCH * 16, dev, 17)
+    return out
 
 
 def _imagenet_run(bundle, n: int, cfg_scale: float, seed: int, steps: int,
@@ -3248,10 +3424,14 @@ def main() -> int:
                         # #1 / #6 and the flash kernels also carry their
                         # device-only time (#7-#9: the host's a call, SDPA's
                         # device-only); #16 its cold-L2 times, the GEMM
-                        # launch alone and its splits
+                        # launch alone and its splits; #3/#4 their times
+                        # without PDL, launches per net call and each head
+                        # GEMM product's check and cold-L2 times
                         **{k: r[k] for k in ("device_ms", "host_us", "library_device_ms",
                                              "cold_ms", "library_cold_ms", "gemm_ms",
-                                             "splits") if k in r}})
+                                             "splits", "no_pdl_ms", "no_pdl_device_ms",
+                                             "launches_per_net_call", "products")
+                           if k in r}})
     log("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(card)

@@ -1,0 +1,144 @@
+#!/usr/bin/env python3
+"""Time the ImageNet heads' whole sampler (kernels #3/#4) and, where the
+tree has it, its head GEMM, on one NVIDIA GPU; prints one JSON line.
+
+For each of the random bf16 BitDance-H-1x and BitDance-B-16x samplers of
+chip_smoke.py, at its guided path's rows (32 images, 100 sampling steps):
+- one sampler call, eager (CUDA events) and device-only (a captured CUDA
+  graph), with and without programmatic launches (PDL) where the tree has
+  that switch; the launches of one net call (captured); the bound of
+  chip_smoke.sampler_bound;
+- each block product of the head GEMM, device-only over every block's
+  weights in turn (cold L2): the planned tiles and splits, torch.matmul at
+  the same shape, and a sweep of split counts and tile shapes (the H-1x w2
+  at 1-8 splits, one split everywhere, bm 64 at 1024 rows);
+- end to end, the guided batch through ``sample`` and the VQ decoder:
+  s/batch and its sampler phase.
+
+    python3 scripts/torch_sampler_times.py [--root DIR] [--skip-e2e]
+
+``--root`` puts another checkout's ``bitdance_tpu_torch`` first on sys.path
+(default: this one), so that one run can time two trees in turns (parent,
+change, change, parent); the inputs, timers and bound are this checkout's
+chip_smoke.py's.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import inspect
+import json
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+# split counts of the H-1x w2 sweep (10 tiles, 30 stages of 64 k; a
+# power of two up to the cluster limit)
+W2_SWEEP = (1, 2, 4, 8)
+
+
+def _sampler(smoke, fused_head, bundle, dev, seed) -> dict:
+    import torch
+
+    kw, inputs = smoke.imagenet_sampler_inputs(bundle, dev, seed)
+    stacked, cfg = bundle.head_stacked, 4.0
+    args = inputs(smoke.IMAGENET_STEPS)
+    run = lambda: fused_head.fused_em_sample(stacked, *args, cfg, **kw)  # noqa: E731
+    out = {}
+    with torch.no_grad():
+        out["ms"] = smoke.cuda_time_ms(run, 3, warmup=1)
+        out["device_ms"] = smoke.cuda_graph_time_ms(run, calls=1, reps=3)
+        if "_pdl" in inspect.signature(fused_head.fused_em_sample).parameters:
+            plain = lambda: fused_head.fused_em_sample(  # noqa: E731
+                stacked, *args, cfg, _pdl=False, **kw)
+            out["no_pdl_ms"] = smoke.cuda_time_ms(plain, 3, warmup=1)
+            out["no_pdl_device_ms"] = smoke.cuda_graph_time_ms(plain, calls=1, reps=3)
+        out["launches_per_net_call"] = smoke._sampler_launches(
+            lambda s: fused_head.fused_em_sample(stacked, args[0], args[1][:s],
+                                                 args[2][:s + 1], *args[3:], cfg, **kw))
+    calls = smoke.IMAGENET_STEPS + 1
+    out.update(smoke.sampler_bound(stacked, *args[:3], attention=bundle.head.attention,
+                                   groups=kw["groups"], window=bundle.head.parallel_num))
+    out["per_net_call"] = {k: v / calls for k, v in out.items()
+                           if k.endswith("ms") and isinstance(v, float)}
+    return out
+
+
+def _products(smoke, fused_head, bundle, rows, dev, seed) -> dict:
+    import torch
+
+    stacked = bundle.head_stacked
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator(device=dev).manual_seed(seed)
+    keys = ("wqkv", "wo", "w1", "w2") if bundle.head.attention else ("w1", "w2")
+    out = {}
+
+    def device_ms(fn, blocks):
+        return smoke.cuda_graph_time_ms(fn, calls=4, reps=3) / blocks
+
+    with torch.no_grad():
+        for key in keys:
+            mode = smoke.HEAD_GEMM_PRODUCTS[key][0]
+            n, k = stacked[key].shape[1:]
+            blocks = stacked[key].shape[0]
+            a, kw = smoke._head_gemm_operands(stacked, key, rows, g, dev)
+            plan = fused_head.head_gemm_plan(rows, n, k, sms)
+            variants = {"planned": plan, "one_split": plan._replace(splits=1)}
+            if rows > 64:
+                variants["bm64"] = plan._replace(bm=64)
+            if key == "w2" and rows <= 64:
+                variants.update({f"splits_{s}": plan._replace(splits=s) for s in W2_SWEEP})
+
+            rec = {"mode": mode, "plan": list(plan),
+                   **smoke.head_gemm_bound(a, stacked[key][0], mode, kw),
+                   "library_device_ms": device_ms(smoke.matmul_walk(stacked, key, a), blocks)}
+            rec.update({f"{name}_device_ms":
+                        device_ms(smoke.head_gemm_walk(stacked, key, a, kw, p), blocks)
+                        for name, p in variants.items()})
+            out[key] = rec
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=str(REPO),
+                    help="checkout whose bitdance_tpu_torch is timed")
+    ap.add_argument("--skip-e2e", action="store_true", help="kernels only")
+    args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_sampler_times: no CUDA device", file=sys.stderr)
+        return 2
+    import bitdance_tpu_torch
+    from bitdance_tpu_torch.ops import _cuda, fused_head
+    from bitdance_tpu_torch.utils.precision import full_fp32
+
+    full_fp32()
+    _cuda.load()
+    dev = torch.device("cuda")
+    h1x, b16x = smoke.build_imagenet_samplers()
+    out = {"package": bitdance_tpu_torch.__file__, "card": smoke.card_line()}
+    for name, bundle, rows, seed in (("h1x", h1x, 2 * smoke.IMAGENET_BATCH, 14),
+                                     ("b16x", b16x, 2 * smoke.IMAGENET_BATCH * 16, 15)):
+        out[name] = {"sampler": _sampler(smoke, fused_head, bundle, dev, seed)}
+        if hasattr(fused_head, "head_gemm"):
+            out[name]["products"] = _products(smoke, fused_head, bundle, rows, dev, seed + 2)
+    if not args.skip_e2e:
+        for name, bundle, cfg_scale in (("h1x", h1x, 4.55), ("b16x", b16x, 6.1)):
+            r = smoke._imagenet_run(bundle, smoke.IMAGENET_BATCH, cfg_scale, 0,
+                                    smoke.IMAGENET_STEPS)
+            out[name]["e2e"] = {"s_per_batch": r["s"], "sampler_s": r["timing"]["sampler"],
+                                "ok": r["ok"], "fused_em_sample": r["counts"]["fused_em_sample"]}
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -755,3 +755,68 @@ def test_fused_diffnet_forward_kernel(dev, attention):
     f32 = {k: v.float() if v.dtype == torch.bfloat16 else v for k, v in s.items()}
     with pytest.raises(ValueError, match="bfloat16"):
         fused_diffnet_forward(f32, x, t, c_emb, **kw)
+
+
+# the round route's head GEMM (#3/#4): (rows, N, K, mode) at the H-1x and
+# B-16x products and a ragged small one
+HEAD_GEMM_CASES = {"h1x_w1": (64, 3840, 1280, "swiglu"), "h1x_w2": (64, 1280, 1920, "gated"),
+                   "b16x_qkv": (1024, 2304, 768, "bias"), "b16x_w2": (1024, 768, 1152, "gated"),
+                   "ragged_w1": (24, 768, 256, "swiglu")}
+# kernel vs its split twin on the same splits, max |error| / max |twin|; the
+# sums differ in fp32 order only, so an output moves by one bf16 ulp where it
+# sits at a rounding boundary: at most 2^-7 of the largest output (twice that
+# for the swiglu's product of two rounded halves)
+HEAD_GEMM_TEST_BOUND = {"bias": 8e-3, "gated": 8e-3, "swiglu": 1.6e-2}
+
+
+def _head_gemm_inputs(dev, rows, n, k, mode, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randn((rows, k), generator=g, device=dev).bfloat16()
+    w = (torch.randn((n, k), generator=g, device=dev) / k ** 0.5).bfloat16()
+    bias = (0.1 * torch.randn((n,), generator=g, device=dev)).bfloat16()
+    kw = {}
+    if mode == "gated":
+        kw["resid"] = torch.randn((rows, n), generator=g, device=dev).bfloat16().float()
+        kw["gate"] = (0.5 * torch.randn((rows, 2 * n), generator=g, device=dev)).bfloat16()[:, n:]
+    return a, w, bias, kw
+
+
+@pytest.mark.parametrize("name", list(HEAD_GEMM_CASES))
+def test_head_gemm_kernel(dev, name):
+    """Each mode at its planned split count (and at one split) against the
+    split twin; two launches bit-equal."""
+    from bitdance_tpu_torch.ops.fused_head import (
+        head_gemm,
+        head_gemm_plan,
+        head_gemm_split_plain,
+    )
+
+    rows, n, k, mode = HEAD_GEMM_CASES[name]
+    a, w, bias, kw = _head_gemm_inputs(dev, rows, n, k, mode, 7)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = head_gemm_plan(rows, n, k, sms)
+    before = head_gemm.launches
+
+    def run(**extra):     # "gated" updates its residual in place: a fresh copy
+        fresh = {k: v.clone() if k == "resid" else v for k, v in kw.items()}
+        return head_gemm(a, w, mode, bias, **fresh, **extra)
+
+    with torch.no_grad():
+        for p in {plan, plan._replace(splits=1)}:
+            got, again = run(plan=p), run(plan=p)
+            want = head_gemm_split_plain(a, w, mode, bias, splits=p.splits, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again)
+            rel = ((got.float() - want.float()).abs().max()
+                   / want.float().abs().max()).item()
+            assert rel < HEAD_GEMM_TEST_BOUND[mode], (p, rel)
+    assert head_gemm.launches > before
+
+
+def test_head_gemm_refuses_shapes(dev):
+    from bitdance_tpu_torch.ops.fused_head import head_gemm
+
+    a = torch.zeros((64, 96), device=dev, dtype=torch.bfloat16)     # K % 64
+    w = torch.zeros((128, 96), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        head_gemm(a, w, "bias", torch.zeros(128, device=dev, dtype=torch.bfloat16))
