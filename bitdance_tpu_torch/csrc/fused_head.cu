@@ -25,27 +25,26 @@
 // become the limit. The sampler is bound by weight bytes streamed from HBM
 // once per net call, 51 or 101 times per AR step.
 //
-// Design: the bf16 tensor-core GEMM of head_blocks.cuh with the epilogues
-// fused: bias (qkv, stored bf16), bias + gated residual into the fp32
-// residual stream (out and down products), and SwiGLU (the w1 product loads
-// matching h1/h2 weight rows into one tile so each thread holds both halves
-// of its output column). LN + modulate, window attention and the final layer
-// + EM update are small fp32 kernels. Precision follows the TPU kernel the
-// JAX package routes the stack to (round_residual, decided by the caller from
-// the block weights' bytes): #2 (the 14B head) keeps an fp32 residual h with
-// bf16 stage activations; #3/#4 (the ImageNet heads) run _block_body, which
-// rounds h and every elementwise stage to bf16. LN statistics, softmax and
-// accumulation stay fp32 in both. #2's products run on that GEMM, whose
-// 64x64 output tiles give a 64-row product only 20-60 blocks; #3/#4's run on
-// the wgmma head GEMM of head_gemm.cuh (a TMA ring, split-K by
-// ops/fused_head.py::head_gemm_plan), and every launch of their chain is
-// programmatic, so each product's first weight tiles are in flight before
-// the kernel ahead of it ends (head_block on hg::RoundLaunch). Two of their stage kernels
-// were redesigned too once the products no longer hid them (at B-16x the
-// stage kernels held a third of a net call on the card): the input
-// projection loads vectors (proj_in_rows_kernel), and the final layer
-// issues its loads together and spreads its product over the warps
-// (final_em_rows_kernel); #2 keeps the first versions. Tried and not kept:
+// Design: the products run on the wgmma head GEMM of head_gemm.cuh (a TMA
+// ring, split-K by ops/fused_head.py::head_gemm_plan) with the epilogues
+// fused: bias (qkv, stored bf16), bias + gated residual into the residual
+// stream (out and down products), and SwiGLU (the w1 product loads matching
+// h1/h2 weight rows into one tile so each thread holds both halves of its
+// output column); every launch of the chain is programmatic, so each
+// product's first weight tiles are in flight before the kernel ahead of it
+// ends (head_block on hg::GemmLaunch). LN + modulate, window attention and
+// the final layer + EM update are small fp32 kernels. Precision follows the
+// TPU kernel the JAX package routes the stack to (round_residual, decided by
+// the caller from the block weights' bytes): #2 (the 14B head) keeps an
+// fp32 residual h with bf16 stage activations (kGatedResidual, kSwiGLU);
+// #3/#4 (the ImageNet heads) run _block_body, which rounds h and every
+// elementwise stage to bf16 (kGatedResidualRound, kSwiGLURound). LN
+// statistics, softmax and accumulation stay fp32 in both. Two stage kernels
+// were redesigned once the products no longer hid them (at B-16x the stage
+// kernels held a third of a net call on the card): the input projection
+// loads vectors (proj_in_rows_kernel), and the final layer issues its loads
+// together and spreads its product over the warps (final_em_rows_kernel,
+// up to C 5120). Tried and not kept:
 // window attention with a warp per window and head (31 against 14 us a
 // launch at B-16x: its k and v rows came from device memory one vector load
 // at a time), LN + modulate with a warp per row (6.5 against 4.4 us at
@@ -58,7 +57,8 @@
 // output, silu(h1) * h2), quantizes it per row to int8 once, and runs the s8
 // GEMM of int8_gemm.cuh on int8 [out, in] or packed [out, in/2] weights with
 // per-output-column scales, y = acc * (sa * ws) before the same bias, gated
-// residual and SwiGLU epilogues; qkv and h1/h2 are still rounded to bf16.
+// residual and SwiGLU epilogues of gemm_bf16_kernel; qkv and h1/h2 are
+// still rounded to bf16.
 // Weight bytes per net call halve (int8) or quarter (int4), so does the
 // bound; the four row quantizations add four small launches per block.
 #include "head_gemm.cuh"
@@ -70,7 +70,7 @@ constexpr int kMaxCh = 32;
 
 // Final adaLN layer + (bounded: 2*sigmoid-1) + velocity + CFG + EM (or last
 // Euler) update of x row i; one block per cond row, handling rows i and
-// i + half.
+// i + half (the quant mode's; the bf16 routes run final_em_rows_kernel).
 __global__ void __launch_bounds__(256)
 final_em_kernel(const float* __restrict__ h, int C,
                 const bf16* __restrict__ fmods, int ld_mods,
@@ -159,15 +159,19 @@ final_em_kernel(const float* __restrict__ h, int C,
   }
 }
 
-// final_em_kernel's function for the round route (#3/#4), its loads in
+// final_em_kernel's function for the bf16 routes (#2, #3/#4), its loads in
 // flight together and its product spread over the warps: each thread's
-// values of the two rows (C <= 2048) loaded into registers at once, their
-// modulated LN z (bf16 values) staged in shared memory (dynamic, 2 C
-// floats), then warp v takes the (row,
-// channel) dot products v, v + 8, v + 16, v + 24 (+ 32 ...), each lane a
-// stride of k with the four products' loads interleaved, four accumulators
-// a lane and four warp sums (final_em_kernel's 64 accumulators a thread
-// and 64 warp sums took 19-26 us a launch).
+// values of the two rows (C <= 256 kPer) loaded into registers at once,
+// their modulated LN z (bf16 values) staged in shared memory (dynamic, 2 C
+// floats, at most 40 KB), then warp v takes channels v, v + 8, v + 16, v +
+// 24 (+ 32 ...) for both rows, each lane 8 consecutive k of every 256 with
+// 16-byte loads, 4 steps of the four channels' loads in flight, eight
+// accumulators a lane and eight warp sums (final_em_kernel's 64
+// accumulators a thread and 64 warp sums took 19-26 us a launch at C <=
+// 2048; at C 5120, with each (row, channel) on its own warp slot and w read
+// twice a block: a 2-byte load of w per k 43 us, one step of 16-byte loads
+// in flight 36, four 35, the product spread over 4 blocks a row pair 40).
+template <int kPer>
 __global__ void __launch_bounds__(256)
 final_em_rows_kernel(const float* __restrict__ h, int C, const bf16* __restrict__ fmods,
                      int ld_mods, const bf16* __restrict__ fw, const float* __restrict__ fb,
@@ -175,7 +179,6 @@ final_em_rows_kernel(const float* __restrict__ h, int C, const bf16* __restrict_
                      float t, float dt, float cfg, float last_step, int bounded, float eps) {
   pdl_trigger();
   pdl_wait();
-  constexpr int kPer = 8;  // C <= 2048: each thread's values of a row in registers
   extern __shared__ float z[];  // [2][C]
   __shared__ float outs[2][kMaxCh];
   const int i = blockIdx.x, tid = threadIdx.x;
@@ -212,29 +215,46 @@ final_em_rows_kernel(const float* __restrict__ h, int C, const bf16* __restrict_
             round_bf16((hv[j][q] - mean) * rstd * (1.f + sc[j][q]) + sh[j][q]);
   }
   __syncthreads();
-  for (int p0 = warp; p0 < 2 * ch; p0 += 32) {  // four (row, channel) pairs a warp
-    float acc[4] = {};
-    const float* zr[4];
+  // warp v: channels v, v + 8, v + 16, v + 24 (+ 32 ...), each for both
+  // rows, so that a w row is loaded once a block and z's once a warp step
+  for (int c0 = warp; c0 < ch; c0 += 32) {
+    float acc[4][2] = {};
     const bf16* wr[4];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {  // a pair past 2 ch reads pair 0 and is not stored
-      const int p = p0 + 8 * q < 2 * ch ? p0 + 8 * q : 0;
-      zr[q] = z + (p / ch) * C;
-      wr[q] = fw + (size_t)(p % ch) * C;
-    }
+    for (int q = 0; q < 4; ++q)  // a channel past ch reads channel c0 and is not stored
+      wr[q] = fw + (size_t)(c0 + 8 * q < ch ? c0 + 8 * q : c0) * C;
+    // 16-byte loads of w (C % 8 == 0), 4 steps of 4 channels in flight
 #pragma unroll 4
-    for (int k = lane; k < C; k += 32)
+    for (int k = 8 * lane; k < C; k += 256) {
+      float zz[2][8];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[q] += zr[q][k] * bf2f(wr[q][k]);
+      for (int j = 0; j < 2; ++j) {
+        const float4 z0 = *reinterpret_cast<const float4*>(z + j * C + k);
+        const float4 z1 = *reinterpret_cast<const float4*>(z + j * C + k + 4);
+        zz[j][0] = z0.x, zz[j][1] = z0.y, zz[j][2] = z0.z, zz[j][3] = z0.w;
+        zz[j][4] = z1.x, zz[j][5] = z1.y, zz[j][6] = z1.z, zz[j][7] = z1.w;
+      }
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int p = p0 + 8 * q;
-      const float v = warp_sum(acc[q]);
-      if (lane == 0 && p < 2 * ch) {
-        const float o = v + fb[p % ch];
-        outs[p / ch][p % ch] = bounded ? 2.f / (1.f + expf(-o)) - 1.f : o;
+      for (int q = 0; q < 4; ++q) {
+        float ww[8];
+        unpack8(*reinterpret_cast<const uint4*>(wr[q] + k), ww);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[q][j] = fmaf(zz[j][e], ww[e], acc[q][j]);
       }
     }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = c0 + 8 * q;
+        const float v = warp_sum(acc[q][j]);
+        if (lane == 0 && c < ch) {
+          const float o = v + fb[c];
+          outs[j][c] = bounded ? 2.f / (1.f + expf(-o)) - 1.f : o;
+        }
+      }
   }
   __syncthreads();
   if (threadIdx.x < ch) {
@@ -258,37 +278,47 @@ final_em_rows_kernel(const float* __restrict__ h, int C, const bf16* __restrict_
   }
 }
 
-// proj_in_kernel's function for the round route with the latent width CH a
+// proj_in_kernel's function for the bf16 routes with the latent width CH a
 // template constant, so that each thread's x and w rows load as vectors
-// (proj_in_kernel took 16 us a launch at B-16x's 1024 x 768)
-template <int CH>
+// (proj_in_kernel took 16 us a launch at B-16x's 1024 x 768), and each
+// thread takes output column n for kProjRows rows, its w row loaded once
+// (a thread an output re-read w 128 times: 27 us at the 14B head's 128 x
+// 5120); ROUND rounds h to bf16 (#3/#4), #2 keeps it in fp32
+constexpr int kProjRows = 8;
+
+template <int CH, bool ROUND>
 __global__ void __launch_bounds__(256)
 proj_in_rows_kernel(const float* __restrict__ x, int x_rows, const bf16* __restrict__ w,
                     const float* __restrict__ b, float* __restrict__ h, int R, int C) {
   pdl_trigger();
-  pdl_wait();
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)R * C) return;
-  const int r = static_cast<int>(idx / C), n = static_cast<int>(idx % C);
-  const float4* xr = reinterpret_cast<const float4*>(x + (size_t)(r % x_rows) * CH);
+  if (idx >= (size_t)((R + kProjRows - 1) / kProjRows) * C) return;
+  const int r0 = static_cast<int>(idx / C) * kProjRows, n = static_cast<int>(idx % C);
   const uint4* wr = reinterpret_cast<const uint4*>(w + (size_t)n * CH);
-  float xs[CH], ws[CH];
+  float ws[CH];
 #pragma unroll
-  for (int k = 0; k < CH / 4; ++k) {
-    const float4 v = xr[k];
-    xs[4 * k] = v.x, xs[4 * k + 1] = v.y, xs[4 * k + 2] = v.z, xs[4 * k + 3] = v.w;
-  }
-#pragma unroll
-  for (int k = 0; k < CH / 8; ++k) {
+  for (int k = 0; k < CH / 8; ++k) {  // w never depends on the kernel ahead
     float f[8];
-    hg::unpack8(wr[k], f);
+    unpack8(wr[k], f);
 #pragma unroll
     for (int e = 0; e < 8; ++e) ws[8 * k + e] = f[e];
   }
-  float acc = 0.f;
+  const float bn = b[n];
+  pdl_wait();
+#pragma unroll 2
+  for (int r = r0; r < min(r0 + kProjRows, R); ++r) {
+    const float4* xr = reinterpret_cast<const float4*>(x + (size_t)(r % x_rows) * CH);
+    float xs[CH];
 #pragma unroll
-  for (int k = 0; k < CH; ++k) acc += round_bf16(xs[k]) * ws[k];
-  h[idx] = round_bf16(acc + b[n]);
+    for (int k = 0; k < CH / 4; ++k) {
+      const float4 v = xr[k];
+      xs[4 * k] = v.x, xs[4 * k + 1] = v.y, xs[4 * k + 2] = v.z, xs[4 * k + 3] = v.w;
+    }
+    float acc = 0.f;
+#pragma unroll
+    for (int k = 0; k < CH; ++k) acc += round_bf16(xs[k]) * ws[k];
+    h[(size_t)r * C + n] = ROUND ? round_bf16(acc + bn) : acc + bn;
+  }
 }
 
 // The quantized pointers of one sampler call: int8 (or packed) block
@@ -375,9 +405,10 @@ cudaError_t quant_block(const QuantBlock& qb, int l, float* h, const bf16* m,
 // quant 1 (int8) / 2 (packed int4), attention=1 only: wqkv, wo, w1, w2 are
 // int8 [L, out, in] / [L, out, in/2] with f32 scales *_s [L, out]; actf
 // (fp32 [R, max(C, H)]), aq (int8, the same shape) and sa (fp32 [R]) are
-// scratch. round_residual 1 (bf16 only): _block_body's rounding (#3/#4) on
+// scratch. round_residual 1 (bf16 only): _block_body's rounding (#3/#4);
+// 0: kernel #2's fp32 residual. A bf16 stack (quant 0) runs its products on
 // the head GEMM of head_gemm.cuh: gemm_plan (host, 12 ints) is {bm, bn,
-// splits} of qkv, wo, w1 and w2 (ops/fused_head.py::round_route_plan), and
+// splits} of qkv, wo, w1 and w2 (ops/fused_head.py::sampler_plans), and
 // every launch of the chain is programmatic when pdl (0 only to measure what
 // that saves). Returns the first CUDA error, or 0.
 extern "C" int bd_fused_em_sample(
@@ -442,13 +473,13 @@ extern "C" int bd_fused_em_sample(
                                   static_cast<int>(attn_smem)));
   }
   const float attn_scale = attention ? 1.f / sqrtf(static_cast<float>(hd)) : 0.f;
-  // go launches the stage kernels of both routes and the round route's
-  // products on head_gemm.cuh, every launch of that chain programmatic when
-  // pdl; a shape its GEMM cannot take is refused
+  // go launches the stage kernels and, on the bf16 routes (#2 and #3/#4),
+  // their products on head_gemm.cuh, every launch of that chain
+  // programmatic when pdl; a shape its GEMM cannot take is refused
   hg::Plan plan[4] = {};
   hg::Product pr[4];
-  const hg::RoundLaunch go{pr, plan, round_residual && pdl, st};
-  if (round_residual) {
+  const hg::GemmLaunch go{pr, plan, !quant && pdl, st};
+  if (!quant) {
     if (gemm_plan == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     for (int i = 0; i < 4; ++i)
       plan[i] = {gemm_plan[3 * i], gemm_plan[3 * i + 1], gemm_plan[3 * i + 2]};
@@ -459,26 +490,43 @@ extern "C" int bd_fused_em_sample(
       ok = ok &&
            hg::make_product(act, R, C, Wqkv, L * 3 * C, 3 * C, false, plan[kQkv], &pr[kQkv]) &&
            hg::make_product(act, R, C, Wo, L * C, C, false, plan[kWo], &pr[kWo]);
-    ok = ok && C <= 2048;  // 8 values a thread in final_em_rows_kernel
+    // at most 20 values a thread in final_em_rows_kernel, 16-byte rows of w
+    ok = ok && C <= 20 * 256 && C % 8 == 0;
+    // #2's window attention: head dim 128, windows of up to 64 rows
+    ok = ok && (round_residual || !attention || hd == kWinHd);
     if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+    if (!round_residual && attention)
+      BD_CHECK(cudaFuncSetAttribute(window_attention_rows_kernel,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    static_cast<int>(kWinSmem)));
   }
   const int grid_steps = num_steps + (final_chunk ? 1 : 0);
   const int proj_blocks = static_cast<int>(((size_t)R * C + 255) / 256);
+  const int proj_rows_blocks =
+      static_cast<int>(((size_t)(R + kProjRows - 1) / kProjRows * C + 255) / 256);
+  const size_t final_smem = quant ? 0 : 2 * C * sizeof(float);
+  const auto final_kernel = quant ? final_em_kernel
+                            : C <= 8 * 256 ? final_em_rows_kernel<8>
+                                           : final_em_rows_kernel<20>;
 
   for (int s = 0; s < grid_steps; ++s) {
     const bf16* mods_s = mods + (size_t)s * R * W;
     const bf16* iw = static_cast<const bf16*>(in_w);
     const float* ib = static_cast<const float*>(in_b);
-    if (round_residual && ch == 16)
-      BD_CHECK(go.stage(dim3(proj_blocks), 256, 0, proj_in_rows_kernel<16>,
-                        static_cast<const float*>(xf), half, iw, ib, h, R, C));
-    else if (round_residual && ch == 32)
-      BD_CHECK(go.stage(dim3(proj_blocks), 256, 0, proj_in_rows_kernel<32>,
-                        static_cast<const float*>(xf), half, iw, ib, h, R, C));
+    const float* xc = xf;
+    if (!quant && ch == 16)
+      BD_CHECK(go.stage(dim3(proj_rows_blocks), 256, 0,
+                        round_residual ? proj_in_rows_kernel<16, true>
+                                       : proj_in_rows_kernel<16, false>,
+                        xc, half, iw, ib, h, R, C));
+    else if (!quant && ch == 32)
+      BD_CHECK(go.stage(dim3(proj_rows_blocks), 256, 0,
+                        round_residual ? proj_in_rows_kernel<32, true>
+                                       : proj_in_rows_kernel<32, false>,
+                        xc, half, iw, ib, h, R, C));
     else
-      BD_CHECK(go.stage(dim3(proj_blocks), 256, 0, proj_in_kernel,
-                        static_cast<const float*>(xf), half, ch, iw, ib, h, R, C,
-                        round_residual));
+      BD_CHECK(go.stage(dim3(proj_blocks), 256, 0, proj_in_kernel, xc, half, ch, iw, ib, h, R,
+                        C, round_residual));
     for (int l = 0; l < num_blocks; ++l) {
       const bf16* m = mods_s + (size_t)(l / switch_freq) * n_mods * C;
       if (quant) {
@@ -487,16 +535,12 @@ extern "C" int bd_fused_em_sample(
             groups, wtok, hd, attn_scale, attn_smem, eps, st));
         continue;
       }
-      if (round_residual)
-        BD_CHECK(head_block<true>(wts, l, h, m, W, act, buf, R, C, H, attention != 0, n_head,
-                                  groups, eps, go));
-      else
-        BD_CHECK(head_block<false>(wts, l, h, m, W, act, buf, R, C, H, attention != 0,
-                                   n_head, groups, eps, StreamLaunch{st}));
+      BD_CHECK((round_residual ? head_block<true, hg::GemmLaunch>
+                               : head_block<false, hg::GemmLaunch>)(
+          wts, l, h, m, W, act, buf, R, C, H, attention != 0, n_head, groups, eps, go));
     }
     const bool stochastic = s < num_steps;
-    BD_CHECK(go.stage(dim3(half), 256, round_residual ? 2 * C * sizeof(float) : 0,
-                      round_residual ? final_em_rows_kernel : final_em_kernel,
+    BD_CHECK(go.stage(dim3(half), 256, final_smem, final_kernel,
                       static_cast<const float*>(h), C, mods_s + (W - 2 * C), W,
                       static_cast<const bf16*>(f_out_w),
                       static_cast<const float*>(f_out_b), xf,
@@ -506,25 +550,25 @@ extern "C" int bd_fused_em_sample(
   return 0;
 }
 
-// One product of the round route's head GEMM (ops/fused_head.py::head_gemm),
-// for its checks and timings: a [R, K] bf16, w [N, K] bf16, bias bf16 [N];
+// One product of the sampler's head GEMM (ops/fused_head.py::head_gemm), for
+// its checks and timings: a [R, K] bf16, w [N, K] bf16, bias bf16 [N];
 // shape {R, N, K, ldg, mode, bm, bn, splits}; mode 0 (kBiasBf16: out bf16
-// [R, N]), 9 (kGatedResidualRound: resid fp32 [R, N] in place, gate bf16
-// rows ldg apart) or 10 (kSwiGLURound, w rows [h1; h2]: out bf16 [R, N /
-// 2]). Returns the first CUDA error, or 0.
+// [R, N]), 1 / 9 (kGatedResidual / kGatedResidualRound: resid fp32 [R, N] in
+// place, gate bf16 rows ldg apart) or 2 / 10 (kSwiGLU / kSwiGLURound, w rows
+// [h1; h2]: out bf16 [R, N / 2]). Returns the first CUDA error, or 0.
 extern "C" int bd_head_gemm(const void* a, const void* w, const void* bias, void* out,
                             void* resid, const void* gate, const int* shape, void* stream) {
   const int R = shape[0], N = shape[1], K = shape[2], ldg = shape[3], mode = shape[4];
   const hg::Plan plan{shape[5], shape[6], shape[7]};
   hg::Product pr;
   if (!hg::make_product(static_cast<const bf16*>(a), R, K, static_cast<const bf16*>(w), N, N,
-                        mode == kSwiGLURound, plan, &pr) ||
+                        is_swiglu(mode), plan, &pr) ||
       N % 16 != 0 || ldg % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Epilogue ep{};
   ep.bias = static_cast<const bf16*>(bias);
   ep.out = out;
-  ep.ldo = mode == kSwiGLURound ? N / 2 : N;
+  ep.ldo = is_swiglu(mode) ? N / 2 : N;
   ep.resid = static_cast<float*>(resid);
   ep.ldr = N;
   ep.gate = static_cast<const bf16*>(gate);
@@ -533,6 +577,9 @@ extern "C" int bd_head_gemm(const void* a, const void* w, const void* bias, void
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case kBiasBf16: return static_cast<int>(hg::gemm<kBiasBf16>(pr, 0, plan, ep, false, st));
+    case kGatedResidual:
+      return static_cast<int>(hg::gemm<kGatedResidual>(pr, 0, plan, ep, false, st));
+    case kSwiGLU: return static_cast<int>(hg::gemm<kSwiGLU>(pr, 0, plan, ep, false, st));
     case kGatedResidualRound:
       return static_cast<int>(hg::gemm<kGatedResidualRound>(pr, 0, plan, ep, false, st));
     case kSwiGLURound:

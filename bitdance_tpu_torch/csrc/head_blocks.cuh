@@ -52,6 +52,10 @@ __host__ __device__ constexpr bool is_swiglu(int mode) {
          mode == kSwiGLURound;
 }
 
+__host__ __device__ constexpr bool is_gated(int mode) {
+  return mode == kGatedResidual || mode == kGatedResidualRound;
+}
+
 __host__ __device__ constexpr bool out_is_f32(int mode) {
   return mode == kBiasF32 || mode == kOutF32 || mode == kSwiGLUQ;
 }
@@ -316,6 +320,85 @@ ln_modulate_kernel(const T* __restrict__ h, int C,
   }
 }
 
+// 8 bf16 in 16 bytes <-> 8 floats; 4 bf16 in 8 bytes -> 4 floats
+__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __bfloat1622float2(h[i]);
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
+  return make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]), pack_bf16x2(f[4], f[5]),
+                    pack_bf16x2(f[6], f[7]));
+}
+
+__device__ __forceinline__ float4 unpack4(const uint2& u) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// ln_modulate_kernel's function for kernel #2's blocks (fp32 h, one-pass
+// statistics, fp32 math, bf16 out; C % 4 == 0, C <= 1024 kLnVec) with every
+// load of a row issued together: each thread's kLnVec float4 groups of h
+// and their 4-value groups of the norm's weight and bias and of the row's
+// scale and shift go into registers before the block's sums (the first
+// version's three loops of dependent scalar loads took 15.5 us a launch at
+// the 14B head's C 5120, R 128; this one 3.3 us).
+constexpr int kLnVec = 5;
+
+__global__ void __launch_bounds__(256)
+ln_modulate_rows_kernel(const float* __restrict__ h, int C, const bf16* __restrict__ nw,
+                        const bf16* __restrict__ nb, const bf16* __restrict__ scale,
+                        int ld_scale, const bf16* __restrict__ shift, int ld_shift,
+                        bf16* __restrict__ out, float eps) {
+  pdl_trigger();
+  const int r = blockIdx.x, c4 = C / 4;
+  const float4* hr = reinterpret_cast<const float4*>(h + (size_t)r * C);
+  const uint2* w4 = reinterpret_cast<const uint2*>(nw);
+  const uint2* b4 = reinterpret_cast<const uint2*>(nb);
+  const uint2* s4 = reinterpret_cast<const uint2*>(scale + (size_t)r * ld_scale);
+  const uint2* t4 = reinterpret_cast<const uint2*>(shift + (size_t)r * ld_shift);
+  uint2 wv[kLnVec], bv[kLnVec], sv[kLnVec], tv[kLnVec];
+#pragma unroll
+  for (int q = 0; q < kLnVec; ++q) {  // the weights and mods never depend on the kernel ahead
+    const int i = threadIdx.x + q * 256;
+    if (i < c4) wv[q] = w4[i], bv[q] = b4[i], sv[q] = s4[i], tv[q] = t4[i];
+  }
+  pdl_wait();
+  float4 x[kLnVec];
+#pragma unroll
+  for (int q = 0; q < kLnVec; ++q) {
+    const int i = threadIdx.x + q * 256;
+    x[q] = i < c4 ? hr[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  float s = 0.f, ss = 0.f;
+#pragma unroll
+  for (int q = 0; q < kLnVec; ++q) {
+    s += (x[q].x + x[q].y) + (x[q].z + x[q].w);
+    ss += (x[q].x * x[q].x + x[q].y * x[q].y) + (x[q].z * x[q].z + x[q].w * x[q].w);
+  }
+  block_sum2(s, ss);
+  const float mean = s / C;
+  const float rstd = rsqrtf(fmaxf(ss / C - mean * mean, 0.f) + eps);
+  uint2* o4 = reinterpret_cast<uint2*>(out + (size_t)r * C);
+#pragma unroll
+  for (int q = 0; q < kLnVec; ++q) {
+    const int i = threadIdx.x + q * 256;
+    if (i >= c4) continue;
+    const float4 w = unpack4(wv[q]), b = unpack4(bv[q]), a = unpack4(sv[q]), t = unpack4(tv[q]);
+    const float y0 = ((x[q].x - mean) * rstd * w.x + b.x) * (1.f + a.x) + t.x;
+    const float y1 = ((x[q].y - mean) * rstd * w.y + b.y) * (1.f + a.y) + t.y;
+    const float y2 = ((x[q].z - mean) * rstd * w.z + b.z) * (1.f + a.z) + t.z;
+    const float y3 = ((x[q].w - mean) * rstd * w.w + b.w) * (1.f + a.w) + t.w;
+    o4[i] = make_uint2(pack_bf16x2(y0, y1), pack_bf16x2(y2, y3));
+  }
+}
+
 template <typename T>
 __device__ __forceinline__ float to_f32(T v) {
   if constexpr (sizeof(T) == 4) return v;
@@ -414,6 +497,151 @@ window_attention_kernel(const T* __restrict__ qkv, int C, int w, int hd,
   }
 }
 
+// Window attention for kernel #2's blocks: window_attention_kernel's
+// function on bf16 qkv with a head dim of 128 and windows of up to 64 rows
+// (scores, softmax and P V in fp32, q scaled and rounded to bf16 first, bf16
+// out), one CTA of 256 threads per (window, head). q, k and v come in with
+// 16-byte loads (rows 272 bytes apart in shared memory: no bank conflict);
+// the scores come from mma.sync (bf16 products exact, fp32 sums) into fp32
+// over q's tile; thread (it, jt) = (tid / 8, tid % 8) runs the softmax of
+// rows it + 32 r (r < 2) over keys jt + 8 c (c < 8) (a row's scores on 8
+// neighbouring lanes), writes P back in place, and computes the output of
+// the same rows at columns 8 jt + e and 64 + 8 jt + e (e < 8).
+// At the 14B head (C 5120, R 128) it takes 11.7 us a launch; the first
+// version (scalar 2-byte loads, one score or output per thread per pass)
+// took 74.5 us, the scores in fp32 FMAs from shared memory 16.8 (19.7 on
+// 128 threads, 19.6 with two CTAs a window and head).
+constexpr int kWinHd = 128, kWinMax = 64;
+constexpr int kWinLd = kWinHd + 8;      // bf16: rows 17 16-byte units apart
+constexpr int kWinPld = kWinMax + 4;    // fp32 P rows
+constexpr size_t kWinSmem = (size_t)3 * kWinMax * kWinLd * sizeof(bf16);
+static_assert(kWinMax * kWinPld * sizeof(float) <= kWinMax * kWinLd * sizeof(bf16),
+              "P fits over q's tile");
+
+__global__ void __launch_bounds__(256)
+window_attention_rows_kernel(const bf16* __restrict__ qkv, int C, int w, int n_head,
+                             float scale, bf16* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* const qs = reinterpret_cast<bf16*>(smem);
+  bf16* const ks = qs + kWinMax * kWinLd;
+  bf16* const vs = ks + kWinMax * kWinLd;
+  float* const ps = reinterpret_cast<float*>(smem);  // over qs once the scores are done
+  pdl_trigger();
+  pdl_wait();
+  const int tid = threadIdx.x, it = tid >> 3, jt = tid & 7;
+  const int gi = blockIdx.x / n_head, hh = blockIdx.x % n_head;
+  const int row0 = gi * w;
+  const size_t ld = 3 * (size_t)C;
+  constexpr int kUnits = kWinHd / 8;  // 16-byte units of a head's row
+#pragma unroll
+  for (int n = 0; n < 3 * kWinMax * kUnits / 256; ++n) {  // the loads go out together
+    const int idx = tid + 256 * n;
+    const int mat = idx / (kWinMax * kUnits), rest = idx % (kWinMax * kUnits);
+    const int i = rest / kUnits, u = rest % kUnits;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (i < w) {
+      v = *reinterpret_cast<const uint4*>(qkv + (size_t)(row0 + i) * ld + (size_t)mat * C +
+                                          hh * kWinHd + 8 * u);
+      if (mat == 0) {
+        float f[8];
+        unpack8(v, f);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) f[e] *= scale;
+        v = pack8(f);
+      }
+    }
+    *reinterpret_cast<uint4*>(qs + (size_t)mat * kWinMax * kWinLd + i * kWinLd + 8 * u) = v;
+  }
+  __syncthreads();
+
+  // S = Q K^T on mma.sync m16n8k16 (bf16 products exact, fp32 sums): warp
+  // wi takes rows 16 (wi / 2) .. + 15 and keys 32 (wi % 2) .. + 31
+  {
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int r0 = 16 * (warp >> 1), n0 = 32 * (warp & 1);
+    float acc[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kWinHd; kk += 16) {
+      const int c = kk + 2 * t;
+      const uint32_t af[4] = {lds32(qs + (r0 + g) * kWinLd + c), lds32(qs + (r0 + g + 8) * kWinLd + c),
+                              lds32(qs + (r0 + g) * kWinLd + c + 8),
+                              lds32(qs + (r0 + g + 8) * kWinLd + c + 8)};
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const bf16* kr = ks + (n0 + 8 * nt + g) * kWinLd + c;
+        const uint32_t bfr[2] = {lds32(kr), lds32(kr + 8)};
+        mma_16816(acc[nt], af, bfr);
+      }
+    }
+    __syncthreads();  // every warp has read q: the scores go over it
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      float* row = ps + (r0 + g) * kWinPld + n0 + 8 * nt + 2 * t;
+      *reinterpret_cast<float2*>(row) = make_float2(acc[nt][0], acc[nt][1]);
+      *reinterpret_cast<float2*>(row + 8 * kWinPld) = make_float2(acc[nt][2], acc[nt][3]);
+    }
+  }
+  __syncthreads();
+  // softmax over each row's keys j < w: thread (it, jt) holds rows it + 32 r,
+  // keys jt + 8 c, a row's scores on the 8 lanes of one it
+  float s[2][8];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) s[r][c] = ps[(it + 32 * r) * kWinPld + jt + 8 * c];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float m = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      if (jt + 8 * c < w) m = fmaxf(m, s[r][c]);
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      s[r][c] = jt + 8 * c < w ? expf(s[r][c] - m) : 0.f;
+      sum += s[r][c];
+    }
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    const float inv = 1.f / sum;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) ps[(it + 32 * r) * kWinPld + jt + 8 * c] = s[r][c] * inv;
+  }
+  __syncthreads();
+
+  float o[2][16];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) o[r][e] = 0.f;
+#pragma unroll 4
+  for (int j = 0; j < w; ++j) {
+    float v[16], p[2];
+    unpack8(*reinterpret_cast<const uint4*>(vs + j * kWinLd + 8 * jt),
+            *reinterpret_cast<float(*)[8]>(v));
+    unpack8(*reinterpret_cast<const uint4*>(vs + j * kWinLd + 64 + 8 * jt),
+            *reinterpret_cast<float(*)[8]>(v + 8));
+#pragma unroll
+    for (int r = 0; r < 2; ++r) p[r] = ps[(it + 32 * r) * kWinPld + j];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int e = 0; e < 16; ++e) o[r][e] = fmaf(p[r], v[e], o[r][e]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = it + 32 * r;
+    if (i >= w) continue;
+    bf16* dst = out + (size_t)(row0 + i) * C + hh * kWinHd + 8 * jt;
+    *reinterpret_cast<uint4*>(dst) = pack8(*reinterpret_cast<const float(*)[8]>(o[r]));
+    *reinterpret_cast<uint4*>(dst + 64) = pack8(*reinterpret_cast<const float(*)[8]>(o[r] + 8));
+  }
+}
+
 // h[r, n] = in_b[n] + sum_k bf16(x[r % x_rows, k]) * w[n, k] in fp32 (rows
 // [x; x] for the sampler, x_rows = R for one net call), rounded to bf16
 // when round_out (the residual of _block_body). One thread per output; ch is
@@ -445,10 +673,11 @@ struct HeadBlockWeights {
 enum BlockProduct { kQkv = 0, kWo = 1, kW1 = 2, kW2 = 3 };
 
 // How head_block launches its kernels: each stage kernel plainly on the
-// stream, each product on launch_gemm (kernels #2 and #5). go.gemm<MODE>(p,
-// A, lda, W, w_row0, K, R, N, ep) runs epilogue(A @ W[w_row0 :
-// w_row0 + N]^T) for product p of the block; head_gemm.cuh's hg::RoundLaunch
-// (#3/#4) runs the same calls on the wgmma head GEMM.
+// stream, each product on launch_gemm (kernel #5). go.gemm<MODE>(p, A, lda,
+// W, w_row0, K, R, N, ep) runs epilogue(A @ W[w_row0 : w_row0 + N]^T) for
+// product p of the block; head_gemm.cuh's hg::GemmLaunch (the whole
+// sampler's bf16 routes, #2 and #3/#4) runs the same calls on the wgmma head
+// GEMM.
 struct StreamLaunch {
   cudaStream_t st;
 
@@ -470,13 +699,16 @@ struct StreamLaunch {
 // attention half (TransEncoder: LN + modulate, qkv product, window attention
 // over groups of R / groups rows, output product with its gated residual),
 // then the MLP half (LN + modulate, SwiGLU product, down product with its
-// gated residual), each launched by `go` (StreamLaunch, or hg::RoundLaunch).
+// gated residual), each launched by `go` (StreamLaunch, or hg::GemmLaunch).
 // m: the block's mods, bf16 rows ldm apart (scale, shift, gate [, scale,
 // shift, gate]). act (bf16 [R, max(C, H)]) and buf (bf16 [R, max(3C, H)])
 // are scratch. ROUND=false is the TPU kernel #2's precision (fp32
-// residual); ROUND=true is _block_body's (#3-#5): every elementwise stage
-// and the residual rounded to bf16. The caller sets the window attention's
-// shared-memory limit when it exceeds 48 KB.
+// residual), with its LN and window attention on the stage kernels redone
+// for the 14B head (ln_modulate_rows_kernel; window_attention_rows_kernel:
+// head dim 128, windows of up to 64 rows, C <= 5120); ROUND=true is
+// _block_body's (#3-#5): every elementwise stage and the residual rounded to
+// bf16. The caller sets the window attention's shared-memory limit when it
+// exceeds 48 KB.
 template <bool ROUND, typename Launch>
 cudaError_t head_block(const HeadBlockWeights& w, int l, float* h, const bf16* m,
                        int ldm, bf16* act, bf16* buf, int R, int C, int H,
@@ -485,12 +717,17 @@ cudaError_t head_block(const HeadBlockWeights& w, int l, float* h, const bf16* m
   constexpr int kResid = ROUND ? kGatedResidualRound : kGatedResidual;
   constexpr int kGlu = ROUND ? kSwiGLURound : kSwiGLU;
   auto ln = [&](const bf16* nrm, const bf16* mm) {
-    return go.stage(dim3(R), 256, 0, ln_modulate_kernel<float, false, bf16, ROUND>,
-                    static_cast<const float*>(h), C, nrm, nrm + C, mm, ldm, mm + C, ldm, act,
-                    eps);
+    if constexpr (ROUND)
+      return go.stage(dim3(R), 256, 0, ln_modulate_kernel<float, false, bf16, true>,
+                      static_cast<const float*>(h), C, nrm, nrm + C, mm, ldm, mm + C, ldm, act,
+                      eps);
+    else
+      return go.stage(dim3(R), 256, 0, ln_modulate_rows_kernel, static_cast<const float*>(h),
+                      C, nrm, nrm + C, mm, ldm, mm + C, ldm, act, eps);
   };
   if (attention) {
     const int wtok = R / groups, hd = C / n_head;
+    const float scale = 1.f / sqrtf(static_cast<float>(hd));
     BD_CHECK_ERR(ln(w.n1 + (size_t)l * 2 * C, m));
     Epilogue qkv_ep{};
     qkv_ep.bias = w.bqkv + (size_t)l * 3 * C;
@@ -498,9 +735,13 @@ cudaError_t head_block(const HeadBlockWeights& w, int l, float* h, const bf16* m
     qkv_ep.ldo = 3 * C;
     BD_CHECK_ERR(go.template gemm<kBiasBf16>(kQkv, act, C, w.wqkv, l * 3 * C, C, R, 3 * C,
                                              qkv_ep));
-    BD_CHECK_ERR(go.stage(dim3(groups * n_head), 256, window_attention_smem<bf16>(wtok, hd),
-                          window_attention_kernel<bf16>, static_cast<const bf16*>(buf), C,
-                          wtok, hd, n_head, 1.f / sqrtf(static_cast<float>(hd)), act));
+    if constexpr (ROUND)
+      BD_CHECK_ERR(go.stage(dim3(groups * n_head), 256, window_attention_smem<bf16>(wtok, hd),
+                            window_attention_kernel<bf16>, static_cast<const bf16*>(buf), C,
+                            wtok, hd, n_head, scale, act));
+    else  // hd 128, wtok <= 64 (the caller checks)
+      BD_CHECK_ERR(go.stage(dim3(groups * n_head), 256, kWinSmem, window_attention_rows_kernel,
+                            static_cast<const bf16*>(buf), C, wtok, n_head, scale, act));
     Epilogue o_ep{};
     o_ep.bias = w.bo + (size_t)l * C;
     o_ep.resid = h;

@@ -1,10 +1,10 @@
-// The head GEMM of the ImageNet heads' whole sampler (kernels #3/#4, the
-// round_residual route of fused_head.cu): epilogue(A[R, K] @ W[N, K]^T) in
-// bf16 with fp32 accumulators on wgmma, fed by a TMA ring, split-K where the
-// output tiles alone leave SMs idle, and every launch of the block chain
-// programmatic (PDL) so that a product's weight tiles are in flight before
-// the kernel ahead of it has finished; with head_block's launches on it
-// (RoundLaunch).
+// The head GEMM of the whole sampler's bf16 routes (fused_head.cu: kernel
+// #2, the 14B head, and #3/#4, the ImageNet heads' round_residual route):
+// epilogue(A[R, K] @ W[N, K]^T) in bf16 with fp32 accumulators on wgmma, fed
+// by a TMA ring, split-K where the output tiles alone leave SMs idle, and
+// every launch of the block chain programmatic (PDL) so that a product's
+// weight tiles are in flight before the kernel ahead of it has finished;
+// with head_block's launches on it (GemmLaunch).
 //
 // What bounds it on the H100: BitDance-H-1x runs 64 rows (32 images, CFG)
 // through 12 blocks of w1 [3840, 1280] and w2 [1280, 1920]; each net call
@@ -16,6 +16,9 @@
 // design (gemm_bf16_kernel: mma.sync on 64x64 tiles, a cp.async ring walked
 // by every thread) gave w2 at 64 rows 20 blocks on 132 SMs, each walking K
 // serially, and left every launch waiting for the previous one to drain.
+// The 14B head runs 128 rows (one image, CFG) or 256 through 6 blocks of qkv
+// and w1 [15360, 5120], wo [5120, 5120] and w2 [5120, 7680]: 2.67 GB a net
+// call, ~0.8 ms of bytes, with ~100 FLOP a weight byte.
 //
 // Design:
 // - Orientation: the token rows are wgmma's M side, one consumer warpgroup
@@ -30,10 +33,15 @@
 //   zeros and are never stored. SwiGLU tiles take bn/2 h1 rows and the bn/2
 //   matching h2 rows (two boxes), so one thread holds both halves of an
 //   output column.
-// - Split-K: grid (splits, N / bn, ceil(R / bm)); split s walks k stages
+// - Split-K: grid (splits, ceil(R / bm), N / bn), the row tiles that share
+//   a weight tile adjacent so that they run together and the second read of
+//   the tile comes from L2 (at 256 rows the 14B head's qkv and w1 take 240
+//   tiles, two waves); split s walks k stages
 //   [s KT / S, (s + 1) KT / S). ops/fused_head.py::head_gemm_plan picks S, a
 //   power of two up to 8, so that the tiles fill one wave of the SMs and
-//   every split walks two stages or more (H-1x: w1 30 tiles x 4, w2 10 x 8).
+//   every split walks two stages or more (H-1x: w1 30 tiles x 4, w2 10 x 8;
+//   the 14B head's wo and w2 at 128 rows 40 x 2; 3 splits, clusters of 3,
+//   were slower there than 2 or 4).
 //   The S blocks of a tile form one thread block cluster: each stages its
 //   fp32 tile in its shared memory; after a cluster barrier each copies rows
 //   [d bm / S, (d + 1) bm / S) of it into block d's receive area (one bulk
@@ -43,15 +51,22 @@
 //   (reading the other tiles through distributed shared memory instead cost
 //   2-3 us a product on the card). Writing the split tiles to device
 //   memory for a second, merging launch was slower too, and is not kept.
-// - PDL: the kernel lets its dependents launch at once, issues the weight
-//   tiles of its first ring stages, and only then waits for the kernel ahead
-//   (griddepcontrol) before it loads A: the weights never depend on it.
+// - PDL: the kernel issues the weight tiles of its first ring stages and
+//   only then waits for the kernel ahead (griddepcontrol) before it loads A:
+//   the weights never depend on it. It lets its own dependents launch when
+//   its main loop is done, so that they start while it finishes its tile.
+//   Letting them launch at its start (or once its last stage's copies were
+//   issued) kept the 14B head's LN and attention blocks resident through
+//   its long main loops: a net call 0.12 (0.09) ms slower device-only than
+//   with the launch after the main loop, and slower than no PDL at all; the
+//   ImageNet heads' times did not change (PERF.md §6).
 //   Bringing the next head block's weight tiles into L2 as well (TMA
 //   prefetch) was slower on the card (H-1x 0.242 against 0.235 ms a net
 //   call, B-16x 0.519 against 0.449), and is not done.
-// - Epilogues (every elementwise op rounds to bf16, as _block_body):
-//   kBiasBf16 (qkv), kGatedResidualRound (wo, w2; the residual h in place)
-//   and kSwiGLURound (w1). The accumulators are staged through shared memory
+// - Epilogues: kBiasBf16 (qkv); on the round route, where every elementwise
+//   op rounds to bf16 as _block_body's, kGatedResidualRound (wo, w2; the
+//   residual h in place) and kSwiGLURound (w1); on #2's, which keeps the
+//   residual in fp32, kGatedResidual and kSwiGLU. The accumulators are staged through shared memory
 //   and each thread finishes 8 consecutive columns of a row with 16-byte
 //   loads and stores, the loads of up to 4 such units issued before the
 //   sums are ready. The SwiGLU's silu divides with __fdividef: an IEEE
@@ -97,21 +112,6 @@ struct Geom {
   static_assert(2 * kRows * kLdt * 4 <= kRing * kStage, "the tile and receive area fit");
 };
 
-__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 v = __bfloat1622float2(h[i]);
-    f[2 * i] = v.x;
-    f[2 * i + 1] = v.y;
-  }
-}
-
-__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
-  return make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]), pack_bf16x2(f[4], f[5]),
-                    pack_bf16x2(f[6], f[7]));
-}
-
 __device__ __forceinline__ void add8(const float* p, float (&v)[8]) {
   const float4 a = *reinterpret_cast<const float4*>(p);
   const float4 b = *reinterpret_cast<const float4*>(p + 4);
@@ -133,8 +133,8 @@ __device__ __forceinline__ void load_unit(UnitIn& in, int row, int col,
                                           const float* __restrict__ resid, int ldr,
                                           const bf16* __restrict__ gate, int ldg, int hidden) {
   in.b = *reinterpret_cast<const uint4*>(bias + col);
-  if (MODE == kSwiGLURound) in.b2 = *reinterpret_cast<const uint4*>(bias + hidden + col);
-  if (MODE == kGatedResidualRound) {
+  if (is_swiglu(MODE)) in.b2 = *reinterpret_cast<const uint4*>(bias + hidden + col);
+  if (is_gated(MODE)) {
     in.g = *reinterpret_cast<const uint4*>(gate + (size_t)row * ldg + col);
     const float4* r = reinterpret_cast<const float4*>(resid + (size_t)row * ldr + col);
     in.r0 = r[0];
@@ -144,8 +144,10 @@ __device__ __forceinline__ void load_unit(UnitIn& in, int row, int col,
 
 // Finishes output row `row` (< R), 8 consecutive columns from `col` (an
 // output column: of N, or of the SwiGLU's N / 2 = hidden), from the product
-// sums v (SwiGLU: v the h1 sums, v2 the h2 sums of the same columns); every
-// elementwise op rounds to bf16 as _block_body's.
+// sums v (SwiGLU: v the h1 sums, v2 the h2 sums of the same columns). The
+// round modes round every elementwise op to bf16 as _block_body's; kernel
+// #2's keep the residual in fp32 and round only h1, h2 and the SwiGLU's
+// output, with the products and sums in torch's order (the plain twin's).
 template <int MODE>
 __device__ __forceinline__ void finish8(int row, int col, const float (&v)[8],
                                         const float (&v2)[8], const UnitIn& in,
@@ -153,27 +155,30 @@ __device__ __forceinline__ void finish8(int row, int col, const float (&v)[8],
                                         float* __restrict__ resid, int ldr) {
   float b[8], o[8];
   unpack8(in.b, b);
-  if (MODE == kSwiGLURound) {
+  if (is_swiglu(MODE)) {
     float b2[8];
     unpack8(in.b2, b2);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const float y1 = round_bf16(v[i] + b[i]);
       const float y2 = round_bf16(v2[i] + b2[i]);
-      o[i] = round_bf16(__fdividef(y1, 1.f + __expf(-y1))) * y2;
+      const float s = __fdividef(y1, 1.f + __expf(-y1));
+      o[i] = (MODE == kSwiGLURound ? round_bf16(s) : s) * y2;
     }
     *reinterpret_cast<uint4*>(out + (size_t)row * ldo + col) = pack8(o);
   } else if (MODE == kBiasBf16) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) o[i] = v[i] + b[i];
     *reinterpret_cast<uint4*>(out + (size_t)row * ldo + col) = pack8(o);
-  } else {  // kGatedResidualRound
+  } else {  // kGatedResidualRound, kGatedResidual
     float g[8];
     unpack8(in.g, g);
     const float h[8] = {in.r0.x, in.r0.y, in.r0.z, in.r0.w, in.r1.x, in.r1.y, in.r1.z, in.r1.w};
 #pragma unroll
     for (int i = 0; i < 8; ++i)
-      o[i] = round_bf16(h[i] + round_bf16(round_bf16(v[i] + b[i]) * g[i]));
+      o[i] = MODE == kGatedResidualRound
+                 ? round_bf16(h[i] + round_bf16(round_bf16(v[i] + b[i]) * g[i]))
+                 : __fadd_rn(h[i], __fmul_rn(__fadd_rn(v[i], b[i]), g[i]));
     float4* r = reinterpret_cast<float4*>(resid + (size_t)row * ldr + col);
     r[0] = make_float4(o[0], o[1], o[2], o[3]);
     r[1] = make_float4(o[4], o[5], o[6], o[7]);
@@ -238,7 +243,7 @@ __device__ __forceinline__ void bulk_s2s(uint32_t dst, uint32_t src, int bytes, 
       : "memory");
 }
 
-// grid (splits, N / BN, ceil(R / (64 NWG))), clusters of (splits, 1, 1),
+// grid (splits, ceil(R / (64 NWG)), N / BN), clusters of (splits, 1, 1),
 // 128 NWG threads. a_map: A [R, K] bf16, boxes of 64 k x 64 NWG rows;
 // w_map: the weight stack [rows, K] bf16, boxes of 64 k x BN rows (SwiGLU:
 // BN / 2), this product's rows from w_row0 (SwiGLU: h1 from w_row0, h2 from
@@ -261,7 +266,7 @@ head_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
 
   const int tid = threadIdx.x, wg = tid >> 7;
   const int splits = gridDim.x, split = blockIdx.x;
-  const int n0 = blockIdx.y * BN, m0 = blockIdx.z * G::kRows;
+  const int m0 = blockIdx.y * G::kRows, n0 = blockIdx.z * BN;
   const int kt = K / kBK, ka = split * kt / splits, steps = (split + 1) * kt / splits - ka;
   if (tid == 0) {
     asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&w_map))
@@ -273,7 +278,6 @@ head_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  pdl_trigger();  // the next kernel waits for this one before it reads h or act
 
   auto load_w = [&](int s) {  // weight slice of step s, and the slot's byte count
     const int slot = s % G::kRing;
@@ -321,6 +325,7 @@ head_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
     wgmma_wait<G::kLag>();
   }
   wgmma_wait<0>();
+  pdl_trigger();    // the next kernel waits for this one before it reads h or act
   __syncthreads();  // the ring is free for the staged tile
 
   // the accumulators staged as the tile [kRows][kLdt] fp32 (wgmma's C
@@ -479,7 +484,7 @@ cudaError_t run(const Product& pr, int w_row0, const Plan& p, const Epilogue& ep
                 cudaStream_t st) {
   BD_CHECK_ERR((allow_smem<MODE, NWG, BN>()));
   const int n_tiles = pr.N / BN, m_tiles = (pr.R + 64 * NWG - 1) / (64 * NWG);
-  return launch_clusters(pdl, p.splits, dim3(p.splits, n_tiles, m_tiles), 128 * NWG,
+  return launch_clusters(pdl, p.splits, dim3(p.splits, m_tiles, n_tiles), 128 * NWG,
                          Geom<NWG, BN>::kBytes, st, head_gemm_kernel<MODE, NWG, BN>, pr.a_map,
                          pr.w_map, w_row0, pr.R, pr.K, ep.bias, static_cast<bf16*>(ep.out),
                          ep.ldo, ep.resid, ep.ldr, ep.gate, ep.ldg, ep.hidden);
@@ -495,10 +500,11 @@ cudaError_t gemm(const Product& pr, int w_row0, const Plan& p, const Epilogue& e
   return cudaErrorInvalidValue;
 }
 
-// head_block's launches on the round route (#3/#4): each product on
-// head_gemm by its plan, over the tensor maps of the whole stacks (pr,
-// plan: indexed by BlockProduct), and every launch programmatic when pdl.
-struct RoundLaunch {
+// head_block's launches on the whole sampler's bf16 routes (#2 and #3/#4):
+// each product on head_gemm by its plan, over the tensor maps of the whole
+// stacks (pr, plan: indexed by BlockProduct), and every launch programmatic
+// when pdl.
+struct GemmLaunch {
   const Product* pr;
   const Plan* plan;
   bool pdl;

@@ -40,13 +40,14 @@ the weights' dtype; kernel #2 (streamed weights; the 14B head, bf16 or
 quantized) keeps h in fp32. The port applies the same rule to the same
 stack, in its plain version and in ``csrc/fused_head.cu``.
 
-The ImageNet heads' route (kernels #3/#4, ``round_residual``) runs its
-block products on the head GEMM of ``csrc/head_gemm.cuh``:
-:func:`head_gemm_plan` picks each product's tile and split-K count,
+A bf16 stack, on either route (kernel #2's fp32 residual, or the ImageNet
+heads' kernels #3/#4, ``round_residual``), runs its block products on the
+head GEMM of ``csrc/head_gemm.cuh``: :func:`head_gemm_plan` picks each
+product's tile and split-K count (:func:`sampler_plans` for a whole block),
 :func:`head_gemm` launches one product alone (its checks and timings), and
 :func:`head_gemm_split_plain` is the plain twin of a split product (fp32
 partials over the planned K ranges, summed in split order, then the
-rounding epilogue); ``fused_em_sample_reference(splits=...)`` runs the whole
+route's epilogue); ``fused_em_sample_reference(splits=...)`` runs the whole
 plain sampler on it.
 
 :func:`fused_diffnet_forward` is one whole DiffNet forward (the TPU kernel
@@ -167,13 +168,15 @@ def stack_diffnet_params(net, num_blocks: int,
 
 def _dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """a @ w.T with a cast to w's dtype, returned as float32. (In bf16 the
-    product is rounded to bf16 before the cast; the JAX dot keeps fp32.)"""
+    product is rounded to bf16 before the cast; the JAX dot keeps fp32.
+    Only em_precompute's products take it: ROADMAP C8.)"""
     return torch.matmul(a.to(w.dtype), w.t()).float()
 
 
 def _mmq(a: torch.Tensor, w: torch.Tensor, scale: torch.Tensor | None,
          int4: bool = False) -> torch.Tensor:
-    """a @ w.T -> float32: the plain product (scale None), or W8A8 / W4A8:
+    """a @ w.T -> float32: the plain product of :func:`_dot` (scale None),
+    or W8A8 / W4A8:
     a quantized per row from float32, the integer sum exact, then
     acc * (sa * scale). int4: w is packed [out, in/2] and each nibble plane
     contracts its half of a."""
@@ -187,7 +190,9 @@ def _mmq(a: torch.Tensor, w: torch.Tensor, scale: torch.Tensor | None,
 HEAD_GEMM_BK = 64                  # k of one ring stage of csrc/head_gemm.cuh
 HEAD_GEMM_BN = 128                 # out-features of an output tile
 HEAD_GEMM_MAX_SPLITS = 8           # a product's splits form one thread block cluster
-HEAD_GEMM_MODES = {"bias": 0, "gated": 9, "swiglu": 10}   # GemmMode in head_blocks.cuh
+# GemmMode in head_blocks.cuh: "bias" both routes; "gated" and "swiglu" the
+# round route's (#3/#4); "gated_f32" and "swiglu_f32" kernel #2's
+HEAD_GEMM_MODES = {"bias": 0, "gated_f32": 1, "swiglu_f32": 2, "gated": 9, "swiglu": 10}
 
 
 class HeadGemmPlan(NamedTuple):
@@ -204,7 +209,9 @@ def head_gemm_plan(rows: int, n: int, k: int, sm_count: int = 132) -> HeadGemmPl
     tile form one cluster), so that tiles x splits fill one wave of
     ``sm_count`` and no more, every split walking at least two ring stages
     of 64 k (H-1x at 64 rows: w1 30 tiles x 4, w2 10 x 8; B-16x at 1024: qkv
-    and w1 144 tiles x 1, wo and w2 48 x 2)."""
+    and w1 144 tiles x 1, wo and w2 48 x 2; the 14B head at 128 rows: qkv
+    and w1 120 tiles x 1, wo and w2 40 x 2; at 256: qkv and w1 240 x 1, wo
+    and w2 80 x 1)."""
     bn = HEAD_GEMM_BN
     if n % bn or k % HEAD_GEMM_BK or rows < 1:
         raise ValueError(f"head_gemm_plan: [{rows}, {k}] x [{n}, {k}]^T needs N % "
@@ -224,9 +231,10 @@ def head_gemm_split_ranges(k: int, splits: int) -> list[tuple[int, int]]:
             for s in range(splits)]
 
 
-def round_route_plan(rows: int, c: int, hidden: int, attention: bool,
-                     sm_count: int = 132) -> dict[str, HeadGemmPlan]:
-    """:func:`head_gemm_plan` of each block product of the round route."""
+def sampler_plans(rows: int, c: int, hidden: int, attention: bool,
+                  sm_count: int = 132) -> dict[str, HeadGemmPlan]:
+    """:func:`head_gemm_plan` of each block product of the whole sampler's
+    bf16 routes (#2 and #3/#4)."""
     shapes = {"wqkv": (3 * c, c), "wo": (c, c), "w1": (2 * hidden, c), "w2": (c, hidden)}
     keys = ("wqkv", "wo", "w1", "w2") if attention else ("w1", "w2")
     return {key: head_gemm_plan(rows, *shapes[key], sm_count) for key in keys}
@@ -262,37 +270,57 @@ def _dot_acc_split(a: torch.Tensor, w: torch.Tensor, splits: int = 1) -> torch.T
     return acc
 
 
+def _gated_f32(h: torch.Tensor, y: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """Kernel #2's gated residual: h + y * gate in fp32 (y = the product's
+    fp32 sum plus its bias)."""
+    return h + y * gate.float()
+
+
+def _swiglu_f32(h12: torch.Tensor) -> torch.Tensor:
+    """Kernel #2's SwiGLU: silu(h1) * h2 in fp32 from h12 = [h1 | h2] in the
+    stage dtype."""
+    hidden = h12.shape[1] // 2
+    return F.silu(h12[:, :hidden].float()) * h12[:, hidden:].float()
+
+
 def head_gemm_split_plain(a: torch.Tensor, w: torch.Tensor, mode: str, bias: torch.Tensor,
                           gate: torch.Tensor | None = None,
                           resid: torch.Tensor | None = None,
                           splits: int = 1) -> torch.Tensor:
     """Plain version of :func:`head_gemm`: y = a @ w.T + bias from the split
-    partials (:func:`_dot_acc_split`), then _block_body's bf16 epilogue:
-    "bias" bf16(y); "gated" the residual bf16(resid + bf16(bf16(y) * gate)),
-    returned as fp32; "swiglu" (w rows [h1; h2]) bf16(silu(bf16(h1))) *
-    bf16(h2)."""
+    partials (:func:`_dot_acc_split`), then the epilogue: "bias" bf16(y);
+    _block_body's "gated", the residual bf16(resid + bf16(bf16(y) * gate)),
+    returned as fp32, and "swiglu" (w rows [h1; h2]) bf16(silu(bf16(h1))) *
+    bf16(h2); kernel #2's "gated_f32", resid + y * gate in fp32, and
+    "swiglu_f32", bf16(silu(bf16(h1)) * bf16(h2)) (:func:`_net_forward`'s
+    :func:`_gated_f32` and :func:`_swiglu_f32`)."""
     y = _dot_acc_split(a, w, splits) + bias.float()
     bf = torch.bfloat16
     if mode == "bias":
         return y.to(bf)
     if mode == "gated":
         return (resid.to(bf) + y.to(bf) * gate.to(bf)).float()
+    if mode == "gated_f32":
+        return _gated_f32(resid.float(), y, gate)
     if mode == "swiglu":
         h12 = y.to(bf)
         hidden = w.shape[0] // 2
         return F.silu(h12[:, :hidden].float()).to(bf) * h12[:, hidden:]
+    if mode == "swiglu_f32":
+        return _swiglu_f32(y.to(bf)).to(bf)
     raise ValueError(f"head_gemm: mode {mode!r} not in {sorted(HEAD_GEMM_MODES)}")
 
 
 def head_gemm(a: torch.Tensor, w: torch.Tensor, mode: str, bias: torch.Tensor, *,
               gate: torch.Tensor | None = None, resid: torch.Tensor | None = None,
               plan: HeadGemmPlan | None = None) -> torch.Tensor:
-    """One product of the round route's head GEMM (``csrc/head_gemm.cuh``):
-    a [R, K] bf16, w [N, K] bf16 (the torch Linear layout; "swiglu": rows
-    [h1; h2]), bias [N] bf16. "gated" takes gate [R, N] bf16 (rows may lie
-    apart) and updates resid [R, N] fp32 (bf16 values) in place, as the
-    sampler does, and returns it. ``plan`` defaults to :func:`head_gemm_plan`
-    at the card's SM count. CPU tensors take
+    """One product of the sampler's head GEMM (``csrc/head_gemm.cuh``):
+    a [R, K] bf16, w [N, K] bf16 (the torch Linear layout; "swiglu" and
+    "swiglu_f32": rows [h1; h2]), bias [N] bf16. "gated" and "gated_f32" take
+    gate [R, N] bf16 (rows may lie apart) and update resid [R, N] fp32
+    ("gated": bf16 values) in place, as the sampler does, and return it.
+    ``plan`` defaults to :func:`head_gemm_plan` at the card's SM count. CPU
+    tensors take
     :func:`head_gemm_split_plain` with the plan's splits; CUDA tensors launch
     the kernel or raise."""
     if mode not in HEAD_GEMM_MODES:
@@ -302,7 +330,7 @@ def head_gemm(a: torch.Tensor, w: torch.Tensor, mode: str, bias: torch.Tensor, *
     cuda = a.device.type == "cuda"
     sms = torch.cuda.get_device_properties(a.device).multi_processor_count if cuda else 132
     plan = plan or head_gemm_plan(rows, n, k, sms)
-    gated = mode == "gated"
+    gated = mode in ("gated", "gated_f32")
     if a.device.type == "cpu":
         out = head_gemm_split_plain(a, w, mode, bias, gate, resid, plan.splits)
         return resid.copy_(out) if gated else out
@@ -317,10 +345,10 @@ def head_gemm(a: torch.Tensor, w: torch.Tensor, mode: str, bias: torch.Tensor, *
                   or tuple(resid.shape) != (rows, n) or not resid.is_contiguous()
                   or gate is None or gate.dtype != torch.bfloat16
                   or tuple(gate.shape) != (rows, n) or gate.stride(1) != 1):
-        raise ValueError("head_gemm: 'gated' needs resid fp32 [R, N] and gate bf16 [R, N]")
+        raise ValueError(f"head_gemm: {mode!r} needs resid fp32 [R, N] and gate bf16 [R, N]")
     dev = a.device
     out = resid if gated else torch.empty(
-        (rows, n // 2 if mode == "swiglu" else n), dtype=torch.bfloat16, device=dev)
+        (rows, n // 2 if mode.startswith("swiglu") else n), dtype=torch.bfloat16, device=dev)
     shape = torch.tensor([rows, n, k, gate.stride(0) if gated else 0, HEAD_GEMM_MODES[mode],
                           *plan], dtype=torch.int32)
     code = _cuda.load().bd_head_gemm(
@@ -481,11 +509,14 @@ def _net_forward(stacked: dict, x: torch.Tensor, mods_row: torch.Tensor, *,
     """One DiffNet forward on rows [x; x] with precomputed mods -> fp32
     [R, ch]. round_residual=False: precision as the TPU kernel #2
     (fused_head.py:689): fp32 residual h, stage activations in the weights'
-    dtype, fp32 statistics. With quant ("int8" / "int4", kernel #2's
-    stage_quant and stage_dot) each stage's fp32 input (LN + modulate, the
-    attention output, silu(h1) * h2) is row-quantized as it is, without the
-    bf16 rounding, and qkv and h12 are still stored in the weights' dtype.
-    round_residual=True: the blocks of kernels #3 and #4
+    dtype, fp32 statistics, and every product accumulated in fp32 from the
+    operands cast to the weights' dtype, as its _dot (preferred_element_type
+    f32) and the card's GEMMs do (:func:`_dot_acc`; the block products split
+    by splits as the head GEMM sums them). With quant ("int8" / "int4",
+    kernel #2's stage_quant and stage_dot) each stage's fp32 input (LN +
+    modulate, the attention output, silu(h1) * h2) is row-quantized as it
+    is, without the bf16 rounding, and qkv and h12 are still stored in the
+    weights' dtype. round_residual=True: the blocks of kernels #3 and #4
     (:func:`_block_body`, the products split by splits)."""
     if round_residual:
         if quant:
@@ -509,15 +540,16 @@ def _net_forward(stacked: dict, x: torch.Tensor, mods_row: torch.Tensor, *,
         return a if quant else a.to(elem)
 
     def prod(a, key, l):
-        return _mmq(a, stacked[key][l], stacked[key + "_s"][l] if quant else None,
-                    int4)
+        if quant:
+            return _mmq(a, stacked[key][l], stacked[key + "_s"][l], int4)
+        return _dot_acc_split(a, stacked[key][l], (splits or {}).get(key, 1))
 
     def lnmod(h, nrm, scale, shift):
         ln = _ln(h, eps) * nrm[0].float() + nrm[1].float()
         return stage(ln * (1.0 + scale.float()) + shift.float())
 
     combined = torch.cat([x, x], dim=0)
-    h = _dot(combined, stacked["in_w"]) + stacked["in_b"]
+    h = _dot_acc(combined, stacked["in_w"]) + stacked["in_b"]
     for l in range(num_blocks):
         g = l // switch_freq
         m = mods_row[:, g * n_mods * c_dim:(g + 1) * n_mods * c_dim]
@@ -528,16 +560,16 @@ def _net_forward(stacked: dict, x: torch.Tensor, mods_row: torch.Tensor, *,
             qkv = (prod(a, "wqkv", l) + stacked["bqkv"][l].float()).to(elem)
             att = stage(_attn_from_qkv(qkv, n_head, groups, c_dim))
             proj = prod(att, "wo", l) + stacked["bo"][l].float()
-            h = h + proj * sl(2).float()
+            h = _gated_f32(h, proj, sl(2))
             mlp = 3
         a = lnmod(h, stacked["n2"][l], sl(mlp), sl(mlp + 1))
         h12 = (prod(a, "w1", l) + stacked["b1"][l].float()).to(elem)
-        glu = stage(F.silu(h12[:, :hidden].float()) * h12[:, hidden:].float())
+        glu = stage(_swiglu_f32(h12))
         y = prod(glu, "w2", l) + stacked["b2"][l].float()
-        h = h + y * sl(mlp + 2).float()
+        h = _gated_f32(h, y, sl(mlp + 2))
     fm = mods_row[:, -2 * c_dim:].float()
     z = _ln(h, eps) * (1.0 + fm[:, :c_dim]) + fm[:, c_dim:]
-    out = _dot(z, stacked["f_out_w"]) + stacked["f_out_b"]
+    out = _dot_acc(z, stacked["f_out_w"]) + stacked["f_out_b"]
     return 2.0 * torch.sigmoid(out) - 1.0 if bounded else out
 
 
@@ -558,8 +590,8 @@ def fused_em_sample_reference(stacked: dict, x0: torch.Tensor,
                               round_residual: bool | None = None,
                               splits: dict | None = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_em_sample` (same arguments).
-    On the round route, splits ({"w1": S, ...}: the split counts of
-    :func:`round_route_plan`) sums each product's K splits as the card's
+    On a bf16 or fp32 stack, splits ({"w1": S, ...}: the split counts of
+    :func:`sampler_plans`) sums each block product's K splits as the card's
     head GEMM does; None sums each in one pass."""
     num_steps = noise.shape[0]
     switch_freq = max(1, num_blocks // num_ada)
@@ -634,10 +666,11 @@ def fused_em_sample(stacked: dict, x0: torch.Tensor, noise: torch.Tensor,
     mode) runs the W8A8 / W4A8 products of the TPU kernel's quant mode, for
     the TransEncoder only. :func:`rounds_residual` decides from the stack,
     as the JAX router does, whether the residual is carried in the weights'
-    dtype, as kernels #3 and #4 do; that route runs its block products on
-    the head GEMM (:func:`round_route_plan`; a C or H it cannot tile
-    raises), every launch of its chain programmatic (``_pdl=False`` only to
-    measure what that saves). CPU tensors take
+    dtype, as kernels #3 and #4 do, or in fp32, as kernel #2 does. A bf16
+    stack runs its block products on the head GEMM on both routes
+    (:func:`sampler_plans`; a C or H it cannot tile raises), every launch of
+    its chain programmatic (``_pdl=False`` only to measure what that saves).
+    CPU tensors take
     :func:`fused_em_sample_reference`; CUDA tensors run
     ``csrc/fused_head.cu`` (bf16 weights, norms, biases and mods; int8 block
     matrices with f32 scales when quantized) or raise.
@@ -722,16 +755,24 @@ def fused_em_sample(stacked: dict, x0: torch.Tensor, noise: torch.Tensor,
                  torch.empty((rows,), dtype=torch.float32, device=dev))
         q_ptrs = [ptr(k + "_s") for k in ("wqkv", "wo", "w1", "w2")] \
             + [t.data_ptr() for t in qbufs]
-    # the round route's products on the head GEMM: its plans (qkv, wo, w1, w2;
+    # a bf16 stack's products on the head GEMM: its plans (qkv, wo, w1, w2;
     # unused ones zero); a shape it cannot take raises
     gemm_plan = torch.zeros(12, dtype=torch.int32)
-    if round_residual:
+    if mode is None:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         try:
-            plans = round_route_plan(rows, c_dim, hidden, attention, sms)
+            plans = sampler_plans(rows, c_dim, hidden, attention, sms)
         except ValueError as e:
             raise ValueError(f"fused_em_sample: C = {c_dim}, H = {hidden} do not fit "
                              f"the head GEMM ({e})") from None
+        if c_dim > 5120:
+            raise ValueError(f"fused_em_sample: C = {c_dim} > 5120, the final layer's "
+                             "limit")
+        if attention and not round_residual and (c_dim // max(n_head, 1) != 128
+                                                 or rows // groups > 64):
+            raise ValueError(f"fused_em_sample: kernel #2's window attention takes a "
+                             f"head dim of 128 and windows of up to 64 rows, not "
+                             f"{c_dim // max(n_head, 1)} and {rows // groups}")
         for i, key in enumerate(("wqkv", "wo", "w1", "w2")):
             if key in plans:
                 gemm_plan[3 * i:3 * i + 3] = torch.tensor(plans[key], dtype=torch.int32)

@@ -154,9 +154,13 @@ import time
 DECODE_MAX_ABS_ERR = {"prefill_pass2": 4e-2, "mid_decode": 4e-3,
                       "last_step": 2e-3}
 DECODE_EDGE_V = 8.0
-# sampler, few steps: the plain version rounds each product's output to bf16
-# before the bias (cuBLAS bf16 GEMM), the kernel adds the bias in fp32; one
-# bf16 ulp of stage activations carried through 6 blocks x 4 net calls.
+# sampler, few steps, max abs error relative to max |plain x|: the kernel
+# and the plain version both add each product's bias to its fp32 sum and
+# split K alike, so they differ in fp32 summation order only; where that
+# order moves a stage activation (qkv, LN + modulate, h1 / h2, the SwiGLU
+# output, all stored bf16) across a rounding boundary, one bf16 ulp carries
+# through 6 blocks x 4 net calls. Readings (NVIDIA H100 80GB HBM3, 700 W):
+# 1.3-1.7e-2 at R 128, 1.4-1.6e-2 at R 256.
 SAMPLER_MAX_REL_ERR = 5e-2
 # sampler, 50 steps: signs can only flip where |x| is within the bf16 drift
 # accumulated over 51 chained net calls of 0; nearly all latents end far
@@ -195,10 +199,19 @@ IMAGENET_SAMPLER_MAX_REL_ERR = 5e-2
 # an output moves by a bf16 ulp where it sits at a rounding boundary.
 # Readings (NVIDIA H100 80GB HBM3, 700 W) over the H-1x and B-16x products:
 # bias 3.2e-3, gated 1.5e-3-1.7e-3, swiglu 4.7e-4-2.2e-3
-HEAD_GEMM_MAX_REL_ERR = {"bias": 1e-2, "gated": 5e-3, "swiglu": 1e-2}
-# block product -> (head GEMM mode, its bias)
+# Kernel #2's modes at the 14B head's products and 128 rows: gated_f32 keeps
+# the residual in fp32, so only the fp32 order of sums over K 5120-7680
+# differs; swiglu_f32's bf16 output moves by a bf16 ulp at a boundary.
+# Readings (NVIDIA H100 80GB HBM3, 700 W): bias 3.2e-3 (qkv), gated_f32
+# 1.5e-6 (wo) and 2.8e-6 (w2), swiglu_f32 2.5e-3 (w1)
+HEAD_GEMM_MAX_REL_ERR = {"bias": 1e-2, "gated": 5e-3, "swiglu": 1e-2,
+                         "gated_f32": 1e-5, "swiglu_f32": 1e-2}
+# block product -> (head GEMM mode, its bias): the round route (#3/#4) and
+# kernel #2's fp32-residual route
 HEAD_GEMM_PRODUCTS = {"wqkv": ("bias", "bqkv"), "wo": ("gated", "bo"),
                       "w1": ("swiglu", "b1"), "w2": ("gated", "b2")}
+T2I_GEMM_PRODUCTS = {"wqkv": ("bias", "bqkv"), "wo": ("gated_f32", "bo"),
+                     "w1": ("swiglu_f32", "b1"), "w2": ("gated_f32", "b2")}
 # the first and last token of every window get shift + IMAGENET_EDGE_SHIFT,
 # which makes their q, k and v large: a window boundary off by one row then
 # moves the attention block's output by far more than its bound
@@ -290,6 +303,7 @@ PROFILE_GROUPS = (
     ("row quantization #16", ("quantize_image",)),
     ("W4A8 GEMM #16", ("w4a8",)),
     ("integer products (#2's quant mode, int8 LLM)", ("gemm_s8", "quantize_rows", "i16832gemm")),
+    ("head GEMM (#2, #3/#4)", ("head_gemm",)),
     ("products", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
     ("flash attention", ("flash_",)),
     ("decode attention", ("decode_attention", "split_decode", "split_combine")),
@@ -662,6 +676,9 @@ def phase_sampler(bundle) -> dict:
             if images == 1:
                 err = e
 
+        products = _check_head_gemm("t2i", stacked, ("wqkv", "wo", "w1", "w2"), 128, dev, 18,
+                                    T2I_GEMM_PRODUCTS, "sampler")
+
         x0, noise, mods, t_all, dt_all = _head_inputs(stacked, head, 50, 2, dev)
         run_k = lambda: fused_em_sample(stacked, x0, noise, mods, t_all,  # noqa: E731
                                         dt_all, cfg, **kw)
@@ -672,16 +689,77 @@ def phase_sampler(bundle) -> dict:
         err50 = (xk - xp).abs().max().item()
         ms = cuda_time_ms(run_k, 3, warmup=1)
         pms = cuda_time_ms(run_p, 3, warmup=1)
+        times = sampler_times(lambda pdl: fused_em_sample(stacked, x0, noise, mods, t_all,
+                                                          dt_all, cfg, _pdl=pdl, **kw))
+        per_net = _sampler_launches(lambda s: fused_em_sample(
+            stacked, x0, noise[:s], mods[:s + 1], t_all, dt_all, cfg, **kw))
+        want_net = sampler_net_launches(kw["num_blocks"], True)
+        stages = net_call_profile(lambda s: fused_em_sample(
+            stacked, x0, noise[:s], mods[:s + 1], t_all, dt_all, cfg, _pdl=False, **kw))
         bd = sampler_bound(stacked, x0, noise, mods, attention=True,
                            groups=kw["groups"], window=head.parallel_num)
+        calls = mods.shape[0]
         log("sampler", f"50 steps: kernel {ms:.2f} ms, plain {pms:.2f} ms, "
             f"bound {bd['bound_ms']:.3f} ms ({bd['bound_by']}); "
             f"+-1 agreement {agree:.4f} (floor {SAMPLER_SIGN_AGREEMENT_FLOOR}); "
-            f"max abs diff {err50:.3e}; per net call kernel {ms / 51:.3f} ms")
+            f"max abs diff {err50:.3e}; per net call kernel {ms / calls:.4f} ms, "
+            + ", ".join(f"{q} {v / calls:.4f}" for q, v in times.items())
+            + f" ms, bound {bd['bound_ms'] / calls:.4f} ms; {per_net:g} launches per net "
+            f"call (captured; formula {want_net}); one net call by kernel (profiled, us): "
+            + ", ".join(f"{q} {v:.1f}" for q, v in stages.items()))
         if not torch.isfinite(xk).all() or agree < SAMPLER_SIGN_AGREEMENT_FLOOR:
             raise SystemExit(f"sampler 50 steps: agreement {agree}")
+        if per_net != want_net:
+            raise SystemExit(f"sampler: {per_net} launches per net call, want {want_net}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": pms, **bd,
-            "library_ms": None, "sign_agreement_50": agree}
+            "library_ms": None, "sign_agreement_50": agree, **times,
+            "launches_per_net_call": per_net, "products": products}
+
+
+def sampler_net_launches(num_blocks: int, attention: bool) -> int:
+    """Kernel launches of one net call of the whole sampler's bf16 routes
+    (csrc/fused_head.cu): the input projection, 7 per TransEncoder block
+    (LN, qkv, window attention, wo, LN, w1, w2) or 3 per MlpEncoder block,
+    the final layer."""
+    return 2 + (7 if attention else 3) * num_blocks
+
+
+# kernel-name substrings -> the stages of one whole-sampler net call
+NET_CALL_STAGES = (("products", ("head_gemm", "gemm_bf16", "gemm_s8", "quantize_rows")),
+                   ("ln_modulate", ("ln_modulate",)),
+                   ("window_attention", ("window_attention",)),
+                   ("final_layer", ("final_em",)), ("proj_in", ("proj_in",)))
+
+
+def net_call_profile(run_steps, steps: int = 3) -> dict:
+    """Device us of one net call of the whole sampler by stage: torch.profiler
+    over one eager call of run_steps(steps) (steps + 1 net calls), each
+    kernel's time summed into its stage (NET_CALL_STAGES), over the net
+    calls; "kernels" is the profiled kernel count per net call (a profiler
+    that misses launches shows here against the captured count). Profile
+    the chain without PDL: a programmatic kernel's span starts when it may
+    launch and so holds its wait for the kernel ahead."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run_steps(steps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run_steps(steps)
+        torch.cuda.synchronize()
+    out = {name: 0.0 for name, _ in NET_CALL_STAGES}
+    out["other"], n = 0.0, 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue
+        stage = next((q for q, keys in NET_CALL_STAGES if any(k in e.name for k in keys)),
+                     "other")
+        out[stage] += e.time_range.elapsed_us()
+        n += 1
+    out = {q: v / (steps + 1) for q, v in out.items()}
+    out["kernels"] = n / (steps + 1)
+    return out
 
 
 def sampler_bound(stacked, x0, noise, allmods, *, attention, groups=1,
@@ -1801,38 +1879,38 @@ def _check_imagenet_sampler(name, bundle, dev, seed) -> dict:
 
 
 def sampler_times(run) -> dict:
-    """One whole-sampler call of the round route, ms: device-only (a
-    captured graph), and eager and device-only with its launches plain
-    (run(pdl) calls fused_em_sample with _pdl=pdl)."""
+    """One whole-sampler call on the head GEMM (the bf16 routes), ms:
+    device-only (a captured graph), and eager and device-only with its
+    launches plain (run(pdl) calls fused_em_sample with _pdl=pdl)."""
     plain = lambda: run(False)  # noqa: E731
     return {"device_ms": cuda_graph_time_ms(lambda: run(True), calls=1, reps=3),
             "no_pdl_ms": cuda_time_ms(plain, 3, warmup=1),
             "no_pdl_device_ms": cuda_graph_time_ms(plain, calls=1, reps=3)}
 
 
-def _head_gemm_operands(stacked, key, rows, g, dev):
-    """One block product of the round route at ``rows``: a ~ N(0, 1) bf16,
-    and for the gated modes a residual ~ N(0, 1) (bf16 values) and a gate ~
+def _head_gemm_operands(stacked, key, rows, g, dev, products=HEAD_GEMM_PRODUCTS):
+    """One block product of the sampler at ``rows``: a ~ N(0, 1) bf16, and
+    for the gated modes a residual ~ N(0, 1) (bf16 values) and a gate ~
     N(0, 0.25) whose rows lie apart as the sampler's mods do."""
     import torch
 
-    mode = HEAD_GEMM_PRODUCTS[key][0]
+    mode = products[key][0]
     n, k = stacked[key].shape[1:]
     a = torch.randn((rows, k), generator=g, device=dev).bfloat16()
     kw = {}
-    if mode == "gated":
+    if mode.startswith("gated"):
         kw["resid"] = torch.randn((rows, n), generator=g, device=dev).bfloat16().float()
         kw["gate"] = (0.5 * torch.randn((rows, 3 * n), generator=g, device=dev)
                       ).bfloat16()[:, n:2 * n]
     return a, kw
 
 
-def head_gemm_walk(stacked, key, a, kw, plan):
+def head_gemm_walk(stacked, key, a, kw, plan, products=HEAD_GEMM_PRODUCTS):
     """The product over every block's weights in turn (the stack is larger
     than the L2, so each launch finds its weights cold): a callable."""
     from bitdance_tpu_torch.ops.fused_head import head_gemm
 
-    mode, bkey = HEAD_GEMM_PRODUCTS[key]
+    mode, bkey = products[key]
     w, b = stacked[key], stacked[bkey]
     return lambda: [head_gemm(a, w[l], mode, b[l], plan=plan, **kw) for l in range(w.shape[0])]
 
@@ -1847,13 +1925,14 @@ def head_gemm_bound(a, w, mode, kw) -> dict:
     """One product: a, w and the bias read, the output written (the gated
     modes read the gate and read and write the residual), 2 R N K flops."""
     rows, n = a.shape[0], w.shape[0]
-    out = rows * (n // 2 if mode == "swiglu" else n) * 2
-    extra = (nbytes(kw["gate"]) + 2 * nbytes(kw["resid"])) if mode == "gated" else out
+    out = rows * (n // 2 if mode.startswith("swiglu") else n) * 2
+    extra = (nbytes(kw["gate"]) + 2 * nbytes(kw["resid"])) if mode.startswith("gated") else out
     return roofline(nbytes(a, w) + 2 * n + extra, 2.0 * rows * n * a.shape[1])
 
 
-def _check_head_gemm(name, bundle, rows, dev, seed) -> dict:
-    """#3/#4's head GEMM at the family's sampling rows, every product of
+def _check_head_gemm(name, stacked, keys, rows, dev, seed, products=HEAD_GEMM_PRODUCTS,
+                     phase="imagenet_kernels") -> dict:
+    """The sampler's head GEMM at a head's sampling rows, every product of
     block 0 against its split twin (the plan's splits): a relative bound per
     mode; an A row, a weight row (an output column) and a K stage off by one
     must each move the twin by >= 4x that bound; two launches bit-equal.
@@ -1868,17 +1947,15 @@ def _check_head_gemm(name, bundle, rows, dev, seed) -> dict:
         head_gemm_split_plain,
     )
 
-    stacked = bundle.head_stacked
-    keys = ("wqkv", "wo", "w1", "w2") if bundle.head.attention else ("w1", "w2")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     g = torch.Generator(device=dev).manual_seed(seed)
     out = {}
     for key in keys:
-        mode, bkey = HEAD_GEMM_PRODUCTS[key]
+        mode, bkey = products[key]
         w, bias = stacked[key][0], stacked[bkey][0]
         n, k = w.shape
         plan = head_gemm_plan(rows, n, k, sms)
-        a, kw = _head_gemm_operands(stacked, key, rows, g, dev)
+        a, kw = _head_gemm_operands(stacked, key, rows, g, dev, products)
 
         def run():   # the gated residual is updated in place: a fresh copy
             fresh = {q: v.clone() if q == "resid" else v for q, v in kw.items()}
@@ -1895,7 +1972,7 @@ def _check_head_gemm(name, bundle, rows, dev, seed) -> dict:
                      "column": _errors(twin(w=w.roll(1, 0)), want)[1],
                      "k_stage": _errors(twin(a=a.roll(HEAD_GEMM_BK, 1)), want)[1]}
             same = torch.equal(got, again)
-            walk = head_gemm_walk(stacked, key, a, kw, plan)
+            walk = head_gemm_walk(stacked, key, a, kw, plan, products)
             lib = matmul_walk(stacked, key, a)
             blocks = stacked[key].shape[0]
             dms = cuda_graph_time_ms(walk, calls=4, reps=3) / blocks
@@ -1904,7 +1981,7 @@ def _check_head_gemm(name, bundle, rows, dev, seed) -> dict:
             lib_ms = cuda_time_ms(lib, 10) / blocks
         bound = HEAD_GEMM_MAX_REL_ERR[mode]
         bd = head_gemm_bound(a, w, mode, kw)
-        log("imagenet_kernels", f"head_gemm {name} {key} ({mode}) R={rows} [{n}, {k}], plan "
+        log(phase, f"head_gemm {name} {key} ({mode}) R={rows} [{n}, {k}], plan "
             f"bm {plan.bm} bn {plan.bn} x {plan.splits} split(s): max abs err {err:.3e}, "
             f"rel {rel:.3e} (bound {bound}) against the split twin; off by one: "
             + ", ".join(f"{q} {v:.3e}" for q, v in moved.items())
@@ -1939,9 +2016,10 @@ def phase_imagenet_kernels(h1x, b16x) -> dict:
         "fused_em_sample_b16x": _check_imagenet_sampler("b16x", b16x, dev, 15),
     }
     out["fused_em_sample_mlp"]["products"] = _check_head_gemm(
-        "h1x", h1x, 2 * IMAGENET_BATCH, dev, 16)
+        "h1x", h1x.head_stacked, ("w1", "w2"), 2 * IMAGENET_BATCH, dev, 16)
     out["fused_em_sample_b16x"]["products"] = _check_head_gemm(
-        "b16x", b16x, 2 * IMAGENET_BATCH * 16, dev, 17)
+        "b16x", b16x.head_stacked, ("wqkv", "wo", "w1", "w2"), 2 * IMAGENET_BATCH * 16, dev,
+        17)
     return out
 
 

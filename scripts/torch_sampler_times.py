@@ -1,9 +1,24 @@
 #!/usr/bin/env python3
-"""Time the ImageNet heads' whole sampler (kernels #3/#4) and, where the
-tree has it, its head GEMM, on one NVIDIA GPU; prints one JSON line.
+"""Time the whole sampler (kernel #2 at the 14B head, kernels #3/#4 at the
+ImageNet heads) and, where the tree has it, its head GEMM, on one NVIDIA
+GPU; prints one JSON line.
+
+For the random bf16 BitDance-14B-64x bundle of chip_smoke.py (``t2i``):
+- one 50-step sampler call at 128 rows (one image, CFG) and at 256, eager
+  and device-only, with and without programmatic launches (PDL); the
+  launches of one net call (captured); one net call's device time by stage
+  (profiled: products, LN, window attention, final layer, input
+  projection); the bound of chip_smoke.sampler_bound;
+- each block product at 128 rows (qkv also at 256), device-only over the 6
+  blocks' weights in turn (cold L2), on the head GEMM where the tree runs
+  #2 on it (the planned tiles and splits, 1, 2 and 4 splits, bm 64) and
+  torch.matmul at the same shape, with the bound;
+- end to end, chip_smoke.phase_e2e: 2 x 512 px and 1 x 1024 px requests,
+  s/image and their phases.
 
 For each of the random bf16 BitDance-H-1x and BitDance-B-16x samplers of
-chip_smoke.py, at its guided path's rows (32 images, 100 sampling steps):
+chip_smoke.py (``imagenet``), at its guided path's rows (32 images, 100
+sampling steps):
 - one sampler call, eager (CUDA events) and device-only (a captured CUDA
   graph), with and without programmatic launches (PDL) where the tree has
   that switch; the launches of one net call (captured); the bound of
@@ -15,7 +30,8 @@ chip_smoke.py, at its guided path's rows (32 images, 100 sampling steps):
 - end to end, the guided batch through ``sample`` and the VQ decoder:
   s/batch and its sampler phase.
 
-    python3 scripts/torch_sampler_times.py [--root DIR] [--skip-e2e]
+    python3 scripts/torch_sampler_times.py [--root DIR] [--heads t2i,imagenet]
+        [--skip-e2e]
 
 ``--root`` puts another checkout's ``bitdance_tpu_torch`` first on sys.path
 (default: this one), so that one run can time two trees in turns (parent,
@@ -100,10 +116,96 @@ def _products(smoke, fused_head, bundle, rows, dev, seed) -> dict:
     return out
 
 
+def _t2i(smoke, fused_head, skip_e2e: bool) -> dict:
+    import torch
+
+    from bitdance_tpu_torch.io.random_init import build_random_bundle
+
+    dev = torch.device("cuda")
+    bundle = build_random_bundle("cuda", seed=0)
+    head, stacked = bundle.head, bundle.stacked_head()
+    kw = dict(num_blocks=head.depth_latent, num_ada=head.depth_adanln,
+              n_head=head.ch_latent // head.attn_head_dim, last_step_size=0.05)
+    has_pdl = "_pdl" in inspect.signature(fused_head.fused_em_sample).parameters
+    out = {}
+    with torch.no_grad():
+        for images in (1, 2):
+            x0, noise, mods, t_all, dt_all = smoke._head_inputs(stacked, head, 50, images, dev,
+                                                               images)
+            kwi = dict(kw, groups=2 * images)
+            run = lambda **e: fused_head.fused_em_sample(  # noqa: E731
+                stacked, x0, noise, mods, t_all, dt_all, 7.5, **kwi, **e)
+            rec = {"ms": smoke.cuda_time_ms(run, 3, warmup=1),
+                   "device_ms": smoke.cuda_graph_time_ms(run, calls=1, reps=3)}
+            if has_pdl:
+                rec["no_pdl_ms"] = smoke.cuda_time_ms(lambda: run(_pdl=False), 3, warmup=1)
+                rec["no_pdl_device_ms"] = smoke.cuda_graph_time_ms(
+                    lambda: run(_pdl=False), calls=1, reps=3)
+            steps = lambda s, **e: fused_head.fused_em_sample(  # noqa: E731
+                stacked, x0, noise[:s], mods[:s + 1], t_all, dt_all, 7.5, **kwi, **e)
+            rec["launches_per_net_call"] = smoke._sampler_launches(steps)
+            if images == 1:   # the chain without PDL (net_call_profile)
+                rec["net_call_us"] = smoke.net_call_profile(
+                    lambda s: steps(s, **({"_pdl": False} if has_pdl else {})))
+            rec.update(smoke.sampler_bound(stacked, x0, noise, mods, attention=True,
+                                           groups=kwi["groups"], window=head.parallel_num))
+            rec["per_net_call"] = {k: v / mods.shape[0] for k, v in rec.items()
+                                   if k.endswith("ms") and isinstance(v, float)}
+            out[f"sampler_R{128 * images}"] = rec
+        if "gated_f32" in getattr(fused_head, "HEAD_GEMM_MODES", {}):
+            out["products"] = _t2i_products(smoke, fused_head, stacked, dev)
+        else:
+            g = torch.Generator(device=dev).manual_seed(18)
+            out["products"] = {}
+            for key in ("wqkv", "wo", "w1", "w2"):
+                a, _ = smoke._head_gemm_operands(stacked, key, 128, g, dev)
+                out["products"][key] = {"library_device_ms": smoke.cuda_graph_time_ms(
+                    smoke.matmul_walk(stacked, key, a), calls=4, reps=3) / 6}
+    if not skip_e2e:
+        r = smoke.phase_e2e(bundle, smoke.card_line())
+        out["e2e"] = [{"px": q["px"], "s_per_image": q["s_per_image"], "timing": q["timing"]}
+                      for q in r["requests"]]
+    del bundle, stacked
+    return out
+
+
+def _t2i_products(smoke, fused_head, stacked, dev) -> dict:
+    """#2's four products at 128 rows (qkv also at 256) on the head GEMM:
+    the plan, 1, 2 and 4 splits and bm 64, beside torch.matmul."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator(device=dev).manual_seed(18)
+    prods = smoke.T2I_GEMM_PRODUCTS
+    out = {}
+    for key, rows in (("wqkv", 128), ("wo", 128), ("w1", 128), ("w2", 128), ("wqkv", 256)):
+        mode = prods[key][0]
+        n, k = stacked[key].shape[1:]
+        blocks = stacked[key].shape[0]
+        a, kw = smoke._head_gemm_operands(stacked, key, rows, g, dev, prods)
+        plan = fused_head.head_gemm_plan(rows, n, k, sms)
+        variants = {"planned": plan, "bm64": plan._replace(bm=64, splits=1)}
+        variants.update({f"splits_{q}": plan._replace(splits=q) for q in (1, 2, 4)})
+
+        def device_ms(fn):
+            return smoke.cuda_graph_time_ms(fn, calls=4, reps=3) / blocks
+
+        rec = {"mode": mode, "rows": rows, "plan": list(plan),
+               **smoke.head_gemm_bound(a, stacked[key][0], mode, kw),
+               "library_device_ms": device_ms(smoke.matmul_walk(stacked, key, a))}
+        rec.update({f"{name}_device_ms":
+                    device_ms(smoke.head_gemm_walk(stacked, key, a, kw, p, prods))
+                    for name, p in variants.items()})
+        out[f"{key}_R{rows}"] = rec
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(REPO),
                     help="checkout whose bitdance_tpu_torch is timed")
+    ap.add_argument("--heads", default="t2i,imagenet",
+                    help="comma-separated: t2i (kernel #2), imagenet (#3/#4)")
     ap.add_argument("--skip-e2e", action="store_true", help="kernels only")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -123,8 +225,15 @@ def main() -> int:
     full_fp32()
     _cuda.load()
     dev = torch.device("cuda")
-    h1x, b16x = smoke.build_imagenet_samplers()
+    heads = args.heads.split(",")
     out = {"package": bitdance_tpu_torch.__file__, "card": smoke.card_line()}
+    if "t2i" in heads:
+        out["t2i"] = _t2i(smoke, fused_head, args.skip_e2e)
+        torch.cuda.empty_cache()
+    if "imagenet" not in heads:
+        print(json.dumps(out))
+        return 0
+    h1x, b16x = smoke.build_imagenet_samplers()
     for name, bundle, rows, seed in (("h1x", h1x, 2 * smoke.IMAGENET_BATCH, 14),
                                      ("b16x", b16x, 2 * smoke.IMAGENET_BATCH * 16, 15)):
         out[name] = {"sampler": _sampler(smoke, fused_head, bundle, dev, seed)}

@@ -324,6 +324,45 @@ def test_fused_attn_block_kernel(dev):
     assert err < 2e-2
 
 
+def test_sampler_kernel_non_round_trans_encoder(dev):
+    """Kernel #2's route (fp32 residual) on a TransEncoder whose block
+    weights (40 MB a block) the router sends to #2: C 1536, H 2304, 2 blocks,
+    one image's 128 rows in windows of 64, the products on the head GEMM, vs
+    its plain version on the plan's splits; two calls bit-equal."""
+    from bitdance_tpu_torch.io.random_init import init_head
+    from bitdance_tpu_torch.ops.fused_head import (
+        em_precompute,
+        fused_em_sample,
+        fused_em_sample_reference,
+        rounds_residual,
+        sampler_plans,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    head = init_head(dict(ch_target=32, ch_cond=256, ch_latent=1536, depth_latent=2,
+                          depth_adanln=2, parallel_num=64), dev, torch.bfloat16, g)
+    s = head._stack_for_sampler()
+    assert not rounds_residual(s, 2, True)
+    cond = torch.randn((128, 256), generator=g, device=dev)
+    c_emb = cond @ s["cond_w"].float().t() + s["cond_b"]
+    t_all = torch.linspace(0.0, 0.95, 5)
+    dt_all = torch.cat([t_all[1:] - t_all[:-1], torch.zeros(1)])
+    mods = em_precompute(s, c_emb, t_all)
+    x0 = torch.randn((64, 32), generator=g, device=dev)
+    noise = torch.randn((4, 64, 32), generator=g, device=dev)
+    kw = dict(num_blocks=2, num_ada=2, n_head=12, groups=2)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = {k: p.splits for k, p in sampler_plans(128, 1536, 2304, True, sms).items()}
+    with torch.no_grad():
+        got = fused_em_sample(s, x0, noise, mods, t_all, dt_all, 3.0, **kw)
+        again = fused_em_sample(s, x0, noise, mods, t_all, dt_all, 3.0, **kw)
+        want = fused_em_sample_reference(s, x0, noise, mods, t_all, dt_all, 3.0,
+                                         splits=splits, **kw)
+    assert torch.equal(got, again)
+    rel = (got - want).abs().max() / want.abs().max()
+    assert torch.isfinite(got).all() and rel.item() < 5e-2
+
+
 def test_sampler_kernel_mlp_encoder(dev):
     """The whole sampler's MlpEncoder family (3 mods, no attention,
     unbounded) vs its plain version, small head."""
@@ -757,16 +796,23 @@ def test_fused_diffnet_forward_kernel(dev, attention):
         fused_diffnet_forward(f32, x, t, c_emb, **kw)
 
 
-# the round route's head GEMM (#3/#4): (rows, N, K, mode) at the H-1x and
-# B-16x products and a ragged small one
+# the sampler's head GEMM: (rows, N, K, mode) at the round route's H-1x and
+# B-16x products (#3/#4), a ragged small one, and kernel #2's 14B products at
+# 128 rows (and w1 at 256) with its fp32-residual epilogues
 HEAD_GEMM_CASES = {"h1x_w1": (64, 3840, 1280, "swiglu"), "h1x_w2": (64, 1280, 1920, "gated"),
                    "b16x_qkv": (1024, 2304, 768, "bias"), "b16x_w2": (1024, 768, 1152, "gated"),
-                   "ragged_w1": (24, 768, 256, "swiglu")}
+                   "ragged_w1": (24, 768, 256, "swiglu"),
+                   "t2i_qkv": (128, 15360, 5120, "bias"), "t2i_wo": (128, 5120, 5120, "gated_f32"),
+                   "t2i_w1": (128, 15360, 5120, "swiglu_f32"),
+                   "t2i_w2": (128, 5120, 7680, "gated_f32"),
+                   "t2i_w1_256": (256, 15360, 5120, "swiglu_f32")}
 # kernel vs its split twin on the same splits, max |error| / max |twin|; the
 # sums differ in fp32 order only, so an output moves by one bf16 ulp where it
 # sits at a rounding boundary: at most 2^-7 of the largest output (twice that
-# for the swiglu's product of two rounded halves)
-HEAD_GEMM_TEST_BOUND = {"bias": 8e-3, "gated": 8e-3, "swiglu": 1.6e-2}
+# for the swiglu's product of two rounded halves); gated_f32 keeps fp32, a
+# few fp32 ulps of sums over K 5120-7680
+HEAD_GEMM_TEST_BOUND = {"bias": 8e-3, "gated": 8e-3, "swiglu": 1.6e-2, "gated_f32": 1e-4,
+                        "swiglu_f32": 1.6e-2}
 
 
 def _head_gemm_inputs(dev, rows, n, k, mode, seed):
@@ -775,7 +821,7 @@ def _head_gemm_inputs(dev, rows, n, k, mode, seed):
     w = (torch.randn((n, k), generator=g, device=dev) / k ** 0.5).bfloat16()
     bias = (0.1 * torch.randn((n,), generator=g, device=dev)).bfloat16()
     kw = {}
-    if mode == "gated":
+    if mode in ("gated", "gated_f32"):
         kw["resid"] = torch.randn((rows, n), generator=g, device=dev).bfloat16().float()
         kw["gate"] = (0.5 * torch.randn((rows, 2 * n), generator=g, device=dev)).bfloat16()[:, n:]
     return a, w, bias, kw

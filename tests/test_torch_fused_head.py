@@ -1,7 +1,10 @@
 """Port sampler (stack + em_precompute + plain fused_em_sample, the CPU
 branch of the kernel wrapper) vs the JAX fused_em_sample in its three TPU
 variants (interpret mode), its final_chunk contract, and em_sample_stacked.
-Weights cross over through bitdance_tpu_torch.io.from_jax."""
+Weights cross over through bitdance_tpu_torch.io.from_jax. On bf16 stacks
+(kernel #2's route, round_residual=False): each product with its bias in
+fp32 as the JAX kernel's _dot (preferred_element_type f32), and the plain
+sampler against the streamed kernel #2 in interpret mode."""
 
 import jax
 import jax.numpy as jnp
@@ -191,3 +194,85 @@ def test_stack_for_sampler_keeps_one_copy():
             assert base(t) == base(st[key]), (i, key)
     for lin in [*net.ada_ln_blocks, net.final_layer.ada_ln_modulation]:
         assert base(lin.weight) == base(st["modcat_w"])
+
+
+# kernel #2's precision on bf16 operands: each product sums the exact
+# products of the bf16 operands in fp32 and adds the bias to that sum, as the
+# JAX kernel's _dot does; the two sums differ in order only (a few fp32 ulps).
+# A product rounded to bf16 before the bias is off by up to 2^-9 of it.
+PRODUCT_REL = 1e-5
+
+
+def _bf16(rng, *shape, scale=1.0):
+    return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+
+def _rel(got, want):
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize("which", ["block_product", "out_projection"])
+def test_non_round_products_keep_fp32_sums(which):
+    """The block products (the head GEMM twin's gated_f32 mode with gate 1
+    and a zero residual returns y = a @ w.T + bias as _net_forward's
+    products compute it) and the output projection of _net_forward's
+    non-round route (no block; an exact h, so the modulated z has the same
+    bits on both sides) against the JAX _dot plus the bias."""
+    rng = np.random.default_rng(3)
+    bf = torch.bfloat16
+    if which == "block_product":
+        a, w = _bf16(rng, 32, 512), _bf16(rng, 256, 512, scale=512 ** -0.5)
+        bias = _bf16(rng, 256, scale=0.1)
+        ta, tw, tb = (torch.from_numpy(v).to(bf) for v in (a, w, bias))
+        got = tfh.head_gemm_split_plain(ta, tw, "gated_f32", tb, gate=torch.ones(32, 256, dtype=bf),
+                                        resid=torch.zeros(32, 256)).numpy()
+        want = np.asarray(jfh._dot(jnp.asarray(ta.float().numpy(), jnp.bfloat16),
+                                   jnp.asarray(tw.float().numpy().T, jnp.bfloat16))
+                          + jnp.asarray(tb.float().numpy()))
+    else:
+        c, ch, half = 256, 8, 16
+        st = tfh.stack_diffnet_params(TDiffNet(ch, c, COND, 1, 1), 1, dtype=bf)
+        # x and in_w small multiples of 1/8: h is exact in fp32 and in bf16
+        st["in_w"] = torch.from_numpy(rng.integers(-4, 5, (c, ch)) / 8.0).to(bf)
+        st["in_b"] = torch.zeros(c)
+        st["f_out_w"] = torch.from_numpy(_bf16(rng, ch, c, scale=c ** -0.5)).to(bf)
+        st["f_out_b"] = torch.from_numpy(_bf16(rng, ch, scale=0.1))
+        x = torch.from_numpy(rng.integers(-4, 5, (half, ch)) / 8.0).float()
+        mods = torch.from_numpy(_bf16(rng, 2 * half, 8 * c, scale=0.3)).to(bf)
+        got = tfh._net_forward(st, x, mods, num_blocks=0, switch_freq=1, n_head=2, groups=1,
+                               bounded=False).numpy()
+        h = torch.cat([x, x]) @ st["in_w"].float().t()
+        fm = mods[:, -2 * c:].float()
+        z = tfh._ln(h) * (1.0 + fm[:, :c]) + fm[:, c:]
+        want = np.asarray(jfh._dot(jnp.asarray(z.numpy()),
+                                   jnp.asarray(st["f_out_w"].float().numpy().T, jnp.bfloat16))
+                          + jnp.asarray(st["f_out_b"].numpy()))
+    assert got.dtype == np.float32 and got.shape == want.shape
+    assert _rel(got, want) < PRODUCT_REL, _rel(got, want)
+
+
+# the plain sampler on a bf16 stack with kernel #2's precision against the
+# streamed kernel #2 (interpret mode) on the same bf16 mods, 4 steps: max
+# |difference| / max |x|. Measured 5.4e-3 with fp32 product sums; rounding
+# each product to bf16 before its bias read 9.1e-3.
+SAMPLER_BF16_REL = 7e-3
+
+
+def test_plain_bf16_sampler_matches_jax_kernel_2(setup):
+    s = setup
+    jst = jfh.stack_diffnet_params(s["params"], BLOCKS, True, dtype=jnp.bfloat16)
+    jmods = jfh.em_precompute(jst, s["j_cemb"], jnp.asarray(s["t_all"]),
+                              out_dtype=jnp.bfloat16)
+    want = np.asarray(jfh.fused_em_sample(
+        jst, jnp.asarray(s["x0"]), jnp.asarray(s["noise"]), jmods, jnp.asarray(s["t_all"]),
+        jnp.asarray(s["dt_all"]), jnp.float32(CFG), interpret=True, resident=False,
+        streamed="dma", **JKW))
+    _, _, tnet = _nets()
+    tst = tfh.stack_diffnet_params(tnet, BLOCKS, dtype=torch.bfloat16)
+    tmods = torch.tensor(np.asarray(jmods.astype(jnp.float32))).bfloat16()
+    assert tfh.rounds_residual(tst, BLOCKS, True)    # the router's pick; #2 forced below
+    got = tfh.fused_em_sample_reference(
+        tst, torch.from_numpy(s["x0"]), torch.from_numpy(s["noise"]), tmods, s["t_all"],
+        s["dt_all"], CFG, round_residual=False, **KW).numpy()
+    assert np.isfinite(got).all() and got.shape == want.shape
+    assert _rel(got, want) < SAMPLER_BF16_REL, _rel(got, want)

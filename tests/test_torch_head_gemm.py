@@ -1,18 +1,20 @@
-"""The head GEMM of the ImageNet heads' whole sampler (kernels #3/#4,
-``csrc/head_gemm.cuh``) on the CPU: its plan, its plain split twin, the plain
-sampler run through that twin against the JAX kernel #3 in interpret mode,
-and the whole-sampler bound of chip_smoke.py, which counts the block stack
-once per net call less what the L2 holds.
+"""The head GEMM of the whole sampler's bf16 routes (kernel #2, the 14B
+head, and kernels #3/#4, ``csrc/head_gemm.cuh``) on the CPU: its plan, its
+plain split twin, the plain sampler run through that twin against the JAX
+kernels #3 and #2 in interpret mode, and the whole-sampler bound of
+chip_smoke.py, which counts the block stack once per net call less what the
+L2 holds.
 
-- ``head_gemm_plan`` at the H-1x (64 rows) and B-16x (1024 rows) products
-  and over a grid of shapes and SM counts: the splits cover K once, in
+- ``head_gemm_plan`` at the H-1x (64 rows), B-16x (1024 rows) and 14B
+  (128 and 256 rows) products and over a grid of shapes and SM counts: the splits cover K once, in
   ranges of whole 64-k stages; the count is a power of two up to 8 (one
   cluster); every split walks two stages or more; the tiles times the
   splits fill one wave of the SMs and no more, and twice the splits would
   break one of those rules.
 - ``head_gemm_split_plain`` (fp32 partials over the planned K ranges,
-  summed in split order, then _block_body's bf16 epilogue) against the same
-  product in one pass, for each mode; equal bits over repeated runs.
+  summed in split order, then the route's epilogue) against the same
+  product in one pass, for each mode; equal bits over repeated runs; kernel
+  #2's epilogues against the JAX kernel #2's math.
 - The plain sampler with every product split as the card's plan splits it
   (C 256: every product 2 ways) against ``fused_em_sample(...,
   interpret=True)``, both families, bf16, 4 steps; every gaussian draw is
@@ -60,7 +62,15 @@ PLANNED = {"h1x_w1": ((64, 3840, 1280), (64, 128, 4)),
            "b16x_qkv": ((1024, 2304, 768), (128, 128, 1)),
            "b16x_wo": ((1024, 768, 768), (128, 128, 2)),
            "b16x_w1": ((1024, 2304, 768), (128, 128, 1)),
-           "b16x_w2": ((1024, 768, 1152), (128, 128, 2))}
+           "b16x_w2": ((1024, 768, 1152), (128, 128, 2)),
+           "t2i_qkv_128": ((128, 15360, 5120), (128, 128, 1)),
+           "t2i_wo_128": ((128, 5120, 5120), (128, 128, 2)),
+           "t2i_w1_128": ((128, 15360, 5120), (128, 128, 1)),
+           "t2i_w2_128": ((128, 5120, 7680), (128, 128, 2)),
+           "t2i_qkv_256": ((256, 15360, 5120), (128, 128, 1)),
+           "t2i_wo_256": ((256, 5120, 5120), (128, 128, 1)),
+           "t2i_w1_256": ((256, 15360, 5120), (128, 128, 1)),
+           "t2i_w2_256": ((256, 5120, 7680), (128, 128, 1))}
 
 
 @pytest.mark.parametrize("name", list(PLANNED))
@@ -70,8 +80,8 @@ def test_plan_at_the_sampler_shapes(name):
 
 
 def test_round_route_plan_names_every_product():
-    h1x = tfh.round_route_plan(64, 1280, 1920, attention=False)
-    b16x = tfh.round_route_plan(1024, 768, 1152, attention=True)
+    h1x = tfh.sampler_plans(64, 1280, 1920, attention=False)
+    b16x = tfh.sampler_plans(1024, 768, 1152, attention=True)
     assert set(h1x) == {"w1", "w2"} and set(b16x) == {"wqkv", "wo", "w1", "w2"}
     assert h1x["w2"] == tfh.head_gemm_plan(64, 1280, 1920)
     assert b16x["wo"] == tfh.head_gemm_plan(1024, 768, 768)
@@ -203,7 +213,7 @@ def split_sampler(request):
         streamed=False, **kw))
     tst = tfh.stack_diffnet_params(tnet, blocks, dtype=torch.bfloat16)
     tmods = torch.tensor(np.asarray(mods.astype(jnp.float32))).bfloat16()
-    plans = tfh.round_route_plan(rows, c, c * 3 // 2, attention)
+    plans = tfh.sampler_plans(rows, c, c * 3 // 2, attention)
 
     def port(splits):
         return tfh.fused_em_sample_reference(
@@ -277,3 +287,119 @@ def test_sampler_bound_streams_the_stack_per_net_call(attention):
     got = cs.sampler_bound(h1x, torch.zeros(32, 16), torch.zeros(100, 32, 16), mods,
                            attention=False, l2_bytes=50 * 2**20)
     assert got["bound_by"] == "bytes" and 3.7 < got["bound_ms"] < 3.9
+
+
+def _jax_epilogue(a, w, bias, mode, kw):
+    """Kernel #2's products and epilogues as the JAX kernel computes them
+    (bitdance_tpu/ops/fused_head.py: _dot with fp32 accumulation, the bias
+    in fp32; h + y * gate; h12 stored in bf16, silu(h1) * h2 in fp32, then
+    the stage's bf16)."""
+    j = lambda t: jnp.asarray(t.float().numpy())          # noqa: E731
+    y = jfh._dot(j(a).astype(jnp.bfloat16), j(w).T.astype(jnp.bfloat16)) + j(bias)
+    if mode == "gated_f32":
+        return np.asarray(j(kw["resid"]) + y * j(kw["gate"]))
+    hidden = w.shape[0] // 2
+    h12 = y.astype(jnp.bfloat16).astype(jnp.float32)
+    return np.asarray((jax.nn.silu(h12[:, :hidden]) * h12[:, hidden:]).astype(jnp.bfloat16)
+                      .astype(jnp.float32))
+
+
+# kernel #2's epilogues, twin vs the JAX math on the same bf16 operands: the
+# fp32 sums differ in order only (gated_f32: a few fp32 ulps of the largest
+# output); the swiglu_f32 output is bf16, where such a difference flips an
+# output at a rounding boundary by one bf16 ulp (2^-7 of the largest output
+# at most). Measured 1.9e-7 and 1.1e-4 on these inputs (8 splits).
+F32_EPILOGUE_BOUND = {"gated_f32": 1e-6, "swiglu_f32": 8e-3}
+F32_CASES = {"gated_f32": (32, 1280, 1920), "swiglu_f32": (32, 1536, 1280)}
+
+
+@pytest.mark.parametrize("mode", list(F32_CASES))
+def test_f32_epilogue_twins_match_jax_kernel_2(mode):
+    rows, n, k = F32_CASES[mode]
+    a, w, bias, kw = _product(rows, n, k, "gated" if mode == "gated_f32" else mode, seed=4)
+    plan = tfh.head_gemm_plan(rows, n, k)
+    got = tfh.head_gemm_split_plain(a, w, mode, bias, splits=plan.splits, **kw)
+    want = _jax_epilogue(a, w, bias, mode, kw)
+    assert got.shape == want.shape == (rows, n // 2 if mode == "swiglu_f32" else n)
+    assert got.dtype == (torch.float32 if mode == "gated_f32" else torch.bfloat16)
+    rel = float(np.abs(got.float().numpy() - want).max() / np.abs(want).max())
+    assert rel < F32_EPILOGUE_BOUND[mode], rel
+
+
+@pytest.mark.parametrize("mode", ["gated_f32", "swiglu_f32"])
+def test_head_gemm_on_the_cpu_is_the_planned_twin_for_kernel_2(mode):
+    a, w, bias, kw = _product(128, 1280, 1920, "gated" if mode == "gated_f32" else mode,
+                              seed=2)
+    plan = tfh.head_gemm_plan(128, 1280, 1920)
+    assert plan.splits > 1
+    before = tfh.head_gemm.launches
+    want = tfh.head_gemm_split_plain(a, w, mode, bias, splits=plan.splits, **kw)
+    got = tfh.head_gemm(a, w, mode, bias, **kw)
+    assert torch.equal(got, want) and tfh.head_gemm.launches == before
+    if mode == "gated_f32":
+        assert got is kw["resid"]                          # the residual in place
+
+
+@pytest.fixture(scope="module")
+def split_sampler_2():
+    """The JAX kernel #2 (the streamed sampler, interpret mode) and the
+    port's plain sampler with kernel #2's precision (round_residual=False)
+    on the same bf16 TransEncoder (C 256, H 384, 4 blocks, 32 rows), x0 and
+    noise from the shape-keyed table."""
+    c, ch, cond_dim, blocks, ada = 256, 8, 64, 4, 2
+    net = JDiffNet(in_channels=ch, model_channels=c, z_channels=cond_dim,
+                   num_res_blocks=blocks, num_ada_ln_blocks=ada, attention=True,
+                   use_swiglu=True, bounded_output=True, attn_head_dim=64)
+    params = net.init(jax.random.PRNGKey(7), jnp.zeros((2, 8, ch)), jnp.zeros((2,)),
+                      jnp.zeros((2, 8, cond_dim)))["params"]
+    rng = np.random.default_rng(8)
+    params = jax.tree_util.tree_map(
+        lambda l: jnp.asarray(0.05 * rng.standard_normal(l.shape), jnp.float32), params)
+    tnet = load_into(tdh.DiffNet(ch, c, cond_dim, blocks, ada, attn_head_dim=64),
+                     flax_state_from_jax(params))
+    rows = 32
+    cond = _shaped_noise((rows, cond_dim))
+    x0 = _shaped_noise((rows // 2, ch))
+    noise = _shaped_noise((4, rows // 2, ch))
+    t_all = np.linspace(0.0, 0.95, 5).astype(np.float32)
+    dt_all = np.concatenate([t_all[1:] - t_all[:-1], [0.0]]).astype(np.float32)
+    kw = dict(num_blocks=blocks, num_ada=ada, n_head=4, groups=4, attention=True, bounded=True)
+    jst = jfh.stack_diffnet_params(params, blocks, True, dtype=jnp.bfloat16)
+    cemb = jnp.asarray(cond) @ params["cond_embed"]["kernel"] + params["cond_embed"]["bias"]
+    mods = jfh.em_precompute(jst, cemb, jnp.asarray(t_all), out_dtype=jnp.bfloat16)
+    want = np.asarray(jfh.fused_em_sample(
+        jst, jnp.asarray(x0), jnp.asarray(noise), mods, jnp.asarray(t_all),
+        jnp.asarray(dt_all), jnp.float32(3.0), interpret=True, resident=False,
+        streamed="dma", **kw))
+    tst = tfh.stack_diffnet_params(tnet, blocks, dtype=torch.bfloat16)
+    tmods = torch.tensor(np.asarray(mods.astype(jnp.float32))).bfloat16()
+    plans = tfh.sampler_plans(rows, c, c * 3 // 2, True)
+
+    def port(splits):
+        return tfh.fused_em_sample_reference(
+            tst, torch.from_numpy(x0), torch.from_numpy(noise), tmods, t_all, dt_all, 3.0,
+            round_residual=False, splits=splits, **kw).numpy()
+
+    return dict(want=want, port=port, plans=plans)
+
+
+def test_split_sampler_matches_jax_kernel_2(split_sampler_2):
+    """Kernel #2's plain sampler with every product split as the card's plan
+    splits it (2 ways at C 256) against the same sampler un-split and against
+    the JAX kernel #2, bf16, 4 steps at cfg 3, max and mean |difference|
+    relative to max |x|. Measured: split vs un-split 7.1e-3 / 1.5e-3, split
+    vs JAX 1.0e-2 / 2.1e-3, un-split vs JAX 8.1e-3 / 1.6e-3: the split sums
+    move a few bf16 roundings of the stage activations, about as far as the
+    port's own distance to JAX. Bounds about 2x those."""
+    s = split_sampler_2
+    splits = {k: p.splits for k, p in s["plans"].items()}
+    assert splits == {"wqkv": 2, "wo": 2, "w1": 2, "w2": 2}
+    split, one = s["port"](splits), s["port"](None)
+    assert np.array_equal(split, s["port"](splits))
+    assert np.isfinite(split).all() and split.shape == s["want"].shape
+    assert not np.array_equal(split, one)
+    rel = lambda a, b: float(np.abs(a - b).max() / np.abs(b).max())   # noqa: E731
+    for got, want, top, mean in ((split, one, 1.5e-2, 4e-3), (split, s["want"], 2e-2, 5e-3),
+                                 (one, s["want"], 2e-2, 5e-3)):
+        assert rel(got, want) < top and _mean_gap(got, want) < mean, \
+            (rel(got, want), _mean_gap(got, want))
