@@ -94,6 +94,19 @@ __device__ __forceinline__ void block_sum2(float& a, float& b) {
   b = warp_sum(b);
 }
 
+// max of a value over the whole block (blockDim.x a multiple of 32, at
+// most 1024); every thread gets it
+__device__ __forceinline__ float block_max(float v) {
+  __shared__ float red[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_max(v);
+  __syncthreads();  // red may still be read by a previous call
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  v = lane < (int)(blockDim.x >> 5) ? red[lane] : 0.f;
+  return warp_max(v);
+}
+
 // Hopper: shared-memory addresses, ldmatrix, wgmma and its fences (decode
 // attention, the flash backward and the W4A8 GEMM)
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

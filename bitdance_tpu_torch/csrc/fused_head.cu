@@ -54,119 +54,38 @@
 // Quant mode (quant = 1 int8, 2 packed int4; the TPU kernel's W8A8 / W4A8
 // mode, stage_quant + stage_dot, TransEncoder only): each of the four block
 // products takes its fp32 stage input (LN + modulate, the window attention's
-// output, silu(h1) * h2), quantizes it per row to int8 once, and runs the s8
-// GEMM of int8_gemm.cuh on int8 [out, in] or packed [out, in/2] weights with
-// per-output-column scales, y = acc * (sa * ws) before the same bias, gated
-// residual and SwiGLU epilogues of gemm_bf16_kernel; qkv and h1/h2 are
-// still rounded to bf16.
+// output, silu(h1) * h2), quantized per row to int8 once, and runs on the
+// head GEMM's integer kinds (kOpS8 on int8 [out, in], kOpS4 on packed
+// [out, in/2] weights, per-output-column scales), y = float(acc) * (sa * ws)
+// before the bias, fp32 gated residual (wo, w2) and kSwiGLUQ (w1) epilogues;
+// qkv and h1/h2 are still rounded to bf16. The stage kernels are the bf16
+// route's at the quant mode's precision: the LN writes the int8 row and its
+// scale itself (ln_modulate_rows_kernel<int8_t>), window attention writes
+// fp32 (window_attention_rows_kernel<float>), which, like the SwiGLU
+// output, then takes one row-quantization launch (quantize_rows_vec_kernel):
+// 9 launches a block; its GEMMs are launched programmatic, its stage kernels
+// plain (hg::GemmLaunch). The first design (gemm_s8_kernel: mma.sync m16n8k32 on
+// 64x64 tiles, a cp.async ring every thread walked, with the first stage
+// kernels and four quantization launches a block) took 2.87 (int8) and 2.46
+// ms (int4) a net call at the 14B head, over 1.21 for the bf16 route.
 // Weight bytes per net call halve (int8) or quarter (int4), so does the
-// bound; the four row quantizations add four small launches per block.
+// bound.
 #include "head_gemm.cuh"
-#include "int8_gemm.cuh"
 
 namespace {
 
 constexpr int kMaxCh = 32;
 
 // Final adaLN layer + (bounded: 2*sigmoid-1) + velocity + CFG + EM (or last
-// Euler) update of x row i; one block per cond row, handling rows i and
-// i + half (the quant mode's; the bf16 routes run final_em_rows_kernel).
-__global__ void __launch_bounds__(256)
-final_em_kernel(const float* __restrict__ h, int C,
-                const bf16* __restrict__ fmods, int ld_mods,
-                const bf16* __restrict__ fw, const float* __restrict__ fb,
-                float* __restrict__ x, const float* __restrict__ noise,
-                int half, int ch, float t, float dt, float cfg,
-                float last_step, int bounded, float eps) {
-  pdl_trigger();
-  pdl_wait();
-  __shared__ float red[8][2 * kMaxCh];
-  __shared__ float outs[2][kMaxCh];
-  const int i = blockIdx.x;
-  const int rows[2] = {i, i + half};
-  float mean[2], rstd[2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const float* hr = h + (size_t)rows[j] * C;
-    float s = 0.f, ss = 0.f;
-    for (int k = threadIdx.x; k < C; k += blockDim.x) {
-      s += hr[k];
-      ss += hr[k] * hr[k];
-    }
-    block_sum2(s, ss);
-    mean[j] = s / C;
-    rstd[j] = rsqrtf(fmaxf(ss / C - mean[j] * mean[j], 0.f) + eps);
-  }
-  float acc[2][kMaxCh];
-#pragma unroll
-  for (int c = 0; c < kMaxCh; ++c) acc[0][c] = acc[1][c] = 0.f;
-  for (int k = threadIdx.x; k < C; k += blockDim.x) {
-    float z[2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const bf16* fm = fmods + (size_t)rows[j] * ld_mods;
-      const float ln = (h[(size_t)rows[j] * C + k] - mean[j]) * rstd[j];
-      z[j] = round_bf16(ln * (1.f + bf2f(fm[k])) + bf2f(fm[C + k]));
-    }
-#pragma unroll
-    for (int c = 0; c < kMaxCh; ++c) {
-      if (c < ch) {
-        const float wv = bf2f(fw[(size_t)c * C + k]);
-        acc[0][c] += z[0] * wv;
-        acc[1][c] += z[1] * wv;
-      }
-    }
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int c = 0; c < kMaxCh; ++c) {
-    const float a0 = warp_sum(acc[0][c]);
-    const float a1 = warp_sum(acc[1][c]);
-    if (lane == 0) {
-      red[warp][c] = a0;
-      red[warp][kMaxCh + c] = a1;
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < 2 * kMaxCh) {
-    float v = 0.f;
-    for (int wi = 0; wi < (int)(blockDim.x >> 5); ++wi) v += red[wi][threadIdx.x];
-    const int j = threadIdx.x / kMaxCh, c = threadIdx.x % kMaxCh;
-    if (c < ch) {
-      v += fb[c];
-      outs[j][c] = bounded ? 2.f / (1.f + expf(-v)) - 1.f : v;
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < ch) {
-    const int c = threadIdx.x;
-    const float xv = x[(size_t)i * ch + c];
-    const float denom = fmaxf(1.f - t, 0.05f);
-    const float v_cond = (outs[0][c] - xv) / denom;
-    const float v_unc = (outs[1][c] - xv) / denom;
-    const float vc = v_unc + cfg * (v_cond - v_unc);
-    float xn;
-    if (noise != nullptr) {
-      const float var = (1.f - t) * (1.f - t) + t * (1.f - t);
-      const float score = (t * vc - xv) / var;
-      const float drift = vc + (1.f - t) * score;
-      const float ns = sqrtf(2.f * (1.f - t) * dt);
-      xn = xv + drift * dt + ns * noise[(size_t)i * ch + c];
-    } else {
-      xn = xv + vc * last_step;
-    }
-    x[(size_t)i * ch + c] = xn;
-  }
-}
-
-// final_em_kernel's function for the bf16 routes (#2, #3/#4), its loads in
-// flight together and its product spread over the warps: each thread's
+// Euler) update of x row i, one block per cond row handling rows i and i +
+// half, its loads in flight together and its product spread over the warps
+// (every route: #2, its quant modes, #3/#4): each thread's
 // values of the two rows (C <= 256 kPer) loaded into registers at once,
 // their modulated LN z (bf16 values) staged in shared memory (dynamic, 2 C
 // floats, at most 40 KB), then warp v takes channels v, v + 8, v + 16, v +
 // 24 (+ 32 ...) for both rows, each lane 8 consecutive k of every 256 with
 // 16-byte loads, 4 steps of the four channels' loads in flight, eight
-// accumulators a lane and eight warp sums (final_em_kernel's 64
+// accumulators a lane and eight warp sums (the first version's 64
 // accumulators a thread and 64 warp sums took 19-26 us a launch at C <=
 // 2048; at C 5120, with each (row, channel) on its own warp slot and w read
 // twice a block: a 2-byte load of w per k 43 us, one step of 16-byte loads
@@ -321,76 +240,76 @@ proj_in_rows_kernel(const float* __restrict__ x, int x_rows, const bf16* __restr
   }
 }
 
-// The quantized pointers of one sampler call: int8 (or packed) block
-// matrices, their per-output-column scales, and the fp32 stage input, its
-// int8 rows and their scales (scratch).
+// The quantized sampler's per-output-column scales of its four matrices
+// and its scratch: the fp32 stage outputs that are row-quantized (window
+// attention, SwiGLU), the int8 rows and their scales.
 struct QuantBlock {
-  const int8_t *wqkv, *wo, *w1, *w2;
   const float *wqkv_s, *wo_s, *w1_s, *w2_s;
   float* actf;
   int8_t* aq;
   float* sa;
 };
 
-// One TransEncoder block with W8A8 / W4A8 products (the bf16 path's stages
-// with the quantization in front of each product).
-template <bool INT4>
-cudaError_t quant_block(const QuantBlock& qb, int l, float* h, const bf16* m,
-                        int W, const bf16* n1, const bf16* n2, const bf16* bqkv,
-                        const bf16* bo, const bf16* b1, const bf16* b2, bf16* buf,
-                        int R, int C, int H, int n_head, int groups, int wtok,
-                        int hd, float attn_scale, size_t attn_smem, float eps,
-                        cudaStream_t st) {
-  const int cs = INT4 ? C / 2 : C, hs = INT4 ? H / 2 : H;  // stored K
-  ln_modulate_kernel<float, false, float><<<R, 256, 0, st>>>(
-      h, C, n1 + (size_t)l * 2 * C, n1 + (size_t)l * 2 * C + C, m, W, m + C, W,
-      qb.actf, eps);
-  BD_CHECK_ERR(cudaGetLastError());
-  BD_CHECK_ERR(launch_quantize_rows(qb.actf, C, C, qb.aq, C, qb.sa, R, st));
+// One TransEncoder block with W8A8 (KIND hg::kOpS8) / W4A8 (hg::kOpS4)
+// products on the head GEMM (go.pr / go.plan: the four products over aq and
+// the quantized stacks), each stage input quantized per row once: LN +
+// modulate + quantize, qkv, window attention (fp32), quantize, wo, LN +
+// modulate + quantize, w1 (SwiGLU, fp32), quantize, w2. The caller sets the
+// fp32 window attention's shared-memory limit.
+template <int KIND>
+cudaError_t quant_block(const HeadBlockWeights& w, const QuantBlock& qb, int l, float* h,
+                        const bf16* m, int ldm, bf16* buf, int R, int C, int H, int n_head,
+                        int groups, float eps, const hg::GemmLaunch& go) {
+  const float scale = 1.f / sqrtf(static_cast<float>(kWinHd));
+  auto ln = [&](const bf16* nrm, const bf16* mm) {
+    return go.stage(dim3(R), 256, 0, ln_modulate_rows_kernel<int8_t>,
+                    static_cast<const float*>(h), C, nrm, nrm + C, mm, ldm, mm + C, ldm, qb.aq,
+                    qb.sa, eps);
+  };
+  auto quantize = [&](int K) {
+    return go.stage(dim3(R), 256, 0, quantize_rows_vec_kernel,
+                    static_cast<const float*>(qb.actf), K, qb.aq, qb.sa);
+  };
+  BD_CHECK_ERR(ln(w.n1 + (size_t)l * 2 * C, m));
   Epilogue qkv_ep{};
-  qkv_ep.bias = bqkv + (size_t)l * 3 * C;
+  qkv_ep.bias = w.bqkv + (size_t)l * 3 * C;
   qkv_ep.out = buf;
   qkv_ep.ldo = 3 * C;
-  BD_CHECK_ERR((launch_gemm_s8<kBiasBf16, INT4>(
-      qb.aq, C, qb.sa, qb.wqkv + (size_t)l * 3 * C * cs, qb.wqkv_s + (size_t)l * 3 * C,
-      C, R, 3 * C, qkv_ep, st)));
-  window_attention_kernel<bf16, float><<<groups * n_head, 256, attn_smem, st>>>(
-      buf, C, wtok, hd, n_head, attn_scale, qb.actf);
-  BD_CHECK_ERR(cudaGetLastError());
-  BD_CHECK_ERR(launch_quantize_rows(qb.actf, C, C, qb.aq, C, qb.sa, R, st));
+  qkv_ep.sa = qb.sa;
+  qkv_ep.ws = qb.wqkv_s + (size_t)l * 3 * C;
+  BD_CHECK_ERR((go.gemm_q<kBiasBf16, KIND>(kQkv, l * 3 * C, qkv_ep)));
+  BD_CHECK_ERR(go.stage(dim3(groups * n_head), 256, kWinSmem, window_attention_rows_kernel<float>,
+                        static_cast<const bf16*>(buf), C, R / groups, n_head, scale, qb.actf));
+  BD_CHECK_ERR(quantize(C));
   Epilogue o_ep{};
-  o_ep.bias = bo + (size_t)l * C;
+  o_ep.bias = w.bo + (size_t)l * C;
   o_ep.resid = h;
   o_ep.ldr = C;
   o_ep.gate = m + 2 * C;
-  o_ep.ldg = W;
-  BD_CHECK_ERR((launch_gemm_s8<kGatedResidual, INT4>(
-      qb.aq, C, qb.sa, qb.wo + (size_t)l * C * cs, qb.wo_s + (size_t)l * C, C, R, C,
-      o_ep, st)));
+  o_ep.ldg = ldm;
+  o_ep.sa = qb.sa;
+  o_ep.ws = qb.wo_s + (size_t)l * C;
+  BD_CHECK_ERR((go.gemm_q<kGatedResidual, KIND>(kWo, l * C, o_ep)));
   const bf16* mm = m + (size_t)3 * C;  // scale2, shift2, gate2
-  ln_modulate_kernel<float, false, float><<<R, 256, 0, st>>>(
-      h, C, n2 + (size_t)l * 2 * C, n2 + (size_t)l * 2 * C + C, mm, W, mm + C, W,
-      qb.actf, eps);
-  BD_CHECK_ERR(cudaGetLastError());
-  BD_CHECK_ERR(launch_quantize_rows(qb.actf, C, C, qb.aq, C, qb.sa, R, st));
+  BD_CHECK_ERR(ln(w.n2 + (size_t)l * 2 * C, mm));
   Epilogue glu_ep{};
-  glu_ep.bias = b1 + (size_t)l * 2 * H;
+  glu_ep.bias = w.b1 + (size_t)l * 2 * H;
   glu_ep.out = qb.actf;
   glu_ep.ldo = H;
   glu_ep.hidden = H;
-  BD_CHECK_ERR((launch_gemm_s8<kSwiGLUQ, INT4>(
-      qb.aq, C, qb.sa, qb.w1 + (size_t)l * 2 * H * cs, qb.w1_s + (size_t)l * 2 * H, C,
-      R, 2 * H, glu_ep, st)));
-  BD_CHECK_ERR(launch_quantize_rows(qb.actf, H, H, qb.aq, H, qb.sa, R, st));
+  glu_ep.sa = qb.sa;
+  glu_ep.ws = qb.w1_s + (size_t)l * 2 * H;
+  BD_CHECK_ERR((go.gemm_q<kSwiGLUQ, KIND>(kW1, l * 2 * H, glu_ep)));
+  BD_CHECK_ERR(quantize(H));
   Epilogue down_ep{};
-  down_ep.bias = b2 + (size_t)l * C;
+  down_ep.bias = w.b2 + (size_t)l * C;
   down_ep.resid = h;
   down_ep.ldr = C;
   down_ep.gate = mm + 2 * C;
-  down_ep.ldg = W;
-  return launch_gemm_s8<kGatedResidual, INT4>(
-      qb.aq, H, qb.sa, qb.w2 + (size_t)l * C * hs, qb.w2_s + (size_t)l * C, H, R, C,
-      down_ep, st);
+  down_ep.ldg = ldm;
+  down_ep.sa = qb.sa;
+  down_ep.ws = qb.w2_s + (size_t)l * C;
+  return go.gemm_q<kGatedResidual, KIND>(kW2, l * C, down_ep);
 }
 
 }  // namespace
@@ -406,11 +325,13 @@ cudaError_t quant_block(const QuantBlock& qb, int l, float* h, const bf16* m,
 // int8 [L, out, in] / [L, out, in/2] with f32 scales *_s [L, out]; actf
 // (fp32 [R, max(C, H)]), aq (int8, the same shape) and sa (fp32 [R]) are
 // scratch. round_residual 1 (bf16 only): _block_body's rounding (#3/#4);
-// 0: kernel #2's fp32 residual. A bf16 stack (quant 0) runs its products on
-// the head GEMM of head_gemm.cuh: gemm_plan (host, 12 ints) is {bm, bn,
-// splits} of qkv, wo, w1 and w2 (ops/fused_head.py::sampler_plans), and
-// every launch of the chain is programmatic when pdl (0 only to measure what
-// that saves). Returns the first CUDA error, or 0.
+// 0: kernel #2's fp32 residual. Every route runs its products on the head
+// GEMM of head_gemm.cuh (the quant modes on its integer kinds): gemm_plan
+// (host, 12 ints) is {bm, bn, splits} of qkv, wo, w1 and w2
+// (ops/fused_head.py::sampler_plans), and every launch of the chain is
+// programmatic when pdl (0 only to measure what that saves; the quant
+// modes' stage kernels are launched plain). Returns the first CUDA error,
+// or 0.
 extern "C" int bd_fused_em_sample(
     void* x, const void* noise, const void* allmods, int W,
     const float* t_host, const float* dt_host, float cfg, const void* in_w,
@@ -426,15 +347,11 @@ extern "C" int bd_fused_em_sample(
   const int R = 2 * half;
   const int n_mods = attention ? 6 : 3;
   if (ch > kMaxCh || C % kBN != 0 || C % kBK != 0 || H % kBK != 0 ||
-      (2 * H) % kBN != 0)
+      (2 * H) % kBN != 0 || gemm_plan == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int qk = quant == 2 ? 2 * kQBK : kQBK;  // K granularity of the s8 GEMM
-  if (quant < 0 || quant > 2 ||
-      (quant && (!attention || C % qk || H % qk || round_residual)))
+  if (quant < 0 || quant > 2 || (quant && (!attention || round_residual)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const QuantBlock qb{static_cast<const int8_t*>(wqkv), static_cast<const int8_t*>(wo),
-                      static_cast<const int8_t*>(w1), static_cast<const int8_t*>(w2),
-                      static_cast<const float*>(wqkv_s), static_cast<const float*>(wo_s),
+  const QuantBlock qb{static_cast<const float*>(wqkv_s), static_cast<const float*>(wo_s),
                       static_cast<const float*>(w1_s), static_cast<const float*>(w2_s),
                       static_cast<float*>(actf), static_cast<int8_t*>(aq),
                       static_cast<float*>(sa)};
@@ -449,77 +366,75 @@ extern "C" int bd_fused_em_sample(
   float* h = static_cast<float*>(h_scratch);
   bf16* act = static_cast<bf16*>(act_scratch);
   bf16* buf = static_cast<bf16*>(buf_scratch);
-  const bf16* N1 = static_cast<const bf16*>(n1);
-  const bf16* N2 = static_cast<const bf16*>(n2);
-  const bf16* Wqkv = static_cast<const bf16*>(wqkv);
-  const bf16* Bqkv = static_cast<const bf16*>(bqkv);
-  const bf16* Wo = static_cast<const bf16*>(wo);
-  const bf16* Bo = static_cast<const bf16*>(bo);
-  const bf16* W1 = static_cast<const bf16*>(w1);
-  const bf16* B1 = static_cast<const bf16*>(b1);
-  const bf16* W2 = static_cast<const bf16*>(w2);
-  const bf16* B2 = static_cast<const bf16*>(b2);
-  const HeadBlockWeights wts{N1, N2, Wqkv, Bqkv, Wo, Bo, W1, B1, W2, B2};
+  const HeadBlockWeights wts{
+      static_cast<const bf16*>(n1), static_cast<const bf16*>(n2),
+      static_cast<const bf16*>(wqkv), static_cast<const bf16*>(bqkv),
+      static_cast<const bf16*>(wo), static_cast<const bf16*>(bo),
+      static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
+      static_cast<const bf16*>(w2), static_cast<const bf16*>(b2)};
 
   const int hd = attention ? C / n_head : 0;
   const int wtok = attention ? R / groups : 0;
   const size_t attn_smem = window_attention_smem<bf16>(wtok, hd);
-  if (attn_smem > 48 * 1024) {
+  if (attn_smem > 48 * 1024)
     BD_CHECK(cudaFuncSetAttribute(window_attention_kernel<bf16>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   static_cast<int>(attn_smem)));
-    BD_CHECK(cudaFuncSetAttribute(window_attention_kernel<bf16, float>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  static_cast<int>(attn_smem)));
-  }
-  const float attn_scale = attention ? 1.f / sqrtf(static_cast<float>(hd)) : 0.f;
-  // go launches the stage kernels and, on the bf16 routes (#2 and #3/#4),
-  // their products on head_gemm.cuh, every launch of that chain
-  // programmatic when pdl; a shape its GEMM cannot take is refused
+  // go launches the stage kernels and their products on head_gemm.cuh,
+  // the launches of that chain programmatic when pdl (the quant modes'
+  // stage kernels plain: hg::GemmLaunch); a shape its GEMM
+  // cannot take is refused. The products read the stage inputs: act (bf16)
+  // or, quantized, aq (int8) for qkv, wo and w1 ([R, C]); buf (bf16) or aq
+  // for w2 ([R, H]).
   hg::Plan plan[4] = {};
   hg::Product pr[4];
-  const hg::GemmLaunch go{pr, plan, !quant && pdl, st};
-  if (!quant) {
-    if (gemm_plan == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    for (int i = 0; i < 4; ++i)
-      plan[i] = {gemm_plan[3 * i], gemm_plan[3 * i + 1], gemm_plan[3 * i + 2]};
-    const int L = num_blocks;
-    bool ok = hg::make_product(act, R, C, W1, L * 2 * H, 2 * H, true, plan[kW1], &pr[kW1]) &&
-              hg::make_product(buf, R, H, W2, L * C, C, false, plan[kW2], &pr[kW2]);
-    if (attention)
-      ok = ok &&
-           hg::make_product(act, R, C, Wqkv, L * 3 * C, 3 * C, false, plan[kQkv], &pr[kQkv]) &&
-           hg::make_product(act, R, C, Wo, L * C, C, false, plan[kWo], &pr[kWo]);
-    // at most 20 values a thread in final_em_rows_kernel, 16-byte rows of w
-    ok = ok && C <= 20 * 256 && C % 8 == 0;
-    // #2's window attention: head dim 128, windows of up to 64 rows
-    ok = ok && (round_residual || !attention || hd == kWinHd);
-    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-    if (!round_residual && attention)
-      BD_CHECK(cudaFuncSetAttribute(window_attention_rows_kernel,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    static_cast<int>(kWinSmem)));
+  const hg::GemmLaunch go{pr, plan, pdl != 0, pdl != 0 && !quant, st};
+  for (int i = 0; i < 4; ++i)
+    plan[i] = {gemm_plan[3 * i], gemm_plan[3 * i + 1], gemm_plan[3 * i + 2]};
+  const int L = num_blocks;
+  const int kind = quant == 2 ? hg::kOpS4 : quant == 1 ? hg::kOpS8 : hg::kOpBf16;
+  const void* a_in = quant ? static_cast<const void*>(aq) : act;
+  const void* a_w2 = quant ? static_cast<const void*>(aq) : buf;
+  bool ok = hg::make_product(kind, a_in, R, C, w1, L * 2 * H, 2 * H, true, plan[kW1], &pr[kW1]) &&
+            hg::make_product(kind, a_w2, R, H, w2, L * C, C, false, plan[kW2], &pr[kW2]);
+  if (attention)
+    ok = ok &&
+         hg::make_product(kind, a_in, R, C, wqkv, L * 3 * C, 3 * C, false, plan[kQkv],
+                          &pr[kQkv]) &&
+         hg::make_product(kind, a_in, R, C, wo, L * C, C, false, plan[kWo], &pr[kWo]);
+  // at most 20 values a thread in final_em_rows_kernel, 16-byte rows of w
+  ok = ok && C <= 20 * 256 && C % 8 == 0;
+  // #2's window attention: head dim 128, windows of up to 64 rows; its row
+  // quantizations: rows of at most 1024 kQuantVec
+  ok = ok && (round_residual || !attention || hd == kWinHd) &&
+       (!quant || (C <= 1024 * kQuantVec && H <= 1024 * kQuantVec));
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (!round_residual && attention) {
+    BD_CHECK(cudaFuncSetAttribute(window_attention_rows_kernel<bf16>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  static_cast<int>(kWinSmem)));
+    BD_CHECK(cudaFuncSetAttribute(window_attention_rows_kernel<float>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  static_cast<int>(kWinSmem)));
   }
   const int grid_steps = num_steps + (final_chunk ? 1 : 0);
   const int proj_blocks = static_cast<int>(((size_t)R * C + 255) / 256);
   const int proj_rows_blocks =
       static_cast<int>(((size_t)(R + kProjRows - 1) / kProjRows * C + 255) / 256);
-  const size_t final_smem = quant ? 0 : 2 * C * sizeof(float);
-  const auto final_kernel = quant ? final_em_kernel
-                            : C <= 8 * 256 ? final_em_rows_kernel<8>
-                                           : final_em_rows_kernel<20>;
+  const size_t final_smem = 2 * C * sizeof(float);
+  const auto final_kernel = C <= 8 * 256 ? final_em_rows_kernel<8> : final_em_rows_kernel<20>;
 
   for (int s = 0; s < grid_steps; ++s) {
     const bf16* mods_s = mods + (size_t)s * R * W;
     const bf16* iw = static_cast<const bf16*>(in_w);
     const float* ib = static_cast<const float*>(in_b);
     const float* xc = xf;
-    if (!quant && ch == 16)
+    if (ch == 16)
       BD_CHECK(go.stage(dim3(proj_rows_blocks), 256, 0,
                         round_residual ? proj_in_rows_kernel<16, true>
                                        : proj_in_rows_kernel<16, false>,
                         xc, half, iw, ib, h, R, C));
-    else if (!quant && ch == 32)
+    else if (ch == 32)
       BD_CHECK(go.stage(dim3(proj_rows_blocks), 256, 0,
                         round_residual ? proj_in_rows_kernel<32, true>
                                        : proj_in_rows_kernel<32, false>,
@@ -529,15 +444,13 @@ extern "C" int bd_fused_em_sample(
                         C, round_residual));
     for (int l = 0; l < num_blocks; ++l) {
       const bf16* m = mods_s + (size_t)(l / switch_freq) * n_mods * C;
-      if (quant) {
-        BD_CHECK((quant == 2 ? quant_block<true> : quant_block<false>)(
-            qb, l, h, m, W, N1, N2, Bqkv, Bo, B1, B2, buf, R, C, H, n_head,
-            groups, wtok, hd, attn_scale, attn_smem, eps, st));
-        continue;
-      }
-      BD_CHECK((round_residual ? head_block<true, hg::GemmLaunch>
-                               : head_block<false, hg::GemmLaunch>)(
-          wts, l, h, m, W, act, buf, R, C, H, attention != 0, n_head, groups, eps, go));
+      if (quant)
+        BD_CHECK((quant == 2 ? quant_block<hg::kOpS4> : quant_block<hg::kOpS8>)(
+            wts, qb, l, h, m, W, buf, R, C, H, n_head, groups, eps, go));
+      else
+        BD_CHECK((round_residual ? head_block<true, hg::GemmLaunch>
+                                 : head_block<false, hg::GemmLaunch>)(
+            wts, l, h, m, W, act, buf, R, C, H, attention != 0, n_head, groups, eps, go));
     }
     const bool stochastic = s < num_steps;
     BD_CHECK(go.stage(dim3(half), 256, final_smem, final_kernel,
@@ -561,8 +474,7 @@ extern "C" int bd_head_gemm(const void* a, const void* w, const void* bias, void
   const int R = shape[0], N = shape[1], K = shape[2], ldg = shape[3], mode = shape[4];
   const hg::Plan plan{shape[5], shape[6], shape[7]};
   hg::Product pr;
-  if (!hg::make_product(static_cast<const bf16*>(a), R, K, static_cast<const bf16*>(w), N, N,
-                        is_swiglu(mode), plan, &pr) ||
+  if (!hg::make_product(hg::kOpBf16, a, R, K, w, N, N, is_swiglu(mode), plan, &pr) ||
       N % 16 != 0 || ldg % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Epilogue ep{};
@@ -586,4 +498,52 @@ extern "C" int bd_head_gemm(const void* a, const void* w, const void* bias, void
       return static_cast<int>(hg::gemm<kSwiGLURound>(pr, 0, plan, ep, false, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+namespace {
+
+template <int KIND>
+cudaError_t head_gemm_s8(const hg::Product& pr, int mode, const hg::Plan& plan,
+                         const Epilogue& ep, cudaStream_t st) {
+  switch (mode) {
+    case kBiasBf16: return hg::gemm<kBiasBf16, KIND>(pr, 0, plan, ep, false, st);
+    case kGatedResidual: return hg::gemm<kGatedResidual, KIND>(pr, 0, plan, ep, false, st);
+    case kSwiGLUQ: return hg::gemm<kSwiGLUQ, KIND>(pr, 0, plan, ep, false, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// One integer product of the sampler's quant modes on the head GEMM
+// (ops/fused_head.py::head_gemm_s8), for its checks and timings: a [R, K]
+// int8 rows with row scales sa [R]; w [N, K] int8 (packed int4: [N, K/2])
+// with column scales ws [N]; bias bf16 [N]; shape {R, N, K, ldg, mode, bm,
+// bn, splits, int4}; mode 0 (kBiasBf16: out bf16 [R, N]), 1 (kGatedResidual:
+// resid fp32 [R, N] in place, gate bf16 rows ldg apart) or 8 (kSwiGLUQ, w
+// rows [h1; h2]: out fp32 [R, N / 2]). Returns the first CUDA error, or 0.
+extern "C" int bd_head_gemm_s8(const void* a, const void* sa, const void* w, const void* ws,
+                               const void* bias, void* out, void* resid, const void* gate,
+                               const int* shape, void* stream) {
+  const int R = shape[0], N = shape[1], K = shape[2], ldg = shape[3], mode = shape[4];
+  const hg::Plan plan{shape[5], shape[6], shape[7]};
+  const int kind = shape[8] ? hg::kOpS4 : hg::kOpS8;
+  hg::Product pr;
+  if (!hg::make_product(kind, a, R, K, w, N, N, is_swiglu(mode), plan, &pr) || N % 16 != 0 ||
+      ldg % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Epilogue ep{};
+  ep.bias = static_cast<const bf16*>(bias);
+  ep.out = out;
+  ep.ldo = is_swiglu(mode) ? N / 2 : N;
+  ep.resid = static_cast<float*>(resid);
+  ep.ldr = N;
+  ep.gate = static_cast<const bf16*>(gate);
+  ep.ldg = ldg;
+  ep.hidden = N / 2;
+  ep.sa = static_cast<const float*>(sa);
+  ep.ws = static_cast<const float*>(ws);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(kind == hg::kOpS4 ? head_gemm_s8<hg::kOpS4>(pr, mode, plan, ep, st)
+                                            : head_gemm_s8<hg::kOpS8>(pr, mode, plan, ep, st));
 }

@@ -41,7 +41,7 @@ enum GemmMode {
   kGatedResidualBf16 = 5,  // out bf16 = x + (acc + bias) * gate
   kOutBf16 = 6,        // out bf16 = acc (no bias)
   kOutF32 = 7,         // out fp32 = acc (no bias)
-  kSwiGLUQ = 8,        // out fp32 = silu(bf16(h1)) * bf16(h2), h = acc + bias
+  kSwiGLUQ = 8,        // out fp32 = silu(bf16(h1)) * bf16(h2), h = acc + bias (head GEMM)
   // the TPU kernels' _block_body in bf16 (every elementwise op rounds):
   kGatedResidualRound = 9,  // resid = bf16(resid + bf16(bf16(acc + bias) * gate))
   kSwiGLURound = 10,   // out bf16 = bf16(silu(bf16(h1))) * bf16(h2)
@@ -76,6 +76,8 @@ struct Epilogue {
   const bf16* x;       // kGatedResidualBf16: the residual input
   int ldx;
   int hidden;          // SwiGLU modes: columns of h1 (h2 follows)
+  const float* sa;     // the head GEMM's integer routes: row scales [R]
+  const float* ws;     // and column scales, indexed as bias
 };
 
 template <int MODE>
@@ -122,10 +124,7 @@ __device__ __forceinline__ void store_tile(
           }
           float silu = y1 / (1.f + __expf(-y1));
           if (MODE == kSwiGLURound) silu = round_bf16(silu);
-          if (MODE == kSwiGLUQ)
-            out_f32[(size_t)row * ldo + col] = silu * y2;
-          else
-            out[(size_t)row * ldo + col] = __float2bfloat16(silu * y2);
+          out[(size_t)row * ldo + col] = __float2bfloat16(silu * y2);
         }
       } else {
 #pragma unroll
@@ -264,16 +263,15 @@ cudaError_t launch_gemm(const bf16* A, int lda, const bf16* W, int K, int M,
 // math; h rows are C apart, scale and shift rows ld_scale / ld_shift apart
 // (0 broadcasts one row). One block per row. TWO_PASS takes the centred
 // variance (the block kernels' LN); otherwise E[x^2] - E[x]^2 (the sampler's).
-// OutT float keeps the fp32 value (the quantized sampler's stage input).
 // CHAIN rounds as _block_body's bf16 ops do: the LN output, its affine
 // (product, then sum), 1 + scale, the modulated product and the final sum.
-template <typename T, bool TWO_PASS, typename OutT = bf16, bool CHAIN = false>
+template <typename T, bool TWO_PASS, bool CHAIN = false>
 __global__ void __launch_bounds__(256)
 ln_modulate_kernel(const T* __restrict__ h, int C,
                    const bf16* __restrict__ nw, const bf16* __restrict__ nb,
                    const bf16* __restrict__ scale, int ld_scale,
                    const bf16* __restrict__ shift, int ld_shift,
-                   OutT* __restrict__ out, float eps) {
+                   bf16* __restrict__ out, float eps) {
   pdl_trigger();
   pdl_wait();
   const int r = blockIdx.x;
@@ -315,8 +313,7 @@ ln_modulate_kernel(const T* __restrict__ h, int C,
       const float ln = (val(i) - mean) * rstd * bf2f(nw[i]) + bf2f(nb[i]);
       y = ln * (1.f + bf2f(sc[i])) + bf2f(sh[i]);
     }
-    if constexpr (sizeof(OutT) == 4) out[(size_t)r * C + i] = y;
-    else out[(size_t)r * C + i] = __float2bfloat16(y);
+    out[(size_t)r * C + i] = __float2bfloat16(y);
   }
 }
 
@@ -342,20 +339,39 @@ __device__ __forceinline__ float4 unpack4(const uint2& u) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
+// The quant mode's row quantization (quantize_rows): the scale of a row
+// from its max |x|, and four values quantized with it
+constexpr int kQuantVec = 8;
+
+__device__ __forceinline__ float row_quant_scale(float amax) {
+  return fmaxf(__fdiv_rn(amax, 127.f), 1e-12f);
+}
+
+__device__ __forceinline__ uint32_t quant4(const float4& v, float s) {
+  auto q = [&](float x) {
+    return static_cast<uint32_t>(max(-127, min(127, __float2int_rn(__fdiv_rn(x, s))))) & 0xFFu;
+  };
+  return q(v.x) | q(v.y) << 8 | q(v.z) << 16 | q(v.w) << 24;
+}
+
 // ln_modulate_kernel's function for kernel #2's blocks (fp32 h, one-pass
-// statistics, fp32 math, bf16 out; C % 4 == 0, C <= 1024 kLnVec) with every
-// load of a row issued together: each thread's kLnVec float4 groups of h
-// and their 4-value groups of the norm's weight and bias and of the row's
-// scale and shift go into registers before the block's sums (the first
-// version's three loops of dependent scalar loads took 15.5 us a launch at
-// the 14B head's C 5120, R 128; this one 3.3 us).
+// statistics, fp32 math; C % 4 == 0, C <= 1024 kLnVec) with every load of a
+// row issued together: each thread's kLnVec float4 groups of h and their
+// 4-value groups of the norm's weight and bias and of the row's scale and
+// shift go into registers before the block's sums (the first version's
+// three loops of dependent scalar loads took 15.5 us a launch at the 14B
+// head's C 5120, R 128; this one 3.3 us). OutT bf16: the bf16 stage input;
+// int8_t (the quant mode's stage_quant): the fp32 row quantized as
+// quantize_rows_vec_kernel does, its scale to row_scale[r], with the row
+// held in registers.
 constexpr int kLnVec = 5;
 
+template <typename OutT>
 __global__ void __launch_bounds__(256)
 ln_modulate_rows_kernel(const float* __restrict__ h, int C, const bf16* __restrict__ nw,
                         const bf16* __restrict__ nb, const bf16* __restrict__ scale,
                         int ld_scale, const bf16* __restrict__ shift, int ld_shift,
-                        bf16* __restrict__ out, float eps) {
+                        OutT* __restrict__ out, float* __restrict__ row_scale, float eps) {
   pdl_trigger();
   const int r = blockIdx.x, c4 = C / 4;
   const float4* hr = reinterpret_cast<const float4*>(h + (size_t)r * C);
@@ -385,18 +401,68 @@ ln_modulate_rows_kernel(const float* __restrict__ h, int C, const bf16* __restri
   block_sum2(s, ss);
   const float mean = s / C;
   const float rstd = rsqrtf(fmaxf(ss / C - mean * mean, 0.f) + eps);
-  uint2* o4 = reinterpret_cast<uint2*>(out + (size_t)r * C);
+  float amax = 0.f;
 #pragma unroll
   for (int q = 0; q < kLnVec; ++q) {
     const int i = threadIdx.x + q * 256;
     if (i >= c4) continue;
     const float4 w = unpack4(wv[q]), b = unpack4(bv[q]), a = unpack4(sv[q]), t = unpack4(tv[q]);
-    const float y0 = ((x[q].x - mean) * rstd * w.x + b.x) * (1.f + a.x) + t.x;
-    const float y1 = ((x[q].y - mean) * rstd * w.y + b.y) * (1.f + a.y) + t.y;
-    const float y2 = ((x[q].z - mean) * rstd * w.z + b.z) * (1.f + a.z) + t.z;
-    const float y3 = ((x[q].w - mean) * rstd * w.w + b.w) * (1.f + a.w) + t.w;
-    o4[i] = make_uint2(pack_bf16x2(y0, y1), pack_bf16x2(y2, y3));
+    x[q].x = ((x[q].x - mean) * rstd * w.x + b.x) * (1.f + a.x) + t.x;
+    x[q].y = ((x[q].y - mean) * rstd * w.y + b.y) * (1.f + a.y) + t.y;
+    x[q].z = ((x[q].z - mean) * rstd * w.z + b.z) * (1.f + a.z) + t.z;
+    x[q].w = ((x[q].w - mean) * rstd * w.w + b.w) * (1.f + a.w) + t.w;
+    amax = fmaxf(fmaxf(amax, fmaxf(fabsf(x[q].x), fabsf(x[q].y))),
+                 fmaxf(fabsf(x[q].z), fabsf(x[q].w)));
   }
+  if constexpr (sizeof(OutT) == 1) {
+    const float sc = row_quant_scale(block_max(amax));
+    uint32_t* o4 = reinterpret_cast<uint32_t*>(out + (size_t)r * C);
+#pragma unroll
+    for (int q = 0; q < kLnVec; ++q) {
+      const int i = threadIdx.x + q * 256;
+      if (i < c4) o4[i] = quant4(x[q], sc);
+    }
+    if (threadIdx.x == 0) row_scale[r] = sc;
+  } else {
+    uint2* o4 = reinterpret_cast<uint2*>(out + (size_t)r * C);
+#pragma unroll
+    for (int q = 0; q < kLnVec; ++q) {
+      const int i = threadIdx.x + q * 256;
+      if (i < c4) o4[i] = make_uint2(pack_bf16x2(x[q].x, x[q].y), pack_bf16x2(x[q].z, x[q].w));
+    }
+  }
+}
+
+// Per-row int8 quantization of fp32 rows [R, K] (K % 4 == 0, K <= 1024
+// kQuantVec), one block of 256 per row with the row held in registers (its
+// float4 loads issued together): the scale s = max(amax / 127, 1e-12) to
+// sx[r], q = clamp(rint(x / s), -127, 127) with a true division and round
+// half to even (quantize_rows and the JAX stage_quant, bit for bit). The
+// quant mode's window-attention output and SwiGLU output.
+__global__ void __launch_bounds__(256)
+quantize_rows_vec_kernel(const float* __restrict__ x, int K, int8_t* __restrict__ q,
+                         float* __restrict__ sx) {
+  pdl_trigger();
+  pdl_wait();
+  const int r = blockIdx.x, k4 = K / 4;
+  const float4* xr = reinterpret_cast<const float4*>(x + (size_t)r * K);
+  float4 v[kQuantVec];
+  float amax = 0.f;
+#pragma unroll
+  for (int j = 0; j < kQuantVec; ++j) {
+    const int i = threadIdx.x + j * 256;
+    v[j] = i < k4 ? xr[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+    amax = fmaxf(fmaxf(amax, fmaxf(fabsf(v[j].x), fabsf(v[j].y))),
+                 fmaxf(fabsf(v[j].z), fabsf(v[j].w)));
+  }
+  const float s = row_quant_scale(block_max(amax));
+  uint32_t* o4 = reinterpret_cast<uint32_t*>(q + (size_t)r * K);
+#pragma unroll
+  for (int j = 0; j < kQuantVec; ++j) {
+    const int i = threadIdx.x + j * 256;
+    if (i < k4) o4[i] = quant4(v[j], s);
+  }
+  if (threadIdx.x == 0) sx[r] = s;
 }
 
 template <typename T>
@@ -428,12 +494,11 @@ size_t window_attention_smem(int w, int hd) {
 // bf16 for the sampler's stage activations, float for the block kernel's qkv,
 // each as its TPU kernel keeps it. One CTA per (group of w rows, head); q is
 // scaled and stored as T; scores, softmax and accumulation in fp32; out
-// [R, C] OutT (bf16, or fp32 for the quantized sampler's stage input).
-// Dynamic shared memory: window_attention_smem<T>(w, hd).
-template <typename T, typename OutT = bf16>
+// [R, C] bf16. Dynamic shared memory: window_attention_smem<T>(w, hd).
+template <typename T>
 __global__ void __launch_bounds__(256)
 window_attention_kernel(const T* __restrict__ qkv, int C, int w, int hd,
-                        int n_head, float scale, OutT* __restrict__ out) {
+                        int n_head, float scale, bf16* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ldw = window_ld<T>(hd);
   T* qs = reinterpret_cast<T*>(smem);
@@ -493,7 +558,7 @@ window_attention_kernel(const T* __restrict__ qkv, int C, int w, int hd,
     const int i = idx / hd, d = idx % hd;
     float acc = 0.f;
     for (int j = 0; j < w; ++j) acc += ps[i * w + j] * to_f32(vs[j * ldw + d]);
-    out[(size_t)(row0 + i) * C + hh * hd + d] = from_f32<OutT>(acc);
+    out[(size_t)(row0 + i) * C + hh * hd + d] = __float2bfloat16(acc);
   }
 }
 
@@ -506,7 +571,8 @@ window_attention_kernel(const T* __restrict__ qkv, int C, int w, int hd,
 // over q's tile; thread (it, jt) = (tid / 8, tid % 8) runs the softmax of
 // rows it + 32 r (r < 2) over keys jt + 8 c (c < 8) (a row's scores on 8
 // neighbouring lanes), writes P back in place, and computes the output of
-// the same rows at columns 8 jt + e and 64 + 8 jt + e (e < 8).
+// the same rows at columns 8 jt + e and 64 + 8 jt + e (e < 8), bf16 (OutT
+// bf16) or fp32 (float: the quant mode's stage input, row-quantized after).
 // At the 14B head (C 5120, R 128) it takes 11.7 us a launch; the first
 // version (scalar 2-byte loads, one score or output per thread per pass)
 // took 74.5 us, the scores in fp32 FMAs from shared memory 16.8 (19.7 on
@@ -518,9 +584,10 @@ constexpr size_t kWinSmem = (size_t)3 * kWinMax * kWinLd * sizeof(bf16);
 static_assert(kWinMax * kWinPld * sizeof(float) <= kWinMax * kWinLd * sizeof(bf16),
               "P fits over q's tile");
 
+template <typename OutT>
 __global__ void __launch_bounds__(256)
 window_attention_rows_kernel(const bf16* __restrict__ qkv, int C, int w, int n_head,
-                             float scale, bf16* __restrict__ out) {
+                             float scale, OutT* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* const qs = reinterpret_cast<bf16*>(smem);
   bf16* const ks = qs + kWinMax * kWinLd;
@@ -636,9 +703,17 @@ window_attention_rows_kernel(const bf16* __restrict__ qkv, int C, int w, int n_h
   for (int r = 0; r < 2; ++r) {
     const int i = it + 32 * r;
     if (i >= w) continue;
-    bf16* dst = out + (size_t)(row0 + i) * C + hh * kWinHd + 8 * jt;
-    *reinterpret_cast<uint4*>(dst) = pack8(*reinterpret_cast<const float(*)[8]>(o[r]));
-    *reinterpret_cast<uint4*>(dst + 64) = pack8(*reinterpret_cast<const float(*)[8]>(o[r] + 8));
+    OutT* dst = out + (size_t)(row0 + i) * C + hh * kWinHd + 8 * jt;
+    if constexpr (sizeof(OutT) == 4) {
+      float4* d4 = reinterpret_cast<float4*>(dst);
+      d4[0] = make_float4(o[r][0], o[r][1], o[r][2], o[r][3]);
+      d4[1] = make_float4(o[r][4], o[r][5], o[r][6], o[r][7]);
+      d4[16] = make_float4(o[r][8], o[r][9], o[r][10], o[r][11]);
+      d4[17] = make_float4(o[r][12], o[r][13], o[r][14], o[r][15]);
+    } else {
+      *reinterpret_cast<uint4*>(dst) = pack8(*reinterpret_cast<const float(*)[8]>(o[r]));
+      *reinterpret_cast<uint4*>(dst + 64) = pack8(*reinterpret_cast<const float(*)[8]>(o[r] + 8));
+    }
   }
 }
 
@@ -718,12 +793,13 @@ cudaError_t head_block(const HeadBlockWeights& w, int l, float* h, const bf16* m
   constexpr int kGlu = ROUND ? kSwiGLURound : kSwiGLU;
   auto ln = [&](const bf16* nrm, const bf16* mm) {
     if constexpr (ROUND)
-      return go.stage(dim3(R), 256, 0, ln_modulate_kernel<float, false, bf16, true>,
+      return go.stage(dim3(R), 256, 0, ln_modulate_kernel<float, false, true>,
                       static_cast<const float*>(h), C, nrm, nrm + C, mm, ldm, mm + C, ldm, act,
                       eps);
     else
-      return go.stage(dim3(R), 256, 0, ln_modulate_rows_kernel, static_cast<const float*>(h),
-                      C, nrm, nrm + C, mm, ldm, mm + C, ldm, act, eps);
+      return go.stage(dim3(R), 256, 0, ln_modulate_rows_kernel<bf16>,
+                      static_cast<const float*>(h), C, nrm, nrm + C, mm, ldm, mm + C, ldm, act,
+                      nullptr, eps);
   };
   if (attention) {
     const int wtok = R / groups, hd = C / n_head;
@@ -740,8 +816,9 @@ cudaError_t head_block(const HeadBlockWeights& w, int l, float* h, const bf16* m
                             window_attention_kernel<bf16>, static_cast<const bf16*>(buf), C,
                             wtok, hd, n_head, scale, act));
     else  // hd 128, wtok <= 64 (the caller checks)
-      BD_CHECK_ERR(go.stage(dim3(groups * n_head), 256, kWinSmem, window_attention_rows_kernel,
-                            static_cast<const bf16*>(buf), C, wtok, n_head, scale, act));
+      BD_CHECK_ERR(go.stage(dim3(groups * n_head), 256, kWinSmem,
+                            window_attention_rows_kernel<bf16>, static_cast<const bf16*>(buf), C,
+                            wtok, n_head, scale, act));
     Epilogue o_ep{};
     o_ep.bias = w.bo + (size_t)l * C;
     o_ep.resid = h;

@@ -15,7 +15,7 @@
 // 2*M*N*K integer operations (22.8 GOP at M = 128, 11.5 us at 1,979
 // TOP/s); the seven products of one Qwen3-14B layer are 57 us of bytes and
 // 43 us of operations. In a decode step each layer's 165 MB of weight
-// comes cold from HBM. The first design (int8_gemm.cuh's mma.sync GEMM,
+// comes cold from HBM. The first design (an mma.sync m16n8k32 GEMM,
 // 64 x 64 output tiles) streamed each weight slice twice or three times,
 // re-read the activations once per 64 output columns (5x the weight's
 // bytes at M = 128), ran k_proj / v_proj on 32 blocks, and reached only
@@ -74,7 +74,7 @@
 #include <cuda.h>
 #include <cudaTypedefs.h>
 
-#include "int8_gemm.cuh"
+#include "head_blocks.cuh"
 
 // The shapes of one call, built once per shape by the host
 // (ops/int4.py::W4A8Shape, the same layout). The 128-row tiles from

@@ -39,6 +39,7 @@ _SIGNATURES = {
     "bd_fused_em_sample": ([_P, _P, _P, _I, _P, _P, _F] + [_P] * 17
                            + [_I] * 12 + [_F, _I] + [_P] * 7 + [_I, _P, _I, _P]),
     "bd_head_gemm": [_P] * 8,
+    "bd_head_gemm_s8": [_P] * 10,
     "bd_fused_diffnet_forward": [_P] * 32 + [_I] * 12 + [_P],
     "bd_fused_mlp_block": ([_P, _P, _I, _P, _I, _P, _I] + [_P] * 9 + [_I] * 3
                            + [_F, _P]),

@@ -29,8 +29,10 @@ per output row, wqkv [L, 3C, C] int8 or [L, 3C, C/2] packed (k, k + C/2),
 with f32 scales wqkv_s [L, 3C] (likewise wo, w1, w2); modcat_w is int8
 with modcat_w_s whatever the block format. Each stage's input is quantized
 per row to int8 once (``quantize_rows``) and each product runs s8 x s8 ->
-s32 with the scales applied to the sum. The mode reaches the sampler as an
-explicit ``quant`` argument, not from the stored shapes.
+s32 with the scales applied to the sum, on the head GEMM's integer kinds
+(:func:`head_gemm_s8`, with :func:`head_gemm_s8_split_plain` its plain
+twin, through which the plain quant sampler runs). The mode reaches the
+sampler as an explicit ``quant`` argument, not from the stored shapes.
 
 Residual precision (:func:`rounds_residual`): the JAX package routes its
 whole sampler by weight bytes, and the routes round differently. Kernels #3
@@ -67,7 +69,7 @@ import torch
 import torch.nn.functional as F
 
 from bitdance_tpu_torch.ops import _cuda
-from bitdance_tpu_torch.ops.int4 import int4_matmul_reference, quantize_linear_int4
+from bitdance_tpu_torch.ops.int4 import quantize_linear_int4, unpack_int4
 from bitdance_tpu_torch.ops.int8 import QTensor, int8_matmul, quantize_linear, quantize_rows
 
 _QUANT_MODES = (None, "int8", "int4")
@@ -166,33 +168,31 @@ def stack_diffnet_params(net, num_blocks: int,
     return out
 
 
-def _dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """a @ w.T with a cast to w's dtype, returned as float32. (In bf16 the
-    product is rounded to bf16 before the cast; the JAX dot keeps fp32.
-    Only em_precompute's products take it: ROADMAP C8.)"""
-    return torch.matmul(a.to(w.dtype), w.t()).float()
+def _dot_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ w.T with a cast to w's dtype and the sum kept in fp32, as the JAX
+    _dot (preferred_element_type f32): on the card a bf16 product is one
+    cuBLAS call that reads bf16 and writes fp32 (``torch.mm(...,
+    out_dtype=torch.float32)``; the operands upcast to fp32 would run on the
+    SIMT units), elsewhere :func:`_dot_acc`. em_precompute's products
+    (ROADMAP C8)."""
+    if a.is_cuda and w.dtype == torch.bfloat16:
+        return torch.mm(a.to(w.dtype), w.t(), out_dtype=torch.float32)
+    return _dot_acc(a, w)
 
 
-def _mmq(a: torch.Tensor, w: torch.Tensor, scale: torch.Tensor | None,
-         int4: bool = False) -> torch.Tensor:
-    """a @ w.T -> float32: the plain product of :func:`_dot` (scale None),
-    or W8A8 / W4A8:
-    a quantized per row from float32, the integer sum exact, then
-    acc * (sa * scale). int4: w is packed [out, in/2] and each nibble plane
-    contracts its half of a."""
-    if scale is None:
-        return _dot(a, w)
-    if int4:
-        return int4_matmul_reference(*quantize_rows(a.float()), w, scale)
-    return int8_matmul(a.float(), QTensor(w, scale))
-
-
-HEAD_GEMM_BK = 64                  # k of one ring stage of csrc/head_gemm.cuh
+HEAD_GEMM_BK = 64                  # k of one bf16 ring stage of csrc/head_gemm.cuh
 HEAD_GEMM_BN = 128                 # out-features of an output tile
 HEAD_GEMM_MAX_SPLITS = 8           # a product's splits form one thread block cluster
 # GemmMode in head_blocks.cuh: "bias" both routes; "gated" and "swiglu" the
 # round route's (#3/#4); "gated_f32" and "swiglu_f32" kernel #2's
 HEAD_GEMM_MODES = {"bias": 0, "gated_f32": 1, "swiglu_f32": 2, "gated": 9, "swiglu": 10}
+# the integer kinds (#2's quant modes): "bias" (qkv), "gated_f32" (wo, w2)
+# and "swiglu_q" (w1: fp32 silu(bf16 h1) * bf16 h2, the w2 quantization's
+# input)
+HEAD_GEMM_S8_MODES = {"bias": 0, "gated_f32": 1, "swiglu_q": 8}
+# logical k of one 128-byte ring stage per operand kind: 64 bf16, 128 int8,
+# 256 packed int4 (a byte holds k = j and k = K/2 + j)
+HEAD_GEMM_STAGE_K = {None: 64, "int8": 128, "int4": 256}
 
 
 class HeadGemmPlan(NamedTuple):
@@ -201,43 +201,61 @@ class HeadGemmPlan(NamedTuple):
     splits: int    # K split this many ways
 
 
-def head_gemm_plan(rows: int, n: int, k: int, sm_count: int = 132) -> HeadGemmPlan:
-    """Tile and split-K count of one head GEMM product [rows, k] x [n, k]^T.
+def head_gemm_stages(k: int, quant: str | None = None) -> int:
+    """Ring stages of 128 bytes over a weight row of k (logical) columns:
+    k / 64 in bf16, ceil(k / 128) in int8, ceil(k / 256) packed (a last
+    stage may be half: the kernel reads zeros past the row)."""
+    return -(-k // HEAD_GEMM_STAGE_K[quant])
+
+
+def head_gemm_plan(rows: int, n: int, k: int, sm_count: int = 132,
+                   quant: str | None = None) -> HeadGemmPlan:
+    """Tile and split-K count of one head GEMM product [rows, k] x [n, k]^T,
+    bf16 (quant None) or on the integer kinds ("int8", "int4": packed).
 
     bm is 64 up to 64 rows, else 128. When the output tiles leave SMs idle,
     K is split in a power of two of ways, at most 8 (the split blocks of a
     tile form one cluster), so that tiles x splits fill one wave of
     ``sm_count`` and no more, every split walking at least two ring stages
-    of 64 k (H-1x at 64 rows: w1 30 tiles x 4, w2 10 x 8; B-16x at 1024: qkv
-    and w1 144 tiles x 1, wo and w2 48 x 2; the 14B head at 128 rows: qkv
-    and w1 120 tiles x 1, wo and w2 40 x 2; at 256: qkv and w1 240 x 1, wo
-    and w2 80 x 1)."""
+    of 128 bytes (:func:`head_gemm_stages`) (H-1x at 64 rows: w1 30 tiles x
+    4, w2 10 x 8; B-16x at 1024: qkv and w1 144 tiles x 1, wo and w2 48 x 2;
+    the 14B head at 128 rows, bf16, int8 and int4 alike: qkv and w1 120
+    tiles x 1, wo and w2 40 x 2; at 256: qkv and w1 240 x 1, wo and w2 80 x
+    1). bf16 needs K % 64 == 0, the integer kinds K % 128 == 0."""
     bn = HEAD_GEMM_BN
-    if n % bn or k % HEAD_GEMM_BK or rows < 1:
+    if quant not in _QUANT_MODES:
+        raise ValueError(f"head_gemm_plan: quant {quant!r} not in {_QUANT_MODES}")
+    kq = HEAD_GEMM_BK if quant is None else 128
+    if n % bn or k % kq or rows < 1 or k < 1:
         raise ValueError(f"head_gemm_plan: [{rows}, {k}] x [{n}, {k}]^T needs N % "
-                         f"{bn} == 0 and K % {HEAD_GEMM_BK} == 0")
+                         f"{bn} == 0 and K % {kq} == 0")
     bm = 64 if rows <= 64 else 128
     tiles = -(-rows // bm) * (n // bn)
-    steps = k // HEAD_GEMM_BK
+    steps = head_gemm_stages(k, quant)
     cap = max(1, min(sm_count // tiles, steps // 2, HEAD_GEMM_MAX_SPLITS))
     return HeadGemmPlan(bm, bn, 1 << (cap.bit_length() - 1))
 
 
-def head_gemm_split_ranges(k: int, splits: int) -> list[tuple[int, int]]:
-    """The K range [k0, k1) of each split, as the kernel walks them: split s
-    takes ring stages [s T / S, (s + 1) T / S) of T = k / 64."""
-    steps = k // HEAD_GEMM_BK
-    return [(s * steps // splits * HEAD_GEMM_BK, (s + 1) * steps // splits * HEAD_GEMM_BK)
+def head_gemm_split_ranges(k: int, splits: int,
+                           quant: str | None = None) -> list[tuple[int, int]]:
+    """The range [c0, c1) of stored weight columns of each split, as the
+    kernel walks them: split s takes ring stages [s T / S, (s + 1) T / S) of
+    T = :func:`head_gemm_stages`. The columns are k's in bf16 and int8 and
+    packed bytes in int4, where column j holds k = j and k = k/2 + j."""
+    cols = k // 2 if quant == "int4" else k
+    width = HEAD_GEMM_BK if quant is None else 128
+    steps = head_gemm_stages(k, quant)
+    return [(min(cols, s * steps // splits * width), min(cols, (s + 1) * steps // splits * width))
             for s in range(splits)]
 
 
 def sampler_plans(rows: int, c: int, hidden: int, attention: bool,
-                  sm_count: int = 132) -> dict[str, HeadGemmPlan]:
+                  sm_count: int = 132, quant: str | None = None) -> dict[str, HeadGemmPlan]:
     """:func:`head_gemm_plan` of each block product of the whole sampler's
-    bf16 routes (#2 and #3/#4)."""
+    routes (#2 bf16, int8 or int4, and #3/#4)."""
     shapes = {"wqkv": (3 * c, c), "wo": (c, c), "w1": (2 * hidden, c), "w2": (c, hidden)}
     keys = ("wqkv", "wo", "w1", "w2") if attention else ("w1", "w2")
-    return {key: head_gemm_plan(rows, *shapes[key], sm_count) for key in keys}
+    return {key: head_gemm_plan(rows, *shapes[key], sm_count, quant) for key in keys}
 
 
 def _ln(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -363,6 +381,111 @@ def head_gemm(a: torch.Tensor, w: torch.Tensor, mode: str, bias: torch.Tensor, *
 head_gemm.launches = 0
 
 
+def _int_sums(aq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """Exact integer sums aq [M, K] int8 x wq [N, K]^T int8: int32 from
+    ``torch._int_mm`` on the card where it takes the shape (M > 16, K and N
+    multiples of 8), else float64 (exact: every sum stays below 2^53)."""
+    m, k = aq.shape
+    if aq.is_cuda and m > 16 and k % 8 == 0 and wq.shape[0] % 8 == 0:
+        return torch._int_mm(aq.contiguous(), wq.contiguous().t())
+    return aq.double() @ wq.double().t()
+
+
+def head_gemm_s8_split_plain(aq: torch.Tensor, sa: torch.Tensor, w: torch.Tensor,
+                             ws: torch.Tensor, mode: str, bias: torch.Tensor,
+                             gate: torch.Tensor | None = None,
+                             resid: torch.Tensor | None = None, splits: int = 1,
+                             quant: str = "int8") -> torch.Tensor:
+    """Plain version of :func:`head_gemm_s8`: the exact integer partials of
+    aq [R, K] int8 x w [N, K] int8 (quant "int4": packed [N, K/2], each
+    nibble plane against its half of aq) over the split ranges of
+    :func:`head_gemm_split_ranges`, summed in split order, then y =
+    float(acc) * (sa * ws) + bias, as the TPU kernel's stage_dot and
+    _net_forward compute it, then the epilogue: "bias" y in bias's dtype;
+    "gated_f32" resid + y * gate in fp32; "swiglu_q" (w rows [h1; h2])
+    silu(h1) * h2 in fp32 from h1, h2 rounded to bias's dtype."""
+    if mode not in HEAD_GEMM_S8_MODES or quant not in ("int8", "int4"):
+        raise ValueError(f"head_gemm_s8: mode {mode!r} / quant {quant!r}")
+    k = aq.shape[1]
+    kh = w.shape[1]
+    acc = None
+    for c0, c1 in head_gemm_split_ranges(k, splits, quant):
+        if quant == "int4":
+            lo, hi = unpack_int4(w[:, c0:c1])
+            part = _int_sums(aq[:, c0:c1], lo) + _int_sums(aq[:, kh + c0:kh + c1], hi)
+        else:
+            part = _int_sums(aq[:, c0:c1], w[:, c0:c1])
+        acc = part if acc is None else acc + part
+    y = acc.float() * (sa.float()[:, None] * ws.float()[None, :]) + bias.float()
+    if mode == "bias":
+        return y.to(bias.dtype)
+    if mode == "gated_f32":
+        return _gated_f32(resid.float(), y, gate)
+    return _swiglu_f32(y.to(bias.dtype))
+
+
+def head_gemm_s8(aq: torch.Tensor, sa: torch.Tensor, w: torch.Tensor, ws: torch.Tensor,
+                 mode: str, bias: torch.Tensor, *, gate: torch.Tensor | None = None,
+                 resid: torch.Tensor | None = None, plan: HeadGemmPlan | None = None,
+                 quant: str = "int8") -> torch.Tensor:
+    """One integer product of the sampler's quant modes on the head GEMM
+    (``csrc/head_gemm.cuh``, kinds kOpS8 / kOpS4): aq [R, K] int8 rows with
+    scales sa [R] fp32 (:func:`quantize_rows`), w [N, K] int8 or, quant
+    "int4", packed [N, K/2] with column scales ws [N] fp32, bias [N] bf16;
+    modes :data:`HEAD_GEMM_S8_MODES` ("swiglu_q": w rows [h1; h2], fp32 out
+    [R, N / 2]; "gated_f32": gate [R, N] bf16, resid [R, N] fp32 updated in
+    place and returned). ``plan`` defaults to :func:`head_gemm_plan` at the
+    card's SM count. CPU tensors take :func:`head_gemm_s8_split_plain` with
+    the plan's splits; CUDA tensors launch the kernel or raise."""
+    if mode not in HEAD_GEMM_S8_MODES or quant not in ("int8", "int4"):
+        raise ValueError(f"head_gemm_s8: mode {mode!r} not in {sorted(HEAD_GEMM_S8_MODES)} "
+                         f"or quant {quant!r} not int8 / int4")
+    rows, k = aq.shape
+    n = w.shape[0]
+    cuda = aq.device.type == "cuda"
+    sms = torch.cuda.get_device_properties(aq.device).multi_processor_count if cuda else 132
+    plan = plan or head_gemm_plan(rows, n, k, sms, quant)
+    gated = mode == "gated_f32"
+    if aq.device.type == "cpu":
+        out = head_gemm_s8_split_plain(aq, sa, w, ws, mode, bias, gate, resid, plan.splits,
+                                       quant)
+        return resid.copy_(out) if gated else out
+    if not cuda:
+        raise RuntimeError(f"head_gemm_s8: no kernel for {aq.device}")
+    wk = k // 2 if quant == "int4" else k
+    for t, want, dt in ((aq, (rows, k), torch.int8), (w, (n, wk), torch.int8),
+                        (sa, (rows,), torch.float32), (ws, (n,), torch.float32),
+                        (bias, (n,), torch.bfloat16)):
+        if t.dtype != dt or tuple(t.shape) != want or not t.is_contiguous():
+            raise ValueError(f"head_gemm_s8: want contiguous {dt} {want}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if gated and (resid is None or resid.dtype != torch.float32
+                  or tuple(resid.shape) != (rows, n) or not resid.is_contiguous()
+                  or gate is None or gate.dtype != torch.bfloat16
+                  or tuple(gate.shape) != (rows, n) or gate.stride(1) != 1):
+        raise ValueError("head_gemm_s8: 'gated_f32' needs resid fp32 [R, N] and gate bf16 "
+                         "[R, N]")
+    dev = aq.device
+    if gated:
+        out = resid
+    elif mode == "swiglu_q":
+        out = torch.empty((rows, n // 2), dtype=torch.float32, device=dev)
+    else:
+        out = torch.empty((rows, n), dtype=torch.bfloat16, device=dev)
+    shape = torch.tensor([rows, n, k, gate.stride(0) if gated else 0, HEAD_GEMM_S8_MODES[mode],
+                          *plan, int(quant == "int4")], dtype=torch.int32)
+    code = _cuda.load().bd_head_gemm_s8(
+        aq.data_ptr(), sa.data_ptr(), w.data_ptr(), ws.data_ptr(), bias.data_ptr(),
+        None if gated else out.data_ptr(), out.data_ptr() if gated else None,
+        gate.data_ptr() if gated else None, shape.data_ptr(), _cuda.stream_ptr())
+    _cuda.check(code, "head_gemm_s8")
+    head_gemm_s8.launches += 1
+    return out
+
+
+head_gemm_s8.launches = 0
+
+
 _RESIDENT_BYTES = 48 * 1024 * 1024
 _STREAM_BLOCK_BYTES = 60 * 1024 * 1024
 
@@ -447,18 +570,24 @@ def em_precompute(stacked: dict, c_emb: torch.Tensor, t_all: torch.Tensor,
     """adaLN + final-layer mods of EVERY sampler timestep in one product.
 
     c_emb: [R, C] fp32 (cond_embed applied; rows [cond; uncond]); t_all [S]
-    (any device). Returns allmods [S, R, A*6*C + 2C] in out_dtype."""
+    (any device). Returns allmods [S, R, A*6*C + 2C] in out_dtype. Each
+    product keeps its fp32 sum before the fp32 bias, as the JAX
+    em_precompute (:func:`_dot_f32`; ROADMAP C8)."""
     from bitdance_tpu_torch.models.diff_head import timestep_embedding
 
     t_all = t_all.to(device=c_emb.device, dtype=torch.float32)
     tf = timestep_embedding(t_all, t_freq_size)
-    te = _dot(tf, stacked["t_w0"]) + stacked["t_b0"]
-    te = _dot(F.silu(te), stacked["t_w2"]) + stacked["t_b2"]
+    te = _dot_f32(tf, stacked["t_w0"]) + stacked["t_b0"]
+    te = _dot_f32(F.silu(te), stacked["t_w2"]) + stacked["t_b2"]
     y = F.silu(te[:, None, :] + c_emb[None])                # [S, R, C]
     s_dim, r_dim, c_dim = y.shape
-    # W8A8 on a quantized stack (plain torch: torch._int_mm on the card)
-    allmods = _mmq(y.reshape(s_dim * r_dim, c_dim), stacked["modcat_w"],
-                   stacked.get("modcat_w_s")) + stacked["modcat_b"]
+    y = y.reshape(s_dim * r_dim, c_dim)
+    w = stacked["modcat_w"]
+    if "modcat_w_s" in stacked:   # W8A8 (plain torch: torch._int_mm on the card)
+        allmods = int8_matmul(y, QTensor(w, stacked["modcat_w_s"]))
+    else:
+        allmods = _dot_f32(y, w)
+    allmods = allmods + stacked["modcat_b"]
     return allmods.to(out_dtype).reshape(s_dim, r_dim, -1)
 
 
@@ -515,9 +644,11 @@ def _net_forward(stacked: dict, x: torch.Tensor, mods_row: torch.Tensor, *,
     by splits as the head GEMM sums them). With quant ("int8" / "int4",
     kernel #2's stage_quant and stage_dot) each stage's fp32 input (LN +
     modulate, the attention output, silu(h1) * h2) is row-quantized as it
-    is, without the bf16 rounding, and qkv and h12 are still stored in the
-    weights' dtype. round_residual=True: the blocks of kernels #3 and #4
-    (:func:`_block_body`, the products split by splits)."""
+    is, without the bf16 rounding, each product runs on the integer twin
+    :func:`head_gemm_s8_split_plain` (its K splits by splits), and qkv and
+    h12 are still stored in the weights' dtype. round_residual=True: the
+    blocks of kernels #3 and #4 (:func:`_block_body`, the products split by
+    splits)."""
     if round_residual:
         if quant:
             raise ValueError("_net_forward: a quantized stack keeps kernel #2's "
@@ -532,17 +663,27 @@ def _net_forward(stacked: dict, x: torch.Tensor, mods_row: torch.Tensor, *,
             eps=eps, splits=splits)
     elem = stacked["n2"].dtype
     c_dim = stacked["n2"].shape[-1]
-    hidden = stacked["b1"].shape[1] // 2
     n_mods = 6 if attention else 3
-    int4 = quant == "int4"
 
     def stage(a):
         return a if quant else a.to(elem)
 
-    def prod(a, key, l):
+    def product(a, key, l, mode, bkey, **kw):
+        """Block product ``key`` of block l with its epilogue: "bias" (qkv
+        in elem), "gated_f32" (the new residual) or "swiglu" (fp32 silu(h1)
+        * h2 from h1, h2 in elem)."""
+        bias, sp = stacked[bkey][l], (splits or {}).get(key, 1)
         if quant:
-            return _mmq(a, stacked[key][l], stacked[key + "_s"][l], int4)
-        return _dot_acc_split(a, stacked[key][l], (splits or {}).get(key, 1))
+            aq, sa = quantize_rows(a.float())
+            return head_gemm_s8_split_plain(
+                aq, sa, stacked[key][l], stacked[key + "_s"][l],
+                "swiglu_q" if mode == "swiglu" else mode, bias, splits=sp, quant=quant, **kw)
+        y = _dot_acc_split(a, stacked[key][l], sp) + bias.float()
+        if mode == "bias":
+            return y.to(elem)
+        if mode == "gated_f32":
+            return _gated_f32(kw["resid"], y, kw["gate"])
+        return _swiglu_f32(y.to(elem))
 
     def lnmod(h, nrm, scale, shift):
         ln = _ln(h, eps) * nrm[0].float() + nrm[1].float()
@@ -556,17 +697,13 @@ def _net_forward(stacked: dict, x: torch.Tensor, mods_row: torch.Tensor, *,
         sl = lambda j: m[:, j * c_dim:(j + 1) * c_dim]   # noqa: E731
         mlp = 0
         if attention:
-            a = lnmod(h, stacked["n1"][l], sl(0), sl(1))
-            qkv = (prod(a, "wqkv", l) + stacked["bqkv"][l].float()).to(elem)
+            qkv = product(lnmod(h, stacked["n1"][l], sl(0), sl(1)), "wqkv", l, "bias", "bqkv")
             att = stage(_attn_from_qkv(qkv, n_head, groups, c_dim))
-            proj = prod(att, "wo", l) + stacked["bo"][l].float()
-            h = _gated_f32(h, proj, sl(2))
+            h = product(att, "wo", l, "gated_f32", "bo", gate=sl(2), resid=h)
             mlp = 3
         a = lnmod(h, stacked["n2"][l], sl(mlp), sl(mlp + 1))
-        h12 = (prod(a, "w1", l) + stacked["b1"][l].float()).to(elem)
-        glu = stage(_swiglu_f32(h12))
-        y = prod(glu, "w2", l) + stacked["b2"][l].float()
-        h = _gated_f32(h, y, sl(mlp + 2))
+        glu = stage(product(a, "w1", l, "swiglu", "b1"))
+        h = product(glu, "w2", l, "gated_f32", "b2", gate=sl(mlp + 2), resid=h)
     fm = mods_row[:, -2 * c_dim:].float()
     z = _ln(h, eps) * (1.0 + fm[:, :c_dim]) + fm[:, c_dim:]
     out = _dot_acc(z, stacked["f_out_w"]) + stacked["f_out_b"]
@@ -670,7 +807,9 @@ def fused_em_sample(stacked: dict, x0: torch.Tensor, noise: torch.Tensor,
     stack runs its block products on the head GEMM on both routes
     (:func:`sampler_plans`; a C or H it cannot tile raises), every launch of
     its chain programmatic (``_pdl=False`` only to measure what that saves).
-    CPU tensors take
+    A quantized stack runs them on the head GEMM's integer kinds
+    (:func:`sampler_plans` with the mode), its GEMMs programmatic and its
+    stage kernels plain. CPU tensors take
     :func:`fused_em_sample_reference`; CUDA tensors run
     ``csrc/fused_head.cu`` (bf16 weights, norms, biases and mods; int8 block
     matrices with f32 scales when quantized) or raise.
@@ -755,27 +894,29 @@ def fused_em_sample(stacked: dict, x0: torch.Tensor, noise: torch.Tensor,
                  torch.empty((rows,), dtype=torch.float32, device=dev))
         q_ptrs = [ptr(k + "_s") for k in ("wqkv", "wo", "w1", "w2")] \
             + [t.data_ptr() for t in qbufs]
-    # a bf16 stack's products on the head GEMM: its plans (qkv, wo, w1, w2;
-    # unused ones zero); a shape it cannot take raises
+    # the products on the head GEMM (bf16, or its integer kinds): their
+    # plans (qkv, wo, w1, w2; unused ones zero); a shape it cannot take raises
     gemm_plan = torch.zeros(12, dtype=torch.int32)
-    if mode is None:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        try:
-            plans = sampler_plans(rows, c_dim, hidden, attention, sms)
-        except ValueError as e:
-            raise ValueError(f"fused_em_sample: C = {c_dim}, H = {hidden} do not fit "
-                             f"the head GEMM ({e})") from None
-        if c_dim > 5120:
-            raise ValueError(f"fused_em_sample: C = {c_dim} > 5120, the final layer's "
-                             "limit")
-        if attention and not round_residual and (c_dim // max(n_head, 1) != 128
-                                                 or rows // groups > 64):
-            raise ValueError(f"fused_em_sample: kernel #2's window attention takes a "
-                             f"head dim of 128 and windows of up to 64 rows, not "
-                             f"{c_dim // max(n_head, 1)} and {rows // groups}")
-        for i, key in enumerate(("wqkv", "wo", "w1", "w2")):
-            if key in plans:
-                gemm_plan[3 * i:3 * i + 3] = torch.tensor(plans[key], dtype=torch.int32)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    try:
+        plans = sampler_plans(rows, c_dim, hidden, attention, sms, mode)
+    except ValueError as e:
+        raise ValueError(f"fused_em_sample: C = {c_dim}, H = {hidden} do not fit "
+                         f"the head GEMM ({e})") from None
+    if c_dim > 5120:
+        raise ValueError(f"fused_em_sample: C = {c_dim} > 5120, the final layer's "
+                         "limit")
+    if attention and not round_residual and (c_dim // max(n_head, 1) != 128
+                                             or rows // groups > 64):
+        raise ValueError(f"fused_em_sample: kernel #2's window attention takes a "
+                         f"head dim of 128 and windows of up to 64 rows, not "
+                         f"{c_dim // max(n_head, 1)} and {rows // groups}")
+    if mode is not None and max(c_dim, hidden) > 8192:
+        raise ValueError(f"fused_em_sample: the row quantization takes rows of up to "
+                         f"8192 values, not C = {c_dim}, H = {hidden}")
+    for i, key in enumerate(("wqkv", "wo", "w1", "w2")):
+        if key in plans:
+            gemm_plan[3 * i:3 * i + 3] = torch.tensor(plans[key], dtype=torch.int32)
     lib = _cuda.load()
     code = lib.bd_fused_em_sample(
         x.data_ptr(), noise.data_ptr(), allmods.data_ptr(), allmods.shape[2],

@@ -33,7 +33,13 @@ Phases, run in this order, one line each, any failure exits non-zero:
                     cold, a split sweep at M 128; the fused-KV decode on bf16
                     and int8 buffers with decode_attention's checks and times,
                     the sampler's W8A8 and W4A8 modes
-                    at the 14B head (4 steps, then sign agreement over 50)
+                    at the 14B head (4 steps, then sign agreement over 50,
+                    times, launches a net call against their formula, one
+                    net call by stage), each of their four integer head
+                    GEMM products bit-equal to its plain twin at the planned,
+                    1 and the most splits with off-by-one checks, times cold
+                    beside torch._int_mm, and #16's swap-AB GEMM on the int4
+                    wo product
   e2e_quant         the bundle quantized layer by layer: the int8 configuration
                     (W8A8 Qwen3, W8A8 head, int8 KV) on the first 512 px
                     request, freed; then the int4 flagship (packed-int4 W4A8
@@ -265,6 +271,16 @@ W4A8_COLD_LAYERS = 6
 # kernel keeps qkv and h1/h2 in bf16 as the bf16 sampler does: the bf16
 # sampler's bound; over 50 steps the bf16 sampler's sign-agreement floor.
 QUANT_SAMPLER_MAX_REL_ERR = 5e-2
+# the quant modes' four integer head GEMM products (csrc/head_gemm.cuh)
+# against their plain twin: the same int8 rows and weights, exact int32
+# sums, the dequantization and epilogue in the same fp32 steps, so bit for
+# bit at every split count; an activation row, an output column (a weight
+# row) and a K stage off by one must each move the twin by at least
+# QUANT_GEMM_MOVE of its max |value| (they move it by O(1))
+QUANT_GEMM_MOVE = 1e-2
+# block product -> (integer head GEMM mode, its bias)
+QUANT_GEMM_PRODUCTS = {"wqkv": ("bias", "bqkv"), "wo": ("gated_f32", "bo"),
+                       "w1": ("swiglu_q", "b1"), "w2": ("gated_f32", "b2")}
 # sparse flash attention (#10-#12) against its plain version on a packed
 # 8,192-token case and at the 14B step's 37,376 tokens (40 / 8 heads, head
 # dim 128): the dense kernels' bounds (the sparse kernels are the same
@@ -302,8 +318,9 @@ H100_HBM_BYTES_PER_S = 3.35e12
 PROFILE_GROUPS = (
     ("row quantization #16", ("quantize_image",)),
     ("W4A8 GEMM #16", ("w4a8",)),
-    ("integer products (#2's quant mode, int8 LLM)", ("gemm_s8", "quantize_rows", "i16832gemm")),
-    ("head GEMM (#2, #3/#4)", ("head_gemm",)),
+    ("row quantization (#2's quant mode)", ("quantize_rows",)),
+    ("int8 LLM products (torch._int_mm)", ("i16832gemm",)),
+    ("head GEMM (#2 bf16 / int8 / int4, #3/#4)", ("head_gemm",)),
     ("products", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
     ("flash attention", ("flash_",)),
     ("decode attention", ("decode_attention", "split_decode", "split_combine")),
@@ -644,6 +661,7 @@ def phase_sampler(bundle) -> dict:
     import torch
 
     from bitdance_tpu_torch.ops.fused_head import (
+        em_precompute,
         fused_em_sample,
         fused_em_sample_reference,
     )
@@ -678,6 +696,12 @@ def phase_sampler(bundle) -> dict:
 
         products = _check_head_gemm("t2i", stacked, ("wqkv", "wo", "w1", "w2"), 128, dev, 18,
                                     T2I_GEMM_PRODUCTS, "sampler")
+        c_emb = torch.randn((128, head.ch_latent), device=dev)
+        t_all = torch.linspace(0.0, 0.95, 51)
+        pre_ms = cuda_time_ms(lambda: em_precompute(stacked, c_emb, t_all), 5)
+        log("sampler", f"em_precompute, one AR step (51 timesteps x 128 rows, the modulation "
+            f"[6528, 5120] x [{stacked['modcat_w'].shape[0]}, 5120] summed in fp32 before its "
+            f"bias, bf16 out): {pre_ms:.3f} ms")
 
         x0, noise, mods, t_all, dt_all = _head_inputs(stacked, head, 50, 2, dev)
         run_k = lambda: fused_em_sample(stacked, x0, noise, mods, t_all,  # noqa: E731
@@ -713,19 +737,22 @@ def phase_sampler(bundle) -> dict:
             raise SystemExit(f"sampler: {per_net} launches per net call, want {want_net}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": pms, **bd,
             "library_ms": None, "sign_agreement_50": agree, **times,
-            "launches_per_net_call": per_net, "products": products}
+            "launches_per_net_call": per_net, "products": products,
+            "em_precompute_ms": pre_ms}
 
 
-def sampler_net_launches(num_blocks: int, attention: bool) -> int:
-    """Kernel launches of one net call of the whole sampler's bf16 routes
+def sampler_net_launches(num_blocks: int, attention: bool, quant: str | None = None) -> int:
+    """Kernel launches of one net call of the whole sampler
     (csrc/fused_head.cu): the input projection, 7 per TransEncoder block
     (LN, qkv, window attention, wo, LN, w1, w2) or 3 per MlpEncoder block,
-    the final layer."""
-    return 2 + (7 if attention else 3) * num_blocks
+    the final layer; a quant mode's TransEncoder block takes 9 (its LN
+    writes the int8 rows itself; the attention and SwiGLU outputs take one
+    row quantization each)."""
+    return 2 + (9 if quant else 7 if attention else 3) * num_blocks
 
 
 # kernel-name substrings -> the stages of one whole-sampler net call
-NET_CALL_STAGES = (("products", ("head_gemm", "gemm_bf16", "gemm_s8", "quantize_rows")),
+NET_CALL_STAGES = (("products", ("head_gemm",)), ("row_quantization", ("quantize_rows",)),
                    ("ln_modulate", ("ln_modulate",)),
                    ("window_attention", ("window_attention",)),
                    ("final_layer", ("final_em",)), ("proj_in", ("proj_in",)))
@@ -1090,10 +1117,147 @@ def _check_decode_fusedkv(dev) -> dict:
     return _check_decode("int8", 12, "quant_kernels")
 
 
+def _quant_gemm_operands(stacked, key, rows, quant, g, dev):
+    """One integer block product at ``rows``: its logical K, int8 rows of x ~
+    N(0, 1) with their scales (quantize_rows), and for "gated_f32" a
+    residual ~ N(0, 1) and a gate ~ N(0, 0.25) whose rows lie apart as the
+    sampler's mods do."""
+    import torch
+
+    from bitdance_tpu_torch.ops.int8 import quantize_rows
+
+    n, kw_ = stacked[key].shape[1:]
+    k = kw_ * (2 if quant == "int4" else 1)
+    aq, sa = quantize_rows(torch.randn((rows, k), generator=g, device=dev))
+    kw = {}
+    if QUANT_GEMM_PRODUCTS[key][0] == "gated_f32":
+        kw["resid"] = torch.randn((rows, n), generator=g, device=dev)
+        kw["gate"] = (0.5 * torch.randn((rows, 3 * n), generator=g, device=dev)
+                      ).bfloat16()[:, n:2 * n]
+    return k, aq, sa, kw
+
+
+def quant_gemm_walk(stacked, key, aq, sa, kw, plan, quant):
+    """The integer product over every block's weights in turn (cold L2: the
+    quantized stack is larger than the L2): a callable."""
+    from bitdance_tpu_torch.ops.fused_head import head_gemm_s8
+
+    mode, bkey = QUANT_GEMM_PRODUCTS[key]
+    w, ws, b = stacked[key], stacked[key + "_s"], stacked[bkey]
+    return lambda: [head_gemm_s8(aq, sa, w[l], ws[l], mode, b[l], plan=plan, quant=quant, **kw)
+                    for l in range(w.shape[0])]
+
+
+def int_mm_walk(stacked, key, aq, quant):
+    """torch._int_mm at the same shape over the same walk, on int8 weights
+    (int4: the unpacked planes, twice the bytes, as #16 is timed)."""
+    import torch
+
+    from bitdance_tpu_torch.ops.int4 import unpack_int4
+
+    w = stacked[key]
+    w8 = [torch.cat(unpack_int4(w[l]), dim=1) if quant == "int4" else w[l]
+          for l in range(w.shape[0])]
+    return lambda: [torch._int_mm(aq, m.t()) for m in w8]
+
+
+def quant_gemm_bound(aq, sa, w, ws, mode, kw) -> dict:
+    """One integer product: rows, scales, weights and bias read, the output
+    written ("gated_f32" reads the gate and reads and writes the residual),
+    2 R N K integer operations at the int8 peak."""
+    rows, k = aq.shape
+    n = w.shape[0]
+    out = rows * n * 2 if mode == "bias" else rows * (n // 2) * 4
+    extra = (nbytes(kw["gate"]) + 2 * nbytes(kw["resid"])) if mode == "gated_f32" else out
+    return roofline(nbytes(aq, sa, w, ws) + 2 * n + extra, 0.0, 2.0 * rows * n * k)
+
+
+def _check_quant_gemm(mode, stacked, rows, dev, seed) -> dict:
+    """Each of the four integer head GEMM products of block 0 at ``rows``
+    against its plain twin: bit-equal at the planned, 1 and the most splits
+    (up to 8, a power of two), two launches bit-equal, and an activation row
+    (with its scale), an output column (with its scale) and a K stage of
+    128 columns off by one each moving the twin by >= QUANT_GEMM_MOVE. Then
+    eager and device-only ms a product over every block's weights in turn
+    (cold L2), torch._int_mm on the same walk, the bound; for int4's wo also
+    #16's swap-AB register-A GEMM (csrc/w4a8.cu, launched alone on the same
+    rows) on the same walk."""
+    import torch
+
+    from bitdance_tpu_torch.ops import int4 as q4
+    from bitdance_tpu_torch.ops.fused_head import (
+        HEAD_GEMM_MAX_SPLITS,
+        head_gemm_plan,
+        head_gemm_s8,
+        head_gemm_s8_split_plain,
+        head_gemm_stages,
+    )
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for key, (gmode, bkey) in QUANT_GEMM_PRODUCTS.items():
+        w, ws, bias = stacked[key][0], stacked[key + "_s"][0], stacked[bkey][0]
+        n = w.shape[0]
+        k, aq, sa, kw = _quant_gemm_operands(stacked, key, rows, mode, g, dev)
+        plan = head_gemm_plan(rows, n, k, sms, mode)
+        top = min(HEAD_GEMM_MAX_SPLITS, head_gemm_stages(k, mode))
+        counts = sorted({plan.splits, 1, 1 << (top.bit_length() - 1)})
+
+        def run(splits):   # the gated residual is updated in place: a fresh copy
+            fresh = {q: v.clone() if q == "resid" else v for q, v in kw.items()}
+            return head_gemm_s8(aq, sa, w, ws, gmode, bias, plan=plan._replace(splits=splits),
+                                quant=mode, **fresh)
+
+        def twin(aq=aq, sa=sa, w=w, ws=ws, splits=plan.splits):
+            return head_gemm_s8_split_plain(aq, sa, w, ws, gmode, bias, splits=splits,
+                                            quant=mode, **kw)
+
+        want = twin()
+        equal = {c: torch.equal(run(c), want) for c in counts}
+        same = torch.equal(run(plan.splits), run(plan.splits))
+        moved = {"row": _errors(twin(aq=aq.roll(1, 0), sa=sa.roll(1, 0)), want)[1],
+                 "column": _errors(twin(w=w.roll(1, 0), ws=ws.roll(1, 0)), want)[1],
+                 "k_stage": _errors(twin(aq=aq.roll(128, 1)), want)[1]}
+        blocks = stacked[key].shape[0]
+        walk = quant_gemm_walk(stacked, key, aq, sa, kw, plan, mode)
+        lib = int_mm_walk(stacked, key, aq, mode)
+        rec = {"mode": gmode, "splits": plan.splits, "bit_equal": equal,
+               "ms": cuda_time_ms(walk, 10) / blocks,
+               "device_ms": cuda_graph_time_ms(walk, calls=4, reps=3) / blocks,
+               "library_ms": cuda_time_ms(lib, 10) / blocks,
+               "library_device_ms": cuda_graph_time_ms(lib, calls=4, reps=3) / blocks,
+               **quant_gemm_bound(aq, sa, w, ws, gmode, kw)}
+        del lib
+        if mode == "int4" and key == "wo":
+            x = torch.randn((rows, k), generator=g, device=dev).bfloat16()
+            xr = q4.w4a8_quantize(x)
+            wts = [q4.Q4Tensor(stacked[key][l], stacked[key + "_s"][l]) for l in range(blocks)]
+            rec["swap_ab_device_ms"] = cuda_graph_time_ms(
+                lambda: [q4.int4_matmul(x, q, rows=xr) for q in wts], calls=4, reps=3) / blocks
+        log("quant_kernels", f"head_gemm_s8 {mode} {key} ({gmode}) R={rows} [{n}, {k}], plan "
+            f"bm {plan.bm} bn {plan.bn} x {plan.splits} split(s): bit-equal to the twin at "
+            + ", ".join(f"{c} split(s) {v}" for c, v in equal.items())
+            + "; off by one: " + ", ".join(f"{q} {v:.3e}" for q, v in moved.items())
+            + f" (>= {QUANT_GEMM_MOVE:g}); 2 launches bit-equal {same}; cold L2 over {blocks} "
+            f"blocks: {rec['ms']:.4f} ms eager, {rec['device_ms']:.4f} device-only; "
+            f"torch._int_mm {rec['library_ms']:.4f} / {rec['library_device_ms']:.4f}; bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})"
+            + (f"; #16's swap-AB GEMM on the same walk {rec['swap_ab_device_ms']:.4f} "
+               "device-only" if "swap_ab_device_ms" in rec else ""))
+        if not all(equal.values()) or not same or min(moved.values()) < QUANT_GEMM_MOVE:
+            raise SystemExit(f"head_gemm_s8 {mode} {key}: bit-equal {equal}, again {same}, "
+                             f"off by one {moved}")
+        out[key] = rec
+    return out
+
+
 def _check_quant_sampler(bundle, mode, dev) -> dict:
     """K3: the sampler's W8A8 / W4A8 mode at the 14B head, stacks quantized
     from the bundle's bf16 head: 4 steps at R = 128 against the plain quant
-    sampler, then 50 steps (sign agreement, times, bound)."""
+    sampler, then 50 steps (sign agreement, eager and device-only times with
+    and without PDL, the bound, launches a net call, one net call by stage),
+    then its four integer products (_check_quant_gemm)."""
     import torch
 
     from bitdance_tpu_torch.ops.fused_head import (
@@ -1123,19 +1287,36 @@ def _check_quant_sampler(bundle, mode, dev) -> dict:
     agree = (torch.sign(xk) == torch.sign(xp)).float().mean().item()
     ms = cuda_time_ms(run_k, 3, warmup=1)
     pms = cuda_time_ms(run_p, 1, warmup=1)
+    times = sampler_times(lambda pdl: fused_em_sample(stacked, x0, noise, mods, t_all,
+                                                      dt_all, cfg, _pdl=pdl, **kw))
+    per_net = _sampler_launches(lambda s: fused_em_sample(
+        stacked, x0, noise[:s], mods[:s + 1], t_all, dt_all, cfg, **kw))
+    want_net = sampler_net_launches(kw["num_blocks"], True, mode)
+    stages = net_call_profile(lambda s: fused_em_sample(
+        stacked, x0, noise[:s], mods[:s + 1], t_all, dt_all, cfg, _pdl=False, **kw))
     bd = sampler_bound(stacked, x0, noise, mods, attention=True, groups=2,
                        window=head.parallel_num, quant=mode)
     wbytes = nbytes(*[stacked[k] for k in ("wqkv", "wo", "w1", "w2")])
+    calls = mods.shape[0]
     log("quant_kernels", f"fused_em_sample {mode} (block weights {wbytes / 1e9:.3f} "
         f"GB): 4 steps max abs err {err:.3e}, rel {rel:.3e} (bound "
         f"{QUANT_SAMPLER_MAX_REL_ERR}); 50 steps: kernel {ms:.2f} ms "
-        f"({ms / 51:.3f} per net call), plain {pms:.2f} ms, bound "
-        f"{bd['bound_ms']:.3f} ms ({bd['bound_by']}); +-1 agreement {agree:.4f} "
-        f"(floor {SAMPLER_SIGN_AGREEMENT_FLOOR})")
+        f"({ms / calls:.4f} per net call; "
+        + ", ".join(f"{q} {v / calls:.4f}" for q, v in times.items())
+        + f"), plain {pms:.2f} ms, bound {bd['bound_ms']:.3f} ms ({bd['bound_by']}; "
+        f"{bd['bound_ms'] / calls:.4f} per net call); +-1 agreement {agree:.4f} (floor "
+        f"{SAMPLER_SIGN_AGREEMENT_FLOOR}); {per_net:g} launches per net call (captured; "
+        f"formula {want_net}); one net call by kernel (profiled, us): "
+        + ", ".join(f"{q} {v:.1f}" for q, v in stages.items()))
     if (not torch.isfinite(xk).all() or rel > QUANT_SAMPLER_MAX_REL_ERR
             or agree < SAMPLER_SIGN_AGREEMENT_FLOOR):
         raise SystemExit(f"fused_em_sample {mode}: rel {rel}, agreement {agree}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, **bd, "library_ms": None}
+    if per_net != want_net:
+        raise SystemExit(f"fused_em_sample {mode}: {per_net} launches per net call, want "
+                         f"{want_net}")
+    products = _check_quant_gemm(mode, stacked, 128, dev, 23)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, **bd, "library_ms": None,
+            **times, "launches_per_net_call": per_net, "products": products}
 
 
 def phase_quant_kernels(bundle) -> dict:
@@ -1201,13 +1382,15 @@ def _quant_request(pipe, prompt, px, seed, bf16_tok, card, tag) -> dict:
           and all(got[k] == v for k, v in want.items()))
     if not ok:
         raise SystemExit(f"e2e_quant {tag} {px}px request failed its checks")
-    return {"tokens": tok, "launches": {k: got[k] for k in want}, "s": dt}
+    return {"tokens": tok, "launches": {k: got[k] for k in want}, "s": dt, "px": px,
+            "timing": timing}
 
 
 def phase_e2e_quant(bundle, card: str, bf16_tokens: list) -> dict:
     """The int8 configuration from a module-tree copy of the bf16 bundle
     (the bf16 weights stay), one request, freed; then the int4 flagship
-    converted in place, three requests. Returns the kernels' launches."""
+    converted in place, three requests. Returns the kernels' launches
+    ("launches") and each request's s/image and phases ("requests")."""
     import torch
 
     from bitdance_tpu_torch.io.random_init import quantize_bundle_
@@ -1251,11 +1434,13 @@ def phase_e2e_quant(bundle, card: str, bf16_tokens: list) -> dict:
     if same == 1.0:
         raise SystemExit("e2e_quant: the int4 and int8 token grids are identical")
     total = lambda tag, k: sum(r["launches"][k] for r in runs[tag])  # noqa: E731
-    return {"w4a8_matmul": total("int4", "w4a8_matmul"),
-            "decode_attention_fusedkv": total("int4", "decode_attention_fusedkv")
-            + total("int8", "decode_attention_fusedkv"),
-            "fused_em_sample_int8": total("int8", "fused_em_sample"),
-            "fused_em_sample_int4": total("int4", "fused_em_sample")}
+    return {"launches": {"w4a8_matmul": total("int4", "w4a8_matmul"),
+                         "decode_attention_fusedkv": total("int4", "decode_attention_fusedkv")
+                         + total("int8", "decode_attention_fusedkv"),
+                         "fused_em_sample_int8": total("int8", "fused_em_sample"),
+                         "fused_em_sample_int4": total("int4", "fused_em_sample")},
+            "requests": [{"tag": tag, "px": r["px"], "s_per_image": r["s"],
+                          "timing": r["timing"]} for tag in runs for r in runs[tag]]}
 
 
 def profile_run(phase: str, what: str, run, extra=lambda: "") -> None:
@@ -3390,7 +3575,7 @@ def main() -> int:
     phase_profile(bundle)
     bf16_tokens = [r.pop("tokens") for r in launches.pop("requests")]
     results.update(phase_quant_kernels(bundle))
-    launches.update(phase_e2e_quant(bundle, card, bf16_tokens))
+    launches.update(phase_e2e_quant(bundle, card, bf16_tokens)["launches"])
     del bundle                              # the training phases need the room
     gc.collect()
     torch.cuda.empty_cache()

@@ -14,7 +14,22 @@ For the random bf16 BitDance-14B-64x bundle of chip_smoke.py (``t2i``):
   #2 on it (the planned tiles and splits, 1, 2 and 4 splits, bm 64) and
   torch.matmul at the same shape, with the bound;
 - end to end, chip_smoke.phase_e2e: 2 x 512 px and 1 x 1024 px requests,
-  s/image and their phases.
+  s/image and their phases;
+- ``em_precompute`` for one AR step (51 timesteps x 128 rows).
+
+With ``--quant int8,int4``, for each mode the head stacked from the same
+weights in that mode (kernel #2's W8A8 / W4A8 quant mode):
+- one 50-step call at 128 rows, eager and device-only, with and without
+  PDL; launches of one net call (captured); one net call by stage
+  (profiled without PDL); the bound;
+- each block product at 128 rows, device-only over the 6 blocks (cold L2):
+  the integer head GEMM where the tree has it (its plan, 1 split), and
+  ``torch._int_mm`` on int8 weights at the same shape (int4: the unpacked
+  planes), with the bound; for int4's wo also #16's swap-AB GEMM;
+- end to end (unless ``--skip-e2e``), chip_smoke.phase_e2e_quant: the int8
+  512 px request and the int4 flagship's three, s/image and phases, and a
+  profile of one more int4 512 px request (the bundle ends quantized, so
+  this runs last).
 
 For each of the random bf16 BitDance-H-1x and BitDance-B-16x samplers of
 chip_smoke.py (``imagenet``), at its guided path's rows (32 images, 100
@@ -31,7 +46,7 @@ sampling steps):
   s/batch and its sampler phase.
 
     python3 scripts/torch_sampler_times.py [--root DIR] [--heads t2i,imagenet]
-        [--skip-e2e]
+        [--quant int8,int4] [--skip-e2e]
 
 ``--root`` puts another checkout's ``bitdance_tpu_torch`` first on sys.path
 (default: this one), so that one run can time two trees in turns (parent,
@@ -116,7 +131,72 @@ def _products(smoke, fused_head, bundle, rows, dev, seed) -> dict:
     return out
 
 
-def _t2i(smoke, fused_head, skip_e2e: bool) -> dict:
+def _quant(smoke, fused_head, head, mode, dev) -> dict:
+    """#2's quant mode ``mode`` at the 14B head: the sampler call, a net
+    call by stage and each product (see the module doc)."""
+    import torch
+
+    stacked = fused_head.stack_diffnet_params(head.net, head.depth_latent, torch.bfloat16,
+                                              quant="int4" if mode == "int4" else True)
+    kw = dict(num_blocks=head.depth_latent, num_ada=head.depth_adanln,
+              n_head=head.ch_latent // head.attn_head_dim, groups=2, last_step_size=0.05,
+              quant=mode)
+    x0, noise, mods, t_all, dt_all = smoke._head_inputs(stacked, head, 50, 22, dev)
+    steps = lambda s, **e: fused_head.fused_em_sample(  # noqa: E731
+        stacked, x0, noise[:s], mods[:s + 1], t_all, dt_all, 7.5, **kw, **e)
+    run = lambda **e: steps(50, **e)  # noqa: E731
+    with torch.no_grad():
+        rec = {"ms": smoke.cuda_time_ms(run, 3, warmup=1),
+               "device_ms": smoke.cuda_graph_time_ms(run, calls=1, reps=3),
+               "no_pdl_ms": smoke.cuda_time_ms(lambda: run(_pdl=False), 3, warmup=1),
+               "no_pdl_device_ms": smoke.cuda_graph_time_ms(lambda: run(_pdl=False), calls=1,
+                                                            reps=3),
+               "launches_per_net_call": smoke._sampler_launches(steps),
+               "net_call_us": smoke.net_call_profile(lambda s: steps(s, _pdl=False))}
+        rec.update(smoke.sampler_bound(stacked, x0, noise, mods, attention=True, groups=2,
+                                       window=head.parallel_num, quant=mode))
+        rec["per_net_call"] = {k: v / mods.shape[0] for k, v in rec.items()
+                               if k.endswith("ms") and isinstance(v, float)}
+        rec["products"] = _quant_products(smoke, fused_head, stacked, mode, dev)
+    return rec
+
+
+def _quant_products(smoke, fused_head, stacked, mode, dev) -> dict:
+    import torch
+
+    from bitdance_tpu_torch.ops import int4 as q4
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator(device=dev).manual_seed(23)
+    out = {}
+
+    def device_ms(fn, blocks=6):
+        return smoke.cuda_graph_time_ms(fn, calls=4, reps=3) / blocks
+
+    for key, (gmode, _) in smoke.QUANT_GEMM_PRODUCTS.items():
+        n = stacked[key].shape[1]
+        k, aq, sa, kw = smoke._quant_gemm_operands(stacked, key, 128, mode, g, dev)
+        rec = {"mode": gmode,
+               **smoke.quant_gemm_bound(aq, sa, stacked[key][0], stacked[key + "_s"][0],
+                                        gmode, kw),
+               "library_device_ms": device_ms(smoke.int_mm_walk(stacked, key, aq, mode))}
+        if hasattr(fused_head, "head_gemm_s8"):
+            plan = fused_head.head_gemm_plan(128, n, k, sms, mode)
+            rec["plan"] = list(plan)
+            for name, p in (("planned", plan), ("one_split", plan._replace(splits=1))):
+                rec[f"{name}_device_ms"] = device_ms(
+                    smoke.quant_gemm_walk(stacked, key, aq, sa, kw, p, mode))
+        if mode == "int4" and key == "wo":
+            x = torch.randn((128, k), generator=g, device=dev).bfloat16()
+            rows = q4.w4a8_quantize(x)
+            wts = [q4.Q4Tensor(stacked[key][l], stacked[key + "_s"][l]) for l in range(6)]
+            rec["swap_ab_device_ms"] = device_ms(
+                lambda: [q4.int4_matmul(x, q, rows=rows) for q in wts])
+        out[key] = rec
+    return out
+
+
+def _t2i(smoke, fused_head, skip_e2e: bool, quant_modes=()) -> dict:
     import torch
 
     from bitdance_tpu_torch.io.random_init import build_random_bundle
@@ -161,11 +241,23 @@ def _t2i(smoke, fused_head, skip_e2e: bool) -> dict:
                 a, _ = smoke._head_gemm_operands(stacked, key, 128, g, dev)
                 out["products"][key] = {"library_device_ms": smoke.cuda_graph_time_ms(
                     smoke.matmul_walk(stacked, key, a), calls=4, reps=3) / 6}
+        c_emb = torch.randn((128, head.ch_latent), device=dev)
+        t51 = torch.linspace(0.0, 0.95, 51)
+        out["em_precompute_ms"] = smoke.cuda_time_ms(
+            lambda: fused_head.em_precompute(stacked, c_emb, t51), 5)
+        for mode in quant_modes:
+            out[f"quant_{mode}"] = _quant(smoke, fused_head, head, mode, dev)
+            torch.cuda.empty_cache()
     if not skip_e2e:
         r = smoke.phase_e2e(bundle, smoke.card_line())
         out["e2e"] = [{"px": q["px"], "s_per_image": q["s_per_image"], "timing": q["timing"]}
                       for q in r["requests"]]
-    del bundle, stacked
+        if quant_modes:
+            tokens = [q.pop("tokens") for q in r["requests"]]
+            del stacked
+            out["e2e_quant"] = smoke.phase_e2e_quant(bundle, smoke.card_line(),
+                                                     tokens)["requests"]
+    del bundle
     return out
 
 
@@ -206,6 +298,8 @@ def main() -> int:
                     help="checkout whose bitdance_tpu_torch is timed")
     ap.add_argument("--heads", default="t2i,imagenet",
                     help="comma-separated: t2i (kernel #2), imagenet (#3/#4)")
+    ap.add_argument("--quant", default="",
+                    help="comma-separated: int8, int4 (kernel #2's quant modes, with t2i)")
     ap.add_argument("--skip-e2e", action="store_true", help="kernels only")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -228,7 +322,8 @@ def main() -> int:
     heads = args.heads.split(",")
     out = {"package": bitdance_tpu_torch.__file__, "card": smoke.card_line()}
     if "t2i" in heads:
-        out["t2i"] = _t2i(smoke, fused_head, args.skip_e2e)
+        out["t2i"] = _t2i(smoke, fused_head, args.skip_e2e,
+                          [m for m in args.quant.split(",") if m])
         torch.cuda.empty_cache()
     if "imagenet" not in heads:
         print(json.dumps(out))

@@ -653,6 +653,46 @@ def test_sampler_kernel_quant(dev, quant):
     assert rel.item() < 5e-2
 
 
+@pytest.mark.parametrize("mode", ["bias", "gated_f32", "swiglu_q"])
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_head_gemm_s8_kernel(dev, quant, mode):
+    """The quant modes' integer products on the head GEMM vs their plain
+    twin, bit for bit, at 1, 2 and 4 splits and bm 64 / 128 (64 and 100
+    rows; K 1024 and, int4, a half last stage at K 384)."""
+    from bitdance_tpu_torch.ops.fused_head import (
+        head_gemm_plan,
+        head_gemm_s8,
+        head_gemm_s8_split_plain,
+        head_gemm_stages,
+    )
+    from bitdance_tpu_torch.ops.int4 import quantize_linear_int4
+    from bitdance_tpu_torch.ops.int8 import quantize_linear, quantize_rows
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    for rows, n, k in ((64, 256, 1024), (100, 512, 384)):
+        aq, sa = quantize_rows(torch.randn((rows, k), generator=g, device=dev))
+        wf = torch.randn((n, k), generator=g, device=dev) / k ** 0.5
+        qt = quantize_linear_int4(wf) if quant == "int4" else quantize_linear(wf)
+        bias = (0.1 * torch.randn(n, generator=g, device=dev)).bfloat16()
+        kw = {}
+        if mode == "gated_f32":
+            kw = {"resid": torch.randn((rows, n), generator=g, device=dev),
+                  "gate": torch.randn((rows, n), generator=g, device=dev).bfloat16()}
+        plan = head_gemm_plan(rows, n, k, quant=quant)
+        n0 = head_gemm_s8.launches
+        for splits in (1, 2, 4):
+            if splits > head_gemm_stages(k, quant):
+                continue
+            fresh = {q: v.clone() if q == "resid" else v for q, v in kw.items()}
+            got = head_gemm_s8(aq, sa, qt.q, qt.s, mode, bias, quant=quant,
+                               plan=plan._replace(splits=splits), **fresh)
+            want = head_gemm_s8_split_plain(aq, sa, qt.q, qt.s, mode, bias, splits=splits,
+                                            quant=quant, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (rows, k, splits)
+        assert head_gemm_s8.launches > n0
+
+
 @pytest.mark.parametrize("hq,hkv,d,lens", [(10, 2, 128, (70, 150, 230, 40)),
                                            (4, 4, 64, (200, 330, 90))])
 def test_flash_sparse_kernels(dev, hq, hkv, d, lens):

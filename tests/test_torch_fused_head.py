@@ -251,6 +251,27 @@ def test_non_round_products_keep_fp32_sums(which):
     assert _rel(got, want) < PRODUCT_REL, _rel(got, want)
 
 
+# ROADMAP C8: em_precompute's products keep their fp32 sums before the fp32
+# bias, as the JAX em_precompute's _dot does. On a bf16 stack with fp32 mods
+# out on both sides they differ by fp32 summation order (3.1e-6 of max
+# |mods| measured); products rounded to bf16 before the bias miss by ~2^-9
+# (3.8e-3).
+PRECOMPUTE_BF16_REL = 1e-5
+
+
+def test_bf16_mods_precompute_keeps_fp32_sums(setup):
+    s = setup
+    jst = jfh.stack_diffnet_params(s["params"], BLOCKS, True, dtype=jnp.bfloat16)
+    want = np.asarray(jfh.em_precompute(jst, s["j_cemb"], jnp.asarray(s["t_all"]),
+                                        out_dtype=jnp.float32))
+    _, _, tnet = _nets()
+    tst = tfh.stack_diffnet_params(tnet, BLOCKS, dtype=torch.bfloat16)
+    got = tfh.em_precompute(tst, torch.from_numpy(np.array(s["j_cemb"])),
+                            torch.from_numpy(s["t_all"]), out_dtype=torch.float32).numpy()
+    assert got.dtype == np.float32 and got.shape == want.shape
+    assert _rel(got, want) < PRECOMPUTE_BF16_REL, _rel(got, want)
+
+
 # the plain sampler on a bf16 stack with kernel #2's precision against the
 # streamed kernel #2 (interpret mode) on the same bf16 mods, 4 steps: max
 # |difference| / max |x|. Measured 5.4e-3 with fp32 product sums; rounding

@@ -136,6 +136,38 @@ def test_plain_quant_sampler_matches_jax(nets, mode, steps):
     np.testing.assert_array_equal(wrapped.numpy(), own.numpy())
 
 
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_plain_quant_sampler_on_the_split_twin_matches_jax_kernel_2(nets, mode, monkeypatch):
+    """The plain quant sampler runs every block product through the integer
+    head GEMM's split twin (head_gemm_s8_split_plain), here at 2 splits
+    where the product has two 128-byte stages or more (the integer sums do
+    not move with the split), against the JAX kernel #2 in its quant mode
+    (interpret), 4 steps, under STEP_TOL."""
+    js, ts, j_cemb, _ = _stacks(nets, mode)
+    inp = nets[2]
+    ks = {"wqkv": C, "wo": C, "w1": C, "w2": 384}
+    splits = {key: min(2, tfh.head_gemm_stages(k, mode)) for key, k in ks.items()}
+    twin, calls = tfh.head_gemm_s8_split_plain, []
+
+    def counted(*args, **kw):
+        calls.append(kw["splits"])
+        return twin(*args, **kw)
+
+    monkeypatch.setattr(tfh, "head_gemm_s8_split_plain", counted)
+    j_mods = jfh.em_precompute(js, j_cemb, jnp.asarray(inp["t_all"]), out_dtype=jnp.float32)
+    kernel = np.asarray(jfh.fused_em_sample(
+        js, jnp.asarray(inp["x0"]), jnp.asarray(inp["noise"]), j_mods,
+        jnp.asarray(inp["t_all"]), jnp.asarray(inp["dt_all"]), jnp.float32(CFG),
+        interpret=True, streamed="dma", **KW))
+    got = tfh.fused_em_sample_reference(
+        ts, torch.from_numpy(inp["x0"]), torch.from_numpy(inp["noise"]),
+        torch.from_numpy(np.array(j_mods)), inp["t_all"], inp["dt_all"], CFG, quant=mode,
+        round_residual=False, splits=splits, **KW).numpy()
+    assert len(calls) == 4 * BLOCKS * (STEPS + 1)
+    assert sorted(set(calls)) == sorted(set(splits.values()))
+    np.testing.assert_allclose(got, kernel, rtol=0, atol=STEP_TOL[STEPS])
+
+
 def test_quant_changes_the_sample(nets):
     """The quant flag reaches the products: fp32, int8 and int4 stacks of
     the same weights give three different samples, each near the fp32 one."""
