@@ -464,30 +464,19 @@ extern "C" int bd_fused_em_sample(
 }
 
 // One product of the sampler's head GEMM (ops/fused_head.py::head_gemm), for
-// its checks and timings: a [R, K] bf16, w [N, K] bf16, bias bf16 [N];
-// shape {R, N, K, ldg, mode, bm, bn, splits}; mode 0 (kBiasBf16: out bf16
-// [R, N]), 1 / 9 (kGatedResidual / kGatedResidualRound: resid fp32 [R, N] in
-// place, gate bf16 rows ldg apart) or 2 / 10 (kSwiGLU / kSwiGLURound, w rows
-// [h1; h2]: out bf16 [R, N / 2]). Returns the first CUDA error, or 0.
+// its checks and timings (hg::single_product): mode 0 (kBiasBf16), 1 / 9
+// (kGatedResidual / kGatedResidualRound) or 2 / 10 (kSwiGLU / kSwiGLURound).
+// The head blocks' modes have their entries beside their kernels
+// (fused_block.cu, fused_net.cu). Returns the first CUDA error, or 0.
 extern "C" int bd_head_gemm(const void* a, const void* w, const void* bias, void* out,
                             void* resid, const void* gate, const int* shape, void* stream) {
-  const int R = shape[0], N = shape[1], K = shape[2], ldg = shape[3], mode = shape[4];
-  const hg::Plan plan{shape[5], shape[6], shape[7]};
   hg::Product pr;
-  if (!hg::make_product(hg::kOpBf16, a, R, K, w, N, N, is_swiglu(mode), plan, &pr) ||
-      N % 16 != 0 || ldg % 8 != 0)
+  hg::Plan plan;
+  Epilogue ep;
+  if (!hg::single_product(a, w, bias, out, resid, gate, shape, &pr, &plan, &ep))
     return static_cast<int>(cudaErrorInvalidValue);
-  Epilogue ep{};
-  ep.bias = static_cast<const bf16*>(bias);
-  ep.out = out;
-  ep.ldo = is_swiglu(mode) ? N / 2 : N;
-  ep.resid = static_cast<float*>(resid);
-  ep.ldr = N;
-  ep.gate = static_cast<const bf16*>(gate);
-  ep.ldg = ldg;
-  ep.hidden = N / 2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (mode) {
+  switch (shape[4]) {
     case kBiasBf16: return static_cast<int>(hg::gemm<kBiasBf16>(pr, 0, plan, ep, false, st));
     case kGatedResidual:
       return static_cast<int>(hg::gemm<kGatedResidual>(pr, 0, plan, ep, false, st));

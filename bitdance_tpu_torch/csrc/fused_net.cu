@@ -31,11 +31,22 @@
 // prologue (t-frequencies, two products with their bias + SiLU epilogues,
 // y, the input projection), 2 per adaLN group (product, bias + bf16
 // round), head_block's 3 (MlpEncoder) or 7 (TransEncoder) per block, 2 for
-// the final layer (modulation product, LN + output product). The products
-// are head_blocks.cuh's mma.sync GEMM (N a multiple of 64, K of 32); the
-// 16-wide input and output projections of the ImageNet heads break those
-// rules and run as small kernels (proj_in_kernel, final_net_kernel).
-#include "head_blocks.cuh"
+// the final layer (modulation product, LN + output product). Every product
+// runs on the wgmma head GEMM (head_gemm.cuh) by the plans of
+// ops/fused_head.py::net_plans: the blocks' through head_block<true> with
+// hg::GemmLaunch (the round route of the whole sampler #3/#4, over tensor
+// maps of the whole stacks), the t-MLP's, the adaLN groups' and the final
+// modulation's with the kOutF32 epilogue (fp32 sums; the fp32 bias follows
+// in bias_silu / bias_round / final_net_kernel). Every launch of the chain
+// is programmatic (PDL): each stage kernel lets the next launch at its start
+// and waits for the one ahead, so each GEMM's weight tiles are in flight
+// before the kernel ahead has finished. The first design ran every product
+// on head_blocks.cuh's mma.sync GEMM (64x64 tiles walked by every thread,
+// each launch waiting for the one ahead to drain; 0.764 ms an H-1x net call
+// at 8 rows, PERF.md). The 16-wide input and output projections of the
+// ImageNet heads are too narrow for the GEMM and run as small kernels
+// (proj_in_kernel, final_net_kernel).
+#include "head_gemm.cuh"
 
 namespace {
 
@@ -45,6 +56,8 @@ constexpr int kMaxOut = 32;
 // operand of the first t-MLP product): out [R, 2 * half].
 __global__ void t_freq_kernel(const float* __restrict__ t, int R, int half,
                               bf16* __restrict__ out) {
+  pdl_trigger();
+  pdl_wait();
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (size_t)R * half) return;
   const int r = static_cast<int>(idx / half), i = static_cast<int>(idx % half);
@@ -59,6 +72,8 @@ __global__ void t_freq_kernel(const float* __restrict__ t, int R, int half,
 __global__ void bias_silu_kernel(const float* __restrict__ a,
                                  const float* __restrict__ b, int R, int N,
                                  bf16* __restrict__ out) {
+  pdl_trigger();
+  pdl_wait();
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (size_t)R * N) return;
   const float v = a[idx] + b[idx % N];
@@ -69,6 +84,8 @@ __global__ void bias_silu_kernel(const float* __restrict__ a,
 __global__ void y_kernel(const float* __restrict__ a, const float* __restrict__ b,
                          const float* __restrict__ c_emb, int R, int C,
                          float* __restrict__ y, bf16* __restrict__ y16) {
+  pdl_trigger();
+  pdl_wait();
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (size_t)R * C) return;
   const float v = a[idx] + b[idx % C] + c_emb[idx];
@@ -81,6 +98,8 @@ __global__ void y_kernel(const float* __restrict__ a, const float* __restrict__ 
 __global__ void bias_round_kernel(const float* __restrict__ a,
                                   const float* __restrict__ b, int R, int N,
                                   bf16* __restrict__ out) {
+  pdl_trigger();
+  pdl_wait();
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (size_t)R * N) return;
   out[idx] = __float2bfloat16(a[idx] + b[idx % N]);
@@ -96,6 +115,8 @@ final_net_kernel(const float* __restrict__ h, int C, const float* __restrict__ f
                  const float* __restrict__ fb, float* __restrict__ out, int ch,
                  int bounded, float eps) {
   __shared__ float red[8][kMaxOut];
+  pdl_trigger();
+  pdl_wait();
   const int r = blockIdx.x;
   const float* hr = h + (size_t)r * C;
   const float* fm = fmod + (size_t)r * 2 * C;
@@ -145,7 +166,12 @@ int blocks_for(size_t n) { return static_cast<int>((n + 255) / 256); }
 // b2 (n1, wqkv, bqkv, wo, bo read only when attention=1). Scratch: tfreq
 // (bf16 [R, t_freq]), f32buf (fp32 [R, max(m*C, 2C)]), h, y (fp32 [R, C]),
 // y16 (bf16 [R, C]), mods (bf16 [R, m*C]), act (bf16 [R, max(C, H)]), buf
-// (bf16 [R, max(3C, H)]). Returns the first CUDA error, or 0.
+// (bf16 [R, max(3C, H)]). gemm_plan (host, 24 ints): {bm, bn, splits} of
+// qkv, wo, w1, w2, t_w0, t_w2, an adaLN group's product and the final
+// modulation's (ops/fused_head.py::net_plans); the head GEMM takes C % 128 ==
+// 0, H % 64 == 0 and t_freq % 64 == 0. pdl 0 launches the chain plain (only
+// to measure what PDL saves). Returns the first CUDA error, or 0; a shape
+// the head GEMM cannot take is refused (cudaErrorInvalidValue).
 extern "C" int bd_fused_diffnet_forward(
     const void* x, const void* t, const void* c_emb, void* out, const void* in_w,
     const void* in_b, const void* t_w0, const void* t_b0, const void* t_w2,
@@ -157,10 +183,9 @@ extern "C" int bd_fused_diffnet_forward(
     void* y16_scratch, void* mods_scratch, void* act_scratch, void* buf_scratch,
     int groups, int w, int ch, int C, int H, int num_blocks, int num_ada,
     int switch_freq, int n_head, int t_freq, int attention, int bounded,
-    void* stream) {
+    const int* gemm_plan, int pdl, void* stream) {
   const int R = groups * w;
-  if (R <= 0 || ch <= 0 || ch > kMaxOut || C % kBN != 0 || C % kBK != 0 ||
-      H % kBK != 0 || (2 * H) % kBN != 0 || t_freq % (2 * kBK) != 0 ||
+  if (R <= 0 || ch <= 0 || ch > kMaxOut || C % 128 != 0 || H % 64 != 0 || t_freq % 64 != 0 ||
       switch_freq <= 0 || num_ada <= 0 || (num_blocks - 1) / switch_freq >= num_ada)
     return static_cast<int>(cudaErrorInvalidValue);
   if (attention && (n_head <= 0 || C % n_head != 0 || (C / n_head) % 2 != 0 ||
@@ -185,6 +210,36 @@ extern "C" int bd_fused_diffnet_forward(
       static_cast<const bf16*>(wo), static_cast<const bf16*>(bo),
       static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
       static_cast<const bf16*>(w2), static_cast<const bf16*>(b2)};
+  // the products: the blocks' (indexed by BlockProduct) over the whole
+  // stacks, then t_w0, t_w2, an adaLN group's rows of modcat_w and the final
+  // modulation's rows
+  enum { kTw0 = 4, kTw2 = 5, kMods = 6, kFinal = 7 };
+  hg::Plan plan[8];
+  hg::Product pr[8];
+  for (int i = 0; i < 8; ++i)
+    plan[i] = {gemm_plan[3 * i], gemm_plan[3 * i + 1], gemm_plan[3 * i + 2]};
+  const int L = num_blocks, mw_rows = num_ada * m + 2 * C;
+  bool ok =
+      hg::make_product(hg::kOpBf16, act, R, C, w1, L * 2 * H, 2 * H, true, plan[kW1], &pr[kW1]) &&
+      hg::make_product(hg::kOpBf16, buf, R, H, w2, L * C, C, false, plan[kW2], &pr[kW2]) &&
+      hg::make_product(hg::kOpBf16, tfreq, R, t_freq, t_w0, C, C, false, plan[kTw0], &pr[kTw0]) &&
+      hg::make_product(hg::kOpBf16, act, R, C, t_w2, C, C, false, plan[kTw2], &pr[kTw2]) &&
+      hg::make_product(hg::kOpBf16, y16, R, C, MW, mw_rows, m, false, plan[kMods], &pr[kMods]) &&
+      hg::make_product(hg::kOpBf16, y16, R, C, MW, mw_rows, 2 * C, false, plan[kFinal],
+                       &pr[kFinal]);
+  if (attention)
+    ok = ok &&
+         hg::make_product(hg::kOpBf16, act, R, C, wqkv, L * 3 * C, 3 * C, false, plan[kQkv],
+                          &pr[kQkv]) &&
+         hg::make_product(hg::kOpBf16, act, R, C, wo, L * C, C, false, plan[kWo], &pr[kWo]);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const hg::GemmLaunch go{pr, plan, pdl != 0, pdl != 0, st};
+  auto out_f32 = [&](int p, int w_row0, int ldo) {
+    Epilogue ep{};
+    ep.out = f32buf;
+    ep.ldo = ldo;
+    return hg::gemm<kOutF32>(pr[p], w_row0, plan[p], ep, pdl != 0, st);
+  };
   if (attention) {
     const size_t smem = window_attention_smem<bf16>(w, C / n_head);
     if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
@@ -196,54 +251,53 @@ extern "C" int bd_fused_diffnet_forward(
 
   // prologue: t-embedding MLP, y, input projection
   const int half = t_freq / 2;
-  t_freq_kernel<<<blocks_for((size_t)R * half), 256, 0, st>>>(
-      static_cast<const float*>(t), R, half, tfreq);
-  BD_CHECK(cudaGetLastError());
-  Epilogue te_ep{};
-  te_ep.out = f32buf;
-  te_ep.ldo = C;
-  BD_CHECK(launch_gemm<kOutF32>(tfreq, t_freq, static_cast<const bf16*>(t_w0),
-                                t_freq, R, C, te_ep, st));
-  bias_silu_kernel<<<blocks_for((size_t)R * C), 256, 0, st>>>(
-      f32buf, static_cast<const float*>(t_b0), R, C, act);
-  BD_CHECK(cudaGetLastError());
-  BD_CHECK(launch_gemm<kOutF32>(act, C, static_cast<const bf16*>(t_w2), C, R, C,
-                                te_ep, st));
-  y_kernel<<<blocks_for((size_t)R * C), 256, 0, st>>>(
-      f32buf, static_cast<const float*>(t_b2), static_cast<const float*>(c_emb), R,
-      C, y, y16);
-  BD_CHECK(cudaGetLastError());
-  proj_in_kernel<<<blocks_for((size_t)R * C), 256, 0, st>>>(
-      static_cast<const float*>(x), R, ch, static_cast<const bf16*>(in_w),
-      static_cast<const float*>(in_b), h, R, C, 1);
-  BD_CHECK(cudaGetLastError());
+  BD_CHECK(go.stage(dim3(blocks_for((size_t)R * half)), 256, 0, t_freq_kernel,
+                    static_cast<const float*>(t), R, half, tfreq));
+  BD_CHECK(out_f32(kTw0, 0, C));
+  BD_CHECK(go.stage(dim3(blocks_for((size_t)R * C)), 256, 0, bias_silu_kernel,
+                    static_cast<const float*>(f32buf), static_cast<const float*>(t_b0), R, C,
+                    act));
+  BD_CHECK(out_f32(kTw2, 0, C));
+  BD_CHECK(go.stage(dim3(blocks_for((size_t)R * C)), 256, 0, y_kernel,
+                    static_cast<const float*>(f32buf), static_cast<const float*>(t_b2),
+                    static_cast<const float*>(c_emb), R, C, y, y16));
+  BD_CHECK(go.stage(dim3(blocks_for((size_t)R * C)), 256, 0, proj_in_kernel,
+                    static_cast<const float*>(x), R, ch, static_cast<const bf16*>(in_w),
+                    static_cast<const float*>(in_b), h, R, C, 1));
 
   // blocks, the adaLN mods recomputed at each group boundary
-  Epilogue mod_ep{};
-  mod_ep.out = f32buf;
-  mod_ep.ldo = m;
   for (int l = 0; l < num_blocks; ++l) {
     if (l % switch_freq == 0) {
       const int g = l / switch_freq;
-      BD_CHECK(launch_gemm<kOutF32>(y16, C, MW + (size_t)g * m * C, C, R, m,
-                                    mod_ep, st));
-      bias_round_kernel<<<blocks_for((size_t)R * m), 256, 0, st>>>(
-          f32buf, MB + (size_t)g * m, R, m, mods);
-      BD_CHECK(cudaGetLastError());
+      BD_CHECK(out_f32(kMods, g * m, m));
+      BD_CHECK(go.stage(dim3(blocks_for((size_t)R * m)), 256, 0, bias_round_kernel,
+                        static_cast<const float*>(f32buf), MB + (size_t)g * m, R, m, mods));
     }
-    BD_CHECK(head_block<true>(wts, l, h, mods, m, act, buf, R, C, H,
-                              attention != 0, n_head, groups, eps, StreamLaunch{st}));
+    BD_CHECK((head_block<true, hg::GemmLaunch>(wts, l, h, mods, m, act, buf, R, C, H,
+                                               attention != 0, n_head, groups, eps, go)));
   }
 
   // final layer
-  Epilogue f_ep{};
-  f_ep.out = f32buf;
-  f_ep.ldo = 2 * C;
-  BD_CHECK(launch_gemm<kOutF32>(y16, C, MW + (size_t)num_ada * m * C, C, R,
-                                2 * C, f_ep, st));
-  final_net_kernel<<<R, 256, 0, st>>>(
-      h, C, f32buf, MB + (size_t)num_ada * m, static_cast<const bf16*>(f_out_w),
-      static_cast<const float*>(f_out_b), static_cast<float*>(out), ch, bounded,
-      eps);
-  return static_cast<int>(cudaGetLastError());
+  BD_CHECK(out_f32(kFinal, num_ada * m, 2 * C));
+  return static_cast<int>(go.stage(dim3(R), 256, 0, final_net_kernel,
+                                   static_cast<const float*>(h), C,
+                                   static_cast<const float*>(f32buf), MB + (size_t)num_ada * m,
+                                   static_cast<const bf16*>(f_out_w),
+                                   static_cast<const float*>(f_out_b), static_cast<float*>(out),
+                                   ch, bounded, eps));
+}
+
+// One product of #5 on the head GEMM alone (ops/fused_head.py::head_gemm,
+// hg::single_product), for its checks and timings: mode 7 (kOutF32).
+// Returns the first CUDA error, or 0.
+extern "C" int bd_head_gemm_net(const void* a, const void* w, const void* bias, void* out,
+                                void* resid, const void* gate, const int* shape, void* stream) {
+  hg::Product pr;
+  hg::Plan plan;
+  Epilogue ep;
+  if (shape[4] != kOutF32 ||
+      !hg::single_product(a, w, bias, out, resid, gate, shape, &pr, &plan, &ep))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      hg::gemm<kOutF32>(pr, 0, plan, ep, false, static_cast<cudaStream_t>(stream)));
 }

@@ -1,8 +1,10 @@
 // Building blocks shared by the diffusion head's kernels (fused_head.cu, the
 // whole sampler; fused_block.cu, one head block per call; fused_net.cu, one
-// whole net forward): a bf16 tensor-core GEMM with fused epilogues, the
-// LayerNorm + adaLN modulate kernel, window attention, the input projection
-// and one whole bf16 head block (head_block).
+// whole net forward): the epilogue modes and operands of their GEMMs, a bf16
+// tensor-core GEMM (gemm_bf16_kernel, now run only by the attention block
+// #15; every other product runs on head_gemm.cuh), the LayerNorm + adaLN
+// modulate kernel, window attention, the input projection and one whole
+// bf16 head block (head_block).
 //
 // GEMM: mma.sync m16n8k16, fp32 accumulate, 3-stage cp.async pipeline,
 // 64x64 output tiles so that even a narrow product launches many blocks.
@@ -10,7 +12,8 @@
 // operand mma.sync wants. The m tiles are the fastest grid index, so the
 // blocks that share a weight tile run together and the second read comes
 // from L2. A has any number of rows (the ragged last tile is zero-filled by
-// cp.async and not stored); N must be a multiple of 64 and K of 32.
+// cp.async and not stored); N must be a multiple of 64 and K of 32. Its
+// epilogues are #15's: kBiasF32 (qkv) and kGatedResidualBf16 (wo).
 #pragma once
 
 #include "common.cuh"
@@ -39,7 +42,6 @@ enum GemmMode {
   kSwiGLUF32 = 3,      // out bf16 = silu(h1) * h2 with h1, h2 kept in fp32
   kBiasF32 = 4,        // out fp32 = acc + bias
   kGatedResidualBf16 = 5,  // out bf16 = x + (acc + bias) * gate
-  kOutBf16 = 6,        // out bf16 = acc (no bias)
   kOutF32 = 7,         // out fp32 = acc (no bias)
   kSwiGLUQ = 8,        // out fp32 = silu(bf16(h1)) * bf16(h2), h = acc + bias (head GEMM)
   // the TPU kernels' _block_body in bf16 (every elementwise op rounds):
@@ -56,12 +58,8 @@ __host__ __device__ constexpr bool is_gated(int mode) {
   return mode == kGatedResidual || mode == kGatedResidualRound;
 }
 
-__host__ __device__ constexpr bool out_is_f32(int mode) {
-  return mode == kBiasF32 || mode == kOutF32 || mode == kSwiGLUQ;
-}
-
 // What the epilogue reads and writes; unused fields are ignored by a mode.
-// launch_gemm hands each field to the kernel as its own __restrict__
+// launch_gemm (and the head GEMM) hand each field to the kernel as its own __restrict__
 // parameter: with the pointers behind a struct the compiler must assume they
 // alias and serialises the epilogue's loads behind its stores (the 14B
 // head's 50-step sample took 290 ms that way, 219 ms with __restrict__).
@@ -80,29 +78,18 @@ struct Epilogue {
   const float* ws;     // and column scales, indexed as bias
 };
 
-template <int MODE>
-__device__ __forceinline__ int weight_row(int n0, int r, int hidden) {
-  if (is_swiglu(MODE)) {
-    // tile rows come in pairs of 8: [h1 cols c..c+7 | h2 cols c..c+7] ...
-    const int blk8 = r >> 3;
-    const int col = (n0 >> 1) + (blk8 >> 1) * 8 + (r & 7);
-    return (blk8 & 1) ? hidden + col : col;
-  }
-  return n0 + r;
-}
-
-// The epilogue of one 64x64 output tile: acc[mt][nt][i] is the product
-// (already dequantized by an integer GEMM) at row m0 + wm*32 + mt*16 + g +
-// (i/2)*8 and tile column wn*32 + nt*8 + 2*tq + i%2 of the 4 warps' 2x2
-// layout; SwiGLU tiles hold h1 and h2 columns in alternating groups of 8
-// (weight_row). Rows at or past M are not stored.
+// The epilogue of one 64x64 output tile: acc[mt][nt][i] is the product at
+// row m0 + wm*32 + mt*16 + g + (i/2)*8 and tile column wn*32 + nt*8 + 2*tq +
+// i%2 of the 4 warps' 2x2 layout: kBiasF32 writes acc + bias in fp32,
+// kGatedResidualBf16 bf16(x + (acc + bias) * gate). Rows at or past M are
+// not stored.
 template <int MODE>
 __device__ __forceinline__ void store_tile(
     const float (&acc)[2][4][4], int m0, int n0, int M,
     const bf16* __restrict__ bias, bf16* __restrict__ out,
-    float* __restrict__ out_f32, int ldo, float* __restrict__ resid, int ldr,
-    const bf16* __restrict__ gate, int ldg, const bf16* __restrict__ xres,
-    int ldx, int hidden) {
+    float* __restrict__ out_f32, int ldo, const bf16* __restrict__ gate, int ldg,
+    const bf16* __restrict__ xres, int ldx) {
+  static_assert(MODE == kBiasF32 || MODE == kGatedResidualBf16, "#15's epilogues");
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
   const int wm = warp & 1, wn = warp >> 1;
@@ -112,50 +99,16 @@ __device__ __forceinline__ void store_tile(
     for (int i = 0; i < 4; ++i) {
       const int row = m0 + wm * 32 + mt * 16 + g + (i >> 1) * 8;
       if (row >= M) continue;
-      if (is_swiglu(MODE)) {
 #pragma unroll
-        for (int nt = 0; nt < 4; nt += 2) {
-          const int col = (n0 >> 1) + (wn * 2 + nt / 2) * 8 + tq * 2 + (i & 1);
-          float y1 = acc[mt][nt][i] + bf2f(bias[col]);
-          float y2 = acc[mt][nt + 1][i] + bf2f(bias[hidden + col]);
-          if (MODE != kSwiGLUF32) {
-            y1 = round_bf16(y1);
-            y2 = round_bf16(y2);
-          }
-          float silu = y1 / (1.f + __expf(-y1));
-          if (MODE == kSwiGLURound) silu = round_bf16(silu);
-          out[(size_t)row * ldo + col] = __float2bfloat16(silu * y2);
-        }
-      } else {
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int col = n0 + wn * 32 + nt * 8 + tq * 2 + (i & 1);
-          if (MODE == kOutBf16) {
-            out[(size_t)row * ldo + col] = __float2bfloat16(acc[mt][nt][i]);
-            continue;
-          }
-          if (MODE == kOutF32) {
-            out_f32[(size_t)row * ldo + col] = acc[mt][nt][i];
-            continue;
-          }
-          const float y = acc[mt][nt][i] + bf2f(bias[col]);
-          if (MODE == kBiasBf16) {
-            out[(size_t)row * ldo + col] = __float2bfloat16(y);
-          } else if (MODE == kBiasF32) {
-            out_f32[(size_t)row * ldo + col] = y;
-          } else if (MODE == kGatedResidual) {
-            resid[(size_t)row * ldr + col] +=
-                y * bf2f(gate[(size_t)row * ldg + col]);
-          } else if (MODE == kGatedResidualRound) {
-            const size_t ri = (size_t)row * ldr + col;
-            const float g =
-                round_bf16(round_bf16(y) * bf2f(gate[(size_t)row * ldg + col]));
-            resid[ri] = round_bf16(resid[ri] + g);
-          } else {  // kGatedResidualBf16
-            const float xv = bf2f(xres[(size_t)row * ldx + col]);
-            out[(size_t)row * ldo + col] =
-                __float2bfloat16(xv + y * bf2f(gate[(size_t)row * ldg + col]));
-          }
+      for (int nt = 0; nt < 4; ++nt) {
+        const int col = n0 + wn * 32 + nt * 8 + tq * 2 + (i & 1);
+        const float y = acc[mt][nt][i] + bf2f(bias[col]);
+        if (MODE == kBiasF32) {
+          out_f32[(size_t)row * ldo + col] = y;
+        } else {
+          const float xv = bf2f(xres[(size_t)row * ldx + col]);
+          out[(size_t)row * ldo + col] =
+              __float2bfloat16(xv + y * bf2f(gate[(size_t)row * ldg + col]));
         }
       }
     }
@@ -168,9 +121,8 @@ __global__ void __launch_bounds__(128)
 gemm_bf16_kernel(const bf16* __restrict__ A, int lda,
                  const bf16* __restrict__ W, int K, int M,
                  const bf16* __restrict__ bias, bf16* __restrict__ out,
-                 float* __restrict__ out_f32, int ldo, float* __restrict__ resid,
-                 int ldr, const bf16* __restrict__ gate, int ldg,
-                 const bf16* __restrict__ xres, int ldx, int hidden) {
+                 float* __restrict__ out_f32, int ldo, const bf16* __restrict__ gate,
+                 int ldg, const bf16* __restrict__ xres, int ldx) {
   __shared__ __align__(16) bf16 As[kStages][kBM][kBKP];
   __shared__ __align__(16) bf16 Bs[kStages][kBN][kBKP];
 
@@ -192,9 +144,7 @@ gemm_bf16_kernel(const bf16* __restrict__ A, int lda,
 #pragma unroll
     for (int c = tid; c < kBN * (kBK / 8); c += 128) {
       const int r = c >> 2, cc = (c & 3) * 8;
-      const bf16* src =
-          W + (size_t)weight_row<MODE>(n0, r, hidden) * K + k0 + cc;
-      cp_async16(&Bs[slot][r][cc], src, 16);
+      cp_async16(&Bs[slot][r][cc], W + (size_t)(n0 + r) * K + k0 + cc, 16);
     }
   };
 
@@ -243,19 +193,17 @@ gemm_bf16_kernel(const bf16* __restrict__ A, int lda,
     }
   }
   cp_async_wait<0>();
-  store_tile<MODE>(acc, m0, n0, M, bias, out, out_f32, ldo, resid, ldr, gate,
-                   ldg, xres, ldx, hidden);
+  store_tile<MODE>(acc, m0, n0, M, bias, out, out_f32, ldo, gate, ldg, xres, ldx);
 }
 
 template <int MODE>
 cudaError_t launch_gemm(const bf16* A, int lda, const bf16* W, int K, int M,
                         int N, const Epilogue& ep, cudaStream_t st) {
   dim3 grid((M + kBM - 1) / kBM, N / kBN);
+  const bool f32 = MODE == kBiasF32;
   gemm_bf16_kernel<MODE><<<grid, 128, 0, st>>>(
-      A, lda, W, K, M, ep.bias,
-      out_is_f32(MODE) ? nullptr : static_cast<bf16*>(ep.out),
-      out_is_f32(MODE) ? static_cast<float*>(ep.out) : nullptr, ep.ldo,
-      ep.resid, ep.ldr, ep.gate, ep.ldg, ep.x, ep.ldx, ep.hidden);
+      A, lda, W, K, M, ep.bias, f32 ? nullptr : static_cast<bf16*>(ep.out),
+      f32 ? static_cast<float*>(ep.out) : nullptr, ep.ldo, ep.gate, ep.ldg, ep.x, ep.ldx);
   return cudaGetLastError();
 }
 
@@ -747,34 +695,13 @@ struct HeadBlockWeights {
 // The products of a head block, in the order a plan lists them.
 enum BlockProduct { kQkv = 0, kWo = 1, kW1 = 2, kW2 = 3 };
 
-// How head_block launches its kernels: each stage kernel plainly on the
-// stream, each product on launch_gemm (kernel #5). go.gemm<MODE>(p, A, lda,
-// W, w_row0, K, R, N, ep) runs epilogue(A @ W[w_row0 : w_row0 + N]^T) for
-// product p of the block; head_gemm.cuh's hg::GemmLaunch (the whole
-// sampler's bf16 routes, #2 and #3/#4) runs the same calls on the wgmma head
-// GEMM.
-struct StreamLaunch {
-  cudaStream_t st;
-
-  template <typename... Params, typename... Args>
-  cudaError_t stage(dim3 grid, int threads, size_t smem, void (*kernel)(Params...),
-                    Args... args) const {
-    kernel<<<grid, threads, smem, st>>>(static_cast<Params>(args)...);
-    return cudaGetLastError();
-  }
-
-  template <int MODE>
-  cudaError_t gemm(BlockProduct, const bf16* A, int lda, const bf16* W, int w_row0, int K,
-                   int R, int N, const Epilogue& ep) const {
-    return launch_gemm<MODE>(A, lda, W + (size_t)w_row0 * K, K, R, N, ep, st);
-  }
-};
-
 // One bf16 block l on the residual h (fp32 [R, C]) as a chain of launches:
 // attention half (TransEncoder: LN + modulate, qkv product, window attention
 // over groups of R / groups rows, output product with its gated residual),
 // then the MLP half (LN + modulate, SwiGLU product, down product with its
-// gated residual), each launched by `go` (StreamLaunch, or hg::GemmLaunch).
+// gated residual), each launched by `go` (head_gemm.cuh's hg::GemmLaunch:
+// go.stage launches a stage kernel, go.gemm<MODE>(p, w_row0, ep) product p
+// of the block on weight rows from w_row0).
 // m: the block's mods, bf16 rows ldm apart (scale, shift, gate [, scale,
 // shift, gate]). act (bf16 [R, max(C, H)]) and buf (bf16 [R, max(3C, H)])
 // are scratch. ROUND=false is the TPU kernel #2's precision (fp32
@@ -809,8 +736,7 @@ cudaError_t head_block(const HeadBlockWeights& w, int l, float* h, const bf16* m
     qkv_ep.bias = w.bqkv + (size_t)l * 3 * C;
     qkv_ep.out = buf;
     qkv_ep.ldo = 3 * C;
-    BD_CHECK_ERR(go.template gemm<kBiasBf16>(kQkv, act, C, w.wqkv, l * 3 * C, C, R, 3 * C,
-                                             qkv_ep));
+    BD_CHECK_ERR(go.template gemm<kBiasBf16>(kQkv, l * 3 * C, qkv_ep));
     if constexpr (ROUND)
       BD_CHECK_ERR(go.stage(dim3(groups * n_head), 256, window_attention_smem<bf16>(wtok, hd),
                             window_attention_kernel<bf16>, static_cast<const bf16*>(buf), C,
@@ -825,7 +751,7 @@ cudaError_t head_block(const HeadBlockWeights& w, int l, float* h, const bf16* m
     o_ep.ldr = C;
     o_ep.gate = m + 2 * C;
     o_ep.ldg = ldm;
-    BD_CHECK_ERR(go.template gemm<kResid>(kWo, act, C, w.wo, l * C, C, R, C, o_ep));
+    BD_CHECK_ERR(go.template gemm<kResid>(kWo, l * C, o_ep));
   }
   const bf16* mm = m + (size_t)(attention ? 3 : 0) * C;
   BD_CHECK_ERR(ln(w.n2 + (size_t)l * 2 * C, mm));
@@ -834,14 +760,14 @@ cudaError_t head_block(const HeadBlockWeights& w, int l, float* h, const bf16* m
   glu_ep.out = buf;
   glu_ep.ldo = H;
   glu_ep.hidden = H;
-  BD_CHECK_ERR(go.template gemm<kGlu>(kW1, act, C, w.w1, l * 2 * H, C, R, 2 * H, glu_ep));
+  BD_CHECK_ERR(go.template gemm<kGlu>(kW1, l * 2 * H, glu_ep));
   Epilogue down_ep{};
   down_ep.bias = w.b2 + (size_t)l * C;
   down_ep.resid = h;
   down_ep.ldr = C;
   down_ep.gate = mm + 2 * C;
   down_ep.ldg = ldm;
-  return go.template gemm<kResid>(kW2, buf, H, w.w2, l * C, H, R, C, down_ep);
+  return go.template gemm<kResid>(kW2, l * C, down_ep);
 }
 
 }  // namespace

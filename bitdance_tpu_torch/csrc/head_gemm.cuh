@@ -1,11 +1,13 @@
-// The head GEMM of the whole sampler (fused_head.cu: kernel #2, the 14B
-// head, bf16 and its W8A8 / W4A8 quant modes, and #3/#4, the ImageNet heads'
-// round_residual route): epilogue(A[R, K] @ W[N, K]^T) on wgmma, bf16 with
-// fp32 accumulators or int8 with int32 accumulators, fed by a TMA ring,
-// split-K where the output tiles alone leave SMs idle, and every launch of
-// the block chain programmatic (PDL) so that a product's weight tiles are in
-// flight before the kernel ahead of it has finished; with head_block's
-// launches on it (GemmLaunch).
+// The head GEMM of the diffusion head's kernels: the whole sampler
+// (fused_head.cu: kernel #2, the 14B head, bf16 and its W8A8 / W4A8 quant
+// modes, and #3/#4, the ImageNet heads' round_residual route), one head block
+// per call (fused_block.cu: #14) and one whole net per call (fused_net.cu:
+// #5): epilogue(A[R, K] @ W[N, K]^T) on wgmma, bf16 with fp32 accumulators or
+// int8 with int32 accumulators, fed by a TMA ring, split-K where the output
+// tiles alone leave SMs idle, and every launch of the block chain
+// programmatic (PDL) so that a product's weight tiles are in flight before
+// the kernel ahead of it has finished; with head_block's launches on it
+// (GemmLaunch).
 //
 // What bounds it on the H100: BitDance-H-1x runs 64 rows (32 images, CFG)
 // through 12 blocks of w1 [3840, 1280] and w2 [1280, 1920]; each net call
@@ -87,15 +89,18 @@
 //   residual h in place) and kSwiGLURound (w1); on #2's, which keeps the
 //   residual in fp32, kGatedResidual and kSwiGLU, and on #2's quant modes
 //   kSwiGLUQ (fp32 silu(bf16 h1) * bf16 h2, the input of the w2 row
-//   quantization). The integer routes first dequantize y = float(acc) *
-//   (sa[row] * ws[col]), in the plain version's order. The accumulators are
-//   staged through shared memory and each thread finishes 8 consecutive
-//   columns of a row with 16-byte loads and stores, the loads of up to 4
-//   such units issued before the sums are ready. The bf16 SwiGLU's silu
-//   divides with __fdividef: an IEEE division took ~2 us of a w1 tile's
-//   epilogue; kSwiGLUQ's fp32 output takes the IEEE division and expf, and
-//   every rounding step of the integer routes is written with __fmul_rn /
-//   __fadd_rn, so that each product is bit-equal to its plain twin.
+//   quantization); #14's kSwiGLUF32 (h1 and h2 kept in fp32, the product
+//   rounded once) and kGatedResidualBf16 (bf16(x + y * gate) from bf16 rows
+//   of x into a new output); #5's kOutF32 (the fp32 sums, no bias). The
+//   integer routes first dequantize y = float(acc) * (sa[row] * ws[col]), in
+//   the plain version's order. The accumulators are staged through shared
+//   memory and each thread finishes 8 consecutive columns of a row with
+//   16-byte loads and stores, the loads of up to 4 such units issued before
+//   the sums are ready. The bf16 SwiGLUs' silu divides with __fdividef: an
+//   IEEE division took ~2 us of a w1 tile's epilogue; kSwiGLUQ's fp32 output
+//   takes the IEEE division and expf, and every rounding step of the integer
+//   routes is written with __fmul_rn / __fadd_rn, so that each product is
+//   bit-equal to its plain twin.
 // - No instruction but a wgmma writes the accumulators (the first wgmma of
 //   a block has scale-d 0): ptxas would serialize every wgmma (C7515).
 #pragma once
@@ -103,10 +108,12 @@
 #include <cooperative_groups.h>
 #include <cudaTypedefs.h>
 
+#include <mutex>
 #include <type_traits>
 
 #include "head_blocks.cuh"
 
+namespace {  // every source that includes this header has its own kernels
 namespace hg {
 
 namespace cg = cooperative_groups;
@@ -233,7 +240,7 @@ __device__ __forceinline__ void store2(int* p, int a, int b) {
 // reads besides the sums, loaded ahead of them so that a thread's loads
 // are in flight together
 struct UnitIn {
-  uint4 b, b2, g;          // bias (SwiGLU: h1's, b2 h2's), gate
+  uint4 b, b2, g, x;       // bias (SwiGLU: h1's, b2 h2's), gate, kGatedResidualBf16's x
   float4 r0, r1;           // residual
   float4 s0, s1, t0, t1;   // the integer routes' column scales (SwiGLU: t h2's)
   float sa;                // and the row's scale
@@ -243,17 +250,21 @@ template <int MODE, int KIND>
 __device__ __forceinline__ void load_unit(UnitIn& in, int row, int col,
                                           const bf16* __restrict__ bias,
                                           const float* __restrict__ resid, int ldr,
-                                          const bf16* __restrict__ gate, int ldg, int hidden,
+                                          const bf16* __restrict__ gate, int ldg,
+                                          const bf16* __restrict__ xres, int ldx, int hidden,
                                           const float* __restrict__ sa,
                                           const float* __restrict__ ws) {
-  in.b = *reinterpret_cast<const uint4*>(bias + col);
+  if (MODE != kOutF32) in.b = *reinterpret_cast<const uint4*>(bias + col);
   if (is_swiglu(MODE)) in.b2 = *reinterpret_cast<const uint4*>(bias + hidden + col);
-  if (is_gated(MODE)) {
+  if (is_gated(MODE) || MODE == kGatedResidualBf16)
     in.g = *reinterpret_cast<const uint4*>(gate + (size_t)row * ldg + col);
+  if (is_gated(MODE)) {
     const float4* r = reinterpret_cast<const float4*>(resid + (size_t)row * ldr + col);
     in.r0 = r[0];
     in.r1 = r[1];
   }
+  if (MODE == kGatedResidualBf16)
+    in.x = *reinterpret_cast<const uint4*>(xres + (size_t)row * ldx + col);
   if (KIND != kOpBf16) {
     in.sa = sa[row];
     const float4* s = reinterpret_cast<const float4*>(ws + col);
@@ -289,7 +300,8 @@ __device__ __forceinline__ void dequant8(const Acc<KIND> (&v)[8], float sa, cons
 // round modes round every elementwise op to bf16 as _block_body's; kernel
 // #2's keep the residual in fp32 and round only h1, h2 and the bf16
 // SwiGLU's output, with the products and sums in torch's order (the plain
-// twin's). kSwiGLUQ writes fp32 (out holds floats, ldo of them).
+// twin's); #14's keep h1, h2 and y in fp32 and round only their output.
+// kSwiGLUQ and kOutF32 write fp32 (out holds floats, ldo of them).
 template <int MODE>
 __device__ __forceinline__ void finish8(int row, int col, const float (&v)[8],
                                         const float (&v2)[8], const UnitIn& in,
@@ -302,8 +314,8 @@ __device__ __forceinline__ void finish8(int row, int col, const float (&v)[8],
     unpack8(in.b2, b2);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const float y1 = round_bf16(__fadd_rn(v[i], b[i]));
-      const float y2 = round_bf16(__fadd_rn(v2[i], b2[i]));
+      float y1 = __fadd_rn(v[i], b[i]), y2 = __fadd_rn(v2[i], b2[i]);
+      if (MODE != kSwiGLUF32) y1 = round_bf16(y1), y2 = round_bf16(y2);
       if (MODE == kSwiGLUQ) {  // torch's silu: x / (1 + exp(-x)), IEEE
         o[i] = __fmul_rn(__fdiv_rn(y1, __fadd_rn(1.f, expf(-y1))), y2);
       } else {
@@ -321,6 +333,18 @@ __device__ __forceinline__ void finish8(int row, int col, const float (&v)[8],
   } else if (MODE == kBiasBf16) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) o[i] = __fadd_rn(v[i], b[i]);
+    *reinterpret_cast<uint4*>(out + (size_t)row * ldo + col) = pack8(o);
+  } else if (MODE == kOutF32) {
+    float4* dst =
+        reinterpret_cast<float4*>(reinterpret_cast<float*>(out) + (size_t)row * ldo + col);
+    dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+    dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else if (MODE == kGatedResidualBf16) {
+    float g[8], x[8];
+    unpack8(in.g, g);
+    unpack8(in.x, x);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) o[i] = __fadd_rn(x[i], __fmul_rn(__fadd_rn(v[i], b[i]), g[i]));
     *reinterpret_cast<uint4*>(out + (size_t)row * ldo + col) = pack8(o);
   } else {  // kGatedResidualRound, kGatedResidual
     float g[8];
@@ -349,7 +373,8 @@ __device__ __forceinline__ void finish_rows(Ready ready, Get get, int r0, int un
                                             const bf16* __restrict__ bias,
                                             bf16* __restrict__ out, int ldo,
                                             float* __restrict__ resid, int ldr,
-                                            const bf16* __restrict__ gate, int ldg, int hidden,
+                                            const bf16* __restrict__ gate, int ldg,
+                                            const bf16* __restrict__ xres, int ldx, int hidden,
                                             const float* __restrict__ sa,
                                             const float* __restrict__ ws) {
   constexpr bool kGlu = is_swiglu(MODE);
@@ -362,7 +387,7 @@ __device__ __forceinline__ void finish_rows(Ready ready, Get get, int r0, int un
       const int u = base + i * kT, r = r0 + u / kGroups, c = (u % kGroups) * 8;
       if (u < units && m0 + r < R)
         load_unit<MODE, KIND>(in[i], m0 + r, (kGlu ? n0 / 2 : n0) + c, bias, resid, ldr, gate,
-                              ldg, hidden, sa, ws);
+                              ldg, xres, ldx, hidden, sa, ws);
     }
   };
   load(tid);
@@ -418,7 +443,8 @@ head_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
                  const __grid_constant__ CUtensorMap w_map, int w_row0, int R, int K,
                  const bf16* __restrict__ bias, bf16* __restrict__ out, int ldo,
                  float* __restrict__ resid, int ldr, const bf16* __restrict__ gate, int ldg,
-                 int hidden, const float* __restrict__ sa, const float* __restrict__ ws) {
+                 const bf16* __restrict__ xres, int ldx, int hidden,
+                 const float* __restrict__ sa, const float* __restrict__ ws) {
   using G = Geom<KIND, NWG, BN>;
   using T = Acc<KIND>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -544,8 +570,8 @@ head_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
           for (int i = 0; i < 8; ++i) v[i] = 0;
           add8(tile + r * G::kLdt + c, v);
         },
-        0, G::kRows * kGroups, m0, n0, R, tid, bias, out, ldo, resid, ldr, gate, ldg, hidden, sa,
-        ws);
+        0, G::kRows * kGroups, m0, n0, R, tid, bias, out, ldo, resid, ldr, gate, ldg, xres, ldx,
+        hidden, sa, ws);
     return;
   }
   // Block s finishes rows [s kRows / S, (s + 1) kRows / S) of the tile: every
@@ -574,8 +600,8 @@ head_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
         for (int s = 0; s < splits; ++s)
           add8((s == split ? tile + r * G::kLdt : recv + s * slice + rr * G::kLdt) + c, v);
       },
-      split * rows, rows * kGroups, m0, n0, R, tid, bias, out, ldo, resid, ldr, gate, ldg,
-      hidden, sa, ws);
+      split * rows, rows * kGroups, m0, n0, R, tid, bias, out, ldo, resid, ldr, gate, ldg, xres,
+      ldx, hidden, sa, ws);
   cluster.sync();  // every copy has landed: no block leaves while one reads its tile
 }
 
@@ -639,6 +665,39 @@ inline bool tile_map(bool bytes, const void* ptr, int rows, int cols, int box_ro
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// tile_map through a cache keyed by every argument: a map holds nothing
+// else, so a hit is the map a fresh encode would give. The weight stacks and
+// the wrappers' scratch (whose addresses PyTorch's caching allocator hands
+// out again call after call) hit, so a per-call kernel (#14, #5) encodes no
+// map in the steady state. One entry per hashed key, replaced on a miss.
+constexpr int kMapCache = 512;
+
+inline bool cached_map(bool bytes, const void* ptr, int rows, int cols, int box_rows,
+                       CUtensorMap* out) {
+  struct Entry {
+    CUtensorMap map;
+    const void* ptr;
+    int rows, cols, box_rows;
+    bool bytes;
+  };
+  static Entry cache[kMapCache];
+  static std::mutex mu;
+  const uintptr_t p = reinterpret_cast<uintptr_t>(ptr);
+  const size_t slot = ((p >> 4) ^ (p >> 17) ^ static_cast<size_t>(rows) * 40503u ^
+                       static_cast<size_t>(cols) * 131u ^ static_cast<size_t>(box_rows)) %
+                      kMapCache;
+  std::lock_guard<std::mutex> lock(mu);
+  Entry& e = cache[slot];
+  if (e.ptr != ptr || e.rows != rows || e.cols != cols || e.box_rows != box_rows ||
+      e.bytes != bytes) {
+    e.ptr = nullptr;
+    if (!tile_map(bytes, ptr, rows, cols, box_rows, &e.map)) return false;
+    e.ptr = ptr, e.rows = rows, e.cols = cols, e.box_rows = box_rows, e.bytes = bytes;
+  }
+  *out = e.map;
+  return true;
+}
+
 // One product's operands: the tensor maps of A [R, K] and of the weight
 // stack [w_rows, K] (packed: [w_rows, K/2]) for a plan; N out-features a
 // block, K the logical contraction length.
@@ -665,9 +724,9 @@ inline bool make_product(int kind, const void* A, int R, int K, const void* W, i
   out->N = N;
   out->K = K;
   const bool bytes = kind != kOpBf16;
-  return tile_map(bytes, A, R, K, p.bm, &out->a_map) &&
-         tile_map(bytes, W, w_rows, kind == kOpS4 ? K / 2 : K, swiglu ? p.bn / 2 : p.bn,
-                  &out->w_map);
+  return cached_map(bytes, A, R, K, p.bm, &out->a_map) &&
+         cached_map(bytes, W, w_rows, kind == kOpS4 ? K / 2 : K, swiglu ? p.bn / 2 : p.bn,
+                    &out->w_map);
 }
 
 // MaxDynamicSharedMemorySize of head_gemm_kernel<MODE, KIND, NWG, BN>, once
@@ -694,7 +753,8 @@ cudaError_t run(const Product& pr, int w_row0, const Plan& p, const Epilogue& ep
   return launch_clusters(pdl, p.splits, dim3(p.splits, m_tiles, n_tiles), G::kThreads,
                          G::kBytes, st, head_gemm_kernel<MODE, KIND, NWG, BN>, pr.a_map,
                          pr.w_map, w_row0, pr.R, pr.K, ep.bias, static_cast<bf16*>(ep.out),
-                         ep.ldo, ep.resid, ep.ldr, ep.gate, ep.ldg, ep.hidden, ep.sa, ep.ws);
+                         ep.ldo, ep.resid, ep.ldr, ep.gate, ep.ldg, ep.x, ep.ldx, ep.hidden,
+                         ep.sa, ep.ws);
 }
 
 // epilogue(A @ W^T) of one product by its plan, on weight rows from w_row0
@@ -707,7 +767,39 @@ cudaError_t gemm(const Product& pr, int w_row0, const Plan& p, const Epilogue& e
   return cudaErrorInvalidValue;
 }
 
-// head_block's launches on the whole sampler's routes (#2 and #3/#4): each
+// One bf16 product of a C entry for checks and timings (ops/fused_head.py::
+// head_gemm): a [R, K], w [N, K], bias [N] bf16; shape {R, N, K, ldg, mode,
+// bm, bn, splits}. Modes: kBiasBf16 (out bf16 [R, N]); the gated residuals
+// (resid fp32 [R, N] in place, gate bf16 rows ldg apart); the SwiGLUs (w
+// rows [h1; h2], out bf16 [R, N / 2]); kGatedResidualBf16 (x bf16 [R, N]
+// passed as resid, gate as above, out bf16 [R, N]); kOutF32 (out fp32 [R,
+// N], bias unread). False if the plan does not fit the shape.
+inline bool single_product(const void* a, const void* w, const void* bias, void* out,
+                           void* resid, const void* gate, const int* shape, Product* pr,
+                           Plan* plan, Epilogue* ep) {
+  const int R = shape[0], N = shape[1], K = shape[2], ldg = shape[3], mode = shape[4];
+  *plan = {shape[5], shape[6], shape[7]};
+  if (!make_product(kOpBf16, a, R, K, w, N, N, is_swiglu(mode), *plan, pr) || N % 16 != 0 ||
+      ldg % 8 != 0)
+    return false;
+  *ep = Epilogue{};
+  ep->bias = static_cast<const bf16*>(bias);
+  ep->out = out;
+  ep->ldo = is_swiglu(mode) ? N / 2 : N;
+  ep->gate = static_cast<const bf16*>(gate);
+  ep->ldg = ldg;
+  ep->hidden = N / 2;
+  if (mode == kGatedResidualBf16) {
+    ep->x = static_cast<const bf16*>(resid);
+    ep->ldx = N;
+  } else {
+    ep->resid = static_cast<float*>(resid);
+    ep->ldr = N;
+  }
+  return true;
+}
+
+// head_block's launches on the head GEMM (#2, #3/#4 and #5): each
 // product on head_gemm by its plan, over the tensor maps of the whole stacks
 // (pr, plan: indexed by BlockProduct), programmatic when pdl, and each stage
 // kernel programmatic when pdl_stages; gemm_q runs the quant mode's integer
@@ -728,8 +820,7 @@ struct GemmLaunch {
   }
 
   template <int MODE>
-  cudaError_t gemm(BlockProduct p, const bf16*, int, const bf16*, int w_row0, int, int, int,
-                   const Epilogue& ep) const {
+  cudaError_t gemm(BlockProduct p, int w_row0, const Epilogue& ep) const {
     return hg::gemm<MODE>(pr[p], w_row0, plan[p], ep, pdl, st);
   }
 
@@ -740,3 +831,4 @@ struct GemmLaunch {
 };
 
 }  // namespace hg
+}  // namespace

@@ -16,6 +16,7 @@ package on a machine with no ``nvcc`` and no card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -39,10 +40,12 @@ _SIGNATURES = {
     "bd_fused_em_sample": ([_P, _P, _P, _I, _P, _P, _F] + [_P] * 17
                            + [_I] * 12 + [_F, _I] + [_P] * 7 + [_I, _P, _I, _P]),
     "bd_head_gemm": [_P] * 8,
+    "bd_head_gemm_block": [_P] * 8,
+    "bd_head_gemm_net": [_P] * 8,
     "bd_head_gemm_s8": [_P] * 10,
-    "bd_fused_diffnet_forward": [_P] * 32 + [_I] * 12 + [_P],
+    "bd_fused_diffnet_forward": [_P] * 32 + [_I] * 12 + [_P, _I, _P],
     "bd_fused_mlp_block": ([_P, _P, _I, _P, _I, _P, _I] + [_P] * 9 + [_I] * 3
-                           + [_F, _P]),
+                           + [_F, _P, _I, _P]),
     "bd_fused_attn_block": ([_P, _P, _I, _P, _I, _P, _I] + [_P] * 9 + [_I] * 4
                             + [_F, _P]),
     "bd_flash_fwd": [_P] * 9 + [_I] * 6 + [_F, _P],
@@ -140,6 +143,12 @@ def check(code: int, name: str) -> None:
     if code != 0:
         msg = torch.cuda.get_device_name() if torch.cuda.is_available() else ""
         raise RuntimeError(f"{name}: CUDA error {code} on {msg}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (asked once)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_ptr() -> int:

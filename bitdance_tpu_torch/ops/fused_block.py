@@ -18,14 +18,24 @@ fp32, fp32 softmax, and the output rounded once to x's dtype.
 CPU tensors take the plain version; CUDA tensors run ``csrc/fused_block.cu``
 (bf16 everywhere) or raise. Both kernels are inference-only: like the JAX
 package, which gives them no VJP, the CUDA branch refuses autograd.
+
+The MLP block runs both products on the head GEMM (``csrc/head_gemm.cuh``)
+by :func:`mlp_block_plans`, which refuses a shape that GEMM cannot take (C
+% 128, H % 64); ``fused_mlp_block_reference(splits=...)`` sums each product
+over the same K splits (the head GEMM's split twin,
+:func:`~bitdance_tpu_torch.ops.fused_head.head_gemm_split_plain`).
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from bitdance_tpu_torch.ops import _cuda
+from bitdance_tpu_torch.ops.fused_head import HeadGemmPlan, _dot_acc_split, head_gemm_plan
 
 
 def _ln_modulate(x: torch.Tensor, scale, shift, ln_w, ln_b,
@@ -37,19 +47,25 @@ def _ln_modulate(x: torch.Tensor, scale, shift, ln_w, ln_b,
     return ln * (1.0 + scale.float()) + shift.float()
 
 
-def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """a @ w.T with a rounded to w's dtype and an fp32 product."""
-    return a.to(w.dtype).float() @ w.float().t()
+def _mm(a: torch.Tensor, w: torch.Tensor, splits: int = 1) -> torch.Tensor:
+    """a @ w.T with a rounded to w's dtype and an fp32 product, its K
+    summed in ``splits`` partials as the head GEMM splits it."""
+    out = _dot_acc_split(a.reshape(-1, a.shape[-1]), w, splits)
+    return out.reshape(*a.shape[:-1], w.shape[0])
 
 
 def fused_mlp_block_reference(x, scale, shift, gate, ln_w, ln_b, w1, b1, w2,
-                              b2, eps: float = 1e-6) -> torch.Tensor:
-    """Plain PyTorch version of :func:`fused_mlp_block`."""
+                              b2, eps: float = 1e-6,
+                              splits: dict | None = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_mlp_block`. splits ({"w1": S,
+    "w2": S}, e.g. the splits of :func:`mlp_block_plans`) sums each product
+    over the head GEMM's K splits (None: one pass)."""
+    sp = splits or {}
     h = _ln_modulate(x, scale, shift, ln_w, ln_b, eps)
-    h12 = _mm(h, w1) + b1.float()
+    h12 = _mm(h, w1, sp.get("w1", 1)) + b1.float()
     hidden = h12.shape[-1] // 2
     glu = F.silu(h12[..., :hidden]) * h12[..., hidden:]
-    out = _mm(glu, w2) + b2.float()
+    out = _mm(glu, w2, sp.get("w2", 1)) + b2.float()
     return (x.float() + out * gate.float()).to(x.dtype)
 
 
@@ -74,10 +90,47 @@ def _mod_rows(name: str, m: torch.Tensor, shape, rows: int) -> torch.Tensor:
     (a slice of the adaLN output, or stride 0 for one broadcast row)."""
     if tuple(m.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(m.shape)} != {tuple(shape)}")
-    m = m.reshape(rows, shape[-1])
+    if m.dim() != 2:
+        m = m.reshape(rows, shape[-1])
     if m.stride(1) != 1:
         m = m.contiguous()
     return m
+
+
+# kernel launches of one fused_mlp_block call on the card: the LN + modulate
+# kernel and the two head GEMM products (csrc/fused_block.cu)
+MLP_BLOCK_LAUNCHES = 3
+
+
+@functools.lru_cache(maxsize=64)
+def mlp_block_plans(rows: int, c: int, hidden: int,
+                    sm_count: int = 132) -> tuple[HeadGemmPlan, HeadGemmPlan]:
+    """The head GEMM's plans of the MLP block's w1 ([2H, C], SwiGLU) and w2
+    ([C, H]) products at ``rows`` (H-1x at 8 rows: w1 30 tiles x 4 splits,
+    w2 10 x 8; B-16x at 512: w1 72 x 1, w2 24 x 4). Raises ValueError for a
+    shape the head GEMM cannot take: C % 128 or H % 64 not 0 (every ImageNet
+    and T2I head width takes it: C 256 / 768 / 1024 / 1280 / 5120, H =
+    1.5 C)."""
+    if rows < 1 or c < 1 or hidden < 1 or c % 128 or hidden % 64:
+        raise ValueError(f"fused_mlp_block: the head GEMM takes C % 128 == 0 and H % 64 "
+                         f"== 0, not C = {c}, H = {hidden} ({rows} rows)")
+    return (head_gemm_plan(rows, 2 * hidden, c, sm_count),
+            head_gemm_plan(rows, c, hidden, sm_count))
+
+
+@functools.lru_cache(maxsize=64)
+def _mlp_plan_ints(rows: int, c: int, hidden: int, sm_count: int):
+    flat = [v for p in mlp_block_plans(rows, c, hidden, sm_count) for v in p]
+    return (ctypes.c_int * 6)(*flat)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t [rows, C], or a contiguous copy of it: the head GEMM's epilogue
+    reads a row's columns 16 bytes at a time, from a 16-byte aligned address
+    and a row stride that is a multiple of 8 (0 included)."""
+    if t.data_ptr() % 16 or t.stride(0) % 8:
+        return t.clone(memory_format=torch.contiguous_format)
+    return t
 
 
 def _check_cuda(name: str, x: torch.Tensor, tensors: dict) -> None:
@@ -92,12 +145,15 @@ def _check_cuda(name: str, x: torch.Tensor, tensors: dict) -> None:
 def fused_mlp_block(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                     gate: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
                     w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
-                    b2: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+                    b2: torch.Tensor, eps: float = 1e-6, _pdl: int = 2) -> torch.Tensor:
     """One fused adaLN-SwiGLU residual block; dispatch by device.
 
     x [rows, C]; scale, shift, gate [rows, C] (any row stride, 0 included);
     ln_w, ln_b [C]; w1 [2H, C], b1 [2H]; w2 [C, H], b2 [C]. Returns
-    [rows, C] in x's dtype."""
+    [rows, C] in x's dtype. On the card C % 128 and H % 64 must be 0
+    (:func:`mlp_block_plans`). Its three launches are programmatic
+    (``_pdl`` 1: the products only, 0: none, only to measure what that
+    saves)."""
     if x.device.type == "cpu":
         return fused_mlp_block_reference(x, scale, shift, gate, ln_w, ln_b, w1,
                                          b1, w2, b2, eps)
@@ -116,20 +172,19 @@ def fused_mlp_block(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
             or ln_w.numel() != c or ln_b.numel() != c):
         raise ValueError(f"fused_mlp_block: weights {tuple(w1.shape)}, "
                          f"{tuple(w2.shape)} do not fit C = {c}")
-    if c % 64 or hidden % 32:
-        raise ValueError(f"fused_mlp_block: C = {c} must be a multiple of 64 "
-                         f"and H = {hidden} of 32")
+    plan = _mlp_plan_ints(rows, c, hidden, _cuda.sm_count(x.device.index))
     mods = [_mod_rows(k, params[k], x.shape, rows) for k in ("scale", "shift", "gate")]
+    gate, x = _aligned(mods[2]), _aligned(x)
     act = torch.empty((rows, c), dtype=torch.bfloat16, device=x.device)
     glu = torch.empty((rows, hidden), dtype=torch.bfloat16, device=x.device)
     out = torch.empty_like(x)
     code = _cuda.load().bd_fused_mlp_block(
         x.data_ptr(), mods[0].data_ptr(), mods[0].stride(0),
-        mods[1].data_ptr(), mods[1].stride(0), mods[2].data_ptr(),
-        mods[2].stride(0), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
+        mods[1].data_ptr(), mods[1].stride(0), gate.data_ptr(),
+        gate.stride(0), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), act.data_ptr(),
-        glu.data_ptr(), out.data_ptr(), rows, c, hidden, float(eps),
-        _cuda.stream_ptr())
+        glu.data_ptr(), out.data_ptr(), rows, c, hidden, float(eps), plan,
+        int(_pdl), _cuda.stream_ptr())
     _cuda.check(code, "fused_mlp_block")
     fused_mlp_block.launches += 1
     return out

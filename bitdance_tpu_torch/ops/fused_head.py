@@ -58,10 +58,14 @@ block with ``_block_body``'s rounding and the final layer, in one host call
 (``csrc/fused_net.cu``), with :func:`fused_diffnet_forward_reference` beside
 it. It reads the adaLN groups and the final layer's modulation as row
 slices of ``modcat_w`` / ``modcat_b`` (:func:`adaln_views`), never copies.
+Every product of it runs on the head GEMM too, by :func:`net_plans`, and
+its plain version takes the split twin's sums at those plans (``splits=``).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -184,8 +188,14 @@ HEAD_GEMM_BK = 64                  # k of one bf16 ring stage of csrc/head_gemm.
 HEAD_GEMM_BN = 128                 # out-features of an output tile
 HEAD_GEMM_MAX_SPLITS = 8           # a product's splits form one thread block cluster
 # GemmMode in head_blocks.cuh: "bias" both routes; "gated" and "swiglu" the
-# round route's (#3/#4); "gated_f32" and "swiglu_f32" kernel #2's
-HEAD_GEMM_MODES = {"bias": 0, "gated_f32": 1, "swiglu_f32": 2, "gated": 9, "swiglu": 10}
+# round route's (#3/#4); "gated_f32" and "swiglu_f32" kernel #2's;
+# "swiglu_h32" (h1 and h2 in fp32) and "gated_bf16" (bf16(x + y * gate) into
+# a new output) the MLP block's (#14); "out_f32" (the fp32 sums, no bias)
+# the whole net's (#5) t-MLP and modulation products
+HEAD_GEMM_MODES = {"bias": 0, "gated_f32": 1, "swiglu_f32": 2, "swiglu_h32": 3,
+                   "gated_bf16": 5, "out_f32": 7, "gated": 9, "swiglu": 10}
+# the C entry of each mode: the head blocks' modes beside their kernels
+_HEAD_GEMM_ENTRY = {3: "bd_head_gemm_block", 5: "bd_head_gemm_block", 7: "bd_head_gemm_net"}
 # the integer kinds (#2's quant modes): "bias" (qkv), "gated_f32" (wo, w2)
 # and "swiglu_q" (w1: fp32 silu(bf16 h1) * bf16 h2, the w2 quantization's
 # input)
@@ -304,16 +314,26 @@ def _swiglu_f32(h12: torch.Tensor) -> torch.Tensor:
 def head_gemm_split_plain(a: torch.Tensor, w: torch.Tensor, mode: str, bias: torch.Tensor,
                           gate: torch.Tensor | None = None,
                           resid: torch.Tensor | None = None,
-                          splits: int = 1) -> torch.Tensor:
+                          splits: int = 1, x: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of :func:`head_gemm`: y = a @ w.T + bias from the split
     partials (:func:`_dot_acc_split`), then the epilogue: "bias" bf16(y);
     _block_body's "gated", the residual bf16(resid + bf16(bf16(y) * gate)),
     returned as fp32, and "swiglu" (w rows [h1; h2]) bf16(silu(bf16(h1))) *
     bf16(h2); kernel #2's "gated_f32", resid + y * gate in fp32, and
     "swiglu_f32", bf16(silu(bf16(h1)) * bf16(h2)) (:func:`_net_forward`'s
-    :func:`_gated_f32` and :func:`_swiglu_f32`)."""
+    :func:`_gated_f32` and :func:`_swiglu_f32`); the MLP block's (#14)
+    "swiglu_h32", bf16(silu(h1) * h2) from fp32 h1, h2, and "gated_bf16",
+    bf16(x + y * gate); #5's "out_f32", the fp32 sums without the bias
+    (bias may be None)."""
+    if mode == "out_f32":
+        return _dot_acc_split(a, w, splits)
     y = _dot_acc_split(a, w, splits) + bias.float()
     bf = torch.bfloat16
+    if mode == "swiglu_h32":
+        hidden = w.shape[0] // 2
+        return (F.silu(y[:, :hidden]) * y[:, hidden:]).to(bf)
+    if mode == "gated_bf16":
+        return (x.float() + y * gate.float()).to(bf)
     if mode == "bias":
         return y.to(bf)
     if mode == "gated":
@@ -329,18 +349,19 @@ def head_gemm_split_plain(a: torch.Tensor, w: torch.Tensor, mode: str, bias: tor
     raise ValueError(f"head_gemm: mode {mode!r} not in {sorted(HEAD_GEMM_MODES)}")
 
 
-def head_gemm(a: torch.Tensor, w: torch.Tensor, mode: str, bias: torch.Tensor, *,
+def head_gemm(a: torch.Tensor, w: torch.Tensor, mode: str, bias: torch.Tensor | None, *,
               gate: torch.Tensor | None = None, resid: torch.Tensor | None = None,
+              x: torch.Tensor | None = None,
               plan: HeadGemmPlan | None = None) -> torch.Tensor:
-    """One product of the sampler's head GEMM (``csrc/head_gemm.cuh``):
-    a [R, K] bf16, w [N, K] bf16 (the torch Linear layout; "swiglu" and
-    "swiglu_f32": rows [h1; h2]), bias [N] bf16. "gated" and "gated_f32" take
-    gate [R, N] bf16 (rows may lie apart) and update resid [R, N] fp32
-    ("gated": bf16 values) in place, as the sampler does, and return it.
-    ``plan`` defaults to :func:`head_gemm_plan` at the card's SM count. CPU
-    tensors take
-    :func:`head_gemm_split_plain` with the plan's splits; CUDA tensors launch
-    the kernel or raise."""
+    """One product of the head GEMM (``csrc/head_gemm.cuh``): a [R, K]
+    bf16, w [N, K] bf16 (the torch Linear layout; the "swiglu" modes: rows
+    [h1; h2]), bias [N] bf16 ("out_f32": None, fp32 out). "gated" and
+    "gated_f32" take gate [R, N] bf16 (rows may lie apart) and update resid
+    [R, N] fp32 ("gated": bf16 values) in place, as the sampler does, and
+    return it; "gated_bf16" takes gate and x [R, N] bf16 and returns a new
+    bf16 output. ``plan`` defaults to :func:`head_gemm_plan` at the card's
+    SM count. CPU tensors take :func:`head_gemm_split_plain` with the plan's
+    splits; CUDA tensors launch the kernel or raise."""
     if mode not in HEAD_GEMM_MODES:
         raise ValueError(f"head_gemm: mode {mode!r} not in {sorted(HEAD_GEMM_MODES)}")
     rows, k = a.shape
@@ -350,29 +371,41 @@ def head_gemm(a: torch.Tensor, w: torch.Tensor, mode: str, bias: torch.Tensor, *
     plan = plan or head_gemm_plan(rows, n, k, sms)
     gated = mode in ("gated", "gated_f32")
     if a.device.type == "cpu":
-        out = head_gemm_split_plain(a, w, mode, bias, gate, resid, plan.splits)
+        out = head_gemm_split_plain(a, w, mode, bias, gate, resid, plan.splits, x)
         return resid.copy_(out) if gated else out
     if not cuda:
         raise RuntimeError(f"head_gemm: no kernel for {a.device}")
     _cuda.refuse_grad("head_gemm", a, w)
-    for t, want in ((a, (rows, k)), (w, (n, k)), (bias, (n,))):
+    operands = ((a, (rows, k)), (w, (n, k))) + (() if mode == "out_f32" else ((bias, (n,)),))
+    for t, want in operands:
         if t.dtype != torch.bfloat16 or tuple(t.shape) != want or not t.is_contiguous():
             raise ValueError(f"head_gemm: want contiguous bf16 {want}, got {t.dtype} "
                              f"{tuple(t.shape)}")
     if gated and (resid is None or resid.dtype != torch.float32
-                  or tuple(resid.shape) != (rows, n) or not resid.is_contiguous()
-                  or gate is None or gate.dtype != torch.bfloat16
-                  or tuple(gate.shape) != (rows, n) or gate.stride(1) != 1):
-        raise ValueError(f"head_gemm: {mode!r} needs resid fp32 [R, N] and gate bf16 [R, N]")
+                  or tuple(resid.shape) != (rows, n) or not resid.is_contiguous()):
+        raise ValueError(f"head_gemm: {mode!r} needs resid fp32 [R, N]")
+    if mode == "gated_bf16" and (x is None or x.dtype != torch.bfloat16
+                                 or tuple(x.shape) != (rows, n) or not x.is_contiguous()):
+        raise ValueError("head_gemm: 'gated_bf16' needs x bf16 [R, N]")
+    uses_gate = gated or mode == "gated_bf16"
+    if uses_gate and (gate is None or gate.dtype != torch.bfloat16
+                      or tuple(gate.shape) != (rows, n) or gate.stride(1) != 1):
+        raise ValueError(f"head_gemm: {mode!r} needs gate bf16 [R, N]")
     dev = a.device
-    out = resid if gated else torch.empty(
-        (rows, n // 2 if mode.startswith("swiglu") else n), dtype=torch.bfloat16, device=dev)
-    shape = torch.tensor([rows, n, k, gate.stride(0) if gated else 0, HEAD_GEMM_MODES[mode],
-                          *plan], dtype=torch.int32)
-    code = _cuda.load().bd_head_gemm(
-        a.data_ptr(), w.data_ptr(), bias.data_ptr(), None if gated else out.data_ptr(),
-        out.data_ptr() if gated else None, gate.data_ptr() if gated else None,
-        shape.data_ptr(), _cuda.stream_ptr())
+    if gated:
+        out = resid
+    else:
+        cols = n // 2 if mode.startswith("swiglu") else n
+        out = torch.empty((rows, cols), device=dev, dtype=torch.float32
+                          if mode == "out_f32" else torch.bfloat16)
+    shape = torch.tensor([rows, n, k, gate.stride(0) if uses_gate else 0,
+                          HEAD_GEMM_MODES[mode], *plan], dtype=torch.int32)
+    entry = getattr(_cuda.load(), _HEAD_GEMM_ENTRY.get(HEAD_GEMM_MODES[mode], "bd_head_gemm"))
+    code = entry(
+        a.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
+        None if gated else out.data_ptr(),
+        x.data_ptr() if mode == "gated_bf16" else out.data_ptr() if gated else None,
+        gate.data_ptr() if uses_gate else None, shape.data_ptr(), _cuda.stream_ptr())
     _cuda.check(code, "head_gemm")
     head_gemm.launches += 1
     return out
@@ -573,22 +606,35 @@ def em_precompute(stacked: dict, c_emb: torch.Tensor, t_all: torch.Tensor,
     (any device). Returns allmods [S, R, A*6*C + 2C] in out_dtype. Each
     product keeps its fp32 sum before the fp32 bias, as the JAX
     em_precompute (:func:`_dot_f32`; ROADMAP C8)."""
+    y = em_precompute_rows(stacked, c_emb, t_all, t_freq_size)
+    s_dim, r_dim, c_dim = y.shape
+    return modcat_product(stacked, y.reshape(s_dim * r_dim, c_dim)).to(
+        out_dtype).reshape(s_dim, r_dim, -1)
+
+
+def em_precompute_rows(stacked: dict, c_emb: torch.Tensor, t_all: torch.Tensor,
+                       t_freq_size: int = 256) -> torch.Tensor:
+    """The input of :func:`em_precompute`'s modulation product: y =
+    silu(te(t) + c_emb), fp32 [S, R, C]."""
     from bitdance_tpu_torch.models.diff_head import timestep_embedding
 
     t_all = t_all.to(device=c_emb.device, dtype=torch.float32)
     tf = timestep_embedding(t_all, t_freq_size)
     te = _dot_f32(tf, stacked["t_w0"]) + stacked["t_b0"]
     te = _dot_f32(F.silu(te), stacked["t_w2"]) + stacked["t_b2"]
-    y = F.silu(te[:, None, :] + c_emb[None])                # [S, R, C]
-    s_dim, r_dim, c_dim = y.shape
-    y = y.reshape(s_dim * r_dim, c_dim)
+    return F.silu(te[:, None, :] + c_emb[None])
+
+
+def modcat_product(stacked: dict, y: torch.Tensor) -> torch.Tensor:
+    """:func:`em_precompute`'s modulation product y [M, C] x modcat^T + bias
+    in fp32: W8A8 (y quantized per row; plain torch, ``torch._int_mm`` on
+    the card) on an int8 modcat, else the fp32 sum of :func:`_dot_f32`."""
     w = stacked["modcat_w"]
-    if "modcat_w_s" in stacked:   # W8A8 (plain torch: torch._int_mm on the card)
+    if "modcat_w_s" in stacked:
         allmods = int8_matmul(y, QTensor(w, stacked["modcat_w_s"]))
     else:
         allmods = _dot_f32(y, w)
-    allmods = allmods + stacked["modcat_b"]
-    return allmods.to(out_dtype).reshape(s_dim, r_dim, -1)
+    return allmods + stacked["modcat_b"]
 
 
 def _attn_from_qkv(qkv: torch.Tensor, n_head: int, groups: int,
@@ -962,22 +1008,56 @@ def adaln_views(stacked: dict, num_ada: int, attention: bool):
     return groups, (w[num_ada * mc:], b[num_ada * mc:])
 
 
+NET_PRODUCTS = ("wqkv", "wo", "w1", "w2", "t_w0", "t_w2", "mods", "final")
+
+
+def net_plans(rows: int, c: int, hidden: int, attention: bool, t_freq_size: int = 256,
+              sm_count: int = 132) -> dict[str, HeadGemmPlan]:
+    """:func:`head_gemm_plan` of every product of one :func:`fused_diffnet_forward`
+    call at ``rows`` (:data:`NET_PRODUCTS`: the block products, t_w0 [C, t_freq],
+    t_w2 [C, C], an adaLN group's [m, C] with m = 6C or 3C, the final
+    modulation's [2C, C]; at H-1x's 8 rows w1 30 tiles x 4 splits, w2 10 x 8,
+    the groups 30 x 4). Raises ValueError for a shape the head GEMM cannot
+    take: C % 128, H % 64 or t_freq_size % 64 not 0."""
+    if c % 128 or hidden % 64 or t_freq_size % 64:
+        raise ValueError(f"net_plans: the head GEMM takes C % 128 == 0, H % 64 == 0 and "
+                         f"t_freq % 64 == 0, not C = {c}, H = {hidden}, t_freq = "
+                         f"{t_freq_size}")
+    plans = sampler_plans(rows, c, hidden, attention, sm_count)
+    m = (6 if attention else 3) * c
+    shapes = {"t_w0": (c, t_freq_size), "t_w2": (c, c), "mods": (m, c), "final": (2 * c, c)}
+    plans.update({k: head_gemm_plan(rows, n, kk, sm_count) for k, (n, kk) in shapes.items()})
+    return plans
+
+
+@functools.lru_cache(maxsize=64)
+def _net_plan_ints(rows, c, hidden, attention, t_freq_size, sm_count):
+    """net_plans as the 24 host ints of bd_fused_diffnet_forward (a plan
+    the family does not run is zeros)."""
+    plans = net_plans(rows, c, hidden, attention, t_freq_size, sm_count)
+    flat = [v for k in NET_PRODUCTS for v in plans.get(k, (0, 0, 0))]
+    return (ctypes.c_int * len(flat))(*flat)
+
+
 def fused_diffnet_forward_reference(stacked: dict, x: torch.Tensor,
                                     t: torch.Tensor, c_emb: torch.Tensor, *,
                                     num_blocks: int, num_ada: int,
                                     n_head: int = 0, attention: bool = True,
                                     bounded: bool = True, t_freq_size: int = 256,
                                     eps: float = 1e-6, group_of=None,
-                                    fp32_qkv_h12: bool = False) -> torch.Tensor:
+                                    fp32_qkv_h12: bool = False,
+                                    splits: dict | None = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_diffnet_forward` (same
     arguments), step for step as the TPU kernel #5: prologue (t-embedding
     MLP, y = silu(te + c_emb), h = x @ in_w + in_b) in fp32, the adaLN mods
     recomputed at each group boundary, :func:`_block_body` per block, then
-    the final adaLN LayerNorm and output product in fp32.
+    the final adaLN LayerNorm and output product in fp32. splits ({key of
+    :data:`NET_PRODUCTS`: count}, e.g. the splits of :func:`net_plans`) sums
+    each product's K splits as the card's head GEMM does (None: one pass).
 
     Twins for the card check, which holds the kernel away from them:
     group_of(l) picks block l's adaLN group (default l // switch), and
-    fp32_qkv_h12 keeps qkv and h12 in fp32 as #14 / #15 do."""
+    fp32_qkv_h12 keeps qkv and h12 in fp32 as #15 does."""
     from bitdance_tpu_torch.models.diff_head import timestep_embedding
 
     squeeze = x.ndim == 2
@@ -987,16 +1067,21 @@ def fused_diffnet_forward_reference(stacked: dict, x: torch.Tensor,
     c = stacked["n2"].shape[-1]
     switch = max(1, num_blocks // num_ada)
     ada, (f_w, f_b) = adaln_views(stacked, num_ada, attention)
+    sp = splits or {}
+
+    def dot(a, w, key):
+        return _dot_acc_split(a, w, sp.get(key, 1))
+
     tf = timestep_embedding(t.reshape(rows).float(), t_freq_size)
-    te = _dot_acc(tf, stacked["t_w0"]) + stacked["t_b0"]
-    te = _dot_acc(F.silu(te), stacked["t_w2"]) + stacked["t_b2"]
+    te = dot(tf, stacked["t_w0"], "t_w0") + stacked["t_b0"]
+    te = dot(F.silu(te), stacked["t_w2"], "t_w2") + stacked["t_b2"]
     y = F.silu(te + c_emb.reshape(rows, c).float())
     h = _dot_acc(xg.reshape(rows, ch).float(), stacked["in_w"]) + stacked["in_b"]
     out = _rounded_blocks(
-        h, lambda gi: _dot_acc(y, ada[gi][0]) + ada[gi][1],
-        group_of or (lambda l: l // switch), _dot_acc(y, f_w) + f_b, stacked,
+        h, lambda gi: dot(y, ada[gi][0], "mods") + ada[gi][1],
+        group_of or (lambda l: l // switch), dot(y, f_w, "final") + f_b, stacked,
         num_blocks=num_blocks, attention=attention, n_head=n_head, groups=g,
-        bounded=bounded, eps=eps, fp32_qkv_h12=fp32_qkv_h12)
+        bounded=bounded, eps=eps, fp32_qkv_h12=fp32_qkv_h12, splits=splits)
     return out.reshape(x.shape).to(x.dtype)
 
 
@@ -1012,8 +1097,8 @@ def net_launches(num_blocks: int, num_ada: int, attention: bool) -> int:
 def fused_diffnet_forward(stacked: dict, x: torch.Tensor, t: torch.Tensor,
                           c_emb: torch.Tensor, *, num_blocks: int, num_ada: int,
                           n_head: int = 0, attention: bool = True,
-                          bounded: bool = True,
-                          t_freq_size: int = 256) -> torch.Tensor:
+                          bounded: bool = True, t_freq_size: int = 256,
+                          _pdl: bool = True) -> torch.Tensor:
     """One whole DiffNet forward; dispatch by device.
 
     x [G, W, ch] (TransEncoder: G groups of W window rows) or [R, ch]
@@ -1023,7 +1108,10 @@ def fused_diffnet_forward(stacked: dict, x: torch.Tensor, t: torch.Tensor,
     :func:`stack_diffnet_params`' layout (unquantized); the adaLN groups are
     read from modcat_w (:func:`adaln_views`). CPU tensors take
     :func:`fused_diffnet_forward_reference`; CUDA tensors run
-    ``csrc/fused_net.cu`` on a bf16 stack (an fp32 stack raises)."""
+    ``csrc/fused_net.cu`` on a bf16 stack (an fp32 stack raises), every
+    product on the head GEMM by :func:`net_plans` (a shape it cannot take
+    raises) and every launch programmatic (``_pdl=False`` only to measure
+    what that saves)."""
     kw = dict(num_blocks=num_blocks, num_ada=num_ada, n_head=n_head,
               attention=attention, bounded=bounded, t_freq_size=t_freq_size)
     if x.device.type == "cpu":
@@ -1058,12 +1146,16 @@ def fused_diffnet_forward(stacked: dict, x: torch.Tensor, t: torch.Tensor,
             or tuple(c_emb.shape) != tuple(x.shape[:-1]) + (c,)):
         raise ValueError(f"fused_diffnet_forward: t {tuple(t.shape)} and c_emb "
                          f"{tuple(c_emb.shape)} do not match x {tuple(x.shape)}")
-    if (tuple(stacked["in_w"].shape) != (c, ch) or t_freq_size % 64 or c % 64
+    if (tuple(stacked["in_w"].shape) != (c, ch)
             or tuple(stacked["t_w0"].shape) != (c, t_freq_size)):
         raise ValueError(f"fused_diffnet_forward: in_w {tuple(stacked['in_w'].shape)}"
                          f" / t_w0 {tuple(stacked['t_w0'].shape)} do not fit C = "
-                         f"{c}, ch = {ch}, t_freq_size = {t_freq_size} (a "
-                         "multiple of 64)")
+                         f"{c}, ch = {ch}, t_freq_size = {t_freq_size}")
+    try:
+        plan = _net_plan_ints(rows, c, hidden, attention, t_freq_size,
+                              _cuda.sm_count(dev.index))
+    except ValueError as e:
+        raise ValueError(f"fused_diffnet_forward: {e}") from None
     xf = x.reshape(rows, ch).float().contiguous()
     tf = t.reshape(rows).float().contiguous()
     cf = c_emb.reshape(rows, c).float().contiguous()
@@ -1084,7 +1176,7 @@ def fused_diffnet_forward(stacked: dict, x: torch.Tensor, t: torch.Tensor,
                            "w1", "b1", "w2", "b2")],
         *[v.data_ptr() for v in scratch.values()],
         groups, w, ch, c, hidden, num_blocks, num_ada, switch, max(n_head, 1),
-        t_freq_size, int(attention), int(bounded), _cuda.stream_ptr())
+        t_freq_size, int(attention), int(bounded), plan, int(_pdl), _cuda.stream_ptr())
     _cuda.check(code, "fused_diffnet_forward")
     fused_diffnet_forward.launches += 1
     return out.reshape(x.shape).to(x.dtype)

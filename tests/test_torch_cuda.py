@@ -265,13 +265,16 @@ def _block_weights(g, dev, c, n_out, n_in):
     return (torch.randn((n_out, n_in), generator=g, device=dev) * n_in ** -0.5).bfloat16()
 
 
-@pytest.mark.parametrize("rows,c", [(8, 1280), (77, 256)])
+@pytest.mark.parametrize("rows,c", [(8, 1280), (512, 768), (77, 256)])
 def test_fused_mlp_block_kernel(dev, rows, c):
-    """#14 vs its plain version (bf16; bounds a few bf16 ulps of the
-    output); mods read through a row stride and, for the gate, stride 0."""
+    """#14 (both products on the head GEMM) vs its plain version at the
+    same K splits (bf16; bounds a few bf16 ulps of the output) and two
+    launches bit-equal; mods read through a row stride and, for the gate,
+    stride 0; a shape the head GEMM cannot take raises."""
     from bitdance_tpu_torch.ops.fused_block import (
         fused_mlp_block,
         fused_mlp_block_reference,
+        mlp_block_plans,
     )
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -286,14 +289,22 @@ def test_fused_mlp_block_kernel(dev, rows, c):
     b1 = (0.1 * torch.randn(2 * h, generator=g, device=dev)).bfloat16()
     b2 = (0.1 * torch.randn(c, generator=g, device=dev)).bfloat16()
     args = (x, scale, shift, gate, ln_w, ln_b, w1, b1, w2, b2)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = dict(zip(("w1", "w2"), (p.splits for p in mlp_block_plans(rows, c, h, sms))))
     n = fused_mlp_block.launches
     with torch.no_grad():
-        got = fused_mlp_block(*args)
-        want = fused_mlp_block_reference(*args)
+        got, again = fused_mlp_block(*args), fused_mlp_block(*args)
+        want = fused_mlp_block_reference(*args, splits=splits)
     torch.cuda.synchronize()
-    assert fused_mlp_block.launches == n + 1 and got.dtype == torch.bfloat16
+    assert fused_mlp_block.launches == n + 2 and got.dtype == torch.bfloat16
+    assert torch.equal(got, again)
     err = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
     assert err < 2e-2
+    narrow = (x[:, :c - 64].contiguous(), scale[:, :c - 64], shift[:, :c - 64],
+              gate[:, :c - 64], ln_w[:c - 64], ln_b[:c - 64],
+              w1[:, :c - 64].contiguous(), b1, w2[:c - 64].contiguous(), b2[:c - 64])
+    with pytest.raises(ValueError, match="head GEMM"):       # C % 128 != 0
+        fused_mlp_block(*narrow)
 
 
 def test_fused_attn_block_kernel(dev):
@@ -845,14 +856,24 @@ HEAD_GEMM_CASES = {"h1x_w1": (64, 3840, 1280, "swiglu"), "h1x_w2": (64, 1280, 19
                    "t2i_qkv": (128, 15360, 5120, "bias"), "t2i_wo": (128, 5120, 5120, "gated_f32"),
                    "t2i_w1": (128, 15360, 5120, "swiglu_f32"),
                    "t2i_w2": (128, 5120, 7680, "gated_f32"),
-                   "t2i_w1_256": (256, 15360, 5120, "swiglu_f32")}
+                   "t2i_w1_256": (256, 15360, 5120, "swiglu_f32"),
+                   # the MLP block #14 at H-1x's 8 rows and B-16x's 512, #5's
+                   # fp32 products (an adaLN group's at H-1x, t_w0 at B-16x)
+                   "h1x_mlp_w1": (8, 3840, 1280, "swiglu_h32"),
+                   "h1x_mlp_w2": (8, 1280, 1920, "gated_bf16"),
+                   "b16x_mlp_w1": (512, 2304, 768, "swiglu_h32"),
+                   "b16x_mlp_w2": (512, 768, 1152, "gated_bf16"),
+                   "h1x_net_mods": (8, 3840, 1280, "out_f32"),
+                   "b16x_net_t_w0": (512, 768, 256, "out_f32")}
 # kernel vs its split twin on the same splits, max |error| / max |twin|; the
 # sums differ in fp32 order only, so an output moves by one bf16 ulp where it
 # sits at a rounding boundary: at most 2^-7 of the largest output (twice that
-# for the swiglu's product of two rounded halves); gated_f32 keeps fp32, a
-# few fp32 ulps of sums over K 5120-7680
+# for the swiglu's product of two rounded halves); gated_f32 and out_f32
+# keep fp32, a few fp32 ulps of sums over K 256-7680; #14's swiglu_h32 and
+# gated_bf16 round their output once
 HEAD_GEMM_TEST_BOUND = {"bias": 8e-3, "gated": 8e-3, "swiglu": 1.6e-2, "gated_f32": 1e-4,
-                        "swiglu_f32": 1.6e-2}
+                        "swiglu_f32": 1.6e-2, "swiglu_h32": 8e-3, "gated_bf16": 8e-3,
+                        "out_f32": 1e-4}
 
 
 def _head_gemm_inputs(dev, rows, n, k, mode, seed):
@@ -863,8 +884,11 @@ def _head_gemm_inputs(dev, rows, n, k, mode, seed):
     kw = {}
     if mode in ("gated", "gated_f32"):
         kw["resid"] = torch.randn((rows, n), generator=g, device=dev).bfloat16().float()
+    if mode == "gated_bf16":
+        kw["x"] = torch.randn((rows, n), generator=g, device=dev).bfloat16()
+    if mode.startswith("gated"):
         kw["gate"] = (0.5 * torch.randn((rows, 2 * n), generator=g, device=dev)).bfloat16()[:, n:]
-    return a, w, bias, kw
+    return a, w, None if mode == "out_f32" else bias, kw
 
 
 @pytest.mark.parametrize("name", list(HEAD_GEMM_CASES))

@@ -273,10 +273,17 @@ def test_bf16_mods_precompute_keeps_fp32_sums(setup):
 
 
 # the plain sampler on a bf16 stack with kernel #2's precision against the
-# streamed kernel #2 (interpret mode) on the same bf16 mods, 4 steps: max
-# |difference| / max |x|. Measured 5.4e-3 with fp32 product sums; rounding
-# each product to bf16 before its bias read 9.1e-3.
-SAMPLER_BF16_REL = 7e-3
+# streamed kernel #2 (interpret mode) on the same bf16 mods, max and mean
+# |difference| / max |x|. Over 4 steps the gap is rounding chaos: the port
+# against itself with float64-exact product sums moves 5.8e-3 (8e-5 after one
+# step); against JAX it read 5.4e-3 on one host and 8.3e-3 on an AMD EPYC
+# host, where products rounded to bf16 before their bias (the fault this test
+# is for) read 7.6e-3: there the 4-step gap cannot tell them apart. After
+# one step (two net calls) the mean gap can: 4.9e-5 to 5.1e-5 over float64
+# sums, 1 / 2 / 4 splits and 1 / 2 / 4 threads, 1.16e-4 to 1.18e-4 with the
+# fault, on that host. Bounds: one step, mean 8e-5 and max 5e-4 (2.3e-4
+# measured); 4 steps, max 1.5e-2 and mean 4e-3, a check on drift.
+SAMPLER_BF16_REL = {1: (5e-4, 8e-5), STEPS: (1.5e-2, 4e-3)}
 
 
 def test_plain_bf16_sampler_matches_jax_kernel_2(setup):
@@ -284,16 +291,20 @@ def test_plain_bf16_sampler_matches_jax_kernel_2(setup):
     jst = jfh.stack_diffnet_params(s["params"], BLOCKS, True, dtype=jnp.bfloat16)
     jmods = jfh.em_precompute(jst, s["j_cemb"], jnp.asarray(s["t_all"]),
                               out_dtype=jnp.bfloat16)
-    want = np.asarray(jfh.fused_em_sample(
-        jst, jnp.asarray(s["x0"]), jnp.asarray(s["noise"]), jmods, jnp.asarray(s["t_all"]),
-        jnp.asarray(s["dt_all"]), jnp.float32(CFG), interpret=True, resident=False,
-        streamed="dma", **JKW))
     _, _, tnet = _nets()
     tst = tfh.stack_diffnet_params(tnet, BLOCKS, dtype=torch.bfloat16)
     tmods = torch.tensor(np.asarray(jmods.astype(jnp.float32))).bfloat16()
     assert tfh.rounds_residual(tst, BLOCKS, True)    # the router's pick; #2 forced below
-    got = tfh.fused_em_sample_reference(
-        tst, torch.from_numpy(s["x0"]), torch.from_numpy(s["noise"]), tmods, s["t_all"],
-        s["dt_all"], CFG, round_residual=False, **KW).numpy()
-    assert np.isfinite(got).all() and got.shape == want.shape
-    assert _rel(got, want) < SAMPLER_BF16_REL, _rel(got, want)
+    for steps, (top, mean) in SAMPLER_BF16_REL.items():
+        t_all, dt_all = s["t_all"][:steps + 1], s["dt_all"][:steps + 1]
+        noise = s["noise"][:steps]
+        want = np.asarray(jfh.fused_em_sample(
+            jst, jnp.asarray(s["x0"]), jnp.asarray(noise), jmods, jnp.asarray(t_all),
+            jnp.asarray(dt_all), jnp.float32(CFG), interpret=True, resident=False,
+            streamed="dma", **JKW))
+        got = tfh.fused_em_sample_reference(
+            tst, torch.from_numpy(s["x0"]), torch.from_numpy(noise), tmods, t_all,
+            dt_all, CFG, round_residual=False, **KW).numpy()
+        assert np.isfinite(got).all() and got.shape == want.shape
+        gap = float(np.abs(got - want).mean() / np.abs(want).max())
+        assert _rel(got, want) < top and gap < mean, (steps, _rel(got, want), gap)

@@ -90,15 +90,50 @@ def test_quantized_stack_matches_jax(nets, mode):
     np.testing.assert_array_equal(ts["modcat_w_s"].numpy(), np.asarray(js["modcat_w_s"])[0])
 
 
+# em_precompute's W8A8 product quantizes y = silu(te + c_emb) per row. The
+# fp32 sums that lead to y are ordered differently by XLA and by torch (y
+# differs by 1.7e-6 of max |y| measured), so a y within that of a rounding
+# boundary of y / s rounds to the neighbouring int8 value on one side, and
+# its row's mods move by a quantization step (one such value in 40,960 on an
+# AMD EPYC host: 2,112 mods of its row off by up to 7.9e-4). So y is held to
+# fp32 sums (Y_REL of max |y|); given the same y, the product to 1e-6 (the
+# same int8 values, integer sums and scales: equal bits here, the bound
+# leaves an fp32 ulp for a multiply-add that XLA may fuse); and the mods to 1e-4 over the rows whose every y / s clears a rounding
+# boundary by more than the y bound can move it. A bf16-rounded product sum
+# (ROADMAP C8) is off by up to 2^-9 of a mod and fails the last two.
+Y_REL = 4e-6
+
+
+def _jax_rows(js, j_cemb, t_all):
+    """The JAX em_precompute's y, by its own steps (fused_head.py:1556-1560)."""
+    from bitdance_tpu.models.diff_head import timestep_embedding
+
+    te = jfh._dot(timestep_embedding(t_all, 256), js["t_w0"]) + js["t_b0"][None]
+    te = jfh._dot(jax.nn.silu(te), js["t_w2"]) + js["t_b2"][None]
+    return jax.nn.silu(te[:, None, :] + j_cemb[None]).reshape(-1, C)
+
+
 @pytest.mark.parametrize("mode", ["int8", "int4"])
 def test_w8a8_mods_precompute_matches_jax(nets, mode):
     js, ts, j_cemb, t_cemb = _stacks(nets, mode)
     t_all = nets[2]["t_all"]
-    want = np.asarray(jfh.em_precompute(js, j_cemb, jnp.asarray(t_all),
-                                        out_dtype=jnp.float32))
+    want = np.asarray(jfh.em_precompute(js, j_cemb, jnp.asarray(t_all), out_dtype=jnp.float32))
+    want = want.reshape(-1, want.shape[-1])
     got = tfh.em_precompute(ts, t_cemb, torch.from_numpy(t_all),
-                            out_dtype=torch.float32).numpy()
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+                            out_dtype=torch.float32).numpy().reshape(want.shape)
+    jy = _jax_rows(js, j_cemb, jnp.asarray(t_all))
+    np.testing.assert_array_equal(       # _jax_rows is the JAX em_precompute's y
+        np.asarray(jfh._mmq(jy, js["modcat_w"], js["modcat_w_s"]) + js["modcat_b"][None]), want)
+    jy = np.array(jy)
+    ty = tfh.em_precompute_rows(ts, t_cemb, torch.from_numpy(t_all)).reshape(jy.shape)
+    np.testing.assert_allclose(ty.numpy(), jy, rtol=0, atol=Y_REL * np.abs(jy).max())
+    np.testing.assert_allclose(tfh.modcat_product(ts, torch.from_numpy(jy)).numpy(), want,
+                               rtol=1e-6, atol=1e-6)
+    # y / s moves by at most 127 Y_REL from y and as much again from s
+    q = jy / np.maximum(np.abs(jy).max(1, keepdims=True) / np.float32(127), np.float32(1e-12))
+    clear = np.abs(np.abs(q - np.floor(q)) - 0.5).min(1) > 2 * 127 * Y_REL
+    assert clear.sum() >= 0.4 * len(clear), clear.sum()
+    np.testing.assert_allclose(got[clear], want[clear], rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("steps", [1, STEPS])

@@ -145,6 +145,44 @@ def test_plain_matches_jax_kernel_bf16(attention):
 
 
 @pytest.mark.parametrize("attention", [True, False], ids=["trans", "mlp"])
+def test_plain_on_the_split_twin_matches_jax_kernel_bf16(attention, monkeypatch):
+    """The plain version with every product summed over the K splits of the
+    card's plans (net_plans: at C 256 and 16 rows each product 2 ways, the
+    head GEMM's split twin), as the card's kernel is held against it,
+    against the JAX kernel #5 in bf16 (interpret mode) under the one-pass
+    bound of test_plain_matches_jax_kernel_bf16 (2e-2 of max |out|), and
+    within a few bf16 roundings of the one-pass plain version."""
+    _, params, tnet = _nets(attention, seed=11)
+    x, _, t, cc = _inputs(attention, seed=12)
+    n_head = tnet.res_blocks[0].attn.n_head if attention else 0
+    kw = dict(num_blocks=4, num_ada=2, n_head=n_head, attention=attention, bounded=attention)
+    jst = jfh.stack_diffnet_params(params, 4, attention, dtype=jnp.bfloat16)
+    j_cemb = jnp.asarray(cc) @ params["cond_embed"]["kernel"] + params["cond_embed"]["bias"]
+    want = np.asarray(jfh.fused_diffnet_forward(jst, jnp.asarray(x), jnp.asarray(t), j_cemb,
+                                                interpret=True, **kw))
+    tst = tfh.stack_diffnet_params(tnet, 4, dtype=torch.bfloat16)
+    t_cemb = torch.from_numpy(cc) @ tst["cond_w"].float().t() + tst["cond_b"]
+    plans = tfh.net_plans(16, 256, 384, attention)
+    splits = {k: p.splits for k, p in plans.items()}
+    assert set(splits.values()) == {2}
+    widths, dot = [], tfh._dot_acc
+    monkeypatch.setattr(tfh, "_dot_acc", lambda a, w: widths.append(w.shape[1]) or dot(a, w))
+    args = (tst, torch.from_numpy(x), torch.from_numpy(t), t_cemb)
+    got = tfh.fused_diffnet_forward_reference(*args, splits=splits, **kw).numpy()
+    # t_w0 (K 256), t_w2 (K 256), the input projection (K 8), the final
+    # modulation (K 256), per adaLN group its product (K 256) and its two
+    # blocks' qkv, wo, w1 (K 256) and w2 (K 384), the output projection (K
+    # 256): every product of the head GEMM in two partials
+    blk = ([128] * 4 if attention else []) + [128, 128, 192, 192]
+    assert widths == [128] * 4 + [8] + [128] * 2 + 2 * ([128] * 2 + 2 * blk) + [256]
+    one = tfh.fused_diffnet_forward_reference(*args, **kw).numpy()
+    assert np.isfinite(got).all() and got.shape == x.shape
+    rel = lambda a, b: np.abs(a - b).max() / np.abs(b).max()    # noqa: E731
+    assert rel(got, want) < 2e-2, rel(got, want)
+    assert rel(got, one) < 2e-2, rel(got, one)
+
+
+@pytest.mark.parametrize("attention", [True, False], ids=["trans", "mlp"])
 def test_plain_matches_port_diffnet_forward(attention):
     _, _, tnet = _nets(attention, seed=13)
     x, t_rows, t, cc = _inputs(attention, seed=14)

@@ -383,23 +383,40 @@ def split_sampler_2():
     return dict(want=want, port=port, plans=plans)
 
 
-def test_split_sampler_matches_jax_kernel_2(split_sampler_2):
+def test_split_sampler_matches_jax_kernel_2(split_sampler_2, monkeypatch):
     """Kernel #2's plain sampler with every product split as the card's plan
     splits it (2 ways at C 256) against the same sampler un-split and against
     the JAX kernel #2, bf16, 4 steps at cfg 3, max and mean |difference|
     relative to max |x|. Measured: split vs un-split 7.1e-3 / 1.5e-3, split
     vs JAX 1.0e-2 / 2.1e-3, un-split vs JAX 8.1e-3 / 1.6e-3: the split sums
     move a few bf16 roundings of the stage activations, about as far as the
-    port's own distance to JAX. Bounds about 2x those."""
+    port's own distance to JAX. Bounds about 2x those.
+
+    That the twin splits is read from its fp32 partials, not from the
+    sample's bits: a CPU BLAS that blocks K at 128 (MKL on an AMD EPYC host)
+    sums a one-pass product at K 256 in the split's order, and split and
+    un-split samples then have equal bits."""
     s = split_sampler_2
     splits = {k: p.splits for k, p in s["plans"].items()}
     assert splits == {"wqkv": 2, "wo": 2, "w1": 2, "w2": 2}
     split, one = s["port"](splits), s["port"](None)
     assert np.array_equal(split, s["port"](splits))
     assert np.isfinite(split).all() and split.shape == s["want"].shape
-    assert not np.array_equal(split, one)
     rel = lambda a, b: float(np.abs(a - b).max() / np.abs(b).max())   # noqa: E731
     for got, want, top, mean in ((split, one, 1.5e-2, 4e-3), (split, s["want"], 2e-2, 5e-3),
                                  (one, s["want"], 2e-2, 5e-3)):
         assert rel(got, want) < top and _mean_gap(got, want) < mean, \
             (rel(got, want), _mean_gap(got, want))
+    # every fp32 partial the sampler sums: a net call is the input projection
+    # (K 8), per block qkv, wo and w1 (K 256) and w2 (K 384), the output
+    # projection (K 256); 5 net calls
+    widths, dot = [], tfh._dot_acc
+    monkeypatch.setattr(tfh, "_dot_acc", lambda a, w: widths.append(w.shape[1]) or dot(a, w))
+
+    def partials(n):
+        blk = [k // n for k in (256, 256, 256, 384) for _ in range(n)]
+        return 5 * ([8] + 4 * blk + [256])
+
+    assert np.array_equal(s["port"](splits), split) and widths == partials(2)
+    widths.clear()
+    assert np.array_equal(s["port"](None), one) and widths == partials(1)

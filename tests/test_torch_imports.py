@@ -21,7 +21,7 @@ torch.set_num_threads(2)
 
 def _port_files():
     files = sorted((ROOT / "bitdance_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("torch_*.py"))
 
 
 def _imports(path):
