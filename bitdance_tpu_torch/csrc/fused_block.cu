@@ -15,39 +15,41 @@
 // operands, fp32 accumulation, h12 and qkv kept in fp32, softmax in fp32,
 // output (x + y * gate) rounded once to x's dtype (bf16).
 //
-// What bounds it on the H100: the weights. At the head's row counts (8-512
-// rows per call) one call reads 14.75 MB (C 1280) or 5.3 MB / 4.7 MB (C 768)
-// of bf16 weights for at most ~2 x rows FLOP per weight element, far under
-// the ~295 FLOP/byte at which the tensor cores limit; the least time is
-// 1.4-4.4 us of HBM traffic, so launch and latency costs dominate.
+// What bounds it on the H100: the weights, and at 1024 rows the products.
+// At the head's row counts (8-1024 rows per call) one call reads 14.75 MB
+// (C 1280) or 5.3 MB / 4.7 MB (C 768) of bf16 weights for ~2 x rows FLOP per
+// weight element, under the ~295 FLOP/byte at which the tensor cores limit
+// up to 512 rows; the least time is 1.4-4.4 us of HBM traffic there, so
+// launch and latency costs dominate. #15 at B-16x's guided 1024 rows does
+// 4.9 GFLOP (4.9 us at the bf16 peak) for 12.6 MB of bytes (3.8 us).
 //
 // Design: the TPU kernel holds a whole row block in VMEM and runs both
-// products back to back. Here the w1 product needs the LN of the full row
-// first and the w2 product the whole GLU row, so each block is a short
-// chain on the caller's stream. The MLP block (#14): LN + modulate (one CTA
-// per row, bf16 out), then both products on the wgmma head GEMM
-// (head_gemm.cuh) by the plans of ops/fused_block.py::mlp_block_plans (H-1x
-// at 8 rows: w1 30 tiles x 4 splits, w2 10 x 8; B-16x at 512: w1 72 x 1, w2
-// 24 x 4), w1 with the kSwiGLUF32 epilogue (fp32 h1 / h2), w2 with
-// kGatedResidualBf16 (reads x, writes x's dtype), both launched
-// programmatic so that their weight tiles are in flight while the kernel
-// ahead finishes; their tensor maps come from the head GEMM's cache, so a
-// call encodes none once its shapes were seen. The first design ran both
-// products on head_blocks.cuh's mma.sync GEMM (64x64 tiles: 20-60 CTAs a
-// product at C 1280 and a few rows, each walking K alone; 0.093 ms a call at
-// H-1x's 8 rows, PERF.md). The attention block (#15) still runs that GEMM:
-// the qkv product into an fp32 buffer, one CTA per (group, head) for the
-// window softmax, then the wo product with the gated-residual epilogue that
-// reads x. The mods are read through a row stride (the caller's [rows, C]
-// slices of the adaLN output, or 0 to broadcast one row), never copied.
+// products back to back. Here the first product needs the LN of the full row
+// and the second the whole row of its input, so each block is a short chain
+// on the caller's stream, every product on the wgmma head GEMM
+// (head_gemm.cuh) by the plans of ops/fused_block.py (their tensor maps from
+// the head GEMM's cache, so a call encodes none once its shapes were seen).
+// The MLP block (#14): LN + modulate (one CTA per row, bf16 out), then w1
+// with the kSwiGLUF32 epilogue (fp32 h1 / h2) and w2 with kGatedResidualBf16
+// (reads x, writes x's dtype), by mlp_block_plans (H-1x at 8 rows: w1 30
+// tiles x 4 splits, w2 10 x 8; B-16x at 512: w1 72 x 1, w2 24 x 4). The
+// attention block (#15): LN + modulate, qkv with the kBiasF32 epilogue (qkv
+// kept in fp32, as the TPU kernel keeps it), window attention on that fp32
+// qkv (window_attention_f32_kernel below), then wo with kGatedResidualBf16,
+// by attn_block_plans (B-16x at 512 rows: qkv 72 tiles x 1, wo 24 x 4; at
+// 1024: 144 x 1, 48 x 2). Every launch may be programmatic, so that a
+// product's weight tiles are in flight while the kernel ahead finishes. The
+// first designs ran both blocks' products on an mma.sync GEMM since removed
+// (64x64 tiles: 20-60 CTAs a product at C 1280 and a few rows, each walking
+// K alone, every launch waiting for the one ahead to drain; #14 0.042 ms a
+// call device-only at H-1x's 8 rows, PERF.md), and #15's attention on one
+// CTA per (window, head) that read fp32 qkv 4 bytes at a time, 3C floats
+// apart, and computed one score or output a thread per pass. The mods are
+// read through a row stride (the caller's [rows, C] slices of the adaLN
+// output, or 0 to broadcast one row), never copied.
 #include "head_gemm.cuh"
 
 namespace {
-
-bool shapes_ok(int C, int H) {
-  return C > 0 && C % kBN == 0 && C % kBK == 0 && H % kBK == 0 &&
-         (2 * H) % kBN == 0;
-}
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
@@ -102,9 +104,10 @@ extern "C" int bd_fused_mlp_block(
   return static_cast<int>(hg::gemm<kGatedResidualBf16>(pr2, 0, p2, out_ep, pdl > 0, st));
 }
 
-// One product of #14 on the head GEMM alone (ops/fused_head.py::head_gemm,
-// hg::single_product), for its checks and timings: mode 3 (kSwiGLUF32) or 5
-// (kGatedResidualBf16). Returns the first CUDA error, or 0.
+// One product of #14 or #15 on the head GEMM alone (ops/fused_head.py::
+// head_gemm, hg::single_product), for its checks and timings: mode 3
+// (kSwiGLUF32), 4 (kBiasF32) or 5 (kGatedResidualBf16). Returns the first
+// CUDA error, or 0.
 extern "C" int bd_head_gemm_block(const void* a, const void* w, const void* bias, void* out,
                                   void* resid, const void* gate, const int* shape,
                                   void* stream) {
@@ -116,52 +119,216 @@ extern "C" int bd_head_gemm_block(const void* a, const void* w, const void* bias
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (shape[4]) {
     case kSwiGLUF32: return static_cast<int>(hg::gemm<kSwiGLUF32>(pr, 0, plan, ep, false, st));
+    case kBiasF32: return static_cast<int>(hg::gemm<kBiasF32>(pr, 0, plan, ep, false, st));
     case kGatedResidualBf16:
       return static_cast<int>(hg::gemm<kGatedResidualBf16>(pr, 0, plan, ep, false, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+namespace {
+
+// Window attention of #15 on fp32 qkv [R, 3C] (column order (3, n_head,
+// hd)), the TPU kernel's precision (fused_block.py:141-152): q scaled in
+// fp32, scores, softmax and P V in fp32 FMAs (no bf16 rounding of q or k: a
+// (window, head) at 16 x 16 x 64 is 16 K FMAs), out [R, C] bf16 (wo's A
+// operand). One CTA of 128 threads per (window of w rows, head), HD 64 or
+// 128 and w <= 16 WR, on window_attention_rows_kernel's design: q, k and v
+// come in by 16-byte cp.async copies, all in flight together (rows of HD + 4
+// floats in shared memory: 8 neighbouring rows at one column fall in 8
+// distinct 16-byte bank groups), and thread (it, jt) = (tid / 8, tid % 8)
+// takes the scores of rows it + 16 r (r < WR) against keys jt + 8 c (c < 2
+// WR), a row's scores on 8 neighbouring lanes for the softmax, then the
+// outputs of the same rows at columns 4 jt + 32 e (e < HD / 32), four at a
+// time. Dynamic shared memory: window_f32_smem<HD, WR>().
+template <int HD, int WR>
+constexpr size_t window_f32_smem() {
+  return (size_t)(3 * 16 * WR * (HD + 4) + 16 * WR * (16 * WR + 4)) * sizeof(float);
+}
+
+template <int HD, int WR>
+__global__ void __launch_bounds__(128)
+window_attention_f32_kernel(const float* __restrict__ qkv, int C, int w, int n_head,
+                            float scale, bf16* __restrict__ out) {
+  constexpr int kW = 16 * WR, kLd = HD + 4, kPld = kW + 4, kUnits = HD / 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* const qs = reinterpret_cast<float*>(smem);
+  float* const ks = qs + kW * kLd;
+  float* const vs = ks + kW * kLd;
+  float* const ps = vs + kW * kLd;
+  pdl_trigger();
+  pdl_wait();
+  const int tid = threadIdx.x, it = tid >> 3, jt = tid & 7;
+  const int gi = blockIdx.x / n_head, hh = blockIdx.x % n_head;
+  const int row0 = gi * w;
+  const size_t ld = 3 * (size_t)C;
+#pragma unroll
+  for (int n = 0; n < 3 * kW * kUnits / 128; ++n) {  // rows past w arrive as zeros
+    const int idx = tid + 128 * n;
+    const int mat = idx / (kW * kUnits), rest = idx % (kW * kUnits);
+    const int i = rest / kUnits, u = rest % kUnits;
+    cp_async16(qs + mat * kW * kLd + i * kLd + 4 * u,
+               qkv + (size_t)(row0 + min(i, w - 1)) * ld + (size_t)mat * C + hh * HD + 4 * u,
+               i < w ? 16 : 0);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  float s[WR][2 * WR];
+#pragma unroll
+  for (int r = 0; r < WR; ++r)
+#pragma unroll
+    for (int c = 0; c < 2 * WR; ++c) s[r][c] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < HD; d += 4) {
+    float4 q[WR];
+#pragma unroll
+    for (int r = 0; r < WR; ++r) {
+      q[r] = *reinterpret_cast<const float4*>(qs + (it + 16 * r) * kLd + d);
+      q[r].x *= scale, q[r].y *= scale, q[r].z *= scale, q[r].w *= scale;
+    }
+#pragma unroll
+    for (int c = 0; c < 2 * WR; ++c) {
+      const float4 k = *reinterpret_cast<const float4*>(ks + (jt + 8 * c) * kLd + d);
+#pragma unroll
+      for (int r = 0; r < WR; ++r) {
+        s[r][c] = fmaf(q[r].x, k.x, s[r][c]);
+        s[r][c] = fmaf(q[r].y, k.y, s[r][c]);
+        s[r][c] = fmaf(q[r].z, k.z, s[r][c]);
+        s[r][c] = fmaf(q[r].w, k.w, s[r][c]);
+      }
+    }
+  }
+  // softmax over each row's keys j < w, p = e / sum as the TPU kernel
+#pragma unroll
+  for (int r = 0; r < WR; ++r) {
+    float m = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < 2 * WR; ++c)
+      if (jt + 8 * c < w) m = fmaxf(m, s[r][c]);
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < 2 * WR; ++c) {
+      s[r][c] = jt + 8 * c < w ? expf(s[r][c] - m) : 0.f;
+      sum += s[r][c];
+    }
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+#pragma unroll
+    for (int c = 0; c < 2 * WR; ++c) ps[(it + 16 * r) * kPld + jt + 8 * c] = s[r][c] / sum;
+  }
+  __syncthreads();
+
+  constexpr int kE = HD / 32;  // 4-column groups of a thread
+  float o[WR][kE][4];
+#pragma unroll
+  for (int r = 0; r < WR; ++r)
+#pragma unroll
+    for (int e = 0; e < kE; ++e) o[r][e][0] = o[r][e][1] = o[r][e][2] = o[r][e][3] = 0.f;
+#pragma unroll 4
+  for (int j = 0; j < w; ++j) {
+    float p[WR];
+#pragma unroll
+    for (int r = 0; r < WR; ++r) p[r] = ps[(it + 16 * r) * kPld + j];
+#pragma unroll
+    for (int e = 0; e < kE; ++e) {
+      const float4 v = *reinterpret_cast<const float4*>(vs + j * kLd + 4 * jt + 32 * e);
+#pragma unroll
+      for (int r = 0; r < WR; ++r) {
+        o[r][e][0] = fmaf(p[r], v.x, o[r][e][0]);
+        o[r][e][1] = fmaf(p[r], v.y, o[r][e][1]);
+        o[r][e][2] = fmaf(p[r], v.z, o[r][e][2]);
+        o[r][e][3] = fmaf(p[r], v.w, o[r][e][3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < WR; ++r) {
+    const int i = it + 16 * r;
+    if (i >= w) continue;
+    bf16* dst = out + (size_t)(row0 + i) * C + hh * HD + 4 * jt;
+#pragma unroll
+    for (int e = 0; e < kE; ++e)
+      *reinterpret_cast<uint2*>(dst + 32 * e) =
+          make_uint2(pack_bf16x2(o[r][e][0], o[r][e][1]), pack_bf16x2(o[r][e][2], o[r][e][3]));
+  }
+}
+
+template <int HD, int WR>
+cudaError_t window_f32(bool pdl, int groups, int n_head, const float* qkv, int C, int w,
+                       float scale, bf16* out, cudaStream_t st) {
+  constexpr size_t smem = window_f32_smem<HD, WR>();
+  if (smem > 48 * 1024)
+    BD_CHECK_ERR(cudaFuncSetAttribute(window_attention_f32_kernel<HD, WR>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      static_cast<int>(smem)));
+  return hg::launch(pdl, dim3(groups * n_head), 128, smem, st,
+                    window_attention_f32_kernel<HD, WR>, qkv, C, w, n_head, scale, out);
+}
+
+// window_f32 at head dim hd (64 or 128) for windows of w (1-64) rows
+cudaError_t window_attention_f32(bool pdl, int groups, int n_head, int hd, const float* qkv,
+                                 int C, int w, bf16* out, cudaStream_t st) {
+  const float scale = 1.f / sqrtf(static_cast<float>(hd));
+  const int wr = w <= 16 ? 1 : w <= 32 ? 2 : 4;
+  if (hd == 64) {
+    if (wr == 1) return window_f32<64, 1>(pdl, groups, n_head, qkv, C, w, scale, out, st);
+    if (wr == 2) return window_f32<64, 2>(pdl, groups, n_head, qkv, C, w, scale, out, st);
+    return window_f32<64, 4>(pdl, groups, n_head, qkv, C, w, scale, out, st);
+  }
+  if (wr == 1) return window_f32<128, 1>(pdl, groups, n_head, qkv, C, w, scale, out, st);
+  if (wr == 2) return window_f32<128, 2>(pdl, groups, n_head, qkv, C, w, scale, out, st);
+  return window_f32<128, 4>(pdl, groups, n_head, qkv, C, w, scale, out, st);
+}
+
+}  // namespace
+
 // out [G*w, C] bf16 = the attention half of a TransBlock on x [G, w, C] bf16
-// (contiguous), groups of w tokens attending to each other. Mods as in
-// bd_fused_mlp_block; wqkv [3C, C], bqkv [3C], wo [C, C], bo [C]. act (bf16
-// [G*w, C]) and qkv (fp32 [G*w, 3C]) are scratch. Returns the first CUDA
-// error, or 0.
+// (contiguous, 16-byte aligned), groups of w tokens attending to each other.
+// Mods as in bd_fused_mlp_block; wqkv [3C, C], bqkv [3C], wo [C, C], bo [C]
+// (bf16, the torch Linear layout); C % 128 == 0 (the head GEMM's tiles),
+// C / n_head 64 or 128, 1 <= w <= 64. act (bf16 [G*w, C]) and qkv (fp32
+// [G*w, 3C]) are scratch. plan: {bm, bn, splits} of qkv, then of wo. pdl 2
+// launches all four kernels programmatic (as fast as 1 or 0 at B-16x's 512
+// rows, 0.7 us faster at 1024, PERF.md), 1 all but the LN, 0 none.
+// Returns the first CUDA error, or 0; a shape the kernels cannot take is
+// refused (cudaErrorInvalidValue), never run on another GEMM.
 extern "C" int bd_fused_attn_block(
     const void* x, const void* scale, int ld_scale, const void* shift,
     int ld_shift, const void* gate, int ld_gate, const void* ln_w,
     const void* ln_b, const void* wqkv, const void* bqkv, const void* wo,
     const void* bo, void* act_scratch, void* qkv_scratch, void* out,
-    int groups, int w, int C, int n_head, float eps, void* stream) {
+    int groups, int w, int C, int n_head, float eps, const int* plan, int pdl,
+    void* stream) {
   const int rows = groups * w;
-  if (rows <= 0 || !shapes_ok(C, C) || n_head <= 0 || C % n_head != 0)
+  const hg::Plan p1{plan[0], plan[1], plan[2]}, p2{plan[3], plan[4], plan[5]};
+  hg::Product pr1, pr2;
+  const int hd = n_head > 0 ? C / n_head : 0;
+  if (rows <= 0 || w > 64 || C % 128 != 0 || n_head <= 0 || C % n_head != 0 ||
+      (hd != 64 && hd != 128) || ld_gate % 8 != 0 || !aligned16(x) || !aligned16(gate) ||
+      !aligned16(out) || !aligned16(bqkv) || !aligned16(bo) || !aligned16(qkv_scratch) ||
+      !hg::make_product(hg::kOpBf16, act_scratch, rows, C, wqkv, 3 * C, 3 * C, false, p1,
+                        &pr1) ||
+      !hg::make_product(hg::kOpBf16, act_scratch, rows, C, wo, C, C, false, p2, &pr2))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int hd = C / n_head;
-  const size_t smem = window_attention_smem<float>(w, hd);
-  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (smem > 48 * 1024)
-    BD_CHECK(cudaFuncSetAttribute(window_attention_kernel<float>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  static_cast<int>(smem)));
   const bf16* X = static_cast<const bf16*>(x);
   bf16* act = static_cast<bf16*>(act_scratch);
   float* qkv = static_cast<float*>(qkv_scratch);
-  ln_modulate_kernel<bf16, true><<<rows, 256, 0, st>>>(
-      X, C, static_cast<const bf16*>(ln_w), static_cast<const bf16*>(ln_b),
-      static_cast<const bf16*>(scale), ld_scale,
-      static_cast<const bf16*>(shift), ld_shift, act, eps);
-  BD_CHECK(cudaGetLastError());
+  BD_CHECK(hg::launch(pdl > 1, dim3(rows), 256, 0, st, ln_modulate_kernel<bf16, true>, X, C,
+                      static_cast<const bf16*>(ln_w), static_cast<const bf16*>(ln_b),
+                      static_cast<const bf16*>(scale), ld_scale,
+                      static_cast<const bf16*>(shift), ld_shift, act, eps));
   Epilogue qkv_ep{};
   qkv_ep.bias = static_cast<const bf16*>(bqkv);
   qkv_ep.out = qkv;
   qkv_ep.ldo = 3 * C;
-  BD_CHECK(launch_gemm<kBiasF32>(act, C, static_cast<const bf16*>(wqkv), C,
-                                 rows, 3 * C, qkv_ep, st));
+  BD_CHECK(hg::gemm<kBiasF32>(pr1, 0, p1, qkv_ep, pdl > 0, st));
   // the LN output is consumed; act now holds the attention output
-  window_attention_kernel<float><<<groups * n_head, 256, smem, st>>>(
-      qkv, C, w, hd, n_head, 1.f / sqrtf(static_cast<float>(hd)), act);
-  BD_CHECK(cudaGetLastError());
+  BD_CHECK(window_attention_f32(pdl > 0, groups, n_head, hd, qkv, C, w, act, st));
   Epilogue out_ep{};
   out_ep.bias = static_cast<const bf16*>(bo);
   out_ep.out = out;
@@ -170,6 +337,5 @@ extern "C" int bd_fused_attn_block(
   out_ep.ldg = ld_gate;
   out_ep.x = X;
   out_ep.ldx = C;
-  return static_cast<int>(launch_gemm<kGatedResidualBf16>(
-      act, C, static_cast<const bf16*>(wo), C, rows, C, out_ep, st));
+  return static_cast<int>(hg::gemm<kGatedResidualBf16>(pr2, 0, p2, out_ep, pdl > 0, st));
 }

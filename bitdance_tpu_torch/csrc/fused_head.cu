@@ -346,8 +346,7 @@ extern "C" int bd_fused_em_sample(
     void* sa, int round_residual, const int* gemm_plan, int pdl, void* stream) {
   const int R = 2 * half;
   const int n_mods = attention ? 6 : 3;
-  if (ch > kMaxCh || C % kBN != 0 || C % kBK != 0 || H % kBK != 0 ||
-      (2 * H) % kBN != 0 || gemm_plan == nullptr)
+  if (ch > kMaxCh || C % 64 != 0 || H % 32 != 0 || gemm_plan == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (quant < 0 || quant > 2 || (quant && (!attention || round_residual)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -375,9 +374,9 @@ extern "C" int bd_fused_em_sample(
 
   const int hd = attention ? C / n_head : 0;
   const int wtok = attention ? R / groups : 0;
-  const size_t attn_smem = window_attention_smem<bf16>(wtok, hd);
+  const size_t attn_smem = window_attention_smem(wtok, hd);
   if (attn_smem > 48 * 1024)
-    BD_CHECK(cudaFuncSetAttribute(window_attention_kernel<bf16>,
+    BD_CHECK(cudaFuncSetAttribute(window_attention_kernel,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   static_cast<int>(attn_smem)));
   // go launches the stage kernels and their products on head_gemm.cuh,

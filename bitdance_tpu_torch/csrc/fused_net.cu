@@ -41,7 +41,7 @@
 // is programmatic (PDL): each stage kernel lets the next launch at its start
 // and waits for the one ahead, so each GEMM's weight tiles are in flight
 // before the kernel ahead has finished. The first design ran every product
-// on head_blocks.cuh's mma.sync GEMM (64x64 tiles walked by every thread,
+// on an mma.sync GEMM since removed (64x64 tiles walked by every thread,
 // each launch waiting for the one ahead to drain; 0.764 ms an H-1x net call
 // at 8 rows, PERF.md). The 16-wide input and output projections of the
 // ImageNet heads are too narrow for the GEMM and run as small kernels
@@ -241,10 +241,10 @@ extern "C" int bd_fused_diffnet_forward(
     return hg::gemm<kOutF32>(pr[p], w_row0, plan[p], ep, pdl != 0, st);
   };
   if (attention) {
-    const size_t smem = window_attention_smem<bf16>(w, C / n_head);
+    const size_t smem = window_attention_smem(w, C / n_head);
     if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
     if (smem > 48 * 1024)
-      BD_CHECK(cudaFuncSetAttribute(window_attention_kernel<bf16>,
+      BD_CHECK(cudaFuncSetAttribute(window_attention_kernel,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
                                     static_cast<int>(smem)));
   }

@@ -1,19 +1,9 @@
 // Building blocks shared by the diffusion head's kernels (fused_head.cu, the
 // whole sampler; fused_block.cu, one head block per call; fused_net.cu, one
-// whole net forward): the epilogue modes and operands of their GEMMs, a bf16
-// tensor-core GEMM (gemm_bf16_kernel, now run only by the attention block
-// #15; every other product runs on head_gemm.cuh), the LayerNorm + adaLN
-// modulate kernel, window attention, the input projection and one whole
-// bf16 head block (head_block).
-//
-// GEMM: mma.sync m16n8k16, fp32 accumulate, 3-stage cp.async pipeline,
-// 64x64 output tiles so that even a narrow product launches many blocks.
-// Weights stay in the torch Linear layout [out, in], which is the k-major B
-// operand mma.sync wants. The m tiles are the fastest grid index, so the
-// blocks that share a weight tile run together and the second read comes
-// from L2. A has any number of rows (the ragged last tile is zero-filled by
-// cp.async and not stored); N must be a multiple of 64 and K of 32. Its
-// epilogues are #15's: kBiasF32 (qkv) and kGatedResidualBf16 (wo).
+// whole net forward): the epilogue modes and operands of their GEMMs (every
+// product runs on head_gemm.cuh), the LayerNorm + adaLN modulate kernels,
+// row quantization, window attention on bf16 qkv, the input projection and
+// one whole bf16 head block (head_block).
 #pragma once
 
 #include "common.cuh"
@@ -31,9 +21,6 @@
   } while (0)
 
 namespace {
-
-constexpr int kBM = 64, kBN = 64, kBK = 32, kStages = 3;
-constexpr int kBKP = kBK + 8;  // padded smem row (bf16): conflict-free reads
 
 enum GemmMode {
   kBiasBf16 = 0,       // out bf16 = acc + bias
@@ -59,7 +46,7 @@ __host__ __device__ constexpr bool is_gated(int mode) {
 }
 
 // What the epilogue reads and writes; unused fields are ignored by a mode.
-// launch_gemm (and the head GEMM) hand each field to the kernel as its own __restrict__
+// The head GEMM hands each field to the kernel as its own __restrict__
 // parameter: with the pointers behind a struct the compiler must assume they
 // alias and serialises the epilogue's loads behind its stores (the 14B
 // head's 50-step sample took 290 ms that way, 219 ms with __restrict__).
@@ -77,135 +64,6 @@ struct Epilogue {
   const float* sa;     // the head GEMM's integer routes: row scales [R]
   const float* ws;     // and column scales, indexed as bias
 };
-
-// The epilogue of one 64x64 output tile: acc[mt][nt][i] is the product at
-// row m0 + wm*32 + mt*16 + g + (i/2)*8 and tile column wn*32 + nt*8 + 2*tq +
-// i%2 of the 4 warps' 2x2 layout: kBiasF32 writes acc + bias in fp32,
-// kGatedResidualBf16 bf16(x + (acc + bias) * gate). Rows at or past M are
-// not stored.
-template <int MODE>
-__device__ __forceinline__ void store_tile(
-    const float (&acc)[2][4][4], int m0, int n0, int M,
-    const bf16* __restrict__ bias, bf16* __restrict__ out,
-    float* __restrict__ out_f32, int ldo, const bf16* __restrict__ gate, int ldg,
-    const bf16* __restrict__ xres, int ldx) {
-  static_assert(MODE == kBiasF32 || MODE == kGatedResidualBf16, "#15's epilogues");
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int wm = warp & 1, wn = warp >> 1;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = m0 + wm * 32 + mt * 16 + g + (i >> 1) * 8;
-      if (row >= M) continue;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int col = n0 + wn * 32 + nt * 8 + tq * 2 + (i & 1);
-        const float y = acc[mt][nt][i] + bf2f(bias[col]);
-        if (MODE == kBiasF32) {
-          out_f32[(size_t)row * ldo + col] = y;
-        } else {
-          const float xv = bf2f(xres[(size_t)row * ldx + col]);
-          out[(size_t)row * ldo + col] =
-              __float2bfloat16(xv + y * bf2f(gate[(size_t)row * ldg + col]));
-        }
-      }
-    }
-  }
-}
-
-// epilogue(A[M,K] @ W[N,K]^T); A row-major (lda), W torch Linear layout.
-template <int MODE>
-__global__ void __launch_bounds__(128)
-gemm_bf16_kernel(const bf16* __restrict__ A, int lda,
-                 const bf16* __restrict__ W, int K, int M,
-                 const bf16* __restrict__ bias, bf16* __restrict__ out,
-                 float* __restrict__ out_f32, int ldo, const bf16* __restrict__ gate,
-                 int ldg, const bf16* __restrict__ xres, int ldx) {
-  __shared__ __align__(16) bf16 As[kStages][kBM][kBKP];
-  __shared__ __align__(16) bf16 Bs[kStages][kBN][kBKP];
-
-  const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int wm = warp & 1, wn = warp >> 1;
-
-  auto load_stage = [&](int slot, int kt) {
-    const int k0 = kt * kBK;
-#pragma unroll
-    for (int c = tid; c < kBM * (kBK / 8); c += 128) {
-      const int r = c >> 2, cc = (c & 3) * 8;
-      const int row = m0 + r;
-      const bf16* src = A + (size_t)min(row, M - 1) * lda + k0 + cc;
-      cp_async16(&As[slot][r][cc], src, row < M ? 16 : 0);
-    }
-#pragma unroll
-    for (int c = tid; c < kBN * (kBK / 8); c += 128) {
-      const int r = c >> 2, cc = (c & 3) * 8;
-      cp_async16(&Bs[slot][r][cc], W + (size_t)(n0 + r) * K + k0 + cc, 16);
-    }
-  };
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      acc[a][b][0] = acc[a][b][1] = acc[a][b][2] = acc[a][b][3] = 0.f;
-
-  const int KT = K / kBK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < KT) load_stage(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int pf = kt + kStages - 1;
-    if (pf < KT) load_stage(pf % kStages, pf);
-    cp_async_commit();
-    const int slot = kt % kStages;
-#pragma unroll
-    for (int ks = 0; ks < kBK / 16; ++ks) {
-      const int c = ks * 16 + tq * 2;
-      uint32_t af[2][4], bfr[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int r = wm * 32 + mt * 16 + g;
-        af[mt][0] = lds32(&As[slot][r][c]);
-        af[mt][1] = lds32(&As[slot][r + 8][c]);
-        af[mt][2] = lds32(&As[slot][r][c + 8]);
-        af[mt][3] = lds32(&As[slot][r + 8][c + 8]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int r = wn * 32 + nt * 8 + g;
-        bfr[nt][0] = lds32(&Bs[slot][r][c]);
-        bfr[nt][1] = lds32(&Bs[slot][r][c + 8]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_16816(acc[mt][nt], af[mt], bfr[nt]);
-    }
-  }
-  cp_async_wait<0>();
-  store_tile<MODE>(acc, m0, n0, M, bias, out, out_f32, ldo, gate, ldg, xres, ldx);
-}
-
-template <int MODE>
-cudaError_t launch_gemm(const bf16* A, int lda, const bf16* W, int K, int M,
-                        int N, const Epilogue& ep, cudaStream_t st) {
-  dim3 grid((M + kBM - 1) / kBM, N / kBN);
-  const bool f32 = MODE == kBiasF32;
-  gemm_bf16_kernel<MODE><<<grid, 128, 0, st>>>(
-      A, lda, W, K, M, ep.bias, f32 ? nullptr : static_cast<bf16*>(ep.out),
-      f32 ? static_cast<float*>(ep.out) : nullptr, ep.ldo, ep.gate, ep.ldg, ep.x, ep.ldx);
-  return cudaGetLastError();
-}
 
 // out[r] = bf16((LN(h[r]) * nw + nb) * (1 + scale[r]) + shift[r]), fp32
 // math; h rows are C apart, scale and shift rows ld_scale / ld_shift apart
@@ -419,39 +277,26 @@ __device__ __forceinline__ float to_f32(T v) {
   else return bf2f(v);
 }
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float v) {
-  if constexpr (sizeof(T) == 4) return v;
-  else return __float2bfloat16(v);
+// Row stride of the q, k, v tiles in shared memory (bf16): an odd number
+// of 32-bit words, so that the rows fall in distinct banks.
+__host__ __device__ constexpr int window_ld(int hd) { return hd + 2; }
+
+inline size_t window_attention_smem(int w, int hd) {
+  return (size_t)3 * w * window_ld(hd) * sizeof(bf16) + (size_t)w * w * sizeof(float);
 }
 
-// Row stride of the q, k, v tiles in shared memory: an odd number of 32-bit
-// words, so that the rows fall in distinct banks.
-template <typename T>
-__host__ __device__ constexpr int window_ld(int hd) {
-  return sizeof(T) == 2 ? hd + 2 : hd + 1;
-}
-
-template <typename T>
-size_t window_attention_smem(int w, int hd) {
-  return (size_t)3 * w * window_ld<T>(hd) * sizeof(T) +
-         (size_t)w * w * sizeof(float);
-}
-
-// Window attention over qkv [R, 3C] of type T (column order (3, n_head, hd)):
-// bf16 for the sampler's stage activations, float for the block kernel's qkv,
-// each as its TPU kernel keeps it. One CTA per (group of w rows, head); q is
-// scaled and stored as T; scores, softmax and accumulation in fp32; out
-// [R, C] bf16. Dynamic shared memory: window_attention_smem<T>(w, hd).
-template <typename T>
+// Window attention over bf16 qkv [R, 3C] (column order (3, n_head, hd)), the
+// round route's stage activations (#3/#4, #5). One CTA per (group of w rows,
+// head); q is scaled and stored as bf16; scores, softmax and accumulation in
+// fp32; out [R, C] bf16. Dynamic shared memory: window_attention_smem(w, hd).
 __global__ void __launch_bounds__(256)
-window_attention_kernel(const T* __restrict__ qkv, int C, int w, int hd,
+window_attention_kernel(const bf16* __restrict__ qkv, int C, int w, int hd,
                         int n_head, float scale, bf16* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int ldw = window_ld<T>(hd);
-  T* qs = reinterpret_cast<T*>(smem);
-  T* ks = qs + w * ldw;
-  T* vs = ks + w * ldw;
+  const int ldw = window_ld(hd);
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* ks = qs + w * ldw;
+  bf16* vs = ks + w * ldw;
   float* ps = reinterpret_cast<float*>(vs + w * ldw);
   pdl_trigger();
   pdl_wait();
@@ -461,8 +306,8 @@ window_attention_kernel(const T* __restrict__ qkv, int C, int w, int hd,
   const size_t ld = 3 * (size_t)C;
   for (int idx = threadIdx.x; idx < w * hd; idx += blockDim.x) {
     const int i = idx / hd, d = idx % hd;
-    const T* src = qkv + (size_t)(row0 + i) * ld + hh * hd + d;
-    qs[i * ldw + d] = from_f32<T>(to_f32(src[0]) * scale);
+    const bf16* src = qkv + (size_t)(row0 + i) * ld + hh * hd + d;
+    qs[i * ldw + d] = __float2bfloat16(bf2f(src[0]) * scale);
     ks[i * ldw + d] = src[C];
     vs[i * ldw + d] = src[2 * C];
   }
@@ -470,18 +315,12 @@ window_attention_kernel(const T* __restrict__ qkv, int C, int w, int hd,
   for (int idx = threadIdx.x; idx < w * w; idx += blockDim.x) {
     const int i = idx / w, j = idx % w;
     float acc = 0.f;
-    if constexpr (sizeof(T) == 2) {
-      const __nv_bfloat162* qa =
-          reinterpret_cast<const __nv_bfloat162*>(qs + i * ldw);
-      const __nv_bfloat162* ka =
-          reinterpret_cast<const __nv_bfloat162*>(ks + j * ldw);
-      for (int d = 0; d < hd / 2; ++d) {
-        const float2 a = __bfloat1622float2(qa[d]);
-        const float2 b = __bfloat1622float2(ka[d]);
-        acc += a.x * b.x + a.y * b.y;
-      }
-    } else {
-      for (int d = 0; d < hd; ++d) acc += qs[i * ldw + d] * ks[j * ldw + d];
+    const __nv_bfloat162* qa = reinterpret_cast<const __nv_bfloat162*>(qs + i * ldw);
+    const __nv_bfloat162* ka = reinterpret_cast<const __nv_bfloat162*>(ks + j * ldw);
+    for (int d = 0; d < hd / 2; ++d) {
+      const float2 a = __bfloat1622float2(qa[d]);
+      const float2 b = __bfloat1622float2(ka[d]);
+      acc += a.x * b.x + a.y * b.y;
     }
     ps[idx] = acc;
   }
@@ -505,13 +344,13 @@ window_attention_kernel(const T* __restrict__ qkv, int C, int w, int hd,
   for (int idx = threadIdx.x; idx < w * hd; idx += blockDim.x) {
     const int i = idx / hd, d = idx % hd;
     float acc = 0.f;
-    for (int j = 0; j < w; ++j) acc += ps[i * w + j] * to_f32(vs[j * ldw + d]);
+    for (int j = 0; j < w; ++j) acc += ps[i * w + j] * bf2f(vs[j * ldw + d]);
     out[(size_t)(row0 + i) * C + hh * hd + d] = __float2bfloat16(acc);
   }
 }
 
 // Window attention for kernel #2's blocks: window_attention_kernel's
-// function on bf16 qkv with a head dim of 128 and windows of up to 64 rows
+// function with a head dim of 128 and windows of up to 64 rows
 // (scores, softmax and P V in fp32, q scaled and rounded to bf16 first, bf16
 // out), one CTA of 256 threads per (window, head). q, k and v come in with
 // 16-byte loads (rows 272 bytes apart in shared memory: no bank conflict);
@@ -738,8 +577,8 @@ cudaError_t head_block(const HeadBlockWeights& w, int l, float* h, const bf16* m
     qkv_ep.ldo = 3 * C;
     BD_CHECK_ERR(go.template gemm<kBiasBf16>(kQkv, l * 3 * C, qkv_ep));
     if constexpr (ROUND)
-      BD_CHECK_ERR(go.stage(dim3(groups * n_head), 256, window_attention_smem<bf16>(wtok, hd),
-                            window_attention_kernel<bf16>, static_cast<const bf16*>(buf), C,
+      BD_CHECK_ERR(go.stage(dim3(groups * n_head), 256, window_attention_smem(wtok, hd),
+                            window_attention_kernel, static_cast<const bf16*>(buf), C,
                             wtok, hd, n_head, scale, act));
     else  // hd 128, wtok <= 64 (the caller checks)
       BD_CHECK_ERR(go.stage(dim3(groups * n_head), 256, kWinSmem,

@@ -1,8 +1,8 @@
 // The head GEMM of the diffusion head's kernels: the whole sampler
 // (fused_head.cu: kernel #2, the 14B head, bf16 and its W8A8 / W4A8 quant
 // modes, and #3/#4, the ImageNet heads' round_residual route), one head block
-// per call (fused_block.cu: #14) and one whole net per call (fused_net.cu:
-// #5): epilogue(A[R, K] @ W[N, K]^T) on wgmma, bf16 with fp32 accumulators or
+// per call (fused_block.cu: #14 and #15) and one whole net per call
+// (fused_net.cu: #5): epilogue(A[R, K] @ W[N, K]^T) on wgmma, bf16 with fp32 accumulators or
 // int8 with int32 accumulators, fed by a TMA ring, split-K where the output
 // tiles alone leave SMs idle, and every launch of the block chain
 // programmatic (PDL) so that a product's weight tiles are in flight before
@@ -16,8 +16,8 @@
 // of bytes a net call, ~1.5-3 us a product. BitDance-B-16x runs 1024 rows
 // through 6 blocks (qkv [2304, 768], wo [768, 768], w1 [2304, 768], w2 [768,
 // 1152]): 62 GFLOP a net call, bound by operations (62 us). The first
-// design (gemm_bf16_kernel: mma.sync on 64x64 tiles, a cp.async ring walked
-// by every thread) gave w2 at 64 rows 20 blocks on 132 SMs, each walking K
+// design (mma.sync on 64x64 tiles, a cp.async ring walked by every thread,
+// since removed) gave w2 at 64 rows 20 blocks on 132 SMs, each walking K
 // serially, and left every launch waiting for the previous one to drain.
 // The 14B head runs 128 rows (one image, CFG) or 256 through 6 blocks of qkv
 // and w1 [15360, 5120], wo [5120, 5120] and w2 [5120, 7680]: 2.67 GB a net
@@ -91,7 +91,8 @@
 //   kSwiGLUQ (fp32 silu(bf16 h1) * bf16 h2, the input of the w2 row
 //   quantization); #14's kSwiGLUF32 (h1 and h2 kept in fp32, the product
 //   rounded once) and kGatedResidualBf16 (bf16(x + y * gate) from bf16 rows
-//   of x into a new output); #5's kOutF32 (the fp32 sums, no bias). The
+//   of x into a new output; #15's wo too); #15's kBiasF32 (qkv kept in
+//   fp32: the sums plus the bias); #5's kOutF32 (the fp32 sums, no bias). The
 //   integer routes first dequantize y = float(acc) * (sa[row] * ws[col]), in
 //   the plain version's order. The accumulators are staged through shared
 //   memory and each thread finishes 8 consecutive columns of a row with
@@ -301,7 +302,7 @@ __device__ __forceinline__ void dequant8(const Acc<KIND> (&v)[8], float sa, cons
 // #2's keep the residual in fp32 and round only h1, h2 and the bf16
 // SwiGLU's output, with the products and sums in torch's order (the plain
 // twin's); #14's keep h1, h2 and y in fp32 and round only their output.
-// kSwiGLUQ and kOutF32 write fp32 (out holds floats, ldo of them).
+// kSwiGLUQ, kOutF32 and kBiasF32 write fp32 (out holds floats, ldo of them).
 template <int MODE>
 __device__ __forceinline__ void finish8(int row, int col, const float (&v)[8],
                                         const float (&v2)[8], const UnitIn& in,
@@ -334,11 +335,13 @@ __device__ __forceinline__ void finish8(int row, int col, const float (&v)[8],
 #pragma unroll
     for (int i = 0; i < 8; ++i) o[i] = __fadd_rn(v[i], b[i]);
     *reinterpret_cast<uint4*>(out + (size_t)row * ldo + col) = pack8(o);
-  } else if (MODE == kOutF32) {
+  } else if (MODE == kOutF32 || MODE == kBiasF32) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) o[i] = MODE == kBiasF32 ? __fadd_rn(v[i], b[i]) : v[i];
     float4* dst =
         reinterpret_cast<float4*>(reinterpret_cast<float*>(out) + (size_t)row * ldo + col);
-    dst[0] = make_float4(v[0], v[1], v[2], v[3]);
-    dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+    dst[0] = make_float4(o[0], o[1], o[2], o[3]);
+    dst[1] = make_float4(o[4], o[5], o[6], o[7]);
   } else if (MODE == kGatedResidualBf16) {
     float g[8], x[8];
     unpack8(in.g, g);
@@ -773,7 +776,8 @@ cudaError_t gemm(const Product& pr, int w_row0, const Plan& p, const Epilogue& e
 // (resid fp32 [R, N] in place, gate bf16 rows ldg apart); the SwiGLUs (w
 // rows [h1; h2], out bf16 [R, N / 2]); kGatedResidualBf16 (x bf16 [R, N]
 // passed as resid, gate as above, out bf16 [R, N]); kOutF32 (out fp32 [R,
-// N], bias unread). False if the plan does not fit the shape.
+// N], bias unread); kBiasF32 (out fp32 [R, N]). False if the plan does not
+// fit the shape.
 inline bool single_product(const void* a, const void* w, const void* bias, void* out,
                            void* resid, const void* gate, const int* shape, Product* pr,
                            Plan* plan, Epilogue* ep) {

@@ -47,7 +47,7 @@ _SIGNATURES = {
     "bd_fused_mlp_block": ([_P, _P, _I, _P, _I, _P, _I] + [_P] * 9 + [_I] * 3
                            + [_F, _P, _I, _P]),
     "bd_fused_attn_block": ([_P, _P, _I, _P, _I, _P, _I] + [_P] * 9 + [_I] * 4
-                            + [_F, _P]),
+                            + [_F, _P, _I, _P]),
     "bd_flash_fwd": [_P] * 9 + [_I] * 6 + [_F, _P],
     "bd_flash_bwd_dq": [_P] * 11 + [_I] * 6 + [_F, _P],
     "bd_flash_bwd_dkv": [_P] * 12 + [_I] * 6 + [_F, _P],

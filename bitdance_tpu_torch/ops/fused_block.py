@@ -19,11 +19,13 @@ CPU tensors take the plain version; CUDA tensors run ``csrc/fused_block.cu``
 (bf16 everywhere) or raise. Both kernels are inference-only: like the JAX
 package, which gives them no VJP, the CUDA branch refuses autograd.
 
-The MLP block runs both products on the head GEMM (``csrc/head_gemm.cuh``)
-by :func:`mlp_block_plans`, which refuses a shape that GEMM cannot take (C
-% 128, H % 64); ``fused_mlp_block_reference(splits=...)`` sums each product
-over the same K splits (the head GEMM's split twin,
-:func:`~bitdance_tpu_torch.ops.fused_head.head_gemm_split_plain`).
+Both blocks run their products on the head GEMM (``csrc/head_gemm.cuh``)
+by :func:`mlp_block_plans` and :func:`attn_block_plans`, which refuse a
+shape that GEMM cannot take (C % 128, H % 64); the ``*_reference(splits=...)``
+versions sum each product over the same K splits (the head GEMM's split
+twin, :func:`~bitdance_tpu_torch.ops.fused_head.head_gemm_split_plain`). The
+attention block's window attention on the card takes head dims 64 and 128
+and windows of up to 64 rows.
 """
 
 from __future__ import annotations
@@ -70,18 +72,21 @@ def fused_mlp_block_reference(x, scale, shift, gate, ln_w, ln_b, w1, b1, w2,
 
 
 def fused_attn_block_reference(x, scale, shift, gate, ln_w, ln_b, wqkv, bqkv,
-                               wo, bo, n_head: int,
-                               eps: float = 1e-6) -> torch.Tensor:
-    """Plain PyTorch version of :func:`fused_attn_block`."""
+                               wo, bo, n_head: int, eps: float = 1e-6,
+                               splits: dict | None = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_attn_block`. splits ({"qkv": S,
+    "wo": S}, e.g. the splits of :func:`attn_block_plans`) sums each product
+    over the head GEMM's K splits (None: one pass)."""
+    sp = splits or {}
     g, w, c = x.shape
     hd = c // n_head
     h = _ln_modulate(x, scale, shift, ln_w, ln_b, eps)
-    qkv = (_mm(h, wqkv) + bqkv.float()).reshape(g, w, 3, n_head, hd)
+    qkv = (_mm(h, wqkv, sp.get("qkv", 1)) + bqkv.float()).reshape(g, w, 3, n_head, hd)
     q = qkv[:, :, 0] * hd ** -0.5
     s = torch.einsum("gqhd,gkhd->ghqk", q, qkv[:, :, 1])
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("ghqk,gkhd->gqhd", p, qkv[:, :, 2]).reshape(g, w, c)
-    proj = _mm(o, wo) + bo.float()
+    proj = _mm(o, wo, sp.get("wo", 1)) + bo.float()
     return (x.float() + proj * gate.float()).to(x.dtype)
 
 
@@ -121,6 +126,34 @@ def mlp_block_plans(rows: int, c: int, hidden: int,
 @functools.lru_cache(maxsize=64)
 def _mlp_plan_ints(rows: int, c: int, hidden: int, sm_count: int):
     flat = [v for p in mlp_block_plans(rows, c, hidden, sm_count) for v in p]
+    return (ctypes.c_int * 6)(*flat)
+
+
+# kernel launches of one fused_attn_block call on the card: LN + modulate,
+# the qkv product, window attention and the wo product (csrc/fused_block.cu)
+ATTN_BLOCK_LAUNCHES = 4
+# window attention on the card: head dims and the longest window
+ATTN_HEAD_DIMS = (64, 128)
+ATTN_MAX_WINDOW = 64
+
+
+@functools.lru_cache(maxsize=64)
+def attn_block_plans(rows: int, c: int,
+                     sm_count: int = 132) -> tuple[HeadGemmPlan, HeadGemmPlan]:
+    """The head GEMM's plans of the attention block's qkv ([3C, C], fp32
+    out) and wo ([C, C]) products at ``rows`` (B-16x at 512 rows: qkv 72
+    tiles x 1 split, wo 24 x 4; at 1024: 144 x 1, 48 x 2). Raises ValueError
+    for a shape the head GEMM cannot take: C % 128 not 0 (every released
+    head width takes it: C 256 / 768 / 1024 / 1280 / 5120)."""
+    if rows < 1 or c < 1 or c % 128:
+        raise ValueError(f"fused_attn_block: the head GEMM takes C % 128 == 0, not "
+                         f"C = {c} ({rows} rows)")
+    return (head_gemm_plan(rows, 3 * c, c, sm_count), head_gemm_plan(rows, c, c, sm_count))
+
+
+@functools.lru_cache(maxsize=64)
+def _attn_plan_ints(rows: int, c: int, sm_count: int):
+    flat = [v for p in attn_block_plans(rows, c, sm_count) for v in p]
     return (ctypes.c_int * 6)(*flat)
 
 
@@ -196,13 +229,18 @@ fused_mlp_block.launches = 0
 def fused_attn_block(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                      gate: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
                      wqkv: torch.Tensor, bqkv: torch.Tensor, wo: torch.Tensor,
-                     bo: torch.Tensor, n_head: int,
-                     eps: float = 1e-6) -> torch.Tensor:
+                     bo: torch.Tensor, n_head: int, eps: float = 1e-6,
+                     _pdl: int = 2) -> torch.Tensor:
     """Fused adaLN window-attention residual block; dispatch by device.
 
     x [G, W, C], groups of W tokens; scale, shift, gate [G, W, C] (any
     uniform row stride); wqkv [3C, C] with output columns (3, n_head, hd),
-    bqkv [3C]; wo [C, C], bo [C]. Returns [G, W, C] in x's dtype."""
+    bqkv [3C]; wo [C, C], bo [C]. Returns [G, W, C] in x's dtype. On the
+    card C % 128 must be 0 (:func:`attn_block_plans`), C / n_head 64 or 128
+    and W at most 64. Its four launches are programmatic (``_pdl`` 1: all
+    but the LN, 0: none, only to measure what that saves; all four are as
+    fast as the others at B-16x's 512 rows and 0.7 us faster at 1024,
+    PERF.md)."""
     if x.device.type == "cpu":
         return fused_attn_block_reference(x, scale, shift, gate, ln_w, ln_b,
                                           wqkv, bqkv, wo, bo, n_head, eps)
@@ -221,24 +259,24 @@ def fused_attn_block(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
         raise ValueError(f"fused_attn_block: weights {tuple(wqkv.shape)}, "
                          f"{tuple(wo.shape)} do not fit C = {c}")
     hd = c // n_head if n_head > 0 else 0
-    smem = (3 * w * (hd + 1) + w * w) * 4
-    if c % 64 or n_head <= 0 or c % n_head or smem > 227 * 1024:
-        raise ValueError(f"fused_attn_block: C = {c}, n_head = {n_head}, "
-                         f"W = {w}: C must be a multiple of 64 and of n_head, "
-                         f"and a window's fp32 q, k, v and scores must fit "
-                         f"227 KB of shared memory")
+    if n_head <= 0 or c % n_head or hd not in ATTN_HEAD_DIMS or not 1 <= w <= ATTN_MAX_WINDOW:
+        raise ValueError(f"fused_attn_block: C = {c}, n_head = {n_head}, W = {w}: the "
+                         f"window attention takes head dims {ATTN_HEAD_DIMS} and windows "
+                         f"of 1-{ATTN_MAX_WINDOW} rows")
     rows = g * w
+    plan = _attn_plan_ints(rows, c, _cuda.sm_count(x.device.index))
     mods = [_mod_rows(k, params[k], x.shape, rows) for k in ("scale", "shift", "gate")]
+    gate, x = _aligned(mods[2]), _aligned(x.reshape(rows, c))
     act = torch.empty((rows, c), dtype=torch.bfloat16, device=x.device)
     qkv = torch.empty((rows, 3 * c), dtype=torch.float32, device=x.device)
-    out = torch.empty_like(x)
+    out = torch.empty((g, w, c), dtype=x.dtype, device=x.device)
     code = _cuda.load().bd_fused_attn_block(
         x.data_ptr(), mods[0].data_ptr(), mods[0].stride(0),
-        mods[1].data_ptr(), mods[1].stride(0), mods[2].data_ptr(),
-        mods[2].stride(0), ln_w.data_ptr(), ln_b.data_ptr(), wqkv.data_ptr(),
+        mods[1].data_ptr(), mods[1].stride(0), gate.data_ptr(),
+        gate.stride(0), ln_w.data_ptr(), ln_b.data_ptr(), wqkv.data_ptr(),
         bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(), act.data_ptr(),
-        qkv.data_ptr(), out.data_ptr(), g, w, c, n_head, float(eps),
-        _cuda.stream_ptr())
+        qkv.data_ptr(), out.data_ptr(), g, w, c, n_head, float(eps), plan,
+        int(_pdl), _cuda.stream_ptr())
     _cuda.check(code, "fused_attn_block")
     fused_attn_block.launches += 1
     return out

@@ -190,12 +190,15 @@ HEAD_GEMM_MAX_SPLITS = 8           # a product's splits form one thread block cl
 # GemmMode in head_blocks.cuh: "bias" both routes; "gated" and "swiglu" the
 # round route's (#3/#4); "gated_f32" and "swiglu_f32" kernel #2's;
 # "swiglu_h32" (h1 and h2 in fp32) and "gated_bf16" (bf16(x + y * gate) into
-# a new output) the MLP block's (#14); "out_f32" (the fp32 sums, no bias)
-# the whole net's (#5) t-MLP and modulation products
+# a new output) the MLP block's (#14), "gated_bf16" also the attention
+# block's (#15) wo and "bias_f32" (the fp32 sums plus the bias) its qkv;
+# "out_f32" (the fp32 sums, no bias) the whole net's (#5) t-MLP and
+# modulation products
 HEAD_GEMM_MODES = {"bias": 0, "gated_f32": 1, "swiglu_f32": 2, "swiglu_h32": 3,
-                   "gated_bf16": 5, "out_f32": 7, "gated": 9, "swiglu": 10}
+                   "bias_f32": 4, "gated_bf16": 5, "out_f32": 7, "gated": 9, "swiglu": 10}
 # the C entry of each mode: the head blocks' modes beside their kernels
-_HEAD_GEMM_ENTRY = {3: "bd_head_gemm_block", 5: "bd_head_gemm_block", 7: "bd_head_gemm_net"}
+_HEAD_GEMM_ENTRY = {3: "bd_head_gemm_block", 4: "bd_head_gemm_block", 5: "bd_head_gemm_block",
+                    7: "bd_head_gemm_net"}
 # the integer kinds (#2's quant modes): "bias" (qkv), "gated_f32" (wo, w2)
 # and "swiglu_q" (w1: fp32 silu(bf16 h1) * bf16 h2, the w2 quantization's
 # input)
@@ -323,11 +326,13 @@ def head_gemm_split_plain(a: torch.Tensor, w: torch.Tensor, mode: str, bias: tor
     "swiglu_f32", bf16(silu(bf16(h1)) * bf16(h2)) (:func:`_net_forward`'s
     :func:`_gated_f32` and :func:`_swiglu_f32`); the MLP block's (#14)
     "swiglu_h32", bf16(silu(h1) * h2) from fp32 h1, h2, and "gated_bf16",
-    bf16(x + y * gate); #5's "out_f32", the fp32 sums without the bias
-    (bias may be None)."""
+    bf16(x + y * gate) (also #15's wo); #15's "bias_f32", y in fp32; #5's
+    "out_f32", the fp32 sums without the bias (bias may be None)."""
     if mode == "out_f32":
         return _dot_acc_split(a, w, splits)
     y = _dot_acc_split(a, w, splits) + bias.float()
+    if mode == "bias_f32":
+        return y
     bf = torch.bfloat16
     if mode == "swiglu_h32":
         hidden = w.shape[0] // 2
@@ -355,13 +360,14 @@ def head_gemm(a: torch.Tensor, w: torch.Tensor, mode: str, bias: torch.Tensor | 
               plan: HeadGemmPlan | None = None) -> torch.Tensor:
     """One product of the head GEMM (``csrc/head_gemm.cuh``): a [R, K]
     bf16, w [N, K] bf16 (the torch Linear layout; the "swiglu" modes: rows
-    [h1; h2]), bias [N] bf16 ("out_f32": None, fp32 out). "gated" and
-    "gated_f32" take gate [R, N] bf16 (rows may lie apart) and update resid
-    [R, N] fp32 ("gated": bf16 values) in place, as the sampler does, and
-    return it; "gated_bf16" takes gate and x [R, N] bf16 and returns a new
-    bf16 output. ``plan`` defaults to :func:`head_gemm_plan` at the card's
-    SM count. CPU tensors take :func:`head_gemm_split_plain` with the plan's
-    splits; CUDA tensors launch the kernel or raise."""
+    [h1; h2]), bias [N] bf16 ("out_f32": None; it and "bias_f32" write
+    fp32). "gated" and "gated_f32" take gate [R, N] bf16 (rows may lie
+    apart) and update resid [R, N] fp32 ("gated": bf16 values) in place, as
+    the sampler does, and return it; "gated_bf16" takes gate and x [R, N]
+    bf16 and returns a new bf16 output. ``plan`` defaults to
+    :func:`head_gemm_plan` at the card's SM count. CPU tensors take
+    :func:`head_gemm_split_plain` with the plan's splits; CUDA tensors launch
+    the kernel or raise."""
     if mode not in HEAD_GEMM_MODES:
         raise ValueError(f"head_gemm: mode {mode!r} not in {sorted(HEAD_GEMM_MODES)}")
     rows, k = a.shape
@@ -397,7 +403,7 @@ def head_gemm(a: torch.Tensor, w: torch.Tensor, mode: str, bias: torch.Tensor | 
     else:
         cols = n // 2 if mode.startswith("swiglu") else n
         out = torch.empty((rows, cols), device=dev, dtype=torch.float32
-                          if mode == "out_f32" else torch.bfloat16)
+                          if mode in ("out_f32", "bias_f32") else torch.bfloat16)
     shape = torch.tensor([rows, n, k, gate.stride(0) if uses_gate else 0,
                           HEAD_GEMM_MODES[mode], *plan], dtype=torch.int32)
     entry = getattr(_cuda.load(), _HEAD_GEMM_ENTRY.get(HEAD_GEMM_MODES[mode], "bd_head_gemm"))

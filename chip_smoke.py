@@ -61,8 +61,12 @@ Phases, run in this order, one line each, any failure exits non-zero:
   imagenet_kernels  random bf16 BitDance-H-1x and BitDance-B-16x samplers (the
                     training state freed first); the head-block kernels
                     fused_mlp_block (H-1x: 8 rows, C 1280; B-16x: 512 rows,
-                    C 768) and fused_attn_block (32 windows of 16, C 768, 12
-                    heads, with a window-off-by-one check) and the sampler's
+                    C 768) and fused_attn_block (32 and 64 windows of 16, C
+                    768, 12 heads, with a window-off-by-one check; two
+                    launches bit-equal, launches a call captured, warm, cold
+                    and host times; its qkv and wo products against their
+                    split twins at 1 / planned / most splits with
+                    off-by-one checks) and the sampler's
                     MlpEncoder and unbounded TransEncoder families vs plain,
                     each sampler's call eager and device-only with and
                     without PDL against the per-net-call bound, its launches
@@ -120,7 +124,8 @@ Phases, run in this order, one line each, any failure exits non-zero:
                     and equal to the dense kernels, and one step on the
                     dense kernels from the same state and draws
   encode_kernel     the encode tail vs its plain version at the release
-                    tokenizer's trunk shapes (256, 512, 1024 px), bf16 and fp32
+                    tokenizer's trunk shapes (256, 512, 1024 px), bf16 and
+                    fp32, two launches bit-equal, eager and device-only times
   tokenizer         the release VQ tokenizer (random bf16): reconstruct 16
                     images at 256 px (batch 8) and 2 at 1024 px through the
                     encode tail: exact ±1 latents, shapes, images/s, encode /
@@ -215,9 +220,10 @@ IMAGENET_SAMPLER_MAX_REL_ERR = 5e-2
 # their bf16 output once, #5's out_f32 keeps the fp32 sums. Readings (NVIDIA
 # H100 80GB HBM3, 700 W) at H-1x's 8 and B-16x's 512 rows over 1 / 4 / 8
 # splits: swiglu_h32 1.5e-4-1.2e-3, gated_bf16 0-1.3e-3, out_f32 2.3e-7-1.6e-6.
+# #15's bias_f32 keeps qkv in fp32 (the sums plus the bias), as out_f32.
 HEAD_GEMM_MAX_REL_ERR = {"bias": 1e-2, "gated": 5e-3, "swiglu": 1e-2,
                          "gated_f32": 1e-5, "swiglu_f32": 1e-2, "swiglu_h32": 1e-2,
-                         "gated_bf16": 5e-3, "out_f32": 1e-5}
+                         "gated_bf16": 5e-3, "out_f32": 1e-5, "bias_f32": 1e-5}
 # block product -> (head GEMM mode, its bias): the round route (#3/#4) and
 # kernel #2's fp32-residual route
 HEAD_GEMM_PRODUCTS = {"wqkv": ("bias", "bqkv"), "wo": ("gated", "bo"),
@@ -227,6 +233,8 @@ T2I_GEMM_PRODUCTS = {"wqkv": ("bias", "bqkv"), "wo": ("gated_f32", "bo"),
 # the MLP block #14's products (fused_mlp_block) and #5's fp32 adaLN-group
 # product (fused_diffnet_forward; "mods": the groups' rows of modcat_w)
 MLP_BLOCK_PRODUCTS = {"w1": ("swiglu_h32", "b1"), "w2": ("gated_bf16", "b2")}
+# the attention block #15's products (fused_attn_block)
+ATTN_BLOCK_PRODUCTS = {"wqkv": ("bias_f32", "bqkv"), "wo": ("gated_bf16", "bo")}
 NET_GEMM_PRODUCTS = {"mods": ("out_f32", None)}
 # the first and last token of every window get shift + IMAGENET_EDGE_SHIFT,
 # which makes their q, k and v large: a window boundary off by one row then
@@ -1983,51 +1991,103 @@ def _check_mlp_block(name, blk, norm, rows, dev, seed) -> dict:
             **times, "launches_per_call": n_kernels}
 
 
-def _check_attn_block(blk, groups, window, dev, seed) -> dict:
+def _attn_block_case(bundle, groups, window, dev, seed) -> dict:
+    """#15 at one row count against its plain version at the card's K
+    splits (the head GEMM's split twin): the window-edge rows' shift makes a
+    window off by one row move the plain output by >= 4x the bound; two
+    launches bit-equal; launches a call (captured) against
+    ATTN_BLOCK_LAUNCHES; eager, device-only (a captured graph) and host us a
+    call (the least of 5 runs), block 0 again and again (warm L2) and a walk
+    over every block's weights (cold L2), and with ``_pdl`` 0 (none) and 1
+    (all but the LN)."""
     import torch
 
     from bitdance_tpu_torch.ops.fused_block import (
+        ATTN_BLOCK_LAUNCHES,
+        attn_block_plans,
         fused_attn_block,
         fused_attn_block_reference,
     )
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    a = blk.attn
+    blocks = bundle.head.net.res_blocks
+    a = blocks[0].attn
     c = a.wo.weight.shape[0]
+    rows = groups * window
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = dict(zip(("qkv", "wo"), (p.splits for p in attn_block_plans(rows, c, sms))))
     x, ada = _block_inputs(g, (groups, window), c, dev)
     ada[:, [0, window - 1], c:2 * c] += IMAGENET_EDGE_SHIFT   # the shift mod
     scale, shift, gate = ada.bfloat16().chunk(3, dim=-1)
-    w = (blk.norm1.weight, blk.norm1.bias, a.wqkv.weight, a.wqkv.bias,
-         a.wo.weight, a.wo.bias, a.n_head)
-    rows = groups * window
+
+    def weights(b):
+        return (b.norm1.weight, b.norm1.bias, b.attn.wqkv.weight, b.attn.wqkv.bias,
+                b.attn.wo.weight, b.attn.wo.bias, b.attn.n_head)
+
+    w = weights(blocks[0])
+    args = (x, scale, shift, gate, *w)
 
     def off_by_one(t):        # windows start one row later
         return t.reshape(rows, -1).roll(1, 0).reshape(groups, window, -1)
 
     with torch.no_grad():
-        got = fused_attn_block(x, scale, shift, gate, *w)
-        want = fused_attn_block_reference(x, scale, shift, gate, *w)
+        got, again = fused_attn_block(*args), fused_attn_block(*args)
+        want = fused_attn_block_reference(*args, splits=splits)
         torch.cuda.synchronize()
         err, rel = _errors(got, want)
-        alt = fused_attn_block_reference(*map(off_by_one, (x, scale, shift, gate)), *w)
+        same = torch.equal(got, again)
+        alt = fused_attn_block_reference(*map(off_by_one, (x, scale, shift, gate)), *w,
+                                         splits=splits)
         alt = alt.reshape(rows, c).roll(-1, 0).reshape(groups, window, c)
         moved = _errors(alt, want)[1]
-        ms = cuda_time_ms(lambda: fused_attn_block(x, scale, shift, gate, *w),
-                          200, warmup=5)
-        pms = cuda_time_ms(lambda: fused_attn_block_reference(x, scale, shift, gate, *w),
-                           50)
+        walk = lambda: [fused_attn_block(x, scale, shift, gate, *weights(b))  # noqa: E731
+                        for b in blocks]
+        ms = cuda_time_ms(lambda: fused_attn_block(*args), 200, warmup=5)
+        times = {"device_ms": cuda_graph_time_ms(lambda: fused_attn_block(*args)),
+                 "host_us": host_us(lambda: fused_attn_block(*args), trials=5),
+                 "cold_ms": cuda_time_ms(walk, 20) / len(blocks),
+                 "cold_device_ms": cuda_graph_time_ms(walk, calls=2, reps=3) / len(blocks)}
+        for pdl, tag in ((0, "no_pdl"), (1, "pdl_gemms")):
+            times[f"{tag}_ms"] = cuda_time_ms(lambda: fused_attn_block(*args, _pdl=pdl), 200,
+                                              warmup=5)
+            times[f"{tag}_device_ms"] = cuda_graph_time_ms(
+                lambda: fused_attn_block(*args, _pdl=pdl))
+        n_kernels = _captured_kernels(lambda: fused_attn_block(*args))
+        pms = cuda_time_ms(lambda: fused_attn_block_reference(*args), 50)
     b = IMAGENET_BLOCK_MAX_REL_ERR["attn_b16x"]
     bd = roofline(nbytes(x, x, scale, shift, gate, *w[:6]),
-               8.0 * rows * c * c + 4.0 * groups * window * window * c)
+                  8.0 * rows * c * c + 4.0 * rows * window * c)
     log("imagenet_kernels", f"fused_attn_block G={groups} W={window} C={c} "
-        f"heads={a.n_head}: max abs err {err:.3e}, rel {rel:.3e} "
-        f"(bound {b}; a window off by one row moves the plain output by "
-        f"{moved:.3e} of its max); kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-        f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
-    if not torch.isfinite(got).all() or rel > b or moved < 4 * b:
-        raise SystemExit(f"fused_attn_block: rel err {rel} (bound {b}), "
-                         f"off-by-one shift {moved}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, **bd, "library_ms": None}
+        f"heads={a.n_head} (head GEMM splits {splits}): max abs err {err:.3e}, rel "
+        f"{rel:.3e} (bound {b}; a window off by one row moves the plain output by "
+        f"{moved:.3e} of its max, >= {4 * b:g}); 2 launches bit-equal {same}; "
+        f"{n_kernels} kernels a call (captured; want {ATTN_BLOCK_LAUNCHES}); kernel "
+        f"{ms:.4f} ms eager, " + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+        + f"; plain {pms:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    if (not torch.isfinite(got).all() or rel > b or moved < 4 * b or not same
+            or n_kernels != ATTN_BLOCK_LAUNCHES):
+        raise SystemExit(f"fused_attn_block G={groups}: rel err {rel} (bound {b}), "
+                         f"off-by-one shift {moved}, bit-equal {same}, {n_kernels} kernels "
+                         "a call")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, **bd, "library_ms": None,
+            **times, "launches_per_call": n_kernels}
+
+
+def _check_attn_block(bundle, dev, seed) -> dict:
+    """#15 at B-16x's unguided 512 rows (32 windows of 16; the record) and
+    its guided 1024 (cfg_mult 2; under "shapes"), and its qkv ("bias_f32")
+    and wo ("gated_bf16") products against their split twins at both row
+    counts (the planned, 1 and the most splits, with the row, column and K
+    stage off-by-one checks; under "products")."""
+    out = _attn_block_case(bundle, IMAGENET_BATCH, 16, dev, seed)
+    out["shapes"] = {"1024_rows": _attn_block_case(bundle, 2 * IMAGENET_BATCH, 16, dev,
+                                                   seed + 1)}
+    out["products"] = {
+        f"{rows}_rows": _check_head_gemm("attn_block", bundle.head_stacked, ("wqkv", "wo"),
+                                         rows, dev, seed + 2, products=ATTN_BLOCK_PRODUCTS,
+                                         all_splits=True)
+        for rows in (16 * IMAGENET_BATCH, 32 * IMAGENET_BATCH)}
+    return out
 
 
 def imagenet_sampler_inputs(bundle, dev, seed):
@@ -2160,10 +2220,11 @@ def matmul_walk(stacked, key, a):
 def head_gemm_bound(a, w, mode, kw) -> dict:
     """One product: a, w and the bias read, the output written (the gated
     modes read the gate and read and write the residual; "gated_bf16" reads
-    x and writes its bf16 output; "out_f32" writes fp32, no bias), 2 R N K
-    flops."""
+    x and writes its bf16 output; "out_f32" writes fp32, no bias; "bias_f32"
+    writes fp32), 2 R N K flops."""
     rows, n = a.shape[0], w.shape[0]
-    out = rows * (n // 2 if mode.startswith("swiglu") else n) * (4 if mode == "out_f32" else 2)
+    out = rows * (n // 2 if mode.startswith("swiglu") else n) * (
+        4 if mode in ("out_f32", "bias_f32") else 2)
     if mode == "gated_bf16":
         extra = nbytes(kw["gate"], kw["x"]) + rows * n * 2        # gate, x, out
     elif mode.startswith("gated"):
@@ -2269,7 +2330,7 @@ def phase_imagenet_kernels(h1x, b16x) -> dict:
                                             UNGUIDED_H1X_IMAGES, dev, 11),
         "fused_mlp_block_b16x": _check_mlp_block("mlp_b16x", bb, bb.norm2,
                                                  IMAGENET_BATCH * 16, dev, 12),
-        "fused_attn_block": _check_attn_block(bb, IMAGENET_BATCH, 16, dev, 13),
+        "fused_attn_block": _check_attn_block(b16x, dev, 13),
         "fused_em_sample_mlp": _check_imagenet_sampler("h1x", h1x, dev, 14),
         "fused_em_sample_b16x": _check_imagenet_sampler("b16x", b16x, dev, 15),
     }
@@ -3363,8 +3424,11 @@ def _encode_case(shape, dtype, dev, seed):
 def phase_encode_kernel() -> dict:
     """#13 vs its plain version at the release tokenizer's trunk shapes
     (C 1024 at 1/16 of 256, 512 and 1024 px), bf16 and fp32: the raw tail
-    (before the sign) within its bound, the ±1 output exact wherever the
-    plain raw value clears SIGN_MARGIN."""
+    (before the sign) within its bound, two launches bit-equal (the
+    statistics' partials are summed in a fixed order), the ±1 output exact
+    wherever the plain raw value clears SIGN_MARGIN; bf16 eager and
+    device-only (a captured graph) ms a call at each shape (the 1024 px
+    record; the others under "shapes")."""
     import torch
 
     from bitdance_tpu_torch.ops.fused_encode import (
@@ -3373,40 +3437,45 @@ def phase_encode_kernel() -> dict:
     )
 
     dev = torch.device("cuda")
-    rec, worst = None, 0.0
+    rec, shapes, worst = None, {}, 0.0
     for name, shape in (("256px", (8, 16, 16, 1024)), ("512px", (8, 32, 32, 1024)),
                         ("1024px", (2, 64, 64, 1024))):
         for dtype in (torch.bfloat16, torch.float32):
             args = _encode_case(shape, dtype, dev, sum(shape))
             raw = fused_encode_tail(*args, quantize=False)
+            again = fused_encode_tail(*args, quantize=False)
             ref = fused_encode_tail_reference(*args, quantize=False)
             sgn = fused_encode_tail(*args)
             torch.cuda.synchronize()
             err, rel = _errors(raw, ref)
+            same = torch.equal(raw, again)
             clear = ref.float().abs() > SIGN_MARGIN
             flips = int(((sgn != torch.where(ref > 0, 1.0, -1.0).to(sgn.dtype))
                          & clear).sum())
             vals = set(sgn.unique().tolist())
             bound = ENCODE_MAX_REL_ERR[dtype == torch.bfloat16]
             log("encode_kernel", f"{name} {tuple(shape)} {str(dtype)[6:]}: raw max abs err "
-                f"{err:.3e} ({rel:.2e} of max, bound {bound}); ±1 outputs {sorted(vals)}, "
-                f"{flips} sign flips where |plain| > {SIGN_MARGIN} "
-                f"({clear.float().mean().item():.5f} of outputs)")
-            if rel > bound or flips or not vals <= {-1.0, 1.0}:
+                f"{err:.3e} ({rel:.2e} of max, bound {bound}); 2 launches bit-equal {same}; "
+                f"±1 outputs {sorted(vals)}, {flips} sign flips where |plain| > "
+                f"{SIGN_MARGIN} ({clear.float().mean().item():.5f} of outputs)")
+            if rel > bound or flips or not vals <= {-1.0, 1.0} or not same:
                 raise SystemExit(f"encode_kernel {name} {dtype} failed its checks")
             worst = max(worst, err)
-            if name == "1024px" and dtype == torch.bfloat16:
+            if dtype == torch.bfloat16:
                 x = args[0]
                 ms = cuda_time_ms(lambda: fused_encode_tail(*args), 20)
+                dms = cuda_graph_time_ms(lambda: fused_encode_tail(*args))
                 pms = cuda_time_ms(lambda: fused_encode_tail_reference(*args), 5)
                 n_px = x.numel() // x.shape[-1]
                 bd = roofline(nbytes(x, args[3]) + n_px * 32 * x.element_size(),
                               2.0 * n_px * x.shape[-1] * 32)
-                rec = {"ms": ms, "plain_ms": pms, **bd, "library_ms": None}
-                log("encode_kernel", f"1024px bf16: kernel {ms:.4f} ms, plain {pms:.4f} "
-                    f"ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}); no single "
-                    "PyTorch call computes the tail")
-    return {"fused_encode_tail": {"max_abs_err": worst, **rec}}
+                shapes[name] = {"ms": ms, "device_ms": dms, "plain_ms": pms, **bd}
+                log("encode_kernel", f"{name} bf16: kernel {ms:.4f} ms eager, {dms:.4f} "
+                    f"device-only, plain {pms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+                    f"({bd['bound_by']}); no single PyTorch call computes the tail")
+    rec = shapes.pop("1024px")
+    return {"fused_encode_tail": {"max_abs_err": worst, **rec, "library_ms": None,
+                                  "shapes": shapes}}
 
 
 def phase_tokenizer(card: str) -> dict:
@@ -3806,7 +3875,8 @@ def main() -> int:
                         # without PDL, launches per net call and each head
                         # GEMM product's check and cold-L2 times
                         **{k: r[k] for k in ("device_ms", "host_us", "library_device_ms",
-                                             "cold_ms", "library_cold_ms", "gemm_ms",
+                                             "cold_ms", "cold_device_ms", "library_cold_ms",
+                                             "gemm_ms",
                                              "splits", "no_pdl_ms", "no_pdl_device_ms",
                                              "pdl_gemms_ms", "pdl_gemms_device_ms",
                                              "launches_per_net_call", "launches_per_call",

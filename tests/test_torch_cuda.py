@@ -307,15 +307,20 @@ def test_fused_mlp_block_kernel(dev, rows, c):
         fused_mlp_block(*narrow)
 
 
-def test_fused_attn_block_kernel(dev):
-    """#15 vs its plain version at B-16x width (G 4, W 16, C 768, 12 heads)."""
+@pytest.mark.parametrize("G,W,c,nh", [(32, 16, 768, 12), (64, 16, 768, 12), (4, 16, 256, 2),
+                                       (3, 40, 256, 4)])
+def test_fused_attn_block_kernel(dev, G, W, c, nh):
+    """#15 (qkv and wo on the head GEMM, window attention on fp32 qkv) vs
+    its plain version at the same K splits: B-16x width at its 512 and 1024
+    rows, head dim 128, and a ragged window of 40 rows; two launches
+    bit-equal; shapes the kernels cannot take raise."""
     from bitdance_tpu_torch.ops.fused_block import (
+        attn_block_plans,
         fused_attn_block,
         fused_attn_block_reference,
     )
 
     g = torch.Generator(device=dev).manual_seed(1)
-    G, W, c, nh = 4, 16, 768, 12
     x = torch.randn((G, W, c), generator=g, device=dev).bfloat16()
     ada = (0.5 * torch.randn((G, W, 3 * c), generator=g, device=dev)).bfloat16()
     scale, shift, gate = ada.chunk(3, dim=-1)
@@ -325,14 +330,25 @@ def test_fused_attn_block_kernel(dev):
     bqkv = (0.1 * torch.randn(3 * c, generator=g, device=dev)).bfloat16()
     bo = (0.1 * torch.randn(c, generator=g, device=dev)).bfloat16()
     args = (x, scale, shift, gate, ln_w, ln_b, wqkv, bqkv, wo, bo, nh)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = dict(zip(("qkv", "wo"), (p.splits for p in attn_block_plans(G * W, c, sms))))
     n = fused_attn_block.launches
     with torch.no_grad():
-        got = fused_attn_block(*args)
-        want = fused_attn_block_reference(*args)
+        got, again = fused_attn_block(*args), fused_attn_block(*args)
+        want = fused_attn_block_reference(*args, splits=splits)
     torch.cuda.synchronize()
-    assert fused_attn_block.launches == n + 1
+    assert fused_attn_block.launches == n + 2 and got.dtype == torch.bfloat16
+    assert torch.equal(got, again)
     err = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
     assert err < 2e-2
+    with pytest.raises(ValueError, match="head dims"):           # head dim 32
+        fused_attn_block(*args[:-1], 2 * nh if c // nh == 64 else 4 * nh)
+    narrow = (x[..., :c - 64].contiguous(), scale[..., :c - 64], shift[..., :c - 64],
+              gate[..., :c - 64], ln_w[:c - 64], ln_b[:c - 64],
+              wqkv[:3 * (c - 64), :c - 64].contiguous(), bqkv[:3 * (c - 64)],
+              wo[:c - 64, :c - 64].contiguous(), bo[:c - 64], (c - 64) // 64)
+    with pytest.raises(ValueError, match="head GEMM"):       # C % 128 != 0
+        fused_attn_block(*narrow)
 
 
 def test_sampler_kernel_non_round_trans_encoder(dev):
@@ -760,10 +776,12 @@ def test_flash_sparse_kernels(dev, hq, hkv, d, lens):
 
 @pytest.mark.parametrize("shape,dtype", [((8, 16, 16, 1024), torch.bfloat16),
                                          ((2, 64, 64, 1024), torch.float32),
-                                         ((3, 5, 7, 256), torch.bfloat16)])
+                                         ((3, 5, 7, 256), torch.bfloat16),
+                                         ((1, 9, 11, 64), torch.float32)])
 def test_fused_encode_tail_kernel(dev, shape, dtype):
     """#13 vs its plain version: raw output within a few output ulps, ±1
-    exact wherever the plain raw value clears the 1e-3 sign margin."""
+    exact wherever the plain raw value clears the 1e-3 sign margin; two
+    launches bit-equal (the statistics' partials summed in a fixed order)."""
     from bitdance_tpu_torch.ops.fused_encode import (
         fused_encode_tail,
         fused_encode_tail_reference,
@@ -778,8 +796,10 @@ def test_fused_encode_tail_kernel(dev, shape, dtype):
     b = 0.1 * torch.randn(32, generator=g, device=dev)
     n = fused_encode_tail.launches
     raw = fused_encode_tail(x, gw, gb, w, b, quantize=False)
+    again = fused_encode_tail(x, gw, gb, w, b, quantize=False)
     sgn = fused_encode_tail(x, gw, gb, w, b)
-    assert fused_encode_tail.launches == n + 2
+    assert fused_encode_tail.launches == n + 3
+    assert torch.equal(raw, again)
     ref = fused_encode_tail_reference(x, gw, gb, w, b, quantize=False)
     bound = 1.6e-2 if dtype == torch.bfloat16 else 1e-5
     assert ((raw.float() - ref.float()).abs().max() / ref.float().abs().max()).item() < bound
@@ -864,16 +884,20 @@ HEAD_GEMM_CASES = {"h1x_w1": (64, 3840, 1280, "swiglu"), "h1x_w2": (64, 1280, 19
                    "b16x_mlp_w1": (512, 2304, 768, "swiglu_h32"),
                    "b16x_mlp_w2": (512, 768, 1152, "gated_bf16"),
                    "h1x_net_mods": (8, 3840, 1280, "out_f32"),
-                   "b16x_net_t_w0": (512, 768, 256, "out_f32")}
+                   "b16x_net_t_w0": (512, 768, 256, "out_f32"),
+                   # the attention block #15 at B-16x's 512 and 1024 rows
+                   "b16x_attn_qkv": (512, 2304, 768, "bias_f32"),
+                   "b16x_attn_qkv_1024": (1024, 2304, 768, "bias_f32"),
+                   "b16x_attn_wo": (512, 768, 768, "gated_bf16")}
 # kernel vs its split twin on the same splits, max |error| / max |twin|; the
 # sums differ in fp32 order only, so an output moves by one bf16 ulp where it
 # sits at a rounding boundary: at most 2^-7 of the largest output (twice that
 # for the swiglu's product of two rounded halves); gated_f32 and out_f32
-# keep fp32, a few fp32 ulps of sums over K 256-7680; #14's swiglu_h32 and
-# gated_bf16 round their output once
+# keep fp32, a few fp32 ulps of sums over K 256-7680, as #15's bias_f32;
+# #14's swiglu_h32 and gated_bf16 round their output once
 HEAD_GEMM_TEST_BOUND = {"bias": 8e-3, "gated": 8e-3, "swiglu": 1.6e-2, "gated_f32": 1e-4,
                         "swiglu_f32": 1.6e-2, "swiglu_h32": 8e-3, "gated_bf16": 8e-3,
-                        "out_f32": 1e-4}
+                        "out_f32": 1e-4, "bias_f32": 1e-4}
 
 
 def _head_gemm_inputs(dev, rows, n, k, mode, seed):
