@@ -1,17 +1,56 @@
-"""Training configurations from the 14B yaml schema (port of
-bitdance_tpu/config.py: mllm_config_from_yaml, mllm_train_config_from_yaml,
-head_config_from_json).
+"""Configurations: the YAML and JSON loaders and the config functions of the
+14B yaml schema (port of bitdance_tpu/config.py: ConfigDict, load_yaml,
+load_json, mllm_config_from_yaml, mllm_train_config_from_yaml,
+mesh_shape_from_yaml, head_config_from_json).
 
-The builders take a plain dict (the yaml parsed by any loader), since the
-card's machine may have no PyYAML. ``BITDANCE_14B_64X`` mirrors the model,
-data and training blocks of train/configs/bitdance_14b_64x.yaml.
+The config functions take any dict, a :class:`ConfigDict` from
+:func:`load_yaml` included. ``BITDANCE_14B_64X`` mirrors the model, data
+and training blocks of train/configs/bitdance_14b_64x.yaml.
 """
 
 from __future__ import annotations
 
+import json
+from typing import Any
+
 from bitdance_tpu_torch.models.mllm import MLLMConfig
 from bitdance_tpu_torch.models.qwen3 import Qwen3Config
 from bitdance_tpu_torch.train.mllm_train import MLLMTrainConfig
+
+class ConfigDict(dict):
+    """dict with attribute access, wrapped recursively (the OmegaConf subset
+    the reference uses: attribute access and ``.get``)."""
+
+    def __getattr__(self, name: str) -> Any:
+        try:
+            return self[name]
+        except KeyError as e:
+            raise AttributeError(name) from e
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        self[name] = value
+
+    @staticmethod
+    def wrap(obj):
+        if isinstance(obj, dict):
+            return ConfigDict({k: ConfigDict.wrap(v) for k, v in obj.items()})
+        if isinstance(obj, list):
+            return [ConfigDict.wrap(v) for v in obj]
+        return obj
+
+
+def load_yaml(path: str) -> ConfigDict:
+    """A YAML file (PyYAML's safe loader, YAML 1.1 scalars) as a ConfigDict."""
+    import yaml
+
+    with open(path) as f:
+        return ConfigDict.wrap(yaml.safe_load(f))
+
+
+def load_json(path: str) -> ConfigDict:
+    with open(path) as f:
+        return ConfigDict.wrap(json.load(f))
+
 
 # train/configs/bitdance_14b_64x.yaml (model, data and training blocks)
 BITDANCE_14B_64X = {
@@ -118,6 +157,13 @@ def mllm_train_config_from_yaml(cfg: dict) -> MLLMTrainConfig:
         loss_weight_vision=float(t.get("loss_weight_vision", 1.0)),
         grad_accum=int(t.get("grad_accum", t.get("gradient_accumulation_steps", 1))),
     )
+
+
+def mesh_shape_from_yaml(cfg: dict) -> tuple[int, int]:
+    """(replica, fsdp) from the training block's FSDP settings (num_replicate,
+    num_shard; HYBRID_SHARD in the yaml)."""
+    t = cfg["training"]
+    return int(t.get("num_replicate", 1)), int(t.get("num_shard", 1))
 
 
 def head_config_from_json(j: dict) -> dict:

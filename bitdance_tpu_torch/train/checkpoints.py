@@ -1,25 +1,247 @@
-"""Release-format export (port of bitdance_tpu/train/checkpoints.py:137-223:
-export_release_dir, export_hf_qwen3).
+"""Training checkpoints and release export (port of
+bitdance_tpu/train/checkpoints.py: CheckpointManager, export_release_dir,
+export_hf_qwen3).
 
-The port's modules keep the release's state-dict names, so an export writes
-each module's state dict as it is: ae / vision_head / projector safetensors
-and their JSON configs, and the LLM as an HF Qwen3 checkpoint
-(model.safetensors in fp32 plus config.json), the layout
-pipelines/loader.py (and the JAX package's loader) reads. Tensors are
-written one at a time from the device, so no host copy of a whole model
-exists. The orbax training checkpoints (CheckpointManager) are not ported
-(ROADMAP A10).
+CheckpointManager keeps the JAX manager's interface (save with a
+``data_status``, restore, latest_step, keep-last-N, async saves and an HDFS
+mirror) over the port's own format, since orbax is a JAX library. A step is
+a directory ``<dir>/<step>/``:
+  - ``state.safetensors``: the TrainState's tensors, written one at a time
+    through io/safetensors.py: ``model/<name>`` for the model's state dict
+    (the fp32 masters), ``opt/<param name>/<key>`` for every tensor AdamW
+    keeps (both moments and its step count), ``ema/<name>`` for the EMA;
+  - ``meta.json``: the format, ``step``, the schedule's count and the
+    learning rate of each parameter group;
+  - ``data_status.json`` when the caller passes one.
+A save writes ``<dir>/<step>.tmp/`` and renames it when every file is
+written, so a save cut short (the process killed) never looks like a
+checkpoint. Files are not fsynced: a machine that loses power may lose the
+newest step.
+
+The release export writes each module's state dict as it is: ae /
+vision_head / projector safetensors and their JSON configs, and the LLM as
+an HF Qwen3 checkpoint (model.safetensors in fp32 plus config.json), the
+layout pipelines/loader.py (and the JAX package's loader) reads.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
+import shutil
+import threading
 
 import torch
 from torch import nn
 
-from bitdance_tpu_torch.io.safetensors import save_file
+from bitdance_tpu_torch.io.safetensors import load_file, save_file
+from bitdance_tpu_torch.train.optim import TrainState
+
+FORMAT = "bitdance_tpu_torch.train_state/1"
+
+
+def step_seed(global_seed: int, step: int) -> int:
+    """The seed of one training step's draws. A run resumed at any step
+    draws what the straight run drew, since each step's generator depends
+    on (global_seed, step) alone."""
+    return (int(global_seed) * 1_000_003 + int(step)) % (2 ** 63)
+
+
+def state_tensors(state: TrainState) -> dict[str, torch.Tensor]:
+    """Every tensor of ``state`` by its checkpoint name (views, no copies)."""
+    out = {f"model/{k}": v for k, v in state.model.state_dict().items()}
+    opt = state.tx.opt
+    for name, p in zip(state.tx.names, state.tx.params):
+        for key, v in opt.state.get(p, {}).items():
+            if not isinstance(v, torch.Tensor):
+                raise TypeError(f"AdamW state {name}/{key} is a {type(v).__name__}, "
+                                "not a tensor")
+            out[f"opt/{name}/{key}"] = v
+    for k, v in (state.ema or {}).items():
+        out[f"ema/{k}"] = v
+    return out
+
+
+class CheckpointManager:
+    """Step checkpoints of a TrainState with keep-last-N rotation and
+    auto-resume.
+
+    ``async_save=True``: :meth:`save` copies the tensors to the host, then
+    writes on a thread while training goes on (one save in flight; the next
+    save, :meth:`restore`, :meth:`wait_until_finished` and :meth:`close`
+    wait for it and raise its error). Otherwise tensors are copied to the
+    host one at a time as they are written, so no second host copy of the
+    state exists. ``hdfs_mirror``: each finished step is also copied there
+    (utils/fs.py) on a thread."""
+
+    def __init__(self, directory: str, keep_last_n: int = 3,
+                 async_save: bool = False, hdfs_mirror: str | None = None):
+        self.directory = os.path.abspath(directory)
+        self.keep_last_n = keep_last_n
+        self.async_save = async_save
+        self.hdfs_mirror = hdfs_mirror
+        os.makedirs(self.directory, exist_ok=True)
+        for name in os.listdir(self.directory):
+            if name.endswith(".tmp"):             # a save that was cut short
+                shutil.rmtree(os.path.join(self.directory, name))
+        self._pool = (concurrent.futures.ThreadPoolExecutor(max_workers=1)
+                      if async_save else None)
+        self._pending: concurrent.futures.Future | None = None
+        self._mirrors: list[threading.Thread] = []
+
+    def all_steps(self) -> list[int]:
+        return sorted(int(n) for n in os.listdir(self.directory) if n.isdigit())
+
+    def latest_step(self) -> int | None:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, state: TrainState,
+             data_status: dict | None = None) -> None:
+        """Write ``state`` as step ``step`` (which must not exist yet)."""
+        self.wait_until_finished()
+        step = int(step)
+        if os.path.exists(self._step_dir(step)):
+            raise FileExistsError(f"checkpoint step {step} exists in {self.directory}")
+        meta = {"format": FORMAT, "step": int(state.step), "tx_count": state.tx.count,
+                "lrs": [g["lr"] for g in state.tx.opt.param_groups]}
+        tensors = state_tensors(state)
+        if self._pool is None:
+            self._write(step, tensors, meta, data_status)
+            return
+        host = {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}
+        self._pending = self._pool.submit(self._write, step, host, meta, data_status)
+
+    def _step_dir(self, step: int) -> str:
+        return os.path.join(self.directory, str(step))
+
+    def _write(self, step: int, tensors: dict, meta: dict,
+               data_status: dict | None) -> None:
+        final = self._step_dir(step)
+        tmp = final + ".tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        save_file(tensors, os.path.join(tmp, "state.safetensors"))
+        for name, obj in (("meta.json", meta), ("data_status.json", data_status)):
+            if obj is not None:
+                with open(os.path.join(tmp, name), "w") as f:
+                    json.dump(obj, f)
+        os.rename(tmp, final)
+        for old in self.all_steps()[:-self.keep_last_n] if self.keep_last_n > 0 else ():
+            shutil.rmtree(self._step_dir(old))
+        self._mirror(step)
+
+    def _mirror(self, step: int) -> None:
+        if not self.hdfs_mirror:
+            return
+        from bitdance_tpu_torch.utils import fs
+
+        dst = f"{self.hdfs_mirror.rstrip('/')}/{step}"
+        t = threading.Thread(target=fs.copy, args=(self._step_dir(step), dst),
+                             daemon=True)
+        t.start()
+        self._mirrors.append(t)
+
+    def wait_until_finished(self) -> None:
+        if self._pending is not None:
+            pending, self._pending = self._pending, None
+            pending.result()
+
+    def restore(self, state_like: TrainState, step: int | None = None,
+                with_data_status: bool = False):
+        """Fill ``state_like`` in place (each tensor on its own device) from
+        step ``step`` (the latest by default). Returns (state, step,
+        data_status), or (None, None, None) when no step exists. A step
+        whose tensors do not match the state's names, shapes and dtypes
+        raises."""
+        self.wait_until_finished()
+        step = self.latest_step() if step is None else int(step)
+        if step is None:
+            return None, None, None
+        d = self._step_dir(step)
+        with open(os.path.join(d, "meta.json")) as f:
+            meta = json.load(f)
+        if meta.get("format") != FORMAT:
+            raise ValueError(f"{d}: format {meta.get('format')!r}, want {FORMAT!r}")
+        saved = load_file(os.path.join(d, "state.safetensors"))
+        _fill(state_like, saved, d)
+        state_like.step = int(meta["step"])
+        state_like.tx.count = int(meta["tx_count"])
+        groups = state_like.tx.opt.param_groups
+        if len(meta["lrs"]) != len(groups):
+            raise ValueError(f"{d}: {len(meta['lrs'])} parameter groups, the state "
+                             f"has {len(groups)}")
+        for g, lr in zip(groups, meta["lrs"]):
+            g["lr"] = lr
+        data_status = None
+        ds_path = os.path.join(d, "data_status.json")
+        if with_data_status and os.path.exists(ds_path):
+            with open(ds_path) as f:
+                data_status = json.load(f)
+        return state_like, step, data_status
+
+    def close(self) -> None:
+        self.wait_until_finished()
+        if self._pool is not None:
+            self._pool.shutdown()
+        for t in self._mirrors:
+            t.join()
+        self._mirrors.clear()
+
+
+@torch.no_grad()
+def _fill(state: TrainState, saved: dict[str, torch.Tensor], where: str) -> None:
+    """Copy ``saved`` into ``state``'s tensors in place. Model and EMA names
+    must match exactly (a checkpoint's EMA is ignored by a state without
+    one, as in the JAX manager); AdamW's per-parameter state is rebuilt
+    from the checkpoint on each parameter's device, in place where a tensor
+    of that shape and dtype exists."""
+    def check(name, dst, src):
+        if tuple(src.shape) != tuple(dst.shape) or src.dtype != dst.dtype:
+            raise ValueError(f"{where}: {name} is {src.dtype} {tuple(src.shape)}, "
+                             f"the state's {dst.dtype} {tuple(dst.shape)}")
+
+    groups = {"model": {}, "opt": {}, "ema": {}}
+    for k, v in saved.items():
+        kind, _, rest = k.partition("/")
+        if kind not in groups:
+            raise ValueError(f"{where}: unknown tensor {k}")
+        groups[kind][rest] = v
+    targets = [("model", state.model.state_dict())]
+    if state.ema is not None:
+        targets.append(("ema", state.ema))
+    for kind, own in targets:
+        if set(own) != set(groups[kind]):
+            diff = sorted(set(own) ^ set(groups[kind]))
+            raise KeyError(f"{where}: {kind} tensors differ from the state's: {diff[:8]}")
+        for name, dst in own.items():
+            check(f"{kind}/{name}", dst, groups[kind][name])
+            dst.copy_(groups[kind][name])
+    per_param: dict[str, dict] = {}
+    for k, v in groups["opt"].items():
+        name, _, key = k.rpartition("/")
+        per_param.setdefault(name, {})[key] = v
+    unknown = set(per_param) - set(state.tx.names)
+    if unknown:
+        raise KeyError(f"{where}: optimizer state of unknown parameters "
+                       f"{sorted(unknown)[:8]}")
+    opt = state.tx.opt
+    for name, p in zip(state.tx.names, state.tx.params):
+        entries = per_param.get(name)
+        if not entries:
+            opt.state.pop(p, None)
+            continue
+        own = opt.state.get(p, {})
+        new = {}
+        for key, src in entries.items():
+            dst = own.get(key)
+            if isinstance(dst, torch.Tensor) and dst.shape == src.shape \
+                    and dst.dtype == src.dtype:
+                new[key] = dst.copy_(src)
+            else:
+                new[key] = src.to(device=p.device, copy=True)
+        opt.state[p] = new
 
 
 def export_release_dir(out_dir: str, ae: nn.Module | None = None,

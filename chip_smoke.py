@@ -4,7 +4,9 @@ serving (BitDance-14B-64x), ImageNet class-conditional training
 (BitDance-H-1x, 256 px), ImageNet class-conditional sampling
 (BitDance-H-1x and BitDance-B-16x, 256 px), packed multimodal training of
 BitDance-14B-64x (full width, 4 of 40 layers), tokenizer reconstruction
-(the release VQ tokenizer, 256 and 1024 px), and the release directory of
+(the release VQ tokenizer, 256 and 1024 px), the training commands
+(cli.train_imagenet at BitDance-B-1x with checkpoints and resume,
+cli.sample_fid, tokenizer training, cli.train_mllm), and the release directory of
 BitDance-14B-64x (export, load_t2i_pipeline, the CLI; full width, 2 of 40
 layers).
 
@@ -130,6 +132,22 @@ Phases, run in this order, one line each, any failure exits non-zero:
                     images at 256 px (batch 8) and 2 at 1024 px through the
                     encode tail: exact ±1 latents, shapes, images/s, encode /
                     decode times, PSNR (reported)
+  train_cli         the training entry points in this process through their
+                    main(argv): a synthetic tar in the official layout (8
+                    classes x 8 JPEGs) whose native index must equal the
+                    Python walk; cli.train_imagenet at BitDance-B-1x (full
+                    width and depth), 256 px, batch 16 on it, 4 steps
+                    straight and 2 + 2 resumed in a second directory, the
+                    final checkpoints bit-equal; cli.sample_fid from the
+                    straight checkpoint (32 samples, 2 batches, cfg 4.6,
+                    100 steps): 32 PNGs, the npz, the first batch equal to
+                    a direct sample on the restored EMA weights; 3 tokenizer
+                    training steps at the commands' tokenizer width;
+                    cli.train_mllm on the 14B yaml cut to 2 layers at hidden
+                    1024 and a 1024-wide head (the whole script may write 45
+                    GiB to the machine's disk), 4 steps straight against 2
+                    + 2 resumed, bit-equal;
+                    s/step, save / restore seconds and checkpoint GB
   release           random bf16 BitDance-14B-64x at 2 of 40 layers exported
                     as a release directory under build/ (fp32 LLM, bf16
                     head, decoder and projector; free space checked first),
@@ -3532,6 +3550,473 @@ def phase_tokenizer(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The training entry points: the tar index, cli.train_imagenet with resume,
+# cli.sample_fid, tokenizer training and cli.train_mllm with resume
+# ---------------------------------------------------------------------------
+
+TRAIN_CLI_DIR = "build/train_cli"   # gitignored; emptied before and after
+TRAIN_CLI_TAR = (8, 8, ((400, 320), (375, 500)))   # classes, images each, (H, W)s
+TRAIN_CLI_IMAGENET = ["--model", "BitDance-B", "--image-size", "256",
+                      "--global-batch-size", "16", "--epochs", "2", "--warmup-steps", "0",
+                      "--log-every", "1", "--global-seed", "5", "--device", "cuda"]
+TRAIN_CLI_STEPS = 4          # straight; the resumed run takes 2, then 2 more
+TRAIN_CLI_FID = ["--model", "BitDance-B", "--image-size", "256",
+                 "--per-proc-batch-size", "16", "--num-fid-samples", "32",
+                 "--cfg-scale", "4.6", "--sample-steps", "100", "--seed", "99",
+                 "--device", "cuda"]
+TOKENIZER_TRAIN = dict(batch=4, px=256, steps=3)
+# the 14B trainer's cut of train/configs/bitdance_14b_64x.yaml: at Qwen3-14B
+# width the embedding, lm_head and head hold over 2.5 B parameters, ~40 GB a
+# checkpoint; with the LLM alone cut, the 5120-wide head still makes it 12.5
+# GB. The check writes three, and the card's machine accepts 45 GiB of disk
+# writes in one call (the whole script's), so the head is cut to 1024 wide
+# (its 6 blocks kept): 2.46 GB a checkpoint. The `mllm` phase holds the
+# full-width step.
+MLLM_CLI_LLM = dict(hidden_size=1024, intermediate_size=3072, num_hidden_layers=2,
+                    num_attention_heads=8, num_key_value_heads=8, head_dim=128)
+MLLM_CLI_HEAD = dict(model_dim=1024)
+MLLM_CLI_TRAINING = dict(num_replicate=1, num_shard=1, warmup_steps=0, lr=1e-3,
+                         save_every=4, validate_every=2, log_every=1)
+
+
+def _synthetic_imagenet_tar(path: str) -> int:
+    """The official train tar's layout: an outer tar of <wnid>.tar members,
+    each holding <wnid>_<i>.JPEG at mixed sizes (random pixels)."""
+    import io
+    import tarfile
+
+    import numpy as np
+    from PIL import Image
+
+    classes, per_class, sizes = TRAIN_CLI_TAR
+    rng = np.random.default_rng(7)
+    with tarfile.open(path, "w") as outer:
+        for c in range(classes):
+            wnid = f"n{1440764 + c:08d}"
+            buf = io.BytesIO()
+            with tarfile.open(fileobj=buf, mode="w") as inner:
+                for i in range(per_class):
+                    h, w = sizes[(c + i) % len(sizes)]
+                    img = io.BytesIO()
+                    Image.fromarray(rng.integers(0, 256, (h, w, 3), np.uint8)).save(
+                        img, "JPEG", quality=90)
+                    info = tarfile.TarInfo(f"{wnid}_{i}.JPEG")
+                    info.size = img.tell()
+                    img.seek(0)
+                    inner.addfile(info, img)
+            info = tarfile.TarInfo(f"{wnid}.tar")
+            info.size = buf.tell()
+            buf.seek(0)
+            outer.addfile(info, buf)
+    return classes * per_class
+
+
+def _dir_gb(path: str) -> float:
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path)
+               for f in files) / 1e9
+
+
+def _same_checkpoint(a: str, b: str, step: int) -> tuple[int, list]:
+    """(tensors compared, names that differ) of two step directories, the
+    meta and data status files compared as text (a difference raises)."""
+    import os
+
+    import torch
+
+    from bitdance_tpu_torch.io.safetensors import load_file
+
+    da, db = os.path.join(a, str(step)), os.path.join(b, str(step))
+    for name in ("meta.json", "data_status.json"):
+        with open(os.path.join(da, name)) as fa, open(os.path.join(db, name)) as fb:
+            ta, tb = fa.read(), fb.read()
+        if ta != tb:
+            raise SystemExit(f"train_cli: {name} of step {step} differs: {ta} vs {tb}")
+    sa = load_file(os.path.join(da, "state.safetensors"))
+    sb = load_file(os.path.join(db, "state.safetensors"))
+    if set(sa) != set(sb):
+        raise SystemExit(f"train_cli: step {step}'s tensors differ in name")
+    dev = torch.device("cuda")
+    diff = [k for k in sorted(sa) if sa[k].dtype != sb[k].dtype
+            or not torch.equal(sa[k].to(dev), sb[k].to(dev))]
+    return len(sa), diff
+
+
+def _trained(a: str, b: str, step: int, half: int, ema: bool) -> str:
+    """That a command trained, which a resumed run equal to its straight run
+    does not show by itself (a step that leaves the state as it was passes
+    that check too): every AdamW step count of ``a``'s step directory is
+    ``step``, its master parameters moved from ``b``'s step-``half`` ones
+    and, with ``ema``, so did the EMA, which also differs from the masters.
+    Returns the counts for the log; a failure raises."""
+    import os
+
+    import torch
+
+    from bitdance_tpu_torch.io.safetensors import load_file
+
+    last = load_file(os.path.join(a, str(step), "state.safetensors"))
+    mid = load_file(os.path.join(b, str(half), "state.safetensors"))
+    counts = [float(v) for k, v in last.items() if k.startswith("opt/") and k.endswith("/step")]
+    masters = [k for k in last if k.startswith("model/") and last[k].is_floating_point()]
+    moved = [k for k in masters if not torch.equal(last[k], mid[k])]
+    got = (f"{len(moved)} of {len(masters)} master tensors moved from step {half} to "
+           f"{step}, AdamW step counts {sorted(set(counts))}")
+    bad = not counts or set(counts) != {float(step)} or not moved
+    if ema:
+        keys = [k for k in last if k.startswith("ema/")]
+        ema_moved = [k for k in keys if not torch.equal(last[k], mid[k])]
+        apart = [k for k in keys if not torch.equal(last[k], last["model/" + k[4:]])]
+        got += (f", {len(ema_moved)} of {len(keys)} EMA tensors moved, "
+                f"{len(apart)} apart from the masters")
+        bad = bad or not ema_moved or not apart
+    if bad:
+        raise SystemExit(f"train_cli: the command did not train: {got}")
+    return got
+
+
+def _cli_run(phase: str, main, argv: list, what: str, stats: dict | None = None) -> dict:
+    """One command run in this process through its main(argv): the kernel
+    launch counts set to 0 before it and read after, its wall seconds."""
+    import torch
+
+    _reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    kw = {} if stats is None else {"stats": stats}
+    rc = main(argv, **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    counts = {k: v for k, v in _counts().items() if v}
+    log(phase, f"{what}: rc {rc}, {dt:.2f} s, kernel launches {counts}")
+    if rc != 0:
+        raise SystemExit(f"{phase}: {what} returned {rc}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"s": dt, "launches": counts}
+
+
+def _train_imagenet_resume(tar: str, root: str, card: str) -> dict:
+    """BitDance-B-1x (dim 768, 24 layers, MlpEncoder head) at 256 px,
+    global batch 16 through cli.train_imagenet: TRAIN_CLI_STEPS steps
+    straight, then TRAIN_CLI_STEPS // 2 and the rest resumed in a second
+    results directory; the final checkpoints bit for bit."""
+    import os
+
+    import numpy as np
+
+    from bitdance_tpu_torch.cli import train_imagenet
+
+    base = ["--data-path", tar] + TRAIN_CLI_IMAGENET
+    a, b = os.path.join(root, "straight"), os.path.join(root, "resumed")
+    st_a, st_b1, st_b2 = {}, {}, {}
+    half = str(TRAIN_CLI_STEPS // 2)
+    runs = [_cli_run("train_cli", train_imagenet.main,
+                     base + ["--results-dir", a, "--max-steps", str(TRAIN_CLI_STEPS)],
+                     f"train_imagenet BitDance-B-1x, {TRAIN_CLI_STEPS} steps straight",
+                     st_a),
+            _cli_run("train_cli", train_imagenet.main,
+                     base + ["--results-dir", b, "--max-steps", half],
+                     f"train_imagenet, {half} steps", st_b1),
+            _cli_run("train_cli", train_imagenet.main,
+                     base + ["--results-dir", b, "--max-steps", str(TRAIN_CLI_STEPS)],
+                     "train_imagenet resumed to the same step", st_b2)]
+    n, diff = _same_checkpoint(os.path.join(a, "checkpoints"), os.path.join(b, "checkpoints"),
+                               TRAIN_CLI_STEPS)
+    trained = _trained(os.path.join(a, "checkpoints"), os.path.join(b, "checkpoints"),
+                       TRAIN_CLI_STEPS, TRAIN_CLI_STEPS // 2, ema=True)
+    steps = st_a["step_seconds"]
+    steady = sorted(steps[1:])
+    s_step = steady[len(steady) // 2]
+    ph = st_a["phase_seconds"]
+    fmt = lambda xs, d=3: ", ".join(f"{x:.{d}f}" for x in xs)  # noqa: E731
+    saves = st_a["save_seconds"] + st_b1["save_seconds"] + st_b2["save_seconds"]
+    log("train_cli", f"B-1x through the CLI: s/step {fmt(steps)} (median after the "
+        f"first {s_step:.3f}; data {fmt(st_a['data_seconds'])} s of it on the host; "
+        f"encode {ph['encode']:.3f} s and train_step {ph['train_step']:.3f} s over the "
+        f"{len(steps)} steps, {ph['clock']}), saves {fmt(saves, 2)} s, "
+        f"checkpoint {st_a['ckpt_bytes'][-1] / 1e9:.3f} GB, restore "
+        f"{st_b2['restore_seconds']:.2f} s; resumed == straight: {n - len(diff)} of {n} "
+        f"tensors bit-equal, differing {diff[:6]}; {trained}; card {card}")
+    if diff:
+        raise SystemExit(f"train_cli: the resumed B-1x run differs from the straight "
+                         f"one in {len(diff)} tensors: {diff[:8]}")
+    if not all(np.isfinite(steps)) or st_a["save_seconds"] == []:
+        raise SystemExit("train_cli: the straight run recorded no steps or saves")
+    return {"straight": a, "resumed": b, "s_per_step": s_step, "stats": st_a,
+            "restore_s": st_b2["restore_seconds"], "launches": _summed(runs)}
+
+
+def _summed(runs: list) -> dict:
+    out: dict = {}
+    for r in runs:
+        for k, v in r["launches"].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _sample_fid_check(ckpt_dir: str, root: str, card: str) -> dict:
+    """cli.sample_fid from the straight run's checkpoint (EMA weights, bf16,
+    the whole sampler #3/#4): PNGs and the npz, and its first batch's ±1
+    tokens equal to imagenet_ar.sample called directly on the restored EMA
+    weights with iteration 0's generator."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from bitdance_tpu_torch.cli import sample_fid
+    from bitdance_tpu_torch.eval import fid
+    from bitdance_tpu_torch.eval.fid import sampler_from_train_state
+    from bitdance_tpu_torch.models.diff_head import make_fused_sampler
+    from bitdance_tpu_torch.models.imagenet_ar import config_b
+    from bitdance_tpu_torch.train.checkpoints import CheckpointManager
+    from bitdance_tpu_torch.train.imagenet_train import ImageNetTrainConfig, init_train_state
+
+    out_dir = os.path.join(root, "samples")
+    calls, real = [], fid.sample
+
+    def spy(model, head, cfg, cls, gen, **kw):
+        t = time.perf_counter()
+        toks = real(model, head, cfg, cls, gen, **kw)
+        torch.cuda.synchronize()
+        calls.append({"cls": cls.clone(), "tokens": toks.clone(), "kw": kw,
+                      "s": time.perf_counter() - t})
+        return toks
+
+    fid.sample = spy
+    try:
+        r = _cli_run("train_cli", sample_fid.main,
+                     TRAIN_CLI_FID + ["--ckpt", ckpt_dir, "--sample-dir", out_dir],
+                     "sample_fid, 32 samples in 2 batches of 16, cfg 4.6, 100 steps")
+    finally:
+        fid.sample = real
+    folder = os.path.join(out_dir, "BitDance-B-size-256-steps-100-cfg-4.6-seed-99")
+    pngs = sorted(os.listdir(folder))
+    arr = np.load(folder + ".npz")["arr_0"]
+    dev = torch.device("cuda")
+    cfg = config_b(resolution=256)
+    state = init_train_state(cfg, ImageNetTrainConfig(), dev)
+    CheckpointManager(ckpt_dir).restore(state)
+    model, head, stacked = sampler_from_train_state(state, cfg, ema=True)
+    del state
+    first = calls[0]
+    gen = torch.Generator(device=dev).manual_seed(99 * 1 + 0 + 0 * 131)
+    direct = real(model, head, cfg, first["cls"], gen,
+                  head_sampler=make_fused_sampler(head, stacked), **{
+                      k: v for k, v in first["kw"].items() if k != "head_sampler"})
+    same = torch.equal(direct, first["tokens"])
+    pm1 = set(first["tokens"].unique().tolist()) <= {-1.0, 1.0}
+    log("train_cli", f"sample_fid: {len(pngs)} PNGs, npz {tuple(arr.shape)} {arr.dtype}, "
+        f"{len(np.unique(arr))} distinct values; s/batch "
+        f"{', '.join(str(round(c['s'], 2)) for c in calls)} (AR + sampler, CUDA-synced), "
+        f"classes of batch 0 {first['cls'][:4].tolist()}...; first batch's ±1 tokens "
+        f"{tuple(first['tokens'].shape)} equal to a direct sample on the restored EMA "
+        f"weights: {same}; card {card}")
+    if not (pngs == [f"{i:06d}.png" for i in range(32)] and arr.shape == (32, 256, 256, 3)
+            and arr.dtype == np.uint8 and len(calls) == 2 and same and pm1
+            and first["cls"].tolist() == list(range(16))):
+        raise SystemExit("train_cli: sample_fid's files or its first batch failed a check")
+    del model, head, stacked
+    return {"s_per_batch": [c["s"] for c in calls], "launches": r["launches"]}
+
+
+def _tokenizer_train_steps(card: str) -> dict:
+    """TOKENIZER_TRAIN's steps of train/tokenizer_train.py at the commands'
+    tokenizer width (ch 256, mult [1, 1, 2, 2, 4], 4 blocks, z 16)."""
+    import math
+
+    import torch
+
+    from bitdance_tpu_torch.cli.common import TOKENIZER_DDCONFIG
+    from bitdance_tpu_torch.train.tokenizer_train import (
+        TokenizerTrainConfig,
+        init_tokenizer_train,
+        make_tokenizer_train_step,
+    )
+
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    tcfg = TokenizerTrainConfig(warmup_steps=0)
+    state = init_tokenizer_train(dict(TOKENIZER_DDCONFIG, z_channels=16), tcfg, dev,
+                                 generator=torch.Generator(device=dev).manual_seed(3))
+    step = make_tokenizer_train_step(tcfg)
+    g = torch.Generator(device=dev).manual_seed(4)
+    n, px = TOKENIZER_TRAIN["batch"], TOKENIZER_TRAIN["px"]
+    images = torch.rand((n, px, px, 3), generator=g, device=dev) * 2 - 1
+    times, rows = [], []
+    for _ in range(TOKENIZER_TRAIN["steps"]):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = step(state, images)
+        m = {k: v.item() for k, v in m.items()}
+        times.append(time.perf_counter() - t)
+        rows.append(m)
+    finite = all(math.isfinite(v) for m in rows for v in m.values())
+    log("train_cli", f"tokenizer training {sum(p.numel() for p in state.tx.params) / 1e6:.1f} "
+        f"M parameters, batch {n} x {px} px: s/step {', '.join(f'{s:.3f}' for s in times)}; "
+        f"loss {', '.join(f'{m['loss']:.4f}' for m in rows)}, grad_norm "
+        f"{', '.join(f'{m['grad_norm']:.4f}' for m in rows)}, l2 "
+        f"{', '.join(f'{m['l2']:.4f}' for m in rows)}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; card {card}")
+    if not (finite and rows[-1]["grad_norm"] > 0 and state.step == len(rows)):
+        raise SystemExit("train_cli: a tokenizer training step is not finite")
+    del state
+    return {"s_per_step": times}
+
+
+def _mllm_cli_data(root: str, cfg) -> tuple[str, str]:
+    """Two packed training sequences and a validation one, at the yaml's
+    budget (GreedyPacker as scripts/train_mllm.py's data is packed), as
+    .npz files."""
+    import os
+
+    import numpy as np
+
+    from bitdance_tpu_torch.config import BITDANCE_14B_64X
+    from bitdance_tpu_torch.data.packing import GreedyPacker, pack_t2i_batch, sincos_1d_table_np
+
+    data = BITDANCE_14B_64X["data"]
+    d = os.path.join(root, "packed")
+    os.makedirs(d)
+    table = sincos_1d_table_np(cfg.llm.hidden_size // 2, cfg.pe_max_len)
+    paths, seed = [], 0
+    for name in ("000.npz", "001.npz", "val.npz"):
+        packer = GreedyPacker(cfg.parallel_num, data["expected_num_tokens"],
+                              data["max_num_tokens"], data["max_num_tokens_per_sample"])
+        chosen = None
+        while chosen is None:
+            for s in _t2i_samples(8, 2000 + seed):
+                chosen = chosen or packer.add(s)
+            seed += 1
+        raw = pack_t2i_batch(chosen, cfg.parallel_num, data["max_num_tokens"], table)
+        path = os.path.join(d if name != "val.npz" else root, name)
+        np.savez(path, **raw)
+        paths.append(path)
+    return d, paths[-1]
+
+
+def _train_mllm_resume(root: str, card: str) -> dict:
+    """cli.train_mllm on a YAML derived from bitdance_14b_64x.yaml (the LLM
+    cut to MLLM_CLI_LLM, the head to MLLM_CLI_HEAD, the mesh to one
+    device): 4 steps straight, then 2 and 2 more resumed from the step-2
+    checkpoint and its data file."""
+    import os
+
+    import yaml
+
+    from bitdance_tpu_torch.cli import train_mllm
+    from bitdance_tpu_torch.config import load_yaml, mllm_config_from_yaml
+
+    ycfg = load_yaml("train/configs/bitdance_14b_64x.yaml")
+    ycfg.model.llm.update(MLLM_CLI_LLM)
+    ycfg.model.head.vision_pred.update(MLLM_CLI_HEAD)
+    ycfg.training.update(MLLM_CLI_TRAINING)
+    path = os.path.join(root, "bitdance_14b_64x_cut.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(yaml.safe_load(json.dumps(ycfg)), f)
+    cfg = mllm_config_from_yaml(ycfg, 152064)
+    log("train_cli", f"14B trainer's YAML: train/configs/bitdance_14b_64x.yaml with "
+        f"model.llm {MLLM_CLI_LLM} and model.head.vision_pred {MLLM_CLI_HEAD} (at "
+        f"Qwen3-14B width a checkpoint is ~40 GB, with the LLM alone cut 12.5 GB; the "
+        f"check writes three and the machine takes 45 GiB of writes a call; the mllm "
+        f"phase holds the full-width step) and training {MLLM_CLI_TRAINING} (one "
+        f"device; lr 1e-3 so bf16 weights move within 4 steps); head "
+        f"{cfg.head_model_dim} x {cfg.head_num_blocks} blocks, parallel "
+        f"{cfg.parallel_num}, live kv tiles {cfg.attn_max_live_kv}")
+    data, val_path = _mllm_cli_data(root, cfg)
+    base = ["--config", path, "--data-dir", data, "--val-batch", val_path,
+            "--device", "cuda"]
+    a, b = os.path.join(root, "mllm_straight"), os.path.join(root, "mllm_resumed")
+    st_a, st_b1, st_b2 = {}, {}, {}
+    runs = [_cli_run("train_cli", train_mllm.main,
+                     base + ["--results-dir", a, "--max-steps", "4"],
+                     "train_mllm, 4 steps straight", st_a),
+            _cli_run("train_cli", train_mllm.main,
+                     base + ["--results-dir", b, "--max-steps", "2"],
+                     "train_mllm, 2 steps", st_b1),
+            _cli_run("train_cli", train_mllm.main,
+                     base + ["--results-dir", b, "--max-steps", "4"],
+                     "train_mllm resumed to step 4", st_b2)]
+    gb = _dir_gb(os.path.join(a, "checkpoints", "4"))
+    n, diff = _same_checkpoint(os.path.join(a, "checkpoints"), os.path.join(b, "checkpoints"), 4)
+    trained = _trained(os.path.join(a, "checkpoints"), os.path.join(b, "checkpoints"), 4, 2,
+                       ema=False)      # the 14B yaml keeps no EMA
+    val = st_a.get("val", [])
+    ph = st_a["phase_seconds"]
+    saves = st_a["save_seconds"] + st_b1["save_seconds"] + st_b2["save_seconds"]
+    log("train_cli", f"train_mllm: s/step {', '.join(f'{x:.3f}' for x in st_a['step_seconds'])} "
+        f"(batch loads {ph['batch']:.3f} s, train steps {ph['train_step']:.3f} s over the 4, "
+        f"{ph['clock']}), saves {', '.join(f'{x:.2f}' for x in saves)} s, "
+        f"checkpoint {gb:.3f} GB, restore {st_b2['restore_seconds']:.2f} s, validation "
+        f"{[round(v['val_loss'], 4) for v in val]}; resumed == straight: {n - len(diff)} of "
+        f"{n} tensors bit-equal, differing {diff[:6]}; {trained}; card {card}")
+    if diff or len(val) != 2:
+        raise SystemExit(f"train_cli: the resumed 14B run differs from the straight one "
+                         f"in {len(diff)} tensors ({diff[:8]}) or validation did not run")
+    return {"s_per_step": st_a["step_seconds"], "gb": gb,
+            "restore_s": st_b2["restore_seconds"], "launches": _summed(runs)}
+
+
+def phase_train_cli(card: str) -> dict:
+    """The training entry points (ROADMAP A10) on the card, in this process
+    through each command's main(argv): (a) a synthetic tar in the official
+    layout, its native index equal to the Python walk; (b) cli.train_imagenet
+    at BitDance-B-1x, resumed equal to straight bit for bit; (c)
+    cli.sample_fid from its checkpoint; (d) tokenizer training steps; (e)
+    cli.train_mllm on a cut 14B YAML, resumed equal to straight. Returns the
+    launches of the kernels on these paths (every command run; the checks'
+    own launches not counted)."""
+    import os
+    import shutil
+
+    from bitdance_tpu_torch.data.imagenet import python_tar_index
+    from bitdance_tpu_torch.data.native import build_tar_index_native
+
+    t_phase = time.perf_counter()
+    root = os.path.abspath(TRAIN_CLI_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    free = shutil.disk_usage(root).free / 1e9
+    if free < 30:                   # two B-1x runs' checkpoints at once: ~12 GB
+        raise SystemExit(f"train_cli: {free:.1f} GB free under {root}, want 30")
+    tar = os.path.join(root, "train.tar")
+    t = time.perf_counter()
+    n_img = _synthetic_imagenet_tar(tar)
+    t_tar = time.perf_counter() - t
+    t = time.perf_counter()
+    native, classes = build_tar_index_native(tar, tar + ".native")
+    t_native = time.perf_counter() - t
+    py = python_tar_index(tar)
+    same = [tuple(e) for e in native] == py
+    log("train_cli", f"synthetic tar {TRAIN_CLI_TAR[0]} classes x {TRAIN_CLI_TAR[1]} JPEGs "
+        f"at {TRAIN_CLI_TAR[2]} ({os.path.getsize(tar) / 1e6:.1f} MB, written in "
+        f"{t_tar:.2f} s); native index {len(native)} entries, {len(classes)} classes in "
+        f"{t_native * 1e3:.1f} ms; equal to the Python walk: {same}")
+    if not (same and len(py) == n_img and len(classes) == TRAIN_CLI_TAR[0]):
+        raise SystemExit("train_cli: the native tar index differs from the Python walk")
+
+    im = _train_imagenet_resume(tar, root, card)
+    fid = _sample_fid_check(os.path.join(im["straight"], "checkpoints"), root, card)
+    shutil.rmtree(im["straight"])
+    shutil.rmtree(im["resumed"])
+    tok = _tokenizer_train_steps(card)
+    ml = _train_mllm_resume(root, card)
+    shutil.rmtree(root)
+    launches = _summed([im, fid, ml])
+    log("train_cli", f"phase {time.perf_counter() - t_phase:.1f} s; kernel launches of its "
+        f"commands {launches}; card {card}")
+    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_em_sample",
+              "flash_fwd_sparse", "flash_bwd_dq_sparse", "flash_bwd_dkv_sparse"):
+        if launches.get(k, 0) < 1:
+            raise SystemExit(f"train_cli: {k} was not launched by the commands")
+    return {"launches": launches, "imagenet_s_per_step": im["s_per_step"],
+            "imagenet_stats": im["stats"], "fid_s_per_batch": fid["s_per_batch"],
+            "tokenizer_s_per_step": tok["s_per_step"], "mllm": ml}
+
+
+# ---------------------------------------------------------------------------
 # The release directory: export, load_t2i_pipeline and the CLI
 # ---------------------------------------------------------------------------
 
@@ -3798,6 +4283,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     results.update(phase_encode_kernel())
     launches["fused_encode_tail"] = phase_tokenizer(card)["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the training commands' launches join each kernel's count (B-1x's head
+    # is the MlpEncoder family of the whole sampler)
+    for name, n in phase_train_cli(card)["launches"].items():
+        key = "fused_em_sample_mlp" if name == "fused_em_sample" else name
+        launches[key] = launches.get(key, 0) + n
     gc.collect()
     torch.cuda.empty_cache()
     from bitdance_tpu_torch.ops import int4

@@ -53,6 +53,15 @@ RELEASE_SLICE_MODULES = (
     "bitdance_tpu_torch.io.safetensors", "bitdance_tpu_torch.pipelines.loader",
     "bitdance_tpu_torch.train.checkpoints", "bitdance_tpu_torch.utils.precision",
 )
+# the training entry points (ROADMAP A10) and their support modules
+TRAINING_SLICE_MODULES = (
+    "bitdance_tpu_torch.cli.common", "bitdance_tpu_torch.cli.sample_fid",
+    "bitdance_tpu_torch.cli.train_imagenet", "bitdance_tpu_torch.cli.train_mllm",
+    "bitdance_tpu_torch.config", "bitdance_tpu_torch.data.imagenet",
+    "bitdance_tpu_torch.data.native", "bitdance_tpu_torch.eval.fid",
+    "bitdance_tpu_torch.train.tokenizer_train", "bitdance_tpu_torch.utils.fs",
+    "bitdance_tpu_torch.utils.logging", "bitdance_tpu_torch.utils.profiler",
+)
 
 
 def test_every_port_module_imports_without_jax():
@@ -66,6 +75,7 @@ def test_every_port_module_imports_without_jax():
     mods = [".".join(f.relative_to(ROOT).with_suffix("").parts) for f in files]
     mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m for m in mods]
     assert set(RELEASE_SLICE_MODULES) <= set(mods)
+    assert set(TRAINING_SLICE_MODULES) <= set(mods)
     script = (
         "import importlib, sys\n"
         "class Block:\n"
