@@ -1,11 +1,15 @@
-"""What the ImageNet command lines share: the device check and the frozen
-tokenizer at the commands' width (scripts/train_imagenet.py:131-132 and
-scripts/sample_fid.py of the JAX package)."""
+"""What the command lines share: the device check, the frozen tokenizer at
+the ImageNet commands' width (scripts/train_imagenet.py:131-132 and
+scripts/sample_fid.py of the JAX package), and a PNG reader (the card's
+machine has no imaging package)."""
 
 from __future__ import annotations
 
 import re
+import struct
+import zlib
 
+import numpy as np
 import torch
 
 # the ImageNet tokenizer of the training and sampling commands; z_channels
@@ -44,3 +48,73 @@ def imagenet_tokenizer(latent_dim: int, trained_vae: str, device: torch.device,
     ae = ae.to_empty(device=device)
     load_state_(ae, load_safetensors(trained_vae), ignore=(re.compile(rf"^{other}\."),))
     return ae.eval().requires_grad_(False)
+
+
+def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the PNG row filters (None, Sub, Up, Average, Paeth) of ``raw``
+    [h, 1 + stride] uint8; returns [h, stride] uint8. Sub and Up are
+    vectorized; Average and Paeth chain through the left neighbour, so they
+    walk the row byte by byte."""
+    out = np.zeros((h, stride), np.int64)
+    prev = np.zeros(stride, np.int64)
+    for y in range(h):
+        kind, line = int(raw[y, 0]), raw[y, 1:].astype(np.int64)
+        if kind == 0:
+            cur = line
+        elif kind == 1:
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0).reshape(-1) & 0xFF
+        elif kind == 2:
+            cur = (line + prev) & 0xFF
+        elif kind in (3, 4):
+            ln, up, row = line.tolist(), prev.tolist(), [0] * stride
+            for x in range(stride):
+                a = row[x - bpp] if x >= bpp else 0
+                b = up[x]
+                if kind == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = up[x - bpp] if x >= bpp else 0
+                    pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+                row[x] = (ln[x] + pred) & 0xFF
+            cur = np.asarray(row, np.int64)
+        else:
+            raise ValueError(f"PNG row {y}: unknown filter type {kind}")
+        out[y] = prev = cur
+    return out.astype(np.uint8)
+
+
+def read_png(path) -> np.ndarray:
+    """uint8 RGB [H, W, 3] of an 8-bit truecolor PNG (color type 2, or 6
+    with its alpha dropped), non-interlaced, any of the five row filters.
+    Raises ValueError on anything else (palette, grey, 16-bit, interlaced,
+    a bad CRC)."""
+    data = open(path, "rb").read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG")
+    pos, idat, header = 8, [], None
+    while pos + 12 <= len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        if zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
+            raise ValueError(f"{path}: bad CRC in {kind!r}")
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+        pos += 12 + n
+    if header is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    w, h, depth, color, _, _, interlace = header
+    if depth != 8 or color not in (2, 6) or interlace:
+        raise ValueError(f"{path}: depth {depth}, color type {color}, interlace "
+                         f"{interlace}; only 8-bit RGB / RGBA, non-interlaced")
+    bpp = 3 if color == 2 else 4
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size != h * (1 + bpp * w):
+        raise ValueError(f"{path}: {raw.size} image bytes, want {h * (1 + bpp * w)}")
+    rows = _unfilter(raw.reshape(h, 1 + bpp * w), h, bpp * w, bpp)
+    return rows.reshape(h, w, bpp)[..., :3].copy()

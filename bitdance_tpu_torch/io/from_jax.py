@@ -79,9 +79,10 @@ def qwen3_quant_modes(params: Mapping) -> tuple[str | None, bool]:
 
 
 def qwen3_state_from_jax(params: Mapping) -> dict[str, np.ndarray]:
-    """Stacked JAX Qwen3 params -> HF-named state dict (numpy). Quantized
-    leaves give ``<name>.q`` (int8) and ``<name>.s`` (f32) entries instead
-    of ``<name>.weight``."""
+    """Stacked JAX Qwen3 params -> HF-named state dict (numpy), ``lm_head``
+    ([D, V] -> ``lm_head.weight`` [V, D]) included when the tree has one.
+    Quantized leaves give ``<name>.q`` (int8) and ``<name>.s`` (f32) entries
+    instead of ``<name>.weight``."""
     layers = params["layers"]
     emb = params["embed_tokens"]
     if _quant_kind(emb):
@@ -90,6 +91,12 @@ def qwen3_state_from_jax(params: Mapping) -> dict[str, np.ndarray]:
     else:
         sd = {"model.embed_tokens.weight": _np(emb)}
     sd["model.norm.weight"] = _np(params["final_norm"])
+    head = params.get("lm_head")
+    if _quant_kind(head):
+        sd["lm_head.q"] = np.ascontiguousarray(np.asarray(head.q, np.int8).T)
+        sd["lm_head.s"] = _np(head.s).reshape(-1)
+    elif head is not None:
+        sd["lm_head.weight"] = np.ascontiguousarray(_np(head).T)
     for name, (key, transposed) in _QWEN_LAYER_KEYS.items():
         leaf = layers[name]
         if _quant_kind(leaf):
@@ -108,13 +115,20 @@ def qwen3_state_from_jax(params: Mapping) -> dict[str, np.ndarray]:
 def qwen3_from_jax(cfg, params: Mapping, device=None,
                    dtype: torch.dtype = torch.float32):
     """A JAX Qwen3 tree (bf16/f32 or quantized) -> the port's Qwen3Model on
-    ``device``, with the quantized modules its leaves call for."""
-    from bitdance_tpu_torch.models.qwen3 import Qwen3Model, quantized_structure_
+    ``device``, with the quantized modules its leaves call for and an
+    ``lm_head`` when the tree has one (a QLinear when its leaf is a
+    QTensor)."""
+    from bitdance_tpu_torch.models.qwen3 import Qwen3Model, QLinear, quantized_structure_
 
     model = Qwen3Model(cfg, device=device, dtype=dtype)
     mode, embed_int8 = qwen3_quant_modes(params)
     if mode is not None or embed_int8:
         quantized_structure_(model, mode, embed_int8)
+    if "lm_head" in params:
+        model.lm_head = (QLinear(cfg.hidden_size, cfg.vocab_size, device=device)
+                         if _quant_kind(params["lm_head"]) else
+                         nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
+                                   device=device, dtype=dtype))
     return load_into(model, qwen3_state_from_jax(params)).eval()
 
 
@@ -255,10 +269,7 @@ def imagenet_sampler_from_jax(cfg, params: Mapping, head_params: Mapping,
 def mllm_state_from_jax(params: Mapping) -> dict[str, np.ndarray]:
     """``init_mllm_params`` tree -> state dict of the port's MLLM ("llm.*"
     with "llm.lm_head.weight" [V, D], "projector.*", "head.*")."""
-    llm = params["llm"]
-    sd = {f"llm.{k}": v for k, v in qwen3_state_from_jax(llm).items()}
-    if "lm_head" in llm:
-        sd["llm.lm_head.weight"] = np.ascontiguousarray(_np(llm["lm_head"]).T)
+    sd = {f"llm.{k}": v for k, v in qwen3_state_from_jax(params["llm"]).items()}
     for part in ("projector", "head"):
         sd.update({f"{part}.{k}": v for k, v in flax_state_from_jax(params[part]).items()})
     return sd

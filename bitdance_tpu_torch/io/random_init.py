@@ -120,8 +120,9 @@ QUANT_CONFIGS = {
 def quantize_bundle_(bundle: T2IModelBundle, mode: str, *,
                      keep_source: bool = False) -> T2IModelBundle:
     """Quantize a bundle for serving: ``"int4"`` (packed int4 W4A8 Qwen3
-    projections, int8 embedding table, W4A8 head sampler) or ``"int8"``
-    (W8A8 projections, bf16 embedding, W8A8 head sampler). The LLM is
+    projections, int8 embedding table, W4A8 head sampler; an lm_head is
+    dropped) or ``"int8"`` (W8A8 projections and lm_head, bf16 embedding,
+    W8A8 head sampler). The LLM is
     converted layer by layer on its device and the head's sampler stack is
     rebuilt once, quantized. The VQ decoder and projector stay as they are.
 
@@ -146,10 +147,15 @@ def quantize_bundle_(bundle: T2IModelBundle, mode: str, *,
 def build_random_bundle(device, *, llm_cfg: Qwen3Config | None = None,
                         geometry: dict | None = None,
                         dtype: torch.dtype = torch.bfloat16,
-                        seed: int = 0) -> T2IModelBundle:
+                        seed: int = 0, lm_head: bool = False,
+                        encoder: bool = False) -> T2IModelBundle:
     """Full bundle on ``device`` from ``seed``; defaults to BitDance-14B-64x
     at full width and depth. The head's sampler stack is built before the
     LLM so the stacking transient never sits beside the 26 GB layer stack.
+    lm_head (an untied text head, N(0, 0.02) as the JAX init draws it) and
+    encoder (the VQ encoder, flax-default init) add what interleaved
+    generation needs; both are drawn after every other module, so the T2I
+    weights of a seed do not depend on them.
     :func:`quantize_bundle_` converts it for quantized serving."""
     geo = BITDANCE_14B_64X if geometry is None else geometry
     cfg = llm_cfg or Qwen3Config.qwen3_14b()
@@ -161,6 +167,13 @@ def build_random_bundle(device, *, llm_cfg: Qwen3Config | None = None,
     proj = init_projector(z, hidden, device, dtype, gen)
     ae = init_vq(geo["ddconfig"], device, dtype, gen)
     llm = init_qwen3(cfg, device, dtype, gen)
+    if lm_head and not cfg.tie_word_embeddings:
+        llm.lm_head = torch.nn.Linear(hidden, cfg.vocab_size, bias=False,
+                                      device=device, dtype=dtype).requires_grad_(False)
+        llm.lm_head.weight.normal_(0.0, 0.02, generator=gen)
+    if encoder:
+        ae.encoder = init_vq(geo["ddconfig"], device, dtype, gen, encoder=True,
+                             decoder=False).encoder
     return T2IModelBundle(
         llm=llm, ae=ae, head=head, projector=proj,
         parallel_num=geo["parallel_num"], hidden_size=hidden,

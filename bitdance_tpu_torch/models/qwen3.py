@@ -5,9 +5,10 @@ for training).
 
 Parameter names follow HF ``Qwen3ForCausalLM`` (``model.embed_tokens``,
 ``model.layers.{i}.self_attn.q_proj`` ..., ``lm_head``), which
-``bitdance_tpu/io/torch_import.py::convert_qwen3_state`` reads. Generation
-never reads ``lm_head``, so a model has one only when built with
-``lm_head=True`` (training's text loss). Linear layers are plain
+``bitdance_tpu/io/torch_import.py::convert_qwen3_state`` reads. T2I
+generation never reads ``lm_head``, so a model has one only when built with
+``lm_head=True`` (training's text loss, the text logits of interleaved
+generation, :func:`lm_logits`). Linear layers are plain
 ``F.linear`` (the JAX package computes them outside any Pallas kernel); the
 windowed decode attention and the training path's (sparse) flash attention
 are the port's CUDA kernels on the card.
@@ -15,10 +16,11 @@ are the port's CUDA kernels on the card.
 Quantized serving (:func:`quantize_qwen3_`): the seven projections of every
 layer become :class:`QLinear` (int8 W8A8, ``torch._int_mm`` on the card, as
 the JAX package leaves it to XLA) or :class:`Q4Linear` (packed int4 W4A8,
-the ``csrc/w4a8.cu`` kernel on the card), and in int4 mode the embedding
-table becomes :class:`QEmbedding` (int8 rows, dequantized to bf16 on
-gather). ``init_kv_cache(int8=True)`` gives the fused int8 ring buffer, which
-the decode block reads through the fused-KV kernel.
+the ``csrc/w4a8.cu`` kernel on the card); in int8 mode an ``lm_head``
+becomes a QLinear too, in int4 mode it is dropped and the embedding table
+becomes :class:`QEmbedding` (int8 rows, dequantized to bf16 on gather).
+``init_kv_cache(int8=True)`` gives the fused int8 ring buffer, which the
+decode block reads through the fused-KV kernel.
 """
 
 from __future__ import annotations
@@ -241,21 +243,32 @@ def quantized_structure_(model: Qwen3Model, mode: str | None, embed_int8: bool,
                          fill: bool = False) -> Qwen3Model:
     """Replace the seven projections of every layer by ``mode``'s module
     (``"int8"`` QLinear, ``"int4"`` Q4Linear, None keeps them) and, with
-    embed_int8, the embedding by a QEmbedding. fill=True quantizes each
-    replaced weight into its module; otherwise the modules are left to be
-    loaded (a JAX QTensor / Q4Tensor tree). Modules are replaced on their
-    parents one at a time, so each float weight can be freed as its
-    replacement lands."""
+    embed_int8, the embedding by a QEmbedding. An ``lm_head`` becomes a
+    QLinear in int8 mode (quantize_qwen3_params(quantize_lm_head=True)) and
+    is dropped in int4 mode (quantize_qwen3_params_int4), so an untied int4
+    model has no text head and :func:`lm_logits` raises. fill=True
+    quantizes each replaced weight into its module; otherwise the modules
+    are left to be loaded (a JAX QTensor / Q4Tensor tree). Modules are
+    replaced on their parents one at a time, so each float weight can be
+    freed as its replacement lands."""
     cls = {"int8": QLinear, "int4": Q4Linear, None: None}[mode]
+
+    def replace(parent, name, kind):
+        lin = getattr(parent, name)
+        new = kind(lin.in_features, lin.out_features, device=lin.weight.device)
+        if fill:
+            new.fill_(lin.weight.detach())
+        setattr(parent, name, new)
+
     for layer in model.model.layers if cls else ():
         for part, names in _PROJ:
-            parent = getattr(layer, part)
             for name in names:
-                lin = getattr(parent, name)
-                new = cls(lin.in_features, lin.out_features, device=lin.weight.device)
-                if fill:
-                    new.fill_(lin.weight.detach())
-                setattr(parent, name, new)
+                replace(getattr(layer, part), name, cls)
+    if isinstance(getattr(model, "lm_head", None), nn.Linear):
+        if mode == "int8":
+            replace(model, "lm_head", QLinear)
+        elif mode == "int4":
+            del model.lm_head
     emb = model.model.embed_tokens
     if embed_int8 and not isinstance(emb, QEmbedding):
         new = QEmbedding(*emb.weight.shape, device=emb.weight.device)
@@ -269,9 +282,10 @@ def quantize_qwen3_(model: Qwen3Model, mode: str) -> Qwen3Model:
     """Quantize IN PLACE, layer by layer on the model's device (no second
     bf16 copy): ``"int8"`` -> QLinear projections (quantize_qwen3_params),
     ``"int4"`` -> Q4Linear projections and an int8 QEmbedding
-    (quantize_qwen3_params_int4). Norm gains keep their dtype; the model has
-    no lm_head to drop. A module-tree copy of a model (same parameters, new
-    module objects) can be quantized while the original stays bf16."""
+    (quantize_qwen3_params_int4). Norm gains keep their dtype; an lm_head
+    goes int8 or is dropped as :func:`quantized_structure_` says. A
+    module-tree copy of a model (same parameters, new module objects) can be
+    quantized while the original stays bf16."""
     if mode not in ("int8", "int4"):
         raise ValueError(f"quantize_qwen3_: mode {mode!r} is not 'int8' or 'int4'")
     return quantized_structure_(model, mode, embed_int8=mode == "int4", fill=True)
@@ -310,6 +324,27 @@ def embed_tokens(model: Qwen3Model, token_ids: torch.Tensor) -> torch.Tensor:
         # gather int8 rows, dequantize just those (bf16, as the JAX package)
         return (emb.q[token_ids].float() * emb.s).to(torch.bfloat16)
     return F.embedding(token_ids, emb.weight)
+
+
+def lm_logits(model: Qwen3Model, hidden: torch.Tensor) -> torch.Tensor:
+    """Text logits [..., V] in fp32 of final-norm hidden states [..., D]
+    (qwen3.py:485-494 of the JAX package): the ``lm_head`` (a QLinear in
+    int8 mode), else the tied embedding, a QEmbedding dequantized to
+    hidden's dtype first. An untied model without ``lm_head`` raises: the
+    JAX function reads the embedding there, which on an untied checkpoint
+    (Qwen3-14B) is the wrong matrix (ROADMAP C11)."""
+    lm = getattr(model, "lm_head", None)
+    if lm is not None:
+        return lm(hidden).float()
+    if not model.cfg.tie_word_embeddings:
+        raise ValueError("lm_logits: the model has untied embeddings and no lm_head "
+                         "(an int4 model drops it), so it has no text head")
+    emb = model.model.embed_tokens
+    if isinstance(emb, QEmbedding):
+        w = (emb.q.float() * emb.s).to(hidden.dtype)
+    else:
+        w = emb.weight
+    return F.linear(hidden, w).float()
 
 
 def qwen3_forward(model: Qwen3Model, embeds: torch.Tensor,

@@ -61,12 +61,17 @@ def int_dot(aq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     """Exact integer product aq [M, K] int8 x wq [N, K] int8 -> float32 [M, N]
     (the int32 sum converted to float32, as the JAX package's s32 -> f32).
 
-    ``torch._int_mm`` on the card where it takes the shapes (M > 16, K and N
-    multiples of 8), float64 elsewhere; both sums are exact."""
+    ``torch._int_mm`` on the card where it takes the shapes (K and N
+    multiples of 8; M <= 16 padded with zero rows to the 17 it needs, as a
+    batch-1 text step gives 1 row), float64 elsewhere; both sums are exact."""
     m, k = aq.shape
     n = wq.shape[0]
-    if aq.is_cuda and m > 16 and k % 8 == 0 and n % 8 == 0:
-        return torch._int_mm(aq, wq.t()).float()
+    if aq.is_cuda and k % 8 == 0 and n % 8 == 0:
+        if m > 16:
+            return torch._int_mm(aq, wq.t()).float()
+        padded = torch.zeros((17, k), dtype=aq.dtype, device=aq.device)
+        padded[:m] = aq
+        return torch._int_mm(padded, wq.t())[:m].float()
     return (aq.double() @ wq.double().t()).float()
 
 

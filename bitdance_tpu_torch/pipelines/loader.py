@@ -1,7 +1,8 @@
 """Load a released BitDance model directory into a T2IPipeline (port of
 bitdance_tpu/pipelines/loader.py).
 
-Directory layout (the reference t2i_pipeline.py:48-74): HF Qwen3 shards and
+Directory layout (the reference t2i_pipeline.py:48-74): HF Qwen3 shards
+(an untied lm_head among them, read for interleaved generation only) and
 tokenizer files, ae_config.json + ae.safetensors, vision_head_config.json +
 vision_head.safetensors, projector.safetensors (io/release.py reads them).
 Modules are built on the meta device and filled on ``device`` straight from
@@ -53,15 +54,21 @@ def load_t2i_pipeline(model_path: str, dtype: torch.dtype = torch.bfloat16,
                       quantize_llm: bool = False,
                       quantize_head: bool | str = False,
                       quantize_embed: bool = False, device="cuda",
-                      tokenizer=None) -> T2IPipeline:
+                      tokenizer=None, interleaved: bool = False) -> T2IPipeline:
     """A T2IPipeline on ``device`` (the card unless the caller says
     otherwise) from a release directory, with weights in ``dtype``.
 
-    quantize_llm: W8A8 int8 Qwen3 projections (QLinear). quantize_head:
-    True (int8) or "int4" (packed W4A8), the sampler stack's block matrices
+    quantize_llm: W8A8 int8 Qwen3 projections (QLinear), and an untied
+    lm_head's too when it is loaded. quantize_head: True (int8) or "int4"
+    (packed W4A8), the sampler stack's block matrices
     (DiffHead.sample_weight_quant). quantize_embed: the int8 embedding table
     (QEmbedding). tokenizer=None loads the directory's tokenizer with
-    ``transformers``."""
+    ``transformers``. interleaved=True also loads what
+    pipelines/interleaved.py needs and T2I does not: the untied ``lm_head``
+    (its text head; a directory without one raises) and the VQ encoder
+    (user images). The LLM modes here keep a text head (bf16 or int8); the
+    int4 LLM of ``io/random_init.quantize_bundle_`` drops it, as the JAX
+    package's int4 quantizer does, and the generator then refuses text."""
     full_fp32()
     device = torch.device(device)
     state, hf = load_hf_qwen3_dir(model_path)
@@ -77,8 +84,12 @@ def load_t2i_pipeline(model_path: str, dtype: torch.dtype = torch.bfloat16,
         rope_theta=hf.get("rope_theta", 1e6),
         tie_word_embeddings=hf.get("tie_word_embeddings", False))
     # the T2I path has no text output: an untied lm_head is not loaded
-    llm = _filled(lambda: Qwen3Model(llm_cfg, dtype=dtype), state, device,
-                  ignore=(re.compile(r"^lm_head\."),))
+    text_head = interleaved and not llm_cfg.tie_word_embeddings
+    if text_head and "lm_head.weight" not in state:
+        raise ValueError(f"load_t2i_pipeline(interleaved=True): {model_path} has "
+                         "untied embeddings and no lm_head.weight, so no text head")
+    llm = _filled(lambda: Qwen3Model(llm_cfg, dtype=dtype, lm_head=text_head), state,
+                  device, ignore=() if text_head else (re.compile(r"^lm_head\."),))
     del state
     if quantize_llm or quantize_embed:
         quantized_structure_(llm, "int8" if quantize_llm else None,
@@ -92,10 +103,10 @@ def load_t2i_pipeline(model_path: str, dtype: torch.dtype = torch.bfloat16,
         raise NotImplementedError("the GAN decoder (gan_decoder=True) is not "
                                   "ported (ROADMAP A5)")
     dd = ae_config["ddconfig"]
-    # the release holds the encoder too; serving needs the decoder only
-    ae = _filled(lambda: VQModel(dd, dtype=dtype),
+    # the release holds the encoder too; T2I serving needs the decoder only
+    ae = _filled(lambda: VQModel(dd, dtype=dtype, encoder=interleaved),
                  load_safetensors(os.path.join(model_path, "ae.safetensors")),
-                 device, ignore=(re.compile(r"^encoder\."),))
+                 device, ignore=() if interleaved else (re.compile(r"^encoder\."),))
 
     with open(os.path.join(model_path, "vision_head_config.json")) as f:
         head_config = json.load(f)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one NVIDIA GPU: text-to-image
-serving (BitDance-14B-64x), ImageNet class-conditional training
+serving and interleaved generation (BitDance-14B-64x), ImageNet class-conditional training
 (BitDance-H-1x, 256 px), ImageNet class-conditional sampling
 (BitDance-H-1x and BitDance-B-16x, 256 px), packed multimodal training of
 BitDance-14B-64x (full width, 4 of 40 layers), tokenizer reconstruction
@@ -23,8 +23,21 @@ Phases, run in this order, one line each, any failure exits non-zero:
                     device times around the split count at 1024 and 512 px,
                     B 2 and 4
   sampler           whole-sampler kernel vs its plain version at the 14B head
-  e2e               full-width random BitDance-14B-64x bundle, T2IPipeline
-                    .generate: two prompts at 512 px, one at 1024 px
+  e2e               full-width random BitDance-14B-64x bundle (with its
+                    lm_head and VQ encoder), T2IPipeline.generate: two
+                    prompts at 512 px, one at 1024 px
+  interleaved       InterleavedGenerator on the same bundle: plan A (chat
+                    text, the e2e phase's first image, 32 sampled text
+                    tokens, a 512 px image at cfg 7.5), plan B (a 256 px
+                    image at cfg 1: one stream, the per-call head), plan C
+                    (plan A with the int8 LLM and lm_head, a 256 px image):
+                    text ids, images, ±1 grids, the streams' spans and each
+                    kernel's launches against their formulas, s per plan and
+                    span, ms per text token, peak memory; #14 and #15 at 64
+                    x 5120 and #1 at batch 1 and the plans' longest kv_len
+                    against their plain versions, the int8 lm_logits against
+                    float64 on its dequantized operands; then the bundle
+                    drops lm_head and encoder, which T2I serving never loads
   profile           torch.profiler over one more 512 px
                     request: device busy share and time by kernel
   quant_kernels     the quantized serving kernels vs their plain versions, from
@@ -155,7 +168,9 @@ Phases, run in this order, one line each, any failure exits non-zero:
                     in-memory bundle's, a 2-image request, a quantized load
                     (int8 LLM and embedding, int4 head) equal to the same
                     quantizers in memory, the CLI's PNG equal to the
-                    in-memory image; export / load times and GB on disk
+                    in-memory image, cli.interleaved on that PNG (the export
+                    carries lm_head and the VQ encoder) equal to the
+                    in-memory generator; export / load times and GB on disk
 The last lines are the kernels' JSON record (each kernel's launches on the
 main paths, error against its plain version, times, bound and, where one
 PyTorch call computes the same function, that call's time), the card's name
@@ -219,9 +234,11 @@ TRAIN_GRAD_NORM_REL = 5e-4
 # paths' shapes: max abs error relative to max |plain output| (bf16 outputs,
 # one ulp is 3.9e-3 of the value). Bounds are a few times the readings on the
 # H100 (PERF.md).
-# Readings (NVIDIA H100 80GB HBM3, 700 W): mlp_h1x 1.9e-3, mlp_b16x 3.0e-3,
-# attn_b16x 2.0e-3; the sampler over 4 steps 1.7e-2 (H-1x) and 2.0e-2 (B-16x)
-IMAGENET_BLOCK_MAX_REL_ERR = {"mlp_h1x": 1e-2, "mlp_b16x": 1e-2, "attn_b16x": 1e-2}
+# Readings (NVIDIA H100 80GB HBM3, 700 W): #14 1.9e-3 (H-1x), 3.0e-3 (B-16x),
+# 3.3e-3 (14B, 64 x 5120); #15 2.0e-3 (B-16x), 2.7e-3 (14B, one window of 64),
+# 6.1e-3 (14B, two windows of 64); the sampler over 4 steps 1.7e-2 (H-1x) and
+# 2.0e-2 (B-16x). One bound for both kernels at every call site.
+HEAD_BLOCK_MAX_REL_ERR = 1e-2
 IMAGENET_SAMPLER_MAX_REL_ERR = 5e-2
 # #3/#4's head GEMM (csrc/head_gemm.cuh) per product against its split twin
 # (the same K splits summed in the same order, then the same bf16 epilogue),
@@ -862,11 +879,14 @@ def sampler_bound(stacked, x0, noise, allmods, *, attention, groups=1,
 
 class StubTokenizer:
     """Deterministic stand-in for the Qwen tokenizer, so the script needs no
-    tokenizer files: characters -> ids < 2000, special tokens from 2000."""
+    tokenizer files: characters -> ids < 2000, special tokens from 2000 (the
+    chat markers of interleaved generation last, so the others keep their
+    ids); decode writes the ids."""
 
     def __init__(self, parallel_num: int):
         toks = (["<|vision_start|>"] + [f"<|res_{j}|>" for j in range(1, 257)]
-                + [f"<|query_{j}|>" for j in range(1, parallel_num)])
+                + [f"<|query_{j}|>" for j in range(1, parallel_num)]
+                + ["<|im_start|>", "<|im_end|>", "<|vision_end|>"])
         self.special = {t: 2000 + i for i, t in enumerate(toks)}
 
     def encode(self, text):
@@ -874,6 +894,9 @@ class StubTokenizer:
 
     def convert_tokens_to_ids(self, tok):
         return self.special[tok]
+
+    def decode(self, ids):
+        return " ".join(str(i) for i in ids)
 
 
 E2E_REQUESTS = [("a red fox in the snow, 512", 512, 0),
@@ -921,7 +944,7 @@ def phase_e2e(bundle, card: str) -> dict:
         if not ok:
             raise SystemExit(f"e2e {px}px request failed its checks")
         per_request.append({"px": px, "s_per_image": dt, "timing": timing,
-                            "tokens": torch.from_numpy(tok)})
+                            "tokens": torch.from_numpy(tok), "image": img[0]})
     # the decoder's float output is finite (the uint8 cast would hide NaN)
     from bitdance_tpu_torch.pipelines.t2i import decode_image
 
@@ -943,6 +966,297 @@ def phase_profile(bundle) -> None:
     profile_run("profile", "512 px request",
                 lambda: pipe.generate("profile request", 512, 512, seed=8),
                 lambda: f"last_timing {json.dumps(pipe.last_timing)}")
+
+
+# interleaved generation (example_interleaved.py's plan): the chat text, the
+# max length of a generated text span, and the plans' generated image sides
+INTERLEAVED_CHAT = ("<|im_start|>user\nDescribe this image, then draw it at night."
+                    "<|im_end|>\n<|im_start|>assistant\n")
+INTERLEAVED_TEXT = dict(max_length_text=32, temperature=1.0, top_k=1200, top_p=0.95)
+INTERLEAVED_PLANS = {            # name: (cfg, user image?, generated text?, side, LLM)
+    "A": (7.5, True, True, 512, "bf16"),
+    "B": (1.0, False, False, 256, "bf16"),
+    "C": (7.5, True, True, 256, "int8"),
+}
+# the int8 lm_logits against the same product in float64 on the dequantized
+# operands (its int8 rows and weight times their scales), rounded to bf16 as
+# the path's output is (JAX's int8_matmul returns x's dtype too): the int32
+# sums are exact, so an entry can differ only where the fp32 scaling puts it
+# across a bf16 rounding boundary, by one bf16 ulp of that entry. Reading
+# (NVIDIA H100 80GB HBM3, 700 W): 0.99998 of the logits bit-equal, the rest
+# one ulp; 2.3e-3 of max |logit| against the unrounded float64 product (the
+# bf16 rounding itself).
+LM_LOGITS_INT8_MAX_ULPS = 1
+
+
+def _interleaved_plan(name: str, user_image):
+    from bitdance_tpu_torch.pipelines.interleaved import PlanItem
+
+    _, with_image, with_text, side, _ = INTERLEAVED_PLANS[name]
+    plan = [PlanItem(type="text", source="user", text=INTERLEAVED_CHAT)]
+    if with_image:
+        plan.append(PlanItem(type="image", source="user", image=user_image))
+    if with_text:
+        plan.append(PlanItem(type="text", source="model"))
+    plan.append(PlanItem(type="image", source="model", image_size=(side, side)))
+    return plan
+
+
+def _check_interleaved_run(gen, plan, out, tok, bundle, cfg_scale, counts,
+                           sample_steps) -> list:
+    """The failed checks of one plan's run: text ids in [0, V) and at most
+    max_length_text a span; finite images of the plan's size and ±1 grids;
+    the two streams apart by the first user block and then in lockstep, each
+    span's slot count by its formula; the launches by theirs."""
+    import numpy as np
+
+    from bitdance_tpu_torch.pipelines.interleaved import remove_first_user_block
+
+    bad = []
+    vp, p, z = bundle.vae_patch_size, bundle.parallel_num, bundle.head.ch_target
+    vocab = bundle.llm_cfg.vocab_size
+    texts = [[int(i) for i in t.split()] for t in out["generated_text"]]
+    if any(not 0 <= i < vocab for t in texts for i in t) or any(
+            len(t) > INTERLEAVED_TEXT["max_length_text"] for t in texts):
+        bad.append("text ids")
+    sides = [i.image_size[0] for i in plan if i.source == "model" and i.type == "image"]
+    if [im.shape for im in out["generated_image"]] != [(s, s, 3) for s in sides] or not all(
+            np.isfinite(im).all() for im in out["generated_image"]):
+        bad.append("images")
+    if [tuple(g.shape) for g in gen.last_image_tokens] != [((s // vp) ** 2, z)
+                                                          for s in sides] or not all(
+            bool(((g == 1) | (g == -1)).all()) for g in gen.last_image_tokens):
+        bad.append("token grids")
+    streams = 2 if cfg_scale > 1.0 else 1
+    by = {"cond": [], "uncond": []}
+    for stream, idx, kind, a, b in gen.last_spans:
+        by[stream].append((idx, kind, a, b))
+    n_text = iter([len(t) for t in texts])
+    for stream, spans in by.items():
+        if stream == "uncond" and streams == 1:
+            if spans:
+                bad.append("an uncond stream at cfg 1")
+            continue
+        end = 0
+        for (idx, kind, a, b), item in zip(spans, plan):
+            if kind == "user_text":
+                text = item.text if stream == "cond" else remove_first_user_block(item.text)
+                want = len(tok.encode(text))
+            elif kind == "user_image":
+                want = 3 + (item.image.shape[0] // vp) * (item.image.shape[1] // vp) + 1
+            elif kind == "model_image":
+                want = 2 + p + (item.image_size[0] // vp) ** 2
+            else:
+                want = next(n_text) if stream == "cond" else b - a
+            if a != end or b - a != want:
+                bad.append(f"{stream} span {idx} {kind}: [{a}, {b}) want length {want}")
+            end = b
+    if streams == 2:
+        delta = {c[3] - u[3] for c, u in zip(by["cond"], by["uncond"])}
+        text = plan[0].text
+        if delta != {len(tok.encode(text)) - len(tok.encode(remove_first_user_block(text)))}:
+            bad.append(f"streams not in lockstep: {delta}")
+    steps = [(s // vp) ** 2 // p for s in sides]
+    layers, blocks = bundle.llm_cfg.num_hidden_layers, bundle.head.depth_latent
+    want = {"decode_attention": sum(layers * streams * (1 + n) for n in steps),
+            "fused_em_sample": sum(steps) if streams == 2 else 0,
+            "fused_encode_tail": sum(i.source == "user" and i.type == "image" for i in plan),
+            "fused_mlp_block": 0 if streams == 2 else blocks * (sample_steps + 1) * sum(steps),
+            "fused_attn_block": 0 if streams == 2 else blocks * (sample_steps + 1) * sum(steps)}
+    if {k: counts[k] for k in want} != want:
+        bad.append(f"launches {dict((k, counts[k]) for k in want)} want {want}")
+    return bad
+
+
+def _check_decode_b1(kv_len: int, seed: int) -> dict:
+    """#1 at batch 1 and the interleaved plans' longest kv_len, one window
+    of 64 queries over the whole cache: against its plain version with the
+    window edges poisoned, a window off by one key moving the plain output
+    by >= 4x the bound, two launches bit-equal; eager, device-only, plain
+    and SDPA times, and the bound over the live keys."""
+    import torch
+
+    dev = torch.device("cuda")
+    sh = DECODE_SHAPE
+    s, hq, hkv, d = sh["s"], sh["hq"], sh["hkv"], sh["d"]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((1, s, hq, d), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((1, hkv, kv_len, d), generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    kv_start = torch.zeros((1,), dtype=torch.int32, device=dev)
+    n = torch.full((1,), kv_len, dtype=torch.int32, device=dev)
+    bufs = _decode_buffers("bf16", k, _poison_window_edges(v, kv_start, n))
+    bound = DECODE_MAX_ABS_ERR["mid_decode"]
+    with torch.no_grad():
+        kernel, plain, library = _decode_fns("bf16", q, bufs, n, kv_start)
+        got, again = kernel(), kernel()
+        want = plain()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        same = torch.equal(got, again)
+        shift = min((_decode_fns("bf16", q, bufs, nl, ns)[1]().float() - want.float())
+                    .abs().max().item() for nl, ns in ((n - 1, kv_start),
+                                                       (n, kv_start + 1)))
+        t = {"ms": cuda_time_ms(kernel, 50), "device_ms": cuda_graph_time_ms(kernel),
+             "plain_ms": cuda_time_ms(plain, 10), "library_ms": cuda_time_ms(library, 50)}
+    t.update(roofline(nbytes(q, q) + 2 * hkv * d * 2 * kv_len, 4.0 * hq * s * d * kv_len))
+    log("interleaved", f"decode_attention B=1 kv_len={kv_len}: max abs err {err:.3e} "
+        f"(bound {bound}; a window off by one key moves the plain version by "
+        f"{shift:.3e}); two launches bit-equal {same}; kernel {t['ms']:.4f} ms eager "
+        f"({t['device_ms']:.4f} device-only), plain {t['plain_ms']:.4f} ms, "
+        f"scaled_dot_product_attention {t['library_ms']:.4f} ms, bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+    if not torch.isfinite(got).all() or err > bound or shift < 4 * bound or not same:
+        raise SystemExit(f"interleaved: decode_attention at B=1 kv_len={kv_len}: err "
+                         f"{err}, shift {shift}, bit-equal {same}")
+    return {"max_abs_err": err, **t}
+
+
+def _check_lm_logits_int8(llm_q, llm, dev) -> dict:
+    """The int8 lm_logits (QLinear, one row: the padded torch._int_mm)
+    against the same product in float64 on its dequantized operands, rounded
+    to bf16 (LM_LOGITS_INT8_MAX_ULP_REL); its distance from the bf16
+    lm_head's logits is reported."""
+    import torch
+
+    from bitdance_tpu_torch.models.qwen3 import lm_logits
+    from bitdance_tpu_torch.ops.int8 import quantize_rows
+
+    g = torch.Generator(device=dev).manual_seed(31)
+    h = torch.randn((1, llm.cfg.hidden_size), generator=g, device=dev).bfloat16()
+    with torch.no_grad():
+        got = lm_logits(llm_q, h)
+        xq, sx = quantize_rows(h)
+        head = llm_q.lm_head
+        exact = ((xq.double() * sx.double()[:, None])
+                 @ (head.q.double() * head.s.double()[:, None]).t())
+        want = exact.float().bfloat16().float()
+        bf16 = lm_logits(llm, h)
+        torch.cuda.synchronize()
+        ms = cuda_time_ms(lambda: lm_logits(llm_q, h), 20)
+        bf16_ms = cuda_time_ms(lambda: lm_logits(llm, h), 20)
+    err = (got - want).abs()
+    # a bf16 ulp of each entry: want = m 2^e, m in [0.5, 1) -> 2^(e - 8)
+    ulp = torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8)
+    worst = (err / ulp).max().item()
+    equal = (err == 0).float().mean().item()
+    vs_exact, vs_bf16 = _errors(got, exact)[1], _errors(got, bf16)[1]
+    log("interleaved", f"lm_logits int8 [1, {h.shape[1]}] x [{head.q.shape[0]}, "
+        f"{head.q.shape[1]}]: against float64 on the dequantized operands rounded to "
+        f"bf16, {equal:.6f} of the logits bit-equal, the largest error {worst:g} bf16 "
+        f"ulps of its logit (bound {LM_LOGITS_INT8_MAX_ULPS}); max error "
+        f"{vs_exact:.3e} of max |logit| against the unrounded product; rel distance "
+        f"from the bf16 lm_head's logits {vs_bf16:.3e} (reported); {ms:.4f} ms, bf16 "
+        f"{bf16_ms:.4f} ms")
+    if not torch.isfinite(got).all() or worst > LM_LOGITS_INT8_MAX_ULPS:
+        raise SystemExit(f"interleaved: int8 lm_logits off by {worst} bf16 ulps")
+    return {"max_ulps": worst, "bit_equal_share": equal, "ms": ms, "bf16_ms": bf16_ms}
+
+
+def _run_interleaved_plans(bundle, tok, user_image, steps: int, card: str) -> dict:
+    """Each plan of INTERLEAVED_PLANS through InterleavedGenerator, checked by
+    _check_interleaved_run and logged (seconds per plan and per span, ms per
+    text token, peak memory), then the int8 lm_logits check. The int8 copy of
+    the LLM lives only in this function's frame, so it is freed when the
+    function returns."""
+    import dataclasses
+
+    import torch
+
+    from bitdance_tpu_torch.io.random_init import _module_tree_copy
+    from bitdance_tpu_torch.models.qwen3 import quantize_qwen3_
+    from bitdance_tpu_torch.pipelines.interleaved import InterleavedGenerator, plan_slots
+
+    wrappers = _kernel_wrappers()
+    names = ("decode_attention", "fused_em_sample", "fused_encode_tail",
+             "fused_mlp_block", "fused_attn_block")
+    launches = dict.fromkeys(names, 0)
+    bundles = {"bf16": bundle}
+    longest, runs = 0, {}
+    for name, (cfg_scale, _, _, side, llm_mode) in INTERLEAVED_PLANS.items():
+        if llm_mode not in bundles:
+            llm_q = quantize_qwen3_(_module_tree_copy(bundle.llm), llm_mode)
+            bundles[llm_mode] = dataclasses.replace(bundle, llm=llm_q)
+        b = bundles[llm_mode]
+        plan = _interleaved_plan(name, user_image)
+        slots = plan_slots(plan, tok, b, INTERLEAVED_TEXT["max_length_text"])
+        gen = InterleavedGenerator(b, tok, max_seq_len=slots)
+        torch.cuda.reset_peak_memory_stats()
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gen.generate(plan, cfg_scale=cfg_scale, sample_steps=steps, seed=0,
+                           **INTERLEAVED_TEXT)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {k: wrappers[k].launches for k in names}
+        bad = _check_interleaved_run(gen, plan, out, tok, b, cfg_scale, counts, steps)
+        for k in names:
+            launches[k] += counts[k]
+        longest = max([longest] + [e for *_, e in gen.last_spans])
+        spans = {k: round(v, 4) for k, v in gen.last_timing.items() if k != "clock"}
+        n_tok = [len(t.split()) for t in out["generated_text"]]
+        text_s = sum(v for k, v in gen.last_timing.items() if k.endswith("model_text"))
+        ms_tok = 1e3 * text_s / max(1, sum(n_tok))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log("interleaved", f"plan {name} ({llm_mode} LLM, cfg {cfg_scale}, {side} px "
+            f"image, {steps} steps; cache {slots} slots): {dt:.3f} s; spans (s, CUDA "
+            f"events) {json.dumps(spans)}; text tokens {n_tok} at {ms_tok:.2f} ms a "
+            f"token; launches {json.dumps(counts)}; peak {peak:.2f} GiB; streams' ends "
+            f"{[e for *_, e in gen.last_spans[-2:]]}; card {card}")
+        if bad:
+            raise SystemExit(f"interleaved plan {name} failed its checks: {bad}")
+        runs[name] = {"s": dt, "spans": spans, "ms_per_text_token": ms_tok,
+                      "text_tokens": n_tok, "peak_gib": peak}
+    lm = _check_lm_logits_int8(bundles["int8"].llm, bundle.llm, torch.device("cuda"))
+    return {"launches": launches, "runs": runs, "longest": longest, "lm_logits_int8": lm}
+
+
+def phase_interleaved(bundle, card: str, user_image_u8) -> dict:
+    """InterleavedGenerator on the full-depth bf16 bundle (with lm_head and
+    VQ encoder): plan A (example_interleaved.py's order: chat text, the
+    e2e phase's first 512 px image, 32 text tokens at temperature 1, top-k
+    1200, top-p 0.95, a 512 px image, cfg 7.5, 50 steps), plan B (chat text
+    and a 256 px image at cfg 1: one stream, the per-call head, #14 / #15 at
+    64 x 5120), plan C (plan A with the int8 LLM and int8 lm_head, bf16
+    head, a 256 px image), run by _run_interleaved_plans; then a profile of
+    the text path, #14 and #15 at 64 x 5120 and #1 at batch 1 and the plans'
+    longest kv_len against their plain versions."""
+    import torch
+
+    from bitdance_tpu_torch.pipelines.interleaved import InterleavedGenerator, plan_slots
+
+    dev = torch.device("cuda")
+    tok = StubTokenizer(bundle.parallel_num)
+    user_image = user_image_u8.astype("float32") / 127.5 - 1.0
+    plans = _run_interleaved_plans(bundle, tok, user_image, 50, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("interleaved", f"int8 LLM copy freed: {torch.cuda.memory_allocated() / 2**30:.2f} "
+        "GiB allocated")
+    # where a text token's time goes: 8 tokens on both streams, profiled
+    text_plan = _interleaved_plan("A", user_image)[::2]      # chat text, generated text
+    gen = InterleavedGenerator(bundle, tok, max_seq_len=plan_slots(text_plan, tok, bundle, 8))
+    text_kw = dict(INTERLEAVED_TEXT, max_length_text=8)
+    prof = profile_run("interleaved", "chat text and 8 text tokens on two streams (bf16)",
+                       lambda: gen.generate(text_plan, cfg_scale=7.5, seed=1, **text_kw),
+                       lambda: f"spans {json.dumps(gen.last_timing)}")
+    del gen
+    gc.collect()
+    torch.cuda.empty_cache()
+    blk = bundle.head.net.res_blocks[0]
+    rows = bundle.parallel_num
+    # #15 at the path's one window of 64, then at two windows of 64 for the
+    # window-off-by-one check
+    checks = {"mlp": _check_mlp_block("14b", blk, blk.norm2, rows, dev, 41,
+                                      phase="interleaved"),
+              "attn": _attn_block_case(bundle, 1, rows, dev, 42, phase="interleaved"),
+              "decode": _check_decode_b1(plans["longest"], 43)}
+    checks["attn"]["shapes"] = {"2x64": _attn_block_case(
+        bundle, 2, rows, dev, 44, phase="interleaved")}
+    return {"launches": plans["launches"], "runs": plans["runs"],
+            "lm_logits_int8": plans["lm_logits_int8"], "text_profile": prof, **checks}
 
 
 def _w4a8_case(w, m, dev, g, timed: bool = True) -> dict:
@@ -1947,7 +2261,7 @@ def _errors(got, want) -> tuple[float, float]:
     return err, err / want.float().abs().max().item()
 
 
-def _check_mlp_block(name, blk, norm, rows, dev, seed) -> dict:
+def _check_mlp_block(name, blk, norm, rows, dev, seed, phase="imagenet_kernels") -> dict:
     """#14 against its plain version at the card's K splits (the head GEMM's
     split twin); the mods one row off and the gate one column off must move
     the plain version by >= 4x the bound; two launches bit-equal; launches a
@@ -1993,8 +2307,8 @@ def _check_mlp_block(name, blk, norm, rows, dev, seed) -> dict:
         n_kernels = _captured_kernels(lambda: fused_mlp_block(*args))
         pms = cuda_time_ms(lambda: fused_mlp_block_reference(*args), 50)
     bd = roofline(nbytes(x, x, *mods, *weights), 6.0 * rows * c * h)
-    b = IMAGENET_BLOCK_MAX_REL_ERR[name]
-    log("imagenet_kernels", f"fused_mlp_block {name} rows={rows} C={c} H={h} (head GEMM "
+    b = HEAD_BLOCK_MAX_REL_ERR
+    log(phase, f"fused_mlp_block {name} rows={rows} C={c} H={h} (head GEMM "
         f"splits {splits}): max abs err {err:.3e}, rel {rel:.3e} (bound {b}); the plain "
         f"version moves by " + ", ".join(f"{k} {v:.3e}" for k, v in moved.items())
         + f" (>= {4 * b:g}); 2 launches bit-equal {same}; {n_kernels} kernels a call "
@@ -2009,7 +2323,8 @@ def _check_mlp_block(name, blk, norm, rows, dev, seed) -> dict:
             **times, "launches_per_call": n_kernels}
 
 
-def _attn_block_case(bundle, groups, window, dev, seed) -> dict:
+def _attn_block_case(bundle, groups, window, dev, seed,
+                     phase="imagenet_kernels") -> dict:
     """#15 at one row count against its plain version at the card's K
     splits (the head GEMM's split twin): the window-edge rows' shift makes a
     window off by one row move the plain output by >= 4x the bound; two
@@ -2048,16 +2363,21 @@ def _attn_block_case(bundle, groups, window, dev, seed) -> dict:
     def off_by_one(t):        # windows start one row later
         return t.reshape(rows, -1).roll(1, 0).reshape(groups, window, -1)
 
+    # one window holds every row, so no window can be one row off
+    one_window = groups == 1
+
     with torch.no_grad():
         got, again = fused_attn_block(*args), fused_attn_block(*args)
         want = fused_attn_block_reference(*args, splits=splits)
         torch.cuda.synchronize()
         err, rel = _errors(got, want)
         same = torch.equal(got, again)
-        alt = fused_attn_block_reference(*map(off_by_one, (x, scale, shift, gate)), *w,
-                                         splits=splits)
-        alt = alt.reshape(rows, c).roll(-1, 0).reshape(groups, window, c)
-        moved = _errors(alt, want)[1]
+        moved = float("inf")
+        if not one_window:
+            alt = fused_attn_block_reference(*map(off_by_one, (x, scale, shift, gate)), *w,
+                                             splits=splits)
+            alt = alt.reshape(rows, c).roll(-1, 0).reshape(groups, window, c)
+            moved = _errors(alt, want)[1]
         walk = lambda: [fused_attn_block(x, scale, shift, gate, *weights(b))  # noqa: E731
                         for b in blocks]
         ms = cuda_time_ms(lambda: fused_attn_block(*args), 200, warmup=5)
@@ -2072,13 +2392,15 @@ def _attn_block_case(bundle, groups, window, dev, seed) -> dict:
                 lambda: fused_attn_block(*args, _pdl=pdl))
         n_kernels = _captured_kernels(lambda: fused_attn_block(*args))
         pms = cuda_time_ms(lambda: fused_attn_block_reference(*args), 50)
-    b = IMAGENET_BLOCK_MAX_REL_ERR["attn_b16x"]
+    b = HEAD_BLOCK_MAX_REL_ERR
     bd = roofline(nbytes(x, x, scale, shift, gate, *w[:6]),
                   8.0 * rows * c * c + 4.0 * rows * window * c)
-    log("imagenet_kernels", f"fused_attn_block G={groups} W={window} C={c} "
+    log(phase, f"fused_attn_block G={groups} W={window} C={c} "
         f"heads={a.n_head} (head GEMM splits {splits}): max abs err {err:.3e}, rel "
-        f"{rel:.3e} (bound {b}; a window off by one row moves the plain output by "
-        f"{moved:.3e} of its max, >= {4 * b:g}); 2 launches bit-equal {same}; "
+        f"{rel:.3e} (bound {b}; " + ("one window: no off-by-one case" if one_window else
+                                     f"a window off by one row moves the plain output by "
+                                     f"{moved:.3e} of its max, >= {4 * b:g}")
+        + f"); 2 launches bit-equal {same}; "
         f"{n_kernels} kernels a call (captured; want {ATTN_BLOCK_LAUNCHES}); kernel "
         f"{ms:.4f} ms eager, " + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
         + f"; plain {pms:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
@@ -4022,37 +4344,8 @@ def phase_train_cli(card: str) -> dict:
 
 RELEASE_LAYERS = 2           # of the 40: the fp32 LLM alone is 8.8 GB at 2
 RELEASE_REQUEST = ("a lighthouse at dusk, released", 512, 11)
-
-
-def _png_pixels(path):
-    """uint8 [H, W, 3] of an 8-bit RGB PNG with filter-0 rows (what
-    cli/t2i.py writes); raises on anything else."""
-    import struct
-    import zlib
-
-    import numpy as np
-
-    data = open(path, "rb").read()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise SystemExit(f"{path}: not a PNG")
-    pos, idat, w, h = 8, b"", 0, 0
-    while pos < len(data):
-        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + n]
-        if zlib.crc32(kind + body) & 0xFFFFFFFF != struct.unpack(
-                ">I", data[pos + 8 + n:pos + 12 + n])[0]:
-            raise SystemExit(f"{path}: bad CRC in {kind}")
-        if kind == b"IHDR":
-            w, h, depth, color = struct.unpack(">IIBB", body[:10])
-            if (depth, color) != (8, 2):
-                raise SystemExit(f"{path}: depth {depth} color {color}")
-        elif kind == b"IDAT":
-            idat += body
-        pos += 12 + n
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
-    if rows[:, 0].any():
-        raise SystemExit(f"{path}: filtered rows")
-    return rows[:, 1:].reshape(h, w, 3)
+# cli.interleaved on the release directory, the T2I CLI's PNG as user image
+RELEASE_INTERLEAVED = dict(side=256, max_length_text=16)
 
 
 def phase_release(card: str) -> dict:
@@ -4065,7 +4358,10 @@ def phase_release(card: str) -> dict:
     rows), one quantized load (int8 W8A8 LLM, int8 embedding, int4 W4A8
     head) whose grid must equal the same quantizers applied in memory; then
     the CLI once on the directory as a subprocess (its PNG must equal the
-    in-memory image). The directory is deleted."""
+    in-memory image), and cli.interleaved once with that PNG as the user
+    image (the bundle has an lm_head and the VQ encoder, which the export
+    carries): its text and PNG must equal an in-memory InterleavedGenerator
+    on the same plan and seed. The directory is deleted."""
     import copy
     import dataclasses
     import shutil
@@ -4079,8 +4375,11 @@ def phase_release(card: str) -> dict:
         _module_tree_copy,
         build_random_bundle,
     )
+    from bitdance_tpu_torch.cli import interleaved as interleaved_cli
+    from bitdance_tpu_torch.cli.common import read_png
     from bitdance_tpu_torch.models.qwen3 import Qwen3Config, quantized_structure_
     from bitdance_tpu_torch.ops.fused_head import fused_em_sample
+    from bitdance_tpu_torch.pipelines.interleaved import InterleavedGenerator, plan_slots
     from bitdance_tpu_torch.pipelines.loader import load_t2i_pipeline
     from bitdance_tpu_torch.pipelines.t2i import T2IPipeline
     from bitdance_tpu_torch.train.checkpoints import export_hf_qwen3, export_release_dir
@@ -4091,7 +4390,7 @@ def phase_release(card: str) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     cfg = dataclasses.replace(Qwen3Config.qwen3_14b(), num_hidden_layers=RELEASE_LAYERS)
-    bundle = build_random_bundle("cuda", llm_cfg=cfg, seed=5)
+    bundle = build_random_bundle("cuda", llm_cfg=cfg, seed=5, lm_head=True, encoder=True)
     tok = StubTokenizer(bundle.parallel_num)
     prompt, px, seed = RELEASE_REQUEST
 
@@ -4106,6 +4405,16 @@ def phase_release(card: str) -> dict:
         return img, tokens
 
     mem_img, mem_tok = request(T2IPipeline(bundle, tok))
+    # the interleaved CLI's plan on the T2I image, in memory
+    plan = interleaved_cli.example_plan(interleaved_cli.PROMPT, mem_img[0],
+                                        RELEASE_INTERLEAVED["side"])
+    gen = InterleavedGenerator(bundle, tok, max_seq_len=plan_slots(
+        plan, tok, bundle, RELEASE_INTERLEAVED["max_length_text"]))
+    inter = gen.generate(plan, cfg_scale=7.5, sample_steps=50, seed=seed,
+                         max_length_text=RELEASE_INTERLEAVED["max_length_text"])
+    mem_said = "model said: " + inter["generated_text"][0]
+    mem_inter = interleaved_cli.to_uint8(inter["generated_image"][0])
+    del gen
     llm_q = quantized_structure_(_module_tree_copy(bundle.llm), "int8",
                                  embed_int8=True, fill=True)
     head_q = copy.copy(bundle.head)
@@ -4176,7 +4485,24 @@ def phase_release(card: str) -> dict:
         cli_s = time.perf_counter() - t0
         if cli.returncode != 0:
             raise SystemExit(f"release: the CLI failed:\n{cli.stderr[-3000:]}")
-        cli_same = np.array_equal(_png_pixels(png), mem_img[0])
+        cli_same = np.array_equal(read_png(png), mem_img[0])
+        inter_png = out_dir / "interleaved.png"
+        t0 = time.perf_counter()
+        icli = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; from bitdance_tpu_torch.cli "
+             "import interleaved; sys.exit(interleaved.main(sys.argv[1:], tokenizer="
+             "chip_smoke.StubTokenizer(64)))", str(out_dir), "--image", str(png),
+             "--image-size", str(RELEASE_INTERLEAVED["side"]), "--max-length-text",
+             str(RELEASE_INTERLEAVED["max_length_text"]), "--seed", str(seed),
+             "--out", str(inter_png)],
+            cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+            timeout=600)
+        icli_s = time.perf_counter() - t0
+        if icli.returncode != 0:
+            raise SystemExit(f"release: the interleaved CLI failed:\n{icli.stderr[-3000:]}")
+        icli_lines = icli.stdout.strip().splitlines()
+        icli_same = (icli_lines[0] == mem_said
+                     and np.array_equal(read_png(inter_png), mem_inter))
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     steps = (px // 16) ** 2 // 64
@@ -4186,11 +4512,14 @@ def phase_release(card: str) -> dict:
         f"request {two_s:.2f} s ({two_launches} sampler launches at R = 256, want "
         f"{steps}); quantized grid equal to the in-memory quantizers': {same_q}; "
         f"CLI {cli_s:.1f} s ({cli.stdout.strip().splitlines()[-1]}), PNG equal to "
-        f"the in-memory image: {cli_same}; card {card}")
-    if not (same and same_q and cli_same and two_launches == steps):
-        raise SystemExit("release: a loaded grid, the CLI's image or the "
+        f"the in-memory image: {cli_same}; interleaved CLI {icli_s:.1f} s "
+        f"({icli_lines[-1]}), text and PNG equal to the in-memory generator's: "
+        f"{icli_same} ({mem_said[:80]}...); card {card}")
+    if not (same and same_q and cli_same and icli_same and two_launches == steps):
+        raise SystemExit("release: a loaded grid, a CLI's output or the "
                          "2-image request failed its check")
-    return {"export_s": export_s, "gb": gb, "load_s": load_s, "load_q_s": load_q_s}
+    return {"export_s": export_s, "gb": gb, "load_s": load_s, "load_q_s": load_q_s,
+            "interleaved_cli_s": icli_s}
 
 
 def build_imagenet_samplers():
@@ -4232,15 +4561,24 @@ def main() -> int:
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    bundle = build_random_bundle("cuda", seed=0)
+    bundle = build_random_bundle("cuda", seed=0, lm_head=True, encoder=True)
     torch.cuda.synchronize()
-    log("bundle", f"BitDance-14B-64x random bf16 bundle on the card in "
+    log("bundle", f"BitDance-14B-64x random bf16 bundle (with lm_head and VQ encoder) "
+        f"on the card in "
         f"{time.perf_counter() - t0:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     results["sampler"] = phase_sampler(bundle)
     torch.cuda.reset_peak_memory_stats()
     launches = phase_e2e(bundle, card)
-    log("e2e", f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log("e2e", f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        "(with lm_head and VQ encoder)")
+    first_image = [r.pop("image") for r in launches["requests"]][0]
+    inter = phase_interleaved(bundle, card, first_image)
+    # T2I serving loads neither the text head nor the encoder: the later T2I
+    # phases (int8 / int4 weights and memory) measure T2I's own weights
+    del bundle.llm.lm_head, bundle.ae.encoder
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_profile(bundle)
     bf16_tokens = [r.pop("tokens") for r in launches.pop("requests")]
     results.update(phase_quant_kernels(bundle))
@@ -4298,6 +4636,15 @@ def main() -> int:
     phase_release(card)
     log("release", f"int4_matmul's (M, N, K) on the release phase's loads: "
         f"{w4a8_shapes_seen() or 'none (its quantized load serves the LLM in int8)'}")
+
+    # the interleaved phase's launches join each kernel's count; its checks
+    # of #1, #14 and #15 at that path's shapes go under "shapes"
+    for name, n in inter["launches"].items():
+        launches[name] += n
+    for key, shape, rec in (("decode_attention", "b1_interleaved", inter["decode"]),
+                            ("fused_mlp_block", "14b_64x5120", inter["mlp"]),
+                            ("fused_attn_block", "14b_1x64x5120", inter["attn"])):
+        results[key].setdefault("shapes", {})[shape] = rec
 
     records = []
     meta = {

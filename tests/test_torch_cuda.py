@@ -954,3 +954,17 @@ def test_head_gemm_refuses_shapes(dev):
     w = torch.zeros((128, 96), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         head_gemm(a, w, "bias", torch.zeros(128, device=dev, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("m", [1, 5, 16, 17, 64])
+def test_int_dot_pads_few_rows_onto_int_mm(dev, m):
+    """int_dot on the card: 1-16 rows padded to torch._int_mm's 17 give the
+    exact integer sums (the float64 sum of the same int8 operands)."""
+    from bitdance_tpu_torch.ops.int8 import int_dot
+
+    g = torch.Generator(device=dev).manual_seed(m)
+    a = torch.randint(-127, 128, (m, 512), generator=g, device=dev, dtype=torch.int8)
+    w = torch.randint(-127, 128, (1000, 512), generator=g, device=dev, dtype=torch.int8)
+    got = int_dot(a, w)
+    assert got.dtype == torch.float32 and got.shape == (m, 1000)
+    assert torch.equal(got, (a.double() @ w.double().t()).float())

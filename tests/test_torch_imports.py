@@ -62,6 +62,11 @@ TRAINING_SLICE_MODULES = (
     "bitdance_tpu_torch.train.tokenizer_train", "bitdance_tpu_torch.utils.fs",
     "bitdance_tpu_torch.utils.logging", "bitdance_tpu_torch.utils.profiler",
 )
+# interleaved generation (ROADMAP A12)
+INTERLEAVED_SLICE_MODULES = (
+    "bitdance_tpu_torch.cli.interleaved", "bitdance_tpu_torch.ops.token_sampling",
+    "bitdance_tpu_torch.pipelines.interleaved",
+)
 
 
 def test_every_port_module_imports_without_jax():
@@ -76,6 +81,7 @@ def test_every_port_module_imports_without_jax():
     mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m for m in mods]
     assert set(RELEASE_SLICE_MODULES) <= set(mods)
     assert set(TRAINING_SLICE_MODULES) <= set(mods)
+    assert set(INTERLEAVED_SLICE_MODULES) <= set(mods)
     script = (
         "import importlib, sys\n"
         "class Block:\n"
