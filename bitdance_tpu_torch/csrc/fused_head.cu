@@ -51,8 +51,8 @@
 // H-1x: 8 blocks for 64 rows) or with each thread's loads issued together
 // (no faster at H-1x, slower at B-16x).
 //
-// Quant mode (quant = 1 int8, 2 packed int4; the TPU kernel's W8A8 / W4A8
-// mode, stage_quant + stage_dot, TransEncoder only): each of the four block
+// Quant mode on kernel #2's route (quant = 1 int8, 2 packed int4; the TPU
+// kernel's W8A8 / W4A8 mode, stage_quant + stage_dot, the TransEncoder): each of the four block
 // products takes its fp32 stage input (LN + modulate, the window attention's
 // output, silu(h1) * h2), quantized per row to int8 once, and runs on the
 // head GEMM's integer kinds (kOpS8 on int8 [out, in], kOpS4 on packed
@@ -70,6 +70,15 @@
 // ms (int4) a net call at the 14B head, over 1.21 for the bf16 route.
 // Weight bytes per net call halve (int8) or quarter (int4), so does the
 // bound.
+//
+// Quant mode on the round route (#3/#4 with a quantized stack, the ImageNet
+// heads under sample_weight_quant, both families; quant_round_block): each
+// product's input is _block_body's bf16 stage value, quantized per row
+// (_mmq): the rounding LN chain writes the int8 row and its scale itself
+// (ln_modulate_chain_q_kernel), the bf16 window-attention output and the
+// bf16 glu take one row quantization each (quantize_rows_vec_kernel<bf16>),
+// and the products run on the integer kinds with the round route's
+// epilogues (kGatedResidualRound, and kSwiGLURoundQ for the glu).
 #include "head_gemm.cuh"
 
 namespace {
@@ -267,7 +276,7 @@ cudaError_t quant_block(const HeadBlockWeights& w, const QuantBlock& qb, int l, 
                     qb.sa, eps);
   };
   auto quantize = [&](int K) {
-    return go.stage(dim3(R), 256, 0, quantize_rows_vec_kernel,
+    return go.stage(dim3(R), 256, 0, quantize_rows_vec_kernel<float>,
                     static_cast<const float*>(qb.actf), K, qb.aq, qb.sa);
   };
   BD_CHECK_ERR(ln(w.n1 + (size_t)l * 2 * C, m));
@@ -312,6 +321,78 @@ cudaError_t quant_block(const HeadBlockWeights& w, const QuantBlock& qb, int l, 
   return go.gemm_q<kGatedResidual, KIND>(kW2, l * C, down_ep);
 }
 
+// One block of the round route's quant modes (#3/#4 with a quantized stack:
+// _block_body with _mmq), KIND hg::kOpS8 (W8A8) or hg::kOpS4 (W4A8), either
+// family: the attention half (TransEncoder) is LN + modulate rounded as
+// _block_body's bf16 ops and quantized in one launch
+// (ln_modulate_chain_q_kernel), qkv (kBiasBf16), window attention on the
+// bf16 qkv into act (bf16, window_attention_kernel), the row quantization of
+// that bf16 output, wo (kGatedResidualRound); the MLP half is LN + modulate
+// + quantize, w1 (kSwiGLURoundQ: the bf16 glu into buf), its row
+// quantization, w2 (kGatedResidualRound). 9 launches a TransEncoder block, 4
+// an MlpEncoder block, the stage kernels programmatic with the products. The
+// caller sets the window attention's shared-memory limit when it exceeds
+// 48 KB.
+template <int KIND>
+cudaError_t quant_round_block(const HeadBlockWeights& w, const QuantBlock& qb, int l, float* h,
+                              const bf16* m, int ldm, bf16* act, bf16* buf, int R, int C,
+                              int H, bool attention, int n_head, int groups, float eps,
+                              const hg::GemmLaunch& go) {
+  auto ln = [&](const bf16* nrm, const bf16* mm) {
+    return go.stage(dim3(R), 256, 0, ln_modulate_chain_q_kernel,
+                    static_cast<const float*>(h), C, nrm, nrm + C, mm, ldm, mm + C, ldm, qb.aq,
+                    qb.sa, eps);
+  };
+  auto quantize = [&](const bf16* x, int K) {
+    return go.stage(dim3(R), 256, 0, quantize_rows_vec_kernel<bf16>, x, K, qb.aq, qb.sa);
+  };
+  if (attention) {
+    const int wtok = R / groups, hd = C / n_head;
+    const float scale = 1.f / sqrtf(static_cast<float>(hd));
+    BD_CHECK_ERR(ln(w.n1 + (size_t)l * 2 * C, m));
+    Epilogue qkv_ep{};
+    qkv_ep.bias = w.bqkv + (size_t)l * 3 * C;
+    qkv_ep.out = buf;
+    qkv_ep.ldo = 3 * C;
+    qkv_ep.sa = qb.sa;
+    qkv_ep.ws = qb.wqkv_s + (size_t)l * 3 * C;
+    BD_CHECK_ERR((go.gemm_q<kBiasBf16, KIND>(kQkv, l * 3 * C, qkv_ep)));
+    BD_CHECK_ERR(go.stage(dim3(groups * n_head), 256, window_attention_smem(wtok, hd),
+                          window_attention_kernel, static_cast<const bf16*>(buf), C, wtok, hd,
+                          n_head, scale, act));
+    BD_CHECK_ERR(quantize(act, C));
+    Epilogue o_ep{};
+    o_ep.bias = w.bo + (size_t)l * C;
+    o_ep.resid = h;
+    o_ep.ldr = C;
+    o_ep.gate = m + 2 * C;
+    o_ep.ldg = ldm;
+    o_ep.sa = qb.sa;
+    o_ep.ws = qb.wo_s + (size_t)l * C;
+    BD_CHECK_ERR((go.gemm_q<kGatedResidualRound, KIND>(kWo, l * C, o_ep)));
+  }
+  const bf16* mm = m + (size_t)(attention ? 3 : 0) * C;
+  BD_CHECK_ERR(ln(w.n2 + (size_t)l * 2 * C, mm));
+  Epilogue glu_ep{};
+  glu_ep.bias = w.b1 + (size_t)l * 2 * H;
+  glu_ep.out = buf;
+  glu_ep.ldo = H;
+  glu_ep.hidden = H;
+  glu_ep.sa = qb.sa;
+  glu_ep.ws = qb.w1_s + (size_t)l * 2 * H;
+  BD_CHECK_ERR((go.gemm_q<kSwiGLURoundQ, KIND>(kW1, l * 2 * H, glu_ep)));
+  BD_CHECK_ERR(quantize(buf, H));
+  Epilogue down_ep{};
+  down_ep.bias = w.b2 + (size_t)l * C;
+  down_ep.resid = h;
+  down_ep.ldr = C;
+  down_ep.gate = mm + 2 * C;
+  down_ep.ldg = ldm;
+  down_ep.sa = qb.sa;
+  down_ep.ws = qb.w2_s + (size_t)l * C;
+  return go.gemm_q<kGatedResidualRound, KIND>(kW2, l * C, down_ep);
+}
+
 }  // namespace
 
 // Runs the whole sampler on `stream`. x [half, ch] fp32 holds x0 on entry and
@@ -321,11 +402,12 @@ cudaError_t quant_block(const HeadBlockWeights& w, const QuantBlock& qb, int l, 
 // Weights are stacked per block in the torch Linear layout ([L, out, in]);
 // n1, wqkv, bqkv, wo and bo are read only when attention=1. h (fp32 [R, C]),
 // act (bf16 [R, max(C, H)]) and buf (bf16 [R, max(3C, H)]) are scratch.
-// quant 1 (int8) / 2 (packed int4), attention=1 only: wqkv, wo, w1, w2 are
-// int8 [L, out, in] / [L, out, in/2] with f32 scales *_s [L, out]; actf
-// (fp32 [R, max(C, H)]), aq (int8, the same shape) and sa (fp32 [R]) are
-// scratch. round_residual 1 (bf16 only): _block_body's rounding (#3/#4);
-// 0: kernel #2's fp32 residual. Every route runs its products on the head
+// quant 1 (int8) / 2 (packed int4): wqkv, wo, w1, w2 are int8 [L, out, in]
+// / [L, out, in/2] with f32 scales *_s [L, out]; actf (fp32 [R, max(C, H)],
+// kernel #2's route), aq (int8 [R, max(C, H)]) and sa (fp32 [R]) are
+// scratch. round_residual 1: _block_body's rounding (#3/#4; quantized,
+// quant_round_block, either family); 0: kernel #2's fp32 residual (the
+// TransEncoder when quantized). Every route runs its products on the head
 // GEMM of head_gemm.cuh (the quant modes on its integer kinds): gemm_plan
 // (host, 12 ints) is {bm, bn, splits} of qkv, wo, w1 and w2
 // (ops/fused_head.py::sampler_plans), and every launch of the chain is
@@ -348,7 +430,8 @@ extern "C" int bd_fused_em_sample(
   const int n_mods = attention ? 6 : 3;
   if (ch > kMaxCh || C % 64 != 0 || H % 32 != 0 || gemm_plan == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (quant < 0 || quant > 2 || (quant && (!attention || round_residual)))
+  if (quant < 0 || quant > 2 || (quant && !attention && !round_residual) ||
+      (quant && round_residual && C > kLnChainMax))
     return static_cast<int>(cudaErrorInvalidValue);
   const QuantBlock qb{static_cast<const float*>(wqkv_s), static_cast<const float*>(wo_s),
                       static_cast<const float*>(w1_s), static_cast<const float*>(w2_s),
@@ -380,14 +463,16 @@ extern "C" int bd_fused_em_sample(
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   static_cast<int>(attn_smem)));
   // go launches the stage kernels and their products on head_gemm.cuh,
-  // the launches of that chain programmatic when pdl (the quant modes'
-  // stage kernels plain: hg::GemmLaunch); a shape its GEMM
+  // the launches of that chain programmatic when pdl (kernel #2's quant
+  // modes' stage kernels plain: hg::GemmLaunch; the round route's quant
+  // modes gain from programmatic stage kernels as its bf16 mode does: 13%
+  // of a 100-step H-1x int8 call, 6% at B-16x, PERF.md §6); a shape its GEMM
   // cannot take is refused. The products read the stage inputs: act (bf16)
   // or, quantized, aq (int8) for qkv, wo and w1 ([R, C]); buf (bf16) or aq
   // for w2 ([R, H]).
   hg::Plan plan[4] = {};
   hg::Product pr[4];
-  const hg::GemmLaunch go{pr, plan, pdl != 0, pdl != 0 && !quant, st};
+  const hg::GemmLaunch go{pr, plan, pdl != 0, pdl != 0 && (!quant || round_residual != 0), st};
   for (int i = 0; i < 4; ++i)
     plan[i] = {gemm_plan[3 * i], gemm_plan[3 * i + 1], gemm_plan[3 * i + 2]};
   const int L = num_blocks;
@@ -443,7 +528,10 @@ extern "C" int bd_fused_em_sample(
                         C, round_residual));
     for (int l = 0; l < num_blocks; ++l) {
       const bf16* m = mods_s + (size_t)(l / switch_freq) * n_mods * C;
-      if (quant)
+      if (quant && round_residual)
+        BD_CHECK((quant == 2 ? quant_round_block<hg::kOpS4> : quant_round_block<hg::kOpS8>)(
+            wts, qb, l, h, m, W, act, buf, R, C, H, attention != 0, n_head, groups, eps, go));
+      else if (quant)
         BD_CHECK((quant == 2 ? quant_block<hg::kOpS4> : quant_block<hg::kOpS8>)(
             wts, qb, l, h, m, W, buf, R, C, H, n_head, groups, eps, go));
       else
@@ -497,6 +585,9 @@ cudaError_t head_gemm_s8(const hg::Product& pr, int mode, const hg::Plan& plan,
     case kBiasBf16: return hg::gemm<kBiasBf16, KIND>(pr, 0, plan, ep, false, st);
     case kGatedResidual: return hg::gemm<kGatedResidual, KIND>(pr, 0, plan, ep, false, st);
     case kSwiGLUQ: return hg::gemm<kSwiGLUQ, KIND>(pr, 0, plan, ep, false, st);
+    case kGatedResidualRound:
+      return hg::gemm<kGatedResidualRound, KIND>(pr, 0, plan, ep, false, st);
+    case kSwiGLURoundQ: return hg::gemm<kSwiGLURoundQ, KIND>(pr, 0, plan, ep, false, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -507,9 +598,11 @@ cudaError_t head_gemm_s8(const hg::Product& pr, int mode, const hg::Plan& plan,
 // (ops/fused_head.py::head_gemm_s8), for its checks and timings: a [R, K]
 // int8 rows with row scales sa [R]; w [N, K] int8 (packed int4: [N, K/2])
 // with column scales ws [N]; bias bf16 [N]; shape {R, N, K, ldg, mode, bm,
-// bn, splits, int4}; mode 0 (kBiasBf16: out bf16 [R, N]), 1 (kGatedResidual:
-// resid fp32 [R, N] in place, gate bf16 rows ldg apart) or 8 (kSwiGLUQ, w
-// rows [h1; h2]: out fp32 [R, N / 2]). Returns the first CUDA error, or 0.
+// bn, splits, int4}; mode 0 (kBiasBf16: out bf16 [R, N]), 1 / 9
+// (kGatedResidual / kGatedResidualRound: resid fp32 [R, N] in place, gate
+// bf16 rows ldg apart), 8 (kSwiGLUQ, w rows [h1; h2]: out fp32 [R, N / 2])
+// or 11 (kSwiGLURoundQ: out bf16 [R, N / 2]). Returns the first CUDA error,
+// or 0.
 extern "C" int bd_head_gemm_s8(const void* a, const void* sa, const void* w, const void* ws,
                                const void* bias, void* out, void* resid, const void* gate,
                                const int* shape, void* stream) {

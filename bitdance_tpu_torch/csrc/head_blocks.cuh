@@ -34,11 +34,14 @@ enum GemmMode {
   // the TPU kernels' _block_body in bf16 (every elementwise op rounds):
   kGatedResidualRound = 9,  // resid = bf16(resid + bf16(bf16(acc + bias) * gate))
   kSwiGLURound = 10,   // out bf16 = bf16(silu(bf16(h1))) * bf16(h2)
+  // kSwiGLURound with torch's IEEE silu, on the integer kinds (the round
+  // route's quant modes: its bf16 output is the w2 row quantization's input)
+  kSwiGLURoundQ = 11,
 };
 
 __host__ __device__ constexpr bool is_swiglu(int mode) {
   return mode == kSwiGLU || mode == kSwiGLUF32 || mode == kSwiGLUQ ||
-         mode == kSwiGLURound;
+         mode == kSwiGLURound || mode == kSwiGLURoundQ;
 }
 
 __host__ __device__ constexpr bool is_gated(int mode) {
@@ -239,25 +242,32 @@ ln_modulate_rows_kernel(const float* __restrict__ h, int C, const bf16* __restri
   }
 }
 
-// Per-row int8 quantization of fp32 rows [R, K] (K % 4 == 0, K <= 1024
-// kQuantVec), one block of 256 per row with the row held in registers (its
-// float4 loads issued together): the scale s = max(amax / 127, 1e-12) to
-// sx[r], q = clamp(rint(x / s), -127, 127) with a true division and round
-// half to even (quantize_rows and the JAX stage_quant, bit for bit). The
-// quant mode's window-attention output and SwiGLU output.
+// Per-row int8 quantization of fp32 or bf16 rows [R, K] (K % 4 == 0, K <=
+// 1024 kQuantVec), one block of 256 per row with the row held in registers
+// (its 4-value loads issued together): the scale s = max(amax / 127, 1e-12)
+// to sx[r], q = clamp(rint(x / s), -127, 127) with a true division and round
+// half to even (quantize_rows, the JAX stage_quant and _mmq, bit for bit).
+// fp32: kernel #2's quant modes' window-attention and SwiGLU outputs; bf16:
+// the round route's (#3/#4).
+template <typename T>
 __global__ void __launch_bounds__(256)
-quantize_rows_vec_kernel(const float* __restrict__ x, int K, int8_t* __restrict__ q,
+quantize_rows_vec_kernel(const T* __restrict__ x, int K, int8_t* __restrict__ q,
                          float* __restrict__ sx) {
   pdl_trigger();
   pdl_wait();
   const int r = blockIdx.x, k4 = K / 4;
-  const float4* xr = reinterpret_cast<const float4*>(x + (size_t)r * K);
   float4 v[kQuantVec];
   float amax = 0.f;
 #pragma unroll
   for (int j = 0; j < kQuantVec; ++j) {
     const int i = threadIdx.x + j * 256;
-    v[j] = i < k4 ? xr[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+    v[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (i < k4) {
+      if constexpr (sizeof(T) == 4)
+        v[j] = reinterpret_cast<const float4*>(x + (size_t)r * K)[i];
+      else
+        v[j] = unpack4(reinterpret_cast<const uint2*>(x + (size_t)r * K)[i]);
+    }
     amax = fmaxf(fmaxf(amax, fmaxf(fabsf(v[j].x), fabsf(v[j].y))),
                  fmaxf(fabsf(v[j].z), fabsf(v[j].w)));
   }
@@ -269,6 +279,50 @@ quantize_rows_vec_kernel(const float* __restrict__ x, int K, int8_t* __restrict_
     if (i < k4) o4[i] = quant4(v[j], s);
   }
   if (threadIdx.x == 0) sx[r] = s;
+}
+
+// ln_modulate_kernel<float, false, true>'s function for the round route's
+// quant modes (#3/#4, _block_body's moded() then _mmq's quantization): the
+// bf16 chain of every element of row r (C <= kLnChainMax) kept in shared
+// memory, its max |value| reduced, then the row quantized as
+// quantize_rows_vec_kernel does, its scale to row_scale[r].
+constexpr int kLnChainMax = 5120;
+
+__global__ void __launch_bounds__(256)
+ln_modulate_chain_q_kernel(const float* __restrict__ h, int C, const bf16* __restrict__ nw,
+                           const bf16* __restrict__ nb, const bf16* __restrict__ scale,
+                           int ld_scale, const bf16* __restrict__ shift, int ld_shift,
+                           int8_t* __restrict__ out, float* __restrict__ row_scale,
+                           float eps) {
+  __shared__ float ys[kLnChainMax];
+  pdl_trigger();
+  pdl_wait();
+  const int r = blockIdx.x;
+  const float* hr = h + (size_t)r * C;
+  float s = 0.f, ss = 0.f;
+  for (int i = threadIdx.x; i < C; i += blockDim.x) {
+    const float x = hr[i];
+    s += x;
+    ss += x * x;
+  }
+  block_sum2(s, ss);
+  const float mean = s / C;
+  const float rstd = rsqrtf(fmaxf(ss / C - mean * mean, 0.f) + eps);
+  const bf16* sc = scale + (size_t)r * ld_scale;
+  const bf16* sh = shift + (size_t)r * ld_shift;
+  float amax = 0.f;
+  for (int i = threadIdx.x; i < C; i += blockDim.x) {  // each thread reads back its own
+    const float a = round_bf16((hr[i] - mean) * rstd);
+    const float b = round_bf16(round_bf16(a * bf2f(nw[i])) + bf2f(nb[i]));
+    const float y = round_bf16(round_bf16(b * round_bf16(1.f + bf2f(sc[i]))) + bf2f(sh[i]));
+    ys[i] = y;
+    amax = fmaxf(amax, fabsf(y));
+  }
+  const float rs = row_quant_scale(block_max(amax));
+  for (int i = threadIdx.x; i < C; i += blockDim.x)
+    out[(size_t)r * C + i] =
+        static_cast<int8_t>(max(-127, min(127, __float2int_rn(__fdiv_rn(ys[i], rs)))));
+  if (threadIdx.x == 0) row_scale[r] = rs;
 }
 
 template <typename T>

@@ -86,7 +86,8 @@
 //   call, B-16x 0.519 against 0.449), and is not done.
 // - Epilogues: kBiasBf16 (qkv); on the round route, where every elementwise
 //   op rounds to bf16 as _block_body's, kGatedResidualRound (wo, w2; the
-//   residual h in place) and kSwiGLURound (w1); on #2's, which keeps the
+//   residual h in place) and kSwiGLURound (w1; on the integer kinds
+//   kSwiGLURoundQ, its silu IEEE as kSwiGLUQ's); on #2's, which keeps the
 //   residual in fp32, kGatedResidual and kSwiGLU, and on #2's quant modes
 //   kSwiGLUQ (fp32 silu(bf16 h1) * bf16 h2, the input of the w2 row
 //   quantization); #14's kSwiGLUF32 (h1 and h2 kept in fp32, the product
@@ -317,8 +318,9 @@ __device__ __forceinline__ void finish8(int row, int col, const float (&v)[8],
     for (int i = 0; i < 8; ++i) {
       float y1 = __fadd_rn(v[i], b[i]), y2 = __fadd_rn(v2[i], b2[i]);
       if (MODE != kSwiGLUF32) y1 = round_bf16(y1), y2 = round_bf16(y2);
-      if (MODE == kSwiGLUQ) {  // torch's silu: x / (1 + exp(-x)), IEEE
-        o[i] = __fmul_rn(__fdiv_rn(y1, __fadd_rn(1.f, expf(-y1))), y2);
+      if (MODE == kSwiGLUQ || MODE == kSwiGLURoundQ) {  // torch's silu: x / (1 + exp(-x)), IEEE
+        const float s = __fdiv_rn(y1, __fadd_rn(1.f, expf(-y1)));
+        o[i] = __fmul_rn(MODE == kSwiGLURoundQ ? round_bf16(s) : s, y2);
       } else {
         const float s = __fdividef(y1, 1.f + __expf(-y1));
         o[i] = (MODE == kSwiGLURound ? round_bf16(s) : s) * y2;
@@ -807,10 +809,11 @@ inline bool single_product(const void* a, const void* w, const void* bias, void*
 // product on head_gemm by its plan, over the tensor maps of the whole stacks
 // (pr, plan: indexed by BlockProduct), programmatic when pdl, and each stage
 // kernel programmatic when pdl_stages; gemm_q runs the quant mode's integer
-// products. The quant route launches its stage kernels plain (they still
-// let the next GEMM launch at their start): launched programmatic after the
-// integer GEMM's main loop they made a net call 12-16% slower device-only
-// (PERF.md §6, PR 14), where the bf16 routes gain from it.
+// products. Kernel #2's quant route launches its stage kernels plain (they
+// still let the next GEMM launch at their start): launched programmatic
+// after the integer GEMM's main loop they made a net call 12-16% slower
+// device-only (PERF.md §6), where the bf16 routes and the round route's
+// quant modes gain from it.
 struct GemmLaunch {
   const Product* pr;
   const Plan* plan;

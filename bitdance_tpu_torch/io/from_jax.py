@@ -8,7 +8,8 @@ and ``convert_imagenet_ar_state``:
     (QTensor / Q4Tensor leaves, int8 q [L, in, out] or packed [L, in/2, out]
     with s [L, 1, out]) becomes the port's QLinear / Q4Linear buffers
     (q [out, in] or [out, in/2], s [out]) by a byte transpose that keeps
-    the nibble pairing, and an int8 embedding table its QEmbedding;
+    the nibble pairing, and an int8 embedding table its QEmbedding; so do
+    the QTensor layer products of a quantized ImageNet AR tree;
   - flax trees (DiffHead, MLPConnector, VQModel encoder and decoder) map
     module paths back to the reference's dotted names; Dense kernels
     [in, out] become [out, in] and conv kernels HWIO become OIHW;
@@ -144,9 +145,12 @@ _IMAGENET_LAYER_KEYS = {
 
 
 def imagenet_ar_state_from_jax(params: Mapping) -> dict[str, np.ndarray]:
-    """Stacked JAX ImageNet AR params -> reference state dict (numpy)."""
+    """Stacked JAX ImageNet AR params -> reference state dict (numpy). The
+    QTensor leaves of a quantize_ar_params tree (q [L, in, out] int8, s [L,
+    1, out]) give ``<name>.q`` [out, in] and ``<name>.s`` [out] entries, the
+    port's QLinear buffers."""
     layers = params["layers"]
-    n = _np(layers["wqkv"]).shape[0]
+    n = np.asarray(layers["ffn_norm"]).shape[0]
     p = params["proj_in"]
     sd = {"cls_embedding.weight": _np(params["cls_embedding"]),
           "proj_in.w1.weight": _np(p["w1"]["kernel"]).T,
@@ -159,7 +163,15 @@ def imagenet_ar_state_from_jax(params: Mapping) -> dict[str, np.ndarray]:
     if "query_token" in params:
         sd["query_token"] = _np(params["query_token"])
     for name, (key, transposed) in _IMAGENET_LAYER_KEYS.items():
-        stack = _np(layers[name])
+        leaf = layers[name]
+        if _quant_kind(leaf) == "int8":
+            q, sc = np.asarray(leaf.q, np.int8), _np(leaf.s)
+            base = key[:-len(".weight")]
+            for i in range(n):
+                sd[f"layers.{i}.{base}.q"] = q[i].T
+                sd[f"layers.{i}.{base}.s"] = sc[i].reshape(-1)
+            continue
+        stack = _np(leaf)
         for i in range(n):
             sd[f"layers.{i}.{key}"] = stack[i].T if transposed else stack[i]
     return {k: np.ascontiguousarray(v) for k, v in sd.items()}
@@ -240,24 +252,32 @@ def load_into(module: nn.Module, state: Mapping[str, np.ndarray]) -> nn.Module:
 def imagenet_sampler_from_jax(cfg, params: Mapping, head_params: Mapping,
                               ae_params: Mapping | None, *,
                               ddconfig: dict | None = None, device=None,
-                              dtype: torch.dtype = torch.float32):
+                              dtype: torch.dtype = torch.float32,
+                              sample_weight_quant: bool | str = False):
     """A JAX ImageNet sampling tree -> the port's ImageNetSampler on
     ``device``: the stacked backbone params (with ``query_token`` for Nx
-    models), the flax head params (the MlpEncoder for 1x, the TransEncoder
-    at head dim 64 for Nx) and the flax VQModel params (decoder keys; None
-    leaves ``ae`` unset). The head's sampler stack is built here, so the
+    models; a quantize_ar_params tree gives W8A8 QLinear layer products),
+    the flax head params (the MlpEncoder for 1x, the TransEncoder at head
+    dim 64 for Nx) and the flax VQModel params (decoder keys; None leaves
+    ``ae`` unset). The head's sampler stack is built here, quantized as
+    ``sample_weight_quant`` says (make_head's argument); unquantized, the
     head's block weights become views into it."""
     from bitdance_tpu_torch.io.random_init import IMAGENET_TOKENIZER
     from bitdance_tpu_torch.models.imagenet_ar import (
         ImageNetAR,
         ImageNetSampler,
         make_head,
+        quantized_ar_structure_,
     )
     from bitdance_tpu_torch.models.tokenizer import VQModel
 
     kw = dict(device=device, dtype=dtype)
-    model = load_into(ImageNetAR(cfg, **kw), imagenet_ar_state_from_jax(params))
-    head = load_into(make_head(cfg, **kw), flax_state_from_jax(head_params))
+    model = ImageNetAR(cfg, **kw)
+    if _quant_kind(params["layers"]["wqkv"]):          # a quantize_ar_params tree
+        quantized_ar_structure_(model)
+    model = load_into(model, imagenet_ar_state_from_jax(params))
+    head = load_into(make_head(cfg, sample_weight_quant=sample_weight_quant, **kw),
+                     flax_state_from_jax(head_params))
     ae = None
     if ae_params is not None:
         ae = load_into(VQModel(ddconfig or IMAGENET_TOKENIZER, **kw),

@@ -23,6 +23,7 @@ from bitdance_tpu_torch.models.imagenet_ar import (
     ImageNetSampler,
     head_kwargs,
     init_ar_params,
+    quantize_ar_params,
 )
 from bitdance_tpu_torch.models.qwen3 import Qwen3Config, init_qwen3, quantize_qwen3_
 from bitdance_tpu_torch.models.tokenizer import VQModel, init_vq
@@ -257,3 +258,21 @@ def build_random_imagenet_sampler(cfg: ImageNetARConfig, device,
     ae = init_vq(IMAGENET_TOKENIZER, device, dtype, gen)
     return ImageNetSampler(cfg=cfg, model=model, head=head,
                            head_stacked=stacked, ae=ae)
+
+
+def quantize_imagenet_sampler(sampler: ImageNetSampler, *, backbone: bool,
+                              head_quant: bool | str) -> ImageNetSampler:
+    """A quantized sampler from an ImageNet sampler's own weights, the
+    source left as it was: backbone=True makes the layer products W8A8
+    (:func:`quantize_ar_params`, layer by layer on a module-tree copy, so
+    the bf16 model keeps its modules), and head_quant (True: int8, "int4":
+    packed int4) rebuilds the head's sampler stack quantized once (the head
+    module keeps its own weights for the per-call route). Unquantized parts
+    and the VQ decoder are shared, not copied, so the bf16 and quantized
+    forms come from the same seeded weights."""
+    model, head = sampler.model, copy.copy(sampler.head)
+    if backbone:
+        model = quantize_ar_params(_module_tree_copy(model))
+    head.sample_weight_quant = head_quant
+    return dataclasses.replace(sampler, model=model, head=head,
+                               head_stacked=head._stack_for_sampler())

@@ -325,10 +325,14 @@ class DiffHead(nn.Module):
         uncond] when cfg_mult is 2).
 
         cfg_mult 2 runs the whole-sampler kernel (:func:`_run_fused_sample`)
-        on ``stacked`` (stacked here when not given); anything else runs the
-        per-call :func:`euler_maruyama` over :meth:`DiffNet.forward`, whose
-        blocks are the head-block kernels. Both draw x0 and the per-step
-        noise through :func:`draw_sampler_noise`."""
+        on ``stacked`` (stacked here when not given, its block matrices
+        quantized as ``sample_weight_quant`` says: the JAX package's
+        make_fused_sampler / _can_fuse_sample route, W8A8 / W4A8 on a
+        quantized stack); anything else runs the per-call
+        :func:`euler_maruyama` over :meth:`DiffNet.forward`, whose blocks
+        are the head-block kernels on the module's full-precision weights
+        (in JAX only the stacked sampler reads the quantized stack). Both
+        draw x0 and the per-step noise through :func:`draw_sampler_noise`."""
         if cfg_mult == 2:
             if stacked is None:
                 stacked = self._stack_for_sampler()

@@ -1,7 +1,8 @@
 """ImageNet class-conditional AR models: training forward and KV-cached
 sampling (port of bitdance_tpu/models/imagenet_ar.py: configs, make_head,
 proj_in, freqs_cis_table, train_ids, _attn_full, ar_backbone, forward_train,
-_init_cache, _forward_cached, sample, grid_to_tokens / tokens_to_grid).
+quantize_ar_params, _init_cache, _quant_rows, _forward_cached, sample,
+grid_to_tokens / tokens_to_grid).
 
 Llama-style pre-RMSNorm blocks with fused QKV, paired 2D RoPE over patch
 centres, SwiGLU FFN, class-embedding prefix tokens, learned query tokens for
@@ -14,7 +15,13 @@ through ``ops/attention.py::masked_attention``: the flash kernels on the
 card. Sampling attention is plain torch (``attention_xla``), as it is plain
 XLA in the JAX package; the head samples through DiffHead.sample (the
 whole-sampler kernel when guided, the head-block kernels per call when not).
-The int8 KV cache and ``quantize_ar_params`` are not ported.
+
+Quantized sampling, as in the JAX package: :func:`quantize_ar_params` makes
+the backbone's four layer products W8A8 (``ops/int8.py``; plain torch, as
+they are plain XLA there), ``sample(kv_int8=True)`` keeps the KV cache in
+int8 with a scale per (position, head), and ``make_head(...,
+sample_weight_quant=True / "int4")`` gives a head whose guided sampler runs
+its block products W8A8 / W4A8 (the whole-sampler kernel's quant modes).
 """
 
 from __future__ import annotations
@@ -29,7 +36,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from bitdance_tpu_torch.models.diff_head import DiffHead, make_fused_sampler
+from bitdance_tpu_torch.models.qwen3 import QLinear
 from bitdance_tpu_torch.ops.attention import attention_xla, masked_attention
+from bitdance_tpu_torch.ops.int8 import int8_matmul, true_div
 from bitdance_tpu_torch.ops.norms import rms_norm
 from bitdance_tpu_torch.ops.quantize import flip_bits_uniform_prob
 from bitdance_tpu_torch.ops.rotary import (
@@ -143,9 +152,14 @@ def head_kwargs(cfg: ImageNetARConfig) -> dict:
 
 
 def make_head(cfg: ImageNetARConfig, device=None,
-              dtype: torch.dtype = torch.float32) -> DiffHead:
-    """The diffusion head: MlpEncoder for 1x, TransEncoder for Nx."""
-    return DiffHead(**head_kwargs(cfg), device=device, dtype=dtype)
+              dtype: torch.dtype = torch.float32,
+              sample_weight_quant: bool | str = False) -> DiffHead:
+    """The diffusion head: MlpEncoder for 1x, TransEncoder for Nx.
+    sample_weight_quant (True: int8, "int4": packed int4) quantizes the
+    block matrices of the guided sampler's stack (W8A8 / W4A8 products);
+    the per-call route keeps the module's own weights."""
+    return DiffHead(**head_kwargs(cfg), sample_weight_quant=sample_weight_quant,
+                    device=device, dtype=dtype)
 
 
 class _Weight(nn.Module):
@@ -222,9 +236,43 @@ def init_ar_params(model: ImageNetAR, generator: torch.Generator | None = None,
     return model
 
 
-def _linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+# the layer products quantize_ar_params makes W8A8: (parent, name) in a Layer
+_AR_QUANT_PRODUCTS = (("attention", "wqkv"), ("attention", "wo"),
+                      ("feed_forward", "w1"), ("feed_forward", "w2"))
+
+
+def quantized_ar_structure_(model: ImageNetAR, fill: bool = False) -> ImageNetAR:
+    """Replace wqkv, wo and the FFN's w1, w2 of every layer by int8
+    :class:`QLinear` modules, one at a time (each float weight can be freed
+    as its replacement lands). fill=True quantizes each replaced weight into
+    its module; otherwise they are left to be loaded (a JAX QTensor tree)."""
+    for layer in model.layers:
+        for part, name in _AR_QUANT_PRODUCTS:
+            parent = getattr(layer, part)
+            lin = getattr(parent, name)
+            new = QLinear(lin.in_features, lin.out_features, device=lin.weight.device)
+            if fill:
+                new.fill_(lin.weight.detach())
+            setattr(parent, name, new)
+    return model
+
+
+def quantize_ar_params(model: ImageNetAR) -> ImageNetAR:
+    """Int8-quantize the backbone's layer products for sampling, IN PLACE
+    and layer by layer (the JAX quantize_ar_params): wqkv, wo, ffn w1 and w2
+    become W8A8 QLinear modules (per-output-column int8 weights, activations
+    quantized per row at the product, ``ops/int8.py``). Norm gains, the
+    class embedding, proj_in, pos_for_diff and query_token stay as they are.
+    Training paths keep full-precision weights."""
+    return quantized_ar_structure_(model, fill=True)
+
+
+def _linear(x: torch.Tensor, lin: nn.Module) -> torch.Tensor:
     """lin(x) in x's dtype: fp32 activations promote bf16 weights to fp32, as
-    a JAX product of an fp32 array with bf16 weights does."""
+    a JAX product of an fp32 array with bf16 weights does; a QLinear runs
+    W8A8 (``ops/int8.py::int8_matmul``, ``mm`` of the JAX package)."""
+    if isinstance(lin, QLinear):
+        return int8_matmul(x, lin.weight_q)
     w = lin.weight.to(x.dtype)
     return F.linear(x, w, None if lin.bias is None else lin.bias.to(x.dtype))
 
@@ -386,13 +434,30 @@ def grid_to_tokens(cfg: ImageNetARConfig, latents: torch.Tensor) -> torch.Tensor
 # ---------------------------------------------------------------------------
 
 def _init_cache(cfg: ImageNetARConfig, batch: int, dtype=torch.float32,
-                device=None) -> dict:
-    """k/v buffers [L, B, prefix_len + num_tokens, H, D] (bf16 or fp32; the
-    int8 cache of the JAX package is not ported)."""
+                device=None, int8: bool = False) -> dict:
+    """k/v buffers [L, B, prefix_len + num_tokens, H, D] in ``dtype``; int8
+    stores them as int8 with fp32 scales "ks" / "vs" [L, B, len, H], one per
+    (position, head)."""
     total = cfg.prefix_len + cfg.num_tokens
     shape = (cfg.n_layer, batch, total, cfg.n_head, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    dt = torch.int8 if int8 else dtype
+    cache = {"k": torch.zeros(shape, dtype=dt, device=device),
+             "v": torch.zeros(shape, dtype=dt, device=device)}
+    if int8:
+        for key in ("ks", "vs"):
+            cache[key] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+    return cache
+
+
+def _quant_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[B, S, H, D] -> (int8 values, fp32 scales [B, S, H]): symmetric per
+    (position, head) over D, as the JAX cache quantizer: s = max(amax, 1e-8)
+    / 127, q = clamp(round(x / s), -127, 127) with true divisions and round
+    half to even."""
+    xf = x.float()
+    s = true_div(xf.abs().amax(dim=-1).clamp_min(1e-8), 127.0)
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127).to(torch.int8)
+    return q, s
 
 
 def _forward_cached(model: ImageNetAR, cfg: ImageNetARConfig, x: torch.Tensor,
@@ -403,10 +468,13 @@ def _forward_cached(model: ImageNetAR, cfg: ImageNetARConfig, x: torch.Tensor,
     itself (prefill); otherwise the new tokens see every cached key and each
     other (a decode window). Attention reads only the live prefix
     [:cache_len + s]; the JAX package reads a static window whose dead tail
-    is masked out, which gives the same result."""
+    is masked out, which gives the same result. An int8 cache
+    (:func:`_init_cache`) stores k and v quantized by :func:`_quant_rows`
+    and is read dequantized to fp32 (k * ks, v * vs), as in JAX."""
     b, s, _ = x.shape
     nh, hd = cfg.n_head, cfg.head_dim
     end = cache_len + s
+    int8 = cache["k"].dtype == torch.int8
     mask = None
     if causal_block:
         q_abs = cache_len + torch.arange(s, device=x.device)
@@ -417,11 +485,19 @@ def _forward_cached(model: ImageNetAR, cfg: ImageNetARConfig, x: torch.Tensor,
         h = rms_norm(x, layer.attention_norm.weight)
         q, k, v = _linear(h, layer.attention.wqkv).split(cfg.dim, dim=-1)
         q = apply_rope_paired(q.reshape(b, s, nh, hd), freqs_slice)
-        cache["k"][li, :, cache_len:end] = apply_rope_paired(
-            k.reshape(b, s, nh, hd), freqs_slice)
-        cache["v"][li, :, cache_len:end] = v.reshape(b, s, nh, hd)
-        attn = attention_xla(q, cache["k"][li, :, :end], cache["v"][li, :, :end],
-                             mask)
+        k = apply_rope_paired(k.reshape(b, s, nh, hd), freqs_slice)
+        v = v.reshape(b, s, nh, hd)
+        if int8:
+            (k, ks), (v, vs) = _quant_rows(k), _quant_rows(v)
+            cache["ks"][li, :, cache_len:end] = ks
+            cache["vs"][li, :, cache_len:end] = vs
+        cache["k"][li, :, cache_len:end] = k
+        cache["v"][li, :, cache_len:end] = v
+        k_all, v_all = cache["k"][li, :, :end], cache["v"][li, :, :end]
+        if int8:
+            k_all = k_all.float() * cache["ks"][li, :, :end][..., None]
+            v_all = v_all.float() * cache["vs"][li, :, :end][..., None]
+        attn = attention_xla(q, k_all, v_all, mask)
         x = x + _linear(attn.to(x.dtype).reshape(b, s, -1), layer.attention.wo)
         h = rms_norm(x, layer.ffn_norm.weight)
         h1, h2 = _linear(h, layer.feed_forward.w1).chunk(2, dim=-1)
@@ -458,7 +534,7 @@ def sample(model: ImageNetAR, head: DiffHead, cfg: ImageNetARConfig,
            class_ids: torch.Tensor, generator: torch.Generator | None,
            num_sampling_steps: int = 100, cfg_scale: float = 1.0,
            cfg_schedule: str = "linear", head_sampler=None,
-           timing: dict | None = None) -> torch.Tensor:
+           timing: dict | None = None, kv_int8: bool = False) -> torch.Tensor:
     """Generate ±1 latent tokens [n, num_tokens, token_dim] for class_ids [n].
 
     cfg_scale > 1 samples rows [cond; null class] with guidance growing
@@ -469,7 +545,8 @@ def sample(model: ImageNetAR, head: DiffHead, cfg: ImageNetARConfig,
     batches; the default stacks them here) or a function of the same
     signature. The head draws from ``generator`` once per AR step. With a
     ``timing`` dict, its keys prefill, decode (the backbone's AR steps) and
-    sampler are set to seconds (CUDA events on the card).
+    sampler are set to seconds (CUDA events on the card). kv_int8 keeps the
+    KV cache in int8 with per-(position, head) scales (:func:`_init_cache`).
 
     Decode steps feed the sampled tokens back as fp32, as the JAX package
     does: proj_in and the cached backbone then run in fp32 on the weights
@@ -487,7 +564,7 @@ def sample(model: ImageNetAR, head: DiffHead, cfg: ImageNetARConfig,
     freqs = sample_freqs(cfg, device=dev)
     c = model.cls_embedding(cond).reshape(b2, cfg.cls_token_num, cfg.dim)
     dtype = c.dtype
-    cache = _init_cache(cfg, b2, dtype=dtype, device=dev)
+    cache = _init_cache(cfg, b2, dtype=dtype, device=dev, int8=kv_int8)
     sampler = head_sampler or make_fused_sampler(head)
     phase = PhaseTimer(dev)
 

@@ -24,23 +24,25 @@ an ada group the m = 6 slices are scale1, shift1, gate1, scale2, shift2, gate2
 (m = 3 for the MlpEncoder: scale, shift, gate).
 
 Quantized stacks (``quant=True``: int8, ``quant="int4"``: packed int4; the
-JAX package's W8A8 / W4A8 sampler): the four block matrices are stored
-per output row, wqkv [L, 3C, C] int8 or [L, 3C, C/2] packed (k, k + C/2),
-with f32 scales wqkv_s [L, 3C] (likewise wo, w1, w2); modcat_w is int8
-with modcat_w_s whatever the block format. Each stage's input is quantized
-per row to int8 once (``quantize_rows``) and each product runs s8 x s8 ->
-s32 with the scales applied to the sum, on the head GEMM's integer kinds
-(:func:`head_gemm_s8`, with :func:`head_gemm_s8_split_plain` its plain
-twin, through which the plain quant sampler runs). The mode reaches the
-sampler as an explicit ``quant`` argument, not from the stored shapes.
+JAX package's W8A8 / W4A8 sampler, both head families): the block
+matrices are stored per output row, wqkv [L, 3C, C] int8 or [L, 3C, C/2]
+packed (k, k + C/2), with f32 scales wqkv_s [L, 3C] (likewise wo, w1, w2);
+modcat_w is int8 with modcat_w_s whatever the block format. Each stage's
+input is quantized per row to int8 once (``quantize_rows``) and each
+product runs s8 x s8 -> s32 with the scales applied to the sum, on the
+head GEMM's integer kinds (:func:`head_gemm_s8`, with
+:func:`head_gemm_s8_split_plain` its plain twin, through which the plain
+quant sampler runs). The mode reaches the sampler as an explicit ``quant``
+argument, not from the stored shapes.
 
 Residual precision (:func:`rounds_residual`): the JAX package routes its
 whole sampler by weight bytes, and the routes round differently. Kernels #3
-and #4 (per-block and resident weights; the ImageNet heads) run
-``_block_body``, which carries the residual h and every elementwise stage in
-the weights' dtype; kernel #2 (streamed weights; the 14B head, bf16 or
-quantized) keeps h in fp32. The port applies the same rule to the same
-stack, in its plain version and in ``csrc/fused_head.cu``.
+and #4 (per-block and resident weights; the ImageNet heads, bf16 or
+quantized) run ``_block_body``, which carries the residual h and every
+elementwise stage in the weights' dtype, a quantized stack quantizing each
+product's rounded input (``_mmq``); kernel #2 (streamed weights; the 14B
+head, bf16 or quantized) keeps h in fp32. The port applies the same rule to
+the same stack, in its plain version and in ``csrc/fused_head.cu``.
 
 A bf16 stack, on either route (kernel #2's fp32 residual, or the ImageNet
 heads' kernels #3/#4, ``round_residual``), runs its block products on the
@@ -199,10 +201,13 @@ HEAD_GEMM_MODES = {"bias": 0, "gated_f32": 1, "swiglu_f32": 2, "swiglu_h32": 3,
 # the C entry of each mode: the head blocks' modes beside their kernels
 _HEAD_GEMM_ENTRY = {3: "bd_head_gemm_block", 4: "bd_head_gemm_block", 5: "bd_head_gemm_block",
                     7: "bd_head_gemm_net"}
-# the integer kinds (#2's quant modes): "bias" (qkv), "gated_f32" (wo, w2)
-# and "swiglu_q" (w1: fp32 silu(bf16 h1) * bf16 h2, the w2 quantization's
-# input)
-HEAD_GEMM_S8_MODES = {"bias": 0, "gated_f32": 1, "swiglu_q": 8}
+# the integer kinds: "bias" (qkv, both routes); #2's quant modes'
+# "gated_f32" (wo, w2) and "swiglu_q" (w1: fp32 silu(bf16 h1) * bf16 h2, the
+# w2 quantization's input); the round route's (#3/#4) "gated" (wo, w2:
+# _block_body's bf16 residual) and "swiglu_round" (w1: bf16(silu(bf16 h1))
+# * bf16 h2 in bf16, the w2 quantization's input)
+HEAD_GEMM_S8_MODES = {"bias": 0, "gated_f32": 1, "swiglu_q": 8, "gated": 9,
+                      "swiglu_round": 11}
 # logical k of one 128-byte ring stage per operand kind: 64 bf16, 128 int8,
 # 256 packed int4 (a byte holds k = j and k = K/2 + j)
 HEAD_GEMM_STAGE_K = {None: 64, "int8": 128, "int4": 256}
@@ -430,21 +435,14 @@ def _int_sums(aq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     return aq.double() @ wq.double().t()
 
 
-def head_gemm_s8_split_plain(aq: torch.Tensor, sa: torch.Tensor, w: torch.Tensor,
-                             ws: torch.Tensor, mode: str, bias: torch.Tensor,
-                             gate: torch.Tensor | None = None,
-                             resid: torch.Tensor | None = None, splits: int = 1,
-                             quant: str = "int8") -> torch.Tensor:
-    """Plain version of :func:`head_gemm_s8`: the exact integer partials of
-    aq [R, K] int8 x w [N, K] int8 (quant "int4": packed [N, K/2], each
-    nibble plane against its half of aq) over the split ranges of
-    :func:`head_gemm_split_ranges`, summed in split order, then y =
-    float(acc) * (sa * ws) + bias, as the TPU kernel's stage_dot and
-    _net_forward compute it, then the epilogue: "bias" y in bias's dtype;
-    "gated_f32" resid + y * gate in fp32; "swiglu_q" (w rows [h1; h2])
-    silu(h1) * h2 in fp32 from h1, h2 rounded to bias's dtype."""
-    if mode not in HEAD_GEMM_S8_MODES or quant not in ("int8", "int4"):
-        raise ValueError(f"head_gemm_s8: mode {mode!r} / quant {quant!r}")
+def _int_product(aq: torch.Tensor, sa: torch.Tensor, w: torch.Tensor, ws: torch.Tensor,
+                 splits: int = 1, quant: str = "int8") -> torch.Tensor:
+    """The dequantized fp32 product float(acc) * (sa * ws) of aq [R, K] int8
+    rows with scales sa [R] and w [N, K] int8 (quant "int4": packed [N,
+    K/2], each nibble plane against its half of aq) with column scales ws
+    [N]: the exact integer partials over the split ranges of
+    :func:`head_gemm_split_ranges`, summed in split order, scaled as the TPU
+    kernels' _mmq and stage_dot scale them."""
     k = aq.shape[1]
     kh = w.shape[1]
     acc = None
@@ -455,11 +453,35 @@ def head_gemm_s8_split_plain(aq: torch.Tensor, sa: torch.Tensor, w: torch.Tensor
         else:
             part = _int_sums(aq[:, c0:c1], w[:, c0:c1])
         acc = part if acc is None else acc + part
-    y = acc.float() * (sa.float()[:, None] * ws.float()[None, :]) + bias.float()
+    return acc.float() * (sa.float()[:, None] * ws.float()[None, :])
+
+
+def head_gemm_s8_split_plain(aq: torch.Tensor, sa: torch.Tensor, w: torch.Tensor,
+                             ws: torch.Tensor, mode: str, bias: torch.Tensor,
+                             gate: torch.Tensor | None = None,
+                             resid: torch.Tensor | None = None, splits: int = 1,
+                             quant: str = "int8") -> torch.Tensor:
+    """Plain version of :func:`head_gemm_s8`: y = :func:`_int_product` +
+    bias, as the TPU kernels' stage_dot, _mmq and _net_forward compute it,
+    then the epilogue: "bias" y in bias's dtype; "gated_f32" resid + y *
+    gate in fp32; "swiglu_q" (w rows [h1; h2]) silu(h1) * h2 in fp32 from
+    h1, h2 rounded to bias's dtype; the round route's "gated", the residual
+    bf16(resid + bf16(bf16(y) * gate)) returned as fp32, and "swiglu_round",
+    bf16(silu(bf16(h1))) * bf16(h2) in bf16 (_block_body's glu)."""
+    if mode not in HEAD_GEMM_S8_MODES or quant not in ("int8", "int4"):
+        raise ValueError(f"head_gemm_s8: mode {mode!r} / quant {quant!r}")
+    y = _int_product(aq, sa, w, ws, splits, quant) + bias.float()
+    bf = torch.bfloat16
     if mode == "bias":
         return y.to(bias.dtype)
     if mode == "gated_f32":
         return _gated_f32(resid.float(), y, gate)
+    if mode == "gated":
+        return (resid.to(bf) + y.to(bf) * gate.to(bf)).float()
+    if mode == "swiglu_round":
+        h12 = y.to(bf)
+        hidden = w.shape[0] // 2
+        return F.silu(h12[:, :hidden].float()).to(bf) * h12[:, hidden:]
     return _swiglu_f32(y.to(bias.dtype))
 
 
@@ -472,10 +494,12 @@ def head_gemm_s8(aq: torch.Tensor, sa: torch.Tensor, w: torch.Tensor, ws: torch.
     scales sa [R] fp32 (:func:`quantize_rows`), w [N, K] int8 or, quant
     "int4", packed [N, K/2] with column scales ws [N] fp32, bias [N] bf16;
     modes :data:`HEAD_GEMM_S8_MODES` ("swiglu_q": w rows [h1; h2], fp32 out
-    [R, N / 2]; "gated_f32": gate [R, N] bf16, resid [R, N] fp32 updated in
-    place and returned). ``plan`` defaults to :func:`head_gemm_plan` at the
-    card's SM count. CPU tensors take :func:`head_gemm_s8_split_plain` with
-    the plan's splits; CUDA tensors launch the kernel or raise."""
+    [R, N / 2]; "swiglu_round": the same, bf16 out; "gated_f32" and
+    "gated": gate [R, N] bf16, resid [R, N] fp32 ("gated": bf16 values)
+    updated in place and returned). ``plan`` defaults to
+    :func:`head_gemm_plan` at the card's SM count. CPU tensors take
+    :func:`head_gemm_s8_split_plain` with the plan's splits; CUDA tensors
+    launch the kernel or raise."""
     if mode not in HEAD_GEMM_S8_MODES or quant not in ("int8", "int4"):
         raise ValueError(f"head_gemm_s8: mode {mode!r} not in {sorted(HEAD_GEMM_S8_MODES)} "
                          f"or quant {quant!r} not int8 / int4")
@@ -484,7 +508,7 @@ def head_gemm_s8(aq: torch.Tensor, sa: torch.Tensor, w: torch.Tensor, ws: torch.
     cuda = aq.device.type == "cuda"
     sms = torch.cuda.get_device_properties(aq.device).multi_processor_count if cuda else 132
     plan = plan or head_gemm_plan(rows, n, k, sms, quant)
-    gated = mode == "gated_f32"
+    gated = mode in ("gated_f32", "gated")
     if aq.device.type == "cpu":
         out = head_gemm_s8_split_plain(aq, sa, w, ws, mode, bias, gate, resid, plan.splits,
                                        quant)
@@ -502,13 +526,15 @@ def head_gemm_s8(aq: torch.Tensor, sa: torch.Tensor, w: torch.Tensor, ws: torch.
                   or tuple(resid.shape) != (rows, n) or not resid.is_contiguous()
                   or gate is None or gate.dtype != torch.bfloat16
                   or tuple(gate.shape) != (rows, n) or gate.stride(1) != 1):
-        raise ValueError("head_gemm_s8: 'gated_f32' needs resid fp32 [R, N] and gate bf16 "
+        raise ValueError(f"head_gemm_s8: {mode!r} needs resid fp32 [R, N] and gate bf16 "
                          "[R, N]")
     dev = aq.device
     if gated:
         out = resid
     elif mode == "swiglu_q":
         out = torch.empty((rows, n // 2), dtype=torch.float32, device=dev)
+    elif mode == "swiglu_round":
+        out = torch.empty((rows, n // 2), dtype=torch.bfloat16, device=dev)
     else:
         out = torch.empty((rows, n), dtype=torch.bfloat16, device=dev)
     shape = torch.tensor([rows, n, k, gate.stride(0) if gated else 0, HEAD_GEMM_S8_MODES[mode],
@@ -544,13 +570,13 @@ def rounds_residual(stacked: dict, num_blocks: int, attention: bool) -> bool:
     that rounds the residual to the weights' dtype at each block: resident
     #4 when the block weights are <= 48 MB, else #3 unless
     2 * bytes // num_blocks > 60 MB sends it to the streamed #2, which keeps
-    h in fp32 (fused_head.py:1145-1160). The ImageNet heads (C 768 / 1280)
-    round; the 14B head (C 5120, bf16 or quantized) does not. A quantized
-    stack always takes kernel #2's precision: the port's quant mode is that
-    kernel's (the JAX package quantizes only the 14B head, which the rule
-    sends to #2)."""
-    if "w1_s" in stacked:
-        return False
+    h in fp32 (fused_head.py:1145-1160). The rule reads the stack's bytes
+    as the JAX router counts them (:func:`block_weight_bytes`), quantized or
+    not: a quantized stack counts its int8 or packed-int4 matrices and their
+    fp32 scales. The ImageNet heads (C 768 / 1280) round in bf16 and in
+    their quantized forms (make_head(sample_weight_quant=...): H-1x in int8,
+    88.9 MB, on #3; H-1x in int4 and B-16x on the resident #4); the 14B
+    head (C 5120, bf16, int8 or int4) does not."""
     wb = block_weight_bytes(stacked, attention)
     if wb <= _RESIDENT_BYTES:
         return True
@@ -560,7 +586,7 @@ def rounds_residual(stacked: dict, num_blocks: int, attention: bool) -> bool:
 def _block_body(h: torch.Tensor, mods: torch.Tensor, stacked: dict, l: int, *,
                 attention: bool, n_head: int, groups: int,
                 eps: float = 1e-6, fp32_qkv_h12: bool = False,
-                splits: dict | None = None) -> torch.Tensor:
+                splits: dict | None = None, quant: str | None = None) -> torch.Tensor:
     """One block as the TPU kernels #3-#5 compute it (fused_head.py:248-292):
     h and the mods are cast to the weights' dtype, and so is every
     elementwise stage (LN output, its affine and modulation, qkv, the
@@ -570,7 +596,11 @@ def _block_body(h: torch.Tensor, mods: torch.Tensor, stacked: dict, l: int, *,
     fp32_qkv_h12 keeps qkv and h12 in fp32 as the per-call blocks #14 / #15
     do: a twin the card check holds kernel #5 away from. splits ({"w1": S,
     ...}) sums a product's fp32 partials as the head GEMM's split-K does
-    (:func:`_dot_acc_split`). Returns h in the weights' dtype."""
+    (:func:`_dot_acc_split`). quant ("int8" / "int4", a stack of that mode)
+    runs each product as _mmq does: its input (the stage value in the
+    weights' dtype) quantized per row in fp32, the exact integer sums
+    scaled by the row and column scales (:func:`_int_product`, the split
+    partials by splits). Returns h in the weights' dtype."""
     elem = stacked["n2"].dtype
     stage = torch.float32 if fp32_qkv_h12 else elem
     c = h.shape[-1]
@@ -586,7 +616,11 @@ def _block_body(h: torch.Tensor, mods: torch.Tensor, stacked: dict, l: int, *,
         return ln * (1.0 + sl(which)) + sl(which + 1)
 
     def prod(a, key):
-        return _dot_acc_split(a, stacked[key][l], (splits or {}).get(key, 1))
+        sp = (splits or {}).get(key, 1)
+        if quant:
+            aq, sa = quantize_rows(a.float())
+            return _int_product(aq, sa, stacked[key][l], stacked[key + "_s"][l], sp, quant)
+        return _dot_acc_split(a, stacked[key][l], sp)
 
     mlp = 0
     if attention:
@@ -662,12 +696,13 @@ def _attn_from_qkv(qkv: torch.Tensor, n_head: int, groups: int,
 def _rounded_blocks(h: torch.Tensor, group_mods, group_of, final_mods: torch.Tensor,
                     stacked: dict, *, num_blocks: int, attention: bool,
                     n_head: int, groups: int, bounded: bool, eps: float = 1e-6,
-                    fp32_qkv_h12: bool = False, splits: dict | None = None) -> torch.Tensor:
+                    fp32_qkv_h12: bool = False, splits: dict | None = None,
+                    quant: str | None = None) -> torch.Tensor:
     """The blocks and final layer of kernels #3-#5 from the fp32 input
     projection h [R, C]: block l runs :func:`_block_body` on
-    group_mods(group_of(l)) (called once per run of equal groups), then the
-    final adaLN LayerNorm on final_mods [R, 2C] and the output product in
-    fp32, 2*sigmoid-1 when bounded. Returns fp32 [R, ch]."""
+    group_mods(group_of(l)) (called once per run of equal groups; quant as
+    there), then the final adaLN LayerNorm on final_mods [R, 2C] and the
+    output product in fp32, 2*sigmoid-1 when bounded. Returns fp32 [R, ch]."""
     c = stacked["n2"].shape[-1]
     g_prev, mods = None, None
     for l in range(num_blocks):
@@ -675,7 +710,8 @@ def _rounded_blocks(h: torch.Tensor, group_mods, group_of, final_mods: torch.Ten
         if g != g_prev:
             g_prev, mods = g, group_mods(g)
         h = _block_body(h, mods, stacked, l, attention=attention, n_head=n_head,
-                        groups=groups, eps=eps, fp32_qkv_h12=fp32_qkv_h12, splits=splits)
+                        groups=groups, eps=eps, fp32_qkv_h12=fp32_qkv_h12, splits=splits,
+                        quant=quant)
     fm = final_mods.float()
     z = _ln(h, eps) * (1.0 + fm[:, :c]) + fm[:, c:]
     out = _dot_acc(z, stacked["f_out_w"]) + stacked["f_out_b"]
@@ -700,11 +736,8 @@ def _net_forward(stacked: dict, x: torch.Tensor, mods_row: torch.Tensor, *,
     :func:`head_gemm_s8_split_plain` (its K splits by splits), and qkv and
     h12 are still stored in the weights' dtype. round_residual=True: the
     blocks of kernels #3 and #4 (:func:`_block_body`, the products split by
-    splits)."""
+    splits, W8A8 / W4A8 as _mmq with quant)."""
     if round_residual:
-        if quant:
-            raise ValueError("_net_forward: a quantized stack keeps kernel #2's "
-                             "fp32 residual")
         c_dim = stacked["n2"].shape[-1]
         mc = (6 if attention else 3) * c_dim
         h = _dot_acc(torch.cat([x, x], dim=0), stacked["in_w"]) + stacked["in_b"]
@@ -712,7 +745,7 @@ def _net_forward(stacked: dict, x: torch.Tensor, mods_row: torch.Tensor, *,
             h, lambda g: mods_row[:, g * mc:(g + 1) * mc], lambda l: l // switch_freq,
             mods_row[:, -2 * c_dim:], stacked, num_blocks=num_blocks,
             attention=attention, n_head=n_head, groups=groups, bounded=bounded,
-            eps=eps, splits=splits)
+            eps=eps, splits=splits, quant=quant)
     elem = stacked["n2"].dtype
     c_dim = stacked["n2"].shape[-1]
     n_mods = 6 if attention else 3
@@ -852,16 +885,17 @@ def fused_em_sample(stacked: dict, x0: torch.Tensor, noise: torch.Tensor,
     attention selects the head family (groups and n_head matter only for
     it; the MlpEncoder's rows are independent), bounded the 2*sigmoid-1
     output. quant ("int8" or True, "int4"; the stack built with the same
-    mode) runs the W8A8 / W4A8 products of the TPU kernel's quant mode, for
-    the TransEncoder only. :func:`rounds_residual` decides from the stack,
-    as the JAX router does, whether the residual is carried in the weights'
-    dtype, as kernels #3 and #4 do, or in fp32, as kernel #2 does. A bf16
-    stack runs its block products on the head GEMM on both routes
-    (:func:`sampler_plans`; a C or H it cannot tile raises), every launch of
-    its chain programmatic (``_pdl=False`` only to measure what that saves).
-    A quantized stack runs them on the head GEMM's integer kinds
-    (:func:`sampler_plans` with the mode), its GEMMs programmatic and its
-    stage kernels plain. CPU tensors take
+    mode) runs the W8A8 / W4A8 products of the TPU kernels' quant mode.
+    :func:`rounds_residual` decides from the stack, as the JAX router does,
+    whether the residual is carried in the weights' dtype, as kernels #3
+    and #4 do (both families, bf16 or quantized), or in fp32, as kernel #2
+    does (the TransEncoder, bf16 or quantized). A bf16 stack runs its block
+    products on the head GEMM on both routes (:func:`sampler_plans`; a C or
+    H it cannot tile raises), every launch of its chain programmatic
+    (``_pdl=False`` only to measure what that saves). A quantized stack runs
+    them on the head GEMM's integer kinds (:func:`sampler_plans` with the
+    mode), its GEMMs programmatic and its stage kernels plain on kernel
+    #2's route, programmatic on the round route. CPU tensors take
     :func:`fused_em_sample_reference`; CUDA tensors run
     ``csrc/fused_head.cu`` (bf16 weights, norms, biases and mods; int8 block
     matrices with f32 scales when quantized) or raise.
@@ -877,13 +911,10 @@ def fused_em_sample(stacked: dict, x0: torch.Tensor, noise: torch.Tensor,
         return fused_em_sample_reference(stacked, x0, noise, allmods, t_all,
                                          dt_all, cfg, quant=mode,
                                          round_residual=round_residual, **kw)
-    if mode is not None and not attention:
-        raise ValueError("fused_em_sample: the quantized sampler is checked "
-                         "for the TransEncoder only (attention=True)")
-    if mode is not None and round_residual:
-        raise ValueError("fused_em_sample: the quantized sampler keeps an fp32 "
-                         "residual (kernel #2); a quantized stack small enough "
-                         "for kernels #3/#4 is not ported")
+    if mode is not None and not attention and not round_residual:
+        raise ValueError("fused_em_sample: a quantized MlpEncoder stack runs on the "
+                         "round route (kernels #3/#4); the JAX router never sends "
+                         "one to kernel #2")
     mats = ("w1", "w2") + (("wqkv", "wo") if attention else ())
     keys = list(_MLP_KEYS) + (list(_ATTN_KEYS) if attention else []) \
         + ["in_w", "f_out_w"]

@@ -331,9 +331,27 @@ QUANT_SAMPLER_MAX_REL_ERR = 5e-2
 # row) and a K stage off by one must each move the twin by at least
 # QUANT_GEMM_MOVE of its max |value| (they move it by O(1))
 QUANT_GEMM_MOVE = 1e-2
-# block product -> (integer head GEMM mode, its bias)
+# block product -> (integer head GEMM mode, its bias): kernel #2's quant
+# modes, and the round route's (#3/#4 with a quantized ImageNet stack)
 QUANT_GEMM_PRODUCTS = {"wqkv": ("bias", "bqkv"), "wo": ("gated_f32", "bo"),
                        "w1": ("swiglu_q", "b1"), "w2": ("gated_f32", "b2")}
+ROUND_QUANT_GEMM_PRODUCTS = {"wqkv": ("bias", "bqkv"), "wo": ("gated", "bo"),
+                             "w1": ("swiglu_round", "b1"), "w2": ("gated", "b2")}
+# quantized ImageNet sampling (the imagenet_int8 phase): the whole sampler's
+# round route in its quant modes against its plain version. Both quantize
+# the same bf16 stage values and the kernel's bf16 ops round as the plain
+# version's do, but an fp32 sum order that differs now and then moves a
+# value across a bf16 step, and then an int8 step moves a whole product row:
+# after one step (two net calls) the mean gap relative to max |x| was
+# 3.6e-5 (H-1x int8) and 1.03e-3 (B-16x int8, where window attention spreads
+# a row's flip over its 16-token window) on the H100: the bound is 4x the
+# larger; over 4
+# steps the max gap compounds (1.4e-2 to 4.8e-2 measured on the H100, the
+# bf16 samplers 1.9e-2 and 3.2e-2): twice the bf16 samplers' bound; then
+# the sign-agreement floor over IMAGENET_STEPS; each integer product bit for
+# bit against its twin (QUANT_GEMM_MOVE for the off-by-one checks)
+IMAGENET_QUANT_STEP_MEAN_GAP = 4e-3
+IMAGENET_QUANT_SAMPLER_MAX_REL_ERR = 1e-1
 # sparse flash attention (#10-#12) against its plain version on a packed
 # 8,192-token case and at the 14B step's 37,376 tokens (40 / 8 heads, head
 # dim 128): the dense kernels' bounds (the sparse kernels are the same
@@ -802,10 +820,11 @@ def sampler_net_launches(num_blocks: int, attention: bool, quant: str | None = N
     """Kernel launches of one net call of the whole sampler
     (csrc/fused_head.cu): the input projection, 7 per TransEncoder block
     (LN, qkv, window attention, wo, LN, w1, w2) or 3 per MlpEncoder block,
-    the final layer; a quant mode's TransEncoder block takes 9 (its LN
-    writes the int8 rows itself; the attention and SwiGLU outputs take one
-    row quantization each)."""
-    return 2 + (9 if quant else 7 if attention else 3) * num_blocks
+    the final layer; a quant mode's block takes 9 (TransEncoder) or 4
+    (MlpEncoder): its LN writes the int8 rows itself, the attention and
+    SwiGLU outputs take one row quantization each."""
+    per_block = (9 if attention else 4) if quant else (7 if attention else 3)
+    return 2 + per_block * num_blocks
 
 
 # kernel-name substrings -> the stages of one whole-sampler net call
@@ -1471,11 +1490,11 @@ def _check_decode_fusedkv(dev) -> dict:
     return _check_decode("int8", 12, "quant_kernels")
 
 
-def _quant_gemm_operands(stacked, key, rows, quant, g, dev):
+def _quant_gemm_operands(stacked, key, rows, quant, g, dev, products=QUANT_GEMM_PRODUCTS):
     """One integer block product at ``rows``: its logical K, int8 rows of x ~
-    N(0, 1) with their scales (quantize_rows), and for "gated_f32" a
-    residual ~ N(0, 1) and a gate ~ N(0, 0.25) whose rows lie apart as the
-    sampler's mods do."""
+    N(0, 1) with their scales (quantize_rows), and for the gated modes a
+    residual ~ N(0, 1) ("gated": bf16 values) and a gate ~ N(0, 0.25) whose
+    rows lie apart as the sampler's mods do."""
     import torch
 
     from bitdance_tpu_torch.ops.int8 import quantize_rows
@@ -1484,19 +1503,22 @@ def _quant_gemm_operands(stacked, key, rows, quant, g, dev):
     k = kw_ * (2 if quant == "int4" else 1)
     aq, sa = quantize_rows(torch.randn((rows, k), generator=g, device=dev))
     kw = {}
-    if QUANT_GEMM_PRODUCTS[key][0] == "gated_f32":
+    mode = products[key][0]
+    if mode.startswith("gated"):
         kw["resid"] = torch.randn((rows, n), generator=g, device=dev)
+        if mode == "gated":
+            kw["resid"] = kw["resid"].bfloat16().float()
         kw["gate"] = (0.5 * torch.randn((rows, 3 * n), generator=g, device=dev)
                       ).bfloat16()[:, n:2 * n]
     return k, aq, sa, kw
 
 
-def quant_gemm_walk(stacked, key, aq, sa, kw, plan, quant):
+def quant_gemm_walk(stacked, key, aq, sa, kw, plan, quant, products=QUANT_GEMM_PRODUCTS):
     """The integer product over every block's weights in turn (cold L2: the
     quantized stack is larger than the L2): a callable."""
     from bitdance_tpu_torch.ops.fused_head import head_gemm_s8
 
-    mode, bkey = QUANT_GEMM_PRODUCTS[key]
+    mode, bkey = products[key]
     w, ws, b = stacked[key], stacked[key + "_s"], stacked[bkey]
     return lambda: [head_gemm_s8(aq, sa, w[l], ws[l], mode, b[l], plan=plan, quant=quant, **kw)
                     for l in range(w.shape[0])]
@@ -1517,17 +1539,21 @@ def int_mm_walk(stacked, key, aq, quant):
 
 def quant_gemm_bound(aq, sa, w, ws, mode, kw) -> dict:
     """One integer product: rows, scales, weights and bias read, the output
-    written ("gated_f32" reads the gate and reads and writes the residual),
-    2 R N K integer operations at the int8 peak."""
+    written (the gated modes read the gate and read and write the residual;
+    "swiglu_q" writes fp32, "swiglu_round" bf16), 2 R N K integer
+    operations at the int8 peak (a packed int4 byte holds two weights)."""
     rows, k = aq.shape
     n = w.shape[0]
-    out = rows * n * 2 if mode == "bias" else rows * (n // 2) * 4
-    extra = (nbytes(kw["gate"]) + 2 * nbytes(kw["resid"])) if mode == "gated_f32" else out
+    out = {"bias": rows * n * 2, "swiglu_q": rows * (n // 2) * 4,
+           "swiglu_round": rows * (n // 2) * 2}.get(mode, 0)
+    extra = (nbytes(kw["gate"]) + 2 * nbytes(kw["resid"])) if mode.startswith("gated") else out
     return roofline(nbytes(aq, sa, w, ws) + 2 * n + extra, 0.0, 2.0 * rows * n * k)
 
 
-def _check_quant_gemm(mode, stacked, rows, dev, seed) -> dict:
-    """Each of the four integer head GEMM products of block 0 at ``rows``
+def _check_quant_gemm(mode, stacked, rows, dev, seed, products=QUANT_GEMM_PRODUCTS,
+                      phase="quant_kernels", name="") -> dict:
+    """Each integer head GEMM product of block 0 at ``rows`` (the keys of
+    ``products`` the stack holds: four, or the MlpEncoder's w1 and w2)
     against its plain twin: bit-equal at the planned, 1 and the most splits
     (up to 8, a power of two), two launches bit-equal, and an activation row
     (with its scale), an output column (with its scale) and a K stage of
@@ -1550,10 +1576,12 @@ def _check_quant_gemm(mode, stacked, rows, dev, seed) -> dict:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     g = torch.Generator(device=dev).manual_seed(seed)
     out = {}
-    for key, (gmode, bkey) in QUANT_GEMM_PRODUCTS.items():
+    for key, (gmode, bkey) in products.items():
+        if key not in stacked:
+            continue
         w, ws, bias = stacked[key][0], stacked[key + "_s"][0], stacked[bkey][0]
         n = w.shape[0]
-        k, aq, sa, kw = _quant_gemm_operands(stacked, key, rows, mode, g, dev)
+        k, aq, sa, kw = _quant_gemm_operands(stacked, key, rows, mode, g, dev, products)
         plan = head_gemm_plan(rows, n, k, sms, mode)
         top = min(HEAD_GEMM_MAX_SPLITS, head_gemm_stages(k, mode))
         counts = sorted({plan.splits, 1, 1 << (top.bit_length() - 1)})
@@ -1574,7 +1602,7 @@ def _check_quant_gemm(mode, stacked, rows, dev, seed) -> dict:
                  "column": _errors(twin(w=w.roll(1, 0), ws=ws.roll(1, 0)), want)[1],
                  "k_stage": _errors(twin(aq=aq.roll(128, 1)), want)[1]}
         blocks = stacked[key].shape[0]
-        walk = quant_gemm_walk(stacked, key, aq, sa, kw, plan, mode)
+        walk = quant_gemm_walk(stacked, key, aq, sa, kw, plan, mode, products)
         lib = int_mm_walk(stacked, key, aq, mode)
         rec = {"mode": gmode, "splits": plan.splits, "bit_equal": equal,
                "ms": cuda_time_ms(walk, 10) / blocks,
@@ -1583,13 +1611,13 @@ def _check_quant_gemm(mode, stacked, rows, dev, seed) -> dict:
                "library_device_ms": cuda_graph_time_ms(lib, calls=4, reps=3) / blocks,
                **quant_gemm_bound(aq, sa, w, ws, gmode, kw)}
         del lib
-        if mode == "int4" and key == "wo":
+        if mode == "int4" and key == "wo" and products is QUANT_GEMM_PRODUCTS:
             x = torch.randn((rows, k), generator=g, device=dev).bfloat16()
             xr = q4.w4a8_quantize(x)
             wts = [q4.Q4Tensor(stacked[key][l], stacked[key + "_s"][l]) for l in range(blocks)]
             rec["swap_ab_device_ms"] = cuda_graph_time_ms(
                 lambda: [q4.int4_matmul(x, q, rows=xr) for q in wts], calls=4, reps=3) / blocks
-        log("quant_kernels", f"head_gemm_s8 {mode} {key} ({gmode}) R={rows} [{n}, {k}], plan "
+        log(phase, f"head_gemm_s8 {name}{mode} {key} ({gmode}) R={rows} [{n}, {k}], plan "
             f"bm {plan.bm} bn {plan.bn} x {plan.splits} split(s): bit-equal to the twin at "
             + ", ".join(f"{c} split(s) {v}" for c, v in equal.items())
             + "; off by one: " + ", ".join(f"{q} {v:.3e}" for q, v in moved.items())
@@ -2474,6 +2502,10 @@ def _check_imagenet_sampler(name, bundle, dev, seed) -> dict:
     kw, inputs = imagenet_sampler_inputs(bundle, dev, seed)
     cfg = 4.0
     with torch.no_grad():
+        args = inputs(1)
+        got = fused_em_sample(stacked, *args[:3], *args[3:], cfg, **kw)
+        want = fused_em_sample_reference(stacked, *args[:3], *args[3:], cfg, **kw)
+        gap = ((got - want).abs().mean() / want.abs().max()).item()
         args = inputs(4)
         got = fused_em_sample(stacked, *args[:3], *args[3:], cfg, **kw)
         want = fused_em_sample_reference(stacked, *args[:3], *args[3:], cfg, **kw)
@@ -2688,9 +2720,10 @@ def phase_imagenet_kernels(h1x, b16x) -> dict:
 
 
 def _imagenet_run(bundle, n: int, cfg_scale: float, seed: int, steps: int,
-                  head_sampler=None) -> dict:
-    """One class-conditional batch through ``sample`` and the VQ decoder,
-    with every kernel count set to 0 just before and read just after."""
+                  head_sampler=None, kv_int8: bool = False) -> dict:
+    """One class-conditional batch through ``sample`` (kv_int8: the int8 KV
+    cache) and the VQ decoder, with every kernel count set to 0 just before
+    and read just after."""
     import numpy as np
     import torch
 
@@ -2710,7 +2743,7 @@ def _imagenet_run(bundle, n: int, cfg_scale: float, seed: int, steps: int,
                     num_sampling_steps=steps, cfg_scale=cfg_scale,
                     head_sampler=head_sampler or make_fused_sampler(
                         bundle.head, bundle.head_stacked),
-                    timing=timing)
+                    timing=timing, kv_int8=kv_int8)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     images = decode_uint8(bundle.ae, cfg, tokens)
@@ -2762,7 +2795,7 @@ def phase_imagenet_h1x(bundle, card) -> dict:
               "fused_mlp_block": head.depth_latent * (UNGUIDED_H1X_STEPS + 1) * steps},
              card)
     return {"guided": guided["counts"], "unguided": unguided["counts"],
-            "unguided_run": unguided}
+            "unguided_run": unguided, "guided_tokens": guided["tokens"]}
 
 
 def phase_imagenet_b16x(bundle, card) -> dict:
@@ -2823,7 +2856,144 @@ def phase_imagenet_b16x(bundle, card) -> dict:
                     lambda: _imagenet_run(bundle, IMAGENET_BATCH, cfg_scale, 2,
                                           n_steps))
     return {"guided": guided["counts"], "unguided": unguided["counts"],
-            "unguided_run": unguided}
+            "unguided_run": unguided, "guided_tokens": guided["tokens"]}
+
+
+# ---------------------------------------------------------------------------
+# Quantized ImageNet sampling: #3/#4's quant modes (the imagenet_int8 phase)
+# ---------------------------------------------------------------------------
+
+def _check_imagenet_quant_sampler(name, bundle, mode, dev, seed) -> dict:
+    """The whole sampler's round route in a quant mode at one ImageNet head
+    (``bundle.head_stacked`` quantized) and its guided path's rows: 1 step
+    (mean gap) and 4 steps (max gap) against the plain version,
+    IMAGENET_STEPS steps (sign
+    agreement, eager / device-only / no-PDL times, the plain version's time,
+    the bound by bytes of the quantized stack), launches a net call against
+    the formula, then each integer head GEMM product against its twin
+    (_check_quant_gemm with the round route's modes)."""
+    import torch
+
+    from bitdance_tpu_torch.ops.fused_head import (
+        fused_em_sample,
+        fused_em_sample_reference,
+        rounds_residual,
+    )
+
+    head, stacked = bundle.head, bundle.head_stacked
+    kw, inputs = imagenet_sampler_inputs(bundle, dev, seed)
+    kw["quant"] = mode
+    if not rounds_residual(stacked, kw["num_blocks"], head.attention):
+        raise SystemExit(f"imagenet_int8 {name} {mode}: the stack does not take the round "
+                         "route")
+    cfg = 4.0
+    with torch.no_grad():
+        args = inputs(1)
+        got = fused_em_sample(stacked, *args[:3], *args[3:], cfg, **kw)
+        want = fused_em_sample_reference(stacked, *args[:3], *args[3:], cfg, **kw)
+        gap = ((got - want).abs().mean() / want.abs().max()).item()
+        args = inputs(4)
+        got = fused_em_sample(stacked, *args[:3], *args[3:], cfg, **kw)
+        want = fused_em_sample_reference(stacked, *args[:3], *args[3:], cfg, **kw)
+        torch.cuda.synchronize()
+        err, rel = _errors(got, want)
+        args = inputs(IMAGENET_STEPS)
+        run_k = lambda: fused_em_sample(stacked, *args[:3], *args[3:], cfg, **kw)  # noqa: E731
+        run_p = lambda: fused_em_sample_reference(stacked, *args[:3], *args[3:],  # noqa: E731
+                                                  cfg, **kw)
+        xk, xp = run_k(), []
+        pms = cuda_time_ms(lambda: xp.append(run_p()), 1, warmup=0)
+        agree = (torch.sign(xk) == torch.sign(xp[0])).float().mean().item()
+        ms = cuda_time_ms(run_k, 3, warmup=1)
+        times = sampler_times(lambda pdl: fused_em_sample(stacked, *args[:3], *args[3:], cfg,
+                                                          _pdl=pdl, **kw))
+        per_net = _sampler_launches(lambda s: fused_em_sample(
+            stacked, args[0], args[1][:s], args[2][:s + 1], args[3], args[4], cfg, **kw))
+    want_net = sampler_net_launches(kw["num_blocks"], head.attention, mode)
+    bd = sampler_bound(stacked, args[0], args[1], args[2], attention=head.attention,
+                       groups=kw["groups"], window=head.parallel_num, quant=mode)
+    mats = ("w1", "w2") + (("wqkv", "wo") if head.attention else ())
+    wbytes = nbytes(*[stacked[k] for k in mats + tuple(m + "_s" for m in mats)])
+    fam = "TransEncoder" if head.attention else "MlpEncoder"
+    calls = IMAGENET_STEPS + 1
+    log("imagenet_int8", f"fused_em_sample {name} {mode} ({fam}, round route, C="
+        f"{head.ch_latent}, {head.depth_latent} blocks, R={2 * args[0].shape[0]}, block "
+        f"weights {wbytes / 1e6:.1f} MB): 1 step mean gap {gap:.3e} (bound "
+        f"{IMAGENET_QUANT_STEP_MEAN_GAP}); 4 steps max abs err {err:.3e}, rel {rel:.3e} "
+        f"(bound {IMAGENET_QUANT_SAMPLER_MAX_REL_ERR}); {IMAGENET_STEPS} steps: +-1 "
+        f"agreement {agree:.4f} (floor {SAMPLER_SIGN_AGREEMENT_FLOOR}), kernel {ms:.2f} ms "
+        f"({ms / calls:.4f} per net call; "
+        + ", ".join(f"{q} {v / calls:.4f}" for q, v in times.items())
+        + f"), plain {pms:.2f} ms, bound {bd['bound_ms']:.3f} ms ({bd['bound_by']}, "
+        f"{bd['bound_ms'] / calls:.4f} per net call); {per_net:g} launches per net call "
+        f"(captured; formula {want_net})")
+    if (not torch.isfinite(xk).all() or gap > IMAGENET_QUANT_STEP_MEAN_GAP
+            or rel > IMAGENET_QUANT_SAMPLER_MAX_REL_ERR or agree < SAMPLER_SIGN_AGREEMENT_FLOOR):
+        raise SystemExit(f"fused_em_sample {name} {mode}: 1-step gap {gap}, rel {rel}, "
+                         f"agreement {agree}")
+    if per_net != want_net:
+        raise SystemExit(f"fused_em_sample {name} {mode}: {per_net} launches per net call, "
+                         f"want {want_net}")
+    products = _check_quant_gemm(mode, stacked, 2 * args[0].shape[0], dev, seed + 100,
+                                 ROUND_QUANT_GEMM_PRODUCTS, "imagenet_int8", f"{name} ")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, **bd, "library_ms": None,
+            **times, "launches_per_net_call": per_net, "products": products,
+            "sign_agreement": agree, "step_mean_gap": gap}
+
+
+def phase_imagenet_int8(h1x, b16x, bf16_tokens: dict, card: str) -> dict:
+    """Quantized ImageNet sampling (ROADMAP A8) from the bf16 samplers' own
+    seeded weights (io/random_init.py::quantize_imagenet_sampler, the bf16
+    samplers kept): kernels #3/#4's quant modes against their plain version
+    (H-1x MlpEncoder at 64 rows and B-16x TransEncoder at 1024 rows, int8
+    and int4), then guided batches of IMAGENET_BATCH classes at full width
+    and depth with every count set to 0 before and read after: H-1x at cfg
+    4.55 with the W8A8 backbone, the int8 KV cache and the int8 head;
+    B-16x at cfg 6.1 with the int8 head and with the int4 head. Each batch
+    decodes to uint8 images; its tokens are compared with the bf16 batch of
+    the same seed (imagenet_h1x / imagenet_b16x)."""
+    import torch
+
+    from bitdance_tpu_torch.io.random_init import quantize_imagenet_sampler
+
+    dev = h1x.head.net.input_proj.weight.device
+    t0 = time.perf_counter()
+    out, launches = {}, {}
+    runs = (("h1x", h1x, "int8", True, 4.55), ("b16x", b16x, "int8", False, 6.1),
+            ("b16x", b16x, "int4", False, 6.1), ("h1x", h1x, "int4", False, None))
+    for i, (name, bundle, mode, backbone, cfg_scale) in enumerate(runs):
+        torch.cuda.synchronize()
+        tq = time.perf_counter()
+        q = quantize_imagenet_sampler(bundle, backbone=backbone,
+                                      head_quant=True if mode == "int8" else "int4")
+        torch.cuda.synchronize()
+        log("imagenet_int8", f"{name}: {mode} head stack"
+            + (" and W8A8 backbone" if backbone else "") + " from the bf16 sampler's "
+            f"weights in {time.perf_counter() - tq:.2f} s; "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        out[f"{name}_{mode}"] = _check_imagenet_quant_sampler(name, q, mode, dev, 40 + i)
+        if cfg_scale is None:                   # H-1x int4: the kernel checks only
+            continue
+        steps = q.cfg.num_tokens // q.cfg.parallel_num
+        r = _imagenet_run(q, IMAGENET_BATCH, cfg_scale, 0, IMAGENET_STEPS, kv_int8=backbone)
+        agree = (r["tokens"] == bf16_tokens[name]).float().mean().item()
+        what = (f"{IMAGENET_BATCH} images, cfg {cfg_scale} linear, {IMAGENET_STEPS} sampling "
+                f"steps, {steps} AR steps; {mode} head"
+                + (", W8A8 backbone, int8 KV cache" if backbone else ", bf16 backbone")
+                + f"; +-1 agreement with the bf16 batch of the same seed {agree:.4f}")
+        _log_run("imagenet_int8", what, r, {"fused_em_sample": steps, "fused_mlp_block": 0,
+                                            "fused_attn_block": 0}, card)
+        out[f"{name}_{mode}"].update(batch_s=r["s"], batch_timing=r["timing"],
+                                     peak_gib=r["peak_gib"], bf16_agreement=agree)
+        launches[f"{name}_{mode}"] = r["counts"]["fused_em_sample"]
+        del q, r
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("imagenet_int8", f"done in {time.perf_counter() - t0:.1f} s")
+    out["b16x_int4"]["shapes"] = {"h1x": {k: out["h1x_int4"][k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
+        "launches_per_net_call", "products")}}
+    return {"results": out, "launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -4603,6 +4773,12 @@ def main() -> int:
                                       "b16x": b.pop("unguided_run")}, card)
     results["fused_net"] = net["h1x_8"]
     launches["fused_diffnet_forward"] = net["launches"]
+    quant = phase_imagenet_int8(h1x, b16x, {"h1x": h.pop("guided_tokens"),
+                                            "b16x": b.pop("guided_tokens")}, card)
+    for key, r in quant["results"].items():
+        results[f"fused_em_sample_{key}"] = r
+    for key, n in quant["launches"].items():
+        launches[f"fused_em_sample_{key}"] = n
     launches.update({
         "fused_em_sample_mlp": h["guided"]["fused_em_sample"],
         "fused_em_sample_b16x": b["guided"]["fused_em_sample"],
@@ -4694,6 +4870,19 @@ def main() -> int:
                                  "bitdance_tpu/ops/attention.py:1013"),
         "fused_encode_tail": ("fused_encode_tail", "bitdance_tpu_torch/csrc/fused_encode.cu",
                               "bitdance_tpu/ops/fused_encode.py:83"),
+        # the quant modes of #3/#4 (the round route's quant_round_block):
+        # H-1x's int8 stack (88.9 MB of block weights) goes to the JAX
+        # package's per-block #3, B-16x's int8 and int4 and H-1x's int4
+        # stacks (under its 48 MB resident limit) to #4
+        "fused_em_sample_h1x_int8": ("fused_em_sample_h1x_int8",
+                                     "bitdance_tpu_torch/csrc/fused_head.cu",
+                                     "bitdance_tpu/ops/fused_head.py:1234"),
+        "fused_em_sample_b16x_int8": ("fused_em_sample_b16x_int8",
+                                      "bitdance_tpu_torch/csrc/fused_head.cu",
+                                      "bitdance_tpu/ops/fused_head.py:1294"),
+        "fused_em_sample_b16x_int4": ("fused_em_sample_b16x_int4",
+                                      "bitdance_tpu_torch/csrc/fused_head.cu",
+                                      "bitdance_tpu/ops/fused_head.py:1294"),
         # the H-1x unguided rows (8 x C 1280); the B-16x shape's numbers are
         # in the fused_net phase's log
         "fused_diffnet_forward": ("fused_net", "bitdance_tpu_torch/csrc/fused_net.cu",
@@ -4719,7 +4908,8 @@ def main() -> int:
                                              "splits", "no_pdl_ms", "no_pdl_device_ms",
                                              "pdl_gemms_ms", "pdl_gemms_device_ms",
                                              "launches_per_net_call", "launches_per_call",
-                                             "products", "shapes")
+                                             "products", "shapes", "sign_agreement",
+                                             "batch_s", "peak_gib", "bf16_agreement")
                            if k in r}})
     log("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))

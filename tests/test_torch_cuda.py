@@ -642,11 +642,10 @@ def test_decode_attention_shared_scratch(dev):
     assert torch.equal(captured, want_large)
 
 
-@pytest.mark.parametrize("quant", ["int8", "int4"])
-def test_sampler_kernel_quant(dev, quant):
-    """K3: the sampler's W8A8 / W4A8 mode vs its plain version, small head
-    (C 256, H 384): the same integer products up to rounding flips of the
-    int8 activations."""
+def _quant_sampler_case(dev, quant, ch_latent, parallel_num, attention=True, head_dim=128,
+                        seed=5):
+    """A random quantized head's sampler at one image's rows (2 parallel_num
+    rows in 2 windows), 4 steps: (kernel, plain version, the stack)."""
     from bitdance_tpu_torch.io.random_init import init_head
     from bitdance_tpu_torch.ops.fused_head import (
         em_precompute,
@@ -654,38 +653,71 @@ def test_sampler_kernel_quant(dev, quant):
         fused_em_sample_reference,
     )
 
-    g = torch.Generator(device=dev).manual_seed(5)
-    head = init_head(dict(ch_target=32, ch_cond=256, ch_latent=256,
-                          depth_latent=4, depth_adanln=2, parallel_num=16,
+    g = torch.Generator(device=dev).manual_seed(seed)
+    head = init_head(dict(ch_target=32, ch_cond=256, ch_latent=ch_latent,
+                          depth_latent=2, depth_adanln=2, parallel_num=parallel_num,
+                          attention=attention, use_swiglu=attention, attn_head_dim=head_dim,
                           sample_weight_quant=True if quant == "int8" else "int4"),
                      dev, torch.bfloat16, g)
     s = head._stack_for_sampler()
     assert s["w1"].dtype == torch.int8 and "w1_s" in s
-    cond = torch.randn((4, 16, 256), generator=g, device=dev)
-    c_emb = cond.reshape(64, 256) @ s["cond_w"].float().t() + s["cond_b"]
+    rows = 2 * parallel_num
+    cond = torch.randn((rows, 256), generator=g, device=dev)
+    c_emb = cond @ s["cond_w"].float().t() + s["cond_b"]
     t_all = torch.linspace(0.0, 0.95, 5)
     dt_all = torch.cat([t_all[1:] - t_all[:-1], torch.zeros(1)])
     mods = em_precompute(s, c_emb, t_all)
-    x0 = torch.randn((32, 32), generator=g, device=dev)
-    noise = torch.randn((4, 32, 32), generator=g, device=dev)
-    kw = dict(num_blocks=4, num_ada=2, n_head=2, groups=4, quant=quant)
+    x0 = torch.randn((rows // 2, 32), generator=g, device=dev)
+    noise = torch.randn((4, rows // 2, 32), generator=g, device=dev)
+    kw = dict(num_blocks=2, num_ada=2, n_head=ch_latent // head_dim, groups=2 if attention else 1,
+              attention=attention, bounded=attention, quant=quant)
     n = fused_em_sample.launches
     with torch.no_grad():
         got = fused_em_sample(s, x0, noise, mods, t_all, dt_all, 3.0, **kw)
-        want = fused_em_sample_reference(s, x0, noise, mods, t_all, dt_all,
-                                         3.0, **kw)
+        want = fused_em_sample_reference(s, x0, noise, mods, t_all, dt_all, 3.0, **kw)
     torch.cuda.synchronize()
     assert fused_em_sample.launches == n + 1
+    return got, want, s
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_sampler_kernel_quant(dev, quant):
+    """K3: kernel #2's W8A8 / W4A8 mode vs its plain version on a head whose
+    quantized stack the router sends to #2 (C 3072, H 4608, 2 blocks: 80 MB
+    a block in int8, 40 MB in int4; smaller quantized heads take the round
+    route since R3): the same integer products up to rounding flips of the
+    int8 activations."""
+    from bitdance_tpu_torch.ops.fused_head import rounds_residual
+
+    got, want, s = _quant_sampler_case(dev, quant, 3072, 64)
+    assert not rounds_residual(s, 2, True)
     rel = (got - want).abs().max() / want.abs().max()
-    assert rel.item() < 5e-2
+    assert torch.isfinite(got).all() and rel.item() < 5e-2
 
 
-@pytest.mark.parametrize("mode", ["bias", "gated_f32", "swiglu_q"])
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+@pytest.mark.parametrize("family", ["mlp", "trans"])
+def test_sampler_kernel_quant_round_route(dev, family, quant):
+    """The round route's quant modes (#3/#4 with a quantized stack, R3): a
+    small MlpEncoder (C 256, 64 rows) and TransEncoder (C 256, head dim 64,
+    2 windows of 16) vs the plain version, the bf16 samplers' bound."""
+    from bitdance_tpu_torch.ops.fused_head import rounds_residual
+
+    attention = family == "trans"
+    got, want, s = _quant_sampler_case(dev, quant, 256, 16 if attention else 32, attention,
+                                       head_dim=64, seed=6)
+    assert rounds_residual(s, 2, attention)
+    rel = (got - want).abs().max() / want.abs().max()
+    assert torch.isfinite(got).all() and rel.item() < 5e-2
+
+
+@pytest.mark.parametrize("mode", ["bias", "gated_f32", "swiglu_q", "gated", "swiglu_round"])
 @pytest.mark.parametrize("quant", ["int8", "int4"])
 def test_head_gemm_s8_kernel(dev, quant, mode):
     """The quant modes' integer products on the head GEMM vs their plain
     twin, bit for bit, at 1, 2 and 4 splits and bm 64 / 128 (64 and 100
-    rows; K 1024 and, int4, a half last stage at K 384)."""
+    rows; K 1024 and, int4, a half last stage at K 384): kernel #2's modes
+    and the round route's ("gated" on a residual of bf16 values)."""
     from bitdance_tpu_torch.ops.fused_head import (
         head_gemm_plan,
         head_gemm_s8,
@@ -702,9 +734,11 @@ def test_head_gemm_s8_kernel(dev, quant, mode):
         qt = quantize_linear_int4(wf) if quant == "int4" else quantize_linear(wf)
         bias = (0.1 * torch.randn(n, generator=g, device=dev)).bfloat16()
         kw = {}
-        if mode == "gated_f32":
+        if mode.startswith("gated"):
             kw = {"resid": torch.randn((rows, n), generator=g, device=dev),
                   "gate": torch.randn((rows, n), generator=g, device=dev).bfloat16()}
+            if mode == "gated":
+                kw["resid"] = kw["resid"].bfloat16().float()
         plan = head_gemm_plan(rows, n, k, quant=quant)
         n0 = head_gemm_s8.launches
         for splits in (1, 2, 4):

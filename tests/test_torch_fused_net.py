@@ -245,17 +245,20 @@ def test_launch_count_formula():
 # C3: the ImageNet heads' whole sampler rounds its residual, as kernel #3
 # ---------------------------------------------------------------------------
 
-def _meta_stack(**head):
+def _meta_stack(quant=False, **head):
     with torch.device("meta"):
         h = tdh.DiffHead(**head, dtype=torch.bfloat16)
     return tfh.stack_diffnet_params(h.net, head["depth_latent"],
-                                    dtype=torch.bfloat16)
+                                    dtype=torch.bfloat16, quant=quant)
 
 
 def test_rounding_rule_follows_the_jax_router():
     """H-1x (MlpEncoder C 1280, 12 blocks, 177 MB) and B-16x (C 768, 6
-    blocks, 60 MB) go to kernel #3; the 14B head (C 5120, 2.7 GB) to #2,
-    and so does any quantized stack."""
+    blocks, 60 MB) go to kernel #3; the 14B head (C 5120, 2.7 GB) to #2.
+    Quantized (R3), the router counts the int8 / packed int4 matrices and
+    their fp32 scales: H-1x in int8 (88.9 MB) goes to #3, H-1x in int4 and
+    B-16x in both under 48 MB to the resident #4, which rounds too; the 14B
+    head stays on #2."""
     h1x = _meta_stack(ch_target=16, ch_cond=1280, ch_latent=1280,
                       depth_latent=12, depth_adanln=3, parallel_num=1,
                       attention=False)
@@ -269,7 +272,23 @@ def test_rounding_rule_follows_the_jax_router():
     assert tfh.rounds_residual(h1x, 12, False)
     assert tfh.rounds_residual(b16x, 6, True)
     assert not tfh.rounds_residual(big, 6, True)
-    assert not tfh.rounds_residual(dict(big, w1_s=None), 6, True)
+    geo = {"h1x": (dict(ch_target=16, ch_cond=1280, ch_latent=1280, depth_latent=12,
+                        depth_adanln=3, parallel_num=1, attention=False), 12, False),
+           "b16x": (dict(ch_target=16, ch_cond=768, ch_latent=768, depth_latent=6,
+                         depth_adanln=2, parallel_num=16, attn_head_dim=64), 6, True),
+           "14b": (dict(ch_target=32, ch_cond=5120, ch_latent=5120, depth_latent=6,
+                        depth_adanln=2, parallel_num=64), 6, True)}
+    for quant in (True, "int4"):
+        for name, (head, blocks, attention) in geo.items():
+            st = _meta_stack(quant, **head)
+            wb = tfh.block_weight_bytes(st, attention)
+            assert st["w1_s"].dtype == torch.float32 and wb > 0
+            if name == "14b":
+                assert not tfh.rounds_residual(st, blocks, attention), (quant, wb)
+            else:
+                assert tfh.rounds_residual(st, blocks, attention), (name, quant)
+                resident = not (name == "h1x" and quant is True)
+                assert (wb <= 48 * 1024 * 1024) == resident, (name, quant, wb)
 
 
 @pytest.fixture(scope="module", params=["mlp", "trans"])

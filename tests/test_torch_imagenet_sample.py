@@ -191,7 +191,8 @@ def sampler_setup(request):
               attention=attention, bounded=False)
     return dict(attention=attention, x0=x0, noise=noise, t_all=t_all,
                 dt_all=dt_all, j_stacked=j_stacked, j_cemb=j_cemb, j_mods=j_mods,
-                t_stacked=t_stacked, t_cemb=t_cemb, t_mods=t_mods, kw=kw)
+                t_stacked=t_stacked, t_cemb=t_cemb, t_mods=t_mods, kw=kw,
+                params=params, tnet=tnet)
 
 
 def test_stack_matches_jax_for_both_families(sampler_setup):
@@ -209,6 +210,26 @@ def test_stack_matches_jax_for_both_families(sampler_setup):
             jv = jv.transpose(0, 2, 1)
         np.testing.assert_array_equal(s["t_stacked"][k].numpy(), jv, err_msg=k)
     np.testing.assert_allclose(s["t_mods"].numpy(), np.asarray(s["j_mods"]), **TOL)
+    # the quantized stacks (int8, packed int4), bf16 elsewhere: every key
+    # bit for bit (matrices transposed, a packed byte keeping its pair)
+    for quant in (True, "int4"):
+        jq = jfh.stack_diffnet_params(s["params"], 4, s["attention"], dtype=jnp.bfloat16,
+                                      quant=quant)
+        tq = tfh.stack_diffnet_params(s["tnet"], 4, dtype=torch.bfloat16, quant=quant)
+        mats = ("w1", "w2") + (("wqkv", "wo") if s["attention"] else ())
+        assert {k for k in tq if k.endswith("_s")} == {m + "_s" for m in mats + ("modcat_w",)}
+        for k in want_keys | {m + "_s" for m in mats} | {"modcat_w", "modcat_w_s"}:
+            jv, tv = np.asarray(jq[k]), tq[k]
+            if k.endswith("_s") or k in ("b1", "b2", "bqkv", "bo"):
+                jv = jv.reshape(tv.shape)
+            elif k == "modcat_w":
+                jv = jv.T
+            elif k not in ("n1", "n2"):
+                jv = jv.transpose(0, 2, 1)
+            assert tv.dtype == (torch.int8 if k in mats + ("modcat_w",) else
+                                torch.float32 if k.endswith("_s") else torch.bfloat16), k
+            np.testing.assert_array_equal(tv.float().numpy(), jv.astype(np.float32),
+                                          err_msg=f"{quant} {k}")
 
 
 def _port_sample(s, **kw):
