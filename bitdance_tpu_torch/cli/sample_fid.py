@@ -56,7 +56,7 @@ def main(argv=None) -> int:
 
     device = require_device(args.device)
     full_fp32()
-    rank, world = init_distributed()
+    rank, world = init_distributed(device)
     cfg = IMAGENET_MODELS[args.model](resolution=args.image_size,
                                       latent_dim=args.latent_dim,
                                       parallel_num=args.parallel_num)

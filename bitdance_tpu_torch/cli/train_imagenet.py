@@ -12,7 +12,12 @@ cosine learning rate, aug-ratio decay, a checkpoint every
 ``--ckpt-every-epochs`` epochs and at the end, and auto-resume from the
 latest checkpoint at its (epoch, batch). Each step draws from a generator
 seeded by (global seed, step), so a resumed run equals the straight run.
-One process on one device (``--device``, the card by default).
+The step is FSDP-sharded over a (replica, fsdp) mesh of the launcher's
+processes (``--num-replicate`` replicas, the rest fsdp; one process without
+a launcher), each process loading its own share of the batch, on the card
+by default (``--device``):
+
+    torchrun --nproc_per_node 8 -m bitdance_tpu_torch.cli.train_imagenet ...
 """
 
 from __future__ import annotations
@@ -88,12 +93,13 @@ def main(argv=None, stats: dict | None = None) -> int:
         linear_decay_ratio,
     )
     from bitdance_tpu_torch.models.imagenet_ar import IMAGENET_MODELS
+    from bitdance_tpu_torch.parallel.mesh import create_mesh
     from bitdance_tpu_torch.train.checkpoints import CheckpointManager, step_seed
     from bitdance_tpu_torch.train.imagenet_train import (
         ImageNetTrainConfig,
         encode_batch,
         init_train_state,
-        train_step,
+        make_sharded_train_step,
     )
     from bitdance_tpu_torch.utils.fs import init_distributed
     from bitdance_tpu_torch.utils.logging import (
@@ -107,10 +113,7 @@ def main(argv=None, stats: dict | None = None) -> int:
 
     device = require_device(args.device)
     full_fp32()
-    rank, world = init_distributed()
-    if args.num_replicate != 1:
-        raise NotImplementedError("--num-replicate > 1: the port trains on one "
-                                  "device (ROADMAP A11)")
+    rank, world = init_distributed(device)
     stats = stats if stats is not None else {}
     stats.update(data_seconds=[], step_seconds=[], save_seconds=[], ckpt_bytes=[])
     logger = create_logger(args.results_dir, rank)
@@ -135,7 +138,10 @@ def main(argv=None, stats: dict | None = None) -> int:
     ae = imagenet_tokenizer(args.latent_dim, args.trained_vae, device, encoder=True)
     state = init_train_state(cfg, tcfg, device, generator=torch.Generator(
         device=device).manual_seed(args.global_seed))
-    logger.info(f"train state initialized on {device}")
+    mesh = create_mesh(replica=args.num_replicate, device_type=device.type)
+    step_fn, state = make_sharded_train_step(mesh, state, cfg, tcfg)
+    logger.info(f"train state initialized on {device}; mesh "
+                f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}, state sharded")
 
     ckpt = CheckpointManager(os.path.join(args.results_dir, "checkpoints"))
     start_epoch, start_batch = 0, 0
@@ -191,10 +197,8 @@ def main(argv=None, stats: dict | None = None) -> int:
             with timer("encode"):
                 tokens = encode_batch(ae, cfg, torch.from_numpy(images).to(device))
             with timer("train_step"):
-                metrics = train_step(state, tokens,
-                                     torch.from_numpy(labels).to(device).long(), gen,
-                                     ema_decay=tcfg.ema_decay,
-                                     mixed_precision=tcfg.mixed_precision)
+                metrics = step_fn(state, tokens,
+                                  torch.from_numpy(labels).to(device).long(), gen)
             profiler.step()
             acc.update(loss=metrics["loss"], grad_norm=metrics["grad_norm"])
             global_step += 1

@@ -11,9 +11,14 @@ yaml, a checkpoint every ``save_every`` steps and at the end with the next
 data file as its data status, keep-last-N rotation, auto-resume, and a
 validation loss every ``validate_every`` steps on ``--val-batch``. Each step
 draws from a seed of (global seed, step), so a resumed run equals the
-straight run. One process on one device (``--device``, the card by
-default): the yaml's FSDP mesh must be (1, 1) until the port's parallelism
-lands (ROADMAP A11).
+straight run. The step is FSDP-sharded over a (replica, fsdp) mesh of the
+launcher's processes, the yaml's (num_replicate, num_shard) when they
+multiply to the world size, else (1, world) as the JAX script does; each
+data shard takes its own packed sequence per microbatch. On the card by
+default (``--device``); one process without a launcher, or:
+
+    torchrun --nproc_per_node 8 -m bitdance_tpu_torch.cli.train_mllm \\
+        --config train/configs/bitdance_14b_64x.yaml --data-dir /data/packed
 """
 
 from __future__ import annotations
@@ -61,8 +66,9 @@ def main(argv=None, stats: dict | None = None) -> int:
     from bitdance_tpu_torch.data.packing import stack_packed_batches
     from bitdance_tpu_torch.io.random_init import build_random_mllm_train_state
     from bitdance_tpu_torch.models.mllm import PackedBatch
+    from bitdance_tpu_torch.parallel.mesh import create_mesh, data_index, data_size
     from bitdance_tpu_torch.train.checkpoints import CheckpointManager, step_seed
-    from bitdance_tpu_torch.train.mllm_train import eval_step, train_step
+    from bitdance_tpu_torch.train.mllm_train import eval_step, make_sharded_train_step
     from bitdance_tpu_torch.utils.fs import init_distributed
     from bitdance_tpu_torch.utils.logging import (
         MetricAccumulator,
@@ -74,19 +80,22 @@ def main(argv=None, stats: dict | None = None) -> int:
 
     device = require_device(args.device)
     full_fp32()
-    rank, _ = init_distributed()
+    rank, world = init_distributed(device)
     ycfg = load_yaml(args.config)
-    replica, shard = mesh_shape_from_yaml(ycfg)
-    if replica * shard != 1:
-        raise NotImplementedError(
-            f"mesh ({replica}, {shard}) in {args.config}: the port trains on one "
-            "device; set num_replicate and num_shard to 1 (ROADMAP A11)")
     cfg = mllm_config_from_yaml(ycfg, args.vocab_size)
     tcfg = mllm_train_config_from_yaml(ycfg)
     stats = stats if stats is not None else {}
     stats.update(step_seconds=[], save_seconds=[])
     logger = create_logger(args.results_dir, rank)
     writer = ScalarWriter(os.path.join(args.results_dir, "tb"), rank)
+    replica, shard = mesh_shape_from_yaml(ycfg)
+    if replica * shard != world:
+        logger.info(f"the yaml's mesh ({replica}, {shard}) does not fit {world} "
+                    f"processes; overriding it to (1, {world})")
+        replica, shard = 1, world
+    mesh = create_mesh(replica=replica, fsdp=shard, device_type=device.type)
+    stats["mesh"] = (replica, shard)
+    logger.info(f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
 
     global_seed = int(ycfg.training.get("global_seed", 0))
     state = build_random_mllm_train_state(cfg, tcfg, device, dtype=torch.bfloat16,
@@ -100,6 +109,7 @@ def main(argv=None, stats: dict | None = None) -> int:
             for name, p in state.model.named_parameters():
                 state.ema[name].copy_(p.detach())
         logger.info(f"initialized LLM from {args.hf_llm}")
+    step_fn, state = make_sharded_train_step(mesh, state, cfg, tcfg)
 
     ckpt = CheckpointManager(os.path.join(args.results_dir, "checkpoints"))
     start_file = 0
@@ -125,13 +135,16 @@ def main(argv=None, stats: dict | None = None) -> int:
             val_batch = PackedBatch.from_numpy(dict(raw), device)
     total_steps = (args.max_steps if args.max_steps > 0
                    else int(ycfg.training.get("total_steps", 10**6)))
-    seqs_per_step = max(tcfg.grad_accum, 1)
+    # one distinct packed sequence per data shard per microbatch (the JAX
+    # script's HYBRID_SHARD layout); this process loads its own
+    dp, index = data_size(mesh), data_index(mesh)
+    seqs_per_step = dp * max(tcfg.grad_accum, 1)
 
     def load_step_batch(fi: int) -> PackedBatch:
         raws = []
-        for j in range(seqs_per_step):
+        for a in range(max(tcfg.grad_accum, 1)):
             with np.load(os.path.join(args.data_dir,
-                                      files[(fi + j) % len(files)])) as raw:
+                                      files[(fi + a * dp + index) % len(files)])) as raw:
                 raws.append(dict(raw))
         return PackedBatch.from_numpy(
             stack_packed_batches(raws, grad_accum=tcfg.grad_accum), device)
@@ -150,8 +163,7 @@ def main(argv=None, stats: dict | None = None) -> int:
         with timer("batch"):
             batch = load_step_batch(fi)
         with timer("train_step"):
-            metrics = train_step(state, batch, step_seed(global_seed, global_step),
-                                 cfg=cfg, tcfg=tcfg)
+            metrics = step_fn(state, batch, step_seed(global_seed, global_step))
         acc.update(loss=metrics["loss"], grad_norm=metrics["grad_norm"],
                    ce_loss_text=metrics["ce_loss_text"],
                    ce_loss_vision=metrics["ce_loss_vision"])

@@ -68,7 +68,8 @@ def sample_fid(model, head, cfg, ae, sample_dir: str,
     """Generate this rank's share of ``num_fid_samples`` class-balanced
     samples with ``model`` (an ImageNetAR) and ``head`` on their device,
     decode them with ``ae`` and save {g:06d}.png; rank 0 then packs the
-    npz and returns its path. ``head_stacked`` is the head's sampler stack
+    npz, after a barrier of the process group when ``world`` > 1, and
+    returns its path. ``head_stacked`` is the head's sampler stack
     (stacked here when not given)."""
     from PIL import Image
 
@@ -89,6 +90,10 @@ def sample_fid(model, head, cfg, ae, sample_dir: str,
                 if g < num_fid_samples:
                     Image.fromarray(images[j]).save(
                         os.path.join(sample_dir, f"{g:06d}.png"))
+    if world > 1:
+        import torch.distributed as dist
+
+        dist.barrier()                      # every rank's PNGs are written
     if pack_npz and rank == 0:
         return create_npz_from_sample_folder(sample_dir, num_fid_samples)
     return None

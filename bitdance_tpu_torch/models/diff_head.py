@@ -284,7 +284,8 @@ class DiffHead(nn.Module):
         return self.net.bounded
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                draw_rows: tuple[torch.Tensor, int] | None = None) -> torch.Tensor:
         """Flow-matching training loss. x: ±1 targets [N, C] (MlpEncoder) or
         [N, P, C] (TransEncoder, N groups of P window tokens); cond: backbone
         states of the same leading shape. t (one per row of N) is
@@ -292,9 +293,11 @@ class DiffHead(nn.Module):
         z = (1-t) e + t x; the net predicts x, the loss is the MSE of the
         implied velocities with 1 - t clamped at 0.05. Draws t then e from
         ``generator``. Scalar, or with ``per_token_loss`` and 3-D x the
-        per-token MSE [N, P] (diff_head.py:379-410)."""
+        per-token MSE [N, P] (diff_head.py:379-410). ``draw_rows`` (rows [N],
+        n) draws t and e for n rows and keeps these N (a data-parallel rank's
+        share of a global batch's draws)."""
         xf = x.float()
-        n = x.shape[0]
+        rows, n = draw_rows if draw_rows is not None else (None, x.shape[0])
         if self.time_schedule == "logit_normal":
             t = torch.sigmoid(torch.randn((n,), generator=generator, device=x.device)
                               * self.P_std + self.P_mean)
@@ -304,7 +307,9 @@ class DiffHead(nn.Module):
             raise NotImplementedError(self.time_schedule)
         if self.time_shift != 1.0:
             t = time_shift(t, self.time_shift)
-        e = torch.randn(xf.shape, generator=generator, device=x.device)
+        e = torch.randn((n,) + xf.shape[1:], generator=generator, device=x.device)
+        if rows is not None:
+            t, e = t[rows], e[rows]
         ti = t.reshape((-1,) + (1,) * (xf.ndim - 1))
         z = (1.0 - ti) * e + ti * xf
         denom = (1.0 - ti).clamp_min(0.05)

@@ -1,8 +1,8 @@
 """ImageNet class-conditional AR models: training forward and KV-cached
 sampling (port of bitdance_tpu/models/imagenet_ar.py: configs, make_head,
-proj_in, freqs_cis_table, train_ids, _attn_full, ar_backbone, forward_train,
-quantize_ar_params, _init_cache, _quant_rows, _forward_cached, sample,
-grid_to_tokens / tokens_to_grid).
+proj_in, freqs_cis_table, train_ids, _attn_full (Layer.forward), ar_backbone,
+forward_train, quantize_ar_params, _init_cache, _quant_rows, _forward_cached,
+sample, grid_to_tokens / tokens_to_grid).
 
 Llama-style pre-RMSNorm blocks with fused QKV, paired 2D RoPE over patch
 centres, SwiGLU FFN, class-embedding prefix tokens, learned query tokens for
@@ -188,10 +188,33 @@ class Layer(nn.Module):
     def __init__(self, cfg: ImageNetARConfig, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
+        self.n_head = cfg.n_head
         self.attention = Attention(cfg.dim, **kw)
         self.attention_norm = _Weight(cfg.dim, **kw)
         self.ffn_norm = _Weight(cfg.dim, **kw)
         self.feed_forward = FeedForward(cfg.dim, cfg.ffn_hidden, **kw)
+
+    def forward(self, x: torch.Tensor, freqs: torch.Tensor, block_ids: torch.Tensor,
+                doc_ids: torch.Tensor, implementation: str = "auto") -> torch.Tensor:
+        """One transformer layer over the full sequence x [B, S, dim] (the
+        JAX package's _attn_full); called as a module so that FSDP's hooks
+        gather its weights."""
+        b, s, dim = x.shape
+        nh = self.n_head
+        hd = dim // nh
+        h = rms_norm(x, self.attention_norm.weight)
+        q, k, v = self.attention.wqkv(h).split(dim, dim=-1)
+        q = apply_rope_paired(q.reshape(b, s, nh, hd), freqs)
+        k = apply_rope_paired(k.reshape(b, s, nh, hd), freqs)
+        v = v.reshape(b, s, nh, hd)
+        bids = block_ids[None].expand(b, s)
+        dids = doc_ids[None].expand(b, s)
+        attn = masked_attention(q, k, v, bids, dids, bids, dids,
+                                implementation=implementation)
+        x = x + self.attention.wo(attn.reshape(b, s, -1))
+        h = rms_norm(x, self.ffn_norm.weight)
+        h1, h2 = self.feed_forward.w1(h).chunk(2, dim=-1)
+        return x + self.feed_forward.w2(F.silu(h1) * h2)
 
 
 class SwiGLUProjIn(nn.Module):
@@ -319,61 +342,47 @@ def train_ids(cfg: ImageNetARConfig, device=None) -> tuple[torch.Tensor, torch.T
     return block.to(device), torch.zeros((total,), dtype=torch.int32, device=device)
 
 
-def _attn_full(cfg: ImageNetARConfig, layer: Layer, x: torch.Tensor,
-               freqs: torch.Tensor, block_ids: torch.Tensor,
-               doc_ids: torch.Tensor, implementation: str = "auto") -> torch.Tensor:
-    """One transformer layer over the full sequence."""
-    b, s, _ = x.shape
-    nh, hd = cfg.n_head, cfg.head_dim
-    h = rms_norm(x, layer.attention_norm.weight)
-    q, k, v = layer.attention.wqkv(h).split(cfg.dim, dim=-1)
-    q = apply_rope_paired(q.reshape(b, s, nh, hd), freqs)
-    k = apply_rope_paired(k.reshape(b, s, nh, hd), freqs)
-    v = v.reshape(b, s, nh, hd)
-    bids = block_ids[None].expand(b, s)
-    dids = doc_ids[None].expand(b, s)
-    attn = masked_attention(q, k, v, bids, dids, bids, dids,
-                            implementation=implementation)
-    x = x + layer.attention.wo(attn.reshape(b, s, -1))
-    h = rms_norm(x, layer.ffn_norm.weight)
-    h1, h2 = layer.feed_forward.w1(h).chunk(2, dim=-1)
-    return x + layer.feed_forward.w2(F.silu(h1) * h2)
-
-
 def ar_backbone(model: ImageNetAR, cfg: ImageNetARConfig, x: torch.Tensor,
                 freqs: torch.Tensor, block_ids: torch.Tensor,
                 doc_ids: torch.Tensor, remat: bool = False,
                 implementation: str = "auto") -> torch.Tensor:
     """All layers; remat recomputes each layer in the backward
     (activation checkpointing, as jax.checkpoint does)."""
+    args = (freqs, block_ids, doc_ids, implementation)
     for layer in model.layers:
         if remat:
-            x = checkpoint(_attn_full, cfg, layer, x, freqs, block_ids, doc_ids,
-                           implementation, use_reentrant=False)
+            x = checkpoint(layer, x, *args, use_reentrant=False)
         else:
-            x = _attn_full(cfg, layer, x, freqs, block_ids, doc_ids, implementation)
+            x = layer(x, *args)
     return x
 
 
 def forward_train(model: ImageNetAR, head: DiffHead, cfg: ImageNetARConfig,
                   latent_tokens: torch.Tensor, class_id: torch.Tensor,
                   generator: torch.Generator | None = None, train: bool = True,
-                  implementation: str = "auto") -> torch.Tensor:
+                  implementation: str = "auto",
+                  batch_rows: tuple[int, int] | None = None) -> torch.Tensor:
     """Scalar training loss. latent_tokens: [B, num_tokens, token_dim] ±1,
     raster order (ps-raster in parallel mode); class_id: [B] int.
 
     Draws from ``generator``: the bit-flip uniforms (perturb_rate > 0), the
-    class-dropout uniforms, then the head's t and noise."""
+    class-dropout uniforms, then the head's t and noise. ``batch_rows``
+    (first, global batch) says that these B rows are rows [first, first + B)
+    of a global batch: every draw is made at the global batch's shape and
+    these rows keep theirs, so a data-parallel rank computes what one
+    process computes on the whole batch."""
     b = latent_tokens.shape[0]
     dev = latent_tokens.device
+    first, n_global = batch_rows if batch_rows is not None else (0, b)
     x_in = latent_tokens
     if train and cfg.perturb_rate > 0:
-        x_in = flip_bits_uniform_prob(x_in, cfg.perturb_rate, generator)
+        x_in = flip_bits_uniform_prob(x_in, cfg.perturb_rate, generator,
+                                      batch_rows=batch_rows)
     x = proj_in(model, x_in[:, : -cfg.parallel_num, :])
     if train and cfg.class_dropout_prob > 0:
-        drop = torch.rand((b,), generator=generator, device=dev) < cfg.class_dropout_prob
-        class_id = torch.where(drop, torch.full_like(class_id, cfg.num_classes),
-                               class_id)
+        u = torch.rand((n_global,), generator=generator, device=dev)[first:first + b]
+        class_id = torch.where(u < cfg.class_dropout_prob,
+                               torch.full_like(class_id, cfg.num_classes), class_id)
     c = model.cls_embedding(class_id).reshape(b, cfg.cls_token_num, cfg.dim)
     parts = [c]
     if cfg.parallel_num > 1:
@@ -398,7 +407,15 @@ def forward_train(model: ImageNetAR, head: DiffHead, cfg: ImageNetARConfig,
         x = x.reshape(-1, cfg.dim)
         target = target.reshape(-1, cfg.token_dim)
         reps = (cfg.diff_batch_mul, 1)
-    return head(target.repeat(*reps), x.repeat(*reps), generator)
+    if batch_rows is None:
+        return head(target.repeat(*reps), x.repeat(*reps), generator)
+    # the head's rows are diff_batch_mul copies of [image, token]: copy k of
+    # image i, token j is row (k * n_global + i) * per + j globally
+    per = x.shape[0] // b
+    copies = torch.arange(cfg.diff_batch_mul, device=dev)[:, None] * (n_global * per)
+    idx = (copies + first * per + torch.arange(b * per, device=dev)[None]).reshape(-1)
+    return head(target.repeat(*reps), x.repeat(*reps), generator,
+                draw_rows=(idx, cfg.diff_batch_mul * n_global * per))
 
 
 def tokens_to_grid(cfg: ImageNetARConfig, tokens: torch.Tensor) -> torch.Tensor:

@@ -132,6 +132,13 @@ class MLLM(nn.Module):
                                       device=device, dtype=dtype)
         self.head = make_head(cfg, device=device, dtype=dtype)
 
+    def forward(self, batch: "PackedBatch", seed: int, train: bool = True,
+                seq_offset: int = 0, implementation: str = "auto") -> dict:
+        """:func:`mllm_forward_train_batched` on this model, called as a
+        module so that FSDP's hooks gather the root's weights."""
+        return mllm_forward_train_batched(self, self.cfg, batch, seed, train,
+                                          seq_offset, implementation)
+
 
 def seq_generator(seed: int, index: int, stream: int, device) -> torch.Generator:
     """The generator of one sequence's draws: stream 0 the perturbation,

@@ -110,12 +110,36 @@ class Qwen3MLP(nn.Module):
 class Qwen3DecoderLayer(nn.Module):
     def __init__(self, cfg: Qwen3Config, device=None, dtype=None):
         super().__init__()
+        self.cfg = cfg
         self.self_attn = Qwen3Attention(cfg, device, dtype)
         self.mlp = Qwen3MLP(cfg, device, dtype)
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
                                        device, dtype)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size,
                                                 cfg.rms_norm_eps, device, dtype)
+
+    def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                block_ids: torch.Tensor, doc_ids: torch.Tensor,
+                attn_impl: str = "auto", plan=None) -> torch.Tensor:
+        """One layer of the uncached forward (:func:`qwen3_forward`) over
+        x [B, S, D] under the (block, doc) ids; called as a module so that
+        FSDP's hooks gather its weights."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        hq, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        eps = cfg.rms_norm_eps
+        at = self.self_attn
+        h = rms_norm(x, self.input_layernorm.weight, eps)
+        q = rms_norm(at.q_proj(h).view(b, s, hq, hd), at.q_norm.weight, eps)
+        k = rms_norm(at.k_proj(h).view(b, s, hkv, hd), at.k_norm.weight, eps)
+        v = at.v_proj(h).view(b, s, hkv, hd)
+        q = apply_rope_half(q, cos, sin)
+        k = apply_rope_half(k, cos, sin)
+        attn = masked_attention(q, k, v, block_ids, doc_ids, block_ids, doc_ids,
+                                implementation=attn_impl, plan=plan)
+        x = x + at.o_proj(attn.reshape(b, s, hq * hd))
+        h = rms_norm(x, self.post_attention_layernorm.weight, eps)
+        return x + self.mlp(h)
 
 
 class Qwen3Body(nn.Module):
@@ -369,9 +393,7 @@ def qwen3_forward(model: Qwen3Model, embeds: torch.Tensor,
         raise NotImplementedError("qwen3_forward: remat_policy 'dots' is not "
                                   "ported (ROADMAP A4); use 'full'")
     cfg = model.cfg
-    b, s, _ = embeds.shape
-    hq, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    eps = cfg.rms_norm_eps
+    s = embeds.shape[1]
     cos, sin = _rope_at(cfg, positions)
     plan = None
     kernel_route = attn_impl == "kernel" or (
@@ -379,27 +401,14 @@ def qwen3_forward(model: Qwen3Model, embeds: torch.Tensor,
     if max_live_kv is not None and kernel_route:
         plan = sparse_plan(block_ids, doc_ids, block_ids, doc_ids, max_live_kv)
 
-    def layer_fn(x: torch.Tensor, layer: Qwen3DecoderLayer) -> torch.Tensor:
-        at = layer.self_attn
-        h = rms_norm(x, layer.input_layernorm.weight, eps)
-        q = rms_norm(at.q_proj(h).view(b, s, hq, hd), at.q_norm.weight, eps)
-        k = rms_norm(at.k_proj(h).view(b, s, hkv, hd), at.k_norm.weight, eps)
-        v = at.v_proj(h).view(b, s, hkv, hd)
-        q = apply_rope_half(q, cos, sin)
-        k = apply_rope_half(k, cos, sin)
-        attn = masked_attention(q, k, v, block_ids, doc_ids, block_ids, doc_ids,
-                                implementation=attn_impl, plan=plan)
-        x = x + at.o_proj(attn.reshape(b, s, hq * hd))
-        h = rms_norm(x, layer.post_attention_layernorm.weight, eps)
-        return x + layer.mlp(h)
-
     x = embeds
+    args = (cos, sin, block_ids, doc_ids, attn_impl, plan)
     for layer in model.model.layers:
         if remat and torch.is_grad_enabled():
-            x = checkpoint(layer_fn, x, layer, use_reentrant=False)
+            x = checkpoint(layer, x, *args, use_reentrant=False)
         else:
-            x = layer_fn(x, layer)
-    return rms_norm(x, model.model.norm.weight, eps)
+            x = layer(x, *args)
+    return rms_norm(x, model.model.norm.weight, cfg.rms_norm_eps)
 
 
 def qwen3_forward_cached(model: Qwen3Model, embeds: torch.Tensor,

@@ -44,11 +44,18 @@ def latents_to_indices(latents: torch.Tensor, num_codebooks: int) -> torch.Tenso
 
 
 def flip_bits_uniform_prob(x: torch.Tensor, p_max: float,
-                           generator: torch.Generator | None = None) -> torch.Tensor:
+                           generator: torch.Generator | None = None,
+                           batch_rows: tuple[int, int] | None = None) -> torch.Tensor:
     """Bit-flip augmentation: flip where r1 < p_max * r2 for independent
-    uniforms r1, r2 drawn from ``generator`` (marginal rate p_max / 2)."""
-    r1 = torch.rand(x.shape, generator=generator, device=x.device)
-    r2 = torch.rand(x.shape, generator=generator, device=x.device)
+    uniforms r1, r2 drawn from ``generator`` (marginal rate p_max / 2).
+    ``batch_rows`` (first, n): x holds rows [first, first + B) of an
+    n-row batch; the uniforms are drawn for all n rows and these keep
+    theirs."""
+    first, n = batch_rows if batch_rows is not None else (0, x.shape[0])
+    shape = (n,) + tuple(x.shape[1:])
+    rows = slice(first, first + x.shape[0])
+    r1 = torch.rand(shape, generator=generator, device=x.device)[rows]
+    r2 = torch.rand(shape, generator=generator, device=x.device)[rows]
     flip = r1 < p_max * r2
     one = torch.ones((), dtype=x.dtype, device=x.device)
     return x * torch.where(flip, -one, one)

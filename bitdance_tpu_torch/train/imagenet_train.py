@@ -1,12 +1,16 @@
 """ImageNet class-conditional AR training step (port of
 bitdance_tpu/train/imagenet_train.py: ImageNetTrainConfig,
-init_train_state, make_tx, train_step; plus encode_batch from the training
-script scripts/train_imagenet.py).
+init_train_state, make_tx, train_step, make_sharded_train_step with
+opt_state_shardings; plus encode_batch from the training script
+scripts/train_imagenet.py).
 
-One card, no mesh. Mixed precision is the JAX step's: every fp32 parameter
-is cast to bf16 for the forward and backward (``torch.func.functional_call``
-on the casts, so the gradients land on the fp32 masters as the casts'
-transposes), the tokens are cast to bf16, the head computes in bf16, and the
+:func:`train_step` runs on one device without a mesh; it is what
+:func:`make_sharded_train_step` (FSDP over a device mesh, each process a
+share of the batch) is held against. Mixed precision is the JAX step's:
+every fp32 parameter is cast to bf16 for the forward and backward
+(``torch.func.functional_call`` on the casts, so the gradients land on the
+fp32 masters as the casts' transposes; the sharded step casts in FSDP's
+gather), the tokens are cast to bf16, the head computes in bf16, and the
 optimizer keeps fp32 masters. Explicit casts, not ``torch.autocast``, which
 would keep other ops in fp32 than the JAX step does.
 """
@@ -63,9 +67,11 @@ class ImageNetTrainModel(nn.Module):
 
     def forward(self, latent_tokens: torch.Tensor, class_ids: torch.Tensor,
                 generator: torch.Generator | None = None,
-                implementation: str = "auto") -> torch.Tensor:
+                implementation: str = "auto",
+                batch_rows: tuple[int, int] | None = None) -> torch.Tensor:
         return forward_train(self.ar, self.head, self.cfg, latent_tokens,
-                             class_ids, generator, implementation=implementation)
+                             class_ids, generator, implementation=implementation,
+                             batch_rows=batch_rows)
 
 
 def init_head_params(head: nn.Module, generator: torch.Generator | None = None,
@@ -158,3 +164,48 @@ def encode_batch(ae: VQModel, cfg: ImageNetARConfig,
     raw = ae.encode_raw(images)
     q = gfq_quantize(raw, num_codebooks=4, training=False).quantized
     return grid_to_tokens(cfg, q)
+
+
+def make_sharded_train_step(mesh, state: opt_lib.TrainState, cfg: ImageNetARConfig,
+                            tcfg: ImageNetTrainConfig):
+    """The train step with FSDP over ``mesh`` (parallel/mesh.py): returns
+    (step_fn, sharded state). ``state`` is put under FSDP in place (its
+    model, moments and EMA sharded alike, the JAX package's
+    ``opt_state_shardings``); use the returned state from then on.
+
+    ``step_fn(state, latent_tokens, class_ids, generator=None)`` takes this
+    process's rows of the global batch
+    (:func:`~bitdance_tpu_torch.parallel.mesh.batch_rows`) and returns the
+    metrics of :func:`train_step` over the whole batch (means over the
+    processes; the grad norm over the sharded gradients). The draws are made
+    at the global batch's shapes from ``generator`` (seeded alike in every
+    process) and each process keeps its rows, so every world computes what
+    :func:`train_step` computes on the whole batch. Mixed precision casts the
+    fp32 masters to bf16 in FSDP's gather (as ``.to`` rounds) and reduces
+    the gradients in fp32."""
+    from bitdance_tpu_torch.parallel.mesh import (
+        all_reduce_mean,
+        data_index,
+        data_size,
+        shard_train_state,
+    )
+
+    mixed = tcfg.mixed_precision
+    state = shard_train_state(state, mesh, torch.bfloat16 if mixed else None)
+    n_data, index = data_size(mesh), data_index(mesh)
+
+    def step_fn(state: opt_lib.TrainState, latent_tokens: torch.Tensor,
+                class_ids: torch.Tensor, generator: torch.Generator | None = None) -> dict:
+        full_fp32()
+        b = latent_tokens.shape[0]
+        tokens = latent_tokens.to(torch.bfloat16) if mixed else latent_tokens
+        rows = (index * b, n_data * b) if n_data > 1 else None
+        loss = state.model(tokens, class_ids, generator, batch_rows=rows)
+        loss.backward()
+        grads = [p.grad for p in state.tx.params]
+        metrics = all_reduce_mean({"loss": loss.detach().float()}, mesh)
+        metrics["grad_norm"] = opt_lib.global_norm(grads, state.tx.norm_group)
+        opt_lib.apply_gradients(state, grads, tcfg.ema_decay)
+        return metrics
+
+    return step_fn, state

@@ -11,7 +11,10 @@ with a decay mask; this module keeps those semantics on torch tensors:
     under warmup the first step's learning rate is 0 and the parameters
     first move at step 2;
   - EMA: ema * d + p * (1 - d) after each update.
-Parameters, moments and EMA are updated in place.
+Parameters, moments and EMA are updated in place. Under FSDP (the
+parameters, their gradients, moments and EMA DTensors sharded alike,
+parallel/mesh.py) every update acts on the local shards, and the clip's
+norm sums the shards' squares over the fsdp processes first.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from typing import Callable, Mapping, Sequence
 
 import torch
 from torch import nn
+
+from bitdance_tpu_torch.utils.dtensor import local
 
 
 def make_lr_schedule(lr: float, warmup_steps: int, total_steps: int,
@@ -54,11 +59,20 @@ def decay_mask(named_params: Mapping[str, torch.Tensor],
             for n, p in named_params.items()}
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+def global_norm(tensors: Sequence[torch.Tensor], group=None) -> torch.Tensor:
     """sqrt of the sum of squares of every element, fp32 (each tensor's
-    norm accumulated in fp32 without an fp32 copy of it)."""
-    norms = torch._foreach_norm(list(tensors), 2, dtype=torch.float32)
-    return torch.linalg.vector_norm(torch.stack(norms))
+    norm accumulated in fp32 without an fp32 copy of it). DTensors count
+    their local shards; ``group`` (the fsdp processes, whose shards make up
+    each tensor) then sums the squares over its processes."""
+    norms = torch._foreach_norm([local(t) for t in tensors], 2, dtype=torch.float32)
+    norm = torch.linalg.vector_norm(torch.stack(norms))
+    if group is None:
+        return norm
+    import torch.distributed as dist
+
+    sq = norm.square()
+    dist.all_reduce(sq, group=group)
+    return sq.sqrt()
 
 
 class AdamW:
@@ -68,12 +82,18 @@ class AdamW:
     def __init__(self, named_params: Mapping[str, nn.Parameter],
                  lr_schedule: Callable[[int], float], weight_decay: float = 0.0,
                  betas: tuple[float, float] = (0.9, 0.95), eps: float = 1e-8,
-                 max_grad_norm: float = 1.0, non_decay_keys: Sequence[str] = ()):
+                 max_grad_norm: float = 1.0, non_decay_keys: Sequence[str] = (),
+                 norm_group=None):
         mask = decay_mask(named_params, non_decay_keys)
         self.names = list(named_params)
         self.params = list(named_params.values())
         self.lr_schedule = lr_schedule
         self.max_grad_norm = max_grad_norm
+        # the clip's all-reduce group over sharded parameters (None: whole)
+        self.norm_group = norm_group
+        self._settings = dict(lr_schedule=lr_schedule, weight_decay=weight_decay,
+                              betas=betas, eps=eps, max_grad_norm=max_grad_norm,
+                              non_decay_keys=non_decay_keys)
         self.count = 0
         groups = [
             {"params": [p for n, p in named_params.items() if mask[n]],
@@ -87,17 +107,24 @@ class AdamW:
         self.opt = torch.optim.AdamW([g for g in groups if g["params"]], lr=0.0,
                                      betas=betas, eps=eps, fused=True)
 
+    def rebind(self, named_params: Mapping[str, nn.Parameter],
+               norm_group=None) -> "AdamW":
+        """A fresh AdamW with these settings over other parameters (count 0,
+        no moments)."""
+        return AdamW(named_params, norm_group=norm_group, **self._settings)
+
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor]) -> None:
         """One update from ``grads`` (fp32, in the order of ``names``);
         clips them in place."""
         grads = list(grads)
         if self.max_grad_norm and self.max_grad_norm > 0:
-            norm = global_norm(grads)
+            norm = global_norm(grads, self.norm_group)
             clip = norm >= self.max_grad_norm
             one = torch.ones((), device=norm.device)
-            torch._foreach_div_(grads, torch.where(clip, norm, one))
-            torch._foreach_mul_(grads, torch.where(
+            shards = [local(g) for g in grads]
+            torch._foreach_div_(shards, torch.where(clip, norm, one))
+            torch._foreach_mul_(shards, torch.where(
                 clip, torch.full((), self.max_grad_norm, device=norm.device), one))
         for p, g in zip(self.params, grads):
             # the fused kernel wants each gradient laid out as its parameter
@@ -115,10 +142,12 @@ class AdamW:
 @torch.no_grad()
 def ema_update(ema: Sequence[torch.Tensor], params: Sequence[torch.Tensor],
                decay: float = 0.9999) -> None:
-    """ema <- ema * decay + params * (1 - decay), in place."""
+    """ema <- ema * decay + params * (1 - decay), in place (on the local
+    shards of DTensors)."""
     step = 1.0 - decay
-    torch._foreach_mul_(list(ema), 1.0 - step)
-    torch._foreach_add_(list(ema), list(params), alpha=step)
+    ema = [local(e) for e in ema]
+    torch._foreach_mul_(ema, 1.0 - step)
+    torch._foreach_add_(ema, [local(p) for p in params], alpha=step)
 
 
 @dataclasses.dataclass

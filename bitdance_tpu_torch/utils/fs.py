@@ -2,9 +2,9 @@
 process layout (port of bitdance_tpu/utils/fs.py).
 
 hdfs:// paths go through ``hdfs dfs`` subprocesses; local paths through
-os and shutil. :func:`init_distributed` reads the launcher's RANK and
-WORLD_SIZE. The port runs one process: a world above 1 raises until
-multi-process training is ported (ROADMAP A11).
+os and shutil. :func:`init_distributed` starts the process group from the
+launcher's RANK, WORLD_SIZE and LOCAL_RANK (torchrun), or a group of one
+without them.
 """
 
 from __future__ import annotations
@@ -102,8 +102,7 @@ def download(path: str, cache_dir: str | None = None,
     os.makedirs(cache_dir, exist_ok=True)
     local = os.path.join(cache_dir, os.path.basename(path))
     done = local + ".done"
-    rank, _ = init_distributed()
-    if rank == 0:
+    if _rank() == 0:
         if not os.path.exists(done):
             copy(path, local)
             with open(done, "w") as f:
@@ -117,14 +116,50 @@ def download(path: str, cache_dir: str | None = None,
     return local
 
 
-def init_distributed() -> tuple[int, int]:
-    """(rank, world size) from the launcher's RANK and WORLD_SIZE; (0, 1)
-    without them. A world above 1 raises: the port's trainers run one
-    process until multi-process training is ported (ROADMAP A11)."""
-    rank = int(os.environ.get("RANK", 0))
+def _rank() -> int:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return int(os.environ.get("RANK", 0))
+
+
+def init_distributed(device="cuda", init_method: str | None = None) -> tuple[int, int]:
+    """Start the default process group once and return (rank, world size).
+
+    The rank and world come from the launcher's RANK and WORLD_SIZE
+    (torchrun); NCCL on ``device`` "cuda" (the device set to LOCAL_RANK
+    first), gloo on the CPU. ``init_method`` defaults to torchrun's
+    ``env://`` (MASTER_ADDR, MASTER_PORT); a ``file://`` path serves
+    processes on one machine. Without launcher variables it starts a group
+    of one from a local store, so the commands take their sharded steps on
+    one device, as the JAX scripts do. A world above 1 whose group does not
+    start raises; so does a group already started at another world than
+    WORLD_SIZE says, or on another backend than ``device`` takes."""
+    import torch
+    import torch.distributed as dist
+
     world = int(os.environ.get("WORLD_SIZE", 1))
-    if world > 1:
-        raise NotImplementedError(
-            f"WORLD_SIZE={world}: the port runs one process; multi-process "
-            "training is not ported (ROADMAP A11)")
+    cuda = torch.device(device).type == "cuda"
+    backend = "nccl" if cuda else "gloo"
+    if dist.is_initialized():
+        if dist.get_world_size() != world:
+            raise RuntimeError(f"WORLD_SIZE={world}, but the process group holds "
+                               f"{dist.get_world_size()} processes")
+        if backend not in str(dist.get_backend()):
+            raise RuntimeError(f"device {device} takes {backend}, but the process group "
+                               f"runs {dist.get_backend()}")
+        return dist.get_rank(), world
+    rank = int(os.environ.get("RANK", 0))
+    if cuda:
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    if world == 1 and init_method is None:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+        return 0, 1
+    try:
+        dist.init_process_group(backend, init_method=init_method or "env://",
+                                rank=rank, world_size=world)
+    except (ValueError, RuntimeError) as e:
+        raise RuntimeError(f"rank {rank} of {world}: the {backend} process group "
+                           f"did not start ({e})") from e
     return rank, world

@@ -2,8 +2,10 @@
 """Drive the PyTorch port's main paths once on one NVIDIA GPU: text-to-image
 serving and interleaved generation (BitDance-14B-64x), ImageNet class-conditional training
 (BitDance-H-1x, 256 px), ImageNet class-conditional sampling
-(BitDance-H-1x and BitDance-B-16x, 256 px), packed multimodal training of
-BitDance-14B-64x (full width, 4 of 40 layers), tokenizer reconstruction
+(BitDance-H-1x at 20 of 40 layers and BitDance-B-16x, 256 px), packed
+multimodal training of
+BitDance-14B-64x (full width, 4 of 40 layers), the data-parallel (FSDP)
+train steps at world 1, tokenizer reconstruction
 (the release VQ tokenizer, 256 and 1024 px), the training commands
 (cli.train_imagenet at BitDance-B-1x with checkpoints and resume,
 cli.sample_fid, tokenizer training, cli.train_mllm), and the release directory of
@@ -73,8 +75,9 @@ Phases, run in this order, one line each, any failure exits non-zero:
                     encode_batch -> train_step: s/step, images/s, MFU, peak
                     memory, launch counts, and one step on the plain
                     attention path from the same state
-  imagenet_kernels  random bf16 BitDance-H-1x and BitDance-B-16x samplers (the
-                    training state freed first); the head-block kernels
+  imagenet_kernels  random bf16 BitDance-H-1x (20 of its 40 backbone layers)
+                    and BitDance-B-16x samplers (the training state freed
+                    first); the head-block kernels
                     fused_mlp_block (H-1x: 8 rows, C 1280; B-16x: 512 rows,
                     C 768) and fused_attn_block (32 and 64 windows of 16, C
                     768, 12 heads, with a window-off-by-one check; two
@@ -138,6 +141,14 @@ Phases, run in this order, one line each, any failure exits non-zero:
                     step's shape vs their plain versions (run in chunks)
                     and equal to the dense kernels, and one step on the
                     dense kernels from the same state and draws
+  parallel          the data-parallel steps at world 1 (an NCCL group of one,
+                    FSDP2 on a (1, 1, 1) mesh): BitDance-B-1x, batch 16, 3
+                    steps, and the 14B yaml at full width and 2 of 40
+                    layers, one step, each through make_sharded_train_step
+                    and the unsharded train_step from one state and seed:
+                    max |delta| of losses and parameters (bit-equal or
+                    within the CPU tests' tolerance), s/step and peak GiB
+                    both ways, the sharded runs' kernel launches
   encode_kernel     the encode tail vs its plain version at the release
                     tokenizer's trunk shapes (256, 512, 1024 px), bf16 and
                     fp32, two launches bit-equal, eager and device-only times
@@ -150,8 +161,10 @@ Phases, run in this order, one line each, any failure exits non-zero:
                     classes x 8 JPEGs) whose native index must equal the
                     Python walk; cli.train_imagenet at BitDance-B-1x (full
                     width and depth), 256 px, batch 16 on it, 4 steps
-                    straight and 2 + 2 resumed in a second directory, the
-                    final checkpoints bit-equal; cli.sample_fid from the
+                    straight and 2 + 2 resumed in a second directory
+                    through its FSDP step at world 1 and its sharded
+                    checkpoints (shards.rank00000.json, meta's world 1),
+                    the final checkpoints bit-equal; cli.sample_fid from the
                     straight checkpoint (32 samples, 2 batches, cfg 4.6,
                     100 steps): 32 PNGs, the npz, the first batch equal to
                     a direct sample on the restored EMA weights; 3 tokenizer
@@ -176,6 +189,17 @@ main paths, error against its plain version, times, bound and, where one
 PyTorch call computes the same function, that call's time), the card's name
 and power limit, and {"ok": true, "device": {...}}. There is no CPU fallback: the
 script refuses to run without a CUDA device.
+
+    python3 chip_smoke.py --train-memory DIR [DIR ...]
+
+compares the training commands of checkouts of this repository on one card
+(a parent commit unpacked beside the tree; give the order parent, change,
+change, parent): each DIR in a process of its own runs its chip_smoke.py's
+device, build and train_cli phases, each command's s/step and its peak
+device memory logged (a chip_smoke.py from before the peaks gets this
+file's), then, where its chip_smoke.py has parallel_mllm_run, the 14B
+step at full width and TRAIN_MEMORY_MLLM_LAYERS layers sharded and
+unsharded, each one's s/step and peak or its out-of-memory error.
 """
 
 from __future__ import annotations
@@ -302,6 +326,11 @@ FUSED_NET_BLOCK_MEAN_REL_ERR = {"h1x": 2.8e-4, "b16x": 4e-4}
 IMAGENET_BATCH = 32          # sample_fid's per-process batch
 IMAGENET_STEPS = 100         # sampling steps of every ImageNet run
 UNGUIDED_H1X_IMAGES = 8
+# the H-1x sampler's backbone depth (of its 40 layers, full width): its
+# batches' AR steps are host-bound by layer (~100 s of decode at 40 layers
+# on a slow host, where the whole script took 968 s of phases); the head,
+# and so every kernel check and launch count, is whole
+IMAGENET_H1X_LAYERS = 20
 # the unguided H-1x batch runs 25,856 per-call net calls at 100 steps, 2.9 ms
 # each from the host (90 s, PERF.md); it is cut to this many sampling steps
 UNGUIDED_H1X_STEPS = 25
@@ -372,6 +401,20 @@ MLLM_PEAK_GIB = 75.0
 # the step differs only by atomics' order in bf16 backward sums (embedding)
 MLLM_DENSE_LOSS_REL = 1e-4
 MLLM_DENSE_GRAD_NORM_REL = 1e-3
+# the data-parallel steps (ROADMAP A11) at world 1, an NCCL group of one:
+# BitDance-B-1x (the step cli.train_imagenet trains) PARALLEL_STEPS steps and
+# the 14B yaml at full width and PARALLEL_MLLM_LAYERS of 40 layers one step,
+# each through make_sharded_train_step and the unsharded train_step from one
+# state and seed. One process holds every shard, so bit-equality is expected;
+# the run fails only past the CPU tests' tolerances (tests/
+# test_torch_parallel*.py: bf16 mixed ImageNet, the first step's loss and
+# grad norm 1e-4 relative, every loss 1e-3, 99% of the parameter moves
+# within 0.1 lr; the 14B step's losses 2e-5 relative and its parameters
+# within 1e-5 but the head's key biases, within 2 lr)
+PARALLEL_STEPS = 3
+PARALLEL_MLLM_LAYERS = 2
+PARALLEL_MLLM_LR = 1e-3      # bf16 weights move by more than an ulp in one step
+TRAIN_MEMORY_MLLM_LAYERS = 4   # --train-memory's 14B step: the mllm phase's depth
 # the encode tail (#13) vs its plain version: raw output relative to max |x|
 # (bf16 output: a few ulps; fp32: summation order), and exact signs wherever
 # the plain raw value clears the repo's sign margin
@@ -3917,6 +3960,218 @@ def phase_mllm(card: str) -> dict:
     return {"launches": launches, "s_per_step": s_step, "mfu": mfu, "peak_gib": peak}
 
 
+def _sharded_vs_unsharded(run):
+    """run(sharded) -> (metrics per step, s per step, peak GiB, parameters,
+    kernel launches of the run): the unsharded run, then the sharded one,
+    the first run's parameters kept for the comparison."""
+    import torch
+
+    ref = run(False)
+    got = run(True)
+    diffs = {n: (got["params"][n].float() - p.float()).abs().max().item()
+             for n, p in ref["params"].items()}
+    bit_equal = (all(torch.equal(got["params"][n], p) for n, p in ref["params"].items())
+                 and got["metrics"] == ref["metrics"])
+    return ref, got, diffs, bit_equal
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def _fresh_peak() -> int:
+    """Free what can be freed, start a new peak and return the bytes
+    allocated now (what a run's peak is measured above)."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def parallel_mllm_case(dev, layers: int) -> tuple:
+    """(cfg, tcfg, batch): the 14B yaml at full width and ``layers`` of its
+    40 layers, lr PARALLEL_MLLM_LR, on mllm_step_batch's packed sequence."""
+    import dataclasses
+
+    mcfg, mtcfg, _, _, batch = mllm_step_batch(dev)
+    mcfg = dataclasses.replace(mcfg, llm=dataclasses.replace(
+        mcfg.llm, num_hidden_layers=layers))
+    return mcfg, dataclasses.replace(mtcfg, lr=PARALLEL_MLLM_LR), batch
+
+
+def parallel_mllm_run(mesh, case: tuple, sharded: bool) -> dict:
+    """One bf16 step of ``case`` (:func:`parallel_mllm_case`) from seed 0,
+    through make_sharded_train_step on ``mesh`` (the 14B command's step)
+    or the unsharded train_step: its metrics, s, kernel launches, peak GiB
+    above the run's start and parameters (each process's shards)."""
+    import torch
+
+    from bitdance_tpu_torch.io.random_init import build_random_mllm_train_state
+    from bitdance_tpu_torch.train import mllm_train as mt
+    from bitdance_tpu_torch.utils.dtensor import local
+
+    mcfg, mtcfg, batch = case
+    base = _fresh_peak()
+    state = build_random_mllm_train_state(mcfg, mtcfg, batch.position_ids.device,
+                                          torch.bfloat16, seed=0)
+    if sharded:
+        fn, state = mt.make_sharded_train_step(mesh, state, mcfg, mtcfg)
+    else:
+        fn = lambda st, b, s: mt.train_step(st, b, s, cfg=mcfg, tcfg=mtcfg)  # noqa: E731
+    _reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    m = fn(state, batch, 7)
+    metrics = [{k: v.item() for k, v in m.items()}]
+    s = time.perf_counter() - t
+    return {"metrics": metrics, "s": [s], "launches": _counts(),
+            "peak": (torch.cuda.max_memory_allocated() - base) / 2**30,
+            "params": {n: local(p).detach() for n, p in state.model.named_parameters()}}
+
+
+def phase_parallel(card: str) -> dict:
+    """The data-parallel half of ROADMAP A11 on the card at world 1 (an NCCL
+    group of one; one card cannot hold a world of 2): BitDance-B-1x at 256
+    px, batch 16 of random ±1 tokens, PARALLEL_STEPS steps, and the 14B yaml
+    at full width and PARALLEL_MLLM_LAYERS layers on one packed sequence,
+    one step, each through make_sharded_train_step (FSDP2 on a (1, 1, 1)
+    mesh) and the unsharded train_step from one state and seed: max |delta|
+    of the losses and parameters, s/step, peak GiB both ways. Returns the
+    sharded runs' kernel launches."""
+    import torch
+
+    from bitdance_tpu_torch.io.random_init import build_random_train_state
+    from bitdance_tpu_torch.models.imagenet_ar import config_b
+    from bitdance_tpu_torch.parallel.mesh import create_mesh
+    from bitdance_tpu_torch.train import imagenet_train as it
+    from bitdance_tpu_torch.utils.dtensor import local
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    mesh = create_mesh(device_type="cuda")
+    log("parallel", f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} on an NCCL group "
+        f"of {torch.distributed.get_world_size()} (torch {torch.__version__}); a world of "
+        "2 needs a second card, so worlds 2 and 4 are held on the CPU over gloo")
+
+    def timed_steps(state, step, batches):
+        metrics, times = [], []
+        for i, args in enumerate(batches):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            m = step(state, *args, i)
+            metrics.append({k: v.item() for k, v in m.items()})
+            times.append(time.perf_counter() - t)
+        return metrics, times
+
+    # BitDance-B-1x
+    cfg = config_b()
+    tcfg = it.ImageNetTrainConfig(warmup_steps=0)
+    g = torch.Generator(device=dev).manual_seed(3)
+    batches = [(torch.sign(torch.randn((16, cfg.num_tokens, cfg.token_dim), generator=g,
+                                       device=dev)),
+                torch.randint(0, cfg.num_classes, (16,), generator=g, device=dev))
+               for _ in range(PARALLEL_STEPS)]
+    before = {}
+
+    def run_imagenet(sharded):
+        base = _fresh_peak()
+        state = build_random_train_state(cfg, tcfg, dev, seed=0)
+        if not before:
+            before.update({n: p.detach().clone() for n, p in state.model.named_parameters()})
+        if sharded:
+            fn, state = it.make_sharded_train_step(mesh, state, cfg, tcfg)
+            step = lambda st, t, c, i: fn(  # noqa: E731
+                st, t, c, torch.Generator(device=dev).manual_seed(50 + i))
+        else:
+            step = lambda st, t, c, i: it.train_step(  # noqa: E731
+                st, t, c, torch.Generator(device=dev).manual_seed(50 + i),
+                ema_decay=tcfg.ema_decay, mixed_precision=tcfg.mixed_precision)
+        _reset_counts()
+        metrics, times = timed_steps(state, step, batches)
+        return {"metrics": metrics, "s": times, "launches": _counts(),
+                "peak": (torch.cuda.max_memory_allocated() - base) / 2**30,
+                "params": {n: local(p).detach() for n, p in state.model.named_parameters()}}
+
+    ref, got, diffs, bit_equal = _sharded_vs_unsharded(run_imagenet)
+    loss_d = max(abs(a["loss"] - b["loss"]) for a, b in zip(got["metrics"], ref["metrics"]))
+    gn_d = max(abs(a["grad_norm"] - b["grad_norm"])
+               for a, b in zip(got["metrics"], ref["metrics"]))
+    lr = tcfg.lr
+    mt_ = torch.cat([(got["params"][n] - before[n]).flatten() for n in before])
+    mr_ = torch.cat([(ref["params"][n] - before[n]).flatten() for n in before])
+    move_d = (mt_ - mr_).abs() / lr
+    first = got["metrics"][0], ref["metrics"][0]
+    within = (all(abs(first[0][k] - first[1][k]) <= 1e-4 * abs(first[1][k])
+                  for k in ("loss", "grad_norm"))
+              and all(abs(a["loss"] - b["loss"]) <= 1e-3 * abs(b["loss"])
+                      for a, b in zip(got["metrics"], ref["metrics"]))
+              and (move_d < 0.1).float().mean().item() > 0.99
+              and move_d.max().item() < 2 and mr_.abs().max().item() > 0.5 * lr)
+    s_sh, s_ref = _median(got["s"][1:]), _median(ref["s"][1:])
+    launches = {k: v for k, v in got["launches"].items() if v}
+    log("parallel", f"BitDance-B-1x, 256 px, batch 16, {PARALLEL_STEPS} steps from one state "
+        f"and seed: sharded vs unsharded max |d loss| {loss_d:.3e}, |d grad_norm| "
+        f"{gn_d:.3e}, |d parameter| {max(diffs.values()):.3e}; bit-equal {bit_equal}; "
+        f"within the CPU tolerance {within}; losses {[round(m['loss'], 5) for m in got['metrics']]}"
+        f"; s/step sharded {', '.join(f'{s:.3f}' for s in got['s'])} (median after the "
+        f"first {s_sh:.4f}), unsharded {', '.join(f'{s:.3f}' for s in ref['s'])} "
+        f"({s_ref:.4f}); peak above each run's start {got['peak']:.2f} / {ref['peak']:.2f} "
+        f"GiB; sharded launches {launches}; card {card}")
+    if not within:
+        raise SystemExit("parallel: the sharded B-1x step is outside the CPU tolerance "
+                         "of the unsharded one")
+    out = {"imagenet": {"bit_equal": bit_equal, "s_per_step": (s_sh, s_ref),
+                        "peak_gib": (got["peak"], ref["peak"])}}
+    del ref, got, before, mt_, mr_, move_d, batches
+
+    # the 14B yaml at full width, PARALLEL_MLLM_LAYERS layers, one step
+    case = parallel_mllm_case(dev, PARALLEL_MLLM_LAYERS)
+    mcfg, batch = case[0], case[2]
+    ref, got, diffs, bit_equal = _sharded_vs_unsharded(
+        lambda sharded: parallel_mllm_run(mesh, case, sharded))
+    c = mcfg.head_model_dim
+    keyb = {n for n in diffs if n.endswith("attn.wqkv.bias")}
+    worst = max(v for n, v in diffs.items() if n not in keyb)
+    key_worst = max((ref["params"][n][c:2 * c].float() - got["params"][n][c:2 * c].float())
+                    .abs().max().item() for n in keyb)
+    m_got, m_ref = got["metrics"][0], ref["metrics"][0]
+    rel = {k: abs(m_got[k] - m_ref[k]) / abs(m_ref[k]) for k in m_ref}
+    others = [torch.equal(got["params"][n], p) for n, p in ref["params"].items()
+              if n not in keyb]
+    within = (all(r <= 2e-5 for r in rel.values())
+              and (worst <= 1e-5 or all(others)) and key_worst <= 2 * PARALLEL_MLLM_LR)
+    launches_m = {k: v for k, v in got["launches"].items() if v}
+    log("parallel", f"BitDance-14B-64x yaml, full width, {PARALLEL_MLLM_LAYERS} of 40 "
+        f"layers, one packed sequence ({batch.position_ids.shape[1]} tokens), one step "
+        f"at lr {PARALLEL_MLLM_LR}: sharded vs unsharded relative d "
+        + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+        + f"; max |d parameter| {worst:.3e} (key biases {key_worst:.3e}); bit-equal "
+        f"{bit_equal}; within the CPU tolerance {within}; loss {m_got['loss']:.5f}; s/step "
+        f"sharded {got['s'][0]:.3f}, unsharded {ref['s'][0]:.3f}; peak above each run's "
+        f"start {got['peak']:.2f} / {ref['peak']:.2f} GiB; sharded launches {launches_m}; "
+        f"card {card}")
+    if not within:
+        raise SystemExit("parallel: the sharded 14B step is outside the CPU tolerance of "
+                         "the unsharded one")
+    out["mllm"] = {"bit_equal": bit_equal, "s_per_step": (got["s"][0], ref["s"][0]),
+                   "peak_gib": (got["peak"], ref["peak"])}
+    for k, v in launches_m.items():
+        launches[k] = launches.get(k, 0) + v
+    del ref, got, batch, case
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_sparse",
+              "flash_bwd_dq_sparse", "flash_bwd_dkv_sparse"):
+        if launches.get(k, 0) < 1:
+            raise SystemExit(f"parallel: {k} was not launched by the sharded steps")
+    log("parallel", f"phase {time.perf_counter() - t_phase:.1f} s")
+    out["launches"] = launches
+    return out
+
+
 def _encode_case(shape, dtype, dev, seed):
     """A trunk output x (GroupNorm-ready, mean 0.3) and the tail's weights."""
     import torch
@@ -4170,9 +4425,11 @@ def _trained(a: str, b: str, step: int, half: int, ema: bool) -> str:
 
 def _cli_run(phase: str, main, argv: list, what: str, stats: dict | None = None) -> dict:
     """One command run in this process through its main(argv): the kernel
-    launch counts set to 0 before it and read after, its wall seconds."""
+    launch counts set to 0 before it and read after, its wall seconds and
+    its peak device memory above what was allocated before it."""
     import torch
 
+    base = _fresh_peak()
     _reset_counts()
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -4180,13 +4437,15 @@ def _cli_run(phase: str, main, argv: list, what: str, stats: dict | None = None)
     rc = main(argv, **kw)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
     counts = {k: v for k, v in _counts().items() if v}
-    log(phase, f"{what}: rc {rc}, {dt:.2f} s, kernel launches {counts}")
+    log(phase, f"{what}: rc {rc}, {dt:.2f} s, peak {peak:.2f} GiB above its start "
+        f"({base / 2**30:.2f} allocated before), kernel launches {counts}")
     if rc != 0:
         raise SystemExit(f"{phase}: {what} returned {rc}")
     gc.collect()
     torch.cuda.empty_cache()
-    return {"s": dt, "launches": counts}
+    return {"s": dt, "peak_gib": peak, "launches": counts}
 
 
 def _train_imagenet_resume(tar: str, root: str, card: str) -> dict:
@@ -4218,6 +4477,16 @@ def _train_imagenet_resume(tar: str, root: str, card: str) -> dict:
                                TRAIN_CLI_STEPS)
     trained = _trained(os.path.join(a, "checkpoints"), os.path.join(b, "checkpoints"),
                        TRAIN_CLI_STEPS, TRAIN_CLI_STEPS // 2, ema=True)
+    # the command trains through its FSDP step, so the run resumed from a
+    # sharded checkpoint (world 1: one rank's file and its places)
+    mid = os.path.join(b, "checkpoints", half)
+    with open(os.path.join(mid, "meta.json")) as f:
+        world = json.load(f).get("world")
+    sharded = world == 1 and os.path.exists(os.path.join(mid, "shards.rank00000.json"))
+    log("train_cli", f"the resumed run restored a sharded checkpoint (world {world}, "
+        f"{sorted(os.listdir(mid))}): {sharded}")
+    if not sharded:
+        raise SystemExit("train_cli: the B-1x run's checkpoint is not the sharded format")
     steps = st_a["step_seconds"]
     steady = sorted(steps[1:])
     s_step = steady[len(steady) // 2]
@@ -4693,14 +4962,18 @@ def phase_release(card: str) -> dict:
 
 
 def build_imagenet_samplers():
-    """Random BitDance-H-1x and BitDance-B-16x samplers (bf16) on the card."""
+    """Random BitDance-H-1x (IMAGENET_H1X_LAYERS of its 40 backbone layers)
+    and BitDance-B-16x samplers (bf16) on the card."""
+    import dataclasses
+
     import torch
 
     from bitdance_tpu_torch.io.random_init import build_random_imagenet_sampler
     from bitdance_tpu_torch.models.imagenet_ar import config_b, config_h
 
     out = []
-    for name, cfg, seed in (("BitDance-H-1x", config_h(), 3),
+    h1x = dataclasses.replace(config_h(), n_layer=IMAGENET_H1X_LAYERS)
+    for name, cfg, seed in (("BitDance-H-1x", h1x, 3),
                             ("BitDance-B-16x", config_b(parallel_num=16), 4)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4715,6 +4988,64 @@ def build_imagenet_samplers():
     return out
 
 
+# run by --train-memory in each checkout (its chip_smoke.py and package)
+TRAIN_MEMORY_CHILD = r"""
+import sys
+
+import torch
+
+import chip_smoke as c
+
+if "peak" not in c._cli_run.__doc__:            # from before the peaks
+    inner = c._cli_run
+
+    def _cli_run(phase, main, argv, what, stats=None):
+        c.gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = inner(phase, main, argv, what, stats)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        c.log(phase, f"{what}: peak {peak:.2f} GiB above its start")
+        return out
+
+    c._cli_run = _cli_run
+c.phase_device()
+card = c.card_line()
+c.phase_build()
+c.phase_train_cli(card)
+layers = int(sys.argv[1])
+if hasattr(c, "parallel_mllm_run"):
+    from bitdance_tpu_torch.parallel.mesh import create_mesh
+
+    mesh = create_mesh(device_type="cuda")
+    case = c.parallel_mllm_case(torch.device("cuda"), layers)
+    for sharded in (True, False):
+        how = "sharded" if sharded else "unsharded"
+        try:
+            r = c.parallel_mllm_run(mesh, case, sharded)
+            c.log("train_memory", f"14B yaml, full width, {layers} of 40 layers, one "
+                  f"step {how}: {r['s'][0]:.3f} s, peak {r['peak']:.2f} GiB above its "
+                  f"start, loss {r['metrics'][0]['loss']:.5f}; card {card}")
+            del r
+        except torch.OutOfMemoryError as e:
+            c.log("train_memory", f"14B yaml, full width, {layers} of 40 layers, one "
+                  f"step {how}: out of device memory ({str(e).splitlines()[0]}); "
+                  f"card {card}")
+"""
+
+
+def train_memory(dirs: list) -> int:
+    """The --train-memory mode (module docstring): each checkout in turn."""
+    for d in dirs:
+        log("train_memory", f"checkout {d}")
+        rc = subprocess.run([sys.executable, "-c", TRAIN_MEMORY_CHILD,
+                             str(TRAIN_MEMORY_MLLM_LAYERS)], cwd=d).returncode
+        if rc != 0:
+            raise SystemExit(f"train_memory: {d} exited {rc}")
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -4722,6 +5053,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--train-memory"]:
+        return train_memory(sys.argv[2:] or ["."])
     t_start = time.perf_counter()
     phase_device()
     card = card_line()
@@ -4795,6 +5128,8 @@ def main() -> int:
     del mllm
     gc.collect()                            # the 14B training state is gone
     torch.cuda.empty_cache()
+    for name, n in phase_parallel(card)["launches"].items():
+        launches[name] = launches.get(name, 0) + n
     results.update(phase_encode_kernel())
     launches["fused_encode_tail"] = phase_tokenizer(card)["launches"]
     gc.collect()

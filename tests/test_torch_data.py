@@ -242,18 +242,16 @@ def test_fs_local_ops(tmp_path):
     assert fs.download(d) == d
 
 
-def test_init_distributed(monkeypatch):
-    from bitdance_tpu_torch.utils import fs
+def test_init_distributed(tmp_path):
+    """Two spawned ranks over gloo (a file store under tmp_path): each gets
+    (rank, 2), a second call in the started group returns the same, and a
+    call for the card's backend (NCCL) in that gloo group raises."""
+    from tests.test_torch_parallel import init_task, spawn
 
-    monkeypatch.delenv("RANK", raising=False)
-    monkeypatch.delenv("WORLD_SIZE", raising=False)
-    assert fs.init_distributed() == (0, 1)
-    monkeypatch.setenv("RANK", "0")
-    monkeypatch.setenv("WORLD_SIZE", "1")
-    assert fs.init_distributed() == (0, 1)
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="A11"):
-        fs.init_distributed()
+    results = spawn(init_task, 2, tmp_path)
+    assert [r["init"] for r in results] == [(0, 2), (1, 2)]
+    assert [r["again"] for r in results] == [(0, 2), (1, 2)]
+    assert all("takes nccl" in r["other_backend"] for r in results)
 
 
 def test_scalar_writer_jsonl(tmp_path, monkeypatch):

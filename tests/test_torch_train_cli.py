@@ -228,13 +228,21 @@ def test_train_mllm_resumed_equals_straight(tmp_path, grad_accum):
     assert set(stats["phase_seconds"]) == {"batch", "train_step", "clock"}
 
 
-def test_train_mllm_refuses_a_mesh(tmp_path):
+def test_train_mllm_mesh_falls_back_to_the_world(tmp_path):
+    """The 14B yaml's mesh (1, 8) does not fit one process: the command
+    trains on (1, world), as scripts/train_mllm.py:79-84 does, and says so."""
     cfg = dict(MLLM_YAML, training=dict(MLLM_YAML["training"], num_shard=8))
     path = tmp_path / "c.yaml"
     path.write_text(yaml.safe_dump(cfg))
-    with pytest.raises(NotImplementedError, match="A11"):
-        train_mllm.main(["--config", str(path), "--data-dir", str(tmp_path),
-                         "--device", "cpu"])
+    data, _ = _packed_files(tmp_path / "data")
+    stats = {}
+    train_mllm.main(["--config", str(path), "--data-dir", data, "--vocab-size", "300",
+                     "--results-dir", str(tmp_path / "r"), "--max-steps", "1",
+                     "--device", "cpu"], stats=stats)
+    assert stats["mesh"] == (1, 1)
+    with open(tmp_path / "r" / "log.txt") as f:
+        assert "overriding it to (1, 1)" in f.read()
+    assert os.listdir(tmp_path / "r" / "checkpoints") == ["1"]
 
 
 # ---------------------------------------------------------------------------
