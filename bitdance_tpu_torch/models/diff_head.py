@@ -39,6 +39,7 @@ from bitdance_tpu_torch.models.sampling import euler_maruyama, time_shift
 from bitdance_tpu_torch.ops.fused_block import fused_attn_block, fused_mlp_block
 from bitdance_tpu_torch.ops.fused_head import (
     em_precompute,
+    em_sample_stacked,
     fused_em_sample,
     quant_mode,
     stack_diffnet_params,
@@ -419,7 +420,10 @@ def _run_fused_sample(head: DiffHead, stacked: dict, cond: torch.Tensor,
     The mods of all timesteps are precomputed in one product per AR step
     ([51, 128, 71680] bf16 per image at the 14B head, 0.9 GB), which fits the
     card, so the step-chunking the JAX package needs for a 16 GB chip is not
-    used here (fused_em_sample still supports final_chunk=False)."""
+    used here (fused_em_sample still supports final_chunk=False). A
+    head-major stack (``"hm_marker"``, parallel/tp.py) runs
+    ``em_sample_stacked``, the tensor-parallel sampler, as the JAX package
+    routes it away from its kernel."""
     if head.attention:
         g_all, w, _ = cond.shape
     else:
@@ -437,7 +441,10 @@ def _run_fused_sample(head: DiffHead, stacked: dict, cond: torch.Tensor,
                                    num_sampling_steps, cond.device)
     allmods = em_precompute(stacked, c_emb, t_all,
                             out_dtype=stacked["in_w"].dtype)
-    out = fused_em_sample(
+    # a head-major stack (tensor-parallel serving, parallel/tp.py) routes
+    # away from kernel #2 to the stacked sampler, as the JAX package does
+    sampler = em_sample_stacked if "hm_marker" in stacked else fused_em_sample
+    out = sampler(
         stacked, x0, noise, allmods, t_all, dt_all, cfg,
         num_blocks=head.depth_latent, num_ada=head.depth_adanln,
         n_head=head.ch_latent // head.attn_head_dim, groups=g_all,

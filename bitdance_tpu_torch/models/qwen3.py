@@ -21,10 +21,21 @@ becomes a QLinear too, in int4 mode it is dropped and the embedding table
 becomes :class:`QEmbedding` (int8 rows, dequantized to bf16 on gather).
 ``init_kv_cache(int8=True)`` gives the fused int8 ring buffer, which the
 decode block reads through the fused-KV kernel.
+
+Tensor parallelism (parallel/tp.py::shard_qwen3_) shards a model in place:
+each layer's attention then holds its local head counts (``num_heads``,
+``num_kv_heads``, which every forward reads) and, with its MLP, the group
+its row-parallel product (o_proj, down_proj) all-reduces over (``tp``,
+None when whole); a vocabulary-parallel embedding and lm_head carry their
+group too. FSDP2 (parallel/mesh.py::shard_model) gathers a unit's weights
+in hooks on its ``__call__``; :func:`qwen3_forward_cached` reads a layer's
+weights without calling it, so it gathers each sharded layer itself
+(:func:`gathered`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -43,6 +54,7 @@ from bitdance_tpu_torch.ops.int4 import Q4Tensor, int4_matmul, quantize_linear_i
 from bitdance_tpu_torch.ops.int8 import QTensor, int8_matmul, quantize_linear
 from bitdance_tpu_torch.ops.norms import rms_norm
 from bitdance_tpu_torch.ops.rotary import apply_rope_half
+from bitdance_tpu_torch.parallel.tp import row_parallel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +104,9 @@ class Qwen3Attention(nn.Module):
         self.o_proj = nn.Linear(cfg.num_attention_heads * hd, d, **kw)
         self.q_norm = RMSNorm(hd, cfg.rms_norm_eps, device, dtype)
         self.k_norm = RMSNorm(hd, cfg.rms_norm_eps, device, dtype)
+        # this rank's heads and the tp group of o_proj (parallel/tp.py)
+        self.num_heads, self.num_kv_heads = cfg.num_attention_heads, cfg.num_key_value_heads
+        self.tp = None
 
 
 class Qwen3MLP(nn.Module):
@@ -102,9 +117,11 @@ class Qwen3MLP(nn.Module):
         self.gate_proj = nn.Linear(d, i, **kw)
         self.up_proj = nn.Linear(d, i, **kw)
         self.down_proj = nn.Linear(i, d, **kw)
+        self.tp = None                     # the tp group of down_proj (parallel/tp.py)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        return row_parallel(self.down_proj, F.silu(self.gate_proj(x)) * self.up_proj(x),
+                            self.tp)
 
 
 class Qwen3DecoderLayer(nn.Module):
@@ -126,9 +143,9 @@ class Qwen3DecoderLayer(nn.Module):
         FSDP's hooks gather its weights."""
         cfg = self.cfg
         b, s, _ = x.shape
-        hq, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-        eps = cfg.rms_norm_eps
         at = self.self_attn
+        hq, hkv, hd = at.num_heads, at.num_kv_heads, cfg.head_dim
+        eps = cfg.rms_norm_eps
         h = rms_norm(x, self.input_layernorm.weight, eps)
         q = rms_norm(at.q_proj(h).view(b, s, hq, hd), at.q_norm.weight, eps)
         k = rms_norm(at.k_proj(h).view(b, s, hkv, hd), at.k_norm.weight, eps)
@@ -137,7 +154,7 @@ class Qwen3DecoderLayer(nn.Module):
         k = apply_rope_half(k, cos, sin)
         attn = masked_attention(q, k, v, block_ids, doc_ids, block_ids, doc_ids,
                                 implementation=attn_impl, plan=plan)
-        x = x + at.o_proj(attn.reshape(b, s, hq * hd))
+        x = x + row_parallel(at.o_proj, attn.reshape(b, s, hq * hd), at.tp)
         h = rms_norm(x, self.post_attention_layernorm.weight, eps)
         return x + self.mlp(h)
 
@@ -317,12 +334,15 @@ def quantize_qwen3_(model: Qwen3Model, mode: str) -> Qwen3Model:
 
 def init_kv_cache(cfg: Qwen3Config, batch: int, max_len: int,
                   dtype: torch.dtype = torch.float32, device=None,
-                  int8: bool = False) -> dict:
+                  int8: bool = False, num_kv_heads: int | None = None) -> dict:
     """HEAD-MAJOR buffers [L, B, Hkv, max_len, D] for k and v (the layout
     the decode-attention kernel reads in place). int8=True: ONE fused int8
     buffer "kv" [L, B, Hkv, max_len, 2D] (k | v lanes) with f32 scales "sc"
-    [L, B, Hkv, 2, max_len], a quarter of two bf16 buffers."""
-    L, hkv, hd = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim
+    [L, B, Hkv, 2, max_len], a quarter of two bf16 buffers. Hkv is
+    ``num_kv_heads`` where given (a tensor-parallel model's local heads,
+    :func:`kv_heads`), else the config's."""
+    L, hd = cfg.num_hidden_layers, cfg.head_dim
+    hkv = cfg.num_key_value_heads if num_kv_heads is None else num_kv_heads
     if int8:
         return {"kv": torch.zeros((L, batch, hkv, max_len, 2 * hd), dtype=torch.int8,
                                   device=device),
@@ -331,6 +351,29 @@ def init_kv_cache(cfg: Qwen3Config, batch: int, max_len: int,
     shape = (L, batch, hkv, max_len, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def kv_heads(model: Qwen3Model) -> int:
+    """The kv heads each layer of ``model`` holds (its local ones when
+    tensor-parallel): the Hkv of its cache."""
+    return model.model.layers[0].self_attn.num_kv_heads
+
+
+@contextlib.contextmanager
+def gathered(module: nn.Module):
+    """Hold an FSDP2 unit's parameters gathered (``unshard``) for code that
+    reads them without calling the module, then shard them again; a module
+    that is not a unit passes through."""
+    from torch.distributed.fsdp import FSDPModule
+
+    if not isinstance(module, FSDPModule):
+        yield module
+        return
+    module.unshard()
+    try:
+        yield module
+    finally:
+        module.reshard()
 
 
 def _rope_at(cfg: Qwen3Config, positions: torch.Tensor):
@@ -343,11 +386,21 @@ def _rope_at(cfg: Qwen3Config, positions: torch.Tensor):
 
 
 def embed_tokens(model: Qwen3Model, token_ids: torch.Tensor) -> torch.Tensor:
+    """Rows of the embedding table; a vocabulary-parallel table
+    (parallel/tp.py) looks up the ids it holds, zeros elsewhere, and sums
+    the ranks' rows in fp32 (one non-zero term: exact)."""
     emb = model.model.embed_tokens
     if isinstance(emb, QEmbedding):
         # gather int8 rows, dequantize just those (bf16, as the JAX package)
         return (emb.q[token_ids].float() * emb.s).to(torch.bfloat16)
-    return F.embedding(token_ids, emb.weight)
+    tp = getattr(emb, "tp", None)
+    if tp is None:
+        return F.embedding(token_ids, emb.weight)
+    local = token_ids - emb.vocab_start
+    held = (local >= 0) & (local < emb.weight.shape[0])
+    rows = F.embedding(torch.where(held, local, 0), emb.weight).float()
+    rows = torch.where(held[..., None], rows, 0.0)
+    return tp.all_reduce(rows).to(emb.weight.dtype)
 
 
 def lm_logits(model: Qwen3Model, hidden: torch.Tensor) -> torch.Tensor:
@@ -359,7 +412,8 @@ def lm_logits(model: Qwen3Model, hidden: torch.Tensor) -> torch.Tensor:
     (Qwen3-14B) is the wrong matrix (ROADMAP C11)."""
     lm = getattr(model, "lm_head", None)
     if lm is not None:
-        return lm(hidden).float()
+        tp = getattr(lm, "tp", None)
+        return lm(hidden).float() if tp is None else tp.all_gather(lm(hidden).float())
     if not model.cfg.tie_word_embeddings:
         raise ValueError("lm_logits: the model has untied embeddings and no lm_head "
                          "(an int4 model drops it), so it has no text head")
@@ -434,8 +488,6 @@ def qwen3_forward_cached(model: Qwen3Model, embeds: torch.Tensor,
     """
     cfg = model.cfg
     b, s, _ = embeds.shape
-    hq, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    eps = cfg.rms_norm_eps
     int8_cache = "kv" in cache
     max_len = (cache["kv"] if int8_cache else cache["k"]).shape[3]
     dev = embeds.device
@@ -454,37 +506,50 @@ def qwen3_forward_cached(model: Qwen3Model, embeds: torch.Tensor,
 
     x = embeds
     for li, layer in enumerate(model.model.layers):
-        at = layer.self_attn
-        h = rms_norm(x, layer.input_layernorm.weight, eps)
-        q = rms_norm(at.q_proj(h).view(b, s, hq, hd), at.q_norm.weight, eps)
-        k = rms_norm(at.k_proj(h).view(b, s, hkv, hd), at.k_norm.weight, eps)
-        v = at.v_proj(h).view(b, s, hkv, hd)
-        q = apply_rope_half(q, cos, sin)
-        k = apply_rope_half(k, cos, sin)
-        if int8_cache:
-            kv_new, sc_new = quantize_kv_rows(k, v)
-            cache["kv"][li, :, :, cache_len:new_len] = kv_new
-            cache["sc"][li, :, :, :, cache_len:new_len] = sc_new
-            kv_l, sc_l = cache["kv"][li], cache["sc"][li]
-            if causal_block:
-                kd, vd = dequantize_fused_kv(kv_l, sc_l)
-                attn = attention_xla(q, kd.transpose(1, 2).to(q.dtype),
-                                     vd.transpose(1, 2).to(q.dtype), mask)
-            else:
-                attn = windowed_decode_attention_fusedkv(q, kv_l, kv_len_vec,
-                                                         kv_start, sc_l)
-        else:
-            k_all, v_all = cache["k"], cache["v"]
-            k_all[li, :, :, cache_len:new_len] = k.transpose(1, 2).to(k_all.dtype)
-            v_all[li, :, :, cache_len:new_len] = v.transpose(1, 2).to(v_all.dtype)
-            if causal_block:
-                attn = attention_xla(q, k_all[li].transpose(1, 2),
-                                     v_all[li].transpose(1, 2), mask)
-            else:
-                attn = windowed_decode_attention(q, k_all[li], v_all[li],
-                                                 kv_len_vec, kv_start)
-        x = x + at.o_proj(attn.to(x.dtype).reshape(b, s, hq * hd))
-        h = rms_norm(x, layer.post_attention_layernorm.weight, eps)
-        x = x + layer.mlp(h)
-    hidden = rms_norm(x, model.model.norm.weight, eps)
+        with gathered(layer):
+            x = _cached_layer(layer, x, cos, sin, cache, li, cache_len, new_len, kv_start,
+                              kv_len_vec, mask, causal_block)
+    hidden = rms_norm(x, model.model.norm.weight, cfg.rms_norm_eps)
     return hidden, cache
+
+
+def _cached_layer(layer: Qwen3DecoderLayer, x, cos, sin, cache: dict, li: int,
+                  cache_len: int, new_len: int, kv_start, kv_len_vec, mask,
+                  causal_block: bool) -> torch.Tensor:
+    """One layer of :func:`qwen3_forward_cached` on its local heads."""
+    b, s, _ = x.shape
+    at = layer.self_attn
+    hq, hkv, hd = at.num_heads, at.num_kv_heads, layer.cfg.head_dim
+    eps = layer.cfg.rms_norm_eps
+    int8_cache = "kv" in cache
+    h = rms_norm(x, layer.input_layernorm.weight, eps)
+    q = rms_norm(at.q_proj(h).view(b, s, hq, hd), at.q_norm.weight, eps)
+    k = rms_norm(at.k_proj(h).view(b, s, hkv, hd), at.k_norm.weight, eps)
+    v = at.v_proj(h).view(b, s, hkv, hd)
+    q = apply_rope_half(q, cos, sin)
+    k = apply_rope_half(k, cos, sin)
+    if int8_cache:
+        kv_new, sc_new = quantize_kv_rows(k, v)
+        cache["kv"][li, :, :, cache_len:new_len] = kv_new
+        cache["sc"][li, :, :, :, cache_len:new_len] = sc_new
+        kv_l, sc_l = cache["kv"][li], cache["sc"][li]
+        if causal_block:
+            kd, vd = dequantize_fused_kv(kv_l, sc_l)
+            attn = attention_xla(q, kd.transpose(1, 2).to(q.dtype),
+                                 vd.transpose(1, 2).to(q.dtype), mask)
+        else:
+            attn = windowed_decode_attention_fusedkv(q, kv_l, kv_len_vec,
+                                                     kv_start, sc_l)
+    else:
+        k_all, v_all = cache["k"], cache["v"]
+        k_all[li, :, :, cache_len:new_len] = k.transpose(1, 2).to(k_all.dtype)
+        v_all[li, :, :, cache_len:new_len] = v.transpose(1, 2).to(v_all.dtype)
+        if causal_block:
+            attn = attention_xla(q, k_all[li].transpose(1, 2),
+                                 v_all[li].transpose(1, 2), mask)
+        else:
+            attn = windowed_decode_attention(q, k_all[li], v_all[li],
+                                             kv_len_vec, kv_start)
+    x = x + row_parallel(at.o_proj, attn.to(x.dtype).reshape(b, s, hq * hd), at.tp)
+    h = rms_norm(x, layer.post_attention_layernorm.weight, eps)
+    return x + layer.mlp(h)

@@ -54,6 +54,20 @@ partials over the planned K ranges, summed in split order, then the
 route's epilogue); ``fused_em_sample_reference(splits=...)`` runs the whole
 plain sampler on it.
 
+Head-major stacks (parallel/tp.py::reorder_stacked_head_major, marked by
+an ``"hm_marker"`` entry, as the JAX package marks them): qkv's
+out-features in (n_head, 3, hd) order and w1's in (n_head, 2, H / n_head),
+so a share of out-features holds whole heads. ``em_sample_stacked`` on
+such a stack is the tensor-parallel sampler (:func:`_net_forward_tp`; on
+one device a pure permutation, which samples bit for bit as the canonical
+stack does with the head GEMM's splits): with a ``"tp"`` entry
+(parallel/tp.py::shard_head_stacked) each rank holds its shares of the
+block products, runs every one on the head GEMM (:func:`head_gemm`,
+"out_f32"; on the CPU its split twin) and all-reduces a row-parallel
+product's fp32 sums before the bias, gate and residual, which stay torch as
+the rest of the glue does. Kernel #2 and its plain version take canonical
+stacks only.
+
 :func:`fused_diffnet_forward` is one whole DiffNet forward (the TPU kernel
 #5, ``_fused_net_kernel``): the t-embedding MLP, the input projection, every
 block with ``_block_body``'s rounding and the final layer, in one host call
@@ -677,10 +691,20 @@ def modcat_product(stacked: dict, y: torch.Tensor) -> torch.Tensor:
     return allmods + stacked["modcat_b"]
 
 
+def _from_head_major(t: torch.Tensor, n_head: int, parts: int) -> torch.Tensor:
+    """Columns of a head-major product [R, n_head * parts * w] back in the
+    canonical (parts, n_head, w) order, contiguous."""
+    rows = t.shape[0]
+    return t.reshape(rows, n_head, parts, -1).transpose(1, 2).reshape(rows, -1)
+
+
 def _attn_from_qkv(qkv: torch.Tensor, n_head: int, groups: int,
-                   c_dim: int) -> torch.Tensor:
+                   c_dim: int, head_major: bool = False) -> torch.Tensor:
     """Window attention over packed qkv [R, 3C] (column order (3, n_head,
-    hd)) -> fp32 [R, C]; q is scaled (and rounded to qkv's dtype) first."""
+    hd), or (n_head, 3, hd) when ``head_major``) -> fp32 [R, C]; q is
+    scaled (and rounded to qkv's dtype) first."""
+    if head_major:
+        qkv = _from_head_major(qkv, n_head, 3)
     rows = qkv.shape[0]
     hd = c_dim // n_head
     w = rows // groups
@@ -795,6 +819,75 @@ def _net_forward(stacked: dict, x: torch.Tensor, mods_row: torch.Tensor, *,
     return 2.0 * torch.sigmoid(out) - 1.0 if bounded else out
 
 
+def _net_forward_tp(stacked: dict, x: torch.Tensor, mods_row: torch.Tensor, *,
+                    num_blocks: int, switch_freq: int, n_head: int, groups: int,
+                    attention: bool = True, bounded: bool = True,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """:func:`_net_forward`'s fp32-residual route on a head-major stack
+    (bf16 or fp32), the tensor-parallel sampler's net call: every block
+    product runs on the head GEMM (:func:`_head_gemm_sums`), and with a
+    ``"tp"`` entry (parallel/tp.py::HeadShards) as this rank's shares, qkv
+    and h12 on its local heads and a row-parallel product's fp32 sums
+    all-reduced before the bias, gate and residual."""
+    elem = stacked["n2"].dtype
+    c_dim = stacked["n2"].shape[-1]
+    n_mods = 6 if attention else 3
+    shards = stacked.get("tp")
+    place = shards.placements if shards is not None else {}
+    # the heads of this rank's qkv and h12 (all of them unless column-parallel)
+    n_local = n_head // shards.group.size if place.get("w1") == "col" else n_head
+
+    def product(a, key, l, bkey):
+        """fp32 a @ w.T + bias of block l's product ``key``."""
+        w = stacked[key][l]
+        if place.get(key) != "row":
+            return _head_gemm_sums(a, w) + stacked[bkey][l].float()
+        g = shards.group
+        k = w.shape[1]
+        if a.shape[1] != k:                # a whole input: this rank's columns of it
+            a = a[:, g.rank * k:(g.rank + 1) * k]
+        return g.all_reduce(_head_gemm_sums(a, w)) + stacked[bkey][l].float()
+
+    def lnmod(h, nrm, scale, shift):
+        ln = _ln(h, eps) * nrm[0].float() + nrm[1].float()
+        return (ln * (1.0 + scale.float()) + shift.float()).to(elem)
+
+    h = _dot_acc(torch.cat([x, x], dim=0), stacked["in_w"]) + stacked["in_b"]
+    for l in range(num_blocks):
+        g = l // switch_freq
+        m = mods_row[:, g * n_mods * c_dim:(g + 1) * n_mods * c_dim]
+        sl = lambda j: m[:, j * c_dim:(j + 1) * c_dim]   # noqa: E731
+        mlp = 0
+        if attention:
+            qkv = product(lnmod(h, stacked["n1"][l], sl(0), sl(1)), "wqkv", l, "bqkv")
+            att = _attn_from_qkv(qkv.to(elem), n_local, groups, c_dim * n_local // n_head,
+                                 head_major=True).to(elem)
+            h = _gated_f32(h, product(att, "wo", l, "bo"), sl(2))
+            mlp = 3
+        a = lnmod(h, stacked["n2"][l], sl(mlp), sl(mlp + 1))
+        h12 = _from_head_major(product(a, "w1", l, "b1").to(elem), n_local, 2)
+        glu = _swiglu_f32(h12).to(elem)
+        h = _gated_f32(h, product(glu, "w2", l, "b2"), sl(mlp + 2))
+    fm = mods_row[:, -2 * c_dim:].float()
+    z = _ln(h, eps) * (1.0 + fm[:, :c_dim]) + fm[:, c_dim:]
+    out = _dot_acc(z, stacked["f_out_w"]) + stacked["f_out_b"]
+    return 2.0 * torch.sigmoid(out) - 1.0 if bounded else out
+
+
+def _head_gemm_sums(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """fp32 sums a @ w.T of one product of the head-major sampler on the
+    head GEMM ("out_f32": no bias, no epilogue), a cast to w's dtype. On the
+    CPU a shape the card's GEMM cannot tile (a test's narrow head) takes
+    one fp32 pass (:func:`_dot_acc`); on the card it raises."""
+    a = a.to(w.dtype).contiguous()
+    if a.is_cpu:
+        try:
+            head_gemm_plan(a.shape[0], *w.shape)
+        except ValueError:
+            return _dot_acc(a, w)
+    return head_gemm(a, w, "out_f32", None)
+
+
 def _as_floats(t) -> list[float]:
     if isinstance(t, torch.Tensor):
         return [float(v) for v in t.detach().float().cpu()]
@@ -815,19 +908,29 @@ def fused_em_sample_reference(stacked: dict, x0: torch.Tensor,
     On a bf16 or fp32 stack, splits ({"w1": S, ...}: the split counts of
     :func:`sampler_plans`) sums each block product's K splits as the card's
     head GEMM does; None sums each in one pass."""
+    if "hm_marker" in stacked:
+        raise ValueError("fused_em_sample_reference: a head-major stack runs "
+                         "em_sample_stacked")
+    if round_residual is None:
+        round_residual = rounds_residual(stacked, num_blocks, attention)
+    kw = dict(num_blocks=num_blocks, switch_freq=max(1, num_blocks // num_ada),
+              n_head=n_head, groups=groups, attention=attention, bounded=bounded,
+              quant=quant_mode(quant), round_residual=round_residual, splits=splits)
+    return _em_loop(lambda x, s: _net_forward(stacked, x, allmods[s], **kw),
+                    x0, noise, t_all, dt_all, cfg, last_step_size, final_chunk)
+
+
+def _em_loop(net, x0: torch.Tensor, noise: torch.Tensor, t_all, dt_all, cfg: float,
+             last_step_size: float, final_chunk: bool) -> torch.Tensor:
+    """The guided Euler-Maruyama loop over ``net(x, s)`` (step s's net call
+    on rows [x; x] -> fp32 [R, ch])."""
     num_steps = noise.shape[0]
-    switch_freq = max(1, num_blocks // num_ada)
     half = x0.shape[0]
     ts, dts = _as_floats(t_all), _as_floats(dt_all)
     cfg = float(cfg)
     x = x0.float()
-    if round_residual is None:
-        round_residual = rounds_residual(stacked, num_blocks, attention)
-    kw = dict(num_blocks=num_blocks, switch_freq=switch_freq, n_head=n_head,
-              groups=groups, attention=attention, bounded=bounded,
-              quant=quant_mode(quant), round_residual=round_residual, splits=splits)
     for s in range(num_steps + (1 if final_chunk else 0)):
-        out = _net_forward(stacked, x, allmods[s], **kw)
+        out = net(x, s)
         t, dt = ts[s], dts[s]
         combined = torch.cat([x, x], dim=0)
         v = (out - combined) / max(1.0 - t, 0.05)
@@ -852,10 +955,21 @@ def em_sample_stacked(stacked: dict, x0: torch.Tensor, noise: torch.Tensor,
                       quant: str | None = None) -> torch.Tensor:
     """Counterpart of the JAX stacked sampler: the plain sampler, computing
     allmods from c_emb when it is not given (W8A8 on a quantized stack),
-    with an fp32 residual (the JAX function's default glue_dtype)."""
+    with an fp32 residual (the JAX function's default glue_dtype). On a
+    head-major stack it is the tensor-parallel sampler (the module doc,
+    :func:`_net_forward_tp`): its block products launch the head GEMM on
+    CUDA tensors."""
     if allmods is None:
         allmods = em_precompute(stacked, c_emb, torch.as_tensor(t_all),
                                 out_dtype=stacked["in_w"].dtype)
+    if "hm_marker" in stacked:
+        if quant_mode(quant) is not None:
+            raise NotImplementedError("em_sample_stacked: quantized head-major stacks "
+                                      "are not ported (ROADMAP A11b)")
+        kw = dict(num_blocks=num_blocks, switch_freq=max(1, num_blocks // num_ada),
+                  n_head=n_head, groups=groups, attention=attention, bounded=bounded)
+        return _em_loop(lambda x, s: _net_forward_tp(stacked, x, allmods[s], **kw),
+                        x0, noise, t_all, dt_all, cfg, last_step_size, True)
     return fused_em_sample_reference(
         stacked, x0, noise, allmods, t_all, dt_all, cfg,
         num_blocks=num_blocks, num_ada=num_ada, n_head=n_head, groups=groups,
@@ -911,6 +1025,9 @@ def fused_em_sample(stacked: dict, x0: torch.Tensor, noise: torch.Tensor,
         return fused_em_sample_reference(stacked, x0, noise, allmods, t_all,
                                          dt_all, cfg, quant=mode,
                                          round_residual=round_residual, **kw)
+    if "hm_marker" in stacked:
+        raise ValueError("fused_em_sample: the kernel takes the canonical layout; a "
+                         "head-major stack runs em_sample_stacked")
     if mode is not None and not attention and not round_residual:
         raise ValueError("fused_em_sample: a quantized MlpEncoder stack runs on the "
                          "round route (kernels #3/#4); the JAX router never sends "

@@ -9,8 +9,10 @@ axis, replica-major. The port builds the same mesh as a
 each head block, plus the root, sharded over "fsdp" and replicated over
 "replica" (HSDP on a 2-D mesh). Each parameter is sharded on the dimension
 the JAX rule picks (:func:`shard_dim`); the moments and the EMA are sharded
-like their parameters (:func:`shard_train_state`). Tensor parallelism
-("tp" > 1) is not ported (ROADMAP A11b).
+like their parameters (:func:`shard_train_state`). On a mesh with "tp" > 1
+a model is tensor-parallel first (parallel/tp.py, over :func:`tp_group`)
+and FSDP2 then shards its TP-local parameters over ("replica", "fsdp"):
+torch's 2-D recipe.
 """
 
 from __future__ import annotations
@@ -31,16 +33,15 @@ MIN_SHARD_SIZE = 2 ** 14
 def create_mesh(replica: int = 1, fsdp: int | None = None, tp: int = 1,
                 device_type: str = "cuda"):
     """A (replica, fsdp, tp) DeviceMesh over the processes of the default
-    group (started by ``utils/fs.py::init_distributed`` when none is):
+    group (started by ``utils/fs.py::init_distributed`` when none is; ranks
+    that share one card start it over gloo themselves first):
     ``fsdp`` defaults to what the other axes leave, and the axes must
-    multiply to the world size, as in the JAX package (which asserts it)."""
+    multiply to the world size, as in the JAX package (which asserts it).
+    Ranks are laid out tp-minor, so a tp group is consecutive ranks."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from bitdance_tpu_torch.utils.fs import init_distributed
 
-    if tp > 1:
-        raise NotImplementedError(f"tp={tp}: tensor parallelism is not ported "
-                                  "(ROADMAP A11b)")
     if not dist.is_initialized():
         init_distributed(device_type)
     n = dist.get_world_size()
@@ -111,10 +112,23 @@ def fsdp_units(model: nn.Module) -> list[nn.Module]:
     return [m for m in model.modules() if isinstance(m, kinds)]
 
 
+def tp_group(mesh):
+    """This process's :class:`~bitdance_tpu_torch.parallel.tp.TPGroup` on
+    the mesh's "tp" axis (size 1, no process group, when the axis is 1)."""
+    from bitdance_tpu_torch.parallel.tp import TPGroup
+
+    size = mesh.size(2)
+    if size == 1:
+        return TPGroup()
+    return TPGroup(mesh.get_local_rank("tp"), size, mesh.get_group("tp"))
+
+
 def shard_model(model: nn.Module, mesh, param_dtype: torch.dtype | None = None) -> nn.Module:
     """Put ``model`` under FSDP2 in place over the mesh's (replica, fsdp)
     axes: each of :func:`fsdp_units`, then the root with the parameters
-    left. Each parameter is sharded on :func:`shard_dim`
+    left. On a mesh with tp > 1 the parameters are the model's TP-local
+    ones (shard it with parallel/tp.py first), each rank's FSDP group the
+    ranks of its tp coordinate. Each parameter is sharded on :func:`shard_dim`
     of its shape. FSDP2 cannot keep a tensor whole inside a unit, so where
     the JAX rule replicates (small or indivisible tensors) it is sharded on
     dim 0 with FSDP2's padding. ``param_dtype`` is the dtype the forward and
@@ -123,9 +137,6 @@ def shard_model(model: nn.Module, mesh, param_dtype: torch.dtype | None = None) 
     from torch.distributed.fsdp import MixedPrecisionPolicy, fully_shard
     from torch.distributed.tensor import Shard
 
-    if mesh.size(2) > 1:
-        raise NotImplementedError("tp > 1: tensor parallelism is not ported "
-                                  "(ROADMAP A11b)")
     fsdp_size = mesh.size(1)
 
     def placement(p: nn.Parameter):

@@ -11,6 +11,12 @@ Same conventions as the JAX pipeline:
     included; each image is decoded on its own.
 PyTorch runs eagerly, so there are no compiled programs, layout pins or
 environment switches; the KV cache is updated in place.
+
+Over a device mesh (``T2IPipeline(mesh=...)``, :func:`shard_bundle_`) every
+rank runs the same request from the same seed: the LLM tensor-parallel over
+"tp" (and FSDP over the other axes), the head's sampler head-major and
+tensor-parallel with tp > 1, the VQ decoder whole; the ranks' token grids
+are checked equal once per request.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from bitdance_tpu_torch.data.special_tokens import chatml_prompts, image_start_ids
 from bitdance_tpu_torch.models import qwen3 as q3
@@ -94,7 +101,8 @@ def prefill_t2i(bundle: T2IModelBundle, prompt_ids: torch.Tensor,
     positions = torch.clamp(idx[None] - prompt_pad[:, None], min=0)
 
     cache = q3.init_kv_cache(llm.cfg, n2, cache_max, dtype=prompt_emb.dtype,
-                             device=prompt_emb.device, int8=kv_int8)
+                             device=prompt_emb.device, int8=kv_int8,
+                             num_kv_heads=q3.kv_heads(llm))
     pre1 = P + 2
     _, cache = q3.qwen3_forward_cached(
         llm, seq_emb[:, :pre1], positions[:, :pre1], cache, 0, prompt_pad,
@@ -163,19 +171,64 @@ def decode_image(bundle: T2IModelBundle, tokens: torch.Tensor, latent_h: int,
     return bundle.ae.decode(latents)
 
 
+def shard_bundle_(bundle: T2IModelBundle, mesh):
+    """Serve ``bundle`` over ``mesh`` IN PLACE (JAX t2i.py:248-282) and
+    return this rank's tp group (parallel/tp.py::TPGroup): the LLM
+    tensor-parallel by the Qwen3 rules over "tp"; with more than one
+    (replica, fsdp) process, FSDP2 over those axes on top, the root's
+    parameters (embedding, final norm) then held gathered and each layer
+    gathered as the cached forward reaches it; with tp > 1 the head's
+    sampler stack reordered head-major and sharded Megatron-style; the VQ
+    decoder and the connector whole on every rank. bf16 and fp32 only."""
+    from bitdance_tpu_torch.parallel.mesh import data_size, shard_model, tp_group
+    from bitdance_tpu_torch.parallel.tp import shard_head_stacked, shard_qwen3_
+
+    tp = tp_group(mesh)
+    shard_qwen3_(bundle.llm, tp)
+    if data_size(mesh) > 1:
+        shard_model(bundle.llm, mesh)
+        bundle.llm.unshard()
+    if tp.size > 1:
+        head = bundle.head
+        bundle.head_stacked = shard_head_stacked(
+            bundle.stacked_head(), tp, head.ch_latent // head.attn_head_dim)
+    return tp
+
+
+def check_ranks_agree(tokens: torch.Tensor) -> None:
+    """Raise unless every rank of the default group holds the same ±1
+    grid: an fp64 checksum (exact: integer weights) and its negation
+    all-reduced by max in one call."""
+    w = torch.arange(1, tokens.numel() + 1, dtype=torch.float64, device=tokens.device)
+    c = (tokens.reshape(-1).double() * w).sum()
+    both = torch.stack([c, -c])
+    dist.all_reduce(both, op=dist.ReduceOp.MAX)
+    if both[0] != c or both[1] != -c:
+        raise RuntimeError(f"rank {dist.get_rank()}: the ranks' token grids differ")
+
+
 class T2IPipeline:
-    """User-facing pipeline: prompt string -> uint8 images [n, H, W, 3]."""
+    """User-facing pipeline: prompt string -> uint8 images [n, H, W, 3].
+    With ``mesh`` (parallel/mesh.py::create_mesh) the bundle is sharded in
+    place (:func:`shard_bundle_`) and ``last_tp`` holds each request's
+    count of tp all-reduces (and their seconds when ``tp.timed``)."""
 
     PROMPT_BUCKETS = (64, 128, 256, 512)
 
     def __init__(self, bundle: T2IModelBundle, tokenizer=None,
-                 kv_int8: bool = False):
+                 kv_int8: bool = False, mesh=None):
         # the serving path is bf16 (TF32 never applies there); its fp32
         # pieces (the head's c_emb, the plain kernel twins) stay full fp32
         full_fp32()
+        if mesh is not None and kv_int8:
+            raise NotImplementedError("T2IPipeline: the int8 KV cache is not served "
+                                      "over a mesh (ROADMAP A11b)")
         self.bundle = bundle
         self.tokenizer = tokenizer
         self.kv_int8 = kv_int8
+        self.mesh = mesh
+        self.tp = shard_bundle_(bundle, mesh) if mesh is not None else None
+        self.last_tp: dict = {}
         self.last_timing: dict = {}
         self.pos_table = build_pos_table(bundle)
         self._geom_cache: dict = {}
@@ -218,6 +271,8 @@ class T2IPipeline:
         rows_t = torch.tensor(rows, dtype=torch.long, device=dev)
         pads_t = torch.tensor(pads, dtype=torch.int32, device=dev)
         gen = torch.Generator(device=dev).manual_seed(seed)
+        if self.tp is not None:
+            self.tp.all_reduces, self.tp.seconds = 0, 0.0
 
         phase = PhaseTimer(dev)
         with phase("prefill"):
@@ -232,6 +287,10 @@ class T2IPipeline:
                                 guidance_scale=float(guidance_scale),
                                 num_sampling_steps=num_sampling_steps)
             del cache, hidden
+            if self.mesh is not None:
+                check_ranks_agree(tokens)
+                self.last_tp = {"all_reduces": self.tp.all_reduces,
+                                "all_reduce_s": self.tp.seconds}
         with phase("vae"):
             imgs = []
             for i in range(tokens.shape[0]):

@@ -124,24 +124,32 @@ def _rank() -> int:
     return int(os.environ.get("RANK", 0))
 
 
-def init_distributed(device="cuda", init_method: str | None = None) -> tuple[int, int]:
+def init_distributed(device="cuda", init_method: str | None = None,
+                     backend: str | None = None,
+                     device_index: int | None = None) -> tuple[int, int]:
     """Start the default process group once and return (rank, world size).
 
     The rank and world come from the launcher's RANK and WORLD_SIZE
     (torchrun); NCCL on ``device`` "cuda" (the device set to LOCAL_RANK
-    first), gloo on the CPU. ``init_method`` defaults to torchrun's
-    ``env://`` (MASTER_ADDR, MASTER_PORT); a ``file://`` path serves
-    processes on one machine. Without launcher variables it starts a group
-    of one from a local store, so the commands take their sharded steps on
-    one device, as the JAX scripts do. A world above 1 whose group does not
-    start raises; so does a group already started at another world than
-    WORLD_SIZE says, or on another backend than ``device`` takes."""
+    first), gloo on the CPU. ``backend`` overrides that choice, and
+    ``device_index`` the card: several ranks can share one card over gloo
+    (``backend="gloo", device_index=0``), which NCCL refuses. ``init_method``
+    defaults to torchrun's ``env://`` (MASTER_ADDR, MASTER_PORT); a
+    ``file://`` path serves processes on one machine. Without launcher
+    variables it starts a group of one from a local store, so the commands
+    take their sharded steps on one device, as the JAX scripts do. A group
+    above one process returns only after a barrier over it: the group's
+    start does not wait for every rank's connections, and a rank that went
+    on and left while a peer was still connecting closed that peer's socket
+    under it. A world above 1 whose group does not start raises; so does a
+    group already started at another world than WORLD_SIZE says, or on
+    another backend than ``device`` (or ``backend``) takes."""
     import torch
     import torch.distributed as dist
 
     world = int(os.environ.get("WORLD_SIZE", 1))
     cuda = torch.device(device).type == "cuda"
-    backend = "nccl" if cuda else "gloo"
+    backend = backend or ("nccl" if cuda else "gloo")
     if dist.is_initialized():
         if dist.get_world_size() != world:
             raise RuntimeError(f"WORLD_SIZE={world}, but the process group holds "
@@ -152,13 +160,16 @@ def init_distributed(device="cuda", init_method: str | None = None) -> tuple[int
         return dist.get_rank(), world
     rank = int(os.environ.get("RANK", 0))
     if cuda:
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0))
+                              if device_index is None else device_index)
     if world == 1 and init_method is None:
         dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
         return 0, 1
     try:
         dist.init_process_group(backend, init_method=init_method or "env://",
                                 rank=rank, world_size=world)
+        dist.barrier(**({"device_ids": [torch.cuda.current_device()]}
+                        if backend == "nccl" else {}))
     except (ValueError, RuntimeError) as e:
         raise RuntimeError(f"rank {rank} of {world}: the {backend} process group "
                            f"did not start ({e})") from e

@@ -5,7 +5,9 @@ serving and interleaved generation (BitDance-14B-64x), ImageNet class-conditiona
 (BitDance-H-1x at 20 of 40 layers and BitDance-B-16x, 256 px), packed
 multimodal training of
 BitDance-14B-64x (full width, 4 of 40 layers), the data-parallel (FSDP)
-train steps at world 1, tokenizer reconstruction
+train steps at world 1, tensor-parallel T2I serving (two ranks on the one
+card over gloo at tp 2; BitDance-14B-64x at full width, 2 of 40 layers),
+tokenizer reconstruction
 (the release VQ tokenizer, 256 and 1024 px), the training commands
 (cli.train_imagenet at BitDance-B-1x with checkpoints and resume,
 cli.sample_fid, tokenizer training, cli.train_mllm), and the release directory of
@@ -149,6 +151,21 @@ Phases, run in this order, one line each, any failure exits non-zero:
                     max |delta| of losses and parameters (bit-equal or
                     within the CPU tests' tolerance), s/step and peak GiB
                     both ways, the sharded runs' kernel launches
+  tp                tensor-parallel T2I serving: two spawned ranks on the
+                    one card joined over gloo (NCCL refuses two ranks on
+                    one card) on a (1, 1, 2) mesh, each building the random
+                    BitDance-14B-64x at full width and 2 of 40 layers from
+                    one seed; a tp 1 run of one guided 256 px request, then
+                    the bundle sharded in place (Qwen3 by whole heads: 20 q
+                    / 4 kv heads a rank through #1; the head's sampler
+                    head-major, its products on the head GEMM with fp32
+                    all-reduces) and the same request: the ranks' grids
+                    equal, teacher-forced hidden states and one head sample
+                    against tp 1 within stated bounds, the free-running
+                    grids' agreement reported, s/request, all-reduces and
+                    their seconds, peak GiB a rank, launches; then #1 at the
+                    local heads and the head GEMM's four products at a
+                    rank's shapes against their plain versions
   encode_kernel     the encode tail vs its plain version at the release
                     tokenizer's trunk shapes (256, 512, 1024 px), bf16 and
                     fp32, two launches bit-equal, eager and device-only times
@@ -415,6 +432,31 @@ PARALLEL_STEPS = 3
 PARALLEL_MLLM_LAYERS = 2
 PARALLEL_MLLM_LR = 1e-3      # bf16 weights move by more than an ulp in one step
 TRAIN_MEMORY_MLLM_LAYERS = 4   # --train-memory's 14B step: the mllm phase's depth
+# tensor-parallel T2I serving: two ranks on the one card over gloo at tp 2,
+# mesh (1, 1, 2), the random BitDance-14B-64x at full width and TP_LAYERS of
+# its 40 layers, one guided 256 px request (prompt, px, seed), against a tp 1
+# run of the same seed on the card. Teacher-forced hidden states (both runs
+# fed the tp 1 run's grid): max |delta| / max |tp 1| over the prefill and every
+# AR step. The two differ where a row-parallel product's fp32 partials, summed
+# over the group and rounded once, land on the other side of a bf16 rounding
+# boundary than the one-pass product; one bf16 ulp is 3.9e-3 of a value.
+# Readings (NVIDIA H100 80GB HBM3, 700 W): 9.8e-3-1.32e-2 max, 6.5-7.1e-3
+# mean over the prefill and 4 AR steps; the bound is about twice the max.
+# The head sample from the same cond and draws (kernel #2 at tp 1 against the
+# tensor-parallel plain-precision sampler on the head GEMM at tp 2) is held
+# as #2 is held against its plain version: SAMPLER_MAX_REL_ERR over 4 steps'
+# latents, SAMPLER_SIGN_AGREEMENT_FLOOR of the signs clear of SIGN_MARGIN
+# after TP_STEPS.
+TP_LAYERS = 2
+TP_REQUEST = ("a harbour at dawn, tensor-parallel", 256, 5)
+TP_STEPS = 50
+TP_CFG = 7.5
+TP_HIDDEN_MAX_REL_ERR = 3e-2
+TP_DEADLINE_S = 600
+# the head-major sampler's four block products at tp 2: each rank's share on
+# the head GEMM, fp32 sums (the all-reduce adds the bias after)
+TP_GEMM_PRODUCTS = {"wqkv": ("out_f32", None), "wo": ("out_f32", None),
+                    "w1": ("out_f32", None), "w2": ("out_f32", None)}
 # the encode tail (#13) vs its plain version: raw output relative to max |x|
 # (bf16 output: a few ulps; fp32: summation order), and exact signs wherever
 # the plain raw value clears the repo's sign margin
@@ -1130,25 +1172,26 @@ def _check_interleaved_run(gen, plan, out, tok, bundle, cfg_scale, counts,
     return bad
 
 
-def _check_decode_b1(kv_len: int, seed: int) -> dict:
-    """#1 at batch 1 and the interleaved plans' longest kv_len, one window
-    of 64 queries over the whole cache: against its plain version with the
-    window edges poisoned, a window off by one key moving the plain output
-    by >= 4x the bound, two launches bit-equal; eager, device-only, plain
-    and SDPA times, and the bound over the live keys."""
+def _check_decode_window(kv_len: int, seed: int, phase: str = "interleaved", b: int = 1,
+                        hq: int = DECODE_SHAPE["hq"], hkv: int = DECODE_SHAPE["hkv"],
+                        bound: float = DECODE_MAX_ABS_ERR["mid_decode"]) -> dict:
+    """#1 at batch ``b``, ``hq`` / ``hkv`` heads and ``kv_len`` (the
+    interleaved plans' longest at batch 1; the tp phase's local heads), one
+    window of 64 queries over the whole cache: against its plain version
+    with the window edges poisoned, a window off by one key moving the plain
+    output by >= 4x the bound, two launches bit-equal; eager, device-only,
+    plain and SDPA times, and the bound over the live keys."""
     import torch
 
     dev = torch.device("cuda")
-    sh = DECODE_SHAPE
-    s, hq, hkv, d = sh["s"], sh["hq"], sh["hkv"], sh["d"]
+    s, d = DECODE_SHAPE["s"], DECODE_SHAPE["d"]
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn((1, s, hq, d), generator=g, device=dev).bfloat16()
-    k, v = (torch.randn((1, hkv, kv_len, d), generator=g, device=dev).bfloat16()
+    q = torch.randn((b, s, hq, d), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((b, hkv, kv_len, d), generator=g, device=dev).bfloat16()
             for _ in range(2))
-    kv_start = torch.zeros((1,), dtype=torch.int32, device=dev)
-    n = torch.full((1,), kv_len, dtype=torch.int32, device=dev)
+    kv_start = torch.zeros((b,), dtype=torch.int32, device=dev)
+    n = torch.full((b,), kv_len, dtype=torch.int32, device=dev)
     bufs = _decode_buffers("bf16", k, _poison_window_edges(v, kv_start, n))
-    bound = DECODE_MAX_ABS_ERR["mid_decode"]
     with torch.no_grad():
         kernel, plain, library = _decode_fns("bf16", q, bufs, n, kv_start)
         got, again = kernel(), kernel()
@@ -1161,15 +1204,16 @@ def _check_decode_b1(kv_len: int, seed: int) -> dict:
                                                        (n, kv_start + 1)))
         t = {"ms": cuda_time_ms(kernel, 50), "device_ms": cuda_graph_time_ms(kernel),
              "plain_ms": cuda_time_ms(plain, 10), "library_ms": cuda_time_ms(library, 50)}
-    t.update(roofline(nbytes(q, q) + 2 * hkv * d * 2 * kv_len, 4.0 * hq * s * d * kv_len))
-    log("interleaved", f"decode_attention B=1 kv_len={kv_len}: max abs err {err:.3e} "
+    t.update(roofline(nbytes(q, q) + 2 * b * hkv * d * 2 * kv_len,
+                      4.0 * b * hq * s * d * kv_len))
+    log(phase, f"decode_attention B={b} {hq}/{hkv} heads kv_len={kv_len}: max abs err {err:.3e} "
         f"(bound {bound}; a window off by one key moves the plain version by "
         f"{shift:.3e}); two launches bit-equal {same}; kernel {t['ms']:.4f} ms eager "
         f"({t['device_ms']:.4f} device-only), plain {t['plain_ms']:.4f} ms, "
         f"scaled_dot_product_attention {t['library_ms']:.4f} ms, bound "
         f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
     if not torch.isfinite(got).all() or err > bound or shift < 4 * bound or not same:
-        raise SystemExit(f"interleaved: decode_attention at B=1 kv_len={kv_len}: err "
+        raise SystemExit(f"{phase}: decode_attention at B={b} kv_len={kv_len}: err "
                          f"{err}, shift {shift}, bit-equal {same}")
     return {"max_abs_err": err, **t}
 
@@ -1314,7 +1358,7 @@ def phase_interleaved(bundle, card: str, user_image_u8) -> dict:
     checks = {"mlp": _check_mlp_block("14b", blk, blk.norm2, rows, dev, 41,
                                       phase="interleaved"),
               "attn": _attn_block_case(bundle, 1, rows, dev, 42, phase="interleaved"),
-              "decode": _check_decode_b1(plans["longest"], 43)}
+              "decode": _check_decode_window(plans["longest"], 43)}
     checks["attn"]["shapes"] = {"2x64": _attn_block_case(
         bundle, 2, rows, dev, 44, phase="interleaved")}
     return {"launches": plans["launches"], "runs": plans["runs"],
@@ -2725,7 +2769,8 @@ def _check_head_gemm(name, stacked, keys, rows, dev, seed, products=HEAD_GEMM_PR
             + f"; cold L2 over {blocks} blocks: {ms:.4f} ms eager, {dms:.4f} device-only; "
             f"torch.matmul {lib_ms:.4f} / {lib_dms:.4f}; bound {bd['bound_ms']:.4f} ms "
             f"({bd['bound_by']})")
-        out[key] = {"mode": mode, "splits": plan.splits, "rel_err": checks[0][2],
+        out[key] = {"mode": mode, "splits": plan.splits, "max_abs_err": checks[0][1],
+                    "rel_err": checks[0][2],
                     "rel_err_by_splits": {sp: r for sp, _, r, _, _ in checks}, "ms": ms,
                     "device_ms": dms, "library_ms": lib_ms, "library_device_ms": lib_dms, **bd}
     return out
@@ -4172,6 +4217,294 @@ def phase_parallel(card: str) -> dict:
     return out
 
 
+def _t2i_request_inputs(pipe, prompt: str, px: int):
+    """The request T2IPipeline.generate builds for one image: (prompt ids,
+    pads, image start ids, pos-embed, latent side, prompt bucket)."""
+    import torch
+
+    from bitdance_tpu_torch.data.special_tokens import chatml_prompts
+
+    b = pipe.bundle
+    side = px // b.vae_patch_size
+    cond, uncond = (pipe.tokenizer.encode(t) for t in chatml_prompts(prompt))
+    P = next(pb for pb in pipe.PROMPT_BUCKETS if pb >= len(cond))
+    rows = [[0] * (P - len(ids)) + list(ids) for ids in (cond, uncond)]
+    pads = torch.tensor([P - len(cond), P - len(uncond)], dtype=torch.int32, device=b.device)
+    start, pe = pipe._geometry(side, side)
+    return torch.tensor(rows, device=b.device), pads, start, pe, side, P
+
+
+def teacher_forced(pipe, prompt: str, px: int, tokens) -> list:
+    """The prefill's and every AR step's hidden states (fp32, on the card)
+    of ``pipe``'s bundle fed the ±1 grid ``tokens`` [1, h*w, z] in place of
+    its own samples (decode_t2i's steps otherwise)."""
+    import torch
+
+    from bitdance_tpu_torch.models import qwen3 as q3
+    from bitdance_tpu_torch.pipelines.t2i import prefill_t2i
+
+    b = pipe.bundle
+    p = b.parallel_num
+    rows, pads, start, pe, side, P = _t2i_request_inputs(pipe, prompt, px)
+    with torch.no_grad():
+        cache, hidden = prefill_t2i(b, rows, pads, start, latent_h=side, latent_w=side,
+                                    num_images=1)
+        out = [hidden.float()]
+        pe = pe.to(hidden.dtype)
+        tok = torch.as_tensor(tokens, device=b.device)
+        for step in range(side * side // p):
+            pe_s = pe[step * p:(step + 1) * p]
+            emb = (b.projector(tok[:, step * p:(step + 1) * p]) + pe_s[None]).to(hidden.dtype)
+            cache_len = P + 2 + p + step * p
+            pos = (cache_len + torch.arange(p, dtype=torch.int32, device=b.device))[None] \
+                - pads[:, None]
+            hidden, cache = q3.qwen3_forward_cached(b.llm, torch.cat([emb, emb]), pos, cache,
+                                                    cache_len, pads, causal_block=False)
+            out.append(hidden.float())
+    return out
+
+
+def _head_sample(pipe, cond, seed: int, steps: int):
+    """One AR step's head sample (the continuous latent before sign) of
+    ``pipe``'s bundle from ``cond`` [2, p, D] and a generator of ``seed``."""
+    import torch
+
+    from bitdance_tpu_torch.models.diff_head import _run_fused_sample
+
+    b = pipe.bundle
+    gen = torch.Generator(device=b.device).manual_seed(seed)
+    with torch.no_grad():
+        return _run_fused_sample(b.head, b.stacked_head(), cond, gen, TP_CFG, steps)
+
+
+def tp_rank(rank: int, world: int, workdir: str) -> None:
+    """One rank of the tp phase (spawned): joins a gloo group on card 0,
+    runs :func:`_tp_rank_run` and writes its results under ``workdir``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from bitdance_tpu_torch.utils.fs import init_distributed
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world))
+    init_distributed("cuda", init_method=f"file://{workdir}/store", backend="gloo",
+                     device_index=0)
+    try:
+        torch.save(_tp_rank_run(world), os.path.join(workdir, f"tp.{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_rank_run(world: int, device: str = "cuda") -> dict:
+    """The seeded bundle on ``device``, a tp 1 run (free-running tokens, the
+    teacher-forced hidden states, one head sample), then the same bundle
+    sharded over a (1, 1, world) mesh in place and the same three at tp
+    ``world``: the request timed, then again with its all-reduces timed."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from bitdance_tpu_torch.io.random_init import build_random_bundle
+    from bitdance_tpu_torch.models.qwen3 import Qwen3Config
+    from bitdance_tpu_torch.ops.decode_attention import decode_attention
+    from bitdance_tpu_torch.ops.fused_head import fused_em_sample, head_gemm
+    from bitdance_tpu_torch.parallel.mesh import create_mesh
+    from bitdance_tpu_torch.pipelines.t2i import T2IPipeline
+
+    prompt, px, seed = TP_REQUEST
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(Qwen3Config.qwen3_14b(), num_hidden_layers=TP_LAYERS)
+    bundle = build_random_bundle(dev, llm_cfg=cfg, seed=0)
+    tok = StubTokenizer(bundle.parallel_num)
+    gen = dict(height=px, width=px, num_sampling_steps=TP_STEPS, guidance_scale=TP_CFG,
+               num_images=1, seed=seed, return_tokens=True)
+    pipe1 = T2IPipeline(bundle, tok)
+    _, tokens1 = pipe1.generate(prompt, **gen)
+    hidden1 = teacher_forced(pipe1, prompt, px, tokens1)
+    p = bundle.parallel_num
+    pe0 = _t2i_request_inputs(pipe1, prompt, px)[3][:p].to(hidden1[0].dtype)
+    cond = (hidden1[0] + pe0[None]).bfloat16()
+    latents1 = [_head_sample(pipe1, cond, seed + 100, n) for n in (4, TP_STEPS)]
+    built = time.perf_counter() - t0
+
+    mesh = create_mesh(1, 1, world, device_type=dev.type)
+    pipe = T2IPipeline(bundle, tok, mesh=mesh)
+    del pipe1
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    at = pipe.bundle.llm.model.layers[0].self_attn
+    counts = (decode_attention, head_gemm, fused_em_sample)
+    for fn in counts:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    img, tokens = pipe.generate(prompt, **gen)
+    s_request = time.perf_counter() - t1
+    launches = {fn.__name__: fn.launches for fn in counts}
+    reduces = pipe.last_tp["all_reduces"]
+    pipe.tp.timed = True
+    t2 = time.perf_counter()
+    _, again = pipe.generate(prompt, **gen)
+    s_timed = time.perf_counter() - t2
+    timed = dict(pipe.last_tp)
+    pipe.tp.timed = False
+    hidden = teacher_forced(pipe, prompt, px, tokens1)
+    latents = [_head_sample(pipe, cond, seed + 100, n) for n in (4, TP_STEPS)]
+    torch.cuda.synchronize()
+    h_err = [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(hidden, hidden1)]
+    h_mean = [((a - b).abs().mean() / b.abs().mean()).item() for a, b in zip(hidden, hidden1)]
+    clear = latents1[1].abs() > SIGN_MARGIN
+    hs = pipe.bundle.head_stacked
+    return {
+        "tokens": tokens, "again_equal": bool(np.array_equal(tokens, again)),
+        "free_agreement": float(np.mean(tokens == tokens1)),
+        "image_ok": bool(img.dtype == np.uint8 and img.shape == (1, px, px, 3)),
+        "tokens_ok": bool(set(np.unique(tokens).tolist()) <= {-1.0, 1.0}),
+        "hidden_rel": h_err, "hidden_mean_rel": h_mean,
+        "finite": all(bool(torch.isfinite(h).all()) for h in hidden),
+        "latent_rel": ((latents[0] - latents1[0]).abs().max()
+                       / latents1[0].abs().max()).item(),
+        "latent_sign": ((torch.sign(latents[1]) == torch.sign(latents1[1]))[clear])
+        .float().mean().item(),
+        "latent_clear": clear.float().mean().item(),
+        "launches": launches, "all_reduces": reduces, "timed": timed,
+        "s_request": s_request, "s_timed": s_timed, "s_build_and_tp1": built,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "heads": (at.num_heads, at.num_kv_heads),
+        "stacked": {k: tuple(hs[k].shape) for k in ("wqkv", "w1", "wo", "w2")},
+        "placements": dict(hs["tp"].placements),
+        "steps": len(hidden) - 1, "layers": TP_LAYERS,
+        "head_blocks": pipe.bundle.head.depth_latent}
+
+
+def phase_tp(card: str) -> dict:
+    """Tensor-parallel T2I serving (ROADMAP A11b): two spawned ranks on the
+    one card over gloo (NCCL refuses two ranks on one card) at tp 2, each
+    building the seeded random BitDance-14B-64x at full width and TP_LAYERS
+    layers and serving one guided 256 px request, held against a tp 1 run
+    of the same seed (teacher-forced hidden states, one head sample, the
+    free-running grids' agreement reported); the ranks' grids must be equal
+    (the pipeline checks a checksum; here the grids themselves). Then #1 at
+    the local heads and the head GEMM's four products at the local shapes
+    against their plain versions. Returns the records and the launches."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from bitdance_tpu_torch.ops.fused_head import head_gemm_split_plain
+
+    t_phase = time.perf_counter()
+    world = 2
+    workdir = os.path.abspath("build/tp_phase")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    ctx = mp.start_processes(tp_rank, args=(world, workdir), nprocs=world, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + TP_DEADLINE_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise SystemExit(f"tp: the ranks ran past {TP_DEADLINE_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    ranks = [torch.load(os.path.join(workdir, f"tp.{r}.pt"), weights_only=False)
+             for r in range(world)]
+    shutil.rmtree(workdir, ignore_errors=True)
+    r0 = ranks[0]
+    layers, steps = r0["layers"], r0["steps"]
+    want_da = layers * (1 + steps)
+    # each AR step's TP_STEPS + 1 net calls run a rank's four products of
+    # every head block on the head GEMM
+    want_hg = steps * (TP_STEPS + 1) * r0["head_blocks"] * 4
+    same = all(np.array_equal(r["tokens"], r0["tokens"]) for r in ranks)
+    hid = max(max(r["hidden_rel"]) for r in ranks)
+    ok = (same and all(r["again_equal"] and r["image_ok"] and r["tokens_ok"] and r["finite"]
+                       for r in ranks)
+          and hid <= TP_HIDDEN_MAX_REL_ERR
+          and max(r["latent_rel"] for r in ranks) <= SAMPLER_MAX_REL_ERR
+          and min(r["latent_sign"] for r in ranks) >= SAMPLER_SIGN_AGREEMENT_FLOOR
+          and all(r["launches"]["decode_attention"] == want_da
+                  and r["launches"]["head_gemm"] == want_hg
+                  and r["launches"]["fused_em_sample"] == 0 for r in ranks))
+    for r, rec in enumerate(ranks):
+        log("tp", f"rank {r} of {world} (gloo on card 0), BitDance-14B-64x full width, "
+            f"{layers} of 40 layers, {TP_REQUEST[1]} px, {TP_STEPS} steps, cfg {TP_CFG}: "
+            f"local heads {rec['heads'][0]} q / {rec['heads'][1]} kv; head shards "
+            f"{rec['stacked']} {rec['placements']}; {rec['s_request']:.3f} s/request "
+            f"({rec['s_timed']:.3f} s with the all-reduces timed, a sync around each: "
+            f"{rec['timed']['all_reduces']} all-reduces, {rec['timed']['all_reduce_s']:.3f} s); "
+            f"all-reduces a request {rec['all_reduces']}; launches {rec['launches']} (want "
+            f"decode_attention {want_da}, head_gemm {want_hg}, fused_em_sample 0); teacher-forced hidden states "
+            f"against tp 1, max |d| / max |ref| "
+            + ", ".join(f"{v:.3e}" for v in rec["hidden_rel"])
+            + f" (bound {TP_HIDDEN_MAX_REL_ERR}), mean |d| / mean |ref| "
+            + ", ".join(f"{v:.3e}" for v in rec["hidden_mean_rel"])
+            + f"; one head sample from the same cond and draws: at 4 steps max |d| / max "
+            f"|ref| {rec['latent_rel']:.3e} (bound {SAMPLER_MAX_REL_ERR}), at {TP_STEPS} "
+            f"sign agreement {rec['latent_sign']:.4f} over the {rec['latent_clear']:.4f} of "
+            f"latents clear of {SIGN_MARGIN} (floor {SAMPLER_SIGN_AGREEMENT_FLOOR}); free-running grid "
+            f"agreement with tp 1 {rec['free_agreement']:.4f} (reported); peak "
+            f"{rec['peak_gib']:.2f} GiB; bundle and tp 1 run {rec['s_build_and_tp1']:.1f} s; "
+            f"card {card}")
+    log("tp", f"ranks' grids equal {same}; two requests on each rank equal "
+        f"{all(r['again_equal'] for r in ranks)}")
+    if not ok:
+        raise SystemExit("tp: the tensor-parallel run failed its checks")
+
+    # the kernels at the ranks' shapes, in this process
+    from bitdance_tpu_torch.io.random_init import BITDANCE_14B_64X, init_head
+    from bitdance_tpu_torch.parallel.tp import TPGroup, shard_head_stacked
+
+    dev = torch.device("cuda")
+    decode = _check_decode_window(64 + 2 + 64 + (TP_REQUEST[1] // 16) ** 2, 61, phase="tp",
+                                  b=2, hq=r0["heads"][0], hkv=r0["heads"][1],
+                                  bound=DECODE_MAX_ABS_ERR["prefill_pass2"])
+    geo = BITDANCE_14B_64X["head"]
+    head = init_head(dict(geo, depth_latent=2), dev, torch.bfloat16,
+                     torch.Generator(device=dev).manual_seed(0))
+    local = shard_head_stacked(head._stack_for_sampler(), TPGroup(0, world),
+                               geo["ch_latent"] // 128)
+    del head
+    rows = 2 * geo["parallel_num"]
+    gemm = _check_head_gemm("tp2", local, ("wqkv", "wo", "w1", "w2"), rows, dev, 62,
+                            products=TP_GEMM_PRODUCTS, phase="tp")
+    g = torch.Generator(device=dev).manual_seed(63)
+    plain_ms = 0.0
+    with torch.no_grad():
+        for key, got in gemm.items():
+            w = local[key][0]
+            a = torch.randn((rows, w.shape[1]), generator=g, device=dev).bfloat16()
+            plain_ms += cuda_time_ms(lambda a=a, w=w, sp=got["splits"]: head_gemm_split_plain(
+                a, w, "out_f32", None, splits=sp), 3, warmup=1)
+    del local
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst = max(gemm.values(), key=lambda g: g["rel_err"])
+    # one block's four products (a rank's share): times, bound and the
+    # library's summed; the errors the worst product's
+    rec = {"max_abs_err": max(g["max_abs_err"] for g in gemm.values()),
+           "max_rel_err": worst["rel_err"],
+           **{k: sum(p[k] for p in gemm.values()) for k in ("ms", "bound_ms", "library_ms")},
+           "plain_ms": plain_ms, "bound_by": worst["bound_by"], "products": gemm}
+    log("tp", f"head GEMM, a rank's four products of one block at tp {world}: "
+        f"{rec['ms']:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul "
+        f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms; card {card}")
+    log("tp", f"phase {time.perf_counter() - t_phase:.1f} s")
+    return {"decode": decode, "head_gemm": rec,
+            "launches": {"decode_attention": sum(r["launches"]["decode_attention"]
+                                                  for r in ranks),
+                         "head_gemm_tp": sum(r["launches"]["head_gemm"] for r in ranks)}}
+
+
 def _encode_case(shape, dtype, dev, seed):
     """A trunk output x (GroupNorm-ready, mean 0.3) and the tail's weights."""
     import torch
@@ -5130,6 +5463,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     for name, n in phase_parallel(card)["launches"].items():
         launches[name] = launches.get(name, 0) + n
+    tp = phase_tp(card)
+    results["decode_attention"].setdefault("shapes", {})["tp2_20x4"] = tp["decode"]
+    results["head_gemm_tp"] = tp["head_gemm"]
+    launches["decode_attention"] += tp["launches"]["decode_attention"]
+    launches["head_gemm_tp"] = tp["launches"]["head_gemm_tp"]
     results.update(phase_encode_kernel())
     launches["fused_encode_tail"] = phase_tokenizer(card)["launches"]
     gc.collect()
@@ -5222,6 +5560,13 @@ def main() -> int:
         # in the fused_net phase's log
         "fused_diffnet_forward": ("fused_net", "bitdance_tpu_torch/csrc/fused_net.cu",
                                   "bitdance_tpu/ops/fused_head.py:426"),
+        # the head GEMM alone, as the tensor-parallel sampler launches it
+        # (the tp phase): a rank's shares of the block products at tp 2,
+        # with the fp32 sums all-reduced outside. The JAX package runs a
+        # head-major stack on plain XLA, no Pallas kernel
+        "head_gemm_tp": ("head_gemm_tp", "bitdance_tpu_torch/csrc/head_gemm.cuh",
+                         "bitdance_tpu/ops/fused_head.py:1309 (_block_body_xla: "
+                         "plain XLA, no Pallas kernel)"),
     }
     for name, (key, src, repl) in meta.items():
         r = results[key]
@@ -5244,6 +5589,7 @@ def main() -> int:
                                              "pdl_gemms_ms", "pdl_gemms_device_ms",
                                              "launches_per_net_call", "launches_per_call",
                                              "products", "shapes", "sign_agreement",
+                                             "max_rel_err",
                                              "batch_s", "peak_gib", "bf16_agreement")
                            if k in r}})
     log("done", f"all phases in {time.perf_counter() - t_start:.1f} s")

@@ -244,14 +244,16 @@ def test_fs_local_ops(tmp_path):
 
 def test_init_distributed(tmp_path):
     """Two spawned ranks over gloo (a file store under tmp_path): each gets
-    (rank, 2), a second call in the started group returns the same, and a
-    call for the card's backend (NCCL) in that gloo group raises."""
+    (rank, 2), a second call in the started group returns the same, a call
+    for the card's backend (NCCL) in that gloo group raises, and one for
+    the card with the gloo override returns the group."""
     from tests.test_torch_parallel import init_task, spawn
 
     results = spawn(init_task, 2, tmp_path)
     assert [r["init"] for r in results] == [(0, 2), (1, 2)]
     assert [r["again"] for r in results] == [(0, 2), (1, 2)]
     assert all("takes nccl" in r["other_backend"] for r in results)
+    assert [r["gloo_on_card"] for r in results] == [(0, 2), (1, 2)]
 
 
 def test_scalar_writer_jsonl(tmp_path, monkeypatch):

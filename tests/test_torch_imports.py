@@ -67,6 +67,8 @@ INTERLEAVED_SLICE_MODULES = (
     "bitdance_tpu_torch.cli.interleaved", "bitdance_tpu_torch.ops.token_sampling",
     "bitdance_tpu_torch.pipelines.interleaved",
 )
+# tensor-parallel serving (ROADMAP A11b)
+TP_SLICE_MODULES = ("bitdance_tpu_torch.parallel.mesh", "bitdance_tpu_torch.parallel.tp")
 
 
 def test_every_port_module_imports_without_jax():
@@ -82,6 +84,7 @@ def test_every_port_module_imports_without_jax():
     assert set(RELEASE_SLICE_MODULES) <= set(mods)
     assert set(TRAINING_SLICE_MODULES) <= set(mods)
     assert set(INTERLEAVED_SLICE_MODULES) <= set(mods)
+    assert set(TP_SLICE_MODULES) <= set(mods)
     script = (
         "import importlib, sys\n"
         "class Block:\n"

@@ -275,13 +275,16 @@ def world2_task(rank, world, workdir):
     mesh = tmesh.create_mesh(device_type="cpu")
     out["mesh"] = tuple(mesh.shape)
     out["rows"] = tmesh.batch_rows(mesh, 8)
-    for kw, err in (({"replica": 1, "fsdp": 1}, ValueError),
-                    ({"tp": 2}, NotImplementedError)):
-        try:
-            tmesh.create_mesh(device_type="cpu", **kw)
-            out[f"raised {kw}"] = None
-        except err as e:
-            out[f"raised {kw}"] = str(e)
+    try:
+        tmesh.create_mesh(device_type="cpu", replica=1, fsdp=1)
+        out["raised {'replica': 1, 'fsdp': 1}"] = None
+    except ValueError as e:
+        out["raised {'replica': 1, 'fsdp': 1}"] = str(e)
+    # a tensor-parallel mesh builds (ROADMAP A11b): tp 2 over both ranks
+    tp_mesh = tmesh.create_mesh(device_type="cpu", tp=2)
+    tp = tmesh.tp_group(tp_mesh)
+    out["tp_mesh"] = (tuple(tp_mesh.shape), tp.rank, tp.size,
+                      dist.get_world_size(tp.group))
 
     out["imagenet_mixed"] = imagenet_vs_unsharded(mesh, True)
     out["imagenet_fp32"] = imagenet_vs_unsharded(mesh, False)
@@ -399,7 +402,7 @@ def test_init_distributed_and_mesh_at_world_2(world2):
     assert [r["rows"] for r in results] == [slice(0, 4), slice(4, 8)]
     r = results[0]
     assert "1x1x1 != 2" in r["raised {'replica': 1, 'fsdp': 1}"]
-    assert "A11b" in r["raised {'tp': 2}"]
+    assert [r["tp_mesh"] for r in results] == [((1, 1, 2), 0, 2, 2), ((1, 1, 2), 1, 2, 2)]
 
 
 @pytest.mark.parametrize("mixed", [True, False], ids=["bf16_mixed", "fp32"])
@@ -576,7 +579,10 @@ def test_shard_dim_is_the_port_mapping():
 
 def init_task(rank, world, workdir):
     """init_distributed again in a started group returns the same; asked
-    for the card's backend in the started gloo group, it raises."""
+    for the card's backend in the started gloo group, it raises, and with
+    the gloo override for the card (ranks sharing one card) it returns the
+    group. It ran no collective after its group started: the group's start
+    holds every rank until all are connected (ROADMAP C13)."""
     from bitdance_tpu_torch.utils.fs import init_distributed
 
     try:
@@ -584,7 +590,8 @@ def init_task(rank, world, workdir):
         other = None
     except RuntimeError as e:
         other = str(e)
-    return {"again": init_distributed("cpu"), "other_backend": other}
+    return {"again": init_distributed("cpu"), "other_backend": other,
+            "gloo_on_card": init_distributed("cuda", backend="gloo", device_index=0)}
 
 
 def test_init_distributed_refuses_a_world_that_does_not_start(tmp_path):
