@@ -10,9 +10,10 @@ and ``convert_imagenet_ar_state``:
     (q [out, in] or [out, in/2], s [out]) by a byte transpose that keeps
     the nibble pairing, and an int8 embedding table its QEmbedding; so do
     the QTensor layer products of a quantized ImageNet AR tree;
-  - flax trees (DiffHead, MLPConnector, VQModel encoder and decoder) map
-    module paths back to the reference's dotted names; Dense kernels
-    [in, out] become [out, in] and conv kernels HWIO become OIHW;
+  - flax trees (DiffHead, MLPConnector, SwiGLUConnector, the alt heads,
+    VQModel and UniVQModel encoder and decoder) map module paths back to
+    the reference's dotted names; Dense kernels [in, out] become [out, in]
+    and conv kernels HWIO become OIHW;
   - a whole ImageNet training state (params and EMA, each {"ar", "head"})
     loads into the port's TrainState;
   - an ImageNet sampling tree (backbone, head, VQ decoder) becomes the
@@ -200,7 +201,13 @@ def load_imagenet_train_state(state, jax_state) -> None:
     state.tx.count = state.step
 
 
-def _segment(name: str) -> str:
+def _segment(name: str, parent: str | None = None) -> str:
+    """The reference's dotted path of one flax module name. Under a
+    UniWeTok ``mid_attn`` stack the blocks keep their flax names
+    (``block_{i}``, which convert_ae_state reads as they are); elsewhere
+    ``block_{i}`` is a DiffHead block (``res_blocks.{i}``)."""
+    if parent == "mid_attn":
+        return name
     for pat, repl in _SEGMENTS:
         if pat.match(name):
             return pat.sub(repl, name)
@@ -214,15 +221,17 @@ def flax_state_from_jax(tree: Mapping) -> dict[str, np.ndarray]:
         tree = tree["params"]
     out: dict[str, np.ndarray] = {}
 
-    def walk(node, path):
+    def walk(node, path, parent=None):
         for k, v in node.items():
             if isinstance(v, Mapping):
-                walk(v, path + [_segment(k)])
+                walk(v, path + [_segment(k, parent)], k)
                 continue
             a = _np(v)
             if k == "kernel":
                 k = "weight"
                 a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+            elif k == "embedding":                  # nn.Embed's table
+                k = "weight"
             out[".".join(path + [k])] = np.ascontiguousarray(a)
 
     walk(tree, [])

@@ -3,7 +3,9 @@
 Two net families, as in the JAX package:
   - TransEncoder (the text-to-image head and the ImageNet Nx heads): window
     attention over the parallel_num tokens, 6 shared adaLN mods per block,
-    bounded output unless ``bounded_output`` says otherwise.
+    bounded output unless ``bounded_output`` says otherwise; its MLP half
+    SwiGLU, or with ``use_swiglu=False`` the plain mlp.0 -> silu -> mlp.2
+    (whose head the whole sampler does not take).
   - MlpEncoder (the ImageNet 1x head): per-token SwiGLU residual blocks,
     3 shared adaLN mods per block, unbounded output.
 :meth:`DiffNet.forward` runs either per call: with ``train=True`` (the
@@ -12,8 +14,9 @@ inference through the head-block kernels (ops/fused_block.py: one
 ``fused_attn_block`` and one ``fused_mlp_block`` per TransBlock, one
 ``fused_mlp_block`` per MlpResBlock), as the JAX package takes its Pallas
 blocks only when not training. :meth:`DiffHead.sample` sends guided
-sampling (cfg_mult 2) to the whole-sampler kernel (:func:`_run_fused_sample`
--> ops/fused_head.py) and anything else to the per-call
+sampling (cfg_mult 2) of a SwiGLU head to the whole-sampler kernel
+(:func:`_run_fused_sample` -> ops/fused_head.py) and anything else to the
+per-call
 :func:`~bitdance_tpu_torch.models.sampling.euler_maruyama`.
 
 The modules hold the parameters under the reference's state-dict names
@@ -98,18 +101,29 @@ def _swiglu_half(blk, norm: nn.LayerNorm, x: torch.Tensor, scale, shift, gate,
 
 
 class TransBlock(nn.Module):
-    """adaLN window-attention + SwiGLU block (6 mods) over [G, W, C] groups
-    of window tokens."""
+    """adaLN window-attention + MLP block (6 mods) over [G, W, C] groups of
+    window tokens. The MLP half is SwiGLU (``w1``, ``w2``; the
+    ``fused_mlp_block`` kernel at inference) or, with ``use_swiglu=False``,
+    the plain ``mlp.0`` (C -> 1.5 C) -> silu -> ``mlp.2`` of the JAX block's
+    ``mlp_0`` / ``mlp_2`` (plain torch, as the JAX package runs it on XLA).
+    The attention half takes ``fused_attn_block`` at inference either way,
+    as the JAX block does."""
 
-    def __init__(self, channels: int, n_head: int, device=None, dtype=None):
+    def __init__(self, channels: int, n_head: int, use_swiglu: bool = True,
+                 device=None, dtype=None):
         super().__init__()
         hidden = int(channels * 1.5)
         kw = dict(device=device, dtype=dtype)
+        self.use_swiglu = use_swiglu
         self.norm1 = nn.LayerNorm(channels, eps=1e-6, **kw)
         self.attn = WindowAttention(channels, n_head, **kw)
         self.norm2 = nn.LayerNorm(channels, eps=1e-6, **kw)
-        self.w1 = nn.Linear(channels, 2 * hidden, **kw)
-        self.w2 = nn.Linear(hidden, channels, **kw)
+        if use_swiglu:
+            self.w1 = nn.Linear(channels, 2 * hidden, **kw)
+            self.w2 = nn.Linear(hidden, channels, **kw)
+        else:
+            self.mlp = nn.Sequential(nn.Linear(channels, hidden, **kw), nn.SiLU(),
+                                     nn.Linear(hidden, channels, **kw))
 
     def forward(self, x: torch.Tensor, mods, train: bool = False) -> torch.Tensor:
         scale1, shift1, gate1, scale2, shift2, gate2 = mods
@@ -122,6 +136,9 @@ class TransBlock(nn.Module):
             x = fused_attn_block(x, scale1, shift1, gate1, self.norm1.weight,
                                  self.norm1.bias, a.wqkv.weight, a.wqkv.bias,
                                  a.wo.weight, a.wo.bias, a.n_head)
+        if not self.use_swiglu:
+            h = layer_norm(x, self.norm2.weight, self.norm2.bias) * (1 + scale2) + shift2
+            return x + self.mlp(h) * gate2
         return _swiglu_half(self, self.norm2, x, scale2, shift2, gate2, train)
 
 
@@ -181,7 +198,8 @@ class DiffNet(nn.Module):
     def __init__(self, in_channels: int, model_channels: int, z_channels: int,
                  num_res_blocks: int, num_ada_ln_blocks: int = 2,
                  attention: bool = True, bounded_output: bool | None = None,
-                 attn_head_dim: int = 128, device=None, dtype=None):
+                 attn_head_dim: int = 128, use_swiglu: bool = True, device=None,
+                 dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         c = model_channels
@@ -192,7 +210,7 @@ class DiffNet(nn.Module):
         self.time_embed = TimestepEmbedder(c, **kw)
         self.cond_embed = nn.Linear(z_channels, c, **kw)
         if attention:
-            blocks = [TransBlock(c, c // attn_head_dim, **kw)
+            blocks = [TransBlock(c, c // attn_head_dim, use_swiglu, **kw)
                       for _ in range(num_res_blocks)]
         else:
             blocks = [MlpResBlock(c, **kw) for _ in range(num_res_blocks)]
@@ -257,10 +275,6 @@ class DiffHead(nn.Module):
                  per_token_loss: bool = False, device=None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if attention and not use_swiglu:
-            raise NotImplementedError("the TransEncoder's plain-MLP blocks "
-                                      "(use_swiglu=False) are not ported; "
-                                      "attention=False gives the MlpEncoder")
         self.ch_target, self.ch_cond, self.ch_latent = ch_target, ch_cond, ch_latent
         self.depth_latent, self.depth_adanln = depth_latent, depth_adanln
         self.parallel_num = parallel_num
@@ -269,6 +283,9 @@ class DiffHead(nn.Module):
         self.time_schedule = time_schedule
         self.attn_head_dim = attn_head_dim
         self.attention = attention
+        # the TransEncoder's MLP family; the MlpEncoder's blocks are SwiGLU
+        # whatever it says (JAX _sample_shape_ok)
+        self.use_swiglu = use_swiglu
         self.per_token_loss = per_token_loss
         # False, True (int8) or "int4": the format of the block matrices in
         # the sampler's stack (W8A8 / W4A8 sampling); training and the
@@ -277,12 +294,19 @@ class DiffHead(nn.Module):
         self.net = DiffNet(ch_target, ch_latent, ch_cond, depth_latent,
                            depth_adanln, attention=attention,
                            bounded_output=bounded_output,
-                           attn_head_dim=attn_head_dim, device=device,
-                           dtype=dtype)
+                           attn_head_dim=attn_head_dim, use_swiglu=use_swiglu,
+                           device=device, dtype=dtype)
 
     @property
     def bounded(self) -> bool:
         return self.net.bounded
+
+    @property
+    def stackable(self) -> bool:
+        """Whether the whole-sampler kernels take this head: SwiGLU blocks
+        (the MlpEncoder's always are). A plain-MLP TransEncoder samples on
+        the per-call route, as JAX's _sample_shape_ok decides."""
+        return self.use_swiglu or not self.attention
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor,
                 generator: torch.Generator | None = None,
@@ -330,7 +354,8 @@ class DiffHead(nn.Module):
         """Euler-Maruyama sampling conditioned on ``cond`` (rows [cond;
         uncond] when cfg_mult is 2).
 
-        cfg_mult 2 runs the whole-sampler kernel (:func:`_run_fused_sample`)
+        cfg_mult 2 on a :attr:`stackable` head runs the whole-sampler
+        kernel (:func:`_run_fused_sample`)
         on ``stacked`` (stacked here when not given, its block matrices
         quantized as ``sample_weight_quant`` says: the JAX package's
         make_fused_sampler / _can_fuse_sample route, W8A8 / W4A8 on a
@@ -339,7 +364,7 @@ class DiffHead(nn.Module):
         are the head-block kernels on the module's full-precision weights
         (in JAX only the stacked sampler reads the quantized stack). Both
         draw x0 and the per-step noise through :func:`draw_sampler_noise`."""
-        if cfg_mult == 2:
+        if cfg_mult == 2 and self.stackable:
             if stacked is None:
                 stacked = self._stack_for_sampler()
             return _run_fused_sample(self, stacked, cond, generator, cfg,
@@ -364,10 +389,13 @@ class DiffHead(nn.Module):
             x_init=x0.reshape(x_shape),
             noise=noise.reshape(num_sampling_steps, *x_shape))
 
-    def _stack_for_sampler(self) -> dict:
+    def _stack_for_sampler(self) -> dict | None:
         """The sampler's stacked weights, quantized per
         ``sample_weight_quant``. Unquantized, the module's block and adaLN
-        weights become views into them, so the device holds one copy."""
+        weights become views into them, so the device holds one copy. None
+        for a head the whole sampler does not take (:attr:`stackable`)."""
+        if not self.stackable:
+            return None
         dtype = self.net.input_proj.weight.dtype
         stacked = stack_diffnet_params(
             self.net, self.depth_latent,

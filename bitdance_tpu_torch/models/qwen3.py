@@ -425,6 +425,31 @@ def lm_logits(model: Qwen3Model, hidden: torch.Tensor) -> torch.Tensor:
     return F.linear(hidden, w).float()
 
 
+# The aten op a training layer's weight products reach: nn.Linear without
+# bias on [B, S, K] folds to aten.mm (aten.linear -> matmul -> mm on the 2-D
+# view), on the CPU and on the card alike, 7 a layer. Attention's products
+# carry batch dims (aten.bmm on the CPU, the flash kernels' autograd
+# Function on the card) and are recomputed, as JAX's policy recomputes
+# them. The int8 / W4A8 products (QLinear, Q4Linear) serve only and take no
+# part in training.
+DOTS_SAVED_OPS = (torch.ops.aten.mm.default,)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op in DOTS_SAVED_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def dots_context():
+    """The (forward, recompute) contexts of remat_policy "dots": save every
+    DOTS_SAVED_OPS output, recompute everything else."""
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def qwen3_forward(model: Qwen3Model, embeds: torch.Tensor,
                   positions: torch.Tensor, block_ids: torch.Tensor,
                   doc_ids: torch.Tensor, attn_impl: str = "auto",
@@ -439,13 +464,14 @@ def qwen3_forward(model: Qwen3Model, embeds: torch.Tensor,
     once here, outside the layers, and shared by all of them. remat=True
     recomputes each layer in the backward (torch.utils.checkpoint,
     non-reentrant): remat_policy "full" keeps only each layer's input;
-    "dots" (saving the products' outputs) is not ported.
+    "dots" also keeps the outputs of the layer's weight products (q / k / v
+    / o_proj, gate / up / down_proj), what JAX's
+    ``dots_with_no_batch_dims_saveable`` saves, through torch's selective
+    activation checkpointing (:func:`dots_context`), and recomputes the rest
+    (norms, RoPE, attention, SwiGLU).
     """
     if remat_policy not in ("full", "dots"):
         raise ValueError(f"qwen3_forward: unknown remat_policy {remat_policy!r}")
-    if remat and remat_policy == "dots":
-        raise NotImplementedError("qwen3_forward: remat_policy 'dots' is not "
-                                  "ported (ROADMAP A4); use 'full'")
     cfg = model.cfg
     s = embeds.shape[1]
     cos, sin = _rope_at(cfg, positions)
@@ -457,9 +483,10 @@ def qwen3_forward(model: Qwen3Model, embeds: torch.Tensor,
 
     x = embeds
     args = (cos, sin, block_ids, doc_ids, attn_impl, plan)
+    extra = {"context_fn": dots_context} if remat_policy == "dots" else {}
     for layer in model.model.layers:
         if remat and torch.is_grad_enabled():
-            x = checkpoint(layer, x, *args, use_reentrant=False)
+            x = checkpoint(layer, x, *args, use_reentrant=False, **extra)
         else:
             x = layer(x, *args)
     return rms_norm(x, model.model.norm.weight, cfg.rms_norm_eps)

@@ -48,8 +48,9 @@ Where the port differs from the JAX generator:
   - randomness: one ``torch.Generator(device).manual_seed(seed)`` serves
     every draw, in plan order: each text token takes one ``torch.rand`` of
     the vocabulary (Gumbel-max), each image AR step the head's x0 and then
-    its per-step noise (``draw_sampler_noise``). JAX's key stream is not
-    reproduced.
+    its per-step noise (``draw_sampler_noise``), and a GAN decoder its
+    noise after the image's last AR step. JAX's key stream is not
+    reproduced (its GAN decode has none, ROADMAP C15).
 """
 
 from __future__ import annotations
@@ -300,5 +301,5 @@ class InterleavedGenerator:
             hiddens = [self._prefill(st, emb, causal=False) for st in streams]
         grid = torch.cat(all_tokens, dim=0)
         self.last_image_tokens.append(grid)
-        img = decode_image(b, grid[None], lat_h, lat_w)
+        img = decode_image(b, grid[None], lat_h, lat_w, gen)
         return img[0].float().cpu().numpy(), hiddens[0][:, -1]

@@ -3,7 +3,8 @@ bitdance_tpu/pipelines/loader.py).
 
 Directory layout (the reference t2i_pipeline.py:48-74): HF Qwen3 shards
 (an untied lm_head among them, read for interleaved generation only) and
-tokenizer files, ae_config.json + ae.safetensors, vision_head_config.json +
+tokenizer files, ae_config.json (its ``gan_decoder`` flag read as the JAX
+loader reads it) + ae.safetensors, vision_head_config.json +
 vision_head.safetensors, projector.safetensors (io/release.py reads them).
 Modules are built on the meta device and filled on ``device`` straight from
 the memory-mapped files, one tensor at a time, so no second copy of the
@@ -99,12 +100,11 @@ def load_t2i_pipeline(model_path: str, dtype: torch.dtype = torch.bfloat16,
 
     with open(os.path.join(model_path, "ae_config.json")) as f:
         ae_config = json.load(f)
-    if ae_config.get("gan_decoder", False):
-        raise NotImplementedError("the GAN decoder (gan_decoder=True) is not "
-                                  "ported (ROADMAP A5)")
     dd = ae_config["ddconfig"]
-    # the release holds the encoder too; T2I serving needs the decoder only
-    ae = _filled(lambda: VQModel(dd, dtype=dtype, encoder=interleaved),
+    # the release holds the encoder too; T2I serving needs the decoder only.
+    # A GAN decoder draws its noise from each request's generator
+    gan = bool(ae_config.get("gan_decoder", False))
+    ae = _filled(lambda: VQModel(dd, dtype=dtype, encoder=interleaved, gan_decoder=gan),
                  load_safetensors(os.path.join(model_path, "ae.safetensors")),
                  device, ignore=() if interleaved else (re.compile(r"^encoder\."),))
 

@@ -30,7 +30,7 @@ import torch.distributed as dist
 from bitdance_tpu_torch.data.special_tokens import chatml_prompts, image_start_ids
 from bitdance_tpu_torch.models import qwen3 as q3
 from bitdance_tpu_torch.models.connector import MLPConnector
-from bitdance_tpu_torch.models.diff_head import DiffHead, _run_fused_sample
+from bitdance_tpu_torch.models.diff_head import DiffHead
 from bitdance_tpu_torch.models.tokenizer import VQModel, tokens_to_latents
 from bitdance_tpu_torch.ops.quantize import sign_quantize
 from bitdance_tpu_torch.ops.rotary import pos_embed_2d, sincos_1d_table
@@ -66,7 +66,9 @@ class T2IModelBundle:
     def device(self) -> torch.device:
         return self.llm.model.norm.weight.device
 
-    def stacked_head(self) -> dict:
+    def stacked_head(self) -> dict | None:
+        """None for a head the whole sampler does not take
+        (DiffHead.stackable): DiffHead.sample then runs its per-call route."""
         if self.head_stacked is None:
             self.head_stacked = self.head._stack_for_sampler()
         return self.head_stacked
@@ -128,9 +130,9 @@ def decode_t2i(bundle: T2IModelBundle, cache: dict, hidden: torch.Tensor,
     all_tokens = []
     for step in range(num_steps):
         pe = pos_diff[step * p:(step + 1) * p]
-        pred = _run_fused_sample(bundle.head, stacked, hidden + pe[None],
-                                 generator, guidance_scale,
-                                 num_sampling_steps)               # [n, p, z]
+        pred = bundle.head.sample(hidden + pe[None], generator,
+                                  guidance_scale, num_sampling_steps,
+                                  cfg_mult=2, stacked=stacked)     # [n, p, z]
         tokens = sign_quantize(pred)
         all_tokens.append(tokens)
         emb = (bundle.projector(tokens) + pe[None]).to(hidden.dtype)
@@ -165,10 +167,14 @@ def generate_tokens(bundle: T2IModelBundle, prompt_ids: torch.Tensor,
 
 @torch.no_grad()
 def decode_image(bundle: T2IModelBundle, tokens: torch.Tensor, latent_h: int,
-                 latent_w: int) -> torch.Tensor:
-    """±1 tokens [n, h*w, z] -> images [n, H, W, 3] in [-1, 1]."""
+                 latent_w: int, generator: torch.Generator | None = None) -> torch.Tensor:
+    """±1 tokens [n, h*w, z] -> images [n, H, W, 3] in [-1, 1]. A GAN
+    decoder draws its noise from ``generator`` (the request's, after its
+    AR loop; ranks of a tp mesh draw the same noise from the same seed),
+    where the JAX package calls its decoder without a noise rng and fails
+    (ROADMAP C15)."""
     latents = tokens_to_latents(tokens, latent_h, latent_w, ps=bundle.ps)
-    return bundle.ae.decode(latents)
+    return bundle.ae.decode(latents, generator=generator)
 
 
 def shard_bundle_(bundle: T2IModelBundle, mesh):
@@ -178,18 +184,23 @@ def shard_bundle_(bundle: T2IModelBundle, mesh):
     (replica, fsdp) process, FSDP2 over those axes on top, the root's
     parameters (embedding, final norm) then held gathered and each layer
     gathered as the cached forward reaches it; with tp > 1 the head's
-    sampler stack reordered head-major and sharded Megatron-style; the VQ
+    sampler stack reordered head-major and sharded Megatron-style (a
+    plain-MLP head, which has no stack, raises); the VQ
     decoder and the connector whole on every rank. bf16 and fp32 only."""
     from bitdance_tpu_torch.parallel.mesh import data_size, shard_model, tp_group
     from bitdance_tpu_torch.parallel.tp import shard_head_stacked, shard_qwen3_
 
     tp = tp_group(mesh)
+    head = bundle.head
+    if tp.size > 1 and not head.stackable:
+        raise NotImplementedError(
+            "shard_bundle_: a plain-MLP head (use_swiglu false) samples on the "
+            "per-call route, which has no tensor-parallel form; serve it with tp 1")
     shard_qwen3_(bundle.llm, tp)
     if data_size(mesh) > 1:
         shard_model(bundle.llm, mesh)
         bundle.llm.unshard()
     if tp.size > 1:
-        head = bundle.head
         bundle.head_stacked = shard_head_stacked(
             bundle.stacked_head(), tp, head.ch_latent // head.attn_head_dim)
     return tp
@@ -294,7 +305,7 @@ class T2IPipeline:
         with phase("vae"):
             imgs = []
             for i in range(tokens.shape[0]):
-                img = decode_image(b, tokens[i:i + 1], latent_h, latent_w)
+                img = decode_image(b, tokens[i:i + 1], latent_h, latent_w, gen)
                 imgs.append(torch.clamp(127.5 * img.float() + 128.0, 0, 255)
                             .to(torch.uint8))
         self.last_timing = phase.totals()

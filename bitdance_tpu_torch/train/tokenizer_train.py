@@ -5,9 +5,9 @@ The recipe the reference's trainable tokenizer modules imply
 (imagenet_gen/src/qae.py, gfq.py): reconstruction L1 + L2, the GFQ entropy
 loss (per-sample entropy down, codebook entropy up) and the commitment MSE,
 with straight-through gradients into the encoder. fp32, as the JAX step
-runs. The GAN decoder's noise input (gan_decoder=True) is not ported
-(ROADMAP A5); there are no perceptual or adversarial terms, as in the JAX
-step.
+runs. A GAN decoder (``gan_decoder=True``) draws its noise from the step's
+generator, as the JAX step passes its rng; there are no perceptual or
+adversarial terms, as in the JAX step.
 """
 
 from __future__ import annotations
@@ -39,13 +39,14 @@ class TokenizerTrainConfig:
     l2_weight: float = 1.0
 
 
-def tokenizer_loss(model: VQModel, images: torch.Tensor,
-                   tcfg: TokenizerTrainConfig) -> tuple[torch.Tensor, dict]:
+def tokenizer_loss(model: VQModel, images: torch.Tensor, tcfg: TokenizerTrainConfig,
+                   generator: torch.Generator | None = None) -> tuple[torch.Tensor, dict]:
     """(loss, metrics) of images NHWC in [-1, 1]: encode_raw, GFQ in
-    training mode, decode, and the weighted sum of the four terms."""
+    training mode, decode (a GAN decoder's noise from ``generator``), and
+    the weighted sum of the four terms."""
     raw = model.encode_raw(images)
     out = gfq_quantize(raw, tcfg.num_codebooks, training=True)
-    recon = model.decode(out.quantized)
+    recon = model.decode(out.quantized, generator=generator)
     diff = recon.float() - images.float()
     l1 = diff.abs().mean()
     l2 = diff.square().mean()
@@ -59,13 +60,15 @@ def tokenizer_loss(model: VQModel, images: torch.Tensor,
 
 
 def make_tokenizer_train_step(tcfg: TokenizerTrainConfig):
-    """step(state, images) -> metrics (0-d tensors on the device, no host
-    sync; "grad_norm" before clipping): the loss's gradients, clip, AdamW
-    and EMA, in place on ``state``."""
+    """step(state, images, generator=None) -> metrics (0-d tensors on the
+    device, no host sync; "grad_norm" before clipping): the loss's
+    gradients, clip, AdamW and EMA, in place on ``state``. A GAN decoder
+    draws its noise from ``generator`` (seeded per step by the caller)."""
 
-    def step(state: opt_lib.TrainState, images: torch.Tensor) -> dict:
+    def step(state: opt_lib.TrainState, images: torch.Tensor,
+             generator: torch.Generator | None = None) -> dict:
         full_fp32()
-        loss, metrics = tokenizer_loss(state.model, images, tcfg)
+        loss, metrics = tokenizer_loss(state.model, images, tcfg, generator)
         grads = torch.autograd.grad(loss, state.tx.params)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = opt_lib.global_norm(grads)
@@ -76,13 +79,14 @@ def make_tokenizer_train_step(tcfg: TokenizerTrainConfig):
 
 
 def init_tokenizer_train(ddconfig: dict, tcfg: TokenizerTrainConfig, device="cuda",
-                         generator: torch.Generator | None = None
-                         ) -> opt_lib.TrainState:
+                         generator: torch.Generator | None = None,
+                         gan_decoder: bool = False) -> opt_lib.TrainState:
     """An fp32 VQModel with encoder and decoder (the flax-default init, from
-    ``generator``), its AdamW (clip, warmup schedule, weight decay on every
-    matrix) and EMA, on the card unless ``device`` says otherwise."""
+    ``generator``; ``gan_decoder`` as VQModel's), its AdamW (clip, warmup
+    schedule, weight decay on every matrix) and EMA, on the card unless
+    ``device`` says otherwise."""
     model = init_vq(ddconfig, device, torch.float32, generator, encoder=True,
-                    decoder=True).train().requires_grad_(True)
+                    decoder=True, gan_decoder=gan_decoder).train().requires_grad_(True)
     sched = opt_lib.make_lr_schedule(tcfg.lr, tcfg.warmup_steps, tcfg.total_steps)
     tx = opt_lib.AdamW(dict(model.named_parameters()), sched,
                        weight_decay=tcfg.weight_decay, betas=tcfg.betas,

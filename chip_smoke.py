@@ -8,7 +8,9 @@ BitDance-14B-64x (full width, 4 of 40 layers), the data-parallel (FSDP)
 train steps at world 1, tensor-parallel T2I serving (two ranks on the one
 card over gloo at tp 2; BitDance-14B-64x at full width, 2 of 40 layers),
 tokenizer reconstruction
-(the release VQ tokenizer, 256 and 1024 px), the training commands
+(the release VQ tokenizer, 256 and 1024 px) and the tokenizer family (the
+GAN decoder, the W8A8 decoder, UniWeTok, BatchedEncoder, cli.recon), the
+plain-MLP T2I head, the alt heads and SwiGLUConnector, the training commands
 (cli.train_imagenet at BitDance-B-1x with checkpoints and resume,
 cli.sample_fid, tokenizer training, cli.train_mllm), and the release directory of
 BitDance-14B-64x (export, load_t2i_pipeline, the CLI; full width, 2 of 40
@@ -141,8 +143,10 @@ Phases, run in this order, one line each, any failure exits non-zero:
                     peak memory, a profile, the chunked CE's time at the
                     budget and at the loss rows, the sparse kernels at the
                     step's shape vs their plain versions (run in chunks)
-                    and equal to the dense kernels, and one step on the
-                    dense kernels from the same state and draws
+                    and equal to the dense kernels, one step on the
+                    dense kernels from the same state and draws, and the
+                    forward and backward with remat_policy "dots" beside
+                    "full" (loss, gradients, s, peak GiB)
   parallel          the data-parallel steps at world 1 (an NCCL group of one,
                     FSDP2 on a (1, 1, 1) mesh): BitDance-B-1x, batch 16, 3
                     steps, and the 14B yaml at full width and 2 of 40
@@ -173,6 +177,21 @@ Phases, run in this order, one line each, any failure exits non-zero:
                     images at 256 px (batch 8) and 2 at 1024 px through the
                     encode tail: exact ±1 latents, shapes, images/s, encode /
                     decode times, PSNR (reported)
+  tokenizer_family  at the release tokenizer's geometry: the GAN decoder
+                    (bf16, 8 x 256 and 1 x 1024 px; one seed twice
+                    bit-equal, two differ; a 256 px decode in fp32 and bf16
+                    against the CPU's fp32), the W8A8 decoder against bf16
+                    at 256 and 1024 px with s/image, one W8A8 conv's int32
+                    sums against the CPU's float64 twin, BatchedEncoder
+                    (vt_forward against its batches' encodes, the maxpad
+                    crops, #13's launches), cli.recon plain and --uni
+                    against the in-process reconstruct, UniWeTok (s/image,
+                    peak, the card's fp32 encode against the CPU's signs)
+  head_leftovers    the T2I head at C 5120 with plain-MLP blocks on the
+                    per-call route against the plain route (one net call, a
+                    guided 4-step sample, signs after 50; #15's launches),
+                    the SwiGLU head beside it; the alt heads and
+                    SwiGLUConnector at 5120 in bf16 against the CPU's fp32
   train_cli         the training entry points in this process through their
                     main(argv): a synthetic tar in the official layout (8
                     classes x 8 JPEGs) whose native index must equal the
@@ -200,7 +219,11 @@ Phases, run in this order, one line each, any failure exits non-zero:
                     quantizers in memory, the CLI's PNG equal to the
                     in-memory image, cli.interleaved on that PNG (the export
                     carries lm_head and the VQ encoder) equal to the
-                    in-memory generator; export / load times and GB on disk
+                    in-memory generator; then the directory served again
+                    through a linked sibling with a random GAN decoder
+                    (gan_decoder: true): a 256 px grid equal to the plain
+                    release's, the same image twice; export / load times
+                    and GB on disk
 The last lines are the kernels' JSON record (each kernel's launches on the
 main paths, error against its plain version, times, bound and, where one
 PyTorch call computes the same function, that call's time), the card's name
@@ -409,9 +432,11 @@ FLASH_SPARSE_MAX_REL_ERR = {"o": 1.5e-2, "o_row": 1.5e-2, "lse": 1e-6, "dq": 1.5
                             "dk": 1.5e-2, "dv": 1.5e-2}
 # BitDance-14B-64x packed training: full width, MLLM_LAYERS of its 40 layers
 # (all 40 need the FSDP of ROADMAP A11), MLLM_STEPS steps on the sparse
-# kernels
+# kernels (cut from 6 to 4 for the script's time: steps 3-6 of a 6-step
+# run read 7.033-7.063 s on an H100 at 700 W, so two steady steps tell the
+# same)
 MLLM_LAYERS = 4
-MLLM_STEPS = 6
+MLLM_STEPS = 4
 MLLM_PEAK_GIB = 75.0
 # the dense-kernel step from the same state and draws: the sparse and dense
 # kernels compute the same tiles in the same order (0 difference in o), so
@@ -462,6 +487,53 @@ TP_GEMM_PRODUCTS = {"wqkv": ("out_f32", None), "wo": ("out_f32", None),
 # the plain raw value clears the repo's sign margin
 ENCODE_MAX_REL_ERR = {True: 1.6e-2, False: 1e-5}   # keyed by "is bf16"
 SIGN_MARGIN = 1e-3
+# the tokenizer family at the release tokenizer's geometry
+# (train/configs/bitdance_14b_64x.yaml:9-16); UniWeTok adds its
+# UniVQModel defaults (no published UniWeTok ddconfig is in the repository)
+UNI_EXTRA = dict(attn_blocks=2, n_heads=16)
+FAMILY_IMAGES = ((256, 8, 8), (1024, 1, 1))      # px, images, batch
+# a decode or encode on the card in fp32 (TF32 off) against the CPU's fp32
+# run of the same weights and inputs: relative L2, the products summed in
+# another order only (the CPU tests' fp32 bound is 2e-4 absolute)
+CARD_FP32_REL_L2 = 1e-4
+# the bf16 GAN decode against the CPU fp32 decode of the same latents and
+# noise (reported beside the check above): bf16 activations and products
+# through ~45 convolutions, each rounding at 2^-9 relative
+CARD_BF16_REL_L2 = 5e-2
+# W8A8 decoder against the bf16 decoder of the same latents, relative L2.
+# JAX's test bound (tests/test_tokenizer.py:142-170) is 0.08 at ch 32, one
+# res block, 16 px; the per-image activation scale coarsens as an image's
+# max |x| grows with its pixel count and the error adds up over the release
+# decoder's ~45 convs. On the CPU with random lecun weights at the release
+# geometry: the JAX package's own conv_int8 decode 0.0955 at 64 px, the
+# port's 0.117 / 0.142 / 0.145 at 64 / 128 / 256 px. An H100 reads 0.1283
+# / 0.1437 at 256 / 1024 px here; planted quantizer faults at 256 px
+# (scripts/torch_bound_faults.py) read 0.2409 (7-bit activations) and
+# 0.2548 (truncation), one scale for the batch or the weight 0.1422 /
+# 0.1340, so the bound sits between the sound readings and the first two
+CONV_INT8_REL_L2 = 0.18
+# "dots" vs "full" on the 14B step (same ops, the products' outputs kept
+# instead of recomputed by the same kernels): max |d| / max |ref| of every
+# gradient; expected 0 (bit-equal), bounded by an eighth of a bf16 ulp of
+# the largest gradient should one product's bits differ
+REMAT_GRAD_REL = 5e-4
+# the plain-MLP T2I head (use_swiglu=False) on the per-call route against
+# the plain route. One net call: #15's block bound (HEAD_BLOCK_MAX_REL_ERR).
+# A guided 4-step sample at cfg 7.5: where #15's fp32 sums round to another
+# bf16 value than the plain version's, 6 blocks x 5 net calls and the
+# guidance carry it; on the CPU one bf16 ulp on 2% of #15's outputs moves
+# the sample by 3.9e-2 of max |x| for the plain-MLP and the SwiGLU head
+# alike (an H100 read 4.38e-2 for the plain-MLP head), so the bound is twice
+# that; the SwiGLU head at the same width is held to it beside. Signs after
+# 50 steps: the tp phase's floor. Planted faults (scripts/torch_bound_faults.py,
+# an H100): gelu for silu reads 0.144 and signs 0.930, unscaled scores 0.736;
+# #15's plain version in bf16 reads 4.66e-2, a rounding like the sound route's
+PLAIN_HEAD_MAX_REL_ERR = 8e-2
+PLAIN_HEAD_SIGN_FLOOR = 0.95
+# the alt heads and SwiGLUConnector in bf16 on the card against the CPU's
+# fp32 of the same (bf16) weights: one bf16 rounding of the inputs and of
+# each product's output
+ALT_HEAD_MAX_REL_ERR = 3e-2
 # H100 SXM dense bf16 and int8 tensor-core peaks and HBM3 rate (NVIDIA data
 # sheet, at 700 W), for MFU and for each kernel's bound: the larger of the
 # bytes the function must move (each input read once, each output written
@@ -4002,7 +4074,59 @@ def phase_mllm(card: str) -> dict:
     if (rl > MLLM_DENSE_LOSS_REL or rg > MLLM_DENSE_GRAD_NORM_REL
             or got != (0, 0, 0, 2 * MLLM_LAYERS, MLLM_LAYERS, MLLM_LAYERS)):
         raise SystemExit("mllm: the dense-kernel step disagrees with the sparse one")
-    return {"launches": launches, "s_per_step": s_step, "mfu": mfu, "peak_gib": peak}
+    # the last use of the state: forward and backward only, so the AdamW
+    # moments (~17 GiB) go first; "dots" keeps ~14.5 GiB more than "full"
+    state.tx.opt.state.clear()
+    remat = _remat_dots(state, batch, cfg, tcfg, card)
+    return {"launches": launches, "s_per_step": s_step, "mfu": mfu, "peak_gib": peak,
+            "remat": remat}
+
+
+def _remat_dots(state, batch, cfg, tcfg, card: str) -> dict:
+    """ROADMAP A4 on the 14B step: loss_and_grads (forward and backward, no
+    update) from the same state and draws with remat_policy "full", then
+    "dots" (the layers' weight products kept for the backward): loss equal,
+    every gradient max |d| / max |ref| (expected 0), peak GiB and s of each.
+    The full step's gradients wait on the host while "dots" runs, so both
+    peaks hold the same state."""
+    import dataclasses
+
+    import torch
+
+    from bitdance_tpu_torch.ops.attention import flash_fwd_sparse
+    from bitdance_tpu_torch.train.mllm_train import loss_and_grads
+
+    res, ref = {}, None
+    for policy in ("full", "dots"):
+        c = dataclasses.replace(cfg, remat_policy=policy)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = flash_fwd_sparse.launches
+        (m, grads), dt = _timed(lambda: loss_and_grads(state, batch, 11, cfg=c,  # noqa: B023
+                                                       tcfg=tcfg))
+        res[policy] = {"s": dt, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                       "loss": m["loss"].item(),
+                       "flash_fwd": flash_fwd_sparse.launches - before}
+        if ref is None:
+            ref = [g.cpu() for g in grads]
+            del grads
+    worst, err, equal = 0.0, 0.0, True
+    for g, r in zip(grads, ref):
+        r = r.cuda()
+        worst = max(worst, r.abs().max().item())
+        err = max(err, (g.float() - r.float()).abs().max().item())
+        equal &= torch.equal(g, r)
+    del grads, ref
+    f, d = res["full"], res["dots"]
+    log("mllm", f"remat_policy full / dots, loss_and_grads from the same state: loss "
+        f"{f['loss']:.6f} / {d['loss']:.6f}; gradients bit-equal {equal}, max |d| / max |ref| "
+        f"{err / worst:.2e} (bound {REMAT_GRAD_REL}); s {f['s']:.3f} / {d['s']:.3f}; peak "
+        f"{f['peak_gib']:.2f} / {d['peak_gib']:.2f} GiB; sparse forward launches "
+        f"{f['flash_fwd']} / {d['flash_fwd']}; card {card}")
+    if f["loss"] != d["loss"] or err > REMAT_GRAD_REL * worst or d["peak_gib"] > MLLM_PEAK_GIB:
+        raise SystemExit("mllm: remat_policy dots disagrees with full")
+    return {**res, "grads_bit_equal": equal, "grad_rel": err / worst}
 
 
 def _sharded_vs_unsharded(run):
@@ -4629,6 +4753,471 @@ def phase_tokenizer(card: str) -> dict:
     return out
 
 
+def _rel_l2(got, want) -> float:
+    """||got - want|| / ||want||, in float64 on the CPU."""
+    g, w = got.detach().double().cpu(), want.detach().double().cpu()
+    return ((g - w).norm() / w.norm()).item()
+
+
+def _seeded(seed: int):
+    import torch
+
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def _cpu_copy(module):
+    """An fp32 copy of ``module`` on the CPU."""
+    import copy
+
+    return copy.deepcopy(module).cpu().float()
+
+
+def _timed(fn) -> tuple:
+    """(fn(), its seconds on the host clock, synced before and after)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def _family_gan(ae, imgs: dict, card: str) -> dict:
+    """The GAN decoder's reconstructions (bf16): a seed twice bit-equal,
+    two seeds different; one 256 px decode on the card in fp32 and in bf16
+    against the CPU's fp32 decode of the same latents and noise. "launches":
+    #13's over the reconstructions."""
+    import numpy as np
+    import torch
+
+    from bitdance_tpu_torch.eval.recon import psnr, reconstruct
+    from bitdance_tpu_torch.models.tokenizer import VQModel
+    from bitdance_tpu_torch.ops.fused_encode import fused_encode_tail
+
+    out = {}
+    fused_encode_tail.launches = 0
+    for px, n, batch in FAMILY_IMAGES:
+        reconstruct(ae, imgs[px][:1], batch=1, generator=_seeded(0))   # cuDNN plans
+        rec, dt = _timed(lambda: reconstruct(ae, imgs[px], batch=batch,  # noqa: B023
+                                             generator=_seeded(5)))
+        again = reconstruct(ae, imgs[px], batch=batch, generator=_seeded(5))
+        other = reconstruct(ae, imgs[px], batch=batch, generator=_seeded(6))
+        same, differs = np.array_equal(rec, again), not np.array_equal(rec, other)
+        out[px] = {"s_per_image": dt / n, "psnr": psnr(imgs[px], rec)}
+        log("tokenizer_family", f"GAN decoder bf16, {n} x {px} px (batch {batch}): "
+            f"{dt / n:.4f} s/image; one seed twice bit-equal {same}, another seed "
+            f"differs {differs}; PSNR vs input {out[px]['psnr']:.2f} dB (random "
+            f"weights); card {card}")
+        if not (same and differs and rec.shape == imgs[px].shape and np.isfinite(rec).all()):
+            raise SystemExit(f"tokenizer_family: the GAN reconstruction at {px} px failed")
+    out["launches"] = fused_encode_tail.launches
+    x = torch.from_numpy(imgs[256][:1]).cuda()
+    cpu_ae = VQModel(ae.ddconfig, gan_decoder=True)
+    cpu_ae.decoder.load_state_dict(ae.decoder.state_dict())
+    with torch.no_grad():
+        q = ae.encode(x)
+        noise = torch.randn(tuple(q.shape), generator=_seeded(7), device="cuda")
+        bf16 = ae.decode(q, noise=noise)
+        ae.decoder.float()
+        card32 = ae.decode(q.float(), noise=noise)
+        ae.decoder.to(torch.bfloat16)
+        t = time.perf_counter()
+        cpu32 = cpu_ae.decode(q.float().cpu(), noise=noise.cpu())
+        cpu_s = time.perf_counter() - t
+    r32, r16 = _rel_l2(card32, cpu32), _rel_l2(bf16, cpu32)
+    log("tokenizer_family", f"GAN decode at 256 px against the CPU fp32 decode of the same "
+        f"latents and noise ({cpu_s:.1f} s on the CPU): card fp32 relative L2 {r32:.3e} "
+        f"(bound {CARD_FP32_REL_L2}), card bf16 {r16:.3e} (bound {CARD_BF16_REL_L2}); "
+        f"max |d| fp32 {(card32.cpu() - cpu32).abs().max().item():.3e}")
+    if not (r32 <= CARD_FP32_REL_L2 and r16 <= CARD_BF16_REL_L2):
+        raise SystemExit("tokenizer_family: the GAN decode disagrees with the CPU's")
+    out["card_vs_cpu"] = {"fp32_rel_l2": r32, "bf16_rel_l2": r16}
+    return out
+
+
+def _family_int8(vq, card: str) -> dict:
+    """The W8A8 decoder (conv_int8) against the bf16 decoder of the same
+    latents at 256 and 1024 px, s/image of each, and one trunk conv's
+    integer sums on the card against the CPU's float64 twin."""
+    import torch
+
+    from bitdance_tpu_torch.models.tokenizer import (
+        VQModel,
+        conv_int8_acc,
+        quantize_conv_input,
+        quantize_conv_weight,
+    )
+
+    with torch.device("meta"):
+        q8 = VQModel(vq.ddconfig, dtype=torch.bfloat16, conv_int8=True)
+    q8 = q8.to_empty(device="cuda").eval()
+    q8.decoder.load_state_dict(vq.decoder.state_dict())
+    z_ch = vq.ddconfig["z_channels"]
+    out, seen = {}, {}
+    conv = q8.decoder.mid_block[0].conv1
+    hook = conv.register_forward_pre_hook(lambda m, a: seen.__setitem__("x", a[0]))
+    for px, n, _ in FAMILY_IMAGES:
+        h = px // 16
+        z = torch.where(torch.randn((n, h, h, z_ch), generator=_seeded(px), device="cuda") > 0,
+                        1.0, -1.0).bfloat16()
+        with torch.no_grad():
+            vq.decode(z[:1])
+            q8.decode(z[:1])
+            y16, s16 = _timed(lambda: vq.decode(z))           # noqa: B023
+            y8, s8 = _timed(lambda: q8.decode(z))             # noqa: B023
+        rel = _rel_l2(y8, y16)
+        out[px] = {"rel_l2": rel, "int8_s_per_image": s8 / n, "bf16_s_per_image": s16 / n}
+        log("tokenizer_family", f"W8A8 decoder at {px} px ({n} image(s)): relative L2 against "
+            f"the bf16 decode {rel:.4f} (bound {CONV_INT8_REL_L2}); s/image int8 "
+            f"{s8 / n:.4f}, bf16 {s16 / n:.4f}; card {card}")
+        if not rel < CONV_INT8_REL_L2:
+            raise SystemExit(f"tokenizer_family: the W8A8 decoder at {px} px is over its bound")
+    hook.remove()
+    # the mid block's first conv at 1024 px (64 x 64 x 1024, K 9216)
+    with torch.no_grad():
+        xq, _ = quantize_conv_input(seen["x"].permute(0, 2, 3, 1))
+        wq, _ = quantize_conv_weight(conv.weight)
+        acc = conv_int8_acc(xq, wq, 3)
+        t = time.perf_counter()
+        twin = conv_int8_acc(xq.cpu(), wq.cpu(), 3)
+        cpu_s = time.perf_counter() - t
+    big = acc.abs().max().item()
+    equal = torch.equal(acc.cpu(), twin)
+    log("tokenizer_family", f"W8A8 conv (mid block conv1 at 1024 px, M {acc[..., 0].numel()}, "
+        f"K {wq.shape[1]}, N {wq.shape[0]}): int32 sums on the card (torch._int_mm) equal the "
+        f"CPU float64 twin's ({cpu_s:.1f} s): {equal}; max |sum| {big:.0f} (< 2^24, so exact "
+        f"in fp32: {big < 2 ** 24})")
+    if not (equal and big < 2 ** 24):
+        raise SystemExit("tokenizer_family: the W8A8 conv's sums differ from the twin's")
+    del q8
+    return out
+
+
+def _family_uni(dd: dict, imgs: dict, card: str) -> dict:
+    """UniWeTok (bf16) reconstructions, encode_raw's range, s/image and peak
+    GiB; one 256 px encode on the card in fp32 against the CPU's fp32
+    encode: signs equal wherever |raw| > SIGN_MARGIN."""
+    import numpy as np
+    import torch
+
+    from bitdance_tpu_torch.eval.recon import reconstruct
+    from bitdance_tpu_torch.models.tokenizer_uni import init_uni_vq
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    uni = init_uni_vq(dd, "cuda", torch.bfloat16, _seeded(23))
+    n_par = sum(p.numel() for p in uni.parameters())
+    out = {}
+    for px, n, batch in FAMILY_IMAGES:
+        reconstruct(uni, imgs[px][:1], batch=1, generator=_seeded(0))
+        rec, dt = _timed(lambda: reconstruct(uni, imgs[px], batch=batch,  # noqa: B023
+                                             generator=_seeded(5)))
+        with torch.no_grad():
+            raw = uni.encode_raw(torch.from_numpy(imgs[px][:batch]).cuda())
+        lo, hi = raw.min().item(), raw.max().item()
+        out[px] = {"s_per_image": dt / n}
+        tokens = (px // 16) ** 2 + 4
+        log("tokenizer_family", f"UniWeTok bf16 {n} x {px} px (batch {batch}; mid-attention "
+            f"{tokens} tokens of width {dd['ch'] * dd['ch_mult'][-1]}): {dt / n:.4f} s/image; "
+            f"encode_raw in [{lo:.4f}, {hi:.4f}]; card {card}")
+        if not (-1.0 <= lo and hi <= 1.0 and np.isfinite(rec).all()
+                and rec.shape == imgs[px].shape):
+            raise SystemExit(f"tokenizer_family: UniWeTok at {px} px failed its checks")
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    out["peak_gib"] = peak
+    with torch.no_grad():
+        enc = uni.encoder.float()
+        x = torch.from_numpy(imgs[256][:1]).cuda()
+        raw_card = uni.encode_raw(x)
+        cpu_enc = _cpu_copy(enc)
+        uni.encoder.to(torch.bfloat16)
+        t = time.perf_counter()
+        want = cpu_enc(x.cpu().permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        cpu_s = time.perf_counter() - t
+    clear = want.abs() > SIGN_MARGIN
+    flips = int((((raw_card.cpu() > 0) != (want > 0)) & clear).sum())
+    rel = _rel_l2(raw_card, want)
+    log("tokenizer_family", f"UniWeTok {n_par / 1e6:.1f} M parameters (release geometry, "
+        f"{UNI_EXTRA}: UniVQModel's defaults, no published UniWeTok ddconfig in the "
+        f"repository), peak {peak:.2f} GiB above the phase's start; 256 px card fp32 encode "
+        f"against the CPU fp32 encode ({cpu_s:.1f} s): relative L2 {rel:.3e}, {flips} sign "
+        f"flips where |raw| > {SIGN_MARGIN} ({clear.float().mean().item():.5f} of the values)")
+    if flips or rel > CARD_FP32_REL_L2:
+        raise SystemExit("tokenizer_family: UniWeTok's card encode disagrees with the CPU's")
+    out["card_vs_cpu_rel_l2"] = rel
+    del uni, enc, cpu_enc
+    return out
+
+
+def _family_batched(ae, card: str) -> dict:
+    """BatchedEncoder on 2 x 256^2, 512 x 384 and 1024 x 640 (a "long"
+    image): vt_forward's tokens equal the encodes of its batches bit for bit
+    (each image alone in its group against its own encode; the 256^2 pair
+    against the pair's encode, and against each image's own encode:
+    reported), and vt_forward_maxpad's shapes and crops. Every encode takes
+    its images as vt_forward stacks them (the convolutions' algorithm may
+    follow the input's strides). Returns #13's launches of the two calls."""
+    import numpy as np
+    import torch
+
+    from bitdance_tpu_torch.models.tokenizer import latents_to_tokens
+    from bitdance_tpu_torch.models.vt_encode import BatchedEncoder, bucket_of
+    from bitdance_tpu_torch.ops.fused_encode import fused_encode_tail
+
+    rng = np.random.default_rng(24)
+    shapes = ((256, 256), (256, 256), (512, 384), (1024, 640))
+    ims = [np.clip(rng.normal(size=(h, w, 3)) * 0.5, -1, 1).astype(np.float32)
+           for h, w in shapes]
+    ps = 8
+    enc = BatchedEncoder(ae, ps=ps)
+    fused_encode_tail.launches = 0
+    packed = enc.vt_forward(ims)
+    vt_launches = fused_encode_tail.launches
+    fused_encode_tail.launches = 0
+    padded = enc.vt_forward_maxpad(ims)
+    pad_launches = fused_encode_tail.launches
+    # the comparisons' own encodes
+    with torch.no_grad():
+        encode = lambda *xs: ae.encode(torch.from_numpy(np.stack(xs)).cuda())  # noqa: E731
+        pair = encode(ims[0], ims[1])
+        batches = [pair[0:1], pair[1:2], encode(ims[2]), encode(ims[3])]
+        singles = [encode(im) for im in ims[:2]]
+    want = [latents_to_tokens(q, ps)[0] for q in batches]
+    start, exact = 0, []
+    for t in want:
+        exact.append(torch.equal(packed[start:start + t.shape[0]], t))
+        start += t.shape[0]
+    own = [int((latents_to_tokens(s, ps)[0] != t).sum()) for s, t in zip(singles, want)]
+    crops_ok, start = True, 0
+    for im, q in zip(ims, batches):
+        hl, wl = -(-im.shape[0] // 32), -(-im.shape[1] // 32)
+        crops_ok &= torch.equal(padded[start:start + hl * wl], q[0, :hl, :wl].reshape(hl * wl, -1))
+        start += hl * wl
+    n_tokens = sum(-(-h // 32) * -(-w // 32) for h, w in shapes)
+    buckets = [bucket_of(h, w) for h, w in shapes]
+    log("tokenizer_family", f"BatchedEncoder (ps {ps}) on {shapes}, buckets {buckets}: "
+        f"vt_forward {tuple(packed.shape)}, equal to its batches' encodes bit for bit {exact} "
+        f"(the 256^2 pair against each image encoded alone: {own} of "
+        f"{want[0].numel()} values differ); vt_forward_maxpad {tuple(padded.shape)} (want "
+        f"{n_tokens} tokens), crops equal to the encodes' top-left latents {crops_ok}; #13 "
+        f"launches {vt_launches} + {pad_launches}; card {card}")
+    if not (all(exact) and crops_ok and start == padded.shape[0] == n_tokens
+            and packed.shape[0] == sum(t.shape[0] for t in want)
+            and buckets[-1] == "long" and vt_launches == 3 and pad_launches == 3):
+        raise SystemExit("tokenizer_family: BatchedEncoder failed its checks")
+    return {"launches": vt_launches + pad_launches, "pair_vs_alone_differ": own}
+
+
+def _family_cli(vq, dd_uni: dict, card: str) -> dict:
+    """cli.recon on 8 seeded 256 px PNGs with random release weights in
+    ae.safetensors, once plain and once --uni (its model_ema.* keys are the
+    weights the command must load): its PSNR / SSIM equal the in-process
+    reconstruct of the same images and seed."""
+    import contextlib
+    import io
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from bitdance_tpu_torch.cli import recon as cli_recon
+    from bitdance_tpu_torch.cli.t2i import write_png
+    from bitdance_tpu_torch.eval.recon import (
+        compare_reconstructions,
+        load_image_folder,
+        reconstruct,
+    )
+    from bitdance_tpu_torch.io.safetensors import save_file
+    from bitdance_tpu_torch.models.tokenizer_uni import init_uni_vq
+
+    root = Path(__file__).resolve().parent / "build" / "recon_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "images").mkdir(parents=True)
+    rng = np.random.default_rng(25)
+    for i in range(8):
+        write_png(root / "images" / f"{i:03d}.png", rng.integers(0, 256, (256, 256, 3), np.uint8))
+    (root / "ae_config.json").write_text(json.dumps({"ddconfig": dd_uni}))
+    save_file(vq.state_dict(), root / "ae.safetensors")
+    uni = init_uni_vq(dd_uni, "cuda", torch.bfloat16, _seeded(26))
+    state = {k: v * 0.5 for k, v in uni.state_dict().items()}
+    state.update({"model_ema." + k.replace(".", ""): v for k, v in uni.state_dict().items()})
+    save_file(state, root / "uni.safetensors")
+    del state
+    out = {}
+    try:
+        for name, extra in (("plain", []), ("uni", ["--uni"])):
+            path = str(root / ("uni.safetensors" if extra else "ae.safetensors"))
+            argv = ["--images", str(root / "images"), "--ae", path, "--limit", "0",
+                    "--seed", "3", "--ae-config", str(root / "ae_config.json")] + extra
+            buf = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli_recon.main(argv)
+            cli_s = time.perf_counter() - t
+            said = json.loads(buf.getvalue().strip().splitlines()[-1])
+            model = cli_recon.load_tokenizer(path, dd_uni if extra else vq.ddconfig,
+                                             bool(extra), torch.device("cuda"))
+            images = load_image_folder(str(root / "images"), 256)
+            rec = reconstruct(model, images, batch=8, generator=_seeded(3))
+            want = {"n_images": 8, "resolution": 256,
+                    **compare_reconstructions(images, rec).as_dict()}
+            ema = (not extra) or torch.equal(model.encoder.conv_in.weight,
+                                             uni.encoder.conv_in.weight.float())
+            out[name] = {"s": cli_s, **said}
+            log("tokenizer_family", f"cli.recon {name}: {cli_s:.1f} s, {said}; equal to the "
+                f"in-process reconstruct {said == want}; EMA weights loaded {ema}; card {card}")
+            if rc != 0 or said != want or not ema:
+                raise SystemExit(f"tokenizer_family: cli.recon {name} failed its checks")
+            del model
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def phase_tokenizer_family(card: str) -> dict:
+    """The tokenizer family (ROADMAP A5 / A9) at the release tokenizer's
+    geometry: the GAN decoder (bf16, 8 x 256 and 1 x 1024 px, seeds, the
+    card against the CPU), the W8A8 decoder against bf16 and one conv's
+    integer sums against a float64 twin, UniWeTok (reconstructions, peak,
+    the card's encode against the CPU's), BatchedEncoder and cli.recon
+    (plain and --uni). Returns #13's launches of the phase's encode paths."""
+    import numpy as np
+    import torch
+
+    from bitdance_tpu_torch.io.random_init import BITDANCE_14B_64X as GEO
+    from bitdance_tpu_torch.models.tokenizer import init_vq
+    from bitdance_tpu_torch.ops.fused_encode import fused_encode_tail
+
+    t_phase = time.perf_counter()
+    dd = GEO["ddconfig"]
+    dd_uni = dict(dd, **UNI_EXTRA)
+    rng = np.random.default_rng(21)
+    imgs = {px: np.clip(rng.normal(size=(n, px, px, 3)) * 0.5, -1, 1).astype(np.float32)
+            for px, n, _ in FAMILY_IMAGES}
+    ae = init_vq(dd, "cuda", torch.bfloat16, _seeded(22), encoder=True, gan_decoder=True)
+    out = {"gan": _family_gan(ae, imgs, card)}
+    launches = out["gan"]["launches"] + _family_batched(ae, card)["launches"]
+    del ae
+    vq = init_vq(dd, "cuda", torch.bfloat16, _seeded(27), encoder=True)
+    out["int8"] = _family_int8(vq, card)
+    fused_encode_tail.launches = 0
+    out["cli"] = _family_cli(vq, dd_uni, card)
+    launches += fused_encode_tail.launches
+    del vq
+    out["uni"] = _family_uni(dd_uni, imgs, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    log("tokenizer_family", f"#13 launches on the phase's encode paths {launches}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def phase_head_leftovers(card: str) -> dict:
+    """ROADMAP A2 / A3 on the card: the T2I head at the 14B width with
+    plain-MLP blocks (use_swiglu=False) through DiffHead.sample, which
+    takes the per-call route (#15 for each block's attention half), against
+    the plain route, one net call and a
+    guided AR step's sample, the SwiGLU head beside it as the yardstick;
+    the three alt heads and SwiGLUConnector at hidden 5120 in bf16 against
+    the CPU's fp32 on the same weights. Returns the plain-MLP head's #15
+    launches (the SwiGLU head's are a yardstick's)."""
+    import torch
+
+    from bitdance_tpu_torch.io.random_init import BITDANCE_14B_64X as GEO
+    from bitdance_tpu_torch.io.random_init import draw_head_, init_head
+    from bitdance_tpu_torch.models.alt_heads import (
+        GaussianRegressionVisionHead,
+        RegressionVisionHead,
+        StandardVisionHead,
+    )
+    from bitdance_tpu_torch.models.connector import SwiGLUConnector
+    from bitdance_tpu_torch.ops.fused_block import fused_attn_block
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cond = torch.randn((2, GEO["head"]["parallel_num"], GEO["head"]["ch_cond"]),
+                       generator=_seeded(32), device=dev).bfloat16()
+    out = {}
+    for swiglu in (False, True):
+        kw = dict(GEO["head"], use_swiglu=swiglu)
+        head = init_head(kw, dev, torch.bfloat16, _seeded(31))
+        c, p, blocks = kw["ch_latent"], kw["parallel_num"], kw["depth_latent"]
+        calls = []
+        hook = head.net.register_forward_hook(lambda *a: calls.append(1))  # noqa: B023
+        fused_attn_block.launches = 0
+        # the plain-MLP head through DiffHead.sample, the entry point the
+        # pipelines call, which routes it to the per-call sampler; the
+        # SwiGLU yardstick straight to that route (its guided default is the
+        # whole sampler)
+        if head.stackable != swiglu:
+            raise SystemExit("head_leftovers: DiffHead.stackable disagrees with use_swiglu")
+        sample = head.sample_per_call if swiglu else head.sample
+        got4 = sample(cond, _seeded(33), 7.5, 4, 2)
+        got50 = sample(cond, _seeded(33), 7.5, 50, 2)
+        launches, net_calls = fused_attn_block.launches, len(calls)
+        hook.remove()
+        x = torch.randn((2, p, kw["ch_target"]), generator=_seeded(34), device=dev).bfloat16()
+        t = torch.full((2,), 0.5, device=dev)
+        with torch.no_grad():
+            net = head.net(x, t, cond)
+            with _plain_head():
+                want4 = sample(cond, _seeded(33), 7.5, 4, 2)
+                want50 = sample(cond, _seeded(33), 7.5, 50, 2)
+                net_ref = head.net(x, t, cond)
+        _, net_rel = _errors(net, net_ref)
+        err, rel = _errors(got4, want4)
+        agree = ((got50 > 0) == (want50 > 0)).float().mean().item()
+        name = "SwiGLU" if swiglu else "plain-MLP"
+        log("head_leftovers", f"T2I head C {c}, {blocks} {name} blocks, the per-call route "
+            f"against the plain route: one net call {net_rel:.2e} of max (bound "
+            f"{HEAD_BLOCK_MAX_REL_ERR}); a guided AR step's sample ({p} tokens, cfg 7.5) at 4 "
+            f"steps max abs err {err:.3e} ({rel:.2e} of max, bound {PLAIN_HEAD_MAX_REL_ERR}), "
+            f"signs after 50 steps equal {agree:.4f} (floor {PLAIN_HEAD_SIGN_FLOOR}); #15 "
+            f"launches {launches} over {net_calls} net calls; card {card}")
+        if not (net_rel <= HEAD_BLOCK_MAX_REL_ERR and rel <= PLAIN_HEAD_MAX_REL_ERR
+                and agree >= PLAIN_HEAD_SIGN_FLOOR and launches == blocks * net_calls
+                and net_calls == (4 + 1) + (50 + 1)):
+            raise SystemExit(f"head_leftovers: the {name} head failed its checks")
+        out[name] = {"launches": launches, "net_rel": net_rel, "rel": rel,
+                     "sign_agreement": agree}
+        del head
+    # the alt heads and the connector, bf16 on the card vs fp32 on the CPU
+    h = torch.randn((128, 5120), generator=_seeded(34), device=dev).bfloat16()
+    labels = torch.randint(0, 4096, (128,), generator=_seeded(35), device=dev)
+    lat = torch.where(torch.randn((128, 32), generator=_seeded(36), device=dev) > 0, 1.0, -1.0)
+    eps = torch.randn((128, 32), generator=_seeded(37), device=dev)
+    mods = {"standard": StandardVisionHead(4096, 5120, device=dev, dtype=torch.bfloat16),
+            "regression": RegressionVisionHead(5120, 32, 5120, device=dev, dtype=torch.bfloat16),
+            "gaussian": GaussianRegressionVisionHead(5120, 32, 5120, device=dev,
+                                                     dtype=torch.bfloat16),
+            "swiglu_connector": SwiGLUConnector(32, 5120, device=dev, dtype=torch.bfloat16)}
+    calls = {"standard": lambda m, a: (*m(a["h"], a["labels"]), m.loss(a["h"], a["labels"])),
+             "regression": lambda m, a: (m(a["h"]), m.loss(a["h"], a["lat"])),
+             "gaussian": lambda m, a: (m(a["h"], a["eps"]), m.loss(a["h"], a["lat"], a["eps"])),
+             "swiglu_connector": lambda m, a: (m(a["lat"]),)}
+    args = {"h": h, "labels": labels, "lat": lat, "eps": eps}
+    cpu_args = {k: (v.float() if v.is_floating_point() else v).cpu() for k, v in args.items()}
+    worst = {}
+    with torch.no_grad():
+        for name, m in mods.items():
+            draw_head_(m, _seeded(38))
+            got = calls[name](m.eval(), args)
+            want = calls[name](_cpu_copy(m).eval(), cpu_args)
+            worst[name] = max(_errors(g.cpu(), w)[1] for g, w in zip(got, want))
+    log("head_leftovers", "alt heads and SwiGLUConnector at hidden 5120 (128 rows; the "
+        "standard head over 4,096 codes), bf16 on the card against fp32 on the CPU, max "
+        "|d| / max |ref| of each output: " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+        + f" (bound {ALT_HEAD_MAX_REL_ERR}); phase {time.perf_counter() - t_phase:.1f} s")
+    if max(worst.values()) > ALT_HEAD_MAX_REL_ERR:
+        raise SystemExit("head_leftovers: an alt head or the connector disagrees with the CPU")
+    return {"launches": out["plain-MLP"]["launches"], **out, "alt": worst}
+
+
 # ---------------------------------------------------------------------------
 # The training entry points: the tar index, cli.train_imagenet with resume,
 # cli.sample_fid, tokenizer training and cli.train_mllm with resume
@@ -5232,6 +5821,8 @@ def phase_release(card: str) -> dict:
         request(pipe, 2)
         two_s = time.perf_counter() - t0
         two_launches = fused_em_sample.launches
+        plain_256 = pipe.generate(prompt, GAN_RELEASE_PX, GAN_RELEASE_PX, num_sampling_steps=50,
+                                  guidance_scale=7.5, seed=seed, return_tokens=True)
         del pipe
         gc.collect()
         torch.cuda.empty_cache()
@@ -5275,8 +5866,10 @@ def phase_release(card: str) -> dict:
         icli_lines = icli.stdout.strip().splitlines()
         icli_same = (icli_lines[0] == mem_said
                      and np.array_equal(read_png(inter_png), mem_inter))
+        gan = _gan_release(out_dir, tok, prompt, seed, plain_256, card)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
+        shutil.rmtree(out_dir.parent / "release_14b_gan", ignore_errors=True)
     steps = (px // 16) ** 2 // 64
     log("release", f"export {export_s:.1f} s, {gb:.2f} GB on disk; load "
         f"{load_s:.1f} s (bf16), {load_q_s:.1f} s (int8 LLM and embedding, int4 "
@@ -5291,7 +5884,60 @@ def phase_release(card: str) -> dict:
         raise SystemExit("release: a loaded grid, a CLI's output or the "
                          "2-image request failed its check")
     return {"export_s": export_s, "gb": gb, "load_s": load_s, "load_q_s": load_q_s,
-            "interleaved_cli_s": icli_s}
+            "interleaved_cli_s": icli_s, "gan": gan}
+
+
+GAN_RELEASE_PX = 256
+
+
+def _gan_release(out_dir, tok, prompt: str, seed: int, plain, card: str) -> dict:
+    """The release served a second time with a GAN-decoder tokenizer: a
+    sibling directory whose ae_config.json says ``gan_decoder: true`` and
+    which holds a random GAN decoder's ae.safetensors, every other file a
+    link into ``out_dir``. One GAN_RELEASE_PX request twice: its token grid
+    equals the plain release's (``plain``: (image, tokens) of the same
+    request; the LLM, head and seed are the same), and its two images are
+    equal bit for bit (the decoder's noise from the request's generator)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from bitdance_tpu_torch.io.random_init import BITDANCE_14B_64X as GEO
+    from bitdance_tpu_torch.models.tokenizer import init_vq
+    from bitdance_tpu_torch.pipelines.loader import load_t2i_pipeline
+    from bitdance_tpu_torch.train.checkpoints import export_release_dir
+
+    gan_dir = out_dir.parent / "release_14b_gan"
+    gan_dir.mkdir()
+    for f in out_dir.iterdir():
+        if f.name not in ("ae.safetensors", "ae_config.json") and f.suffix != ".png":
+            os.symlink(f.resolve(), gan_dir / f.name)
+    ae = init_vq(GEO["ddconfig"], "cuda", torch.bfloat16, _seeded(41), gan_decoder=True)
+    export_release_dir(str(gan_dir), ae=ae, dtype=None, configs={
+        "ae_config": {"ddconfig": GEO["ddconfig"], "gan_decoder": True}})
+    del ae
+    pipe, load_s = _timed(lambda: load_t2i_pipeline(str(gan_dir), tokenizer=tok))
+    px = GAN_RELEASE_PX
+    runs = [_timed(lambda: pipe.generate(prompt, px, px, num_sampling_steps=50,  # noqa: B023
+                                         guidance_scale=7.5, seed=seed, return_tokens=True))
+            for _ in range(2)]
+    (img, tokens), s = runs[0]
+    (img2, tokens2), _ = runs[1]
+    grid_same = np.array_equal(tokens, plain[1]) and np.array_equal(tokens2, plain[1])
+    img_same = np.array_equal(img, img2)
+    gan = pipe.bundle.ae.gan_decoder and pipe.bundle.ae.decoder.conv_in.weight.shape[1] == 64
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("release", f"GAN-decoder release (linked beside the plain one): load {load_s:.1f} s, a "
+        f"{px} px request {s:.2f} s; GAN decoder loaded {gan}; grid equal to the plain "
+        f"release's {grid_same}; the request twice gives equal images {img_same} (and "
+        f"another image than the plain decoder's: {not np.array_equal(img, plain[0])}); "
+        f"card {card}")
+    if not (gan and grid_same and img_same):
+        raise SystemExit("release: the GAN-decoder release failed its checks")
+    return {"load_s": load_s, "request_s": s}
 
 
 def build_imagenet_samplers():
@@ -5470,6 +6116,10 @@ def main() -> int:
     launches["head_gemm_tp"] = tp["launches"]["head_gemm_tp"]
     results.update(phase_encode_kernel())
     launches["fused_encode_tail"] = phase_tokenizer(card)["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["fused_encode_tail"] += phase_tokenizer_family(card)["launches"]
+    launches["fused_attn_block"] += phase_head_leftovers(card)["launches"]
     gc.collect()
     torch.cuda.empty_cache()
     # the training commands' launches join each kernel's count (B-1x's head

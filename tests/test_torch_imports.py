@@ -69,6 +69,12 @@ INTERLEAVED_SLICE_MODULES = (
 )
 # tensor-parallel serving (ROADMAP A11b)
 TP_SLICE_MODULES = ("bitdance_tpu_torch.parallel.mesh", "bitdance_tpu_torch.parallel.tp")
+# the tokenizer family and the head leftovers (ROADMAP A5 / A9, A2 / A3)
+TOKENIZER_SLICE_MODULES = (
+    "bitdance_tpu_torch.models.tokenizer_uni", "bitdance_tpu_torch.models.vt_encode",
+    "bitdance_tpu_torch.models.alt_heads", "bitdance_tpu_torch.cli.recon",
+    "bitdance_tpu_torch.eval.recon",
+)
 
 
 def test_every_port_module_imports_without_jax():
@@ -85,6 +91,7 @@ def test_every_port_module_imports_without_jax():
     assert set(TRAINING_SLICE_MODULES) <= set(mods)
     assert set(INTERLEAVED_SLICE_MODULES) <= set(mods)
     assert set(TP_SLICE_MODULES) <= set(mods)
+    assert set(TOKENIZER_SLICE_MODULES) <= set(mods)
     script = (
         "import importlib, sys\n"
         "class Block:\n"

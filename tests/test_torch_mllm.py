@@ -212,7 +212,8 @@ def test_qwen3_forward_and_grads_match_jax(remat):
 
 def test_qwen3_forward_sparse_route_equals_dense_on_cpu():
     """attn_impl="kernel" with max_live_kv (the plain sparse versions on
-    CPU) gives the dense result; remat "dots" is refused."""
+    CPU) gives the dense result, and so does remat "dots" with gradients
+    on (tests/test_torch_remat.py holds "dots" against JAX)."""
     cfg_t = tq.Qwen3Config(vocab_size=300, **LLM)
     model = qwen3_from_jax(cfg_t, jq.init_qwen3_params(
         jax.random.PRNGKey(2), jq.Qwen3Config(vocab_size=300, **LLM)))
@@ -223,8 +224,9 @@ def test_qwen3_forward_sparse_route_equals_dense_on_cpu():
         dense = tq.qwen3_forward(model, x, *ids)
         sparse = tq.qwen3_forward(model, x, *ids, attn_impl="kernel", max_live_kv=3)
     np.testing.assert_allclose(sparse.numpy(), dense.numpy(), rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="dots"):
-        tq.qwen3_forward(model, x, *ids, remat=True, remat_policy="dots")
+    dots = tq.qwen3_forward(model, x.clone().requires_grad_(True), *ids, remat=True,
+                            remat_policy="dots")
+    np.testing.assert_array_equal(dots.detach().numpy(), dense.numpy())
 
 
 def test_per_token_head_loss_matches_jax(monkeypatch):

@@ -55,6 +55,8 @@ LLM = dict(vocab_size=512, hidden_size=64, intermediate_size=128,
 HEAD_JSON = {"ch_target": 8, "ch_cond": 64, "ch_latent": 128, "depth_latent": 2,
              "depth_adanln": 2, "parallel_num": 4, "use_swiglu": True,
              "P_mean": -0.8, "P_std": 0.8}
+# a plain-MLP TransEncoder head: the key left out, as config.py defaults it
+PLAIN_HEAD_JSON = {k: v for k, v in HEAD_JSON.items() if k != "use_swiglu"}
 NOISE_SEED = 49
 
 
@@ -161,10 +163,10 @@ def _randomized(tree, seed, scale=0.05):
         jnp.asarray(scale * rng.normal(size=l.shape), jnp.float32) for l in leaves])
 
 
-def _jax_bundle():
+def _jax_bundle(head_json=HEAD_JSON):
     cfg = jq.Qwen3Config(**LLM)
     llm = jq.init_qwen3_params(jax.random.PRNGKey(0), cfg, jnp.float32)
-    head = JHead(**{k: v for k, v in HEAD_JSON.items()})
+    head = JHead(**head_json)
     hp = _randomized(head.init(jax.random.PRNGKey(1), jnp.zeros((2, 4, 8)),
                                jnp.zeros((2, 4, 64)), jax.random.PRNGKey(2)), 3)
     ae = JVQ(ddconfig=DD)
@@ -177,23 +179,27 @@ def _jax_bundle():
         hidden_size=64, vae_patch_size=2, pe_max_len=4096)
 
 
-def _configs():
+def _configs(head_json=HEAD_JSON):
     return {"ae_config": {"ddconfig": DD, "gan_decoder": False},
-            "vision_head_config": HEAD_JSON}
+            "vision_head_config": head_json}
+
+
+def _jax_release(tmp_path_factory, head_json):
+    out = str(tmp_path_factory.mktemp("release") / "jax")
+    jb = _jax_bundle(head_json)
+    j_export_dir(out, ae_params=jb.ae_params, head_params=jb.head_params,
+                 projector_params=jb.projector_params, configs=_configs(head_json))
+    j_export_llm(jb.llm_params, jb.llm_cfg, out)
+    tok = _make_tokenizer()
+    tok.save_pretrained(out)
+    return dict(dir=out, jb=jb, tok=tok)
 
 
 @pytest.fixture(scope="module")
 def release(tmp_path_factory):
     """A JAX export of the tiny bundle (with the tokenizer), the bundle, and
     the tokenizer."""
-    out = str(tmp_path_factory.mktemp("release") / "jax")
-    jb = _jax_bundle()
-    j_export_dir(out, ae_params=jb.ae_params, head_params=jb.head_params,
-                 projector_params=jb.projector_params, configs=_configs())
-    j_export_llm(jb.llm_params, jb.llm_cfg, out)
-    tok = _make_tokenizer()
-    tok.save_pretrained(out)
-    return dict(dir=out, jb=jb, tok=tok)
+    return _jax_release(tmp_path_factory, HEAD_JSON)
 
 
 def _shaped_noise(shape):
@@ -227,9 +233,9 @@ def _jax_grid(jb, tok, monkeypatch):
         latent_w=4, num_images=1, guidance_scale=2.0, num_sampling_steps=4))
 
 
-def _port_grid(tb, tok, monkeypatch):
-    rows, pads, start = _request(tok)
-
+def _port_noise_and_margins(monkeypatch):
+    """Route the port's sampler draws to the shape-keyed table and return
+    the list that collects each AR step's least |sign input|."""
     def table_noise(generator, half, ch, num_steps, device):
         t = torch.from_numpy(_shaped_noise((1, 4, ch))).reshape(half, ch)
         return t.clone(), t[None].repeat(num_steps, 1, 1)
@@ -243,6 +249,12 @@ def _port_grid(tb, tok, monkeypatch):
 
     monkeypatch.setattr(tdh, "draw_sampler_noise", table_noise)
     monkeypatch.setattr(tt2i, "sign_quantize", spy_sign)
+    return margins
+
+
+def _port_grid(tb, tok, monkeypatch):
+    rows, pads, start = _request(tok)
+    margins = _port_noise_and_margins(monkeypatch)
     pe = pos_embed_2d(tt2i.build_pos_table(tb), 4, 4, 2)
     got = tt2i.generate_tokens(
         tb, torch.tensor(rows), torch.tensor(pads, dtype=torch.int32),
@@ -352,3 +364,59 @@ def test_loader_without_transformers_asks_for_a_tokenizer(release, monkeypatch):
     pipe = load_t2i_pipeline(release["dir"], dtype=torch.float32, device="cpu",
                              tokenizer=release["tok"])
     assert pipe.tokenizer is release["tok"]
+
+
+@pytest.fixture(scope="module")
+def plain_release(tmp_path_factory):
+    """The tiny export with a plain-MLP head (no ``use_swiglu`` key)."""
+    return _jax_release(tmp_path_factory, PLAIN_HEAD_JSON)
+
+
+def test_plain_mlp_release_serves_like_jax(plain_release, monkeypatch):
+    """A release whose head JSON has no ``use_swiglu`` loads, and
+    T2IPipeline.generate serves it: DiffHead.sample takes the per-call
+    route (there is no sampler stack), as the JAX pipeline sends such a head
+    to euler_maruyama. Grids exact (sign inputs clear 1e-3), images within
+    one level (fp32 decoders, sums in another order)."""
+    from bitdance_tpu.pipelines.loader import load_t2i_pipeline as j_load
+
+    pipe = load_t2i_pipeline(plain_release["dir"], dtype=torch.float32, device="cpu")
+    assert not pipe.bundle.head.stackable and pipe.bundle.head_stacked is None
+    monkeypatch.setattr(jax.random, "normal",
+                        lambda key, shape=(), dtype=jnp.float32:
+                        jnp.asarray(_shaped_noise(tuple(shape)), dtype))
+    want_img, want = j_load(plain_release["dir"], dtype=jnp.float32).generate(
+        "a tiny cat", 8, 8, num_sampling_steps=4, guidance_scale=2.0,
+        return_tokens=True)
+    margins = _port_noise_and_margins(monkeypatch)
+    got_img, got = pipe.generate("a tiny cat", 8, 8, num_sampling_steps=4,
+                                 guidance_scale=2.0, return_tokens=True)
+    assert len(margins) == 4 and min(margins) > 1e-3, (
+        f"borderline sign margin {min(margins)}: pick another NOISE_SEED")
+    assert got.shape == np.asarray(want).shape == (1, 16, 8)
+    np.testing.assert_array_equal(got, np.asarray(want), err_msg="±1 grids diverge")
+    assert np.abs(got_img.astype(int) - np.asarray(want_img).astype(int)).max() <= 1
+
+
+class _TwoWayTP:
+    """A mesh stub whose "tp" axis has two ranks (parallel/mesh.py::tp_group
+    reads no more of it)."""
+
+    def size(self, dim):
+        return 2 if dim == 2 else 1
+
+    def get_local_rank(self, name):
+        return 0
+
+    def get_group(self, name):
+        return None
+
+
+def test_plain_mlp_head_refuses_tensor_parallel_serving(plain_release):
+    """The per-call sampler has no tensor-parallel form: shard_bundle_ says
+    so before it touches the bundle."""
+    b = load_t2i_pipeline(plain_release["dir"], dtype=torch.float32, device="cpu").bundle
+    before = b.llm.model.layers[0].self_attn.q_proj.weight.shape
+    with pytest.raises(NotImplementedError, match="plain-MLP head"):
+        tt2i.shard_bundle_(b, _TwoWayTP())
+    assert b.llm.model.layers[0].self_attn.q_proj.weight.shape == before
