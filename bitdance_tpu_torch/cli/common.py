@@ -1,7 +1,7 @@
 """What the command lines share: the device check, the frozen tokenizer at
 the ImageNet commands' width (scripts/train_imagenet.py:131-132 and
-scripts/sample_fid.py of the JAX package), and a PNG reader (the card's
-machine has no imaging package)."""
+scripts/sample_fid.py of the JAX package), and a PNG writer and reader (the
+card's machine has no imaging package)."""
 
 from __future__ import annotations
 
@@ -48,6 +48,48 @@ def imagenet_tokenizer(latent_dim: int, trained_vae: str, device: torch.device,
     ae = ae.to_empty(device=device)
     load_state_(ae, load_safetensors(trained_vae), ignore=(re.compile(rf"^{other}\."),))
     return ae.eval().requires_grad_(False)
+
+
+# Pillow's encoder settings, which png_bytes reproduces: zlib level 6,
+# memLevel 9, the Z_FILTERED strategy, and IDAT chunks of ImageFile.MAXBLOCK
+# bytes (or 4 bytes a pixel of one row, when that is more)
+PNG_ZLIB = (6, zlib.DEFLATED, 15, 9, zlib.Z_FILTERED)
+PNG_IDAT_BYTES = 65536
+
+
+def png_bytes(image: np.ndarray) -> bytes:
+    """uint8 RGB [H, W, 3] -> the 8-bit truecolor PNG that Pillow's
+    ``Image.fromarray(image).save(f, "PNG")`` writes, byte for byte (the JAX
+    package's eval harnesses and demo write with Pillow). Each row takes
+    Pillow's adaptive filter: of None, Up, Sub and Paeth, in that order of
+    preference, the one whose bytes, read as signed, sum to the least
+    magnitude."""
+    img = np.ascontiguousarray(image, dtype=np.uint8)
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"png_bytes: want [H, W, 3] uint8, got {img.shape}")
+    h, w, _ = img.shape
+    x = img.reshape(h, w * 3).astype(np.int16)
+    up, left, up_left = np.zeros_like(x), np.zeros_like(x), np.zeros_like(x)
+    up[1:], left[:, 3:], up_left[1:, 3:] = x[:-1], x[:, :-3], x[:-1, :-3]
+    p = left + up - up_left
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - up_left)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, up_left))
+    rows = (np.stack([x, x - up, x - left, x - paeth]) & 0xFF).astype(np.int32)
+    pick = np.argmin(np.minimum(rows, 256 - rows).sum(axis=2), axis=0)
+    kinds = np.array([0, 2, 1, 4], np.uint8)[pick]
+    raw = np.concatenate([kinds[:, None], rows[pick, np.arange(h)].astype(np.uint8)], axis=1)
+    z = zlib.compressobj(*PNG_ZLIB)
+    data = z.compress(raw.tobytes()) + z.flush()
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    n = max(PNG_IDAT_BYTES, 4 * w)
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + b"".join(chunk(b"IDAT", data[i:i + n]) for i in range(0, len(data), n))
+            + chunk(b"IEND", b""))
 
 
 def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:

@@ -7,39 +7,26 @@ example_t2i.py).
 
 Loads the directory with pipelines/loader.py (optionally quantized), runs
 one request and writes the images as PNG files (a second image of a request
-goes to <out>_1.png, ...). The PNG writer is this module's own (zlib), since
-the card's machine has no imaging package.
+goes to <out>_1.png, ...). The PNG writer is the port's own
+(cli/common.py::png_bytes), since the card's machine has no imaging package.
 """
 
 from __future__ import annotations
 
 import argparse
-import struct
 import sys
 import time
-import zlib
 from pathlib import Path
 
 import numpy as np
 
 
 def write_png(path, image: np.ndarray) -> None:
-    """uint8 RGB [H, W, 3] -> an 8-bit truecolor PNG (filter 0 rows)."""
-    img = np.ascontiguousarray(image, dtype=np.uint8)
-    if img.ndim != 3 or img.shape[2] != 3:
-        raise ValueError(f"write_png: want [H, W, 3] uint8, got {img.shape}")
-    h, w, _ = img.shape
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1)
+    """uint8 RGB [H, W, 3] -> a PNG file (cli/common.py::png_bytes: the
+    bytes Pillow writes)."""
+    from bitdance_tpu_torch.cli.common import png_bytes
 
-    def chunk(kind: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + kind + data
-                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-    png = (b"\x89PNG\r\n\x1a\n"
-           + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-           + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-           + chunk(b"IEND", b""))
-    Path(path).write_bytes(png)
+    Path(path).write_bytes(png_bytes(image))
 
 
 def parse_args(argv=None) -> argparse.Namespace:

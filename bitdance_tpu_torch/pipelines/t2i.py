@@ -15,8 +15,9 @@ environment switches; the KV cache is updated in place.
 Over a device mesh (``T2IPipeline(mesh=...)``, :func:`shard_bundle_`) every
 rank runs the same request from the same seed: the LLM tensor-parallel over
 "tp" (and FSDP over the other axes), the head's sampler head-major and
-tensor-parallel with tp > 1, the VQ decoder whole; the ranks' token grids
-are checked equal once per request.
+tensor-parallel with tp > 1 (a plain-MLP head, which has no sampler stack,
+whole on every rank), the VQ decoder whole; the ranks' token grids are
+checked equal once per request.
 """
 
 from __future__ import annotations
@@ -184,23 +185,21 @@ def shard_bundle_(bundle: T2IModelBundle, mesh):
     (replica, fsdp) process, FSDP2 over those axes on top, the root's
     parameters (embedding, final norm) then held gathered and each layer
     gathered as the cached forward reaches it; with tp > 1 the head's
-    sampler stack reordered head-major and sharded Megatron-style (a
-    plain-MLP head, which has no stack, raises); the VQ
-    decoder and the connector whole on every rank. bf16 and fp32 only."""
+    sampler stack reordered head-major and sharded Megatron-style, while a
+    plain-MLP head, which has no stack, stays whole on every rank and
+    samples on its per-call route there, as the JAX package replicates it;
+    the VQ decoder and the connector whole on every rank. bf16 and fp32
+    only."""
     from bitdance_tpu_torch.parallel.mesh import data_size, shard_model, tp_group
     from bitdance_tpu_torch.parallel.tp import shard_head_stacked, shard_qwen3_
 
     tp = tp_group(mesh)
     head = bundle.head
-    if tp.size > 1 and not head.stackable:
-        raise NotImplementedError(
-            "shard_bundle_: a plain-MLP head (use_swiglu false) samples on the "
-            "per-call route, which has no tensor-parallel form; serve it with tp 1")
     shard_qwen3_(bundle.llm, tp)
     if data_size(mesh) > 1:
         shard_model(bundle.llm, mesh)
         bundle.llm.unshard()
-    if tp.size > 1:
+    if tp.size > 1 and head.stackable:
         bundle.head_stacked = shard_head_stacked(
             bundle.stacked_head(), tp, head.ch_latent // head.attn_head_dim)
     return tp

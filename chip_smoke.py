@@ -2,9 +2,9 @@
 """Drive the PyTorch port's main paths once on one NVIDIA GPU: text-to-image
 serving and interleaved generation (BitDance-14B-64x), ImageNet class-conditional training
 (BitDance-H-1x, 256 px), ImageNet class-conditional sampling
-(BitDance-H-1x at 20 of 40 layers and BitDance-B-16x, 256 px), packed
+(BitDance-H-1x at 10 of 40 layers and BitDance-B-16x, 256 px), packed
 multimodal training of
-BitDance-14B-64x (full width, 4 of 40 layers), the data-parallel (FSDP)
+BitDance-14B-64x (full width, 2 of 40 layers), the data-parallel (FSDP)
 train steps at world 1, tensor-parallel T2I serving (two ranks on the one
 card over gloo at tp 2; BitDance-14B-64x at full width, 2 of 40 layers),
 tokenizer reconstruction
@@ -12,9 +12,11 @@ tokenizer reconstruction
 GAN decoder, the W8A8 decoder, UniWeTok, BatchedEncoder, cli.recon), the
 plain-MLP T2I head, the alt heads and SwiGLUConnector, the training commands
 (cli.train_imagenet at BitDance-B-1x with checkpoints and resume,
-cli.sample_fid, tokenizer training, cli.train_mllm), and the release directory of
-BitDance-14B-64x (export, load_t2i_pipeline, the CLI; full width, 2 of 40
-layers).
+cli.sample_fid, tokenizer training, cli.train_mllm), the DPG / GenEval
+harnesses and the demo server (BitDance-14B-64x, full width and depth), the
+hard-kill training proof (BitDance-B-1x), and the release directory of
+BitDance-14B-64x (export, load_t2i_pipeline, the CLI and the eval commands;
+full width, 2 of 40 layers).
 
     python3 chip_smoke.py
 
@@ -33,7 +35,7 @@ Phases, run in this order, one line each, any failure exits non-zero:
                     lm_head and VQ encoder), T2IPipeline.generate: two
                     prompts at 512 px, one at 1024 px
   interleaved       InterleavedGenerator on the same bundle: plan A (chat
-                    text, the e2e phase's first image, 32 sampled text
+                    text, the e2e phase's first image, 16 sampled text
                     tokens, a 512 px image at cfg 7.5), plan B (a 256 px
                     image at cfg 1: one stream, the per-call head), plan C
                     (plan A with the int8 LLM and lm_head, a 256 px image):
@@ -44,8 +46,16 @@ Phases, run in this order, one line each, any failure exits non-zero:
                     against their plain versions, the int8 lm_logits against
                     float64 on its dequantized operands; then the bundle
                     drops lm_head and encoder, which T2I serving never loads
-  profile           torch.profiler over one more 512 px
+  profile           torch.profiler over one more 256 px
                     request: device busy share and time by kernel
+  eval_serve        on the same bundle at 512 px, 50 steps: the DPG harness
+                    (eval/dpg.py) on the first 2 vendored prompts and the
+                    GenEval harness on the first long GenEval line, 4 images
+                    a prompt, each grid equal to a direct generate tiled
+                    2x2 (GenEval's layout, metadata and samples too); the
+                    demo's fallback server (cli/app.py) on a free port: its
+                    page's control ids and one 1-image request equal to a
+                    direct generate; s a prompt, #1 / #2 launches
   quant_kernels     the quantized serving kernels vs their plain versions, from
                     the same bf16 weights: the W4A8 matmul at the seven Qwen3
                     projections (M = 5, 128, 132 and 300; bit-equal, also at
@@ -70,7 +80,7 @@ Phases, run in this order, one line each, any failure exits non-zero:
                     bf16 (reported; also over the first AR step) and int4 !=
                     int8 grids (checked); the W4A8 matmul at every (M, N, K)
                     the int4 requests gave it; torch.profiler over one more
-                    int4 512 px request
+                    int4 256 px request
   flash_attention   the forward, dq and dk/dv kernels vs the plain version and
                     its autograd grads: the training path's shapes, B-16x
                     block windows, two packed documents, GQA at head dim 128
@@ -79,7 +89,7 @@ Phases, run in this order, one line each, any failure exits non-zero:
                     encode_batch -> train_step: s/step, images/s, MFU, peak
                     memory, launch counts, and one step on the plain
                     attention path from the same state
-  imagenet_kernels  random bf16 BitDance-H-1x (20 of its 40 backbone layers)
+  imagenet_kernels  random bf16 BitDance-H-1x (10 of its 40 backbone layers)
                     and BitDance-B-16x samplers (the training state freed
                     first); the head-block kernels
                     fused_mlp_block (H-1x: 8 rows, C 1280; B-16x: 512 rows,
@@ -103,11 +113,11 @@ Phases, run in this order, one line each, any failure exits non-zero:
   imagenet_b16x     32 classes at cfg 6.1 and unguided, 16 AR steps; the
                     guided batch again with its head at every AR step through
                     both the whole sampler and the per-call blocks, whose +-1
-                    tokens must agree; the guided batch free-running (each
-                    path's tokens fed back) through the per-call and whole-
-                    sampler kernels and through their plain versions, whose
-                    agreements are reported; torch.profiler over one guided
-                    and one unguided batch
+                    tokens must agree; the guided batch free-running at 50
+                    sampling steps (each path's tokens fed back) through the
+                    per-call and whole-sampler kernels and through their
+                    plain versions, whose agreements are reported;
+                    torch.profiler over one guided and one unguided batch
   fused_net         the one-call DiffNet forward (#5) vs its plain version at
                     the H-1x MlpEncoder's unguided 8 and guided 64 rows and
                     the B-16x TransEncoder's 32 windows of 16, on the
@@ -167,9 +177,12 @@ Phases, run in this order, one line each, any failure exits non-zero:
                     equal, teacher-forced hidden states and one head sample
                     against tp 1 within stated bounds, the free-running
                     grids' agreement reported, s/request, all-reduces and
-                    their seconds, peak GiB a rank, launches; then #1 at the
-                    local heads and the head GEMM's four products at a
-                    rank's shapes against their plain versions
+                    their seconds, peak GiB a rank, launches; then the
+                    plain-MLP head (no sampler stack, #15 per call) beside
+                    the same LLM at tp 1 and tp 2: the head whole on each
+                    rank, a head sample from one cond bit-equal, the grids;
+                    then #1 at the local heads and the head GEMM's four
+                    products at a rank's shapes against their plain versions
   encode_kernel     the encode tail vs its plain version at the release
                     tokenizer's trunk shapes (256, 512, 1024 px), bf16 and
                     fp32, two launches bit-equal, eager and device-only times
@@ -202,7 +215,7 @@ Phases, run in this order, one line each, any failure exits non-zero:
                     checkpoints (shards.rank00000.json, meta's world 1),
                     the final checkpoints bit-equal; cli.sample_fid from the
                     straight checkpoint (32 samples, 2 batches, cfg 4.6,
-                    100 steps): 32 PNGs, the npz, the first batch equal to
+                    50 steps): 32 PNGs, the npz, the first batch equal to
                     a direct sample on the restored EMA weights; 3 tokenizer
                     training steps at the commands' tokenizer width;
                     cli.train_mllm on the 14B yaml cut to 2 layers at hidden
@@ -210,6 +223,11 @@ Phases, run in this order, one line each, any failure exits non-zero:
                     GiB to the machine's disk), 4 steps straight against 2
                     + 2 resumed, bit-equal;
                     s/step, save / restore seconds and checkpoint GB
+  train_proof       python -m bitdance_tpu_torch.cli.train_proof as a real
+                    process pair at BitDance-B-1x, 256 px, world 1: the run
+                    phase killed with os._exit(9) after its save, the resume
+                    phase restoring it: one bit-identical resume, steps 1..N,
+                    the loss descended; s/step, GB written, flash launches
   release           random bf16 BitDance-14B-64x at 2 of 40 layers exported
                     as a release directory under build/ (fp32 LLM, bf16
                     head, decoder and projector; free space checked first),
@@ -222,8 +240,10 @@ Phases, run in this order, one line each, any failure exits non-zero:
                     in-memory generator; then the directory served again
                     through a linked sibling with a random GAN decoder
                     (gan_decoder: true): a 256 px grid equal to the plain
-                    release's, the same image twice; export / load times
-                    and GB on disk
+                    release's, the same image twice; eval.dpg.main and
+                    eval.geneval.main on the directory (1 prompt, 256 px, 4
+                    steps), their files equal to the evaluators in this
+                    process; export / load times and GB on disk
 The last lines are the kernels' JSON record (each kernel's launches on the
 main paths, error against its plain version, times, bound and, where one
 PyTorch call computes the same function, that call's time), the card's name
@@ -368,12 +388,14 @@ IMAGENET_STEPS = 100         # sampling steps of every ImageNet run
 UNGUIDED_H1X_IMAGES = 8
 # the H-1x sampler's backbone depth (of its 40 layers, full width): its
 # batches' AR steps are host-bound by layer (~100 s of decode at 40 layers
-# on a slow host, where the whole script took 968 s of phases); the head,
-# and so every kernel check and launch count, is whole
-IMAGENET_H1X_LAYERS = 20
+# on a slow host, where the whole script took 968 s of phases; cut to 20,
+# then to 10 when PR 23's phases brought it to 1,020 s); the head, and so
+# every kernel check and launch count, is whole
+IMAGENET_H1X_LAYERS = 10
 # the unguided H-1x batch runs 25,856 per-call net calls at 100 steps, 2.9 ms
 # each from the host (90 s, PERF.md); it is cut to this many sampling steps
-UNGUIDED_H1X_STEPS = 25
+# (25 until PR 23)
+UNGUIDED_H1X_STEPS = 12
 # Quantized serving. W4A8 matmul vs its plain version: the same int8 rows,
 # the integer sums exact on both sides (at every split count of K) and the
 # scaling in the same fp32 order, so the outputs must be equal bit for bit.
@@ -431,12 +453,13 @@ IMAGENET_QUANT_SAMPLER_MAX_REL_ERR = 1e-1
 FLASH_SPARSE_MAX_REL_ERR = {"o": 1.5e-2, "o_row": 1.5e-2, "lse": 1e-6, "dq": 1.5e-2,
                             "dk": 1.5e-2, "dv": 1.5e-2}
 # BitDance-14B-64x packed training: full width, MLLM_LAYERS of its 40 layers
-# (all 40 need the FSDP of ROADMAP A11), MLLM_STEPS steps on the sparse
-# kernels (cut from 6 to 4 for the script's time: steps 3-6 of a 6-step
-# run read 7.033-7.063 s on an H100 at 700 W, so two steady steps tell the
-# same)
-MLLM_LAYERS = 4
-MLLM_STEPS = 4
+# (all 40 need the FSDP of ROADMAP A11; 4 until PR 23, cut for the script's
+# time; the parallel phase's 14B step has 2 too), MLLM_STEPS steps on the sparse
+# kernels (cut from 6 to 4, then 2, for the script's time: steps 2-6 of a
+# 6-step run read 7.033-7.066 s on an H100 at 700 W, so one steady step
+# tells the same)
+MLLM_LAYERS = 2
+MLLM_STEPS = 2
 MLLM_PEAK_GIB = 75.0
 # the dense-kernel step from the same state and draws: the sparse and dense
 # kernels compute the same tiles in the same order (0 difference in o), so
@@ -456,7 +479,7 @@ MLLM_DENSE_GRAD_NORM_REL = 1e-3
 PARALLEL_STEPS = 3
 PARALLEL_MLLM_LAYERS = 2
 PARALLEL_MLLM_LR = 1e-3      # bf16 weights move by more than an ulp in one step
-TRAIN_MEMORY_MLLM_LAYERS = 4   # --train-memory's 14B step: the mllm phase's depth
+TRAIN_MEMORY_MLLM_LAYERS = 4   # --train-memory's 14B step (the mllm phase's depth until PR 23)
 # tensor-parallel T2I serving: two ranks on the one card over gloo at tp 2,
 # mesh (1, 1, 2), the random BitDance-14B-64x at full width and TP_LAYERS of
 # its 40 layers, one guided 256 px request (prompt, px, seed), against a tp 1
@@ -471,10 +494,11 @@ TRAIN_MEMORY_MLLM_LAYERS = 4   # --train-memory's 14B step: the mllm phase's dep
 # tensor-parallel plain-precision sampler on the head GEMM at tp 2) is held
 # as #2 is held against its plain version: SAMPLER_MAX_REL_ERR over 4 steps'
 # latents, SAMPLER_SIGN_AGREEMENT_FLOOR of the signs clear of SIGN_MARGIN
-# after TP_STEPS.
+# after TP_STEPS (25 sampling steps: 50 until PR 23, cut for the script's
+# time; each step of the head is ~100 gloo all-reduces a rank).
 TP_LAYERS = 2
 TP_REQUEST = ("a harbour at dawn, tensor-parallel", 256, 5)
-TP_STEPS = 50
+TP_STEPS = 25
 TP_CFG = 7.5
 TP_HIDDEN_MAX_REL_ERR = 3e-2
 TP_DEADLINE_S = 600
@@ -1134,13 +1158,19 @@ def phase_e2e(bundle, card: str) -> dict:
             "requests": per_request}
 
 
+# the side of the profiled T2I requests (bf16 and int4): 512 until PR 23,
+# cut for the script's time (reading the profiler's events of a 512 px
+# request took ~30 s on a slow host)
+PROFILE_PX = 256
+
+
 def phase_profile(bundle) -> None:
     from bitdance_tpu_torch.pipelines.t2i import T2IPipeline
 
     pipe = T2IPipeline(bundle, StubTokenizer(bundle.parallel_num))
-    pipe.generate("profile warmup", 512, 512, seed=7)
-    profile_run("profile", "512 px request",
-                lambda: pipe.generate("profile request", 512, 512, seed=8),
+    pipe.generate("profile warmup", PROFILE_PX, PROFILE_PX, seed=7)
+    profile_run("profile", f"{PROFILE_PX} px request",
+                lambda: pipe.generate("profile request", PROFILE_PX, PROFILE_PX, seed=8),
                 lambda: f"last_timing {json.dumps(pipe.last_timing)}")
 
 
@@ -1148,7 +1178,8 @@ def phase_profile(bundle) -> None:
 # max length of a generated text span, and the plans' generated image sides
 INTERLEAVED_CHAT = ("<|im_start|>user\nDescribe this image, then draw it at night."
                     "<|im_end|>\n<|im_start|>assistant\n")
-INTERLEAVED_TEXT = dict(max_length_text=32, temperature=1.0, top_k=1200, top_p=0.95)
+# (16 text tokens a span: 32 until PR 23, cut for the script's time)
+INTERLEAVED_TEXT = dict(max_length_text=16, temperature=1.0, top_k=1200, top_p=0.95)
 INTERLEAVED_PLANS = {            # name: (cfg, user image?, generated text?, side, LLM)
     "A": (7.5, True, True, 512, "bf16"),
     "B": (1.0, False, False, 256, "bf16"),
@@ -1963,8 +1994,9 @@ def phase_e2e_quant(bundle, card: str, bf16_tokens: list) -> dict:
             if not {128, 132} <= {m for m, _, _ in shapes}:
                 raise SystemExit(f"e2e_quant: int4 requests gave M {shapes}")
             _check_w4a8_seen(qb, shapes, torch.device("cuda"))
-            profile_run("e2e_quant", "int4 512 px request",
-                        lambda: pipe.generate("profile request", 512, 512, seed=8),
+            profile_run("e2e_quant", f"int4 {PROFILE_PX} px request",
+                        lambda: pipe.generate("profile request", PROFILE_PX, PROFILE_PX,
+                                              seed=8),
                         lambda: f"last_timing {json.dumps(pipe.last_timing)}")
         del qb, pipe
         gc.collect()
@@ -3005,7 +3037,7 @@ def phase_imagenet_b16x(bundle, card) -> dict:
     if share < CROSS_CHECK_AGREEMENT_FLOOR or not same:
         raise SystemExit(f"imagenet_b16x: per-call vs whole-sampler agreement "
                          f"{share}, same tokens as the guided run: {same}")
-    _free_running(bundle, guided["tokens"])
+    _free_running(bundle)
     # the unguided batch is profiled at the H-1x cut's sampling steps: at 100
     # it was 181k kernels, and the script took 344 s with these two profiles
     # against 200 s without them (H100)
@@ -3497,35 +3529,40 @@ def _plain_head():
             setattr(dh, k, f)
 
 
-def _free_running(bundle, whole_tokens) -> None:
-    """The guided B-16x batch with each head path's tokens fed back through
-    the backbone, all from the same draws: the per-call kernels (#15 + #14)
-    against the whole-sampler kernel (the guided batch's tokens), and the
-    same two paths through their plain versions, a witness of whether the
-    drift comes from rounding (the per-call residual is bf16, the whole
-    sampler's fp32) or from a kernel. Reported, not checked: free-running
-    tokens diverge once one token flips."""
+# the free-running witness's sampling steps (100, IMAGENET_STEPS, until PR
+# 23: cut for the script's time)
+FREE_RUNNING_STEPS = 50
+
+
+def _free_running(bundle) -> None:
+    """The guided B-16x batch at FREE_RUNNING_STEPS sampling steps with each
+    head path's tokens fed back through the backbone, all from the same
+    draws: the per-call kernels (#15 + #14) against the whole-sampler
+    kernel, and the same two paths through their plain versions, a witness
+    of whether the drift comes from rounding (the per-call residual is
+    bf16, the whole sampler's fp32) or from a kernel. Reported, not
+    checked: free-running tokens diverge once one token flips."""
     head = bundle.head
 
     def per_call(cond, generator, cfg_iter, n_steps, cfg_mult):
         return head.sample_per_call(cond, generator, cfg_iter, n_steps, cfg_mult)
 
     run = lambda **kw: _imagenet_run(bundle, IMAGENET_BATCH, 6.1, 0,  # noqa: E731
-                                     IMAGENET_STEPS, **kw)
+                                     FREE_RUNNING_STEPS, **kw)
     t0 = time.perf_counter()
-    tokens = {"kernel_per_call": run(head_sampler=per_call)}
+    tokens = {"kernel_per_call": run(head_sampler=per_call), "kernel_whole": run()}
     with _plain_head():
         tokens["plain_per_call"] = run(head_sampler=per_call)
         tokens["plain_whole"] = run()
     if not all(r["ok"] for r in tokens.values()):
         raise SystemExit("imagenet_b16x: a free-running batch failed its checks")
     tokens = {k: r["tokens"] for k, r in tokens.items()}
-    tokens["kernel_whole"] = whole_tokens
     share = lambda a, b: (tokens[a] == tokens[b]).float().mean().item()  # noqa: E731
     pairs = (("kernel_per_call", "kernel_whole"), ("plain_per_call", "plain_whole"),
              ("kernel_whole", "plain_whole"), ("kernel_per_call", "plain_per_call"))
-    log("imagenet_b16x", "the guided batch free-running from the same draws, +-1 "
-        "agreement: " + ", ".join(f"{a} vs {b} {share(a, b):.4f}" for a, b in pairs)
+    log("imagenet_b16x", f"the guided batch free-running from the same draws at "
+        f"{FREE_RUNNING_STEPS} sampling steps, +-1 agreement: "
+        + ", ".join(f"{a} vs {b} {share(a, b):.4f}" for a, b in pairs)
         + f" ({time.perf_counter() - t0:.1f} s)")
 
 
@@ -3974,10 +4011,10 @@ def phase_mllm(card: str) -> dict:
                 "flash_bwd_dq_sparse": flash_bwd_dq_sparse.launches,
                 "flash_bwd_dkv_sparse": flash_bwd_dkv_sparse.launches}
     peak = torch.cuda.max_memory_allocated() / 2**30
-    steady = sorted(s["s"] for s in steps[2:])
+    steady = sorted(s["s"] for s in steps[1:])
     s_step = steady[len(steady) // 2]
     mfu = 3 * flops / s_step / H100_BF16_PEAK
-    log("mllm", f"steady s/step {s_step:.4f} (median of steps 3-{MLLM_STEPS}: "
+    log("mllm", f"steady s/step {s_step:.4f} (median of steps 2-{MLLM_STEPS}: "
         f"{', '.join(f'{s:.4f}' for s in steady)}); {L / s_step:.1f} tokens/s ({used / s_step:.1f} "
         f"in documents); 3 x forward matmul FLOPs on the loss rows {3 * flops / 1e12:.2f} "
         f"TFLOP -> {3 * flops / s_step / 1e12:.1f} TFLOP/s, MFU {mfu:.4f} of the "
@@ -4483,7 +4520,7 @@ def _tp_rank_run(world: int, device: str = "cuda") -> dict:
     h_mean = [((a - b).abs().mean() / b.abs().mean()).item() for a, b in zip(hidden, hidden1)]
     clear = latents1[1].abs() > SIGN_MARGIN
     hs = pipe.bundle.head_stacked
-    return {
+    out = {
         "tokens": tokens, "again_equal": bool(np.array_equal(tokens, again)),
         "free_agreement": float(np.mean(tokens == tokens1)),
         "image_ok": bool(img.dtype == np.uint8 and img.shape == (1, px, px, 3)),
@@ -4503,6 +4540,11 @@ def _tp_rank_run(world: int, device: str = "cuda") -> dict:
         "placements": dict(hs["tp"].placements),
         "steps": len(hidden) - 1, "layers": TP_LAYERS,
         "head_blocks": pipe.bundle.head.depth_latent}
+    del pipe, bundle, hs, at, hidden, hidden1, latents, latents1, cond
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["plain"] = _tp_plain_run(world, dev, cfg, tok)
+    return out
 
 
 def phase_tp(card: str) -> dict:
@@ -4512,9 +4554,13 @@ def phase_tp(card: str) -> dict:
     layers and serving one guided 256 px request, held against a tp 1 run
     of the same seed (teacher-forced hidden states, one head sample, the
     free-running grids' agreement reported); the ranks' grids must be equal
-    (the pipeline checks a checksum; here the grids themselves). Then #1 at
-    the local heads and the head GEMM's four products at the local shapes
-    against their plain versions. Returns the records and the launches."""
+    (the pipeline checks a checksum; here the grids themselves). The same
+    for the plain-MLP head (:func:`_tp_plain_run`): the ranks' grids equal,
+    the head whole and its sample from one cond bit-equal to tp 1's, the
+    hidden states within the bound, the free-running grids' agreement
+    reported. Then #1 at the local heads and the head GEMM's four products
+    at the local shapes against their plain versions. Returns the records
+    and the launches."""
     import os
     import shutil
 
@@ -4583,6 +4629,33 @@ def phase_tp(card: str) -> dict:
         f"{all(r['again_equal'] for r in ranks)}")
     if not ok:
         raise SystemExit("tp: the tensor-parallel run failed its checks")
+    # the plain-MLP head: the LLM split, the head whole on each rank. The
+    # free-running grid is reported, not held to tp 1's: the tp LLM's
+    # hidden states differ by its rounding (held to the bound above), and
+    # a flipped token is fed back (the SwiGLU request's agreement likewise)
+    plain = [r["plain"] for r in ranks]
+    p0 = plain[0]
+    want_fab = p0["steps"] * (TP_STEPS + 1) * r0["head_blocks"]
+    plain_same = all(np.array_equal(p["tokens"], p0["tokens"]) for p in plain)
+    for r, p in enumerate(plain):
+        log("tp", f"rank {r}: the plain-MLP head (use_swiglu false, the per-call route, "
+            f"whole on each rank) with the LLM at tp {world} (local heads {p['heads'][0]} q / "
+            f"{p['heads'][1]} kv), {TP_REQUEST[1]} px, {TP_STEPS} steps: {p['s_request']:.3f} "
+            f"s/request; free-running grid equal to the same head's at tp 1 {p['grid_equal']} "
+            f"(agreement {p['agreement']:.4f}, reported: the tp LLM's rounding); "
+            f"teacher-forced hidden states max |d| / max |ref| "
+            f"{p['hidden_rel']:.3e} (bound {TP_HIDDEN_MAX_REL_ERR}); a head sample from the "
+            f"same cond and seed bit-equal to tp 1's {p['sample_equal']}; head parameters "
+            f"whole and unchanged, no sampler stack {p['head_whole']}; launches "
+            f"{p['launches']} (want decode_attention {want_da}, fused_attn_block {want_fab}, "
+            f"fused_em_sample 0); card {card}")
+    log("tp", f"plain-MLP head: the ranks' grids equal {plain_same}")
+    if not (plain_same and all(
+            p["sample_equal"] and p["head_whole"]
+            and p["hidden_rel"] <= TP_HIDDEN_MAX_REL_ERR
+            and p["launches"] == {"decode_attention": want_da, "fused_attn_block": want_fab,
+                                  "fused_em_sample": 0} for p in plain)):
+        raise SystemExit("tp: the plain-MLP head at tp 2 failed its checks")
 
     # the kernels at the ranks' shapes, in this process
     from bitdance_tpu_torch.io.random_init import BITDANCE_14B_64X, init_head
@@ -4625,8 +4698,11 @@ def phase_tp(card: str) -> dict:
     log("tp", f"phase {time.perf_counter() - t_phase:.1f} s")
     return {"decode": decode, "head_gemm": rec,
             "launches": {"decode_attention": sum(r["launches"]["decode_attention"]
+                                                  + r["plain"]["launches"]["decode_attention"]
                                                   for r in ranks),
-                         "head_gemm_tp": sum(r["launches"]["head_gemm"] for r in ranks)}}
+                         "head_gemm_tp": sum(r["launches"]["head_gemm"] for r in ranks),
+                         "fused_attn_block": sum(r["plain"]["launches"]["fused_attn_block"]
+                                                 for r in ranks)}}
 
 
 def _encode_case(shape, dtype, dev, seed):
@@ -5229,10 +5305,12 @@ TRAIN_CLI_IMAGENET = ["--model", "BitDance-B", "--image-size", "256",
                       "--global-batch-size", "16", "--epochs", "2", "--warmup-steps", "0",
                       "--log-every", "1", "--global-seed", "5", "--device", "cuda"]
 TRAIN_CLI_STEPS = 4          # straight; the resumed run takes 2, then 2 more
+# (50 sampling steps: 100 until PR 23, cut for the script's time)
+TRAIN_CLI_FID_STEPS = 50
 TRAIN_CLI_FID = ["--model", "BitDance-B", "--image-size", "256",
                  "--per-proc-batch-size", "16", "--num-fid-samples", "32",
-                 "--cfg-scale", "4.6", "--sample-steps", "100", "--seed", "99",
-                 "--device", "cuda"]
+                 "--cfg-scale", "4.6", "--sample-steps", str(TRAIN_CLI_FID_STEPS),
+                 "--seed", "99", "--device", "cuda"]
 TOKENIZER_TRAIN = dict(batch=4, px=256, steps=3)
 # the 14B trainer's cut of train/configs/bitdance_14b_64x.yaml: at Qwen3-14B
 # width the embedding, lm_head and head hold over 2.5 B parameters, ~40 GB a
@@ -5472,10 +5550,12 @@ def _sample_fid_check(ckpt_dir: str, root: str, card: str) -> dict:
     try:
         r = _cli_run("train_cli", sample_fid.main,
                      TRAIN_CLI_FID + ["--ckpt", ckpt_dir, "--sample-dir", out_dir],
-                     "sample_fid, 32 samples in 2 batches of 16, cfg 4.6, 100 steps")
+                     f"sample_fid, 32 samples in 2 batches of 16, cfg 4.6, "
+                     f"{TRAIN_CLI_FID_STEPS} steps")
     finally:
         fid.sample = real
-    folder = os.path.join(out_dir, "BitDance-B-size-256-steps-100-cfg-4.6-seed-99")
+    folder = os.path.join(out_dir, f"BitDance-B-size-256-steps-{TRAIN_CLI_FID_STEPS}"
+                                   "-cfg-4.6-seed-99")
     pngs = sorted(os.listdir(folder))
     arr = np.load(folder + ".npz")["arr_0"]
     dev = torch.device("cuda")
@@ -5707,6 +5787,9 @@ RELEASE_LAYERS = 2           # of the 40: the fp32 LLM alone is 8.8 GB at 2
 RELEASE_REQUEST = ("a lighthouse at dusk, released", 512, 11)
 # cli.interleaved on the release directory, the T2I CLI's PNG as user image
 RELEASE_INTERLEAVED = dict(side=256, max_length_text=16)
+# eval.dpg / eval.geneval's commands on the release directory
+RELEASE_EVAL_PX = 256
+RELEASE_EVAL_STEPS = 4
 
 
 def phase_release(card: str) -> dict:
@@ -5722,7 +5805,8 @@ def phase_release(card: str) -> dict:
     in-memory image), and cli.interleaved once with that PNG as the user
     image (the bundle has an lm_head and the VQ encoder, which the export
     carries): its text and PNG must equal an in-memory InterleavedGenerator
-    on the same plan and seed. The directory is deleted."""
+    on the same plan and seed; eval.dpg.main and eval.geneval.main on the
+    directory (:func:`_release_eval_cmds`). The directory is deleted."""
     import copy
     import dataclasses
     import shutil
@@ -5823,6 +5907,7 @@ def phase_release(card: str) -> dict:
         two_launches = fused_em_sample.launches
         plain_256 = pipe.generate(prompt, GAN_RELEASE_PX, GAN_RELEASE_PX, num_sampling_steps=50,
                                   guidance_scale=7.5, seed=seed, return_tokens=True)
+        evals = _release_eval_cmds(out_dir, pipe, tok, card)
         del pipe
         gc.collect()
         torch.cuda.empty_cache()
@@ -5884,7 +5969,7 @@ def phase_release(card: str) -> dict:
         raise SystemExit("release: a loaded grid, a CLI's output or the "
                          "2-image request failed its check")
     return {"export_s": export_s, "gb": gb, "load_s": load_s, "load_q_s": load_q_s,
-            "interleaved_cli_s": icli_s, "gan": gan}
+            "interleaved_cli_s": icli_s, "gan": gan, "evals": evals}
 
 
 GAN_RELEASE_PX = 256
@@ -5938,6 +6023,365 @@ def _gan_release(out_dir, tok, prompt: str, seed: int, plain, card: str) -> dict
     if not (gan and grid_same and img_same):
         raise SystemExit("release: the GAN-decoder release failed its checks")
     return {"load_s": load_s, "request_s": s}
+
+
+# ---------------------------------------------------------------------------
+# The last entry points: the DPG / GenEval harnesses and the demo server on
+# the e2e bundle, and the hard-kill training proof
+# ---------------------------------------------------------------------------
+
+EVAL_SERVE_PX = 512
+EVAL_DPG_PROMPTS = "eval_assets/dpg/prompts.json"
+EVAL_GENEVAL_LONG = "eval_assets/geneval/evaluation_metadata_long.jsonl"
+SERVE_REQUEST = ("a red fox in the snow, served", 21)        # prompt, seed
+DEMO_CONTROLS = ("prompt", "resolution", "steps", "cfg", "num_images", "seed")
+
+
+def _tiled(images):
+    """[4, H, W, 3] -> the 2x2 grid eval/base.py::save_grid writes."""
+    import numpy as np
+
+    top, bottom = np.concatenate(images[:2], axis=1), np.concatenate(images[2:], axis=1)
+    return np.concatenate([top, bottom], axis=0)
+
+
+def _serve_once(pipe, request: dict, png_path) -> tuple:
+    """The demo's fallback server on a free port in a thread: its page, one
+    POST /generate of ``request`` (seconds on the host clock) decoded to
+    uint8 images through ``png_path``, then shut down. Returns (page, the
+    answer's error or None, images, seconds)."""
+    import base64
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from bitdance_tpu_torch.cli.app import make_fallback_server
+    from bitdance_tpu_torch.cli.common import read_png
+
+    srv = make_fallback_server(pipe, port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        page = urllib.request.urlopen(url + "/", timeout=60).read().decode()
+        t0 = time.perf_counter()
+        out = json.loads(urllib.request.urlopen(urllib.request.Request(
+            url + "/generate", data=json.dumps(request).encode(),
+            headers={"Content-Type": "application/json"}), timeout=600).read())
+        s = time.perf_counter() - t0
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join()
+    images = []
+    for b64 in out.get("images", []):
+        png_path.write_bytes(base64.b64decode(b64))
+        images.append(read_png(png_path))
+    return page, out.get("error"), np.stack(images) if images else None, s
+
+
+def phase_eval_serve(bundle, card: str) -> dict:
+    """The DPG and GenEval harnesses and the demo server on the e2e phase's
+    full-width, full-depth BitDance-14B-64x bundle, EVAL_SERVE_PX px, 50
+    steps: DPGEvaluator on the first two vendored DPG prompts (4 images a
+    prompt, cfg 7.5), each grid PNG equal to a direct generate of the same
+    prompt and seed tiled 2x2; GenevalEvaluator on the first long GenEval
+    line (cfg 13.0), its metadata the line verbatim, its samples and grid
+    equal to a direct generate; the fallback server's page (the six control
+    ids) and one 1-image request, decoded equal to a direct generate, no
+    error. Returns #1's and #2's launches and the times."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from bitdance_tpu_torch.cli.common import read_png
+    from bitdance_tpu_torch.eval.dpg import DPGEvaluator
+    from bitdance_tpu_torch.eval.geneval import GenevalEvaluator
+    from bitdance_tpu_torch.ops.decode_attention import decode_attention
+    from bitdance_tpu_torch.ops.fused_head import fused_em_sample
+    from bitdance_tpu_torch.pipelines.t2i import T2IPipeline
+
+    t_phase = time.perf_counter()
+    here = Path(__file__).resolve().parent
+    out = here / "build" / "eval_serve"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    pipe = T2IPipeline(bundle, StubTokenizer(bundle.parallel_num))
+    px, layers = EVAL_SERVE_PX, bundle.llm_cfg.num_hidden_layers
+    steps = (px // bundle.vae_patch_size) ** 2 // bundle.parallel_num
+    decode_attention.launches = 0
+    fused_em_sample.launches = 0
+    requests = 0
+
+    def direct(prompt, n, cfg_scale, seed):
+        nonlocal requests
+        requests += 1
+        return pipe.generate(prompt, px, px, num_sampling_steps=50, guidance_scale=cfg_scale,
+                             num_images=n, seed=seed)
+
+    def harness(cls, data, where, n):
+        nonlocal requests
+        ev = cls("unused", pipeline=pipe)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev.eval(str(here / data), str(out / where), num_sampling_steps=50,
+                image_size=(px, px), max_prompts=n)
+        requests += n
+        return ev, (time.perf_counter() - t0) / n
+
+    dpg, dpg_s = harness(DPGEvaluator, EVAL_DPG_PROMPTS, "dpg", 2)
+    with open(here / EVAL_DPG_PROMPTS) as f:
+        prompts = list(json.load(f).items())[:2]
+    dpg_ok = (dpg.seed == 4396 and sorted(os.listdir(out / "dpg"))
+              == sorted(f"{pid}.png" for pid, _ in prompts))
+    t0 = time.perf_counter()
+    for pid, prompt in prompts:
+        dpg_ok = dpg_ok and np.array_equal(read_png(out / "dpg" / f"{pid}.png"),
+                                           _tiled(direct(prompt, 4, 7.5, 4396)))
+    direct_s = (time.perf_counter() - t0) / len(prompts)
+
+    gen, gen_s = harness(GenevalEvaluator, EVAL_GENEVAL_LONG, "geneval", 1)
+    with open(here / EVAL_GENEVAL_LONG) as f:
+        line = f.readline()
+    d = out / "geneval" / "00000"
+    layout = sorted(str(p.relative_to(d)) for p in d.rglob("*") if p.is_file())
+    want = direct(json.loads(line)["prompt"], 4, 13.0, 4396)
+    gen_ok = (os.listdir(out / "geneval") == ["00000"]
+              and layout == ["grid.png", "metadata.jsonl"]
+              + [f"samples/{i:04d}.png" for i in range(4)]
+              and (d / "metadata.jsonl").read_text() == line
+              and all(np.array_equal(read_png(d / "samples" / f"{i:04d}.png"), want[i])
+                      for i in range(4))
+              and np.array_equal(read_png(d / "grid.png"), _tiled(want)))
+
+    prompt, seed = SERVE_REQUEST
+    page, error, served, serve_s = _serve_once(pipe, {
+        "prompt": prompt, "resolution": f"{px}x{px}", "steps": 50, "cfg": 7.5,
+        "num_images": 1, "seed": seed}, out / "served.png")
+    requests += 1
+    ids_ok = all(f'id="{c}"' in page for c in DEMO_CONTROLS)
+    serve_ok = (ids_ok and not error and served is not None and served.shape == (1, px, px, 3)
+                and np.array_equal(served, direct(prompt, 1, 7.5, seed)))
+    da, fs = decode_attention.launches, fused_em_sample.launches
+    want_da, want_fs = requests * layers * (1 + steps), requests * steps
+    shutil.rmtree(out, ignore_errors=True)
+    log("eval_serve", f"BitDance-14B-64x (full width and depth, random bf16), {px} px, 50 "
+        f"steps, 4 images a prompt: DPG harness {dpg_s:.3f} s a prompt (cfg 7.5; a direct "
+        f"4-image generate {direct_s:.3f} s), its 2 grids equal to direct generates tiled "
+        f"2x2 {dpg_ok}; GenEval harness {gen_s:.3f} s a prompt (cfg 13.0), layout, "
+        f"metadata, samples and grid equal {gen_ok}; demo server: page has the six control "
+        f"ids {ids_ok}, one 1-image request {serve_s:.3f} s (host clock, through HTTP), "
+        f"error {error!r}, images equal to a direct generate {serve_ok}; {requests} requests, "
+        f"decode_attention +{da} (want {want_da}), fused_em_sample +{fs} (want {want_fs}); "
+        f"phase {time.perf_counter() - t_phase:.1f} s; card {card}")
+    if not (dpg_ok and gen_ok and serve_ok and da == want_da and fs == want_fs):
+        raise SystemExit("eval_serve: a harness, the server or a launch count failed its check")
+    return {"launches": {"decode_attention": da, "fused_em_sample": fs},
+            "dpg_s": dpg_s, "geneval_s": gen_s, "serve_s": serve_s, "direct_s": direct_s}
+
+
+# the training-run proof: BitDance-B-1x (a published model) at 256 px,
+# parallel_num 1, world 1; a kill after the run phase's save
+TRAIN_PROOF = dict(batch=32, steps=24, kill_at=12, warmup=4)
+TRAIN_PROOF_DIR = "build/train_proof"     # gitignored; emptied before and after
+
+
+def phase_train_proof(card: str) -> dict:
+    """``python -m bitdance_tpu_torch.cli.train_proof`` as a real process
+    pair (run, killed with os._exit(9) right after its save, then resume) at
+    world 1, BitDance-B-1x, 256 px, descent required: TRAIN_PROOF OK, one
+    resume event bit-identical at the kill step, steps 1..N with no gap, the
+    loss descended; s/step, first and last loss, GB written. Returns the
+    flash kernels' launches the two phases printed."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    from bitdance_tpu_torch.models.imagenet_ar import IMAGENET_MODELS
+
+    layers = IMAGENET_MODELS["BitDance-B"]().n_layer   # each kernel once a layer a step
+    here = Path(__file__).resolve().parent
+    root = here / TRAIN_PROOF_DIR
+    shutil.rmtree(root, ignore_errors=True)
+    p = TRAIN_PROOF
+    out = root / "proof.jsonl"
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "bitdance_tpu_torch.cli.train_proof", "--model", "BitDance-B",
+         "--parallel", "1", "--batch", str(p["batch"]), "--steps", str(p["steps"]),
+         "--kill-at", str(p["kill_at"]), "--ckpt-every", str(p["kill_at"]),
+         "--keep-last-n", "1", "--warmup", str(p["warmup"]), "--workdir", str(root / "work"),
+         "--out", str(out), "--require-descent"],
+        cwd=here, capture_output=True, text=True, timeout=600)
+    s = time.perf_counter() - t0
+    try:
+        lines = [json.loads(ln) for ln in out.read_text().splitlines()] if out.exists() else []
+        ckpt = root / "work" / "checkpoints"
+        kept = [d for d in os.listdir(ckpt) if d.isdigit()] if ckpt.exists() else []
+        per_ckpt = _dir_gb(str(ckpt)) / max(1, len(kept))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches, seconds = {}, []
+    for ln in run.stdout.splitlines():
+        if ln.startswith("LAUNCHES "):
+            for k, v in json.loads(ln[len("LAUNCHES "):]).items():
+                launches[k] = launches.get(k, 0) + v
+        elif ln.startswith("SECONDS "):
+            seconds.append(json.loads(ln[len("SECONDS "):]))
+    events = [e.get("event") for e in lines if "event" in e]
+    steps = [e for e in lines if "loss" in e]
+    resume = [e for e in lines if e.get("event") == "resume"]
+    done = lines[-1] if lines and lines[-1].get("event") == "done" else {}
+    saves = events.count("save")
+    step_s = [e["step_s"] for e in steps]
+    log("train_proof", f"cli.train_proof, BitDance-B-1x, 256 px, batch {p['batch']}, "
+        f"{p['steps']} steps (warmup {p['warmup']}), killed with os._exit(9) after the "
+        f"step-{p['kill_at']} save, resumed in a new process: rc {run.returncode}, "
+        f"{s:.1f} s of command; events {events}; resume (step, bit-identical) "
+        f"{[(e['step'], e['bit_identical']) for e in resume]}; s/step median "
+        f"{_median(step_s[1:]) if len(step_s) > 1 else float('nan'):.3f} (first "
+        f"{step_s[0] if step_s else float('nan'):.3f}; host clock, each step read back); "
+        f"loss {steps[0]['loss'] if steps else None} -> {steps[-1]['loss'] if steps else None}"
+        f", first / last {done.get('loss_first20')} / {done.get('loss_last20')}, descended "
+        f"{done.get('descended')}; {saves} saves of {per_ckpt:.2f} GB, {saves * per_ckpt:.2f} "
+        f"GB written; flash launches {launches}; the phases' seconds (run, resume) "
+        f"{seconds}, the rest of the {s:.1f} s (process starts, imports) "
+        f"{s - sum(sum(x.values()) for x in seconds):.1f}; card {card}")
+    if run.returncode != 0:
+        raise SystemExit(f"train_proof: the command failed (rc {run.returncode}):\n"
+                         f"{run.stdout[-2000:]}\n{run.stderr[-3000:]}")
+    ok = ("TRAIN_PROOF OK" in run.stdout and f"KILL at step {p['kill_at']}" in run.stdout
+          and len(resume) == 1 and resume[0]["bit_identical"] is True
+          and resume[0]["step"] == p["kill_at"]
+          and [e["step"] for e in steps] == list(range(1, p["steps"] + 1))
+          and done.get("descended") is True and len(launches) == 3
+          and all(n == p["steps"] * layers for n in launches.values()))
+    if not ok:
+        raise SystemExit("train_proof: the proof's log or output failed its checks")
+    return {"launches": launches, "s": s, "step_s": _median(step_s[1:]),
+            "loss": (steps[0]["loss"], steps[-1]["loss"]), "gb_written": saves * per_ckpt}
+
+
+def _release_eval_cmds(out_dir, pipe, tok, card: str) -> dict:
+    """eval.dpg.main and eval.geneval.main on the release directory (one
+    prompt each, RELEASE_EVAL_PX px, RELEASE_EVAL_STEPS steps, the stub
+    tokenizer), each file tree equal byte for byte to the same evaluator run
+    in this process on ``pipe`` (load_t2i_pipeline of the directory), the
+    GenEval layout and metadata checked."""
+    import shutil
+    from pathlib import Path
+
+    import torch
+
+    from bitdance_tpu_torch.eval import dpg, geneval
+
+    here = Path(__file__).resolve().parent
+    px, n = RELEASE_EVAL_PX, RELEASE_EVAL_STEPS
+    got = {}
+    for name, mod, cls, data in (("dpg", dpg, dpg.DPGEvaluator, EVAL_DPG_PROMPTS),
+                                 ("geneval", geneval, geneval.GenevalEvaluator,
+                                  EVAL_GENEVAL_LONG)):
+        mem, cmd = out_dir / f"{name}_mem", out_dir / f"{name}_cmd"
+        cls("unused", pipeline=pipe).eval(str(here / data), str(mem), num_sampling_steps=n,
+                                          image_size=(px, px), max_prompts=1)
+        t0 = time.perf_counter()
+        rc = mod.main(["--model_path", str(out_dir), "--data_path", str(here / data),
+                       "--save_dir", str(cmd), "--image_size", str(px), str(px),
+                       "--num_sampling_steps", str(n), "--max_prompts", "1"], tokenizer=tok)
+        s = time.perf_counter() - t0
+        tree = {str(p.relative_to(cmd)): p.read_bytes() for p in sorted(cmd.rglob("*"))
+                if p.is_file()}
+        same = rc == 0 and tree == {str(p.relative_to(mem)): p.read_bytes()
+                                    for p in sorted(mem.rglob("*")) if p.is_file()}
+        with open(here / data) as f:
+            first = f.readline() if name == "geneval" else next(iter(json.load(f)))
+        layout = (sorted(tree) == [f"{first}.png"] if name == "dpg" else
+                  sorted(tree) == ["00000/grid.png", "00000/metadata.jsonl"]
+                  + [f"00000/samples/{i:04d}.png" for i in range(4)]
+                  and tree["00000/metadata.jsonl"] == first.encode())
+        got[name] = {"s": s, "same": same, "layout": layout}
+        shutil.rmtree(mem, ignore_errors=True)
+        shutil.rmtree(cmd, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("release", f"eval.dpg.main / eval.geneval.main on the directory (1 prompt, 4 images, "
+        f"{px} px, {n} steps): {got['dpg']['s']:.1f} / {got['geneval']['s']:.1f} s of command "
+        f"(load included); layout {got['dpg']['layout']} / {got['geneval']['layout']}; every "
+        f"file equal to the evaluator in this process on the loaded pipeline "
+        f"{got['dpg']['same']} / {got['geneval']['same']}; card {card}")
+    if not all(g["same"] and g["layout"] for g in got.values()):
+        raise SystemExit("release: an eval command's files failed their check")
+    return got
+
+
+def _tp_plain_run(world: int, dev, cfg, tok) -> dict:
+    """The plain-MLP T2I head (head_leftovers' seeded head: use_swiglu
+    false, no sampler stack, the per-call route with #15) beside the seeded
+    2-layer LLM: TP_REQUEST at tp 1, one head sample from the prefill's
+    cond, then the bundle sharded over a (1, 1, world) mesh in place (the
+    LLM split, the head whole) and the same request and sample at tp
+    ``world``, with #1 / #15 launches and a checksum of the head before
+    and after."""
+    import numpy as np
+    import torch
+
+    from bitdance_tpu_torch.io.random_init import BITDANCE_14B_64X, build_random_bundle, init_head
+    from bitdance_tpu_torch.ops.decode_attention import decode_attention
+    from bitdance_tpu_torch.ops.fused_block import fused_attn_block
+    from bitdance_tpu_torch.ops.fused_head import fused_em_sample
+    from bitdance_tpu_torch.parallel.mesh import create_mesh
+    from bitdance_tpu_torch.pipelines.t2i import T2IPipeline
+
+    prompt, px, seed = TP_REQUEST
+    kw = dict(BITDANCE_14B_64X["head"], use_swiglu=False)
+    bundle = build_random_bundle(dev, llm_cfg=cfg, seed=0,
+                                 geometry=dict(BITDANCE_14B_64X, head=kw))
+    bundle.head = init_head(kw, dev, torch.bfloat16, _seeded(31))
+
+    def checksum():
+        return sum(p.double().sum().item() + p.double().abs().sum().item()
+                   for p in bundle.head.parameters())
+
+    gen = dict(height=px, width=px, num_sampling_steps=TP_STEPS, guidance_scale=TP_CFG,
+               num_images=1, seed=seed, return_tokens=True)
+
+    def head_sample(pipe, cond):
+        with torch.no_grad():
+            return pipe.bundle.head.sample(cond, _seeded(seed + 100), TP_CFG, TP_STEPS, 2)
+
+    pipe1 = T2IPipeline(bundle, tok)
+    _, tokens1 = pipe1.generate(prompt, **gen)
+    hidden1 = teacher_forced(pipe1, prompt, px, tokens1)
+    pe0 = _t2i_request_inputs(pipe1, prompt, px)[3][:bundle.parallel_num]
+    cond = (hidden1[0] + pe0.to(hidden1[0].dtype)[None]).bfloat16()
+    latent1 = head_sample(pipe1, cond)
+    before = checksum()
+    del pipe1
+    pipe = T2IPipeline(bundle, tok, mesh=create_mesh(1, 1, world, device_type=dev.type))
+    counts = (decode_attention, fused_attn_block, fused_em_sample)
+    for fn in counts:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, tokens = pipe.generate(prompt, **gen)
+    s_request = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counts}
+    hidden = teacher_forced(pipe, prompt, px, tokens1)
+    latent = head_sample(pipe, cond)
+    at = pipe.bundle.llm.model.layers[0].self_attn
+    return {"tokens": tokens, "tokens1": tokens1, "s_request": s_request,
+            "grid_equal": bool(np.array_equal(tokens, tokens1)),
+            "agreement": float(np.mean(tokens == tokens1)),
+            "hidden_rel": max(((a - b).abs().max() / b.abs().max()).item()
+                              for a, b in zip(hidden, hidden1)),
+            "sample_equal": bool(torch.equal(latent, latent1)),
+            "head_whole": pipe.bundle.head_stacked is None and checksum() == before,
+            "launches": launches, "heads": (at.num_heads, at.num_kv_heads),
+            "steps": len(hidden) - 1}
 
 
 def build_imagenet_samplers():
@@ -6062,6 +6506,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_profile(bundle)
+    for name, n in phase_eval_serve(bundle, card)["launches"].items():
+        launches[name] += n
     bf16_tokens = [r.pop("tokens") for r in launches.pop("requests")]
     results.update(phase_quant_kernels(bundle))
     launches.update(phase_e2e_quant(bundle, card, bf16_tokens)["launches"])
@@ -6114,6 +6560,7 @@ def main() -> int:
     results["head_gemm_tp"] = tp["head_gemm"]
     launches["decode_attention"] += tp["launches"]["decode_attention"]
     launches["head_gemm_tp"] = tp["launches"]["head_gemm_tp"]
+    launches["fused_attn_block"] += tp["launches"]["fused_attn_block"]
     results.update(phase_encode_kernel())
     launches["fused_encode_tail"] = phase_tokenizer(card)["launches"]
     gc.collect()
@@ -6129,6 +6576,8 @@ def main() -> int:
         launches[key] = launches.get(key, 0) + n
     gc.collect()
     torch.cuda.empty_cache()
+    for name, n in phase_train_proof(card)["launches"].items():
+        launches[name] += n
     from bitdance_tpu_torch.ops import int4
 
     int4._CALLS.clear()

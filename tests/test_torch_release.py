@@ -413,10 +413,18 @@ class _TwoWayTP:
 
 
 def test_plain_mlp_head_refuses_tensor_parallel_serving(plain_release):
-    """The per-call sampler has no tensor-parallel form: shard_bundle_ says
-    so before it touches the bundle."""
+    """A plain-MLP head is now served over a tp mesh (the name is the test's
+    from when shard_bundle_ refused it): shard_bundle_ splits the LLM's q
+    projection and leaves the head whole and unchanged, with no sampler
+    stack to shard (tests/test_torch_tp.py serves such a head at tp 2)."""
     b = load_t2i_pipeline(plain_release["dir"], dtype=torch.float32, device="cpu").bundle
     before = b.llm.model.layers[0].self_attn.q_proj.weight.shape
-    with pytest.raises(NotImplementedError, match="plain-MLP head"):
-        tt2i.shard_bundle_(b, _TwoWayTP())
-    assert b.llm.model.layers[0].self_attn.q_proj.weight.shape == before
+    head = {n: p.detach().clone() for n, p in b.head.named_parameters()}
+    tp = tt2i.shard_bundle_(b, _TwoWayTP())
+    assert (tp.rank, tp.size) == (0, 2)
+    assert b.llm.model.layers[0].self_attn.q_proj.weight.shape == (before[0] // 2, before[1])
+    assert b.head_stacked is None and not b.head.stackable
+    got = dict(b.head.named_parameters())
+    assert set(got) == set(head)
+    for n, p in got.items():
+        assert torch.equal(p, head[n]), n

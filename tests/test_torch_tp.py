@@ -12,7 +12,11 @@ single-device in the test process: the counterparts of tests/test_tp.py.
     stacked sampler, wqkv / w1 / wo / w2 split, every sign input clear of
     1e-3 (the guard of tests/test_reference_parity.py:472);
   - reorder_stacked_head_major and the head-major plain sampler equal the
-    canonical sampler bit for bit (JAX tp.py's "pure permutation").
+    canonical sampler bit for bit (JAX tp.py's "pure permutation");
+  - a plain-MLP head (use_swiglu false, no sampler stack) served at tp 2
+    over a (1, 1, 2) mesh: the LLM sharded, the head whole on each rank on
+    its per-call route, tokens equal to the JAX pipeline under its own
+    (1, 1, 2) mesh and to the port at tp 1.
 
 Ranks are spawned by tests/test_torch_parallel.py's ``spawn`` (gloo from a
 file store, 300 s deadline). Each mesh, (1, 1, 4) and (1, 2, 2), is one
@@ -44,11 +48,14 @@ LLM = dict(vocab_size=128, hidden_size=64, intermediate_size=128,
 TINY_DD = dict(z_channels=8, in_channels=3, out_ch=3, ch=32, ch_mult=[1, 2],
                num_res_blocks=1)
 NOISE_SEED = 27   # every sign input of the head-TP run clears SIGN_MARGIN
+PLAIN_NOISE_SEED = 3   # and of the plain-MLP head's run
+PLAIN_PROMPT = "a plain head tp prompt"
+PLAIN_GEN = dict(height=8, width=8, num_sampling_steps=4, guidance_scale=2.0,
+                 num_images=1, seed=13)
 SIGN_MARGIN = 1e-3
 
 
-def _shaped_noise(shape):
-    seed = NOISE_SEED
+def _shaped_noise(shape, seed=NOISE_SEED):
     for d in shape:
         seed = (seed * 131 + int(d) + 7) % (2**31 - 1)
     return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
@@ -80,13 +87,19 @@ def _em_noise(generator, half, ch, num_steps, device):
     return t.clone(), t[None].repeat(num_steps, 1, 1)
 
 
+def _plain_noise(generator, half, ch, num_steps, device):
+    """_em_noise's table from PLAIN_NOISE_SEED."""
+    t = torch.from_numpy(_shaped_noise((half // 4, 4, ch), PLAIN_NOISE_SEED)).reshape(half, ch)
+    return t.clone(), t[None].repeat(num_steps, 1, 1)
+
+
 def _stacked_noise(generator, half, ch, num_steps, device):
     """JAX's stacked sampler draws x0 [half, ch] and noise [steps, half, ch]."""
     return (torch.from_numpy(_shaped_noise((half, ch))),
             torch.from_numpy(_shaped_noise((num_steps, half, ch))))
 
 
-def _bundle(states, attn_head_dim=128):
+def _bundle(states, attn_head_dim=128, use_swiglu=True):
     from bitdance_tpu_torch.io.from_jax import load_into
     from bitdance_tpu_torch.models import diff_head as tdh
     from bitdance_tpu_torch.models import qwen3 as tq
@@ -95,7 +108,7 @@ def _bundle(states, attn_head_dim=128):
     from bitdance_tpu_torch.pipelines import t2i as tt2i
 
     head = load_into(tdh.DiffHead(ch_target=8, ch_cond=64, ch_latent=128, depth_latent=2,
-                                  depth_adanln=2, parallel_num=4,
+                                  depth_adanln=2, parallel_num=4, use_swiglu=use_swiglu,
                                   attn_head_dim=attn_head_dim), states["head"])
     return tt2i.T2IModelBundle(
         llm=load_into(tq.Qwen3Model(tq.Qwen3Config(**states["llm_cfg"])), states["llm"]),
@@ -166,11 +179,47 @@ def tp_task(rank, world, workdir):
                               HEAD_PROMPT, HEAD_GEN)}
 
 
+def _serve_plain(mesh, bundle) -> dict:
+    """PLAIN_PROMPT through T2IPipeline (over ``mesh``, or on one process
+    with None) under the plain head's noise table."""
+    from bitdance_tpu_torch.models import diff_head as tdh
+    from bitdance_tpu_torch.pipelines import t2i as tt2i
+
+    margins = []
+    real_noise, real_sign = tdh.draw_sampler_noise, tt2i.sign_quantize
+
+    def spy_sign(x):
+        margins.append(float(x.abs().min()))
+        return real_sign(x)
+
+    head = {n: p.detach().clone() for n, p in bundle.head.named_parameters()}
+    tdh.draw_sampler_noise, tt2i.sign_quantize = _plain_noise, spy_sign
+    try:
+        pipe = tt2i.T2IPipeline(bundle, StubTokenizer(), mesh=mesh)
+        _, tok = pipe.generate(PLAIN_PROMPT, return_tokens=True, **PLAIN_GEN)
+    finally:
+        tdh.draw_sampler_noise, tt2i.sign_quantize = real_noise, real_sign
+    b = pipe.bundle
+    return {"tokens": tok, "margin": min(margins), "last_tp": pipe.last_tp,
+            "stacked": b.head_stacked, "stackable": b.head.stackable,
+            "head_whole": all(torch.equal(p, head[n]) for n, p in b.head.named_parameters()),
+            "q_proj": tuple(b.llm.model.layers[0].self_attn.q_proj.weight.shape)}
+
+
+def plain_task(rank, world, workdir):
+    from bitdance_tpu_torch.parallel import mesh as tmesh
+
+    ref = torch.load(os.path.join(workdir, "refs.pt"), weights_only=False)
+    one = _serve_plain(None, _bundle(ref["t2i"], use_swiglu=False))
+    mesh = tmesh.create_mesh(1, 1, world, device_type="cpu")
+    return {"tp1": one, "tp": _serve_plain(mesh, _bundle(ref["t2i"], use_swiglu=False))}
+
+
 # ---------------------------------------------------------------------------
 # the JAX side and the worlds
 # ---------------------------------------------------------------------------
 
-def _jax_bundle():
+def _jax_bundle(use_swiglu=True):
     """tests/test_t2i_pipeline.py's tiny bundle, built faster: the LLM and
     the VQ decoder as flax initialises them (the decoder alone, jitted), the
     head and the connector drawn N(0, 0.05) and N(0, 0.2) into their flax
@@ -193,7 +242,7 @@ def _jax_bundle():
     cfg = q3.Qwen3Config(**dict(LLM, vocab_size=512))
     ae = VQModel(ddconfig=TINY_DD)
     head = DiffHead(ch_target=8, ch_cond=64, ch_latent=128, depth_latent=2, depth_adanln=2,
-                    parallel_num=4, use_swiglu=True, P_mean=-0.8, P_std=0.8)
+                    parallel_num=4, use_swiglu=use_swiglu, P_mean=-0.8, P_std=0.8)
     proj = MLPConnector(out_dim=64)
     key = jax.random.PRNGKey(2)
     return T2IModelBundle(
@@ -255,6 +304,39 @@ def jax_refs():
     return {"fwd": fwd, "logits": logits, "x": np.asarray(x), "fwd_in": fwd_in,
             "fwd_llm": fwd_llm, "images": np.asarray(images),
             "head_tokens": np.asarray(head_tokens), "t2i": states}
+
+
+@pytest.fixture(scope="module")
+def plain_world(tmp_path_factory):
+    """The plain-MLP head: JAX's tokens under its (1, 1, 2) mesh (two of the
+    8 virtual CPU devices), then the port's two ranks over gloo."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from bitdance_tpu.parallel.mesh import create_mesh
+    from bitdance_tpu.pipelines.t2i import T2IPipeline
+    from bitdance_tpu_torch.io.from_jax import flax_state_from_jax, qwen3_state_from_jax
+
+    b = _jax_bundle(use_swiglu=False)
+    assert b.head_stacked is None
+    mesh = create_mesh(1, 1, 2, devices=jax.devices()[:2])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax.random, "normal", lambda key, shape=(), dtype=jnp.float32:
+                   jnp.asarray(_shaped_noise(tuple(shape), PLAIN_NOISE_SEED), dtype))
+        _, tokens = T2IPipeline(b, tokenizer=StubTokenizer(), force_one_program=True,
+                                mesh=mesh).generate(PLAIN_PROMPT, return_tokens=True,
+                                                    **PLAIN_GEN)
+    states = {"llm": {k: np.asarray(v) for k, v in qwen3_state_from_jax(b.llm_params).items()},
+              "llm_cfg": dataclasses.asdict(b.llm_cfg),
+              "head": flax_state_from_jax(b.head_params), "ae": flax_state_from_jax(b.ae_params),
+              "proj": flax_state_from_jax(b.projector_params), "dd": dict(TINY_DD)}
+    root = tmp_path_factory.mktemp("tp_plain")
+    torch.save({"t2i": states}, root / "refs.pt")
+    from tests.test_torch_parallel import spawn
+
+    return np.asarray(tokens), spawn(plain_task, 2, root)
 
 
 @pytest.fixture(scope="module")
@@ -423,3 +505,22 @@ def test_head_major_reorder_is_a_permutation(attention):
     assert torch.equal(got, want)
     with pytest.raises(ValueError, match="head-major"):
         fh.fused_em_sample_reference(hm, x0, noise, allmods, t_all, dt_all, 2.0, **kw)
+
+
+def test_plain_mlp_head_serves_at_tp2(plain_world):
+    """A plain-MLP head at tp 2: the LLM's q projection split, the head's
+    parameters whole and unchanged on both ranks (no sampler stack), its
+    tokens equal to the JAX pipeline's under a (1, 1, 2) mesh and to the
+    port's at tp 1, every sign input clear of the margin."""
+    want, ranks = plain_world
+    for r in ranks:
+        one, two = r["tp1"], r["tp"]
+        for run in (one, two):
+            assert run["margin"] > SIGN_MARGIN, (
+                f"borderline sign margin {run['margin']}: pick another PLAIN_NOISE_SEED")
+            assert run["stacked"] is None and not run["stackable"] and run["head_whole"]
+        assert one["q_proj"] == (64, 64) and two["q_proj"] == (32, 64)
+        assert two["last_tp"]["all_reduces"] > 0
+        assert two["tokens"].shape == want.shape == (1, 16, 8)
+        np.testing.assert_array_equal(two["tokens"], want)
+        np.testing.assert_array_equal(one["tokens"], want)
