@@ -588,6 +588,7 @@ cudaError_t head_gemm_s8(const hg::Product& pr, int mode, const hg::Plan& plan,
     case kGatedResidualRound:
       return hg::gemm<kGatedResidualRound, KIND>(pr, 0, plan, ep, false, st);
     case kSwiGLURoundQ: return hg::gemm<kSwiGLURoundQ, KIND>(pr, 0, plan, ep, false, st);
+    case kOutS32: return hg::gemm<kOutS32, KIND>(pr, 0, plan, ep, false, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -601,7 +602,8 @@ cudaError_t head_gemm_s8(const hg::Product& pr, int mode, const hg::Plan& plan,
 // bn, splits, int4}; mode 0 (kBiasBf16: out bf16 [R, N]), 1 / 9
 // (kGatedResidual / kGatedResidualRound: resid fp32 [R, N] in place, gate
 // bf16 rows ldg apart), 8 (kSwiGLUQ, w rows [h1; h2]: out fp32 [R, N / 2])
-// or 11 (kSwiGLURoundQ: out bf16 [R, N / 2]). Returns the first CUDA error,
+// or 11 (kSwiGLURoundQ: out bf16 [R, N / 2]) or 12 (kOutS32: out int32 [R,
+// N], the raw sums; sa, ws and bias unread). Returns the first CUDA error,
 // or 0.
 extern "C" int bd_head_gemm_s8(const void* a, const void* sa, const void* w, const void* ws,
                                const void* bias, void* out, void* resid, const void* gate,

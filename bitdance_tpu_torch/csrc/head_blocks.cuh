@@ -37,6 +37,10 @@ enum GemmMode {
   // kSwiGLURound with torch's IEEE silu, on the integer kinds (the round
   // route's quant modes: its bf16 output is the w2 row quantization's input)
   kSwiGLURoundQ = 11,
+  // the integer kinds' raw sums: out int32 = acc (no scale, no bias), for a
+  // row-parallel product whose int32 partials are all-reduced before the
+  // scales apply (the tensor-parallel head)
+  kOutS32 = 12,
 };
 
 __host__ __device__ constexpr bool is_swiglu(int mode) {

@@ -93,7 +93,10 @@
 //   quantization); #14's kSwiGLUF32 (h1 and h2 kept in fp32, the product
 //   rounded once) and kGatedResidualBf16 (bf16(x + y * gate) from bf16 rows
 //   of x into a new output; #15's wo too); #15's kBiasF32 (qkv kept in
-//   fp32: the sums plus the bias); #5's kOutF32 (the fp32 sums, no bias). The
+//   fp32: the sums plus the bias); #5's kOutF32 (the fp32 sums, no bias); the
+//   tensor-parallel head's kOutS32 (an integer kind's int32 sums as they are,
+//   split partials summed in split order, no scale: a row-parallel product
+//   all-reduces them before it dequantizes). The
 //   integer routes first dequantize y = float(acc) * (sa[row] * ws[col]), in
 //   the plain version's order. The accumulators are staged through shared
 //   memory and each thread finishes 8 consecutive columns of a row with
@@ -256,6 +259,7 @@ __device__ __forceinline__ void load_unit(UnitIn& in, int row, int col,
                                           const bf16* __restrict__ xres, int ldx, int hidden,
                                           const float* __restrict__ sa,
                                           const float* __restrict__ ws) {
+  if (MODE == kOutS32) return;  // the raw sums: nothing else is read
   if (MODE != kOutF32) in.b = *reinterpret_cast<const uint4*>(bias + col);
   if (is_swiglu(MODE)) in.b2 = *reinterpret_cast<const uint4*>(bias + hidden + col);
   if (is_gated(MODE) || MODE == kGatedResidualBf16)
@@ -406,6 +410,14 @@ __device__ __forceinline__ void finish_rows(Ready ready, Get get, int r0, int un
       Acc<KIND> v[8], v2[8];
       float f[8], f2[8];
       get(r, c, v);
+      if constexpr (MODE == kOutS32) {
+        static_assert(KIND != kOpBf16, "kOutS32 is an integer kind's mode");
+        int4* dst = reinterpret_cast<int4*>(reinterpret_cast<int*>(out) + (size_t)(m0 + r) * ldo +
+                                            n0 + c);
+        dst[0] = make_int4(v[0], v[1], v[2], v[3]);
+        dst[1] = make_int4(v[4], v[5], v[6], v[7]);
+        continue;
+      }
       dequant8<KIND>(v, in[i].sa, in[i].s0, in[i].s1, f);
       if (kGlu) {
         get(r, BN / 2 + c, v2);

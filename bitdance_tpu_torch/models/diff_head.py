@@ -437,6 +437,10 @@ def _share_stacked_storage(net: DiffNet, num_blocks: int, stacked: dict) -> None
         p.data = view
 
 
+# the head-major sampler's mods chunk (the JAX stacked route's 256 MB)
+MODS_CHUNK_BYTES = 256 * 1024 * 1024
+
+
 def _run_fused_sample(head: DiffHead, stacked: dict, cond: torch.Tensor,
                       generator: torch.Generator, cfg: float,
                       num_sampling_steps: int) -> torch.Tensor:
@@ -445,13 +449,17 @@ def _run_fused_sample(head: DiffHead, stacked: dict, cond: torch.Tensor,
     [R, z] (MlpEncoder: R = 2n independent rows, one group; returns
     [n, ch]).
 
-    The mods of all timesteps are precomputed in one product per AR step
-    ([51, 128, 71680] bf16 per image at the 14B head, 0.9 GB), which fits the
-    card, so the step-chunking the JAX package needs for a 16 GB chip is not
-    used here (fused_em_sample still supports final_chunk=False). A
-    head-major stack (``"hm_marker"``, parallel/tp.py) runs
-    ``em_sample_stacked``, the tensor-parallel sampler, as the JAX package
-    routes it away from its kernel."""
+    Kernel #2's route (a canonical stack) precomputes the mods of all
+    timesteps in one product per AR step ([51, 128, 71680] bf16 per image
+    at the 14B head, 0.94 GB), which fits the card, so the step-chunking the
+    JAX package's kernel route needs for a 16 GB chip is not used there
+    (fused_em_sample still supports final_chunk=False). A head-major stack
+    (``"hm_marker"``, parallel/tp.py) runs ``em_sample_stacked``, the
+    tensor-parallel sampler, as the JAX package routes it away from its
+    kernel, with the JAX route's choices (diff_head.py:583-603): the mods in
+    ``mods_chunks`` chunks, the first of the step count's divisors 2, 5, 10,
+    25 that brings a chunk to 256 MB (5 at the 14B head's 50 steps), and
+    bf16 glue for a quantized stack (fp32 otherwise)."""
     if head.attention:
         g_all, w, _ = cond.shape
     else:
@@ -467,17 +475,28 @@ def _run_fused_sample(head: DiffHead, stacked: dict, cond: torch.Tensor,
     dt_all = torch.cat([t_all[1:] - t_all[:-1], torch.zeros(1)])
     x0, noise = draw_sampler_noise(generator, half, head.ch_target,
                                    num_sampling_steps, cond.device)
-    allmods = em_precompute(stacked, c_emb, t_all,
-                            out_dtype=stacked["in_w"].dtype)
-    # a head-major stack (tensor-parallel serving, parallel/tp.py) routes
-    # away from kernel #2 to the stacked sampler, as the JAX package does
-    sampler = em_sample_stacked if "hm_marker" in stacked else fused_em_sample
-    out = sampler(
-        stacked, x0, noise, allmods, t_all, dt_all, cfg,
-        num_blocks=head.depth_latent, num_ada=head.depth_adanln,
-        n_head=head.ch_latent // head.attn_head_dim, groups=g_all,
-        attention=head.attention, bounded=head.bounded,
-        last_step_size=last_step, quant=head.sample_weight_quant)
+    common = dict(num_blocks=head.depth_latent, num_ada=head.depth_adanln,
+                  n_head=head.ch_latent // head.attn_head_dim, groups=g_all,
+                  attention=head.attention, bounded=head.bounded,
+                  last_step_size=last_step, quant=head.sample_weight_quant)
+    mods_dtype = stacked["in_w"].dtype
+    if "hm_marker" in stacked:
+        # tensor-parallel serving (parallel/tp.py) routes away from kernel #2
+        # to the stacked sampler, as the JAX package does
+        mods_bytes = (num_sampling_steps + 1) * rows * stacked["modcat_w"].shape[0] \
+            * mods_dtype.itemsize
+        mods_chunks = 1
+        for d in (2, 5, 10, 25):
+            if mods_bytes // mods_chunks <= MODS_CHUNK_BYTES:
+                break
+            if num_sampling_steps % d == 0:
+                mods_chunks = d
+        glue = torch.bfloat16 if "w1_s" in stacked else torch.float32
+        out = em_sample_stacked(stacked, x0, noise, None, t_all, dt_all, cfg, c_emb=c_emb,
+                                mods_chunks=mods_chunks, glue_dtype=glue, **common)
+    else:
+        allmods = em_precompute(stacked, c_emb, t_all, out_dtype=mods_dtype)
+        out = fused_em_sample(stacked, x0, noise, allmods, t_all, dt_all, cfg, **common)
     if head.attention:
         return out.reshape(g_all // 2, w, head.ch_target)
     return out

@@ -63,10 +63,13 @@ one device a pure permutation, which samples bit for bit as the canonical
 stack does with the head GEMM's splits): with a ``"tp"`` entry
 (parallel/tp.py::shard_head_stacked) each rank holds its shares of the
 block products, runs every one on the head GEMM (:func:`head_gemm`,
-"out_f32"; on the CPU its split twin) and all-reduces a row-parallel
-product's fp32 sums before the bias, gate and residual, which stay torch as
-the rest of the glue does. Kernel #2 and its plain version take canonical
-stacks only.
+"out_f32"; a quantized stack :func:`head_gemm_s8`, "out_s32"; on the CPU
+their split twins) and all-reduces a row-parallel product's sums (fp32, or
+int32 before the scales) before the bias, gate and residual, which stay
+torch as the rest of the glue does. A quantized head-major stack samples
+with bf16 glue, as the JAX package serves it (``glue_dtype``), and its
+mods may be computed a chunk of steps at a time (``mods_chunks``). Kernel
+#2 and its plain version take canonical stacks only.
 
 :func:`fused_diffnet_forward` is one whole DiffNet forward (the TPU kernel
 #5, ``_fused_net_kernel``): the t-embedding MLP, the input projection, every
@@ -219,9 +222,11 @@ _HEAD_GEMM_ENTRY = {3: "bd_head_gemm_block", 4: "bd_head_gemm_block", 5: "bd_hea
 # "gated_f32" (wo, w2) and "swiglu_q" (w1: fp32 silu(bf16 h1) * bf16 h2, the
 # w2 quantization's input); the round route's (#3/#4) "gated" (wo, w2:
 # _block_body's bf16 residual) and "swiglu_round" (w1: bf16(silu(bf16 h1))
-# * bf16 h2 in bf16, the w2 quantization's input)
+# * bf16 h2 in bf16, the w2 quantization's input); the tensor-parallel head's
+# "out_s32" (the int32 sums, no scale or bias: a row-parallel product
+# all-reduces them before it dequantizes)
 HEAD_GEMM_S8_MODES = {"bias": 0, "gated_f32": 1, "swiglu_q": 8, "gated": 9,
-                      "swiglu_round": 11}
+                      "swiglu_round": 11, "out_s32": 12}
 # logical k of one 128-byte ring stage per operand kind: 64 bf16, 128 int8,
 # 256 packed int4 (a byte holds k = j and k = K/2 + j)
 HEAD_GEMM_STAGE_K = {None: 64, "int8": 128, "int4": 256}
@@ -449,14 +454,13 @@ def _int_sums(aq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     return aq.double() @ wq.double().t()
 
 
-def _int_product(aq: torch.Tensor, sa: torch.Tensor, w: torch.Tensor, ws: torch.Tensor,
-                 splits: int = 1, quant: str = "int8") -> torch.Tensor:
-    """The dequantized fp32 product float(acc) * (sa * ws) of aq [R, K] int8
-    rows with scales sa [R] and w [N, K] int8 (quant "int4": packed [N,
-    K/2], each nibble plane against its half of aq) with column scales ws
-    [N]: the exact integer partials over the split ranges of
-    :func:`head_gemm_split_ranges`, summed in split order, scaled as the TPU
-    kernels' _mmq and stage_dot scale them."""
+def _int_acc(aq: torch.Tensor, w: torch.Tensor, splits: int = 1,
+             quant: str = "int8") -> torch.Tensor:
+    """The exact integer sums of aq [R, K] int8 rows and w [N, K] int8
+    (quant "int4": packed [N, K/2], each nibble plane against its half of
+    aq): the partials over the split ranges of
+    :func:`head_gemm_split_ranges`, summed in split order (:func:`_int_sums`:
+    int32 or float64, exact either way)."""
     k = aq.shape[1]
     kh = w.shape[1]
     acc = None
@@ -467,7 +471,22 @@ def _int_product(aq: torch.Tensor, sa: torch.Tensor, w: torch.Tensor, ws: torch.
         else:
             part = _int_sums(aq[:, c0:c1], w[:, c0:c1])
         acc = part if acc is None else acc + part
+    return acc
+
+
+def _dequant(acc: torch.Tensor, sa: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
+    """float(acc) * (sa * ws): integer sums [R, N] to fp32 with row scales sa
+    [R] and column scales ws [N], as the TPU kernels' _mmq and stage_dot
+    scale them."""
     return acc.float() * (sa.float()[:, None] * ws.float()[None, :])
+
+
+def _int_product(aq: torch.Tensor, sa: torch.Tensor, w: torch.Tensor, ws: torch.Tensor,
+                 splits: int = 1, quant: str = "int8") -> torch.Tensor:
+    """The dequantized fp32 product of aq [R, K] int8 rows with scales sa
+    [R] and w (as :func:`_int_acc`) with column scales ws [N]: the exact
+    split sums (:func:`_int_acc`), then :func:`_dequant`."""
+    return _dequant(_int_acc(aq, w, splits, quant), sa, ws)
 
 
 def head_gemm_s8_split_plain(aq: torch.Tensor, sa: torch.Tensor, w: torch.Tensor,
@@ -481,9 +500,13 @@ def head_gemm_s8_split_plain(aq: torch.Tensor, sa: torch.Tensor, w: torch.Tensor
     gate in fp32; "swiglu_q" (w rows [h1; h2]) silu(h1) * h2 in fp32 from
     h1, h2 rounded to bias's dtype; the round route's "gated", the residual
     bf16(resid + bf16(bf16(y) * gate)) returned as fp32, and "swiglu_round",
-    bf16(silu(bf16(h1))) * bf16(h2) in bf16 (_block_body's glu)."""
+    bf16(silu(bf16(h1))) * bf16(h2) in bf16 (_block_body's glu); the
+    tensor-parallel head's "out_s32", the exact integer sums as int32 (sa,
+    ws and bias unread)."""
     if mode not in HEAD_GEMM_S8_MODES or quant not in ("int8", "int4"):
         raise ValueError(f"head_gemm_s8: mode {mode!r} / quant {quant!r}")
+    if mode == "out_s32":
+        return _int_acc(aq, w, splits, quant).to(torch.int32)
     y = _int_product(aq, sa, w, ws, splits, quant) + bias.float()
     bf = torch.bfloat16
     if mode == "bias":
@@ -510,7 +533,8 @@ def head_gemm_s8(aq: torch.Tensor, sa: torch.Tensor, w: torch.Tensor, ws: torch.
     modes :data:`HEAD_GEMM_S8_MODES` ("swiglu_q": w rows [h1; h2], fp32 out
     [R, N / 2]; "swiglu_round": the same, bf16 out; "gated_f32" and
     "gated": gate [R, N] bf16, resid [R, N] fp32 ("gated": bf16 values)
-    updated in place and returned). ``plan`` defaults to
+    updated in place and returned; "out_s32": the int32 sums [R, N], sa, ws
+    and bias may be None). ``plan`` defaults to
     :func:`head_gemm_plan` at the card's SM count. CPU tensors take
     :func:`head_gemm_s8_split_plain` with the plan's splits; CUDA tensors
     launch the kernel or raise."""
@@ -530,9 +554,10 @@ def head_gemm_s8(aq: torch.Tensor, sa: torch.Tensor, w: torch.Tensor, ws: torch.
     if not cuda:
         raise RuntimeError(f"head_gemm_s8: no kernel for {aq.device}")
     wk = k // 2 if quant == "int4" else k
-    for t, want, dt in ((aq, (rows, k), torch.int8), (w, (n, wk), torch.int8),
-                        (sa, (rows,), torch.float32), (ws, (n,), torch.float32),
-                        (bias, (n,), torch.bfloat16)):
+    raw = mode == "out_s32"
+    operands = ((aq, (rows, k), torch.int8), (w, (n, wk), torch.int8)) + (() if raw else (
+        (sa, (rows,), torch.float32), (ws, (n,), torch.float32), (bias, (n,), torch.bfloat16)))
+    for t, want, dt in operands:
         if t.dtype != dt or tuple(t.shape) != want or not t.is_contiguous():
             raise ValueError(f"head_gemm_s8: want contiguous {dt} {want}, got {t.dtype} "
                              f"{tuple(t.shape)}")
@@ -550,11 +575,12 @@ def head_gemm_s8(aq: torch.Tensor, sa: torch.Tensor, w: torch.Tensor, ws: torch.
     elif mode == "swiglu_round":
         out = torch.empty((rows, n // 2), dtype=torch.bfloat16, device=dev)
     else:
-        out = torch.empty((rows, n), dtype=torch.bfloat16, device=dev)
+        out = torch.empty((rows, n), dtype=torch.int32 if raw else torch.bfloat16, device=dev)
     shape = torch.tensor([rows, n, k, gate.stride(0) if gated else 0, HEAD_GEMM_S8_MODES[mode],
                           *plan, int(quant == "int4")], dtype=torch.int32)
     code = _cuda.load().bd_head_gemm_s8(
-        aq.data_ptr(), sa.data_ptr(), w.data_ptr(), ws.data_ptr(), bias.data_ptr(),
+        aq.data_ptr(), None if raw else sa.data_ptr(), w.data_ptr(),
+        None if raw else ws.data_ptr(), None if raw else bias.data_ptr(),
         None if gated else out.data_ptr(), out.data_ptr() if gated else None,
         gate.data_ptr() if gated else None, shape.data_ptr(), _cuda.stream_ptr())
     _cuda.check(code, "head_gemm_s8")
@@ -660,23 +686,39 @@ def em_precompute(stacked: dict, c_emb: torch.Tensor, t_all: torch.Tensor,
     (any device). Returns allmods [S, R, A*6*C + 2C] in out_dtype. Each
     product keeps its fp32 sum before the fp32 bias, as the JAX
     em_precompute (:func:`_dot_f32`; ROADMAP C8)."""
-    y = em_precompute_rows(stacked, c_emb, t_all, t_freq_size)
-    s_dim, r_dim, c_dim = y.shape
-    return modcat_product(stacked, y.reshape(s_dim * r_dim, c_dim)).to(
-        out_dtype).reshape(s_dim, r_dim, -1)
+    return _mods_of(stacked, c_emb, em_time_embed(stacked, t_all, c_emb.device, t_freq_size),
+                    out_dtype)
+
+
+def em_time_embed(stacked: dict, t_all: torch.Tensor, device: torch.device,
+                  t_freq_size: int = 256) -> torch.Tensor:
+    """The timestep MLP te(t) of every t in t_all [S] (any device): fp32
+    [S, C] on ``device``."""
+    from bitdance_tpu_torch.models.diff_head import timestep_embedding
+
+    t_all = t_all.to(device=device, dtype=torch.float32)
+    tf = timestep_embedding(t_all, t_freq_size)
+    te = _dot_f32(tf, stacked["t_w0"]) + stacked["t_b0"]
+    return _dot_f32(F.silu(te), stacked["t_w2"]) + stacked["t_b2"]
 
 
 def em_precompute_rows(stacked: dict, c_emb: torch.Tensor, t_all: torch.Tensor,
                        t_freq_size: int = 256) -> torch.Tensor:
     """The input of :func:`em_precompute`'s modulation product: y =
     silu(te(t) + c_emb), fp32 [S, R, C]."""
-    from bitdance_tpu_torch.models.diff_head import timestep_embedding
-
-    t_all = t_all.to(device=c_emb.device, dtype=torch.float32)
-    tf = timestep_embedding(t_all, t_freq_size)
-    te = _dot_f32(tf, stacked["t_w0"]) + stacked["t_b0"]
-    te = _dot_f32(F.silu(te), stacked["t_w2"]) + stacked["t_b2"]
+    te = em_time_embed(stacked, t_all, c_emb.device, t_freq_size)
     return F.silu(te[:, None, :] + c_emb[None])
+
+
+def _mods_of(stacked: dict, c_emb: torch.Tensor, te: torch.Tensor,
+             out_dtype: torch.dtype) -> torch.Tensor:
+    """The mods [S, R, W] in out_dtype of the timestep embeddings te [S, C]:
+    the modulation product of y = silu(te + c_emb), each row on its own (an
+    int8 modcat quantizes per row; the sums are exact)."""
+    y = F.silu(te[:, None, :] + c_emb[None])
+    s_dim, r_dim, c_dim = y.shape
+    return modcat_product(stacked, y.reshape(s_dim * r_dim, c_dim)).to(
+        out_dtype).reshape(s_dim, r_dim, -1)
 
 
 def modcat_product(stacked: dict, y: torch.Tensor) -> torch.Tensor:
@@ -822,56 +864,111 @@ def _net_forward(stacked: dict, x: torch.Tensor, mods_row: torch.Tensor, *,
 def _net_forward_tp(stacked: dict, x: torch.Tensor, mods_row: torch.Tensor, *,
                     num_blocks: int, switch_freq: int, n_head: int, groups: int,
                     attention: bool = True, bounded: bool = True,
+                    quant: str | None = None, glue: torch.dtype = torch.float32,
                     eps: float = 1e-6) -> torch.Tensor:
-    """:func:`_net_forward`'s fp32-residual route on a head-major stack
-    (bf16 or fp32), the tensor-parallel sampler's net call: every block
-    product runs on the head GEMM (:func:`_head_gemm_sums`), and with a
-    ``"tp"`` entry (parallel/tp.py::HeadShards) as this rank's shares, qkv
-    and h12 on its local heads and a row-parallel product's fp32 sums
-    all-reduced before the bias, gate and residual."""
-    elem = stacked["n2"].dtype
+    """One net call of the tensor-parallel sampler on a head-major stack:
+    every block product on the head GEMM, and with a ``"tp"`` entry
+    (parallel/tp.py::HeadShards) as this rank's shares, qkv and h12 on its
+    local heads and a row-parallel product's sums all-reduced before its
+    bias (:func:`_tp_product`).
+
+    A bf16 or fp32 stack at fp32 glue keeps :func:`_net_forward`'s
+    fp32-residual route (kernel #2's precision; on one device the head-major
+    sampler equals the canonical one bit for bit). Otherwise (a quantized
+    stack, ``quant``, or bf16 ``glue``) the blocks follow the JAX
+    _block_body_xla op by op with elem = glue: the residual h, the mods,
+    the modulated LN outputs and proj / h12 / mlp_out in elem; qkv fp32
+    (the product plus its bias) and attention in fp32 on the local heads;
+    silu(h1) as jax.nn.silu computes it, h1 * sigmoid(h1), each op in elem."""
     c_dim = stacked["n2"].shape[-1]
     n_mods = 6 if attention else 3
     shards = stacked.get("tp")
     place = shards.placements if shards is not None else {}
     # the heads of this rank's qkv and h12 (all of them unless column-parallel)
     n_local = n_head // shards.group.size if place.get("w1") == "col" else n_head
+    c_local = c_dim * n_local // n_head
+    twin = quant is not None or glue != torch.float32
+    elem = glue if twin else stacked["n2"].dtype
 
     def product(a, key, l, bkey):
         """fp32 a @ w.T + bias of block l's product ``key``."""
-        w = stacked[key][l]
-        if place.get(key) != "row":
-            return _head_gemm_sums(a, w) + stacked[bkey][l].float()
-        g = shards.group
-        k = w.shape[1]
-        if a.shape[1] != k:                # a whole input: this rank's columns of it
-            a = a[:, g.rank * k:(g.rank + 1) * k]
-        return g.all_reduce(_head_gemm_sums(a, w)) + stacked[bkey][l].float()
+        y = _tp_product(a, stacked, key, l, place.get(key) == "row",
+                        shards.group if shards is not None else None, quant)
+        return y + stacked[bkey][l].float()
 
     def lnmod(h, nrm, scale, shift):
+        if twin:        # JAX moded(): each op in elem
+            ln = _ln(h, eps).to(elem) * nrm[0].to(elem) + nrm[1].to(elem)
+            return ln * (1.0 + scale) + shift
         ln = _ln(h, eps) * nrm[0].float() + nrm[1].float()
         return (ln * (1.0 + scale.float()) + shift.float()).to(elem)
 
     h = _dot_acc(torch.cat([x, x], dim=0), stacked["in_w"]) + stacked["in_b"]
+    if twin:
+        h = h.to(elem)
     for l in range(num_blocks):
         g = l // switch_freq
         m = mods_row[:, g * n_mods * c_dim:(g + 1) * n_mods * c_dim]
+        if twin:
+            m = m.to(elem)
         sl = lambda j: m[:, j * c_dim:(j + 1) * c_dim]   # noqa: E731
         mlp = 0
         if attention:
             qkv = product(lnmod(h, stacked["n1"][l], sl(0), sl(1)), "wqkv", l, "bqkv")
-            att = _attn_from_qkv(qkv.to(elem), n_local, groups, c_dim * n_local // n_head,
-                                 head_major=True).to(elem)
-            h = _gated_f32(h, product(att, "wo", l, "bo"), sl(2))
+            if not twin:
+                qkv = qkv.to(elem)
+            att = _attn_from_qkv(qkv, n_local, groups, c_local, head_major=True)
+            if twin:
+                h = h + product(att, "wo", l, "bo").to(elem) * sl(2)
+            else:
+                h = _gated_f32(h, product(att.to(elem), "wo", l, "bo"), sl(2))
             mlp = 3
         a = lnmod(h, stacked["n2"][l], sl(mlp), sl(mlp + 1))
         h12 = _from_head_major(product(a, "w1", l, "b1").to(elem), n_local, 2)
-        glu = _swiglu_f32(h12).to(elem)
-        h = _gated_f32(h, product(glu, "w2", l, "b2"), sl(mlp + 2))
+        if twin:
+            hidden = h12.shape[1] // 2
+            h1 = h12[:, :hidden]
+            glu = h1 * torch.sigmoid(h1) * h12[:, hidden:]      # jax.nn.silu: x * sigmoid(x)
+            h = h + product(glu, "w2", l, "b2").to(elem) * sl(mlp + 2)
+        else:
+            glu = _swiglu_f32(h12).to(elem)
+            h = _gated_f32(h, product(glu, "w2", l, "b2"), sl(mlp + 2))
     fm = mods_row[:, -2 * c_dim:].float()
     z = _ln(h, eps) * (1.0 + fm[:, :c_dim]) + fm[:, c_dim:]
     out = _dot_acc(z, stacked["f_out_w"]) + stacked["f_out_b"]
     return 2.0 * torch.sigmoid(out) - 1.0 if bounded else out
+
+
+def _tp_product(a: torch.Tensor, stacked: dict, key: str, l: int, row: bool, group,
+                quant: str | None) -> torch.Tensor:
+    """fp32 a @ w.T (no bias) of block l's product ``key`` on this rank.
+    A row-parallel weight (``row``) holds this rank's in-features: a whole
+    input is cut to them, the partial sums are all-reduced over ``group``.
+    bf16 / fp32 weights: the head GEMM's fp32 sums (:func:`_head_gemm_sums`),
+    an fp32 all-reduce. Quantized (JAX _mmq): the input quantized per row
+    in fp32, the scale from the whole row's max |a| (a share's max
+    all-reduced by MAX first, so that every rank's int32 partials are in
+    the same units), the exact int32 sums on the head GEMM ("out_s32"),
+    all-reduced as int32, then float(acc) * (sa * ws)."""
+    w = stacked[key][l]
+    k = w.shape[1] * (2 if quant == "int4" else 1)
+    whole = row and a.shape[1] != k
+    if quant is None:
+        if whole:
+            a = a[:, group.rank * k:(group.rank + 1) * k]
+        y = _head_gemm_sums(a, w)
+        return group.all_reduce(y) if row else y
+    a = a.float()
+    amax = a.abs().amax(dim=1)
+    if whole:
+        a = a[:, group.rank * k:(group.rank + 1) * k]
+    elif row:
+        amax = group.all_reduce(amax, op="max")
+    aq, sa = quantize_rows(a, amax)
+    acc = _head_gemm_int_sums(aq.contiguous(), w, quant)
+    if row:
+        acc = group.all_reduce(acc)
+    return _dequant(acc, sa, stacked[key + "_s"][l])
 
 
 def _head_gemm_sums(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -886,6 +983,19 @@ def _head_gemm_sums(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         except ValueError:
             return _dot_acc(a, w)
     return head_gemm(a, w, "out_f32", None)
+
+
+def _head_gemm_int_sums(aq: torch.Tensor, w: torch.Tensor, quant: str) -> torch.Tensor:
+    """The exact int32 sums aq @ w.T of one quantized product of the
+    head-major sampler on the head GEMM's integer kinds ("out_s32"; w int8
+    [N, K] or packed int4 [N, K/2]). On the CPU a shape the card's GEMM
+    cannot tile takes :func:`_int_acc` in one pass; on the card it raises."""
+    if aq.is_cpu:
+        try:
+            head_gemm_plan(aq.shape[0], w.shape[0], aq.shape[1], quant=quant)
+        except ValueError:
+            return _int_acc(aq, w, 1, quant).to(torch.int32)
+    return head_gemm_s8(aq, None, w, None, "out_s32", None, quant=quant)
 
 
 def _as_floats(t) -> list[float]:
@@ -952,29 +1062,68 @@ def em_sample_stacked(stacked: dict, x0: torch.Tensor, noise: torch.Tensor,
                       groups: int = 1, attention: bool = True,
                       bounded: bool = True, last_step_size: float = 0.05,
                       c_emb: torch.Tensor | None = None,
-                      quant: str | None = None) -> torch.Tensor:
-    """Counterpart of the JAX stacked sampler: the plain sampler, computing
-    allmods from c_emb when it is not given (W8A8 on a quantized stack),
-    with an fp32 residual (the JAX function's default glue_dtype). On a
-    head-major stack it is the tensor-parallel sampler (the module doc,
-    :func:`_net_forward_tp`): its block products launch the head GEMM on
-    CUDA tensors."""
-    if allmods is None:
-        allmods = em_precompute(stacked, c_emb, torch.as_tensor(t_all),
-                                out_dtype=stacked["in_w"].dtype)
-    if "hm_marker" in stacked:
-        if quant_mode(quant) is not None:
-            raise NotImplementedError("em_sample_stacked: quantized head-major stacks "
-                                      "are not ported (ROADMAP A11b)")
-        kw = dict(num_blocks=num_blocks, switch_freq=max(1, num_blocks // num_ada),
-                  n_head=n_head, groups=groups, attention=attention, bounded=bounded)
-        return _em_loop(lambda x, s: _net_forward_tp(stacked, x, allmods[s], **kw),
-                        x0, noise, t_all, dt_all, cfg, last_step_size, True)
-    return fused_em_sample_reference(
-        stacked, x0, noise, allmods, t_all, dt_all, cfg,
-        num_blocks=num_blocks, num_ada=num_ada, n_head=n_head, groups=groups,
-        attention=attention, bounded=bounded, last_step_size=last_step_size,
-        quant=quant, round_residual=False)
+                      quant: str | None = None, mods_chunks: int = 1,
+                      glue_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Counterpart of the JAX stacked sampler (JAX fused_head.py:1382): the plain
+    sampler, computing the mods from c_emb when allmods is not given (W8A8
+    on a quantized stack). ``mods_chunks`` > 1 (it must divide the step
+    count; c_emb given) computes them a chunk of steps at a time inside the
+    step loop, and the final step's from its own timestep, so that one
+    chunk's mods are held at a time; the values are the same (each mods row
+    is computed on its own). A canonical stack runs kernel #2's plain
+    version (an fp32 residual; ``glue_dtype`` other than fp32 raises). A
+    head-major stack runs the tensor-parallel sampler
+    (:func:`_net_forward_tp`, with ``glue_dtype`` its elementwise dtype):
+    its block products launch the head GEMM on CUDA tensors."""
+    mode = quant_mode(quant)
+    head_major = "hm_marker" in stacked
+    if not head_major and glue_dtype != torch.float32:
+        raise ValueError("em_sample_stacked: a canonical stack runs kernel #2's plain "
+                         "version, whose residual is fp32; glue_dtype is the head-major "
+                         "sampler's")
+    mods = _step_mods(stacked, allmods, c_emb, t_all, noise.shape[0], mods_chunks)
+    kw = dict(num_blocks=num_blocks, switch_freq=max(1, num_blocks // num_ada),
+              n_head=n_head, groups=groups, attention=attention, bounded=bounded, quant=mode)
+    if head_major:
+        def net(x, s):
+            return _net_forward_tp(stacked, x, mods(s), glue=glue_dtype, **kw)
+    else:
+        def net(x, s):
+            return _net_forward(stacked, x, mods(s), round_residual=False, **kw)
+    return _em_loop(net, x0, noise, t_all, dt_all, cfg, last_step_size, True)
+
+
+def _step_mods(stacked: dict, allmods: torch.Tensor | None, c_emb: torch.Tensor | None,
+               t_all, num_steps: int, mods_chunks: int):
+    """step s -> its mods [R, W] (s = num_steps: the final step's) for
+    :func:`em_sample_stacked`: from allmods, else from c_emb in the stack's
+    dtype, all at once or ``mods_chunks`` chunks of num_steps / mods_chunks
+    steps, each computed when the loop reaches it (the timestep MLP once)."""
+    if allmods is not None:
+        if mods_chunks > 1:
+            raise ValueError("em_sample_stacked: mods_chunks computes the mods from c_emb; "
+                             "pass allmods=None")
+        return allmods.__getitem__
+    if c_emb is None:
+        raise ValueError("em_sample_stacked: allmods or c_emb is needed")
+    dtype = stacked["in_w"].dtype
+    te = em_time_embed(stacked, torch.as_tensor(t_all), c_emb.device)   # [S + 1, C]
+    if mods_chunks <= 1:
+        return _mods_of(stacked, c_emb, te, dtype).__getitem__
+    if num_steps % mods_chunks:
+        raise ValueError(f"em_sample_stacked: mods_chunks {mods_chunks} does not divide "
+                         f"{num_steps} steps")
+    per = num_steps // mods_chunks
+    held: dict = {}
+
+    def at(s: int) -> torch.Tensor:
+        c = s // per          # the final step is chunk mods_chunks: te[S:S+1] alone
+        if c not in held:
+            held.clear()
+            held[c] = _mods_of(stacked, c_emb, te[c * per:(c + 1) * per], dtype)
+        return held[c][s - c * per]
+
+    return at
 
 
 _MLP_KEYS = ("n2", "w1", "b1", "w2", "b2")

@@ -47,12 +47,17 @@ def dequantize(w: QTensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     return (w.q.float() * w.s[..., None]).to(dtype)
 
 
-def quantize_rows(x2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_rows(x2: torch.Tensor,
+                  amax: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Dynamic symmetric per-row int8 quantization of [M, K] activations
     (float32 math, true division, round half to even; scale floor 1e-12).
-    Returns (int8 [M, K], f32 scales [M])."""
+    ``amax`` [M] replaces the rows' own max |x| (a row-parallel product's
+    share quantized in the whole row's units). Returns (int8 [M, K], f32
+    scales [M])."""
     xf = x2.float()
-    sx = torch.clamp_min(true_div(xf.abs().amax(dim=1), 127.0), 1e-12)
+    if amax is None:
+        amax = xf.abs().amax(dim=1)
+    sx = torch.clamp_min(true_div(amax, 127.0), 1e-12)
     xq = torch.clamp(torch.round(xf / sx[:, None]), -127, 127)
     return xq.to(torch.int8), sx
 

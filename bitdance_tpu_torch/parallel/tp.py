@@ -17,15 +17,21 @@ The port shards explicitly, in place, on each rank of a tp group
   head-major layout (whole heads per rank), wo and w2 row-parallel; the
   sampler (ops/fused_head.py, ``em_sample_stacked`` on a stack with
   ``"hm_marker"``) runs each rank's products on the head GEMM and
-  all-reduces a row-parallel product's fp32 sums before its bias, gate and
-  residual.
+  all-reduces a row-parallel product's sums before its bias, gate and
+  residual. The stack may be bf16, fp32, int8 or packed int4 (the column
+  scales ``wqkv_s`` / ``w1_s`` split with their columns; ``wo_s`` /
+  ``w2_s`` and ``modcat_w_s`` stay whole): a quantized row-parallel
+  product quantizes its share in the whole row's units (a MAX all-reduce
+  of the rows' max |x|) and all-reduces int32 sums, which GSPMD does with
+  the JAX package's int32 dot, so that tp 2 samples the bits of tp 1.
 
 Where tp does not divide a tensor it stays whole, as the JAX rules fall back
 to replication. The JAX rule splits a projection's columns by count, so
 GSPMD may cut inside a head; explicit TP cannot without resharding, so the
 port keeps whole heads (:func:`qwen3_tp_placements`, ROADMAP C14). The
-values are the same either way. bf16 and fp32 weights only: the quantized
-trees are not sharded here (ROADMAP A11b).
+values are the same either way. The Qwen3 backbone is sharded in bf16 or
+fp32 only: the JAX rules fail on its quantized trees (``qwen3_tp_shardings``
+takes a QTensor for one leaf), so the port refuses them too.
 """
 
 from __future__ import annotations
@@ -37,6 +43,9 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from bitdance_tpu_torch.ops.fused_head import HEAD_GEMM_STAGE_K
+from bitdance_tpu_torch.ops.int4 import pack_int4, unpack_int4
 
 # The tensor dim each Qwen3 weight splits over tp, in the port's [out, in]
 # layout (the JAX specs, on stacked [L, in, out] tensors, in the comments).
@@ -58,36 +67,48 @@ QWEN3_WHOLE = ("q_norm", "k_norm", "input_layernorm", "post_attention_layernorm"
 # rank keeps the kv heads its q heads read (:func:`kv_heads_read`)
 KV_READ = "kv_read"
 
-HEAD_COL_PARALLEL = ("wqkv", "bqkv", "w1", "b1")
+HEAD_COL_PARALLEL = ("wqkv", "wqkv_s", "bqkv", "w1", "w1_s", "b1")
 HEAD_ROW_PARALLEL = ("wo", "w2")
 
 
 class TPGroup:
     """This process's place in one tensor-parallel group: ``rank`` of
     ``size`` and the process group (None at size 1). It counts the
-    all-reduces it runs; with ``timed`` it synchronises the card around
-    each and adds up their seconds (a measurement mode: it stalls the
-    host)."""
+    all-reduces it runs, in all and by kind ("float32 sum", "int32 sum",
+    "float32 max": ``kinds`` maps each to [count, seconds]); with ``timed``
+    it synchronises the card around each and adds up their seconds (a
+    measurement mode: it stalls the host)."""
 
     def __init__(self, rank: int = 0, size: int = 1, group=None):
         self.rank, self.size, self.group = rank, size, group
+        self.timed = False
+        self.reset()
+
+    def reset(self) -> None:
+        """Zero the all-reduce counts and seconds."""
         self.all_reduces = 0
         self.seconds = 0.0
-        self.timed = False
+        self.kinds: dict[str, list] = {}
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum ``t`` over the group in place and return it."""
+    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """Reduce ``t`` over the group in place by ``op`` ("sum" or "max")
+        and return it."""
         if self.size == 1:
             return t
         sync = self.timed and t.is_cuda
         if sync:
             torch.cuda.synchronize(t.device)
         t0 = time.perf_counter()
-        dist.all_reduce(t, group=self.group)
+        dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op],
+                        group=self.group)
         if sync:
             torch.cuda.synchronize(t.device)
+        kind = self.kinds.setdefault(f"{str(t.dtype).removeprefix('torch.')} {op}", [0, 0.0])
+        kind[0] += 1
         if self.timed:
-            self.seconds += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.seconds += dt
+            kind[1] += dt
         self.all_reduces += 1
         return t
 
@@ -170,6 +191,11 @@ def _share(rank: int, size: int, n: int) -> torch.Tensor:
     return torch.arange(rank * per, (rank + 1) * per)
 
 
+_QUANT_QWEN3 = ("shard_qwen3_: quantized Qwen3 {} are not tensor-parallel; the JAX "
+                "package does not serve them either (its qwen3_tp_shardings takes a "
+                "QTensor for one leaf and fails)")
+
+
 @torch.no_grad()
 def shard_qwen3_(model: nn.Module, tp: TPGroup) -> nn.Module:
     """Turn a whole port Qwen3Model into this rank's shard IN PLACE by
@@ -178,7 +204,8 @@ def shard_qwen3_(model: nn.Module, tp: TPGroup) -> nn.Module:
     group (``tp``) its o_proj all-reduces over; its MLP likewise for
     down_proj. A vocabulary-parallel embedding records its first row
     (``vocab_start``) and group; a sharded lm_head its group. Refuses the
-    quantized projections and a model sharded before."""
+    quantized projections, the int8 embedding and lm_head (the JAX rules
+    fail on those trees) and a model sharded before."""
     if getattr(model, "tp", None) is not None:
         raise ValueError("shard_qwen3_: the model is tensor-parallel already")
     cfg = model.cfg
@@ -191,8 +218,7 @@ def shard_qwen3_(model: nn.Module, tp: TPGroup) -> nn.Module:
         for lin in (at.q_proj, at.k_proj, at.v_proj, at.o_proj,
                     mlp.gate_proj, mlp.up_proj, mlp.down_proj):
             if not isinstance(lin, nn.Linear):
-                raise NotImplementedError("shard_qwen3_: quantized projections are not "
-                                          "tensor-parallel (ROADMAP A11b)")
+                raise NotImplementedError(_QUANT_QWEN3.format("projections"))
         if pl["q_proj"] is not None:
             q_rows = _share(r, n, hq * hd)
             kv = torch.tensor(kv_heads_read(r, hq, hkv, n))
@@ -209,16 +235,14 @@ def shard_qwen3_(model: nn.Module, tp: TPGroup) -> nn.Module:
     if pl["embed_tokens"] is not None:
         emb = model.model.embed_tokens
         if not isinstance(emb, nn.Embedding):
-            raise NotImplementedError("shard_qwen3_: the int8 embedding is not "
-                                      "tensor-parallel (ROADMAP A11b)")
+            raise NotImplementedError(_QUANT_QWEN3.format("embedding"))
         rows = _share(r, n, cfg.vocab_size)
         _keep(emb, dim["embed_tokens"], rows)
         emb.vocab_start, emb.tp = int(rows[0]), tp
         lm = getattr(model, "lm_head", None)
         if lm is not None:
             if not isinstance(lm, nn.Linear):
-                raise NotImplementedError("shard_qwen3_: a quantized lm_head is not "
-                                          "tensor-parallel (ROADMAP A11b)")
+                raise NotImplementedError(_QUANT_QWEN3.format("lm_head"))
             _keep(lm, dim["lm_head"], rows)
             lm.tp = tp
     model.tp = tp
@@ -244,43 +268,80 @@ def reorder_stacked_head_major(stacked: dict, n_head: int) -> dict:
     """Canonical stacked head -> head-major layout, with the ``"hm_marker"``
     entry (JAX tp.py:103-136): a pure permutation of out-features, so qkv
     goes from (3, n_head, hd) to (n_head, 3, hd) and w1 / b1 from (2, H) to
-    (n_head, 2, H / n_head); wo and w2 stay, since the attention output and
-    silu(h1) * h2 keep their canonical column order. A new dict; bf16 and
-    fp32 stacks (a quantized stack raises)."""
-    if any(k.endswith("_s") for k in stacked):
-        raise NotImplementedError("reorder_stacked_head_major: quantized stacks are "
-                                  "not tensor-parallel (ROADMAP A11b)")
+    (n_head, 2, H / n_head), a quantized stack's column scales wqkv_s / w1_s
+    with them; wo and w2 stay, since the attention output and silu(h1) * h2
+    keep their canonical column order. A new dict; bf16, fp32, int8 or
+    packed-int4 stacks (packing runs along in-features, which do not move)."""
     out = dict(stacked)
-    for k in ("wqkv", "bqkv"):
+    for k in ("wqkv", "wqkv_s", "bqkv"):
         if k in out:
             out[k] = _to_head_major(out[k], 3, n_head)
-    for k in ("w1", "b1"):
-        out[k] = _to_head_major(out[k], 2, n_head)
+    for k in ("w1", "w1_s", "b1"):
+        if k in out:
+            out[k] = _to_head_major(out[k], 2, n_head)
     out["hm_marker"] = torch.zeros((), dtype=torch.int8)
     return out
 
 
+def _packed_int4(stacked: dict) -> bool:
+    """Whether a quantized stack holds packed int4 block matrices: w1's
+    stored in-features are half the width C (ops/fused_head.py)."""
+    return "w1_s" in stacked and 2 * stacked["w1"].shape[2] == stacked["n2"].shape[-1]
+
+
+def _in_features(stacked: dict, key: str) -> int:
+    """Logical in-features of a block matrix [L, N, K] (packed: [L, N, K/2])."""
+    return stacked[key].shape[2] * (2 if _packed_int4(stacked) else 1)
+
+
 def head_tp_placements(stacked: dict, n_head: int, tp: int) -> dict:
     """Each block product's placement at size ``tp`` (JAX tp.py:139-153):
-    qkv and w1 (weights and biases) column-parallel, "col", where tp
-    divides n_head; wo and w2 row-parallel, "row", where it divides their
-    in-features; else None (whole). Everything else stays whole."""
+    qkv and w1 (weights, column scales and biases) column-parallel, "col",
+    where tp divides n_head; wo and w2 row-parallel, "row", where it
+    divides their (logical) in-features; else None (whole). Everything
+    else stays whole, the row-parallel products' column scales too."""
     out = {k: ("col" if tp > 1 and n_head % tp == 0 else None)
            for k in HEAD_COL_PARALLEL if k in stacked}
-    out.update({k: ("row" if tp > 1 and stacked[k].shape[2] % tp == 0 else None)
+    out.update({k: ("row" if tp > 1 and _in_features(stacked, k) % tp == 0 else None)
                 for k in HEAD_ROW_PARALLEL if k in stacked})
     return out
+
+
+def int4_row_share(w: torch.Tensor, rank: int, size: int) -> torch.Tensor:
+    """This rank's share of a packed-int4 row-parallel weight [L, N, K/2]
+    (byte j holds k = j and k = j + K/2): in-features [rank K/size,
+    (rank + 1) K/size) unpacked and packed again as a weight of K/size
+    in-features, [L, N, K/(2 size)], its low nibbles the share's first
+    half. (A contiguous range of packed bytes is not a range of k: at size
+    2, rank 0's bytes would hold every low nibble.)"""
+    lo, hi = unpack_int4(w)
+    k = 2 * w.shape[2] // size
+    return pack_int4(torch.cat([lo, hi], dim=2)[..., rank * k:(rank + 1) * k]).contiguous()
 
 
 def shard_head_stacked(stacked: dict, tp: TPGroup, n_head: int) -> dict:
     """Reorder to head-major and keep this rank's shards (JAX tp.py:156-162):
     a column-parallel tensor its 1/tp of out-features (whole heads), a
-    row-parallel one its 1/tp of in-features; the ``"tp"`` entry is a
-    :class:`HeadShards`. The sampler reads it (ops/fused_head.py)."""
+    row-parallel one its 1/tp of in-features (packed int4:
+    :func:`int4_row_share`); the ``"tp"`` entry is a :class:`HeadShards`.
+    The sampler reads it (ops/fused_head.py). Off the CPU a packed share
+    must be whole 256-k stages of the head GEMM's s4 kind (tp 2 at the 14B
+    head: wo 2,560 and w2 3,840; tp 4's w2 share of 1,920 raises); the
+    CPU's plain twin takes any even share."""
     hm = reorder_stacked_head_major(stacked, n_head)
     pl = head_tp_placements(hm, n_head, tp.size)
+    packed = _packed_int4(hm)
+    stage = HEAD_GEMM_STAGE_K["int4"]
     for k, p in pl.items():
-        if p is not None:
+        share = _in_features(hm, k) // tp.size if p == "row" else 0
+        if packed and (share % 2 or hm[k].device.type != "cpu" and share % stage):
+            raise ValueError(f"shard_head_stacked: {k}'s packed int4 share of {share} "
+                             f"in-features at tp {tp.size} is not a whole number of the "
+                             f"head GEMM's {stage}-k s4 stages")
+    for k, p in pl.items():
+        if p == "row" and packed:
+            hm[k] = int4_row_share(hm[k], tp.rank, tp.size)
+        elif p is not None:
             dim = 1 if p == "col" else 2
             hm[k] = hm[k].index_select(dim, _share(tp.rank, tp.size, hm[k].shape[dim])
                                        .to(hm[k].device)).contiguous()

@@ -188,8 +188,10 @@ def shard_bundle_(bundle: T2IModelBundle, mesh):
     sampler stack reordered head-major and sharded Megatron-style, while a
     plain-MLP head, which has no stack, stays whole on every rank and
     samples on its per-call route there, as the JAX package replicates it;
-    the VQ decoder and the connector whole on every rank. bf16 and fp32
-    only."""
+    the VQ decoder and the connector whole on every rank. The LLM in bf16
+    or fp32 (shard_qwen3_ refuses the quantized trees, which the JAX rules
+    do not serve); the head's stack in any of its formats (bf16, int8,
+    packed int4)."""
     from bitdance_tpu_torch.parallel.mesh import data_size, shard_model, tp_group
     from bitdance_tpu_torch.parallel.tp import shard_head_stacked, shard_qwen3_
 
@@ -221,7 +223,10 @@ class T2IPipeline:
     """User-facing pipeline: prompt string -> uint8 images [n, H, W, 3].
     With ``mesh`` (parallel/mesh.py::create_mesh) the bundle is sharded in
     place (:func:`shard_bundle_`) and ``last_tp`` holds each request's
-    count of tp all-reduces (and their seconds when ``tp.timed``)."""
+    count of tp all-reduces, by kind too (and their seconds when
+    ``tp.timed``). ``kv_int8`` serves over a mesh as well: the fused int8
+    ring holds a rank's kv heads, and its scales are per (position, head),
+    so a shard by heads quantizes as the whole cache does."""
 
     PROMPT_BUCKETS = (64, 128, 256, 512)
 
@@ -230,9 +235,6 @@ class T2IPipeline:
         # the serving path is bf16 (TF32 never applies there); its fp32
         # pieces (the head's c_emb, the plain kernel twins) stay full fp32
         full_fp32()
-        if mesh is not None and kv_int8:
-            raise NotImplementedError("T2IPipeline: the int8 KV cache is not served "
-                                      "over a mesh (ROADMAP A11b)")
         self.bundle = bundle
         self.tokenizer = tokenizer
         self.kv_int8 = kv_int8
@@ -282,7 +284,7 @@ class T2IPipeline:
         pads_t = torch.tensor(pads, dtype=torch.int32, device=dev)
         gen = torch.Generator(device=dev).manual_seed(seed)
         if self.tp is not None:
-            self.tp.all_reduces, self.tp.seconds = 0, 0.0
+            self.tp.reset()
 
         phase = PhaseTimer(dev)
         with phase("prefill"):
@@ -300,7 +302,8 @@ class T2IPipeline:
             if self.mesh is not None:
                 check_ranks_agree(tokens)
                 self.last_tp = {"all_reduces": self.tp.all_reduces,
-                                "all_reduce_s": self.tp.seconds}
+                                "all_reduce_s": self.tp.seconds,
+                                "kinds": {k: tuple(v) for k, v in self.tp.kinds.items()}}
         with phase("vae"):
             imgs = []
             for i in range(tokens.shape[0]):

@@ -494,16 +494,28 @@ TRAIN_MEMORY_MLLM_LAYERS = 4   # --train-memory's 14B step (the mllm phase's dep
 # tensor-parallel plain-precision sampler on the head GEMM at tp 2) is held
 # as #2 is held against its plain version: SAMPLER_MAX_REL_ERR over 4 steps'
 # latents, SAMPLER_SIGN_AGREEMENT_FLOOR of the signs clear of SIGN_MARGIN
-# after TP_STEPS (25 sampling steps: 50 until PR 23, cut for the script's
-# time; each step of the head is ~100 gloo all-reduces a rank).
+# after TP_STEPS (10 sampling steps: 50 until PR 23, 25 until PR 24, cut for
+# the script's time; each step of the head is ~100 gloo all-reduces a rank
+# in bf16, ~200 quantized).
+# The quantized request (bf16 LLM, int8 KV cache, the int8 head stack): tp 1
+# serves the same head-major stack (shard_head_stacked at size 1), so the
+# head sample from one cond and draws must be bit-equal at tp 2 (exact int32
+# sums all-reduced, the scales from the whole rows); it samples
+# TP_QUANT_SAMPLE_STEPS steps, whose 21 x 128 rows of mods (385 MB) the JAX
+# route's chooser splits into 2 chunks (mods_chunks).
 TP_LAYERS = 2
 TP_REQUEST = ("a harbour at dawn, tensor-parallel", 256, 5)
-TP_STEPS = 25
+TP_STEPS = 10
+TP_QUANT_SAMPLE_STEPS = 20
 TP_CFG = 7.5
 TP_HIDDEN_MAX_REL_ERR = 3e-2
 TP_DEADLINE_S = 600
 # the head-major sampler's four block products at tp 2: each rank's share on
 # the head GEMM, fp32 sums (the all-reduce adds the bias after)
+# and the quantized stack's: the raw int32 sums ("out_s32"), all-reduced
+# before the scales and the bias
+TP_QUANT_GEMM_PRODUCTS = {"wqkv": ("out_s32", "bqkv"), "wo": ("out_s32", "bo"),
+                          "w1": ("out_s32", "b1"), "w2": ("out_s32", "b2")}
 TP_GEMM_PRODUCTS = {"wqkv": ("out_f32", None), "wo": ("out_f32", None),
                     "w1": ("out_f32", None), "w2": ("out_f32", None)}
 # the encode tail (#13) vs its plain version: raw output relative to max |x|
@@ -1277,8 +1289,10 @@ def _check_interleaved_run(gen, plan, out, tok, bundle, cfg_scale, counts,
 
 def _check_decode_window(kv_len: int, seed: int, phase: str = "interleaved", b: int = 1,
                         hq: int = DECODE_SHAPE["hq"], hkv: int = DECODE_SHAPE["hkv"],
-                        bound: float = DECODE_MAX_ABS_ERR["mid_decode"]) -> dict:
-    """#1 at batch ``b``, ``hq`` / ``hkv`` heads and ``kv_len`` (the
+                        bound: float = DECODE_MAX_ABS_ERR["mid_decode"],
+                        fmt: str = "bf16") -> dict:
+    """#1 (``fmt`` "int8": #6 on the fused int8 buffer of the same k, v) at
+    batch ``b``, ``hq`` / ``hkv`` heads and ``kv_len`` (the
     interleaved plans' longest at batch 1; the tp phase's local heads), one
     window of 64 queries over the whole cache: against its plain version
     with the window edges poisoned, a window off by one key moving the plain
@@ -1294,22 +1308,24 @@ def _check_decode_window(kv_len: int, seed: int, phase: str = "interleaved", b: 
             for _ in range(2))
     kv_start = torch.zeros((b,), dtype=torch.int32, device=dev)
     n = torch.full((b,), kv_len, dtype=torch.int32, device=dev)
-    bufs = _decode_buffers("bf16", k, _poison_window_edges(v, kv_start, n))
+    bufs = _decode_buffers(fmt, k, _poison_window_edges(v, kv_start, n))
     with torch.no_grad():
-        kernel, plain, library = _decode_fns("bf16", q, bufs, n, kv_start)
+        kernel, plain, library = _decode_fns(fmt, q, bufs, n, kv_start)
         got, again = kernel(), kernel()
         want = plain()
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         same = torch.equal(got, again)
-        shift = min((_decode_fns("bf16", q, bufs, nl, ns)[1]().float() - want.float())
+        shift = min((_decode_fns(fmt, q, bufs, nl, ns)[1]().float() - want.float())
                     .abs().max().item() for nl, ns in ((n - 1, kv_start),
                                                        (n, kv_start + 1)))
         t = {"ms": cuda_time_ms(kernel, 50), "device_ms": cuda_graph_time_ms(kernel),
              "plain_ms": cuda_time_ms(plain, 10), "library_ms": cuda_time_ms(library, 50)}
-    t.update(roofline(nbytes(q, q) + 2 * b * hkv * d * 2 * kv_len,
-                      4.0 * b * hq * s * d * kv_len))
-    log(phase, f"decode_attention B={b} {hq}/{hkv} heads kv_len={kv_len}: max abs err {err:.3e} "
+    # bf16 k and v, or int8 k and v with their two f32 scales, per key
+    per_key = hkv * (2 * d + 8) if fmt == "int8" else 2 * hkv * d * 2
+    t.update(roofline(nbytes(q, q) + b * per_key * kv_len, 4.0 * b * hq * s * d * kv_len))
+    name = "decode_attention_fusedkv int8" if fmt == "int8" else "decode_attention"
+    log(phase, f"{name} B={b} {hq}/{hkv} heads kv_len={kv_len}: max abs err {err:.3e} "
         f"(bound {bound}; a window off by one key moves the plain version by "
         f"{shift:.3e}); two launches bit-equal {same}; kernel {t['ms']:.4f} ms eager "
         f"({t['device_ms']:.4f} device-only), plain {t['plain_ms']:.4f} ms, "
@@ -1730,10 +1746,13 @@ def int_mm_walk(stacked, key, aq, quant):
 def quant_gemm_bound(aq, sa, w, ws, mode, kw) -> dict:
     """One integer product: rows, scales, weights and bias read, the output
     written (the gated modes read the gate and read and write the residual;
-    "swiglu_q" writes fp32, "swiglu_round" bf16), 2 R N K integer
+    "swiglu_q" writes fp32, "swiglu_round" bf16; "out_s32" reads no scale
+    or bias and writes int32), 2 R N K integer
     operations at the int8 peak (a packed int4 byte holds two weights)."""
     rows, k = aq.shape
     n = w.shape[0]
+    if mode == "out_s32":       # the rows and weights read, int32 sums written
+        return roofline(nbytes(aq, w) + rows * n * 4, 0.0, 2.0 * rows * n * k)
     out = {"bias": rows * n * 2, "swiglu_q": rows * (n // 2) * 4,
            "swiglu_round": rows * (n // 2) * 2}.get(mode, 0)
     extra = (nbytes(kw["gate"]) + 2 * nbytes(kw["resid"])) if mode.startswith("gated") else out
@@ -3530,8 +3549,8 @@ def _plain_head():
 
 
 # the free-running witness's sampling steps (100, IMAGENET_STEPS, until PR
-# 23: cut for the script's time)
-FREE_RUNNING_STEPS = 50
+# 23, 50 until PR 24: cut for the script's time)
+FREE_RUNNING_STEPS = 25
 
 
 def _free_running(bundle) -> None:
@@ -4398,7 +4417,8 @@ def _t2i_request_inputs(pipe, prompt: str, px: int):
 def teacher_forced(pipe, prompt: str, px: int, tokens) -> list:
     """The prefill's and every AR step's hidden states (fp32, on the card)
     of ``pipe``'s bundle fed the ±1 grid ``tokens`` [1, h*w, z] in place of
-    its own samples (decode_t2i's steps otherwise)."""
+    its own samples (decode_t2i's steps otherwise), on the pipe's KV cache
+    format."""
     import torch
 
     from bitdance_tpu_torch.models import qwen3 as q3
@@ -4409,7 +4429,7 @@ def teacher_forced(pipe, prompt: str, px: int, tokens) -> list:
     rows, pads, start, pe, side, P = _t2i_request_inputs(pipe, prompt, px)
     with torch.no_grad():
         cache, hidden = prefill_t2i(b, rows, pads, start, latent_h=side, latent_w=side,
-                                    num_images=1)
+                                    num_images=1, kv_int8=pipe.kv_int8)
         out = [hidden.float()]
         pe = pe.to(hidden.dtype)
         tok = torch.as_tensor(tokens, device=b.device)
@@ -4461,7 +4481,9 @@ def _tp_rank_run(world: int, device: str = "cuda") -> dict:
     """The seeded bundle on ``device``, a tp 1 run (free-running tokens, the
     teacher-forced hidden states, one head sample), then the same bundle
     sharded over a (1, 1, world) mesh in place and the same three at tp
-    ``world``: the request timed, then again with its all-reduces timed."""
+    ``world``: the request timed, then again with its all-reduces timed;
+    then the plain-MLP head (:func:`_tp_plain_run`) and the quantized
+    request (:func:`_tp_quant_run`)."""
     import dataclasses
 
     import numpy as np
@@ -4544,6 +4566,9 @@ def _tp_rank_run(world: int, device: str = "cuda") -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     out["plain"] = _tp_plain_run(world, dev, cfg, tok)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["quant"] = _tp_quant_run(world, dev, cfg, tok)
     return out
 
 
@@ -4558,9 +4583,13 @@ def phase_tp(card: str) -> dict:
     for the plain-MLP head (:func:`_tp_plain_run`): the ranks' grids equal,
     the head whole and its sample from one cond bit-equal to tp 1's, the
     hidden states within the bound, the free-running grids' agreement
-    reported. Then #1 at the local heads and the head GEMM's four products
-    at the local shapes against their plain versions. Returns the records
-    and the launches."""
+    reported. The same for the quantized request (:func:`_tp_quant_run`:
+    the int8 head stack and the int8 KV cache), its head sample bit-equal
+    to tp 1's on the same head-major stack and its #6 / head_gemm_s8
+    launches against their formulas. Then #1 and #6 at the local heads and
+    the head GEMM's four products at the local shapes against their plain
+    versions, bf16 ("out_f32") and int8 / int4 ("out_s32", on int4's
+    repacked shares). Returns the records and the launches."""
     import os
     import shutil
 
@@ -4656,6 +4685,36 @@ def phase_tp(card: str) -> dict:
             and p["launches"] == {"decode_attention": want_da, "fused_attn_block": want_fab,
                                   "fused_em_sample": 0} for p in plain)):
         raise SystemExit("tp: the plain-MLP head at tp 2 failed its checks")
+    # the quantized request: #6 on the int8 cache at the rank's kv heads
+    # (prefill pass 2 and each AR step, as #1 in bf16), the four integer
+    # products of every head block in each net call on the head GEMM
+    quant = [r["quant"] for r in ranks]
+    q0 = quant[0]
+    want_q = {"decode_attention_fusedkv": layers * (1 + q0["steps"]),
+              "head_gemm_s8": q0["steps"] * (TP_STEPS + 1) * r0["head_blocks"] * 4,
+              "head_gemm": 0, "fused_em_sample": 0}
+    quant_same = all(np.array_equal(q["tokens"], q0["tokens"]) for q in quant)
+    for r, q in enumerate(quant):
+        kinds = ", ".join(f"{k} {n} ({sec:.3f} s)" for k, (n, sec) in q["timed"]["kinds"].items())
+        log("tp", f"rank {r}: the quantized request (bf16 LLM, int8 KV cache at "
+            f"{q['heads'][0]} q / {q['heads'][1]} kv heads, the int8 head stack head-major "
+            f"{q['dtypes']}, shards {q['stacked']} {q['placements']}), {TP_REQUEST[1]} px, "
+            f"{TP_STEPS} steps: {q['s_request']:.3f} s/request at tp {world} "
+            f"({q['s_timed']:.3f} s with the all-reduces timed: {q['timed']['all_reduces']}, "
+            f"{q['timed']['all_reduce_s']:.3f} s; by kind {kinds}); tp 1 on the same "
+            f"head-major stack {q['s_tp1']:.3f} s/request; launches {q['launches']} (want "
+            f"{want_q}); teacher-forced hidden states max |d| / max |ref| "
+            f"{q['hidden_rel']:.3e} (bound {TP_HIDDEN_MAX_REL_ERR}); a head sample of "
+            f"{TP_QUANT_SAMPLE_STEPS} steps from the same cond and draws bit-equal to tp 1's "
+            f"{q['sample_equal']} (max |d| {q['sample_max_abs']:.3e}); free-running grid "
+            f"agreement with tp 1 {q['agreement']:.4f} (reported); peak {q['peak_gib']:.2f} "
+            f"GiB; card {card}")
+    log("tp", f"quantized request: the ranks' grids equal {quant_same}")
+    if not (quant_same and all(
+            q["sample_equal"] and q["again_equal"] and q["image_ok"] and q["tokens_ok"]
+            and q["finite"] and q["hidden_rel"] <= TP_HIDDEN_MAX_REL_ERR
+            and q["launches"] == want_q for q in quant)):
+        raise SystemExit("tp: the quantized request at tp 2 failed its checks")
 
     # the kernels at the ranks' shapes, in this process
     from bitdance_tpu_torch.io.random_init import BITDANCE_14B_64X, init_head
@@ -4695,14 +4754,80 @@ def phase_tp(card: str) -> dict:
     log("tp", f"head GEMM, a rank's four products of one block at tp {world}: "
         f"{rec['ms']:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul "
         f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms; card {card}")
+    decode_q = _check_decode_window(64 + 2 + 64 + (TP_REQUEST[1] // 16) ** 2, 64, phase="tp",
+                                    b=2, hq=q0["heads"][0], hkv=q0["heads"][1],
+                                    bound=DECODE_MAX_ABS_ERR["prefill_pass2"], fmt="int8")
+    rec_q = _tp_quant_gemms(world, dev, card)
     log("tp", f"phase {time.perf_counter() - t_phase:.1f} s")
-    return {"decode": decode, "head_gemm": rec,
+    return {"decode": decode, "head_gemm": rec, "decode_fusedkv": decode_q,
+            "head_gemm_s8": rec_q,
+            "quant_launches": {k: sum(q["launches"][k] for q in quant)
+                               for k in ("decode_attention_fusedkv", "head_gemm_s8")},
             "launches": {"decode_attention": sum(r["launches"]["decode_attention"]
                                                   + r["plain"]["launches"]["decode_attention"]
                                                   for r in ranks),
                          "head_gemm_tp": sum(r["launches"]["head_gemm"] for r in ranks),
                          "fused_attn_block": sum(r["plain"]["launches"]["fused_attn_block"]
                                                  for r in ranks)}}
+
+
+def _tp_quant_gemms(world: int, dev, card: str) -> dict:
+    """A rank's shares at tp ``world`` of the 14B head's int8 and int4
+    stacks (the seeded head at its 6 blocks, quantized, sharded by
+    shard_head_stacked; int4's row-parallel shares repacked): each of the
+    four "out_s32" products at R 128 against its twin (_check_quant_gemm:
+    bit-equal at the planned, 1 and the most splits, off-by-one moves, cold
+    L2 over the 6 blocks beside torch._int_mm, the bound), the twin's time.
+    The record: int8's four products summed, both kinds' under
+    "products"."""
+    import torch
+
+    from bitdance_tpu_torch.io.random_init import BITDANCE_14B_64X, init_head
+    from bitdance_tpu_torch.ops.fused_head import head_gemm_s8_split_plain
+    from bitdance_tpu_torch.parallel.tp import TPGroup, shard_head_stacked
+
+    geo = BITDANCE_14B_64X["head"]
+    rows = 2 * geo["parallel_num"]
+    recs = {}
+    for quant, flag in (("int8", True), ("int4", "int4")):
+        head = init_head(geo, dev, torch.bfloat16, _seeded(0))
+        head.sample_weight_quant = flag
+        local = shard_head_stacked(head._stack_for_sampler(), TPGroup(0, world),
+                                   head.ch_latent // head.attn_head_dim)
+        del head
+        gc.collect()
+        torch.cuda.empty_cache()
+        gemm = _check_quant_gemm(quant, local, rows, dev, 65, products=TP_QUANT_GEMM_PRODUCTS,
+                                 phase="tp", name=f"tp{world} ")
+        g = torch.Generator(device=dev).manual_seed(66)
+        plain_ms = 0.0
+        with torch.no_grad():
+            for key, got in gemm.items():
+                w = local[key][0]
+                k = w.shape[1] * (2 if quant == "int4" else 1)
+                aq = torch.randint(-127, 128, (rows, k), generator=g, device=dev,
+                                   dtype=torch.int8)
+                plain_ms += cuda_time_ms(
+                    lambda aq=aq, w=w, sp=got["splits"]: head_gemm_s8_split_plain(
+                        aq, None, w, None, "out_s32", None, splits=sp, quant=quant), 3, warmup=1)
+        del local
+        gc.collect()
+        torch.cuda.empty_cache()
+        recs[quant] = {**{k: sum(p[k] for p in gemm.values())
+                          for k in ("ms", "device_ms", "bound_ms", "library_ms")},
+                       "plain_ms": plain_ms, "products": gemm}
+        log("tp", f"head GEMM out_s32, {quant}: a rank's four products of one block at tp "
+            f"{world}, R {rows}, cold L2: {recs[quant]['ms']:.4f} ms eager "
+            f"({recs[quant]['device_ms']:.4f} device-only), plain {plain_ms:.4f} ms, "
+            f"torch._int_mm {recs[quant]['library_ms']:.4f} ms, bound "
+            f"{recs[quant]['bound_ms']:.4f} ms; card {card}")
+    worst = max(recs["int8"]["products"].values(), key=lambda p: p["bound_ms"])
+    return {**{k: recs["int8"][k] for k in ("ms", "device_ms", "bound_ms", "library_ms",
+                                           "plain_ms")},
+            "max_abs_err": 0.0, "bound_by": worst["bound_by"],
+            "products": {f"{q}_{k}": p for q, r in recs.items() for k, p in r["products"].items()},
+            "int4": {k: recs["int4"][k] for k in ("ms", "device_ms", "bound_ms", "library_ms",
+                                                  "plain_ms")}}
 
 
 def _encode_case(shape, dtype, dev, seed):
@@ -6384,6 +6509,89 @@ def _tp_plain_run(world: int, dev, cfg, tok) -> dict:
             "steps": len(hidden) - 1}
 
 
+def _tp_quant_run(world: int, dev, cfg, tok) -> dict:
+    """Quantized tensor-parallel serving: the seeded 2-layer bundle (bf16
+    LLM) with its head stacked in int8 (sample_weight_quant=True) and the
+    int8 KV cache. TP_REQUEST at tp 1 on the head-major stack
+    (shard_head_stacked at size 1), teacher-forced hidden states and one
+    head sample of TP_QUANT_SAMPLE_STEPS from the prefill's cond; then the
+    canonical stack sharded over a (1, 1, world) mesh by T2IPipeline and the
+    same at tp ``world``: the request timed, then again with its
+    all-reduces timed by kind; #6, head_gemm_s8, head_gemm and #2 launches
+    counted over the first."""
+    import numpy as np
+    import torch
+
+    from bitdance_tpu_torch.io.random_init import build_random_bundle
+    from bitdance_tpu_torch.ops.decode_attention import decode_attention_fusedkv
+    from bitdance_tpu_torch.ops.fused_head import fused_em_sample, head_gemm, head_gemm_s8
+    from bitdance_tpu_torch.parallel.mesh import create_mesh
+    from bitdance_tpu_torch.parallel.tp import TPGroup, shard_head_stacked
+    from bitdance_tpu_torch.pipelines.t2i import T2IPipeline
+
+    prompt, px, seed = TP_REQUEST
+    bundle = build_random_bundle(dev, llm_cfg=cfg, seed=0)
+    head = bundle.head
+    head.sample_weight_quant = True
+    canon = head._stack_for_sampler()
+    bundle.head_stacked = shard_head_stacked(canon, TPGroup(0, 1),
+                                             head.ch_latent // head.attn_head_dim)
+    gen = dict(height=px, width=px, num_sampling_steps=TP_STEPS, guidance_scale=TP_CFG,
+               num_images=1, seed=seed, return_tokens=True)
+    t0 = time.perf_counter()
+    pipe1 = T2IPipeline(bundle, tok, kv_int8=True)
+    _, tokens1 = pipe1.generate(prompt, **gen)
+    s_tp1 = time.perf_counter() - t0
+    hidden1 = teacher_forced(pipe1, prompt, px, tokens1)
+    pe0 = _t2i_request_inputs(pipe1, prompt, px)[3][:bundle.parallel_num]
+    cond = (hidden1[0] + pe0.to(hidden1[0].dtype)[None]).bfloat16()
+    latent1 = _head_sample(pipe1, cond, seed + 100, TP_QUANT_SAMPLE_STEPS)
+    del pipe1
+    bundle.head_stacked = canon
+    del canon
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe = T2IPipeline(bundle, tok, kv_int8=True,
+                       mesh=create_mesh(1, 1, world, device_type=dev.type))
+    counts = (decode_attention_fusedkv, head_gemm_s8, head_gemm, fused_em_sample)
+    for fn in counts:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, tokens = pipe.generate(prompt, **gen)
+    s_request = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counts}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    reduces = dict(pipe.last_tp)
+    pipe.tp.timed = True
+    t0 = time.perf_counter()
+    _, again = pipe.generate(prompt, **gen)
+    s_timed = time.perf_counter() - t0
+    timed = dict(pipe.last_tp)
+    pipe.tp.timed = False
+    hidden = teacher_forced(pipe, prompt, px, tokens1)
+    latent = _head_sample(pipe, cond, seed + 100, TP_QUANT_SAMPLE_STEPS)
+    hs = pipe.bundle.head_stacked
+    at = pipe.bundle.llm.model.layers[0].self_attn
+    return {"tokens": tokens, "again_equal": bool(np.array_equal(tokens, again)),
+            "agreement": float(np.mean(tokens == tokens1)),
+            "image_ok": bool(img.dtype == np.uint8 and img.shape == (1, px, px, 3)),
+            "tokens_ok": bool(set(np.unique(tokens).tolist()) <= {-1.0, 1.0}),
+            "hidden_rel": max(((a - b).abs().max() / b.abs().max()).item()
+                              for a, b in zip(hidden, hidden1)),
+            "finite": all(bool(torch.isfinite(h).all()) for h in hidden)
+            and bool(torch.isfinite(latent).all()),
+            "sample_equal": bool(torch.equal(latent, latent1)),
+            "sample_max_abs": (latent - latent1).abs().max().item(),
+            "launches": launches, "all_reduces": reduces, "timed": timed,
+            "s_request": s_request, "s_timed": s_timed, "s_tp1": s_tp1, "peak_gib": peak,
+            "heads": (at.num_heads, at.num_kv_heads), "steps": len(hidden) - 1,
+            "stacked": {k: tuple(hs[k].shape) for k in ("wqkv", "w1", "wo", "w2")},
+            "dtypes": {k: str(hs[k].dtype) for k in ("wqkv", "w1_s")},
+            "placements": dict(hs["tp"].placements)}
+
+
 def build_imagenet_samplers():
     """Random BitDance-H-1x (IMAGENET_H1X_LAYERS of its 40 backbone layers)
     and BitDance-B-16x samplers (bf16) on the card."""
@@ -6557,9 +6765,14 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n
     tp = phase_tp(card)
     results["decode_attention"].setdefault("shapes", {})["tp2_20x4"] = tp["decode"]
+    results["decode_attention_fusedkv"].setdefault("shapes", {})["tp2_20x4"] = \
+        tp["decode_fusedkv"]
     results["head_gemm_tp"] = tp["head_gemm"]
+    results["head_gemm_s8_tp"] = tp["head_gemm_s8"]
     launches["decode_attention"] += tp["launches"]["decode_attention"]
+    launches["decode_attention_fusedkv"] += tp["quant_launches"]["decode_attention_fusedkv"]
     launches["head_gemm_tp"] = tp["launches"]["head_gemm_tp"]
+    launches["head_gemm_s8_tp"] = tp["quant_launches"]["head_gemm_s8"]
     launches["fused_attn_block"] += tp["launches"]["fused_attn_block"]
     results.update(phase_encode_kernel())
     launches["fused_encode_tail"] = phase_tokenizer(card)["launches"]
@@ -6666,6 +6879,12 @@ def main() -> int:
         "head_gemm_tp": ("head_gemm_tp", "bitdance_tpu_torch/csrc/head_gemm.cuh",
                          "bitdance_tpu/ops/fused_head.py:1309 (_block_body_xla: "
                          "plain XLA, no Pallas kernel)"),
+        # its integer kinds' "out_s32" on a quantized stack's shares (int8
+        # here, int4's under "int4"), the int32 sums all-reduced outside;
+        # the JAX package's _mmq in plain XLA
+        "head_gemm_s8_tp": ("head_gemm_s8_tp", "bitdance_tpu_torch/csrc/head_gemm.cuh",
+                            "bitdance_tpu/ops/fused_head.py:188 (_mmq: plain XLA, no "
+                            "Pallas kernel)"),
     }
     for name, (key, src, repl) in meta.items():
         r = results[key]
@@ -6687,7 +6906,7 @@ def main() -> int:
                                              "splits", "no_pdl_ms", "no_pdl_device_ms",
                                              "pdl_gemms_ms", "pdl_gemms_device_ms",
                                              "launches_per_net_call", "launches_per_call",
-                                             "products", "shapes", "sign_agreement",
+                                             "products", "shapes", "sign_agreement", "int4",
                                              "max_rel_err",
                                              "batch_s", "peak_gib", "bf16_agreement")
                            if k in r}})

@@ -711,7 +711,8 @@ def test_sampler_kernel_quant_round_route(dev, family, quant):
     assert torch.isfinite(got).all() and rel.item() < 5e-2
 
 
-@pytest.mark.parametrize("mode", ["bias", "gated_f32", "swiglu_q", "gated", "swiglu_round"])
+@pytest.mark.parametrize("mode", ["bias", "gated_f32", "swiglu_q", "gated", "swiglu_round",
+                                  "out_s32"])
 @pytest.mark.parametrize("quant", ["int8", "int4"])
 def test_head_gemm_s8_kernel(dev, quant, mode):
     """The quant modes' integer products on the head GEMM vs their plain
@@ -752,6 +753,42 @@ def test_head_gemm_s8_kernel(dev, quant, mode):
             torch.cuda.synchronize()
             assert torch.equal(got, want), (rows, k, splits)
         assert head_gemm_s8.launches > n0
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_head_gemm_s8_out_s32_at_a_ranks_shapes(dev, quant):
+    """The tensor-parallel head's raw int32 sums ("out_s32") at a tp-2
+    rank's shapes of the 14B head (R 128; qkv and w1 [7680, 5120], wo
+    [5120, 2560], w2 [5120, 3840]) bit-equal to the twin at the planned
+    split, at 1 and at the most splits; a K stage off by one (the rows
+    rolled by 128 columns) moves the twin's sums."""
+    from bitdance_tpu_torch.ops.fused_head import (
+        HEAD_GEMM_MAX_SPLITS,
+        head_gemm_plan,
+        head_gemm_s8,
+        head_gemm_s8_split_plain,
+        head_gemm_stages,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    packed = quant == "int4"
+    for n, k in ((7680, 5120), (5120, 2560), (5120, 3840)):
+        aq = torch.randint(-127, 128, (128, k), generator=g, device=dev, dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k // 2 if packed else k), generator=g, device=dev,
+                          dtype=torch.int8)
+        plan = head_gemm_plan(128, n, k, quant=quant)
+        top = min(HEAD_GEMM_MAX_SPLITS, head_gemm_stages(k, quant))
+        want = None
+        for splits in sorted({plan.splits, 1, 1 << (top.bit_length() - 1)}):
+            got = head_gemm_s8(aq, None, w, None, "out_s32", None, quant=quant,
+                               plan=plan._replace(splits=splits))
+            want = head_gemm_s8_split_plain(aq, None, w, None, "out_s32", None, splits=splits,
+                                            quant=quant)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.int32 and torch.equal(got, want), (n, k, splits)
+        moved = head_gemm_s8_split_plain(aq.roll(128, 1), None, w, None, "out_s32", None,
+                                         quant=quant)
+        assert (moved != want).float().mean().item() > 0.5
 
 
 @pytest.mark.parametrize("hq,hkv,d,lens", [(10, 2, 128, (70, 150, 230, 40)),

@@ -169,3 +169,50 @@ def test_twin_refuses_unknown_modes():
         tfh.head_gemm_s8_split_plain(aq, sa, qt.q, qt.s, "swiglu_f32", bias)
     with pytest.raises(ValueError):
         tfh.head_gemm_s8(aq, sa, qt.q, qt.s, "bias", bias, quant="int2")
+
+
+# a tp-2 rank's products of the 14B head at R 128 (N cut to 256; K as the
+# rank holds it): qkv and w1 whole in K, wo and w2 a half of it
+RANK_K = {"wqkv": 5120, "wo": 2560, "w1": 5120, "w2": 3840}
+
+
+def _int_matmul_ranges(aq, w, quant, splits):
+    """int32 sums of torch integer matmuls (int64 on the CPU) over the
+    planned K ranges of ``splits``, the packed int4 planes each against
+    its half of the rows, summed in split order."""
+    from bitdance_tpu_torch.ops.int4 import unpack_int4
+
+    k = aq.shape[1]
+    acc = torch.zeros((aq.shape[0], w.shape[0]), dtype=torch.int64)
+    for c0, c1 in tfh.head_gemm_split_ranges(k, splits, quant):
+        if quant == "int4":
+            lo, hi = unpack_int4(w[:, c0:c1])
+            acc += aq[:, c0:c1].long() @ lo.long().t()
+            acc += aq[:, k // 2 + c0:k // 2 + c1].long() @ hi.long().t()
+        else:
+            acc += aq[:, c0:c1].long() @ w[:, c0:c1].long().t()
+    return acc.to(torch.int32)
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+@pytest.mark.parametrize("key", list(RANK_K))
+def test_out_s32_twin_is_the_integer_sums(key, quant):
+    """"out_s32" (the tensor-parallel head's row-parallel products): the
+    split twin's int32 output at 1, 2 and 4 splits is exactly the sum of
+    torch integer matmuls over the planned K ranges, the same at every
+    split count, and the wrapper's CPU branch gives it at its plan without
+    any scale or bias."""
+    k = RANK_K[key]
+    rng = np.random.default_rng(sum(map(ord, key + quant)))
+    aq = torch.from_numpy(rng.integers(-127, 128, (128, k), dtype=np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (256, k // 2 if quant == "int4" else k),
+                                      dtype=np.int8))
+    outs = []
+    for splits in (1, 2, 4):
+        got = tfh.head_gemm_s8_split_plain(aq, None, w, None, "out_s32", None, splits=splits,
+                                           quant=quant)
+        assert got.dtype == torch.int32 and tuple(got.shape) == (128, 256)
+        assert torch.equal(got, _int_matmul_ranges(aq, w, quant, splits))
+        outs.append(got)
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    assert torch.equal(tfh.head_gemm_s8(aq, None, w, None, "out_s32", None, quant=quant), outs[0])
